@@ -1,0 +1,112 @@
+"""Model and technique configuration (counterpart of ``repro/config.py``).
+
+Only the fields and methods the serving slice reads are kept. Field
+names and defaults match the reference so a config converts field by
+field.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class AttnConfig:
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    use_rope: bool = True
+    # sliding-window pattern cycled over layers; None = full attention
+    window_pattern: Tuple[Optional[int], ...] = (None,)
+    chunked_local: bool = False
+    softmax_scale: Optional[float] = None
+    logit_cap: Optional[float] = None
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    def window_for_layer(self, layer: int) -> Optional[int]:
+        return self.window_pattern[layer % len(self.window_pattern)]
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff: int                      # hidden dim of EACH expert
+    capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    kind: str                      # "decoder" (the only kind this slice runs)
+    num_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    attn: Optional[AttnConfig] = None
+    moe: Optional[MoEConfig] = None
+    layer_ffn_pattern: Tuple[str, ...] = ("dense",)
+    norm: str = "rms"              # "rms" | "ln"
+    act: str = "silu"              # "silu" | "gelu" (tanh approximation)
+    gated_mlp: bool = True
+    tie_embeddings: bool = False
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+
+    def ffn_kind(self, layer: int) -> str:
+        return self.layer_ffn_pattern[layer % len(self.layer_ffn_pattern)]
+
+    @property
+    def uses_moe(self) -> bool:
+        return self.moe is not None and "moe" in self.layer_ffn_pattern
+
+
+@dataclass(frozen=True)
+class LuffyConfig:
+    """The paper's two techniques (§IV, §V). Serving forces both off;
+    they come with the training and expert-parallel slices."""
+    enable_condensation: bool = True
+    enable_migration: bool = True
+
+
+def reduced(model: ModelConfig, *, num_layers: int = 2, d_model: int = 256,
+            max_experts: int = 4, seq_len_hint: int = 128) -> ModelConfig:
+    """Smoke-test variant of the same family (``repro.config.reduced``):
+    <=2 layers, d_model<=512, <=4 experts, vocab<=1024."""
+    d_model = min(d_model, 512)
+    attn = model.attn
+    if attn is not None:
+        heads = max(2, min(4, attn.num_heads))
+        kv = max(1, min(heads, attn.num_kv_heads))
+        head_dim = max(8, d_model // heads)
+        win = tuple((None if w is None else min(w, seq_len_hint // 2))
+                    for w in attn.window_pattern)
+        attn = dataclasses.replace(
+            attn, num_heads=heads, num_kv_heads=kv, head_dim=head_dim,
+            window_pattern=win)
+    moe = model.moe
+    if moe is not None:
+        experts = min(max_experts, moe.num_experts)
+        moe = dataclasses.replace(
+            moe, num_experts=experts, top_k=min(moe.top_k, experts),
+            d_ff=min(moe.d_ff, 2 * d_model))
+    period = math.lcm(len(attn.window_pattern) if attn else 1,
+                      len(model.layer_ffn_pattern))
+    return dataclasses.replace(
+        model,
+        name=model.name + "-smoke",
+        num_layers=max(num_layers, period),
+        d_model=d_model,
+        d_ff=min(model.d_ff, 2 * d_model),
+        vocab_size=min(model.vocab_size, 1024),
+        attn=attn, moe=moe,
+    )

@@ -1,0 +1,121 @@
+"""Fixed-batch serving launcher (counterpart of ``repro/launch/serve.py``,
+its fixed-batch path).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch moe-gpt2 \\
+        --batch 8 --prompt-len 128 --gen 32 --prefill batch
+
+Weights are random, drawn from ``--seed``; the prompts too. With
+``--prefill batch`` one whole-prompt prefill runs first as a warm-up and
+then once more timed. Then the prompt is fed token by token into the
+KV cache, and ``--gen`` tokens are decoded greedily. The expert FFN runs
+in the hand-written kernel on the card (``--device cuda``, the default,
+which must exist) and in its plain version on the CPU (``--device cpu``).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+N_BATCHED_PREFILLS = 2     # warm-up + timed, as the reference launcher
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default="moe-gpt2")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the smoke-test variant of --arch")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--prefill", choices=["step", "batch"], default="step",
+                    help="step: feed the prompt token by token into the "
+                         "cache; batch: also run (and time) one whole-"
+                         "prompt prefill first")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and prompts")
+    return ap.parse_args(argv)
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    """Serve; returns what was measured (tokens, logits, times)."""
+    args = parse_args(argv)
+    from repro_torch.config import LuffyConfig, reduced
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model, resolve_device
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    model = build_model(cfg, device=device, seed=args.seed)
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    B, S = args.batch, args.prompt_len
+    s_max = S + args.gen
+    r = np.random.default_rng(args.seed)
+    prompts = torch.as_tensor(r.integers(1, cfg.vocab_size, (B, S)),
+                              dtype=torch.int32, device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    result: Dict = {"arch": cfg.name, "device": str(device), "batch": B,
+                    "prompt_len": S, "gen": args.gen}
+
+    if args.prefill == "batch":
+        for _ in range(N_BATCHED_PREFILLS - 1):             # warm-up
+            model.prefill(prompts, s_max, luffy=luffy)
+        _sync(device)
+        t0 = time.perf_counter()
+        logits_pf, _ = model.prefill(prompts, s_max, luffy=luffy)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        result.update(prefill_s=dt, prefill_tok_s=B * S / dt,
+                      prefill_logits=logits_pf)
+        print(f"batched prefill({B}x{S} tokens): {dt:.4f}s "
+              f"({B * S / dt:.0f} tok/s)")
+
+    cache = model.new_cache(B, s_max)
+    t0 = time.perf_counter()
+    step_logits = []
+    for t in range(S):
+        logits, cache = model.decode_step(cache, prompts[:, t:t + 1],
+                                          luffy=luffy)
+        step_logits.append(logits)
+    _sync(device)
+    result["prompt_feed_s"] = time.perf_counter() - t0
+    print(f"prefill({S} tokens): {result['prompt_feed_s']:.3f}s")
+
+    out, gen_logits = [], []
+    t0 = time.perf_counter()
+    for _ in range(args.gen):
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        out.append(nxt[:, 0])
+        logits, cache = model.decode_step(cache, nxt, luffy=luffy)
+        gen_logits.append(logits)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    tokens = (torch.stack(out, 1) if out
+              else torch.zeros((B, 0), dtype=torch.int32, device=device))
+    result.update(decode_s=dt, decode_ms_per_step=dt / max(args.gen, 1) * 1e3,
+                  tokens=tokens.cpu(), step_logits=step_logits,
+                  gen_logits=gen_logits)
+    if device.type == "cuda":
+        result["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
+    n_tok = int(tokens.numel())
+    print(f"decode: {n_tok} tokens in {dt:.3f}s "
+          f"({n_tok / max(dt, 1e-9):.1f} tok/s batch={B}, "
+          f"{result['decode_ms_per_step']:.3f} ms/step)")
+    print("sample token ids:", tokens[0, :10].tolist() if n_tok else [])
+    return result
+
+
+if __name__ == "__main__":
+    main()

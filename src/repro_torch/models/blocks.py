@@ -1,0 +1,182 @@
+"""Transformer building blocks (counterpart of ``repro/models/blocks.py``).
+
+Parameters are nested dicts of tensors; every ``*_init`` takes an
+explicit ``torch.Generator`` and device. Compute runs in
+``cfg.compute_dtype``; norm and softmax statistics in f32.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels.ref import ACTS
+
+NEG_INF = -1e30
+ATTN_DIRECT_MAX = 2048            # longest sequence the direct path takes
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def _dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+def dense_init(generator, d_in: int, d_out: int, dtype, *, device,
+               scale: float = 1.0):
+    std = scale / math.sqrt(d_in)
+    return (torch.randn((d_in, d_out), generator=generator, device=device)
+            * std).to(dtype)
+
+
+def embed_init(generator, vocab: int, d: int, dtype, *, device):
+    return (torch.randn((vocab, d), generator=generator, device=device)
+            * 0.02).to(dtype)
+
+
+def norm_init(d: int, kind: str, dtype, *, device):
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind != "rms":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def norm_apply(p, x, kind: str, eps: float = 1e-6):
+    """RMSNorm or LayerNorm (population variance) in f32, cast back."""
+    xf = x.float()
+    if kind == "rms":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    else:
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + eps)
+        out = out * p["scale"].float() + p["bias"].float()
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def attn_init(generator, cfg: ModelConfig, *, device):
+    a = cfg.attn
+    dt = _dtype(cfg.param_dtype)
+    d = cfg.d_model
+    return {
+        "wq": dense_init(generator, d, a.q_dim, dt, device=device),
+        "wk": dense_init(generator, d, a.kv_dim, dt, device=device),
+        "wv": dense_init(generator, d, a.kv_dim, dt, device=device),
+        "wo": dense_init(generator, a.q_dim, d, dt, device=device,
+                         scale=1.0 / math.sqrt(2 * cfg.num_layers)),
+    }
+
+
+def _split_heads(x, n_heads: int, head_dim: int):
+    return x.reshape(x.shape[:-1] + (n_heads, head_dim))
+
+
+def _repeat_kv(k, n_rep: int):
+    return k if n_rep == 1 else torch.repeat_interleave(k, n_rep, dim=-2)
+
+
+def make_attn_mask(q_pos, k_pos, *, causal: bool, window: Optional[int],
+                   chunked: bool = False):
+    """Boolean [.., Sq, Sk] mask; True = attend."""
+    q = q_pos[..., :, None]
+    k = k_pos[..., None, :]
+    mask = torch.ones(torch.broadcast_shapes(q.shape, k.shape),
+                      dtype=torch.bool, device=q_pos.device)
+    if causal:
+        mask &= k <= q
+    if window is not None:
+        if chunked:
+            mask &= (q // window) == (k // window)
+        else:
+            mask &= (q - k) < window
+    return mask
+
+
+def attend(q, k, v, mask, scale: float, logit_cap=None):
+    """q: [B,Sq,H,hd]; k, v: [B,Sk,Hkv,hd]; mask broadcastable to
+    [B,1,Sq,Sk]. Logits in f32, softmax weights cast to v's dtype."""
+    n_rep = q.shape[-2] // k.shape[-2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if logit_cap is not None:
+        logits = logit_cap * torch.tanh(logits / logit_cap)
+    if mask.dim() == 2:
+        mask = mask[None, None]
+    elif mask.dim() == 3:
+        mask = mask[:, None]
+    logits = torch.where(mask, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def attn_apply(p, cfg: ModelConfig, x, positions, *, layer: int,
+               causal: bool = True):
+    """Full-sequence self-attention (prefill), direct path.
+    x: [B,S,d]; positions: [B,S]. Returns (out [B,S,d], (k, v))."""
+    a = cfg.attn
+    if a.use_rope:
+        raise NotImplementedError("RoPE comes with the 'other "
+                                  "architectures' slice")
+    if x.shape[1] > ATTN_DIRECT_MAX:
+        raise NotImplementedError(
+            f"sequences over {ATTN_DIRECT_MAX} take the streaming "
+            f"attention path, which comes with the flash-attention slice")
+    cdt = _dtype(cfg.compute_dtype)
+    xq = x.to(cdt)
+    q = _split_heads(xq @ p["wq"].to(cdt), a.num_heads, a.head_dim)
+    k = _split_heads(xq @ p["wk"].to(cdt), a.num_kv_heads, a.head_dim)
+    v = _split_heads(xq @ p["wv"].to(cdt), a.num_kv_heads, a.head_dim)
+    scale = a.softmax_scale or 1.0 / math.sqrt(a.head_dim)
+    mask = make_attn_mask(positions, positions, causal=causal,
+                          window=a.window_for_layer(layer),
+                          chunked=a.chunked_local)
+    out = attend(q, k, v, mask, scale, a.logit_cap)
+    out = out.reshape(out.shape[:-2] + (a.q_dim,))
+    return (out @ p["wo"].to(cdt)).to(x.dtype), (k, v)
+
+
+# ---------------------------------------------------------------------------
+# dense FFN
+# ---------------------------------------------------------------------------
+
+def ffn_init(generator, d_model: int, d_ff: int, cfg: ModelConfig, *,
+             device):
+    dt = _dtype(cfg.param_dtype)
+    p = {"w_up": dense_init(generator, d_model, d_ff, dt, device=device),
+         "w_down": dense_init(generator, d_ff, d_model, dt, device=device,
+                              scale=1.0 / math.sqrt(2 * cfg.num_layers))}
+    if cfg.gated_mlp:
+        p["w_gate"] = dense_init(generator, d_model, d_ff, dt, device=device)
+    return p
+
+
+def _act(name: str):
+    return ACTS[name]
+
+
+def ffn_apply(p, cfg: ModelConfig, x):
+    cdt = _dtype(cfg.compute_dtype)
+    xc = x.to(cdt)
+    h = xc @ p["w_up"].to(cdt)
+    if cfg.gated_mlp:
+        h = _act(cfg.act)(xc @ p["w_gate"].to(cdt)) * h
+    else:
+        h = _act(cfg.act)(h)
+    return (h @ p["w_down"].to(cdt)).to(x.dtype)

@@ -1,0 +1,89 @@
+"""Public model API (counterpart of ``repro/models/model.py``):
+``build_model(cfg, device=...)`` returns a :class:`Model`.
+
+The parameters live in nested ``nn.ParameterDict`` / ``nn.ModuleDict`` /
+``nn.ModuleList`` containers shaped like the reference's pytree (with the
+layer stack unrolled), so ``state_dict`` names read
+``layers.3.moe.experts.w_up``; :attr:`Model.params` gives the plain
+nested-dict view the functional code takes.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.config import LuffyConfig, ModelConfig
+from repro_torch.models import transformer as tf
+from repro_torch.serve import engine
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist (there is
+    no silent fall-back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' was asked for but no CUDA device "
+                           "is available; pass device='cpu' to run on the "
+                           "CPU")
+    return dev
+
+
+def _to_module(tree) -> nn.Module:
+    if isinstance(tree, list):
+        return nn.ModuleList([_to_module(t) for t in tree])
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                                 for k, v in tree.items()})
+    return nn.ModuleDict({k: _to_module(v) for k, v in tree.items()})
+
+
+def _to_tree(mod: nn.Module):
+    if isinstance(mod, nn.ModuleList):
+        return [_to_tree(m) for m in mod]
+    if isinstance(mod, nn.ParameterDict):
+        return {k: v for k, v in mod.items()}
+    return {k: _to_tree(m) for k, m in mod.items()}
+
+
+class Model(nn.Module):
+    """A decoder LM for serving: ``prefill`` and ``decode_step``."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.tree = _to_module(params)
+
+    @property
+    def params(self) -> dict:
+        return _to_tree(self.tree)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tree["embed"]["table"].device
+
+    def new_cache(self, batch: int, s_max: int):
+        return engine.cache_struct(self.cfg, batch, s_max, device=self.device)
+
+    @torch.inference_mode()
+    def prefill(self, tokens, s_max: int, *, luffy: LuffyConfig):
+        return engine.prefill(self.params, self.cfg, luffy, tokens, s_max)
+
+    @torch.inference_mode()
+    def decode_step(self, cache, tokens, *, luffy: LuffyConfig):
+        return engine.decode_step(self.params, self.cfg, luffy, cache, tokens)
+
+
+def build_model(cfg: ModelConfig, *, device="cuda", seed: int = 0,
+                params: Optional[Any] = None) -> Model:
+    """A :class:`Model` on ``device`` (default CUDA, which must exist),
+    with ``params`` when given (e.g. from :mod:`repro_torch.convert`),
+    else random ones drawn from a generator seeded with ``seed`` on that
+    device."""
+    dev = resolve_device(device)
+    if params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = tf.init_params(cfg, generator=gen, device=dev)
+    return Model(cfg, params).to(dev)

@@ -1,0 +1,158 @@
+"""Serving engine: prefill and single-token decode with per-layer KV
+caches (counterpart of ``repro/serve/engine.py``), one device.
+
+Cache layout, one entry per layer: ``{"k", "v": [B, W, kv, hd],
+"cpos": [B, W]}`` with ``W = min(window, s_max)``; a window layer keeps a
+ring buffer (slot = rpos % W), a global layer a full buffer. ``cpos``
+holds each slot's relative position, -1 when empty. ``offset`` [B] is
+each slot's frame origin (rpos = pos - offset) and ``pos`` the step
+count. :func:`decode_step` updates the cache tensors in place, which
+saves a copy of every layer's cache per token, and returns the cache.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.config import LuffyConfig, ModelConfig
+from repro_torch.core import moe_layer as moe
+from repro_torch.models import blocks as bk
+from repro_torch.models.transformer import embed_tokens, logits_fn
+
+NEG_INF = -1e30
+
+
+def _win(cfg: ModelConfig, layer: int, s_max: int) -> int:
+    w = cfg.attn.window_for_layer(layer)
+    return s_max if w is None else min(w, s_max)
+
+
+def cache_struct(cfg: ModelConfig, batch: int, s_max: int, *, device):
+    """An empty cache for ``batch`` slots of up to ``s_max`` positions."""
+    a = cfg.attn
+    cdt = bk._dtype(cfg.compute_dtype)
+    layers = []
+    for i in range(cfg.num_layers):
+        W = _win(cfg, i, s_max)
+        shape = (batch, W, a.num_kv_heads, a.head_dim)
+        layers.append({
+            "k": torch.zeros(shape, dtype=cdt, device=device),
+            "v": torch.zeros(shape, dtype=cdt, device=device),
+            "cpos": torch.full((batch, W), -1, dtype=torch.int32,
+                               device=device)})
+    return {"layers": layers,
+            "offset": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "pos": 0}
+
+
+def attn_decode(p, cfg: ModelConfig, x, pos: int, offset, ck, cv, cpos, *,
+                window: Optional[int]):
+    """x: [B,1,d]; ck/cv: [B,W,kv,hd]; cpos: [B,W]. Writes the new
+    token's k/v at its slot's ring index (in place), then attends.
+    Returns (out, ck, cv, cpos)."""
+    a = cfg.attn
+    if a.use_rope:
+        raise NotImplementedError("RoPE comes with the 'other "
+                                  "architectures' slice")
+    cdt = bk._dtype(cfg.compute_dtype)
+    B = x.shape[0]
+    xq = x.to(cdt)
+    q = (xq @ p["wq"].to(cdt)).reshape(B, 1, a.num_heads, a.head_dim)
+    k_new = (xq @ p["wk"].to(cdt)).reshape(B, 1, a.num_kv_heads, a.head_dim)
+    v_new = (xq @ p["wv"].to(cdt)).reshape(B, 1, a.num_kv_heads, a.head_dim)
+    rpos = pos - offset                            # [B] relative positions
+    W = ck.shape[1]
+    rslot = (rpos % W).long()
+    b_idx = torch.arange(B, device=x.device)
+    ck[b_idx, rslot] = k_new[:, 0]
+    cv[b_idx, rslot] = v_new[:, 0]
+    cpos[b_idx, rslot] = rpos.to(cpos.dtype)
+
+    n_rep = a.num_heads // a.num_kv_heads
+    kk = bk._repeat_kv(ck, n_rep)
+    vv = bk._repeat_kv(cv, n_rep)
+    scale = a.softmax_scale or 1.0 / math.sqrt(a.head_dim)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) * scale
+    kp = cpos[:, None, None, :]
+    rq = rpos[:, None, None, None]
+    valid = (kp >= 0) & (kp <= rq)
+    if window is not None:
+        if a.chunked_local:
+            valid &= (rq // window) == (kp // window)
+        else:
+            valid &= (rq - kp) < window
+    if a.logit_cap is not None:
+        logits = a.logit_cap * torch.tanh(logits / a.logit_cap)
+    logits = torch.where(valid, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(vv.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", w, vv).reshape(B, 1, a.q_dim)
+    return (o @ p["wo"].to(cdt)).to(x.dtype), ck, cv, cpos
+
+
+def decode_capacity(cfg: ModelConfig, batch: int) -> int:
+    """The MoE dispatch capacity of one decode step of ``batch`` slots."""
+    return moe.capacity_for(cfg.moe, max(1, batch), cfg.moe.num_experts,
+                            slack=2.0)
+
+
+def prefill_capacity(cfg: ModelConfig, batch: int, seq_len: int) -> int:
+    """The MoE dispatch capacity of one (batch, seq_len) prefill."""
+    return moe.capacity_for(cfg.moe, max(1, batch * seq_len),
+                            cfg.moe.num_experts)
+
+
+def _ffn_sublayer(p, cfg, luffy, x, layer, mode, capacity, sideband):
+    if cfg.ffn_kind(layer) == "moe":
+        return moe.moe_core(p["moe"], x, sideband, cfg, luffy, mode=mode,
+                            capacity=capacity)[0]
+    xn = bk.norm_apply(p["ffn_norm"], x, cfg.norm)
+    return x + bk.ffn_apply(p["ffn"], cfg, xn)
+
+
+def decode_step(params, cfg: ModelConfig, luffy: LuffyConfig, cache, tokens):
+    """One decode step for the whole batch. tokens: [B,1] integer.
+    Returns (logits [B,V] f32, cache)."""
+    pos, offset = cache["pos"], cache["offset"]
+    x = embed_tokens(params, cfg, tokens)
+    B = x.shape[0]
+    sb = {"seq_len": torch.ones((B,), dtype=torch.int32, device=x.device)}
+    cap = decode_capacity(cfg, B) if cfg.uses_moe else 0
+    for i, p in enumerate(params["layers"]):
+        g = cache["layers"][i]
+        xn = bk.norm_apply(p["attn_norm"], x, cfg.norm)
+        att, g["k"], g["v"], g["cpos"] = attn_decode(
+            p["attn"], cfg, xn, pos, offset, g["k"], g["v"], g["cpos"],
+            window=cfg.attn.window_for_layer(i))
+        x = x + att
+        x = _ffn_sublayer(p, cfg, luffy, x, i, "decode", cap, sb)
+    logits = logits_fn(params, cfg, x)[:, 0]
+    cache["pos"] = pos + 1
+    return logits.float(), cache
+
+
+def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
+            s_max: int):
+    """Full forward over the prompt [B,S]. Returns (last-token logits
+    [B,V] f32, per-layer (k, v)). Condensation and migration are forced
+    off: serving prompts are neither condensed nor re-homed."""
+    x = embed_tokens(params, cfg, tokens)
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    sb = {"seq_len": torch.full((B,), S, dtype=torch.int32,
+                                device=x.device)}
+    nl = dataclasses.replace(luffy, enable_condensation=False,
+                             enable_migration=False)
+    cap = prefill_capacity(cfg, B, S) if cfg.uses_moe else 0
+    kvs = []
+    for i, p in enumerate(params["layers"]):
+        xn = bk.norm_apply(p["attn_norm"], x, cfg.norm)
+        att, kv = bk.attn_apply(p["attn"], cfg, xn, positions, layer=i,
+                                causal=True)
+        x = x + att
+        x = _ffn_sublayer(p, cfg, nl, x, i, "vanilla", cap, sb)
+        kvs.append(kv)
+    logits = logits_fn(params, cfg, x[:, -1:])[:, 0]
+    return logits.float(), kvs

@@ -14,6 +14,12 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU (CUDA kernels of repro_torch); "
+        "skips, from inside the test, where there is none")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)

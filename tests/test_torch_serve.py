@@ -1,0 +1,237 @@
+"""The port's serving slice (repro_torch) against the JAX reference.
+
+Reduced moe-gpt2, the reference's own weights carried across by
+``repro_torch.convert``, the same numpy prompts. The reference runs its
+serve path with the Pallas expert-FFN kernel in interpret mode
+(``use_kernels=True``); the port runs on the CPU, where the expert FFN
+takes the kernel's plain version. Tolerances: 1e-4 at f32 compute with
+equal greedy tokens; 3e-2 at bf16, where the two frameworks round bf16
+intermediates at different places.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.config import LuffyConfig as JLuffy
+from repro.config import reduced as jreduced
+from repro.configs import get_config as jget_config
+from repro.core import moe_layer as jmoe
+from repro.dist import single_device
+from repro.models.model import build_model as jbuild_model
+from repro.serve import engine as jengine
+
+from repro_torch import convert
+from repro_torch.config import LuffyConfig, reduced
+from repro_torch.configs import get_config
+from repro_torch.core import moe_layer as tmoe
+from repro_torch.launch import serve as tserve
+from repro_torch.models.model import build_model
+
+B, S, GEN = 2, 8, 8
+TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def _cfgs(compute_dtype):
+    jcfg = dataclasses.replace(jreduced(jget_config("moe-gpt2")),
+                               compute_dtype=compute_dtype)
+    tcfg = dataclasses.replace(reduced(get_config("moe-gpt2")),
+                               compute_dtype=compute_dtype)
+    return jcfg, tcfg
+
+
+def _jax_serve(compute_dtype):
+    """Batched prefill, step-wise prompt feed and greedy decode through
+    the reference engine; every output as numpy."""
+    jcfg, _ = _cfgs(compute_dtype)
+    params = jbuild_model(jcfg).init(jax.random.PRNGKey(0))
+    luffy = JLuffy(use_kernels=True, enable_condensation=False,
+                   enable_migration=False)
+    dist = single_device()
+    prompts = np.random.default_rng(1).integers(
+        1, jcfg.vocab_size, (B, S)).astype(np.int32)
+    s_max = S + GEN
+    pf = jax.jit(lambda p, t: jengine.prefill(p, jcfg, luffy, dist, t,
+                                              s_max)[0])
+    dec = jax.jit(lambda p, c, t: jengine.decode_step(p, jcfg, luffy, dist,
+                                                      c, t))
+    cache = jengine.cache_struct(jcfg, B, s_max, as_struct=False)
+    step = []
+    for t in range(S):
+        logits, cache = dec(params, cache, prompts[:, t:t + 1])
+        step.append(np.asarray(logits))
+    toks, gen = [], []
+    for _ in range(GEN):
+        nxt = np.argmax(np.asarray(logits), -1).astype(np.int32)[:, None]
+        toks.append(nxt[:, 0])
+        logits, cache = dec(params, cache, nxt)
+        gen.append(np.asarray(logits))
+    return {"params": jax.tree.map(np.asarray, params), "prompts": prompts,
+            "prefill": np.asarray(pf(params, prompts)), "step": step,
+            "tokens": np.stack(toks, 1), "gen": gen}
+
+
+def _torch_serve(compute_dtype, ref):
+    """The same through the port on the CPU; decode is fed the
+    reference's greedy tokens so later steps compare like with like."""
+    _, tcfg = _cfgs(compute_dtype)
+    params = convert.from_reference(ref["params"], tcfg, device="cpu")
+    model = build_model(tcfg, device="cpu", params=params)
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    prompts = torch.as_tensor(ref["prompts"])
+    s_max = S + GEN
+    out = {"prefill": model.prefill(prompts, s_max, luffy=luffy)[0].numpy()}
+    cache = model.new_cache(B, s_max)
+    out["step"] = []
+    for t in range(S):
+        logits, cache = model.decode_step(cache, prompts[:, t:t + 1],
+                                          luffy=luffy)
+        out["step"].append(logits.numpy())
+    out["tokens"], out["gen"] = [], []
+    for i in range(GEN):
+        out["tokens"].append(torch.argmax(logits, -1).numpy())
+        fed = torch.as_tensor(ref["tokens"][:, i:i + 1])
+        logits, cache = model.decode_step(cache, fed, luffy=luffy)
+        out["gen"].append(logits.numpy())
+    out["tokens"] = np.stack(out["tokens"], 1)
+    return out
+
+
+@pytest.fixture(scope="module")
+def served():
+    res = {}
+    for cdt in ("float32", "bfloat16"):
+        ref = _jax_serve(cdt)
+        res[cdt] = (ref, _torch_serve(cdt, ref))
+    return res
+
+
+def test_configs_agree():
+    """The port's copied config equals the reference's field by field."""
+    for cdt in ("float32", "bfloat16"):
+        jcfg, tcfg = _cfgs(cdt)
+        for f in dataclasses.fields(tcfg):
+            want = getattr(jcfg, f.name)
+            got = getattr(tcfg, f.name)
+            if dataclasses.is_dataclass(got):
+                for g in dataclasses.fields(got):
+                    assert getattr(got, g.name) == getattr(want, g.name), \
+                        (f.name, g.name)
+            else:
+                assert got == want, f.name
+    assert get_config("moe-gpt2").name == jget_config("moe-gpt2").name
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_prefill_logits(served, cdt):
+    ref, got = served[cdt]
+    assert got["prefill"].shape == ref["prefill"].shape
+    np.testing.assert_allclose(got["prefill"], ref["prefill"],
+                               atol=TOL[cdt], rtol=0)
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_stepwise_decode_logits(served, cdt):
+    ref, got = served[cdt]
+    for t in range(S):
+        np.testing.assert_allclose(got["step"][t], ref["step"][t],
+                                   atol=TOL[cdt], rtol=0, err_msg=f"t={t}")
+    for i in range(GEN):
+        np.testing.assert_allclose(got["gen"][i], ref["gen"][i],
+                                   atol=TOL[cdt], rtol=0, err_msg=f"gen {i}")
+
+
+def test_greedy_tokens_f32(served):
+    ref, got = served["float32"]
+    np.testing.assert_array_equal(got["tokens"], ref["tokens"])
+
+
+def test_decode_from_cache_matches_prefill(served):
+    """The port's own consistency: the last step-wise logits equal the
+    batched prefill's last-token logits (f32)."""
+    _, got = served["float32"]
+    np.testing.assert_allclose(got["step"][-1], got["prefill"], atol=1e-4)
+
+
+def test_convert_round_trip(served):
+    ref, _ = served["float32"]
+    _, tcfg = _cfgs("float32")
+    back = convert.to_reference(
+        convert.from_reference(ref["params"], tcfg), tcfg)
+    flat_ref = jax.tree_util.tree_leaves_with_path(ref["params"])
+    flat_back = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_ref) == len(flat_back)
+    for path, leaf in flat_ref:
+        np.testing.assert_array_equal(flat_back[path], leaf)
+
+
+@pytest.mark.parametrize("mode", ["vanilla", "decode"])
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_moe_core_matches_reference(mode, cdt):
+    """One MoE sublayer at M=1 with a capacity small enough to drop,
+    against the reference's kernel path (the Pallas K1, interpreted)."""
+    jcfg, tcfg = _cfgs(cdt)
+    p = jmoe.moe_init(jax.random.PRNGKey(3), jcfg)
+    r = np.random.default_rng(4)
+    n_seq, seq = (4, 8) if mode == "vanilla" else (16, 1)
+    x = r.standard_normal((n_seq, seq, jcfg.d_model)).astype(np.float32)
+    cap = 8
+    jl = JLuffy(enable_condensation=False, enable_migration=False)
+    jx = jax.numpy.asarray(x).astype(jcfg.compute_dtype)
+    jsb = {"labels": np.zeros((n_seq, seq), np.int32),
+           "seq_len": np.full((n_seq,), seq, np.int32)}
+    y_ref, _, _, aux_ref = jmoe.moe_core(
+        p, jx, jsb, jcfg, jl, mode=mode, capacity=cap, axis_name=None,
+        threshold=jax.numpy.float32(1.0), use_kernel=True)
+    tdt = getattr(torch, cdt)
+    ty, tsb, s_next, aux = tmoe.moe_core(
+        convert.tree_to_torch(jax.tree.map(np.asarray, p)),
+        torch.as_tensor(x).to(tdt),
+        {"seq_len": torch.full((n_seq,), seq, dtype=torch.int32)},
+        tcfg, LuffyConfig(enable_condensation=False, enable_migration=False),
+        mode=mode, capacity=cap)
+    assert s_next is None
+    assert float(aux_ref.dispatch_drop) > 0.0
+    assert float(aux.dispatch_drop) == float(aux_ref.dispatch_drop)
+    np.testing.assert_allclose(float(aux.aux_loss), float(aux_ref.aux_loss),
+                               rtol=1e-6)
+    np.testing.assert_allclose(ty.float().numpy(),
+                               np.asarray(y_ref, np.float32),
+                               atol=1e-5 if cdt == "float32" else 3e-2)
+
+
+def test_moe_core_later_slices_raise():
+    _, tcfg = _cfgs("float32")
+    g = torch.Generator().manual_seed(0)
+    p = tmoe.moe_init(g, tcfg, device="cpu")
+    x = torch.zeros((1, 8, tcfg.d_model))
+    sb = {"seq_len": torch.full((1,), 8, dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match="condensation"):
+        tmoe.moe_core(p, x, sb, tcfg, LuffyConfig(), mode="vanilla",
+                      capacity=8)
+    with pytest.raises(NotImplementedError, match="migration"):
+        tmoe.moe_core(p, x, sb, tcfg, LuffyConfig(enable_condensation=False),
+                      mode="migrate", capacity=8)
+
+
+def test_launcher_cpu_end_to_end():
+    res = tserve.main(["--reduced", "--batch", "2", "--prompt-len", "4",
+                       "--gen", "3", "--prefill", "batch", "--device", "cpu"])
+    assert res["tokens"].shape == (2, 3)
+    assert np.isfinite(res["prefill_logits"].numpy()).all()
+    # the cache's last prompt step and the batched prefill agree
+    np.testing.assert_allclose(res["step_logits"][-1].float().numpy(),
+                               res["prefill_logits"].numpy(), atol=3e-2)
+
+
+def test_launcher_never_falls_back_to_cpu():
+    """The default device is CUDA; without a card that raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--reduced", "--batch", "1", "--prompt-len", "2",
+                     "--gen", "1"])
+    with pytest.raises(SystemExit):
+        tserve.parse_args(["--continuous"])
