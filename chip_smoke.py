@@ -10,17 +10,28 @@ Phases, each of which must pass or the script exits non-zero:
    ``build/`` (one ``nvcc`` per source, all at once), with the compiler's
    register / shared-memory / spill report;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the shapes the serving path gives it, then timed (CUDA events) beside
-   the plain version, a one-call PyTorch yardstick and its bound;
+   the shapes the serving and training paths give it (K1 forward and
+   backward, K2 masked similarity, K3 row gather), then timed (CUDA
+   events) beside the plain version, a PyTorch yardstick and its bound;
 4. slice: full-width moe-gpt2 (16 experts, random weights from a seed)
    served through the port's launcher, ``repro_torch.launch.serve``:
    batched prefill (warm-up + timed), step-wise prompt feed into the KV
-   cache, greedy decode. Every kernel of the path must have launched
-   during this run, as many times as the path calls it;
+   cache, greedy decode. K1 must have launched as many times as the path
+   calls it;
 5. parity: the same full-width weights at 2 layers, batched prefill on
    the card (kernels) against the CPU (plain versions);
 6. profile: where a full-width prefill's and decode step's time goes
-   (torch.profiler: device-busy share and the top device ops).
+   (torch.profiler: device-busy share and the top device ops);
+7. train: full-width, full-depth moe-gpt2 trained through
+   ``repro_torch.launch.train`` (B=8, S=1024, condensation with the
+   adaptive threshold, AdamW, 6 steps, so the rate bucket switches from
+   step 3 on). Losses must be finite, the bucket must switch, and K1
+   forward, K1 backward, K2 and K3 must have launched as many times as
+   the path calls them (the per-layer recompute included);
+8. train parity: one train step of a 2-layer full-width cut (B=2,
+   S=256, f32 compute) on the card against the CPU: rep maps, loss and
+   gradient norm;
+9. train profile: where one full-width train step's time goes.
 
 Then one JSON line with every kernel's record, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -45,11 +56,25 @@ HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
 
-# K1 at the shapes of the slice run below: B=8 x S=128 prefill gives
-# C=256 rows per expert, a decode step of B=8 gives C=8; R=160 is ragged.
+# K1 at the shapes of the serve run below: B=8 x S=128 prefill gives
+# C=256 rows per expert, a decode step of B=8 gives C=8; R=160 is ragged;
+# the train run's B=8 x S=1024 gives C=2048 at bucket 0.
 E, D, F_ = 16, 768, 3072
-K1_SHAPES = {"prefill": 256, "decode": 8, "ragged": 160}
+K1_SHAPES = {"prefill": 256, "decode": 8, "ragged": 160, "train": 2048}
 K1_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+# K1 backward at the train path's shapes: B=8 x S=1024 gives C=2048 rows
+# per expert at bucket 0; R=8 is decode-like, R=160 ragged.
+K1_BWD_SHAPES = {"train": 2048, "decode": 8, "ragged": 160}
+# K2 at full width: 64 groups of G=128 tokens (B=8 x S=1024); K3 gathers
+# the 8192 token rows.
+K2_GROUPS, K2_G = 64, 128
+K3_T = 8192
+K2_TOL = 1e-5          # f32 sums of the same rows in another order
+
+TRAIN_ARGS = ["--arch", "moe-gpt2", "--steps", "6", "--global-batch", "8",
+              "--seq-len", "1024", "--device", "cuda", "--seed", "0"]
+TRAIN_PARITY = dict(B=2, S=256, layers=2)
 
 SERVE_ARGS = ["--arch", "moe-gpt2", "--batch", "8", "--prompt-len", "128",
               "--gen", "32", "--prefill", "batch", "--device", "cuda",
@@ -193,6 +218,176 @@ def phase_kernels():
     return checks, timed
 
 
+def _k1_bwd_library(h, wu, wg, wd, dy, act):
+    """The backward as torch.bmm products (cuBLAS f32), a yardstick the
+    port never calls: recompute gt and up, then the six gradient
+    products."""
+    import torch
+    import torch.nn.functional as F
+    hf, dyf = h.float(), dy.float()
+    gt, up = torch.bmm(hf, wg), torch.bmm(hf, wu)
+    if act == "gelu":
+        with torch.enable_grad():
+            g = gt.detach().requires_grad_()
+            a = F.gelu(g, approximate="tanh")
+            da = torch.autograd.grad(a.sum(), g)[0]
+        a = a.detach()
+    else:
+        s = torch.sigmoid(gt)
+        a, da = gt * s, s * (1 + gt * (1 - s))
+    dhh = torch.bmm(dyf, wd.transpose(1, 2))
+    dup, dgt = dhh * a, dhh * up * da
+    dwd = torch.bmm((a * up).transpose(1, 2), dyf)
+    dwu = torch.bmm(hf.transpose(1, 2), dup)
+    dwg = torch.bmm(hf.transpose(1, 2), dgt)
+    dh = (torch.bmm(dup, wu.transpose(1, 2))
+          + torch.bmm(dgt, wg.transpose(1, 2)))
+    return dh.to(h.dtype), dwu, dwg, dwd
+
+
+def _k1_bwd_plain(h, wu, wg, wd, dy, act):
+    """The backward's plain version: autograd through the plain forward."""
+    import torch
+    from repro_torch.kernels import ref
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (h, wu, wg, wd)]
+        out = ref.expert_ffn_ref(*leaves, act)
+        return torch.autograd.grad(out, leaves, dy)
+
+
+def _bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bf16_tc_ms=max(t_bytes, flops / BF16_TC_FLOPS * 1e3))
+
+
+def phase_kernels_train():
+    """K1 backward, K2 and K3 against their plain versions at the train
+    path's shapes, then timed beside the plain version, a PyTorch
+    yardstick and the bound. Returns {kernel: record}."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import condense as kcond
+    from repro_torch.kernels import expert_ffn as kexp
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import similarity as ksim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    out = {}
+
+    # ---- K1 backward
+    checks, timed = [], {}
+    for shape, R in K1_BWD_SHAPES.items():
+        for h_name in ("float32", "bfloat16"):
+            h, wu, wg, wd = _k1_inputs(R, getattr(torch, h_name), gen)
+            dy = torch.randn(h.shape, generator=gen, device="cuda").to(h.dtype)
+            got = kexp.expert_ffn_bwd(h, wu, wg, wd, dy, "gelu")
+            torch.cuda.synchronize()
+            want = _k1_bwd_plain(h, wu, wg, wd, dy, "gelu")
+            tol = K1_TOL[h_name]
+            errs = [(g.float() - w.float()).abs().max().item()
+                    for g, w in zip(got, want)]
+            ok = all(torch.allclose(g.float(), w.float(), atol=tol, rtol=tol)
+                     for g, w in zip(got, want))
+            checks.append(dict(shape=shape, R=R, h=h_name, ok=ok, tol=tol,
+                               max_abs_err=max(errs)))
+            log(f"  K1 bwd {shape:6s} R={R:4d} h={h_name:8s} gelu: "
+                f"max|err| dh/dwu/dwg/dwd = "
+                + "/".join(f"{e:.2e}" for e in errs)
+                + f" tol={tol:g} {'ok' if ok else 'FAIL'}")
+            if shape == "train" and h_name == "bfloat16":
+                args = (h, wu, wg, wd, dy, "gelu")
+                ms = time_ms(lambda: kexp.expert_ffn_bwd(*args), 5, 1)
+                plain_ms = time_ms(lambda: _k1_bwd_plain(*args), 5, 1)
+                lib_ms = time_ms(lambda: _k1_bwd_library(*args), 5, 1)
+                E_, R_, D_ = h.shape
+                nbytes = (2 * h.numel() * h.element_size()      # h, dy
+                          + h.numel() * h.element_size()        # dh
+                          + sum(w.numel() * (w.element_size() + 4)
+                                for w in (wu, wg, wd)))         # w, dw
+                timed = dict(R=R, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms,
+                             **_bound(nbytes, 8 * 2.0 * E_ * R_ * D_ * F_),
+                             max_abs_err=max(errs))
+                log(f"  K1 bwd [{E},{R},{D}]x{F_} bf16 h, f32 w: kernel "
+                    f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bmm {lib_ms:.3f}"
+                    f" ms; bound {timed['bound_ms']:.3f} ms by "
+                    f"{timed['bound_by']} (bf16 tensor-core rate "
+                    f"{timed['bound_bf16_tc_ms']:.3f} ms)")
+            del h, wu, wg, wd, dy, got, want
+            torch.cuda.empty_cache()
+    if not all(c["ok"] for c in checks):
+        raise SystemExit(f"K1 backward disagrees with its plain version: "
+                         f"{[c for c in checks if not c['ok']]}")
+    out["expert_ffn_bwd"] = dict(timed, checks=checks)
+
+    # ---- K2: 64 groups of [128, 768]; the mask is the first block's
+    # same-expert mask (16 experts), plus whole groups with nothing to
+    # measure, whose tiles the kernel skips
+    r = np.random.default_rng(11)
+    expert = torch.as_tensor(r.integers(0, E, (K2_GROUPS, K2_G)),
+                             device="cuda")
+    mask = expert[:, :, None] == expert[:, None, :]
+    mask[::4] = False
+    checks, timed = [], {}
+    for x_name in ("float32", "bfloat16"):
+        x = torch.randn((K2_GROUPS, K2_G, D), generator=gen,
+                        device="cuda").to(getattr(torch, x_name))
+        got = ksim.masked_similarity(x, mask)
+        torch.cuda.synchronize()
+        want = ref.masked_similarity_ref(x, mask)
+        err = (got - want).abs().max().item()
+        skipped_zero = bool(torch.all(got[::4] == 0))
+        ok = err <= K2_TOL and skipped_zero
+        checks.append(dict(x=x_name, max_abs_err=err, ok=ok))
+        log(f"  K2 [{K2_GROUPS}x{K2_G},{D}] x={x_name:8s}: max|err|="
+            f"{err:.3e} tol={K2_TOL:g}, skipped tiles zero: {skipped_zero} "
+            f"{'ok' if ok else 'FAIL'}")
+        if x_name == "bfloat16":
+            ms = time_ms(lambda: ksim.masked_similarity(x, mask), 50)
+            plain_ms = time_ms(lambda: ref.masked_similarity_ref(x, mask),
+                               50)
+            tiles = mask.reshape(K2_GROUPS, 2, 64, 2, 64).any(dim=(2, 4))
+            n_tiles = int(tiles.sum())
+            nbytes = (x.numel() * x.element_size() + mask.numel()
+                      + 4 * mask.numel())
+            flops = n_tiles * 64 * 64 * D * 2.0        # this run's tiles
+            timed = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                         computed_tiles=n_tiles, **_bound(nbytes, flops),
+                         max_abs_err=err)
+            log(f"  K2 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+                f"{n_tiles} of {tiles.numel()} tiles computed; bound "
+                f"{timed['bound_ms']:.4f} ms by {timed['bound_by']}")
+    if not all(c["ok"] for c in checks):
+        raise SystemExit(f"K2 disagrees with its plain version: {checks}")
+    out["masked_similarity"] = dict(timed, checks=checks)
+
+    # ---- K3: [8192, 768] bf16 rows (the residual stream's type)
+    y = torch.randn((K3_T, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    idx = torch.as_tensor(r.integers(0, K3_T, K3_T), device="cuda")
+    got = kcond.gather_rows(y, idx)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(got, ref.gather_rows_ref(y, idx)))
+    log(f"  K3 [{K3_T},{D}] bf16: bitwise equal to the plain version: "
+        f"{exact}")
+    if not exact:
+        raise SystemExit("K3 disagrees with its plain version")
+    ms = time_ms(lambda: kcond.gather_rows(y, idx), 100)
+    plain_ms = time_ms(lambda: ref.gather_rows_ref(y, idx), 100)
+    lib_ms = time_ms(lambda: torch.index_select(y, 0, idx), 100)
+    nbytes = 2 * y.numel() * y.element_size() + idx.numel() * 8
+    out["gather_rows"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              **_bound(nbytes, 0.0), max_abs_err=0.0)
+    log(f"  K3: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
+        f"{lib_ms:.4f} ms; bound {out['gather_rows']['bound_ms']:.4f} ms "
+        f"by bytes")
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_slice():
     import torch
     from repro_torch.kernels import expert_ffn as kexp
@@ -260,6 +455,19 @@ def phase_parity():
     return err
 
 
+def _device_rows(prof):
+    """(device us, name, count) of every kernel, copy and memset the
+    profiler saw on the card, largest first. Only device-side events
+    count: a CPU op's self device time repeats the time of the kernels
+    it launched, so summing both counts it twice."""
+    from torch.autograd import DeviceType
+    rows = [(ev.self_device_time_total, ev.key, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    return sorted(rows, reverse=True)
+
+
 def _profile(fn, n: int):
     """Run ``fn`` n times under torch.profiler; returns the device-busy
     share of the wall time and the top device ops (ms per call)."""
@@ -272,13 +480,7 @@ def _profile(fn, n: int):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for ev in prof.key_averages():
-        dev = getattr(ev, "self_device_time_total",
-                      getattr(ev, "self_cuda_time_total", 0.0))
-        if dev > 0:
-            rows.append((dev, ev.key, ev.count))
-    rows.sort(reverse=True)
+    rows = _device_rows(prof)
     busy = sum(r[0] for r in rows)
     top = [{"op": k[:60], "ms_per_call": d / n / 1e3, "count_per_call":
             c / n} for d, k, c in rows[:6]]
@@ -323,6 +525,200 @@ def phase_profile():
     return info
 
 
+def _kernel_counters():
+    from repro_torch.kernels import condense as kcond
+    from repro_torch.kernels import expert_ffn as kexp
+    from repro_torch.kernels import similarity as ksim
+    return {"expert_ffn": kexp.expert_ffn,
+            "expert_ffn_bwd": kexp.expert_ffn_bwd,
+            "masked_similarity": ksim.masked_similarity,
+            "gather_rows": kcond.gather_rows}
+
+
+def phase_train():
+    """Full-width, full-depth moe-gpt2 trained through the launcher with
+    every kernel counter set to 0 just before and read just after."""
+    import statistics
+    import torch
+    from repro_torch.launch import train
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    res = train.main(TRAIN_ARGS)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    cfg, steps = res["cfg"], res["steps"]
+    n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
+    fwd = n_moe * (2 if cfg.remat else 1) * len(steps)   # + recompute
+    want = {"expert_ffn": fwd, "expert_ffn_bwd": n_moe * len(steps),
+            "masked_similarity": fwd, "gather_rows": fwd}
+    for st in steps:
+        log(f"  train step {st['step']}: loss {st['loss']:.5f} "
+            f"condense_rate {st['condense_rate']:.5f} bucket {st['bucket']}"
+            f" (C={st['capacity']}) {st['step_ms']:.1f} ms")
+    med = statistics.median(st["step_ms"] for st in steps[1:])
+    tokens = res["global_batch"] * res["seq_len"]
+    info = dict(arch=res["arch"], global_batch=res["global_batch"],
+                seq_len=res["seq_len"], remat=cfg.remat,
+                losses=[st["loss"] for st in steps],
+                condense_rates=[st["condense_rate"] for st in steps],
+                buckets=[st["bucket"] for st in steps],
+                step_ms=[st["step_ms"] for st in steps],
+                median_step_ms_after_0=med, tokens_per_s=tokens / med * 1e3,
+                peak_mem_gib=max(st["peak_mem_bytes"] for st in steps)
+                / 2 ** 30, launches=launches, launches_expected=want)
+    log("train: " + json.dumps(info))
+    if not all(math.isfinite(x) for x in info["losses"]):
+        raise SystemExit(f"train losses not finite: {info['losses']}")
+    if not any(b > 0 for b in info["buckets"][4:]):
+        raise SystemExit(f"no rate-bucket switch after step 3: "
+                         f"{info['buckets']}")
+    if launches != want:
+        raise SystemExit(f"kernel launches {launches} differ from what the "
+                         f"path calls, {want}")
+    del res
+    torch.cuda.empty_cache()
+    return info
+
+
+def _train_step_once(model, batch, cap, luffy, thr):
+    """Loss, global gradient norm and per-call rep maps of one forward
+    and backward."""
+    import torch
+    import repro_torch.condense.plan as tplan
+    reps = []
+    orig = tplan.condense_tokens
+
+    def rec(*a, **kw):
+        o = orig(*a, **kw)
+        reps.append(o.rep_idx.cpu())
+        return o
+
+    tplan.condense_tokens = rec
+    try:
+        model.zero_grad(set_to_none=True)
+        loss, _ = model.forward_train(batch, thr, cap, luffy=luffy)
+        loss.backward()
+    finally:
+        tplan.condense_tokens = orig
+    gn = torch.sqrt(sum(torch.sum(p.grad.double() ** 2)
+                        for p in model.parameters())).item()
+    model.zero_grad(set_to_none=True)
+    return loss.item(), gn, reps
+
+
+def phase_train_parity():
+    """One train step of a 2-layer full-width cut at f32 compute on the
+    card (kernels) and on the CPU (plain versions), same parameters and
+    batch: rep maps, loss and gradient norm."""
+    import torch
+    from repro_torch.config import LuffyConfig, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe_layer import capacity_for
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.model import build_model
+    B, S = TRAIN_PARITY["B"], TRAIN_PARITY["S"]
+    cfg = dataclasses.replace(get_config("moe-gpt2"),
+                              num_layers=TRAIN_PARITY["layers"],
+                              compute_dtype="float32")
+    model = build_model(cfg, device="cuda", seed=0)
+    batch = SyntheticLM(cfg, ShapeConfig("t", S, B, "train")).batch(0)
+    luffy = LuffyConfig(condense_group=128, combine_slack=2.0)
+    cap = capacity_for(cfg.moe, B * S, cfg.moe.num_experts)
+    thr = torch.tensor(0.6)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model.to(dev)
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        runs[dev] = _train_step_once(model, tb, cap, luffy, thr.to(dev))
+    (lg, gg, rg), (lc, gc, rc) = runs["cuda"], runs["cpu"]
+    n_tok = sum(r.numel() for r in rc)
+    n_diff = sum(int((a != b).sum()) for a, b in zip(rg, rc))
+    info = dict(loss_cuda=lg, loss_cpu=lc, loss_rel=abs(lg - lc) / abs(lc),
+                grad_norm_cuda=gg, grad_norm_cpu=gc,
+                grad_norm_rel=abs(gg - gc) / gc, rep_tokens=n_tok,
+                rep_differ=n_diff, rep_agree=1 - n_diff / n_tok)
+    log("train parity: " + json.dumps(info))
+    if len(rg) != len(rc) or info["rep_agree"] < 0.999:
+        raise SystemExit(f"rep maps differ on {n_diff} of {n_tok} tokens")
+    if not info["loss_rel"] <= 1e-4:
+        raise SystemExit(f"cuda vs cpu train loss differ: {info}")
+    if not info["grad_norm_rel"] <= 1e-3:
+        raise SystemExit(f"cuda vs cpu gradient norm differ: {info}")
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
+KERNEL_OPS = {"expert_ffn": ("gate_up_kernel", "down_kernel"),
+              "expert_ffn_bwd": ("hidden_kernel", "wgrad_kernel",
+                                 "dh_kernel"),
+              "masked_similarity": ("sim_kernel",),
+              "gather_rows": ("gather_kernel",)}
+
+
+def phase_train_profile():
+    """One full-width train step (after one warm-up step) under
+    torch.profiler: device-busy share, top device ops, each kernel's
+    share of the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import optim, train_lib
+    from repro_torch.config import LuffyConfig, OptimConfig, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.model import build_model
+    cfg = get_config("moe-gpt2")
+    shape = ShapeConfig("train", 1024, 8, "train")
+    model = build_model(cfg, device="cuda", seed=0)
+    params = model.params
+    ocfg = OptimConfig(lr=1e-3, total_steps=6, warmup_steps=2)
+    luffy = LuffyConfig(condense_group=128, combine_slack=2.0)
+    cap = train_lib.capacity_for_bucket(cfg, shape, luffy, 0)
+    step = train_lib.make_train_step(cfg, luffy, ocfg, cap)
+    state = [optim.init_opt_state(params, ocfg),
+             train_lib.init_luffy_state("cuda")]
+    data = SyntheticLM(cfg, shape)
+
+    def one(i):
+        b = {k: torch.as_tensor(v, device="cuda")
+             for k, v in data.batch(i).items()}
+        _, state[0], state[1], _ = step(params, state[0], state[1], b)
+
+    one(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one(1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    shares = {k: sum(d for d, key, _ in rows if any(n in key for n in ops))
+              / busy if busy else None for k, ops in KERNEL_OPS.items()}
+    info = dict(wall_ms=wall_us / 1e3, device_ms=busy / 1e3,
+                device_busy_share=busy / wall_us if rows else None,
+                kernel_share=shares,
+                top=[{"op": k[:60], "ms": d / 1e3, "count": c}
+                     for d, k, c in rows[:10]])
+    log("train profile: " + json.dumps(info))
+    if not rows:
+        log("train profile: the profiler saw no device time (not measured)")
+    del model, params, state
+    torch.cuda.empty_cache()
+    return info
+
+
+def _record(name, source, replaces, launches, t, extra=None):
+    rec = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches,
+           "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+           "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+           "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+    rec.update(extra or {})
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -334,27 +730,44 @@ def main() -> int:
     phase_build()
     log("kernels:")
     checks, timed = phase_kernels()
+    timed_train = phase_kernels_train()
     slice_info = phase_slice()
     phase_parity()
     phase_profile()
-    k1 = timed["decode"]
-    record = {
-        "name": "expert_ffn", "route": "cuda",
-        "source": "src/repro_torch/csrc/expert_ffn.cu",
-        "replaces": "src/repro/kernels/expert_ffn.py:52",
-        "jax": "repro/kernels/expert_ffn.py::expert_ffn",
-        "launches": slice_info["k1_launches"],
-        "max_abs_err": k1["max_abs_err"],
-        "max_abs_err_all_checks": max(c["max_abs_err"] for c in checks),
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"],
-        "timed_at": "decode shape [16,8,768]x3072, bf16 h, f32 weights, "
-                    "gelu (1920 of the run's 1944 launches)",
-        "shapes": timed,
-    }
+    train_info = phase_train()
+    phase_train_parity()
+    phase_train_profile()
+    tl = train_info["launches"]
+    k1 = dict(timed["train"], max_abs_err=max(
+        c["max_abs_err"] for c in checks if c["shape"] == "train"))
+    records = [
+        _record("expert_ffn", "src/repro_torch/csrc/expert_ffn.cu",
+                "src/repro/kernels/expert_ffn.py:52", tl["expert_ffn"], k1,
+                {"launches_by_path": {"serve": slice_info["k1_launches"],
+                                      "train": tl["expert_ffn"]},
+                 "timed_at": "train shape [16,2048,768]x3072, bf16 h, f32 "
+                             "weights, gelu",
+                 "max_abs_err_all_checks": max(c["max_abs_err"]
+                                               for c in checks),
+                 "shapes": timed}),
+        _record("expert_ffn_bwd", "src/repro_torch/csrc/expert_ffn_bwd.cu",
+                "src/repro/kernels/expert_ffn.py:52 (no Pallas backward; "
+                "XLA differentiates the reference)", tl["expert_ffn_bwd"],
+                timed_train["expert_ffn_bwd"],
+                {"timed_at": "train shape [16,2048,768]x3072, bf16 h and "
+                             "dy, f32 weights, gelu"}),
+        _record("masked_similarity", "src/repro_torch/csrc/similarity.cu",
+                "src/repro/kernels/similarity.py:81",
+                tl["masked_similarity"], timed_train["masked_similarity"],
+                {"timed_at": "64 groups of [128,768] bf16 rows"}),
+        _record("gather_rows", "src/repro_torch/csrc/condense.cu",
+                "src/repro/kernels/condense.py:26", tl["gather_rows"],
+                timed_train["gather_rows"],
+                {"timed_at": "[8192,768] bf16 rows"}),
+    ]
     log(f"total {time.perf_counter() - t_start:.1f}s on {smi}")
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": name,
                                              "count": count}}), flush=True)

@@ -4,8 +4,11 @@ Module names mirror ``repro`` so each counterpart is easy to find. The
 port imports ``torch``, numpy and the standard library only; the JAX
 package stays the reference its tests hold it against.
 
-This slice covers single-device serving of ``moe-gpt2``: gating,
-dispatch with capacity drops, the expert FFN (a hand-written Hopper
-kernel, ``kernels/expert_ffn.py``), combine, LayerNorm attention with a
-KV cache and the tied LM head.
+Slice 1 serves ``moe-gpt2`` on one device: gating, dispatch with
+capacity drops, the expert FFN (a hand-written Hopper kernel,
+``kernels/expert_ffn.py``), combine, LayerNorm attention with a KV cache
+and the tied LM head. Slice 2 trains it on one device with token
+condensation (``condense/``, kernels ``similarity`` and ``condense``),
+the expert FFN's backward kernel, AdamW (``optim.py``) and the adaptive
+threshold (``train_lib.py``, ``launch/train.py``).
 """

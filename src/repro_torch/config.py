@@ -1,6 +1,7 @@
-"""Model and technique configuration (counterpart of ``repro/config.py``).
+"""Model, shape, technique and optimizer configuration (counterpart of
+``repro/config.py``).
 
-Only the fields and methods the serving slice reads are kept. Field
+Only the fields and methods the ported slices read are kept. Field
 names and defaults match the reference so a config converts field by
 field.
 """
@@ -42,6 +43,7 @@ class MoEConfig:
     top_k: int
     d_ff: int                      # hidden dim of EACH expert
     capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01  # load-balance loss coefficient
 
 
 @dataclass(frozen=True)
@@ -61,6 +63,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    remat: bool = True             # recompute each layer in the backward
 
     def ffn_kind(self, layer: int) -> str:
         return self.layer_ffn_pattern[layer % len(self.layer_ffn_pattern)]
@@ -71,11 +74,51 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                      # "train" | "prefill" | "decode"
+
+
+@dataclass(frozen=True)
 class LuffyConfig:
-    """The paper's two techniques (§IV, §V). Serving forces both off;
-    they come with the training and expert-parallel slices."""
+    """The paper's two techniques (§IV, §V). Serving forces both off.
+    On one device migration is the identity; what it does across
+    devices comes with the expert-parallel slice."""
     enable_condensation: bool = True
     enable_migration: bool = True
+    # §V-A fast similarity: previous-block similarity > s1 => similar
+    # (not measured), < s2 => dissimilar (not measured)
+    s1: float = 0.8
+    s2: float = 0.2
+    # §V-B adaptive threshold (Eq. 2); static_threshold when off
+    adaptive_threshold: bool = True
+    static_threshold: float = 0.5
+    # "exact" measures every uncertain pair ("lsh" is not ported yet:
+    # condense/plan.py raises on it)
+    similarity_backend: str = "exact"
+    # cross-sublayer condense-plan reuse; only "off" is ported
+    condense_reuse: str = "off"
+    condense_reuse_max_age: int = 4
+    # condensation-rate buckets: capacity C' = ceil(C * (1 - rate))
+    rate_buckets: Tuple[float, ...] = (0.0, 0.25, 0.5)
+    # condensation group size G and combine-buffer slack under migration
+    condense_group: int = 128
+    combine_slack: float = 1.0
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
 
 
 def reduced(model: ModelConfig, *, num_layers: int = 2, d_model: int = 256,
@@ -109,4 +152,5 @@ def reduced(model: ModelConfig, *, num_layers: int = 2, d_model: int = 256,
         d_ff=min(model.d_ff, 2 * d_model),
         vocab_size=min(model.vocab_size, 1024),
         attn=attn, moe=moe,
+        remat=False,
     )

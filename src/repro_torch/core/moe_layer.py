@@ -1,7 +1,7 @@
 """The MoE sublayer on one device (counterpart of
 ``repro/core/moe_layer.py``): parameters, capacity, and
-``moe_core`` = gate + build + execute. On one device it is also the
-whole of the reference's ``models/transformer.py::_moe_apply_dist``."""
+``moe_core_planned`` = gate + build + execute. On one device it is also
+the whole of the reference's ``models/transformer.py::_moe_apply_dist``."""
 from __future__ import annotations
 
 import math
@@ -9,6 +9,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.condense.plan import CondenseCarry
 from repro_torch.config import LuffyConfig, MoEConfig, ModelConfig
 from repro_torch.core.gating import gate_apply, gate_init
 from repro_torch.plan.exchange import (MoEAux, _rms, build_exchange_plan,
@@ -47,20 +48,40 @@ def capacity_for(moe: MoEConfig, tokens_local: int, num_experts: int,
     return max(8, ((c + 7) // 8) * 8)
 
 
-def moe_core(params, x, sideband: Dict[str, torch.Tensor], cfg: ModelConfig,
-             luffy: LuffyConfig, *, mode: str, capacity: int
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], None, MoEAux]:
-    """One MoE sublayer: gate on the RMS-normed tokens, build the plan,
-    execute it. x: [n_seq, S, d] pre-norm hidden. Returns the
-    reference's 4-tuple ``(x + moe_delta, sideband, s_next, aux)``; on
-    one device without migration or condensation the sideband is
-    unchanged and there is no similarity history (``s_next`` is None)."""
+def moe_core_planned(params, x, sideband: Dict[str, torch.Tensor],
+                     cfg: ModelConfig, luffy: LuffyConfig, *, mode: str,
+                     capacity: int, threshold=None,
+                     s_prev: Optional[torch.Tensor] = None,
+                     condense_carry: Optional[CondenseCarry] = None):
+    """One MoE sublayer: gate on the RMS-normed tokens, build the plan
+    (condensing when ``luffy.enable_condensation`` and the mode is not
+    ``decode``), execute it. x: [n_seq, S, d] pre-norm hidden;
+    ``threshold`` an f32 scalar tensor, ``s_prev`` the similarity carried
+    from the previous MoE sublayer. Returns ``(x + moe_delta, sideband,
+    s_next, aux, plan, cond_carry)``; on one device the sideband is
+    unchanged, and ``s_next`` / ``cond_carry`` are None without
+    condensation."""
     from repro_torch.models.blocks import _dtype
     n_seq, S, d = x.shape
     xn = _rms(x.reshape(n_seq * S, d), params["norm"]["scale"]) \
         .to(_dtype(cfg.compute_dtype))
     gate = gate_apply(params["router"], xn, cfg.moe.top_k)
     plan = build_exchange_plan(gate, xn, cfg, luffy, mode=mode,
-                               capacity=capacity, sideband=sideband)
-    y, aux = execute_plan(params, x, plan, cfg)
-    return y, dict(sideband), None, aux
+                               capacity=capacity, sideband=sideband,
+                               threshold=threshold, s_prev=s_prev,
+                               condense_carry=condense_carry)
+    y, aux, cond_carry = execute_plan(params, x, plan, cfg)
+    return (y, dict(sideband), plan.condense_plan.s_next, aux, plan,
+            cond_carry)
+
+
+def moe_core(params, x, sideband: Dict[str, torch.Tensor], cfg: ModelConfig,
+             luffy: LuffyConfig, *, mode: str, capacity: int, threshold=None,
+             s_prev: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                        Optional[torch.Tensor], MoEAux]:
+    """The reference's 4-tuple ``(x + moe_delta, sideband, s_next, aux)``
+    of :func:`moe_core_planned`."""
+    return moe_core_planned(params, x, sideband, cfg, luffy, mode=mode,
+                            capacity=capacity, threshold=threshold,
+                            s_prev=s_prev)[:4]

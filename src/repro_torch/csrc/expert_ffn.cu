@@ -32,8 +32,9 @@
 // which moves prefill onto the tensor cores, and fusing the hidden so it
 // never goes through device memory.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -42,28 +43,6 @@ constexpr int TN = 4;    // columns per thread (strided by 16)
 constexpr int NT = 256;  // threads per block: 16 x 16
 // TM: rows per thread (strided by 16), so 16 * TM rows per tile;
 // BK: depth of one shared-memory slab. Both are template parameters.
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as a cast in torch
-}
-
-// act 0 = silu, 1 = gelu (tanh approximation, jax.nn.gelu's default)
-__device__ __forceinline__ float act_fn(float x, int act) {
-  if (act == 0) return x / (1.0f + expf(-x));
-  const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
-  const float k1 = 0.044715f;
-  return 0.5f * x * (1.0f + tanhf(k0 * (x + k1 * x * x * x)));
-}
 
 template <int TM, int BK, typename TH, typename TW>
 __global__ void __launch_bounds__(NT)

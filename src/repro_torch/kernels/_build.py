@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into ``build/lib<name>-<digest>.so`` at the repository root
 (``.gitignore`` lists ``build/``), then loaded with ``ctypes``. The
-digest covers the source and the flags, so an edited source rebuilds.
+digest covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds.
 Sources are compiled in parallel, one ``nvcc`` each. Nothing here runs
 at import: the CPU tests import every module and have no ``nvcc``.
 """
@@ -19,7 +20,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("expert_ffn",)
+KERNELS = ("expert_ffn", "expert_ffn_bwd", "similarity", "condense")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +40,7 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -82,3 +84,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _LIBS[name] = lib
     return lib
+
+
+def entry(name: str, fn_name: str, n_ptr: int, n_int: int):
+    """The C function ``fn_name`` of kernel library ``name``, typed as
+    n_ptr pointers, n_int ints, then the stream; returns an int."""
+    fn = getattr(load(name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn

@@ -1,15 +1,18 @@
-"""Grouped gated expert FFN on the card: the wrapper of
+"""Grouped gated expert FFN on the card: the wrappers of
 ``csrc/expert_ffn.cu`` (the port of Pallas kernel K1,
-``repro/kernels/expert_ffn.py::expert_ffn``).
+``repro/kernels/expert_ffn.py::expert_ffn``) and of its backward,
+``csrc/expert_ffn_bwd.cu``, which the reference does not have (XLA
+differentiates its einsum path).
 
 ``out[e] = (act(h[e] @ w_gate[e]) * (h[e] @ w_up[e])) @ w_down[e]`` with
 f32 math, for h [E, R, d] in f32 or bf16 and weights in f32 or bf16.
-The source says what bounds the kernel and how it is laid out; the
-plain version is :func:`repro_torch.kernels.ref.expert_ffn_ref`.
+:class:`ExpertFFN` is the autograd function over both: it saves h and
+the weights (not the f32 hidden, which the backward recomputes). The
+sources say what bounds the kernels and how they are laid out; the
+plain version is :func:`repro_torch.kernels.ref.expert_ffn_ref`, whose
+autograd gradient is the backward's plain version.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -17,16 +20,6 @@ from repro_torch.kernels import _build
 
 ACT_CODES = {"silu": 0, "gelu": 1}
 _DTYPES = (torch.float32, torch.bfloat16)
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("expert_ffn")
-    fn = lib.expert_ffn_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def _check(h, w_up, w_gate, w_down, act_name):
@@ -66,14 +59,14 @@ def expert_ffn(h, w_up, w_gate, w_down, act_name: str = "silu"):
     F = w_up.shape[-1]
     out = torch.empty_like(h)
     hid = torch.empty((E, R, F), dtype=torch.float32, device=h.device)
-    lib = _lib()
+    fn = _build.entry("expert_ffn", "expert_ffn_launch", 6, 7)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.expert_ffn_launch(
-            h.data_ptr(), w_up.data_ptr(), w_gate.data_ptr(),
-            w_down.data_ptr(), out.data_ptr(), hid.data_ptr(),
-            E, R, d, F, int(h.dtype == torch.bfloat16),
-            int(w_up.dtype == torch.bfloat16), ACT_CODES[act_name], stream)
+        rc = fn(h.data_ptr(), w_up.data_ptr(), w_gate.data_ptr(),
+                w_down.data_ptr(), out.data_ptr(), hid.data_ptr(),
+                E, R, d, F, int(h.dtype == torch.bfloat16),
+                int(w_up.dtype == torch.bfloat16), ACT_CODES[act_name],
+                stream)
     if rc != 0:
         raise RuntimeError(f"expert_ffn launch failed: cudaError {rc}")
     expert_ffn.launches += 1
@@ -81,3 +74,58 @@ def expert_ffn(h, w_up, w_gate, w_down, act_name: str = "silu"):
 
 
 expert_ffn.launches = 0
+
+
+def expert_ffn_bwd(h, w_up, w_gate, w_down, dy, act_name: str = "silu"):
+    """Launch the backward on the current stream: returns (dh in h's
+    dtype, dw_up, dw_gate, dw_down in f32). Raises on a refused launch.
+    Adds one to ``expert_ffn_bwd.launches`` per launch (three kernels)."""
+    _check(h, w_up, w_gate, w_down, act_name)
+    if dy.shape != h.shape or dy.dtype != h.dtype or dy.device != h.device:
+        raise ValueError(f"dy must match h ({tuple(h.shape)}, {h.dtype}, "
+                         f"{h.device}), got {tuple(dy.shape)}, {dy.dtype}, "
+                         f"{dy.device}")
+    dy = dy.contiguous()
+    E, R, d = h.shape
+    F = w_up.shape[-1]
+    dh = torch.empty_like(h)
+    f32 = dict(dtype=torch.float32, device=h.device)
+    dwu = torch.empty(w_up.shape, **f32)
+    dwg = torch.empty(w_gate.shape, **f32)
+    dwd = torch.empty(w_down.shape, **f32)
+    scratch = [torch.empty((E, R, F), **f32) for _ in range(3)]
+    fn = _build.entry("expert_ffn_bwd", "expert_ffn_bwd_launch", 12, 7)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(h.data_ptr(), dy.data_ptr(), w_up.data_ptr(),
+                w_gate.data_ptr(), w_down.data_ptr(), dh.data_ptr(),
+                dwu.data_ptr(), dwg.data_ptr(), dwd.data_ptr(),
+                *(t.data_ptr() for t in scratch), E, R, d, F,
+                int(h.dtype == torch.bfloat16),
+                int(w_up.dtype == torch.bfloat16), ACT_CODES[act_name],
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"expert_ffn_bwd launch failed: cudaError {rc}")
+    expert_ffn_bwd.launches += 1
+    return dh, dwu, dwg, dwd
+
+
+expert_ffn_bwd.launches = 0
+
+
+class ExpertFFN(torch.autograd.Function):
+    """K1 forward and backward as one differentiable op (CUDA only)."""
+
+    @staticmethod
+    def forward(ctx, h, w_up, w_gate, w_down, act_name):
+        ctx.act_name = act_name
+        ctx.save_for_backward(h, w_up, w_gate, w_down)
+        return expert_ffn(h, w_up, w_gate, w_down, act_name)
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, w_up, w_gate, w_down = ctx.saved_tensors
+        dh, dwu, dwg, dwd = expert_ffn_bwd(h, w_up, w_gate, w_down,
+                                           dy.to(h.dtype), ctx.act_name)
+        return (dh, dwu.to(w_up.dtype), dwg.to(w_gate.dtype),
+                dwd.to(w_down.dtype), None)

@@ -2,19 +2,39 @@
 ``repro/kernels/ops.py``).
 
 A tensor on the CPU takes the kernel's plain version
-(:mod:`repro_torch.kernels.ref`); a CUDA tensor launches the
-hand-written kernel, which builds at first use, or raises. There is no
-fallback from one to the other.
+(:mod:`repro_torch.kernels.ref`, differentiated by autograd); a CUDA
+tensor launches the hand-written kernel, which builds at first use, or
+raises. There is no fallback from one to the other. On the card the
+differentiable kernels go through their autograd functions, so a
+backward launches the kernels' own backward.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import condense as _condense
 from repro_torch.kernels import expert_ffn as _expert_ffn
 from repro_torch.kernels import ref
+from repro_torch.kernels import similarity as _similarity
+
+
+def _device(t, name: str) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} has no version for device {t.device}")
+    return t.device.type
 
 
 def expert_ffn(h, w_up, w_gate, w_down, act_name: str = "silu"):
-    if h.device.type == "cpu":
+    if _device(h, "expert_ffn") == "cpu":
         return ref.expert_ffn_ref(h, w_up, w_gate, w_down, act_name)
-    if h.device.type == "cuda":
-        return _expert_ffn.expert_ffn(h, w_up, w_gate, w_down, act_name)
-    raise ValueError(f"expert_ffn has no version for device {h.device}")
+    return _expert_ffn.ExpertFFN.apply(h, w_up, w_gate, w_down, act_name)
+
+
+def masked_similarity(x, mask):
+    if _device(x, "masked_similarity") == "cpu":
+        return ref.masked_similarity_ref(x, mask)
+    return _similarity.masked_similarity(x, mask)
+
+
+def gather_rows(y, rep_idx):
+    if _device(y, "gather_rows") == "cpu":
+        return ref.gather_rows_ref(y, rep_idx)
+    return _condense.GatherRows.apply(y, rep_idx)

@@ -23,3 +23,22 @@ def expert_ffn_ref(h, w_up, w_gate, w_down, act_name: str = "silu"):
     gt = torch.einsum("erd,edf->erf", hf, w_gate.float())
     out = torch.einsum("erf,efd->erd", act(gt) * up, w_down.float())
     return out.to(h.dtype)
+
+
+def masked_similarity_ref(x, mask):
+    """x: [.., G, d]; mask: [.., G, G] bool. The Pallas kernel's formula
+    (``repro/kernels/similarity.py::_sim_kernel``): the f32 Gram product
+    normalised as ``rsqrt(xx * yy + 1e-8)``, mapped to [0, 1], zero where
+    masked. Not ``pairwise_cosine``'s normalise-first formula, which
+    decides differently at the margin."""
+    xf = x.float()
+    acc = xf @ xf.transpose(-1, -2)
+    sq = torch.sum(xf * xf, dim=-1)
+    inv = torch.rsqrt(sq[..., :, None] * sq[..., None, :] + 1e-8)
+    sim = (acc * inv + 1.0) * 0.5
+    return torch.where(mask, sim, torch.zeros((), dtype=sim.dtype))
+
+
+def gather_rows_ref(y, rep_idx):
+    """y: [T_src, d]; rep_idx: [T] -> y[rep_idx] (differentiable)."""
+    return torch.index_select(y, 0, rep_idx.to(torch.int64))

@@ -1,0 +1,134 @@
+"""Training launcher on one device (counterpart of
+``repro/launch/train.py``, its single-device path).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch moe-gpt2 \\
+        [--reduced] --steps N --global-batch B --seq-len S [--device cpu]
+
+Weights are random, drawn from ``--seed``; batches come from the
+synthetic stream (``repro_torch.data.SyntheticLM``). Each step runs the
+LUFFY train step (condensation with the adaptive threshold, AdamW); the
+host then updates the EWMA of the condensation rate and, from step 3 on,
+picks the rate bucket that sets the next step's dispatch capacity. On
+the card (``--device cuda``, the default, which must exist) the expert
+FFN, the similarity and the un-condense gather run in the hand-written
+kernels; on the CPU (``--device cpu``) in their plain versions.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, Optional, Sequence
+
+import torch
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--arch", default="moe-gpt2")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--reduced", action="store_true",
+                    help="the smoke-test variant of --arch")
+    ap.add_argument("--d-model", type=int, default=256,
+                    help="d_model of the --reduced variant")
+    ap.add_argument("--layers", type=int, default=2,
+                    help="layers of the --reduced variant")
+    ap.add_argument("--experts", type=int, default=0,
+                    help="experts of the --reduced variant (default 4)")
+    ap.add_argument("--global-batch", type=int, default=0,
+                    help="sequences per step (default 8 reduced, else 256)")
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--no-condensation", action="store_true")
+    ap.add_argument("--no-migration", action="store_true",
+                    help="a no-op on one device, where migration is the "
+                         "identity")
+    ap.add_argument("--optimizer", choices=["adamw"], default="adamw")
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    return ap.parse_args(argv)
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    """Train; returns what was measured, per step and in total."""
+    args = parse_args(argv)
+    from repro_torch import optim, train_lib
+    from repro_torch.config import (LuffyConfig, OptimConfig, ShapeConfig,
+                                    reduced)
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.model import build_model, resolve_device
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg, num_layers=args.layers, d_model=args.d_model,
+                      max_experts=args.experts or 4,
+                      seq_len_hint=args.seq_len)
+    gb = args.global_batch or (8 if args.reduced else 256)
+    shape = ShapeConfig("train", args.seq_len, gb, "train")
+    luffy = LuffyConfig(
+        enable_condensation=not args.no_condensation and cfg.uses_moe,
+        enable_migration=not args.no_migration and cfg.uses_moe,
+        condense_group=min(128, args.seq_len), combine_slack=2.0)
+    ocfg = OptimConfig(name=args.optimizer, lr=args.lr,
+                       total_steps=args.steps,
+                       warmup_steps=max(2, args.steps // 20))
+    model = build_model(cfg, device=device, seed=args.seed)
+    params = model.params
+    opt_state = optim.init_opt_state(params, ocfg)
+    lstate = train_lib.init_luffy_state(device)
+    data = SyntheticLM(cfg, shape)
+    steps_by_bucket = {}
+
+    def get_step(bucket: int):
+        if bucket not in steps_by_bucket:
+            cap = (train_lib.capacity_for_bucket(cfg, shape, luffy, bucket)
+                   if cfg.uses_moe else 8)
+            steps_by_bucket[bucket] = (cap, train_lib.make_train_step(
+                cfg, luffy, ocfg, cap))
+        return steps_by_bucket[bucket]
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    bucket, observed_rate = 0, 0.0
+    steps = []
+    t_start = time.perf_counter()
+    for i in range(args.steps):
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in data.batch(i).items()}
+        cap, step_fn = get_step(bucket)
+        _sync(device)
+        t0 = time.perf_counter()
+        params, opt_state, lstate, m = step_fn(params, opt_state, lstate,
+                                               batch)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        m = train_lib.finalize_metrics(m)
+        rec = dict(step=i, bucket=bucket, capacity=cap, step_ms=dt * 1e3,
+                   **m)
+        if device.type == "cuda":
+            rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
+        steps.append(rec)
+        observed_rate = 0.8 * observed_rate + 0.2 * m["condense_rate"]
+        if cfg.uses_moe and luffy.enable_condensation and i >= 3:
+            bucket = train_lib.pick_bucket_host(luffy, observed_rate)
+        print(f"step {i:5d} loss={m['loss']:.4f} "
+              f"cond={m['condense_rate']:.4f} bucket={rec['bucket']} "
+              f"C={cap} drop={m['dispatch_drop']:.3f} "
+              f"{rec['step_ms']:.1f}ms", flush=True)
+    total = time.perf_counter() - t_start
+    print(f"done: {args.steps} steps in {total:.1f}s; final loss "
+          f"{steps[-1]['loss']:.4f}" if steps else "done: 0 steps")
+    return {"arch": cfg.name, "cfg": cfg, "device": str(device),
+            "global_batch": gb, "seq_len": args.seq_len, "steps": steps,
+            "total_s": total}
+
+
+if __name__ == "__main__":
+    main()

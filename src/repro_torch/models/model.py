@@ -5,7 +5,9 @@ The parameters live in nested ``nn.ParameterDict`` / ``nn.ModuleDict`` /
 ``nn.ModuleList`` containers shaped like the reference's pytree (with the
 layer stack unrolled), so ``state_dict`` names read
 ``layers.3.moe.experts.w_up``; :attr:`Model.params` gives the plain
-nested-dict view the functional code takes.
+nested-dict view the functional code takes. The parameters are
+trainable (:meth:`Model.forward_train`); serving runs under
+``torch.inference_mode``.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ def _to_module(tree) -> nn.Module:
     if isinstance(tree, list):
         return nn.ModuleList([_to_module(t) for t in tree])
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+        return nn.ParameterDict({k: nn.Parameter(v)
                                  for k, v in tree.items()})
     return nn.ModuleDict({k: _to_module(v) for k, v in tree.items()})
 
@@ -48,7 +50,8 @@ def _to_tree(mod: nn.Module):
 
 
 class Model(nn.Module):
-    """A decoder LM for serving: ``prefill`` and ``decode_step``."""
+    """A decoder LM: ``forward_train`` for training, ``prefill`` and
+    ``decode_step`` for serving."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
@@ -65,6 +68,13 @@ class Model(nn.Module):
 
     def new_cache(self, batch: int, s_max: int):
         return engine.cache_struct(self.cfg, batch, s_max, device=self.device)
+
+    def forward_train(self, batch, threshold, capacity: int, *,
+                      luffy: LuffyConfig):
+        """(total loss, metrics) of one batch; see
+        :func:`repro_torch.models.transformer.forward_train`."""
+        return tf.forward_train(self.params, self.cfg, luffy, batch,
+                                threshold, capacity)
 
     @torch.inference_mode()
     def prefill(self, tokens, s_max: int, *, luffy: LuffyConfig):

@@ -1,22 +1,27 @@
-"""The decoder stack's pieces (counterpart of
-``repro/models/transformer.py``): parameter init, embedding and the
-tied LM head. The single-device branch of the reference's
-``_moe_apply_dist`` is :func:`repro_torch.core.moe_layer.moe_core`.
+"""The decoder stack (counterpart of ``repro/models/transformer.py``):
+parameter init, embedding, the tied LM head, the chunked cross-entropy
+and the train forward. The single-device branch of the reference's
+``_moe_apply_dist`` is :func:`repro_torch.core.moe_layer.moe_core_planned`.
 
 Where the reference stacks layers by pattern position for ``lax.scan``,
 the port keeps ``params["layers"]`` as a plain list, one dict per layer,
-walked by a Python loop.
+walked by a Python loop; ``cfg.remat`` checkpoints each layer as the
+reference's ``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict
 
 import torch
+from torch.utils import checkpoint as ckpt
 
-from repro_torch.config import ModelConfig
+from repro_torch.condense.plan import CondenseCarry
+from repro_torch.config import LuffyConfig, ModelConfig
 from repro_torch.core import moe_layer as moe
 from repro_torch.models import blocks as bk
+from repro_torch.plan.exchange import MoEAux
 
 
 def pattern_period(cfg: ModelConfig) -> int:
@@ -82,3 +87,128 @@ def logits_fn(params, cfg: ModelConfig, x):
     else:
         w = params["unembed"]["w"].to(cdt)
     return h @ w
+
+
+def chunked_xent(params, cfg: ModelConfig, x, labels, *, chunk: int = 512):
+    """Cross-entropy over S in chunks of ``chunk`` positions, summed in
+    the reference's order. labels < 0 are ignored. Returns (sum_loss,
+    count), f32 scalars."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+
+    def one(xc, lc):
+        lg = logits_fn(params, cfg, xc).float()
+        valid = (lc >= 0).float()
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = lg.gather(-1, lc.clamp(min=0).long()[..., None])[..., 0]
+        return torch.sum((lse - gold) * valid), torch.sum(valid)
+
+    sl = sc = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        dl, dc = one(x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk])
+        sl, sc = sl + dl, sc + dc
+    return sl, sc
+
+
+def _zero_aux(device) -> MoEAux:
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return MoEAux(*([z] * len(MoEAux._fields)))
+
+
+def _layer_full(p, cfg: ModelConfig, luffy: LuffyConfig, layer: int,
+                moe_mode: str, capacity: int, x, sideband, s_prev,
+                threshold, cond_carry):
+    """One decoder layer of the train forward: causal attention, then the
+    MoE sublayer (condensing, carrying the similarity history and the
+    condense carry) or the dense FFN. Returns (x, s_prev, aux,
+    cond_carry)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    xn = bk.norm_apply(p["attn_norm"], x, cfg.norm)
+    att, _ = bk.attn_apply(p["attn"], cfg, xn, positions, layer=layer,
+                           causal=True)
+    x = x + att
+    if cfg.ffn_kind(layer) != "moe":
+        xn = bk.norm_apply(p["ffn_norm"], x, cfg.norm)
+        return (x + bk.ffn_apply(p["ffn"], cfg, xn), s_prev,
+                _zero_aux(x.device), cond_carry)
+    carry = None
+    if cond_carry is not None:
+        carry = CondenseCarry(cond_carry["rep"].reshape(-1),
+                              cond_carry["cexp"].reshape(-1),
+                              cond_carry["age"], cond_carry["valid"])
+    x, _, s_next, aux, _, cc = moe.moe_core_planned(
+        p["moe"], x, sideband, cfg, luffy, mode=moe_mode,
+        capacity=capacity, threshold=threshold, s_prev=s_prev,
+        condense_carry=carry)
+    if s_next is not None:
+        G = luffy.condense_group
+        s_prev = s_next.reshape(B, S // G, G, G)
+    return x, s_prev, aux, (cond_carry if cc is None else cc)
+
+
+def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
+                  batch: Dict[str, torch.Tensor], threshold,
+                  capacity: int):
+    """The train forward on one device (the single-device branch of the
+    reference's ``forward_train``). batch: tokens [B, S], labels [B, S]
+    (< 0 ignored), seq_len [B]; threshold: f32 scalar tensor (Eq. 2);
+    capacity: the MoE dispatch capacity. Returns (total loss, metrics):
+    the total adds ``router_aux_coef`` times the mean router aux loss;
+    the metrics are detached scalars."""
+    _check_arch(cfg)
+    x = embed_tokens(params, cfg, batch["tokens"])
+    B, S = x.shape[0], x.shape[1]
+    sideband = {"labels": batch["labels"],
+                "seq_len": batch["seq_len"].to(torch.int32)}
+    G = luffy.condense_group
+    use_cond = luffy.enable_condensation and cfg.uses_moe and S % G == 0
+    s_prev = cond_carry = None
+    if use_cond:
+        # 0.5 = "uncertain": the first block measures every pair (§V-A
+        # has no history yet); 0.0 would mark every pair dissimilar
+        s_prev = torch.full((B, S // G, G, G), 0.5, dtype=torch.float32,
+                            device=x.device)
+        zi = torch.zeros((B, S), dtype=torch.int64, device=x.device)
+        zf = torch.zeros((B,), dtype=torch.float32, device=x.device)
+        cond_carry = {"rep": zi, "cexp": zi.clone(), "age": zf,
+                      "valid": zf.clone()}
+    eff_luffy = luffy if use_cond else dataclasses.replace(
+        luffy, enable_condensation=False)
+    moe_mode = ("migrate" if luffy.enable_migration and cfg.uses_moe
+                else "vanilla")
+    aux_sum = _zero_aux(x.device)
+    # the recompute runs each layer to its end, so every kernel of the
+    # layer launches again in the backward (counted by chip_smoke.py)
+    with ckpt.set_checkpoint_early_stop(False):
+        for i, p in enumerate(params["layers"]):
+            args = (p, cfg, eff_luffy, i, moe_mode, capacity, x, sideband,
+                    s_prev, threshold, cond_carry)
+            if cfg.remat:
+                out = ckpt.checkpoint(_layer_full, *args,
+                                      use_reentrant=False)
+            else:
+                out = _layer_full(*args)
+            x, s_prev, aux, cond_carry = out
+            aux_sum = MoEAux(*(a + b for a, b in zip(aux_sum, aux)))
+
+    sl, sc = chunked_xent(params, cfg, x, sideband["labels"])
+    loss = sl / torch.clamp(sc, min=1.0)
+    n_moe = max(1, sum(cfg.ffn_kind(i) == "moe"
+                       for i in range(cfg.num_layers)))
+    aux_mean = MoEAux(*(a / n_moe for a in aux_sum))
+    total = loss
+    if cfg.uses_moe:
+        total = loss + cfg.moe.router_aux_coef * aux_mean.aux_loss
+    metrics = {
+        "loss": loss, "aux_loss": aux_mean.aux_loss,
+        "dispatch_drop": aux_mean.dispatch_drop,
+        "combine_drop": aux_mean.combine_drop,
+        "condense_rate": aux_mean.condense_rate,
+        "local_frac": aux_mean.local_frac,
+        # condensation ledger: per-forward sums over the MoE sublayers
+        "measured_pairs": aux_sum.measured_pairs,
+        "condense_built": aux_sum.condense_built,
+        "condense_reused": aux_sum.condense_reused,
+    }
+    return total, {k: v.detach() for k, v in metrics.items()}

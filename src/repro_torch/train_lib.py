@@ -1,0 +1,107 @@
+"""The train step on one device (counterpart of ``repro/train_lib.py``):
+loss, backward, AdamW, and the LUFFY state that carries the adaptive
+threshold (paper Eq. 2) from step to step.
+
+The threshold is an f32 tensor computed on the device from the running
+loss, as the reference computes it inside its jitted step (a Python
+float64 would move decisions at the margin). The condensation-rate
+bucket, which fixes the static dispatch capacity, is chosen on the host
+between steps (:func:`pick_bucket_host`).
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import torch
+
+from repro_torch import optim
+from repro_torch.condense.plan import adaptive_threshold
+from repro_torch.config import LuffyConfig, ModelConfig, OptimConfig, \
+    ShapeConfig
+from repro_torch.core import moe_layer
+from repro_torch.models import transformer as tf
+
+
+class LuffyState(NamedTuple):
+    l_ini: torch.Tensor      # [] f32 loss at the first step (Eq. 2)
+    l_prev: torch.Tensor     # [] f32 loss at t-1
+    step: torch.Tensor       # [] int32
+
+
+def init_luffy_state(device) -> LuffyState:
+    neg = torch.full((), -1.0, dtype=torch.float32, device=device)
+    return LuffyState(neg, neg.clone(),
+                      torch.zeros((), dtype=torch.int32, device=device))
+
+
+def tokens_per_device(shape: ShapeConfig) -> int:
+    return max(1, shape.global_batch * shape.seq_len)
+
+
+def capacity_for_bucket(cfg: ModelConfig, shape: ShapeConfig,
+                        luffy: LuffyConfig, bucket: int) -> int:
+    rate = luffy.rate_buckets[bucket] if luffy.enable_condensation else 0.0
+    return moe_layer.capacity_for(cfg.moe, tokens_per_device(shape),
+                                  cfg.moe.num_experts, rate=rate)
+
+
+def threshold_for(lstate: LuffyState, luffy: LuffyConfig):
+    """Eq. 2 from the running loss once there is one (0.999 before)."""
+    if not luffy.adaptive_threshold:
+        return torch.full((), luffy.static_threshold, dtype=torch.float32,
+                          device=lstate.l_ini.device)
+    return torch.where(lstate.l_ini > 0,
+                       adaptive_threshold(lstate.l_ini, lstate.l_prev),
+                       torch.full_like(lstate.l_ini, 0.999))
+
+
+def loss_and_metrics(params, batch, lstate: LuffyState, cfg: ModelConfig,
+                     luffy: LuffyConfig, capacity: int):
+    return tf.forward_train(params, cfg, luffy, batch,
+                            threshold_for(lstate, luffy), capacity)
+
+
+def make_train_step(cfg: ModelConfig, luffy: LuffyConfig,
+                    ocfg: OptimConfig, capacity: int):
+    """Returns step(params, opt_state, lstate, batch) -> (params,
+    opt_state, lstate, metrics). ``params`` is a nested dict of leaf
+    tensors that require grad (``Model.params``); they and the moments
+    are updated in place."""
+
+    def step(params, opt_state, lstate: LuffyState, batch):
+        leaves = [p for _, p in optim.leaves_with_path(params)]
+        for p in leaves:
+            p.grad = None
+        loss, metrics = loss_and_metrics(params, batch, lstate, cfg, luffy,
+                                         capacity)
+        loss.backward()
+        grads = optim.tree_map(
+            lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
+            params)
+        params, opt_state, om = optim.update(params, grads, opt_state, ocfg)
+        for p in leaves:
+            p.grad = None
+        metrics = dict(metrics, **om, total_loss=loss.detach())
+        new_l = metrics["loss"]
+        lstate = LuffyState(torch.where(lstate.l_ini > 0, lstate.l_ini,
+                                        new_l),
+                            new_l, lstate.step + 1)
+        return params, opt_state, lstate, metrics
+
+    return step
+
+
+def finalize_metrics(metrics) -> Dict[str, float]:
+    """Host-side view of one step's metrics: device scalars as floats."""
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def pick_bucket_host(luffy: LuffyConfig, observed_rate: float) -> int:
+    """The largest capacity-reduction bucket the observed condensation
+    rate supports, with a hysteresis of 0.05 against switching back and
+    forth (the reference's, whose threshold argument it never reads)."""
+    best = 0
+    for i, r in enumerate(luffy.rate_buckets):
+        if r <= max(0.0, observed_rate - 0.05):
+            best = i
+    return best

@@ -109,7 +109,19 @@ def served():
 
 
 def test_configs_agree():
-    """The port's copied config equals the reference's field by field."""
+    """The port's copied configs equal the reference's field by field:
+    the reduced model, and the defaults of LuffyConfig, OptimConfig and
+    a ShapeConfig."""
+    from repro import config as jconfig
+    from repro_torch import config as tconfig
+    for name in ("LuffyConfig", "OptimConfig"):
+        got, want = getattr(tconfig, name)(), getattr(jconfig, name)()
+        for f in dataclasses.fields(got):
+            assert getattr(got, f.name) == getattr(want, f.name), (name,
+                                                                   f.name)
+    shape = ("train", 256, 2, "train")
+    assert dataclasses.astuple(tconfig.ShapeConfig(*shape)) == \
+        dataclasses.astuple(jconfig.ShapeConfig(*shape))
     for cdt in ("float32", "bfloat16"):
         jcfg, tcfg = _cfgs(cdt)
         for f in dataclasses.fields(tcfg):
@@ -203,17 +215,33 @@ def test_moe_core_matches_reference(mode, cdt):
 
 
 def test_moe_core_later_slices_raise():
+    """What later slices bring raises: expert parallelism (a device
+    holding fewer than all experts, M > 1), the lsh similarity backend
+    and condense-plan reuse. Migration itself is the identity at M = 1."""
     _, tcfg = _cfgs("float32")
     g = torch.Generator().manual_seed(0)
     p = tmoe.moe_init(g, tcfg, device="cpu")
-    x = torch.zeros((1, 8, tcfg.d_model))
-    sb = {"seq_len": torch.full((1,), 8, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="condensation"):
-        tmoe.moe_core(p, x, sb, tcfg, LuffyConfig(), mode="vanilla",
-                      capacity=8)
-    with pytest.raises(NotImplementedError, match="migration"):
-        tmoe.moe_core(p, x, sb, tcfg, LuffyConfig(enable_condensation=False),
-                      mode="migrate", capacity=8)
+    G = LuffyConfig().condense_group
+    x = torch.randn((1, G, tcfg.d_model), generator=g)
+    sb = {"seq_len": torch.full((1,), G, dtype=torch.int32)}
+    thr = torch.tensor(0.5)
+    shard = {**p, "experts": {k: w[:2] for k, w in p["experts"].items()}}
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        tmoe.moe_core(shard, x, sb, tcfg, LuffyConfig(), mode="migrate",
+                      capacity=8, threshold=thr)
+    with pytest.raises(NotImplementedError, match="lsh"):
+        tmoe.moe_core(p, x, sb, tcfg,
+                      LuffyConfig(similarity_backend="lsh"),
+                      mode="vanilla", capacity=8, threshold=thr)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        tmoe.moe_core(p, x, sb, tcfg,
+                      LuffyConfig(condense_reuse="signature"),
+                      mode="vanilla", capacity=8, threshold=thr)
+    y_mig = tmoe.moe_core(p, x, sb, tcfg, LuffyConfig(), mode="migrate",
+                          capacity=8, threshold=thr)[0]
+    y_van = tmoe.moe_core(p, x, sb, tcfg, LuffyConfig(), mode="vanilla",
+                          capacity=8, threshold=thr)[0]
+    assert torch.equal(y_mig, y_van)
 
 
 def test_launcher_cpu_end_to_end():
