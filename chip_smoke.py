@@ -11,8 +11,9 @@ Phases, each of which must pass or the script exits non-zero:
    register / shared-memory / spill report;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the serving and training paths give it (K1 forward and
-   backward, K2 masked similarity, K3 row gather), then timed (CUDA
-   events) beside the plain version, a PyTorch yardstick and its bound;
+   backward, K2 masked similarity, K3 row gather and its backward), then
+   timed (CUDA events) beside the plain version, a PyTorch yardstick and
+   its bound;
 4. slice: full-width moe-gpt2 (16 experts, random weights from a seed)
    served through the port's launcher, ``repro_torch.launch.serve``:
    batched prefill (warm-up + timed), step-wise prompt feed into the KV
@@ -26,11 +27,14 @@ Phases, each of which must pass or the script exits non-zero:
    ``repro_torch.launch.train`` (B=8, S=1024, condensation with the
    adaptive threshold, AdamW, 6 steps, so the rate bucket switches from
    step 3 on). Losses must be finite, the bucket must switch, and K1
-   forward, K1 backward, K2 and K3 must have launched as many times as
-   the path calls them (the per-layer recompute included);
+   forward, K1 backward, K2, K3 and K3's backward must have launched as
+   many times as the path calls them (the per-layer recompute included).
+   The same run is made again from the same seed and must repeat its
+   losses, condensation rates and buckets bit for bit;
 8. train parity: one train step of a 2-layer full-width cut (B=2,
    S=256, f32 compute) on the card against the CPU: rep maps, loss and
-   gradient norm;
+   gradient norm; the card's step, made twice, repeats every gradient
+   bit for bit;
 9. train profile: where one full-width train step's time goes.
 
 Then one JSON line with every kernel's record, and last
@@ -67,9 +71,11 @@ K1_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # per expert at bucket 0; R=8 is decode-like, R=160 ragged.
 K1_BWD_SHAPES = {"train": 2048, "decode": 8, "ragged": 160}
 # K2 at full width: 64 groups of G=128 tokens (B=8 x S=1024); K3 gathers
-# the 8192 token rows.
+# the 8192 token rows. K3's backward sums them into the representatives:
+# at the train run's condensation rate (~0.93) a group of 128 keeps ~9.
 K2_GROUPS, K2_G = 64, 128
 K3_T = 8192
+K3_REPS_PER_GROUP = 9
 K2_TOL = 1e-5          # f32 sums of the same rows in another order
 
 TRAIN_ARGS = ["--arch", "moe-gpt2", "--steps", "6", "--global-batch", "8",
@@ -384,6 +390,49 @@ def phase_kernels_train():
     log(f"  K3: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
         f"{lib_ms:.4f} ms; bound {out['gather_rows']['bound_ms']:.4f} ms "
         f"by bytes")
+
+    # ---- K3 backward: the un-condense map of 64 groups of 128 tokens,
+    # each token sent to one of its group's 9 representatives
+    reps = np.sort(np.stack([r.choice(K2_G, K3_REPS_PER_GROUP, replace=False)
+                             for _ in range(K2_GROUPS)]), axis=1)
+    pick = r.integers(0, K3_REPS_PER_GROUP, (K2_GROUPS, K2_G))
+    rep_of = np.take_along_axis(reps, pick, axis=1)
+    rep_of[np.arange(K2_GROUPS)[:, None], reps] = reps     # reps keep theirs
+    idx = torch.as_tensor((rep_of + K2_G * np.arange(K2_GROUPS)[:, None])
+                          .reshape(-1), device="cuda")
+    dy = torch.randn((K3_T, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    got = kcond.gather_rows_bwd(dy, idx, K3_T)
+    torch.cuda.synchronize()
+    # on the CPU the plain version adds in index order, as the kernel
+    # does: bitwise; on the card it adds with atomics: within f32
+    # reassociation, rounded once to bf16
+    exact = bool(torch.equal(got.cpu(), ref.gather_rows_bwd_ref(
+        dy.cpu(), idx.cpu(), K3_T)))
+    want = ref.gather_rows_bwd_ref(dy, idx, K3_T)
+    err = (got.float() - want.float()).abs().max().item()
+    ok_card = torch.allclose(got.float(), want.float(), atol=1e-5,
+                             rtol=8e-3)
+    again = bool(torch.equal(kcond.gather_rows_bwd(dy, idx, K3_T), got))
+    log(f"  K3 bwd [{K3_T},{D}] bf16, {K3_REPS_PER_GROUP} reps per group of "
+        f"{K2_G}: bitwise equal to the plain version on the CPU: {exact}; "
+        f"against it on the card max|err|={err:.3e} (tol 8e-3 rel) "
+        f"{'ok' if ok_card else 'FAIL'}; a second launch repeats: {again}")
+    if not (exact and ok_card and again):
+        raise SystemExit("K3 backward disagrees with its plain version")
+    ms = time_ms(lambda: kcond.gather_rows_bwd(dy, idx, K3_T), 100)
+    plain_ms = time_ms(lambda: ref.gather_rows_bwd_ref(dy, idx, K3_T), 100)
+    lib_ms = time_ms(lambda: dy.new_zeros((K3_T, D)).index_add_(0, idx, dy),
+                     100)
+    nbytes = 2 * dy.numel() * dy.element_size() + idx.numel() * 8
+    out["gather_rows_bwd"] = dict(ms=ms, plain_ms=plain_ms,
+                                  library_ms=lib_ms,
+                                  **_bound(nbytes, float(dy.numel())),
+                                  max_abs_err=err)
+    log(f"  K3 bwd: kernel (with its sort) {ms:.4f} ms, plain {plain_ms:.4f}"
+        f" ms, bf16 index_add_ {lib_ms:.4f} ms; bound "
+        f"{out['gather_rows_bwd']['bound_ms']:.4f} ms by "
+        f"{out['gather_rows_bwd']['bound_by']}")
     torch.cuda.empty_cache()
     return out
 
@@ -532,12 +581,14 @@ def _kernel_counters():
     return {"expert_ffn": kexp.expert_ffn,
             "expert_ffn_bwd": kexp.expert_ffn_bwd,
             "masked_similarity": ksim.masked_similarity,
-            "gather_rows": kcond.gather_rows}
+            "gather_rows": kcond.gather_rows,
+            "gather_rows_bwd": kcond.gather_rows_bwd}
 
 
 def phase_train():
     """Full-width, full-depth moe-gpt2 trained through the launcher with
-    every kernel counter set to 0 just before and read just after."""
+    every kernel counter set to 0 just before and read just after; then
+    the same run again, which must repeat the first bit for bit."""
     import statistics
     import torch
     from repro_torch.launch import train
@@ -550,7 +601,8 @@ def phase_train():
     n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
     fwd = n_moe * (2 if cfg.remat else 1) * len(steps)   # + recompute
     want = {"expert_ffn": fwd, "expert_ffn_bwd": n_moe * len(steps),
-            "masked_similarity": fwd, "gather_rows": fwd}
+            "masked_similarity": fwd, "gather_rows": fwd,
+            "gather_rows_bwd": n_moe * len(steps)}
     for st in steps:
         log(f"  train step {st['step']}: loss {st['loss']:.5f} "
             f"condense_rate {st['condense_rate']:.5f} bucket {st['bucket']}"
@@ -575,14 +627,26 @@ def phase_train():
     if launches != want:
         raise SystemExit(f"kernel launches {launches} differ from what the "
                          f"path calls, {want}")
-    del res
+    del res, steps
+    torch.cuda.empty_cache()
+    again = train.main(TRAIN_ARGS)["steps"]
+    same = {k: [st[k] for st in again] == info[key]
+            for k, key in (("loss", "losses"),
+                           ("condense_rate", "condense_rates"),
+                           ("bucket", "buckets"))}
+    info["repeat_bitwise"] = same
+    log(f"train repeat, same seed: bit-equal {same}; losses "
+        f"{[st['loss'] for st in again]}")
+    if not all(same.values()):
+        raise SystemExit(f"the train run does not repeat: {same}")
+    del again
     torch.cuda.empty_cache()
     return info
 
 
 def _train_step_once(model, batch, cap, luffy, thr):
-    """Loss, global gradient norm and per-call rep maps of one forward
-    and backward."""
+    """Loss, global gradient norm, per-call rep maps and the gradients of
+    one forward and backward."""
     import torch
     import repro_torch.condense.plan as tplan
     reps = []
@@ -600,10 +664,10 @@ def _train_step_once(model, batch, cap, luffy, thr):
         loss.backward()
     finally:
         tplan.condense_tokens = orig
-    gn = torch.sqrt(sum(torch.sum(p.grad.double() ** 2)
-                        for p in model.parameters())).item()
+    grads = [p.grad for p in model.parameters()]
+    gn = torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads)).item()
     model.zero_grad(set_to_none=True)
-    return loss.item(), gn, reps
+    return loss.item(), gn, reps, grads
 
 
 def phase_train_parity():
@@ -626,17 +690,22 @@ def phase_train_parity():
     cap = capacity_for(cfg.moe, B * S, cfg.moe.num_experts)
     thr = torch.tensor(0.6)
     runs = {}
-    for dev in ("cuda", "cpu"):
-        model.to(dev)
-        tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        runs[dev] = _train_step_once(model, tb, cap, luffy, thr.to(dev))
-    (lg, gg, rg), (lc, gc, rc) = runs["cuda"], runs["cpu"]
+    for dev in ("cuda", "cuda_again", "cpu"):
+        model.to(dev[:4])
+        tb = {k: torch.as_tensor(v, device=dev[:4])
+              for k, v in batch.items()}
+        runs[dev] = _train_step_once(model, tb, cap, luffy, thr.to(dev[:4]))
+    (lg, gg, rg, dg), (lc, gc, rc, _) = runs["cuda"], runs["cpu"]
+    la, _, ra, da = runs["cuda_again"]
+    repeats = (la == lg and all(torch.equal(a, b) for a, b in zip(ra, rg))
+               and all(torch.equal(a, b) for a, b in zip(da, dg)))
     n_tok = sum(r.numel() for r in rc)
     n_diff = sum(int((a != b).sum()) for a, b in zip(rg, rc))
     info = dict(loss_cuda=lg, loss_cpu=lc, loss_rel=abs(lg - lc) / abs(lc),
                 grad_norm_cuda=gg, grad_norm_cpu=gc,
                 grad_norm_rel=abs(gg - gc) / gc, rep_tokens=n_tok,
-                rep_differ=n_diff, rep_agree=1 - n_diff / n_tok)
+                rep_differ=n_diff, rep_agree=1 - n_diff / n_tok,
+                cuda_repeats_bitwise=repeats)
     log("train parity: " + json.dumps(info))
     if len(rg) != len(rc) or info["rep_agree"] < 0.999:
         raise SystemExit(f"rep maps differ on {n_diff} of {n_tok} tokens")
@@ -644,7 +713,9 @@ def phase_train_parity():
         raise SystemExit(f"cuda vs cpu train loss differ: {info}")
     if not info["grad_norm_rel"] <= 1e-3:
         raise SystemExit(f"cuda vs cpu gradient norm differ: {info}")
-    del model
+    if not repeats:
+        raise SystemExit("the card's train step does not repeat bit for bit")
+    del model, runs, dg, da
     torch.cuda.empty_cache()
     return info
 
@@ -653,7 +724,8 @@ KERNEL_OPS = {"expert_ffn": ("gate_up_kernel", "down_kernel"),
               "expert_ffn_bwd": ("hidden_kernel", "wgrad_kernel",
                                  "dh_kernel"),
               "masked_similarity": ("sim_kernel",),
-              "gather_rows": ("gather_kernel",)}
+              "gather_rows": ("gather_kernel",),
+              "gather_rows_bwd": ("segment_sum_kernel",)}
 
 
 def phase_train_profile():
@@ -764,6 +836,12 @@ def main() -> int:
                 "src/repro/kernels/condense.py:26", tl["gather_rows"],
                 timed_train["gather_rows"],
                 {"timed_at": "[8192,768] bf16 rows"}),
+        _record("gather_rows_bwd", "src/repro_torch/csrc/condense.cu",
+                "src/repro/kernels/condense.py:26 (no Pallas backward; XLA "
+                "transposes the reference's gather)", tl["gather_rows_bwd"],
+                timed_train["gather_rows_bwd"],
+                {"timed_at": "[8192,768] bf16 rows, 9 representatives per "
+                             "group of 128, the sort included"}),
     ]
     log(f"total {time.perf_counter() - t_start:.1f}s on {smi}")
     print(smi, flush=True)

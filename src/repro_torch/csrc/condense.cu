@@ -1,4 +1,5 @@
-// Row gather for Hopper (sm_90a), plain C interface: out[i] = y[idx[i]].
+// Row gather for Hopper (sm_90a), plain C interface: out[i] = y[idx[i]],
+// and its backward, dx[j] = sum of dy[i] over the i with idx[i] = j.
 //
 // Replaces the Pallas kernel repro/kernels/condense.py::_gather_kernel (K3),
 // the un-condense step of token condensation (paper §VI, token_to_token):
@@ -12,12 +13,23 @@
 // the widest width that divides the row and the alignment). Index loads
 // are one per warp.
 //
-// What bounds it on an H100: bytes. At moe-gpt2's full train width
+// The backward is the port's own: the reference's gradient is XLA's
+// transpose of jnp.take. It is a segmented sum, not a scatter-add: the
+// wrapper sorts idx stably (order) and finds where each destination's run
+// of sources starts (start, n_dst + 1 entries); one warp per destination
+// row adds its sources' rows in f32, in ascending source order, and
+// writes the row once in dy's type. No atomics, so a run repeats bit for
+// bit, and the sums equal index_add_'s on the CPU, which adds in index
+// order too.
+//
+// What bounds both on an H100: bytes. At moe-gpt2's full train width
 // (T = 8192 rows of d = 768 bf16) one launch reads and writes 12.6 MB
 // each, about 7.5 us at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -46,6 +58,24 @@ void launch(const void* y, const int64_t* idx, void* out, int T, int n_src,
       static_cast<const V*>(y), idx, static_cast<V*>(out), T, n_src, vec);
 }
 
+template <typename T>
+__global__ void __launch_bounds__(NT)
+segment_sum_kernel(const T* __restrict__ dy, const int64_t* __restrict__ order,
+                   const int64_t* __restrict__ start, T* __restrict__ dx,
+                   int n_dst, int d) {
+  const int row = blockIdx.x * ROWS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= n_dst) return;
+  const int64_t b = start[row], e = start[row + 1];
+  T* o = dx + (size_t)row * d;
+  for (int c = lane; c < d; c += 32) {
+    float acc = 0.0f;
+    for (int64_t k = b; k < e; ++k)
+      acc += to_f32(dy[(size_t)order[k] * d + c]);
+    o[c] = from_f32<T>(acc);
+  }
+}
+
 }  // namespace
 
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
@@ -66,5 +96,29 @@ extern "C" int gather_rows_launch(const void* y, const void* idx, void* out,
     launch<uint16_t>(y, ix, out, T, n_src, row_bytes, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the backward on `stream`; returns cudaGetLastError() (0 = ok).
+// dy is [T, d] in f32 (bf16 = 0) or bf16 (bf16 = 1); order is int64 [T],
+// the stable sort permutation of the forward's idx; start is int64
+// [n_dst + 1], where destination j's sources begin in order (start[n_dst]
+// = T); dx is [n_dst, d] in dy's type. Nothing is allocated here.
+extern "C" int gather_rows_bwd_launch(const void* dy, const void* order,
+                                      const void* start, void* dx, int n_dst,
+                                      int d, int bf16, void* stream) {
+  cudaGetLastError();  // start from a clean slate; report only our launch
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t* ord = static_cast<const int64_t*>(order);
+  const int64_t* st = static_cast<const int64_t*>(start);
+  const dim3 grid((n_dst + ROWS - 1) / ROWS);
+  if (bf16)
+    segment_sum_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(dy), ord, st,
+        static_cast<__nv_bfloat16*>(dx), n_dst, d);
+  else
+    segment_sum_kernel<float><<<grid, NT, 0, s>>>(
+        static_cast<const float*>(dy), ord, st, static_cast<float*>(dx),
+        n_dst, d);
   return static_cast<int>(cudaGetLastError());
 }

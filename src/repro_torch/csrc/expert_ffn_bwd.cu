@@ -27,8 +27,9 @@
 //      block.
 //   3. dh:     one block per (d tile, R tile, expert) reduces
 //      DU @ Wu^T + DG @ Wg^T over F.
-// Each block is 256 threads, each owning a TMx4 micro-tile strided by 16;
-// the R-tiled kernels take TM=4 (64 rows) and, for R <= 16, TM=1.
+// Each block is 256 threads, each owning a 4x4 micro-tile strided by 16,
+// so a block covers 64 rows (masked where R is ragged or short) and 64
+// columns.
 //
 // What bounds it on an H100: operations. The backward does 8 matrix
 // products of the forward's size (two recomputed, dhh, three weight
@@ -42,19 +43,21 @@
 
 namespace {
 
+constexpr int BM = 64;   // rows of the output tile
 constexpr int BN = 64;   // columns of the output tile
+constexpr int BK = 16;   // depth of one shared-memory slab
+constexpr int TM = 4;    // rows per thread (strided by 16)
 constexpr int TN = 4;    // columns per thread (strided by 16)
 constexpr int NT = 256;  // threads per block: 16 x 16
 
 // ---- 1. recompute gt, up and dhh; write P, DU, DG ------------------------
-template <int TM, int BK, typename TH, typename TW>
+template <typename TH, typename TW>
 __global__ void __launch_bounds__(NT)
 hidden_kernel(const TH* __restrict__ h, const TH* __restrict__ dy,
               const TW* __restrict__ wu, const TW* __restrict__ wg,
               const TW* __restrict__ wd, float* __restrict__ P,
               float* __restrict__ DU, float* __restrict__ DG, int R, int d,
               int F, int act) {
-  constexpr int BM = 16 * TM;
   __shared__ float sH[BK][BM + 1];
   __shared__ float sY[BK][BM + 1];
   __shared__ float sU[BK][BN];
@@ -152,8 +155,6 @@ __device__ __forceinline__ void atb_tile(const TA* __restrict__ A,
                                          int N, int m0, int n0,
                                          float (*sA)[BN + 1],
                                          float (*sB)[BN + 1]) {
-  constexpr int BK = 16;
-  constexpr int TM = 4;
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
@@ -204,8 +205,8 @@ wgrad_kernel(const TH* __restrict__ h, const TH* __restrict__ dy,
              const float* __restrict__ DG, float* __restrict__ dwu,
              float* __restrict__ dwg, float* __restrict__ dwd, int E, int R,
              int d, int F) {
-  __shared__ float sA[16][BN + 1];
-  __shared__ float sB[16][BN + 1];
+  __shared__ float sA[BK][BN + 1];
+  __shared__ float sB[BK][BN + 1];
   const int which = blockIdx.z / E;
   const int e = blockIdx.z % E;
   const size_t rd = (size_t)e * R * d, rf = (size_t)e * R * F;
@@ -225,12 +226,11 @@ wgrad_kernel(const TH* __restrict__ h, const TH* __restrict__ dy,
 }
 
 // ---- 3. dh = DU @ Wu^T + DG @ Wg^T ----------------------------------------
-template <int TM, int BK, typename TH, typename TW>
+template <typename TH, typename TW>
 __global__ void __launch_bounds__(NT)
 dh_kernel(const float* __restrict__ DU, const float* __restrict__ DG,
           const TW* __restrict__ wu, const TW* __restrict__ wg,
           TH* __restrict__ dh, int R, int d, int F) {
-  constexpr int BM = 16 * TM;
   __shared__ float sU[BK][BM + 1];
   __shared__ float sG[BK][BM + 1];
   __shared__ float sWu[BK][BN];
@@ -302,48 +302,25 @@ dh_kernel(const float* __restrict__ DU, const float* __restrict__ DG,
   }
 }
 
-template <int TM, int BK, typename TH, typename TW>
-void launch_hidden(const void* h, const void* dy, const void* wu,
-                   const void* wg, const void* wd, float* P, float* DU,
-                   float* DG, int E, int R, int d, int F, int act,
-                   cudaStream_t s) {
-  constexpr int BM = 16 * TM;
-  const dim3 g1((F + BN - 1) / BN, (R + BM - 1) / BM, E);
-  hidden_kernel<TM, BK, TH, TW><<<g1, NT, 0, s>>>(
-      static_cast<const TH*>(h), static_cast<const TH*>(dy),
-      static_cast<const TW*>(wu), static_cast<const TW*>(wg),
-      static_cast<const TW*>(wd), P, DU, DG, R, d, F, act);
-}
-
-template <int TM, int BK, typename TH, typename TW>
-void launch_dh(const void* wu, const void* wg, void* dh, const float* DU,
-               const float* DG, int E, int R, int d, int F, cudaStream_t s) {
-  constexpr int BM = 16 * TM;
-  const dim3 g3((d + BN - 1) / BN, (R + BM - 1) / BM, E);
-  dh_kernel<TM, BK, TH, TW><<<g3, NT, 0, s>>>(
-      DU, DG, static_cast<const TW*>(wu), static_cast<const TW*>(wg),
-      static_cast<TH*>(dh), R, d, F);
-}
-
 template <typename TH, typename TW>
 void launch(const void* h, const void* dy, const void* wu, const void* wg,
             const void* wd, void* dh, float* dwu, float* dwg, float* dwd,
             float* P, float* DU, float* DG, int E, int R, int d, int F,
             int act, cudaStream_t s) {
-  if (R <= 16)
-    launch_hidden<1, 32, TH, TW>(h, dy, wu, wg, wd, P, DU, DG, E, R, d, F,
-                                 act, s);
-  else
-    launch_hidden<4, 16, TH, TW>(h, dy, wu, wg, wd, P, DU, DG, E, R, d, F,
-                                 act, s);
+  const TH* th = static_cast<const TH*>(h);
+  const TH* tdy = static_cast<const TH*>(dy);
+  const TW* tu = static_cast<const TW*>(wu);
+  const TW* tg = static_cast<const TW*>(wg);
+  const dim3 g1((F + BN - 1) / BN, (R + BM - 1) / BM, E);
+  hidden_kernel<TH, TW><<<g1, NT, 0, s>>>(th, tdy, tu, tg,
+                                          static_cast<const TW*>(wd), P, DU,
+                                          DG, R, d, F, act);
   const int tiles = ((d + BN - 1) / BN) * ((F + BN - 1) / BN);
   wgrad_kernel<TH><<<dim3(tiles, 1, 3 * E), NT, 0, s>>>(
-      static_cast<const TH*>(h), static_cast<const TH*>(dy), P, DU, DG, dwu,
-      dwg, dwd, E, R, d, F);
-  if (R <= 16)
-    launch_dh<1, 32, TH, TW>(wu, wg, dh, DU, DG, E, R, d, F, s);
-  else
-    launch_dh<4, 16, TH, TW>(wu, wg, dh, DU, DG, E, R, d, F, s);
+      th, tdy, P, DU, DG, dwu, dwg, dwd, E, R, d, F);
+  const dim3 g3((d + BN - 1) / BN, (R + BM - 1) / BM, E);
+  dh_kernel<TH, TW><<<g3, NT, 0, s>>>(DU, DG, tu, tg, static_cast<TH*>(dh),
+                                      R, d, F);
 }
 
 }  // namespace

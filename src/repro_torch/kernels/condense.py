@@ -1,12 +1,14 @@
-"""Row gather on the card: the wrapper of ``csrc/condense.cu`` (the port
+"""Row gather on the card: the wrappers of ``csrc/condense.cu`` (the port
 of Pallas kernel K3, ``repro/kernels/condense.py::gather_rows``), the
-un-condense step ``y[rep_idx]``.
+un-condense step ``y[rep_idx]``, and of its backward.
 
-:class:`GatherRows` is its autograd function: the gradient of a row
-gather is a scatter-add of ``dy`` into the representatives, done with
-``index_add_`` into an f32 buffer and cast back (the reference gets it
-from XLA's transpose of ``jnp.take``, outside any Pallas kernel). The
-plain version is :func:`repro_torch.kernels.ref.gather_rows_ref`.
+:class:`GatherRows` is its autograd function. The gradient of a row
+gather sums ``dy`` into the representatives (the reference gets it from
+XLA's transpose of ``jnp.take``, outside any Pallas kernel); the port's
+backward kernel forms those sums in f32, in a fixed order, with no
+atomics, so a train step repeats bit for bit. The plain versions are
+:func:`repro_torch.kernels.ref.gather_rows_ref` and
+:func:`repro_torch.kernels.ref.gather_rows_bwd_ref`.
 """
 from __future__ import annotations
 
@@ -55,8 +57,45 @@ def gather_rows(y, rep_idx):
 gather_rows.launches = 0
 
 
+def gather_rows_bwd(dy, rep_idx, n_src: int):
+    """dy: [T, d] f32 or bf16 on a CUDA device; rep_idx: [T] integer, each
+    in [0, n_src). Launches the backward kernel on the current stream;
+    returns dx [n_src, d] in dy's dtype, row j the f32 sum of the dy rows
+    i with rep_idx[i] = j in ascending i. Adds one to
+    ``gather_rows_bwd.launches`` per launch."""
+    if dy.device.type != "cuda" or rep_idx.device != dy.device:
+        raise ValueError(f"dy and rep_idx must lie on one CUDA device, got "
+                         f"{dy.device} and {rep_idx.device}")
+    if dy.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dy must be float32 or bfloat16, got {dy.dtype}")
+    if dy.dim() != 2 or rep_idx.shape != dy.shape[:1]:
+        raise ValueError(f"dy must be [T, d] and rep_idx [T], got "
+                         f"{tuple(dy.shape)} and {tuple(rep_idx.shape)}")
+    dy = dy.contiguous()
+    # the sources of each destination, in ascending order: a stable sort
+    # and where each destination's run of them starts
+    srt, order = torch.sort(rep_idx.to(torch.int64), stable=True)
+    start = torch.searchsorted(
+        srt, torch.arange(n_src + 1, dtype=torch.int64, device=dy.device))
+    dx = torch.empty((n_src, dy.shape[1]), dtype=dy.dtype, device=dy.device)
+    fn = _build.entry("condense", "gather_rows_bwd_launch", 4, 3)
+    with torch.cuda.device(dy.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(dy.data_ptr(), order.data_ptr(), start.data_ptr(),
+                dx.data_ptr(), n_src, dy.shape[1],
+                int(dy.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"gather_rows_bwd launch failed: cudaError {rc}")
+    gather_rows_bwd.launches += 1
+    return dx
+
+
+gather_rows_bwd.launches = 0
+
+
 class GatherRows(torch.autograd.Function):
-    """K3 as a differentiable op (CUDA only); the index gets no gradient."""
+    """K3 and its backward as a differentiable op (CUDA only); the index
+    gets no gradient."""
 
     @staticmethod
     def forward(ctx, y, rep_idx):
@@ -67,7 +106,4 @@ class GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         (rep_idx,) = ctx.saved_tensors
-        dx = torch.zeros((ctx.n_src, dy.shape[1]), dtype=torch.float32,
-                         device=dy.device)
-        dx.index_add_(0, rep_idx.to(torch.int64), dy.float())
-        return dx.to(dy.dtype), None
+        return gather_rows_bwd(dy, rep_idx, ctx.n_src), None

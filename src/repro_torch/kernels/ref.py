@@ -42,3 +42,14 @@ def masked_similarity_ref(x, mask):
 def gather_rows_ref(y, rep_idx):
     """y: [T_src, d]; rep_idx: [T] -> y[rep_idx] (differentiable)."""
     return torch.index_select(y, 0, rep_idx.to(torch.int64))
+
+
+def gather_rows_bwd_ref(dy, rep_idx, n_src: int):
+    """The gradient of ``gather_rows_ref``: row j of the [n_src, d] result
+    is the f32 sum of the rows dy[i] with rep_idx[i] = j, cast to dy's
+    dtype. On the CPU ``index_add_`` adds in index order, as the kernel
+    does; on the card it adds with atomics, in no fixed order."""
+    dx = torch.zeros((n_src, dy.shape[1]), dtype=torch.float32,
+                     device=dy.device)
+    dx.index_add_(0, rep_idx.to(torch.int64), dy.float())
+    return dx.to(dy.dtype)

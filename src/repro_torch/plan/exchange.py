@@ -166,7 +166,10 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig
     # ---- combine: each copy's row back to its token, gate-weighted
     # index_select, not y[slot]: its backward is an index_add_, where
     # advanced indexing's sorts the indices (15 ms per layer at B=8,
-    # S=1024 on an H100)
+    # S=1024 on an H100). Each kept slot is read by one copy only, so the
+    # index_add_ adds one value into zero per row, exact in any order:
+    # the gradient repeats bit for bit. Only the trash row, whose
+    # gradient is dropped, takes several.
     gw = plan.gate_weights.reshape(-1, 1).to(cdt) * v_f[:, None].to(cdt)
     vals = y.index_select(0, slot) * gw                       # [T*k, d]
     delta = vals.reshape(T, k, d).sum(dim=1)

@@ -136,6 +136,32 @@ def test_gather_rows_plain_matches_pallas_and_grad(dtype):
                                    atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_rows_bwd_plain_matches_jax_grad(dtype):
+    """The plain version of K3's backward, which the card's segmented-sum
+    kernel is held to: f32 sums in ascending source order (bitwise those
+    of np.add.at), cast once to dy's dtype; against jax.grad of the
+    reference's gather."""
+    T, n_src, d = 512, 300, 48
+    r = np.random.default_rng(8)
+    idx = r.integers(0, n_src, T).astype(np.int32)
+    dy = r.standard_normal((T, d)).astype(np.float32)
+    dt = getattr(torch, dtype)
+    got = ref.gather_rows_bwd_ref(torch.as_tensor(dy).to(dt),
+                                  torch.as_tensor(idx), n_src)
+    assert got.dtype == dt and got.shape == (n_src, d)
+    dy_t = torch.as_tensor(dy).to(dt).float().numpy()
+    seq = np.zeros((n_src, d), np.float32)
+    np.add.at(seq, idx, dy_t)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  torch.as_tensor(seq).to(dt).float().numpy())
+    g_ref = jax.grad(lambda v: jnp.sum(jref.gather_rows_ref(
+        v, jnp.asarray(idx)) * dy_t))(jnp.zeros((n_src, d), jnp.float32))
+    tol = 1e-6 if dtype == "float32" else 8e-3
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(g_ref),
+                               atol=1e-6, rtol=tol)
+
+
 @pytest.mark.parametrize("R", [8, 20])
 @pytest.mark.parametrize("act", ["silu", "gelu"])
 def test_expert_ffn_backward_plain_matches_jax_grad(R, act):

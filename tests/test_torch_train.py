@@ -189,6 +189,59 @@ def test_gradients_f32_match_jax_grad(setup, monkeypatch):
     np.testing.assert_allclose(np.sqrt(sq_got), np.sqrt(sq_want), rtol=1e-4)
 
 
+def test_remat_matches_plain_forward(setup, monkeypatch):
+    """``cfg.remat`` (a checkpoint per layer, as the full-width train path
+    runs) against the same step without it, at f32: the same loss and
+    metrics, the backward's recompute takes the forward's rep maps, and
+    every gradient leaf but the tied embedding table is equal bit for
+    bit."""
+    _, tcfg = _cfgs("float32")
+    calls = []
+    orig = tplan.condense_tokens
+
+    def rec(*a, **kw):
+        out = orig(*a, **kw)
+        calls.append(out.rep_idx.clone())
+        return out
+
+    monkeypatch.setattr(tplan, "condense_tokens", rec)
+    batch = {k: torch.as_tensor(v) for k, v in setup["batch"].items()}
+    runs = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(tcfg, remat=remat)
+        params = convert.from_reference(setup["np_params"], cfg)
+        for _, p in optim.leaves_with_path(params):
+            p.requires_grad_()
+        calls.clear()
+        loss, m = ttf.forward_train(params, cfg, LuffyConfig(), batch,
+                                    torch.tensor(THR), setup["cap"])
+        n_fwd = len(calls)
+        loss.backward()
+        runs[remat] = (loss.detach(), m, list(calls), n_fwd,
+                       list(optim.leaves_with_path(
+                           optim.tree_map(lambda p: p.grad, params))))
+    (l0, m0, r0, n0, g0), (l1, m1, r1, n1, g1) = runs[False], runs[True]
+    assert n0 == n1 == 2 and len(r0) == 2 and len(r1) == 4
+    for i in range(2):
+        assert torch.equal(r1[i], r0[i]), f"layer {i} forward rep map"
+        # the backward recomputes the layers last to first
+        assert torch.equal(r1[3 - i], r0[i]), f"layer {i} recompute rep map"
+    assert torch.equal(l1, l0)
+    assert m1.keys() == m0.keys()
+    for k in m0:
+        assert torch.equal(m1[k], m0[k]), k
+    assert [p for p, _ in g1] == [p for p, _ in g0] and len(g0) > 10
+    for (path, a), (_, b) in zip(g1, g0):
+        assert a is not None, path
+        if path == "embed/table":
+            # the residual stream's gradient into layer 0 is summed by
+            # the autograd engine in another order once that layer is
+            # checkpointed: 1 ulp apart (1.2e-7 at 0.43)
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+        else:
+            assert torch.equal(a, b), path
+
+
 def test_adamw_trajectory_matches_jax_loop(setup, monkeypatch):
     """Three train steps (adaptive threshold from step 2 on) through the
     host loop of both launchers' shape: losses and buckets."""
