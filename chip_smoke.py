@@ -35,7 +35,29 @@ Phases, each of which must pass or the script exits non-zero:
    S=256, f32 compute) on the card against the CPU: rep maps, loss and
    gradient norm; the card's step, made twice, repeats every gradient
    bit for bit;
-9. train profile: where one full-width train step's time goes.
+9. train profile: where one full-width train step's time goes;
+10. K4: the dedup wire's pack-quantize kernel (f8 and cast variants) and
+    its backward kernel against their plain versions on the card, at the
+    expert-parallel train shape (8192 token rows of 768, 4 ranks x 2 nodes
+    x 2048 wire slots) and at d=33 with empty slots; bitwise for the
+    forward, then timed beside the plain version, the PyTorch composite
+    (index_select, then the codec) and the byte bound;
+11. EP train: full-width, full-depth moe-gpt2 trained expert-parallel over
+    4 virtual ranks (2 nodes x 2) through ``repro_torch.launch.train
+    --model-axis 4 --comm-mode hier --nodes 2 --hier-dedup on --wire-dtype
+    f8e4m3`` (B=8, S=1024, condensation and migration on, 6 steps): the
+    shipped-bytes law on every step, exact launch counts of K1 forward and
+    backward, K2, K3, K3's backward, K4 and K4's backward, and a second
+    run from the same seed bit-equal (losses, rates, buckets and every
+    migration perm);
+12. EP bf16 wire: the same at ``--wire-dtype bf16`` for 2 steps, which
+    launches K4's cast kernel;
+13. EP parity: one f32 EP step of a 2-layer full-width cut (B=4, S=256,
+    4 ranks) on the card against the CPU: loss, gradient norm, migration
+    perms and rep maps;
+14. EP profile: where one full-width EP train step's time goes, with the
+    host planner's time and the device time of the virtual-rank
+    collectives (device-memory permutes, not network transfers) and K4.
 
 Then one JSON line with every kernel's record, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -81,6 +103,18 @@ K2_TOL = 1e-5          # f32 sums of the same rows in another order
 TRAIN_ARGS = ["--arch", "moe-gpt2", "--steps", "6", "--global-batch", "8",
               "--seq-len", "1024", "--device", "cuda", "--seed", "0"]
 TRAIN_PARITY = dict(B=2, S=256, layers=2)
+
+EP_FLAGS = ["--model-axis", "4", "--comm-mode", "hier", "--nodes", "2",
+            "--hier-dedup", "on"]
+EP_ARGS = (TRAIN_ARGS + EP_FLAGS + ["--wire-dtype", "f8e4m3"])
+EP_BF16_ARGS = ["--arch", "moe-gpt2", "--steps", "2", "--global-batch", "8",
+                "--seq-len", "1024", "--device", "cuda", "--seed", "0"] \
+    + EP_FLAGS + ["--wire-dtype", "bf16"]
+EP_PARITY = dict(B=4, S=256, layers=2, M=4, nodes=2)
+# K4 at the EP train shape: 4 ranks x 2048 tokens of 768, top-2 routing
+# over 16 experts (4 per rank, 2 nodes of 2 ranks), a third of the tokens
+# kept (condensation drops the rest, as at the first steps)
+K4_M, K4_N, K4_T, K4_KEEP = 4, 2, 2048, 0.35
 
 SERVE_ARGS = ["--arch", "moe-gpt2", "--batch", "8", "--prompt-len", "128",
               "--gen", "32", "--prefill", "batch", "--device", "cuda",
@@ -577,12 +611,16 @@ def phase_profile():
 def _kernel_counters():
     from repro_torch.kernels import condense as kcond
     from repro_torch.kernels import expert_ffn as kexp
+    from repro_torch.kernels import pack as kpack
     from repro_torch.kernels import similarity as ksim
     return {"expert_ffn": kexp.expert_ffn,
             "expert_ffn_bwd": kexp.expert_ffn_bwd,
             "masked_similarity": ksim.masked_similarity,
             "gather_rows": kcond.gather_rows,
-            "gather_rows_bwd": kcond.gather_rows_bwd}
+            "gather_rows_bwd": kcond.gather_rows_bwd,
+            "pack_quant": kpack.pack_quant,
+            "pack_cast": kpack.pack_cast,
+            "pack_quant_bwd": kpack.pack_quant_bwd}
 
 
 def phase_train():
@@ -602,7 +640,8 @@ def phase_train():
     fwd = n_moe * (2 if cfg.remat else 1) * len(steps)   # + recompute
     want = {"expert_ffn": fwd, "expert_ffn_bwd": n_moe * len(steps),
             "masked_similarity": fwd, "gather_rows": fwd,
-            "gather_rows_bwd": n_moe * len(steps)}
+            "gather_rows_bwd": n_moe * len(steps), "pack_quant": 0,
+            "pack_cast": 0, "pack_quant_bwd": 0}
     for st in steps:
         log(f"  train step {st['step']}: loss {st['loss']:.5f} "
             f"condense_rate {st['condense_rate']:.5f} bucket {st['bucket']}"
@@ -781,6 +820,443 @@ def phase_train_profile():
     return info
 
 
+def _k4_tok(gen):
+    """The dedup wire's slot -> token map at the EP train shape, built as
+    ``repro_torch.condense.wire.dedup_dispatch`` builds it: each kept
+    token's one row per destination node."""
+    import torch
+    from repro_torch.condense.wire import dedup_capacity
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe_layer import capacity_for
+    cfg = get_config("moe-gpt2")
+    M, N, T = K4_M, K4_N, K4_T
+    E, L = cfg.moe.num_experts, K4_M // K4_N
+    e_local = E // M
+    C = capacity_for(cfg.moe, T, E)
+    C_u = dedup_capacity(T, e_local, L, C)
+    first = torch.randint(0, E, (M, T), generator=gen, device="cuda")
+    second = (first + torch.randint(1, E, (M, T), generator=gen,
+                                    device="cuda")) % E
+    keep = torch.rand((M, T), generator=gen, device="cuda") < K4_KEEP
+    node = torch.stack([first, second], -1) // e_local // L       # [M,T,2]
+    headed = (node[..., None] == torch.arange(N, device="cuda")).any(2) \
+        & keep[..., None]                                         # [M,T,N]
+    h = headed.long()
+    urank = torch.cumsum(h, 1) - h
+    ranks = torch.arange(M, device="cuda")
+    slot = (ranks[:, None, None] * N + torch.arange(N, device="cuda")) \
+        * C_u + urank
+    R = M * N * C_u
+    tok = torch.full((R + 1,), -1, dtype=torch.int32, device="cuda")
+    gid = (ranks[:, None, None] * T
+           + torch.arange(T, device="cuda")[None, :, None]).expand(M, T, N)
+    tok[torch.where(headed, slot, torch.full_like(slot, R)).reshape(-1)] = \
+        gid.reshape(-1).to(torch.int32)
+    return tok[:R], C_u
+
+
+def phase_kernels_k4():
+    """K4 (f8 and cast) and its backward against their plain versions on
+    the card, then timed. Returns {record name: record}."""
+    import torch
+    from repro_torch.comm import dtypes as wdt
+    from repro_torch.kernels import pack as kpack
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(777)
+    tok, C_u = _k4_tok(gen)
+    R = tok.numel()
+    n_rows = int((tok >= 0).sum())
+    x = torch.randn((K4_M * K4_T, D), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+
+    def u8(t):
+        return t.view(torch.uint8) if t.dtype == wdt.F8 else t
+
+    checks = []
+    small_x = torch.randn((64, 33), generator=gen, device="cuda")
+    small_tok = torch.randint(-1, 64, (96,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+    small_tok[::7] = -1
+    for name, xx, tt in (("train", x, tok), ("d33", small_x, small_tok),
+                         ("d33_bf16", small_x.to(torch.bfloat16),
+                          small_tok)):
+        for wire in ("f8e4m3", "bf16", "f32"):
+            q, sc = kpack.pack_quantize(xx, tt, wire)
+            torch.cuda.synchronize()
+            wq, wsc = ref.pack_quantize_ref(xx, tt, wire)
+            ok = torch.equal(u8(q), u8(wq)) and (
+                sc is None or torch.equal(sc, wsc))
+            again = kpack.pack_quantize(xx, tt, wire)[0]
+            ok = ok and torch.equal(u8(again), u8(q))
+            checks.append(dict(shape=name, wire=wire, ok=ok))
+            log(f"  K4 {name:8s} {tuple(xx.shape)} -> {tuple(q.shape)} "
+                f"{wire:6s}: bitwise equal to the plain version and "
+                f"repeats: {ok}")
+    if not all(c["ok"] for c in checks):
+        raise SystemExit(f"K4 disagrees with its plain version: {checks}")
+    out = {}
+    d_pad = wdt.pad_to_block(D)
+    in_bytes = n_rows * D * x.element_size() + R * 4
+    for wire, rec_name in (("f8e4m3", "pack_quantize_f8"),
+                           ("bf16", "pack_quantize_cast")):
+        ms = time_ms(lambda: kpack.pack_quantize(x, tok, wire), 50)
+        plain_ms = time_ms(lambda: ref.pack_quantize_ref(x, tok, wire), 50)
+        lib_ms = time_ms(lambda: wdt.quantize_rows(
+            x.index_select(0, tok.clamp(min=0).long()), wire), 50)
+        out_bytes = (R * d_pad + R * (d_pad // 32) * 4 if wire == "f8e4m3"
+                     else R * D * 2)
+        out[rec_name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             rows=R, filled_rows=n_rows,
+                             **_bound(in_bytes + out_bytes, 0.0),
+                             max_abs_err=0.0)
+        log(f"  K4 {wire} [{K4_M * K4_T},{D}] bf16 -> {R} wire rows "
+            f"({n_rows} filled): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, index_select+codec {lib_ms:.4f} ms; bound "
+            f"{out[rec_name]['bound_ms']:.4f} ms by bytes")
+    # the backward kernel: the f8 codec's transpose at the same rows
+    g = (torch.randn((R, D), generator=gen, device="cuda") * 1e-2) \
+        .to(torch.bfloat16)
+    got = kpack.pack_quant_bwd(x, tok, g)
+    torch.cuda.synchronize()
+    want = ref.pack_quant_bwd_ref(x, tok, g)
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    again = torch.equal(kpack.pack_quant_bwd(x, tok, g), got)
+    ok = err <= 2e-2 * scale and again
+    log(f"  K4 bwd [{R},{D}] bf16: max|err|={err:.3e} (tol 2e-2 x "
+        f"{scale:.3e}: one bf16 rounding of sums in another order); "
+        f"repeats {again} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("K4's backward disagrees with its plain version")
+    ms = time_ms(lambda: kpack.pack_quant_bwd(x, tok, g), 50)
+    plain_ms = time_ms(lambda: ref.pack_quant_bwd_ref(x, tok, g), 20)
+    nbytes = in_bytes + 2 * R * D * 2
+    out["pack_quantize_bwd"] = dict(ms=ms, plain_ms=plain_ms,
+                                    library_ms=None,
+                                    **_bound(nbytes, 0.0), max_abs_err=err)
+    log(f"  K4 bwd: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+        f"{out['pack_quantize_bwd']['bound_ms']:.4f} ms by bytes")
+    del x, tok, g, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _record_perms():
+    """Wrap the expert-parallel planner entry to keep every plan's perm
+    (forward and recompute calls). Returns (list, undo)."""
+    import repro_torch.plan.exchange as tex
+    perms = []
+    orig = tex.build_exchange_plan_ranks
+
+    def rec(*a, **kw):
+        pl = orig(*a, **kw)
+        perms.append(None if pl.perm is None else pl.perm.copy())
+        return pl
+
+    tex.build_exchange_plan_ranks = rec
+
+    def undo():
+        tex.build_exchange_plan_ranks = orig
+
+    return perms, undo
+
+
+def _ep_run(args):
+    """One launcher run with every kernel counter set to 0 just before
+    and read just after; returns (result, launches, perms)."""
+    from repro_torch.launch import train
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    perms, undo = _record_perms()
+    try:
+        res = train.main(args)
+    finally:
+        undo()
+    return res, {k: fn.launches for k, fn in counters.items()}, perms
+
+
+def _ep_expected(cfg, n_steps: int, f8: bool):
+    n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
+    fwd = n_moe * (2 if cfg.remat else 1) * n_steps     # + recompute
+    bwd = n_moe * n_steps
+    return {"expert_ffn": fwd, "expert_ffn_bwd": bwd,
+            "masked_similarity": fwd, "gather_rows": fwd,
+            "gather_rows_bwd": bwd, "pack_quant": fwd if f8 else 0,
+            "pack_cast": 0 if f8 else fwd,
+            # the dispatch pack's and the combine partials' codec
+            "pack_quant_bwd": 2 * bwd if f8 else 0}
+
+
+def _check_law(steps, luffy, cfg):
+    """shipped == flat / (dedup x precision) on every step."""
+    from repro_torch.comm import dtypes as wdt
+    prec = wdt.wire_precision(cfg.d_model, luffy.wire_dtype, 2)
+    bad = []
+    for st in steps:
+        flat, dedup = st["inter_bytes_flat"], st["inter_bytes_dedup"]
+        shipped = st["inter_bytes_shipped"]
+        want = flat / (flat / dedup * prec)
+        if not (shipped > 0 and abs(shipped - want) <= 1e-5 * want):
+            bad.append((st["step"], shipped, want))
+    return bad
+
+
+def phase_ep_train():
+    """Full-width EP train run (6 steps, f8 dedup wire) with exact launch
+    counts and the shipped-bytes law, then again from the same seed."""
+    import statistics
+    import numpy as np
+    import torch
+    res, launches, perms = _ep_run(EP_ARGS)
+    cfg, steps, luffy = res["cfg"], res["steps"], res["luffy"]
+    want = _ep_expected(cfg, len(steps), f8=True)
+    for st in steps:
+        log(f"  EP step {st['step']}: loss {st['loss']:.5f} condense_rate "
+            f"{st['condense_rate']:.5f} bucket {st['bucket']} (C="
+            f"{st['capacity']}) local_frac {st['local_frac']:.4f} traffic "
+            f"{st['traffic_before']:.1f}->{st['traffic_after']:.1f} inter "
+            f"flat/dedup/shipped {st['inter_bytes_flat']:.0f}/"
+            f"{st['inter_bytes_dedup']:.0f}/{st['inter_bytes_shipped']:.0f} "
+            f"B {st['step_ms']:.1f} ms")
+    med = statistics.median(st["step_ms"] for st in steps[1:])
+    tokens = res["global_batch"] * res["seq_len"]
+    keys = ("loss", "condense_rate", "bucket", "local_frac",
+            "traffic_before", "traffic_after", "inter_bytes_flat",
+            "inter_bytes_dedup", "inter_bytes_shipped", "step_ms")
+    info = dict(arch=res["arch"], model_axis=res["dist"].model_size,
+                nodes=res["dist"].nodes, wire=luffy.wire_dtype,
+                global_batch=res["global_batch"], seq_len=res["seq_len"],
+                per_step={k: [st[k] for st in steps] for k in keys},
+                median_step_ms_after_0=med, tokens_per_s=tokens / med * 1e3,
+                peak_mem_gib=max(st["peak_mem_bytes"] for st in steps)
+                / 2 ** 30, launches=launches, launches_expected=want,
+                plans=len(perms))
+    log("EP train: " + json.dumps(info))
+    losses = info["per_step"]["loss"]
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"EP train losses not finite: {losses}")
+    bad = _check_law(steps, luffy, cfg)
+    if bad:
+        raise SystemExit(f"shipped-bytes law broken on steps {bad}")
+    if launches != want:
+        raise SystemExit(f"EP kernel launches {launches} differ from what "
+                         f"the path calls, {want}")
+    del res, steps
+    torch.cuda.empty_cache()
+    again, _, perms2 = _ep_run(EP_ARGS)
+    same = {k: [st[k] for st in again["steps"]] == info["per_step"][k]
+            for k in ("loss", "condense_rate", "bucket")}
+    same["perms"] = len(perms) == len(perms2) and all(
+        (a is None and b is None) or np.array_equal(a, b)
+        for a, b in zip(perms, perms2))
+    info["repeat_bitwise"] = same
+    log(f"EP repeat, same seed: bit-equal {same}")
+    if not all(same.values()):
+        raise SystemExit(f"the EP train run does not repeat: {same}")
+    del again
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_ep_bf16():
+    """2 full-width EP steps on the bf16 wire: K4's cast kernel."""
+    import torch
+    res, launches, _ = _ep_run(EP_BF16_ARGS)
+    cfg, steps = res["cfg"], res["steps"]
+    want = _ep_expected(cfg, len(steps), f8=False)
+    info = dict(wire=res["luffy"].wire_dtype,
+                losses=[st["loss"] for st in steps],
+                shipped=[st["inter_bytes_shipped"] for st in steps],
+                step_ms=[st["step_ms"] for st in steps],
+                launches=launches, launches_expected=want)
+    log("EP bf16 wire: " + json.dumps(info))
+    if not all(math.isfinite(x) for x in info["losses"]):
+        raise SystemExit("EP bf16 losses not finite")
+    bad = _check_law(steps, res["luffy"], cfg)
+    if bad:
+        raise SystemExit(f"shipped-bytes law broken on the bf16 wire: {bad}")
+    if launches != want:
+        raise SystemExit(f"EP bf16 launches {launches} differ from {want}")
+    del res
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_ep_parity():
+    """One f32 EP step of a 2-layer full-width cut on the card and on the
+    CPU: loss, gradient norm, perms and rep maps."""
+    import numpy as np
+    import torch
+    import repro_torch.plan.exchange as tex
+    from repro_torch.config import LuffyConfig, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import make_dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch import train_lib
+    P = EP_PARITY
+    cfg = dataclasses.replace(get_config("moe-gpt2"), num_layers=P["layers"],
+                              compute_dtype="float32")
+    shape = ShapeConfig("t", P["S"], P["B"], "train")
+    dist = make_dist(make_host_mesh(model=P["M"], nodes=P["nodes"]), P["B"])
+    luffy = LuffyConfig(condense_group=128, combine_slack=2.0,
+                        comm_mode="hier", hier_dedup="on",
+                        wire_dtype="f8e4m3")
+    cap = train_lib.capacity_for_bucket(cfg, shape, luffy, 0, dist)
+    model = build_model(cfg, device="cuda", seed=0)
+    batch = SyntheticLM(cfg, shape).batch(0)
+    thr = torch.tensor(0.6)
+    runs = {}
+    orig = tex.build_exchange_plan_ranks
+    for dev in ("cuda", "cpu"):
+        model.to(dev)
+        plans = []
+
+        def rec(*a, **kw):
+            pl = orig(*a, **kw)
+            plans.append((pl.perm.copy(), pl.condense_plan.rep_idx.cpu()))
+            return pl
+
+        tex.build_exchange_plan_ranks = rec
+        try:
+            model.zero_grad(set_to_none=True)
+            tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            loss, _ = model.forward_train(tb, thr.to(dev), cap, luffy=luffy,
+                                          dist=dist)
+            loss.backward()
+        finally:
+            tex.build_exchange_plan_ranks = orig
+        gn = torch.sqrt(sum(torch.sum(p.grad.double() ** 2)
+                            for p in model.parameters())).item()
+        runs[dev] = (loss.item(), gn, plans)
+    (lg, gg, pg), (lc, gc, pc) = runs["cuda"], runs["cpu"]
+    perms_equal = len(pg) == len(pc) and all(
+        np.array_equal(a[0], b[0]) for a, b in zip(pg, pc))
+    n_tok = sum(b[1].numel() for b in pc)
+    n_diff = sum(int((a[1] != b[1]).sum()) for a, b in zip(pg, pc))
+    info = dict(loss_cuda=lg, loss_cpu=lc, loss_rel=abs(lg - lc) / abs(lc),
+                grad_norm_cuda=gg, grad_norm_cpu=gc,
+                grad_norm_rel=abs(gg - gc) / gc, plans=len(pg),
+                perms_equal=perms_equal, rep_tokens=n_tok, rep_differ=n_diff)
+    log("EP parity: " + json.dumps(info))
+    if not perms_equal:
+        raise SystemExit(f"cuda vs cpu migration perms differ: {info}")
+    if n_diff > 0.001 * n_tok:
+        raise SystemExit(f"cuda vs cpu rep maps differ on {n_diff} of "
+                         f"{n_tok} tokens")
+    if not info["loss_rel"] <= 1e-4:
+        raise SystemExit(f"cuda vs cpu EP loss differ: {info}")
+    if not info["grad_norm_rel"] <= 1e-3:
+        raise SystemExit(f"cuda vs cpu EP gradient norm differ: {info}")
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
+COMM_OPS = ("all_to_all", "node_all_to_all", "local_all_gather",
+            "local_psum_scatter")
+
+
+def phase_ep_profile():
+    """One full-width EP train step (after a warm-up step) under
+    torch.profiler: device-busy share, top device ops, each kernel's
+    share, the device time inside the virtual-rank collectives
+    (device-memory permutes) and the host planner's time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch import optim, train_lib
+    from repro_torch.comm.hierarchical import CommContext
+    from repro_torch.config import LuffyConfig, OptimConfig, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import make_dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.plan import objectives
+    cfg = get_config("moe-gpt2")
+    shape = ShapeConfig("train", 1024, 8, "train")
+    dist = make_dist(make_host_mesh(model=4, nodes=2), 8)
+    model = build_model(cfg, device="cuda", seed=0)
+    params = model.params
+    ocfg = OptimConfig(lr=1e-3, total_steps=6, warmup_steps=2)
+    luffy = LuffyConfig(condense_group=128, combine_slack=2.0,
+                        comm_mode="hier", hier_dedup="on",
+                        wire_dtype="f8e4m3")
+    cap = train_lib.capacity_for_bucket(cfg, shape, luffy, 0, dist)
+    step = train_lib.make_train_step(cfg, luffy, ocfg, cap, dist)
+    state = [optim.init_opt_state(params, ocfg),
+             train_lib.init_luffy_state("cuda")]
+    data = SyntheticLM(cfg, shape)
+
+    def one(i):
+        b = {k: torch.as_tensor(v, device="cuda")
+             for k, v in data.batch(i).items()}
+        _, state[0], state[1], _ = step(params, state[0], state[1], b)
+
+    one(0)
+    torch.cuda.synchronize()
+    originals = {n: getattr(CommContext, n) for n in COMM_OPS}
+    plan_orig = objectives.plan_migration_with_objective
+    planner = {"ms": 0.0, "calls": 0}
+
+    def wrap(name, fn):
+        def inner(self, x):
+            with record_function("comm::" + name):
+                return fn(self, x)
+        return inner
+
+    def timed_plan(*a, **kw):
+        t0 = time.perf_counter()
+        out = plan_orig(*a, **kw)
+        planner["ms"] += (time.perf_counter() - t0) * 1e3
+        planner["calls"] += 1
+        return out
+
+    for n, fn in originals.items():
+        setattr(CommContext, n, wrap(n, fn))
+    objectives.plan_migration_with_objective = timed_plan
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            one(1)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        for n, fn in originals.items():
+            setattr(CommContext, n, fn)
+        objectives.plan_migration_with_objective = plan_orig
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    ops = dict(KERNEL_OPS, pack_quant=("pack_quant_kernel",),
+               pack_cast=("pack_cast_kernel",),
+               pack_quant_bwd=("pack_quant_bwd_kernel",))
+    shares = {k: sum(d for d, key, _ in rows if any(n in key for n in o))
+              / busy if busy else None for k, o in ops.items()}
+    comm_us = 0.0
+    for ev in prof.key_averages():
+        if ev.key.startswith("comm::"):
+            comm_us += getattr(ev, "device_time_total",
+                               getattr(ev, "cuda_time_total", 0.0))
+    info = dict(wall_ms=wall_us / 1e3, device_ms=busy / 1e3,
+                device_busy_share=busy / wall_us if rows else None,
+                kernel_share=shares,
+                collectives_device_ms=comm_us / 1e3,
+                collectives_share=comm_us / busy if busy else None,
+                planner_host_ms=planner["ms"], planner_calls=planner["calls"],
+                top=[{"op": k[:60], "ms": d / 1e3, "count": c}
+                     for d, k, c in rows[:10]])
+    log("EP profile: " + json.dumps(info))
+    if not rows:
+        log("EP profile: the profiler saw no device time (not measured)")
+    del model, params, state
+    torch.cuda.empty_cache()
+    return info
+
+
 def _record(name, source, replaces, launches, t, extra=None):
     rec = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
@@ -803,12 +1279,18 @@ def main() -> int:
     log("kernels:")
     checks, timed = phase_kernels()
     timed_train = phase_kernels_train()
+    timed_k4 = phase_kernels_k4()
     slice_info = phase_slice()
     phase_parity()
     phase_profile()
     train_info = phase_train()
     phase_train_parity()
     phase_train_profile()
+    ep_info = phase_ep_train()
+    ep_bf16 = phase_ep_bf16()
+    phase_ep_parity()
+    phase_ep_profile()
+    el = ep_info["launches"]
     tl = train_info["launches"]
     k1 = dict(timed["train"], max_abs_err=max(
         c["max_abs_err"] for c in checks if c["shape"] == "train"))
@@ -842,7 +1324,27 @@ def main() -> int:
                 timed_train["gather_rows_bwd"],
                 {"timed_at": "[8192,768] bf16 rows, 9 representatives per "
                              "group of 128, the sort included"}),
+        _record("pack_quantize_f8", "src/repro_torch/csrc/pack.cu",
+                "src/repro/kernels/pack.py:72", el["pack_quant"],
+                timed_k4["pack_quantize_f8"],
+                {"launches_path": "EP train, --wire-dtype f8e4m3",
+                 "timed_at": "[8192,768] bf16 rows -> 4x2x2048 wire rows"}),
+        _record("pack_quantize_cast", "src/repro_torch/csrc/pack.cu",
+                "src/repro/kernels/pack.py:105",
+                ep_bf16["launches"]["pack_cast"],
+                timed_k4["pack_quantize_cast"],
+                {"launches_path": "EP train, --wire-dtype bf16",
+                 "timed_at": "[8192,768] bf16 rows -> 4x2x2048 bf16 wire "
+                             "rows"}),
+        _record("pack_quantize_bwd", "src/repro_torch/csrc/pack.cu",
+                "src/repro/kernels/pack.py:72 (no Pallas backward; XLA "
+                "transposes the reference's jnp codec)",
+                el["pack_quant_bwd"], timed_k4["pack_quantize_bwd"],
+                {"launches_path": "EP train, --wire-dtype f8e4m3",
+                 "timed_at": "4x2x2048 bf16 cotangent rows of 768"}),
     ]
+    for rec in records[:5]:
+        rec["launches_ep_train"] = el[rec["name"]]
     log(f"total {time.perf_counter() - t_start:.1f}s on {smi}")
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -10,5 +10,9 @@ capacity drops, the expert FFN (a hand-written Hopper kernel,
 and the tied LM head. Slice 2 trains it on one device with token
 condensation (``condense/``, kernels ``similarity`` and ``condense``),
 the expert FFN's backward kernel, AdamW (``optim.py``) and the adaptive
-threshold (``train_lib.py``, ``launch/train.py``).
+threshold (``train_lib.py``, ``launch/train.py``). Slice 3 trains it
+expert-parallel over virtual ranks held by one process (``comm/``,
+``dist.py``): sequence migration (``core/migration.py``), the flat or
+two-phase exchange and the deduplicated hierarchical wire
+(``condense/wire.py``) with its pack-quantize kernel (``kernels/pack.py``).
 """

@@ -64,10 +64,13 @@ class CondensePlan(NamedTuple):
 
 
 def identity_condense_plan(T: int, backend: str = "exact", *,
-                           device) -> CondensePlan:
-    """The condense-nothing plan: every token represents itself."""
+                           device, ranks: int = 1) -> CondensePlan:
+    """The condense-nothing plan: every token represents itself. With
+    ``ranks > 1`` the T tokens are the ranks' in rank-major order and
+    the rate and pair count are per rank ([ranks])."""
     idx = torch.arange(T, device=device)
-    z = torch.zeros((), dtype=torch.float32, device=device)
+    z = torch.zeros(() if ranks == 1 else (ranks,), dtype=torch.float32,
+                    device=device)
     return CondensePlan(backend=backend, rep_idx=idx,
                         is_rep=torch.ones((T,), dtype=torch.bool,
                                           device=device),
@@ -108,12 +111,15 @@ def _components_and_reps(adj):
 @torch.no_grad()
 def condense_tokens(x, primary_expert, threshold, *, group_size: int,
                     s_prev: Optional[torch.Tensor] = None,
-                    s1: float = 0.8, s2: float = 0.2) -> CondenseOutput:
+                    s1: float = 0.8, s2: float = 0.2,
+                    ranks: int = 1) -> CondenseOutput:
     """Condense local tokens (paper §V), every group at once.
 
     x: [T, d] router input; primary_expert: [T]; threshold: f32 scalar
     tensor (Eq. 2 or static); s_prev: [n_groups, G, G] carried
-    similarity. Returns the global rep map over [T]."""
+    similarity. Returns the global rep map over [T]. With ``ranks > 1``
+    the tokens are the ranks' in rank-major order (groups never span
+    two ranks) and the rate and measured pairs are per rank."""
     T, d = x.shape
     G = group_size
     if T % G:
@@ -127,8 +133,12 @@ def condense_tokens(x, primary_expert, threshold, *, group_size: int,
     offsets = torch.arange(ng, device=x.device)[:, None] * G
     rep_idx = (reps + offsets).reshape(T)
     is_rep = rep_idx == torch.arange(T, device=x.device)
-    rate = 1.0 - torch.mean(is_rep.float())
-    pairs = torch.sum(measured) * float(G * G)
+    if ranks == 1:
+        rate = 1.0 - torch.mean(is_rep.float())
+        pairs = torch.sum(measured) * float(G * G)
+    else:
+        rate = 1.0 - torch.mean(is_rep.reshape(ranks, -1).float(), dim=1)
+        pairs = torch.sum(measured.reshape(ranks, -1), dim=1) * float(G * G)
     return CondenseOutput(rep_idx, is_rep, sim, rate, pairs)
 
 
@@ -145,7 +155,8 @@ def build_condense_plan(x, primary_expert, threshold, *, group_size: int,
                         s1: float = 0.8, s2: float = 0.2,
                         backend: str = "exact",
                         carry: Optional[CondenseCarry] = None,
-                        reuse_mode: str = "off") -> CondensePlan:
+                        reuse_mode: str = "off",
+                        ranks: int = 1) -> CondensePlan:
     """Decide one sublayer's condensation with a full similarity build.
 
     Under ``reuse_mode="off"`` (the one ported) a threaded ``carry``
@@ -156,13 +167,14 @@ def build_condense_plan(x, primary_expert, threshold, *, group_size: int,
     if backend != "exact":
         raise NotImplementedError(
             f"similarity_backend={backend!r}: the lsh backend is not "
-            f"ported yet (ROADMAP Queue 1, the lsh item); use 'exact'")
+            f"ported yet (ROADMAP Queue 1 item 4); use 'exact'")
     if reuse_mode != "off":
         raise NotImplementedError(
             f"condense_reuse={reuse_mode!r}: condense-plan reuse is not "
             f"ported yet (ROADMAP Queue 1 item 4); use 'off'")
     out = condense_tokens(x, primary_expert, threshold,
-                          group_size=group_size, s_prev=s_prev, s1=s1, s2=s2)
+                          group_size=group_size, s_prev=s_prev, s1=s1, s2=s2,
+                          ranks=ranks)
     sig = None
     if carry is not None:
         zeros = torch.zeros_like(carry.age, dtype=torch.float32)

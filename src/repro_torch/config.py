@@ -83,9 +83,9 @@ class ShapeConfig:
 
 @dataclass(frozen=True)
 class LuffyConfig:
-    """The paper's two techniques (§IV, §V). Serving forces both off.
-    On one device migration is the identity; what it does across
-    devices comes with the expert-parallel slice."""
+    """The paper's two techniques (§IV, §V) and how the expert-parallel
+    exchange runs. Serving forces both off. On one device migration is
+    the identity."""
     enable_condensation: bool = True
     enable_migration: bool = True
     # §V-A fast similarity: previous-block similarity > s1 => similar
@@ -103,9 +103,28 @@ class LuffyConfig:
     condense_reuse_max_age: int = 4
     # condensation-rate buckets: capacity C' = ceil(C * (1 - rate))
     rate_buckets: Tuple[float, ...] = (0.0, 0.25, 0.5)
+    # §IV-A: top-q candidate ranks per sequence, and the attention cost
+    # model's speed term P (FLOP/s) of Eq. 1
+    q: int = 3
+    gpu_speed: float = 1.0e13
     # condensation group size G and combine-buffer slack under migration
     condense_group: int = 128
     combine_slack: float = 1.0
+    # expert-parallel collectives: "flat" all-to-all or "hier" two-phase
+    # over (node, local); "hier_dedup" "on" ships one row per (token,
+    # destination node) (repro_torch.condense.wire)
+    comm_mode: str = "flat"
+    hier_dedup: str = "off"
+    # only "sync" is ported ("pipeline" raises, ROADMAP Queue 1 item 5)
+    exec_mode: str = "sync"
+    # only "traffic" and plan_reuse "off" are ported (items 7 and 4)
+    plan_objective: str = "traffic"
+    plan_reuse: str = "off"
+    # precision rows cross nodes at: "f32" (the compute dtype), "bf16"
+    # or "f8e4m3" with per-32-element f32 scales (repro_torch.comm.dtypes)
+    wire_dtype: str = "f32"
+    # not ported (ROADMAP Queue 1 item 6): raises when on
+    wire_error_feedback: bool = False
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,8 @@
-"""The MoE sublayer on one device (counterpart of
-``repro/core/moe_layer.py``): parameters, capacity, and
-``moe_core_planned`` = gate + build + execute. On one device it is also
-the whole of the reference's ``models/transformer.py::_moe_apply_dist``."""
+"""The MoE sublayer (counterpart of ``repro/core/moe_layer.py``):
+parameters, capacity, and ``moe_core_planned`` = gate + build + execute,
+on one device or, with a flat or hier comm context, for every
+expert-parallel rank at once (rank-major tensors,
+:mod:`repro_torch.comm.hierarchical`)."""
 from __future__ import annotations
 
 import math
@@ -9,6 +10,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.comm.hierarchical import CommContext
 from repro_torch.condense.plan import CondenseCarry
 from repro_torch.config import LuffyConfig, MoEConfig, ModelConfig
 from repro_torch.core.gating import gate_apply, gate_init
@@ -52,24 +54,35 @@ def moe_core_planned(params, x, sideband: Dict[str, torch.Tensor],
                      cfg: ModelConfig, luffy: LuffyConfig, *, mode: str,
                      capacity: int, threshold=None,
                      s_prev: Optional[torch.Tensor] = None,
-                     condense_carry: Optional[CondenseCarry] = None):
+                     condense_carry: Optional[CondenseCarry] = None,
+                     comm: Optional[CommContext] = None):
     """One MoE sublayer: gate on the RMS-normed tokens, build the plan
     (condensing when ``luffy.enable_condensation`` and the mode is not
-    ``decode``), execute it. x: [n_seq, S, d] pre-norm hidden;
+    ``decode``), execute it. x: [n_seq, S, d] pre-norm hidden (with a
+    flat or hier ``comm``: [M, n_seq, S, d] and a rank-major sideband);
     ``threshold`` an f32 scalar tensor, ``s_prev`` the similarity carried
-    from the previous MoE sublayer. Returns ``(x + moe_delta, sideband,
-    s_next, aux, plan, cond_carry)``; on one device the sideband is
-    unchanged, and ``s_next`` / ``cond_carry`` are None without
+    from the previous MoE sublayer. Returns ``(y, sideband, s_next, aux,
+    plan, cond_carry)``: on one device ``y = x + moe_delta`` and the
+    sideband is unchanged; across ranks in migrate mode ``y``, the
+    sideband and ``s_next`` are at the sequences' new homes and aux is
+    per rank. ``s_next`` / ``cond_carry`` are None without
     condensation."""
     from repro_torch.models.blocks import _dtype
-    n_seq, S, d = x.shape
-    xn = _rms(x.reshape(n_seq * S, d), params["norm"]["scale"]) \
+    S, d = x.shape[-2:]
+    lead = x.shape[:-2]
+    ep = comm is not None and comm.mode != "local"
+    T = S * (lead[-1] if ep else lead[0])
+    xn = _rms(x.reshape(*lead[:-1], T, d), params["norm"]["scale"]) \
         .to(_dtype(cfg.compute_dtype))
     gate = gate_apply(params["router"], xn, cfg.moe.top_k)
     plan = build_exchange_plan(gate, xn, cfg, luffy, mode=mode,
                                capacity=capacity, sideband=sideband,
                                threshold=threshold, s_prev=s_prev,
-                               condense_carry=condense_carry)
+                               condense_carry=condense_carry, comm=comm)
+    if ep:
+        y, aux, cond_carry, sb, s_next = execute_plan(params, x, plan, cfg,
+                                                      sideband)
+        return y, sb, s_next, aux, plan, cond_carry
     y, aux, cond_carry = execute_plan(params, x, plan, cfg)
     return (y, dict(sideband), plan.condense_plan.s_next, aux, plan,
             cond_carry)
@@ -77,11 +90,12 @@ def moe_core_planned(params, x, sideband: Dict[str, torch.Tensor],
 
 def moe_core(params, x, sideband: Dict[str, torch.Tensor], cfg: ModelConfig,
              luffy: LuffyConfig, *, mode: str, capacity: int, threshold=None,
-             s_prev: Optional[torch.Tensor] = None
+             s_prev: Optional[torch.Tensor] = None,
+             comm: Optional[CommContext] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                         Optional[torch.Tensor], MoEAux]:
-    """The reference's 4-tuple ``(x + moe_delta, sideband, s_next, aux)``
-    of :func:`moe_core_planned`."""
+    """The reference's 4-tuple ``(y, sideband, s_next, aux)`` of
+    :func:`moe_core_planned`."""
     return moe_core_planned(params, x, sideband, cfg, luffy, mode=mode,
                             capacity=capacity, threshold=threshold,
-                            s_prev=s_prev)[:4]
+                            s_prev=s_prev, comm=comm)[:4]

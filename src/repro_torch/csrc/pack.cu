@@ -1,0 +1,250 @@
+// Dedup-wire pack and quantize for Hopper (sm_90a), plain C interface.
+//
+// Replaces the Pallas kernel repro/kernels/pack.py::pack_quantize (K4):
+// the gate-mask -> dedup-pack -> quantize step of the deduplicated
+// hierarchical wire (paper §VI's token_to_node packing). Given the slot ->
+// token map tok (-1 = empty slot), wire row r is source row x[tok[r]], or a
+// zero row, then
+//   - f8 (pack_quant_kernel): zero-padded to a whole number of 32-element
+//     blocks; per block amax = max |x| in f32, scale = amax * (1/448) (1.0
+//     for an all-zero block), q = float8_e4m3fn(x / scale) with IEEE
+//     division and round-to-nearest-even; writes q [R, d_pad] (bytes) and
+//     the scales [R, d_pad / 32] f32;
+//   - cast (pack_cast_kernel): the row in the wire's type (f32 or bf16,
+//     round-to-nearest-even).
+// Bit for bit the reference's codec (repro/comm/dtypes.py::quantize_rows):
+// the scale multiplies by the f32 reciprocal and the payload divides, and
+// the f32 -> e4m3 conversion is PyTorch's own (c10's
+// fp8e4m3fn_from_fp32_value: round to nearest even, |x| >= 480 -> NaN;
+// the scale keeps |x / scale| <= 448). This file must not be built with
+// --use_fast_math.
+//
+// Design: one block per wire row. f8: 8 warps, each warp takes one
+// 32-element scale block at a time, one element per lane, the block's
+// amax by a butterfly of warp shuffles. cast: the block's threads stride
+// over the row. tok is read once per block.
+//
+// The backward (pack_quant_bwd_kernel) is the port's own: the reference
+// trains through its jnp path, whose gradient JAX forms by transposing
+// quantize_rows then dequantize_rows primitive by primitive. Given the
+// cotangent g of the dequantized wire rows, moved back to the sending rank
+// (the wire's collectives are permutations, so the row-local arithmetic
+// below is unchanged by the move), each 32-element block recomputes its
+// amax, scale v and payload q from the source row and forms
+//   ct_v = sum(q * g) - sum(f8(g * v) / v^2 * x)    (0 for an all-zero block)
+//   dx   = f8(g * v) / v  +  sign(x) * ct_v * (1/448) / n_ties  on the ties
+// with f8(.) the e4m3 cast the reference applies to the payload's
+// cotangent, so cotangents below e4m3's range come back as 0. One warp per
+// block as in the forward; the two sums are warp reductions (their order
+// differs from the plain version's, a tolerance-level difference).
+//
+// What bounds it on an H100: bytes (each wire row reads a d-wide source
+// row and writes d_pad bytes plus scales, or a d-wide cast row; the
+// backward reads the source row and the cotangent and writes one row).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int NT = 256;
+constexpr int BLOCK = 32;
+constexpr float F8_INV = 1.0f / 448.0f;
+
+// c10::detail::fp8e4m3fn_from_fp32_value, step for step
+__device__ __forceinline__ uint8_t f32_to_e4m3fn(float f) {
+  constexpr uint32_t fp8_max = UINT32_C(1087) << 20;  // 480.0f
+  constexpr uint32_t denorm_mask = UINT32_C(141) << 23;
+  uint32_t f_bits = __float_as_uint(f);
+  const uint32_t sign = f_bits & UINT32_C(0x80000000);
+  f_bits ^= sign;
+  uint8_t result;
+  if (f_bits >= fp8_max) {
+    result = 0x7f;  // NaN
+  } else if (f_bits < (UINT32_C(121) << 23)) {
+    // subnormal in e4m3: let the f32 adder round, then take the bits
+    f_bits = __float_as_uint(
+        __fadd_rn(__uint_as_float(f_bits), __uint_as_float(denorm_mask)));
+    result = static_cast<uint8_t>(f_bits - denorm_mask);
+  } else {
+    const uint32_t mant_odd = (f_bits >> 20) & 1;
+    f_bits += (static_cast<uint32_t>(7 - 127) << 23) + 0x7FFFF;
+    f_bits += mant_odd;
+    result = static_cast<uint8_t>(f_bits >> 20);
+  }
+  return result | static_cast<uint8_t>(sign >> 24);
+}
+
+// c10::detail::fp8e4m3fn_to_fp32_value's values: exact
+__device__ __forceinline__ float e4m3fn_to_f32(uint8_t b) {
+  const int e = (b >> 3) & 0xF, m = b & 7;
+  float v;
+  if (e == 0xF && m == 7)
+    v = __int_as_float(0x7fc00000);  // NaN
+  else if (e == 0)
+    v = ldexpf(static_cast<float>(m), -9);
+  else
+    v = ldexpf(static_cast<float>(8 + m), e - 10);
+  return (b & 0x80) ? -v : v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+pack_quant_kernel(const T* __restrict__ x, const int* __restrict__ tok,
+                  uint8_t* __restrict__ q, float* __restrict__ sc,
+                  int n_src, int d, int d_pad) {
+  const int row = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = tok[row];
+  if (t >= n_src) __trap();  // an index out of range is a bug
+  const int nb = d_pad / BLOCK;
+  for (int b = warp; b < nb; b += NT / 32) {
+    const int c = b * BLOCK + lane;
+    float v = 0.0f;
+    if (t >= 0 && c < d) v = to_f32(x[(size_t)t * d + c]);
+    float a = fabsf(v);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+    const float s = a > 0.0f ? __fmul_rn(a, F8_INV) : 1.0f;
+    q[(size_t)row * d_pad + c] = f32_to_e4m3fn(__fdiv_rn(v, s));
+    if (lane == 0) sc[(size_t)row * nb + b] = s;
+  }
+}
+
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(NT)
+pack_cast_kernel(const Tin* __restrict__ x, const int* __restrict__ tok,
+                 Tout* __restrict__ out, int n_src, int d) {
+  const int row = blockIdx.x;
+  const int t = tok[row];
+  if (t >= n_src) __trap();
+  Tout* o = out + (size_t)row * d;
+  for (int c = threadIdx.x; c < d; c += NT)
+    o[c] = from_f32<Tout>(t >= 0 ? to_f32(x[(size_t)t * d + c]) : 0.0f);
+}
+
+// dx [R, d] (x's type) of the rows x[tok[r]] (tok null: row r itself)
+template <typename T>
+__global__ void __launch_bounds__(NT)
+pack_quant_bwd_kernel(const T* __restrict__ x, const int* __restrict__ tok,
+                      const T* __restrict__ g, T* __restrict__ dx,
+                      int n_src, int d, int d_pad) {
+  const int row = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = tok == nullptr ? row : tok[row];
+  if (t >= n_src) __trap();
+  const int nb = d_pad / BLOCK;
+  for (int b = warp; b < nb; b += NT / 32) {
+    const int c = b * BLOCK + lane;
+    float xv = 0.0f, gv = 0.0f;
+    if (c < d) {
+      if (t >= 0) xv = to_f32(x[(size_t)t * d + c]);
+      gv = to_f32(g[(size_t)row * d + c]);
+    }
+    const float a = fabsf(xv);
+    float amax = a;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const bool tie = a == amax;
+    const int n_ties = __popc(__ballot_sync(0xffffffffu, tie));
+    const bool live = amax > 0.0f;
+    const float v = live ? __fmul_rn(amax, F8_INV) : 1.0f;
+    const float q = e4m3fn_to_f32(f32_to_e4m3fn(__fdiv_rn(xv, v)));
+    const float bt = e4m3fn_to_f32(f32_to_e4m3fn(__fmul_rn(gv, v)));
+    const float bm = warp_sum(__fmul_rn(q, gv));
+    const float inv_v2 = __fdiv_rn(1.0f, __fmul_rn(v, v));
+    const float bw = warp_sum(__fmul_rn(__fmul_rn(bt, inv_v2), xv));
+    const float cc = live ? __fadd_rn(bm, -bw) : 0.0f;
+    const float ch = tie ? __fdiv_rn(__fmul_rn(cc, F8_INV),
+                                     static_cast<float>(n_ties)) : 0.0f;
+    const float out = __fadd_rn(__fadd_rn(__fdiv_rn(bt, v),
+                                          xv >= 0.0f ? ch : 0.0f),
+                                -(xv >= 0.0f ? 0.0f : ch));
+    if (c < d) dx[(size_t)row * d + c] = from_f32<T>(out);
+  }
+}
+
+}  // namespace
+
+// f8 variant. x [n_src, d] f32 (bf16 = 0) or bf16 (bf16 = 1); tok int32
+// [R]; q [R, d_pad] bytes; sc [R, d_pad / 32] f32. Launches on `stream`;
+// returns cudaGetLastError() (0 = ok). Nothing is allocated here.
+extern "C" int pack_quant_launch(const void* x, const void* tok, void* q,
+                                 void* sc, int R, int n_src, int d,
+                                 int d_pad, int bf16, void* stream) {
+  cudaGetLastError();  // start from a clean slate; report only our launch
+  if (R == 0) return 0;
+  if (d_pad % BLOCK || d_pad < d) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* tk = static_cast<const int*>(tok);
+  uint8_t* qo = static_cast<uint8_t*>(q);
+  float* so = static_cast<float*>(sc);
+  if (bf16)
+    pack_quant_kernel<__nv_bfloat16><<<R, NT, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), tk, qo, so, n_src, d, d_pad);
+  else
+    pack_quant_kernel<float><<<R, NT, 0, s>>>(
+        static_cast<const float*>(x), tk, qo, so, n_src, d, d_pad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cast variant. x as above (in_bf16); out [R, d] f32 (out_bf16 = 0) or
+// bf16 (out_bf16 = 1).
+extern "C" int pack_cast_launch(const void* x, const void* tok, void* out,
+                                int R, int n_src, int d, int in_bf16,
+                                int out_bf16, void* stream) {
+  cudaGetLastError();
+  if (R == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* tk = static_cast<const int*>(tok);
+  if (in_bf16 && out_bf16)
+    pack_cast_kernel<__nv_bfloat16, __nv_bfloat16><<<R, NT, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), tk,
+        static_cast<__nv_bfloat16*>(out), n_src, d);
+  else if (in_bf16)
+    pack_cast_kernel<__nv_bfloat16, float><<<R, NT, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), tk, static_cast<float*>(out),
+        n_src, d);
+  else if (out_bf16)
+    pack_cast_kernel<float, __nv_bfloat16><<<R, NT, 0, s>>>(
+        static_cast<const float*>(x), tk, static_cast<__nv_bfloat16*>(out),
+        n_src, d);
+  else
+    pack_cast_kernel<float, float><<<R, NT, 0, s>>>(
+        static_cast<const float*>(x), tk, static_cast<float*>(out), n_src, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Backward of the f8 wire codec (and of its pack when tok is not null).
+// x [n_src, d] f32 (bf16 = 0) or bf16 (bf16 = 1); tok int32 [R] or null
+// (rows are x's own, R = n_src); g, dx [R, d] in x's type.
+extern "C" int pack_quant_bwd_launch(const void* x, const void* tok,
+                                     const void* g, void* dx, int R,
+                                     int n_src, int d, int d_pad, int bf16,
+                                     void* stream) {
+  cudaGetLastError();
+  if (R == 0) return 0;
+  if (d_pad % BLOCK || d_pad < d) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* tk = static_cast<const int*>(tok);
+  if (bf16)
+    pack_quant_bwd_kernel<__nv_bfloat16><<<R, NT, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), tk,
+        static_cast<const __nv_bfloat16*>(g),
+        static_cast<__nv_bfloat16*>(dx), n_src, d, d_pad);
+  else
+    pack_quant_bwd_kernel<float><<<R, NT, 0, s>>>(
+        static_cast<const float*>(x), tk, static_cast<const float*>(g),
+        static_cast<float*>(dx), n_src, d, d_pad);
+  return static_cast<int>(cudaGetLastError());
+}

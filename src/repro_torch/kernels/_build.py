@@ -20,7 +20,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("expert_ffn", "expert_ffn_bwd", "similarity", "condense")
+KERNELS = ("expert_ffn", "expert_ffn_bwd", "similarity", "condense",
+           "pack")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

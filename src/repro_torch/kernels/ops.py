@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import condense as _condense
 from repro_torch.kernels import expert_ffn as _expert_ffn
+from repro_torch.kernels import pack as _pack
 from repro_torch.kernels import ref
 from repro_torch.kernels import similarity as _similarity
 
@@ -38,3 +39,15 @@ def gather_rows(y, rep_idx):
     if _device(y, "gather_rows") == "cpu":
         return ref.gather_rows_ref(y, rep_idx)
     return _condense.GatherRows.apply(y, rep_idx)
+
+
+def pack_quantize(x, tok, wire_dtype: str = "f32"):
+    if _device(x, "pack_quantize") == "cpu":
+        return ref.pack_quantize_ref(x, tok, wire_dtype)
+    return _pack.pack_quantize(x, tok, wire_dtype)
+
+
+def pack_quant_bwd(x, tok, g):
+    if _device(x, "pack_quant_bwd") == "cpu":
+        return ref.pack_quant_bwd_ref(x, tok, g)
+    return _pack.pack_quant_bwd(x, tok, g)

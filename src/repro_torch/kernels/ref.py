@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.comm import dtypes as wdt
+
 
 def _gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
@@ -53,3 +55,28 @@ def gather_rows_bwd_ref(dy, rep_idx, n_src: int):
                      device=dy.device)
     dx.index_add_(0, rep_idx.to(torch.int64), dy.float())
     return dx.to(dy.dtype)
+
+
+def pack_rows_ref(x, tok):
+    """The dedup pack alone: rows x[tok] with -1 giving a zero row."""
+    tok = tok.to(torch.int64)
+    rows = torch.index_select(x, 0, tok.clamp(min=0))
+    return torch.where((tok >= 0)[:, None], rows,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def pack_quantize_ref(x, tok, wire_dtype: str = "f32"):
+    """x: [T, d]; tok: [R] slot -> token map (-1 = empty, a zero row).
+    The packed rows through the wire codec: ``(q, scales)`` exactly as
+    the kernel returns them (``repro/kernels/ref.py::pack_quantize_ref``)."""
+    return wdt.quantize_rows(pack_rows_ref(x, tok), wire_dtype)
+
+
+def pack_quant_bwd_ref(x, tok, g):
+    """The reference's gradient of the f8 wire at one rank's rows: g [R,
+    d], the cotangent of the dequantized rows x[tok] (tok None: x's own
+    rows), -> the cotangent of the packed rows [R, d] in x's type."""
+    src = x if tok is None else pack_rows_ref(x, tok)
+    q, sc = wdt.quantize_rows(src, "f8e4m3")
+    ct_q, ct_sc = wdt.dequantize_t(g, q, sc)
+    return wdt.quantize_t(src, ct_q, ct_sc).to(x.dtype)

@@ -1,17 +1,29 @@
-"""Training launcher on one device (counterpart of
-``repro/launch/train.py``, its single-device path).
+"""Training launcher (counterpart of ``repro/launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch moe-gpt2 \\
-        [--reduced] --steps N --global-batch B --seq-len S [--device cpu]
+        [--reduced] --steps N --global-batch B --seq-len S \\
+        [--model-axis M [--comm-mode {flat,hier}] [--nodes N] \\
+         [--hier-dedup {off,on}] [--wire-dtype {f32,bf16,f8e4m3}]] \\
+        [--no-condensation] [--no-migration] [--device cpu]
 
 Weights are random, drawn from ``--seed``; batches come from the
 synthetic stream (``repro_torch.data.SyntheticLM``). Each step runs the
 LUFFY train step (condensation with the adaptive threshold, AdamW); the
 host then updates the EWMA of the condensation rate and, from step 3 on,
-picks the rate bucket that sets the next step's dispatch capacity. On
-the card (``--device cuda``, the default, which must exist) the expert
-FFN, the similarity and the un-condense gather run in the hand-written
-kernels; on the CPU (``--device cpu``) in their plain versions.
+picks the rate bucket that sets the next step's dispatch capacity.
+
+``--model-axis M > 1`` trains expert-parallel over M virtual ranks held
+by this one process (``repro_torch.comm.hierarchical``): the batch
+splits over them, each holds E/M experts, sequences migrate between
+them (§IV), and the dispatch and combine run flat or two-phase over
+``--nodes`` nodes, on the dense or the deduplicated wire, at
+``--wire-dtype``. The reference's default model axis of 4 is capped by
+its device count (one device gives one rank); virtual ranks have no such
+cap, so the port's default is 1. On the card (``--device cuda``, the
+default, which must exist) the expert FFN, the similarity, the
+un-condense gather and the dedup pack run in the hand-written kernels;
+on the CPU (``--device cpu``) in their plain versions. A flag of the
+reference that is not ported is not defined here.
 """
 from __future__ import annotations
 
@@ -37,10 +49,24 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--global-batch", type=int, default=0,
                     help="sequences per step (default 8 reduced, else 256)")
     ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="expert-parallel ranks (virtual, in this process)")
+    ap.add_argument("--comm-mode", choices=["flat", "hier"], default=None,
+                    help="one flat all-to-all or the two-phase (node, "
+                         "local) exchange (default flat)")
+    ap.add_argument("--nodes", type=int, default=0,
+                    help="split the model axis into this many nodes "
+                         "(hier without it splits in 2)")
+    ap.add_argument("--hier-dedup", choices=["off", "on"], default=None,
+                    help="ship one row per (token, destination node); "
+                         "needs --comm-mode hier (default off)")
+    ap.add_argument("--wire-dtype", choices=["f32", "bf16", "f8e4m3"],
+                    default=None,
+                    help="precision rows cross nodes at (default f32)")
     ap.add_argument("--no-condensation", action="store_true")
     ap.add_argument("--no-migration", action="store_true",
-                    help="a no-op on one device, where migration is the "
-                         "identity")
+                    help="keep sequences home (migration is the identity "
+                         "on one rank anyway)")
     ap.add_argument("--optimizer", choices=["adamw"], default="adamw")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0,
@@ -62,6 +88,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                                     reduced)
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
+    from repro_torch.dist import make_dist, single_device
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.model import build_model, resolve_device
 
     device = resolve_device(args.device)
@@ -72,10 +100,26 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                       seq_len_hint=args.seq_len)
     gb = args.global_batch or (8 if args.reduced else 256)
     shape = ShapeConfig("train", args.seq_len, gb, "train")
+    comm_mode = args.comm_mode or "flat"
+    nodes = args.nodes
+    if comm_mode == "hier" and nodes <= 1:
+        nodes = 2                     # hier needs a (node, local) split
+    dist = single_device()
+    if args.model_axis > 1:
+        mesh = make_host_mesh(model=args.model_axis, nodes=nodes)
+        dist = make_dist(mesh, gb)
+        topo = dist.topology
+        print(f"mesh {dict(zip(mesh.axis_names, mesh.shape))} (virtual "
+              f"ranks) topology {topo.num_nodes}x{topo.devices_per_node} "
+              f"bw_ratio={topo.bw_ratio:.1f} comm_mode={comm_mode}",
+              flush=True)
+    hier_dedup = args.hier_dedup or "off"
     luffy = LuffyConfig(
         enable_condensation=not args.no_condensation and cfg.uses_moe,
         enable_migration=not args.no_migration and cfg.uses_moe,
-        condense_group=min(128, args.seq_len), combine_slack=2.0)
+        condense_group=min(128, args.seq_len), combine_slack=2.0,
+        comm_mode=comm_mode, hier_dedup=hier_dedup,
+        wire_dtype=args.wire_dtype or "f32")
     ocfg = OptimConfig(name=args.optimizer, lr=args.lr,
                        total_steps=args.steps,
                        warmup_steps=max(2, args.steps // 20))
@@ -88,10 +132,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
 
     def get_step(bucket: int):
         if bucket not in steps_by_bucket:
-            cap = (train_lib.capacity_for_bucket(cfg, shape, luffy, bucket)
+            cap = (train_lib.capacity_for_bucket(cfg, shape, luffy, bucket,
+                                                 dist)
                    if cfg.uses_moe else 8)
             steps_by_bucket[bucket] = (cap, train_lib.make_train_step(
-                cfg, luffy, ocfg, cap))
+                cfg, luffy, ocfg, cap, dist))
         return steps_by_bucket[bucket]
 
     if device.type == "cuda":
@@ -118,16 +163,23 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         observed_rate = 0.8 * observed_rate + 0.2 * m["condense_rate"]
         if cfg.uses_moe and luffy.enable_condensation and i >= 3:
             bucket = train_lib.pick_bucket_host(luffy, observed_rate)
+        inter = ""
+        if m["inter_bytes_flat"] > 0:
+            inter = (f" inter={m['inter_bytes_dedup']:.0f}B"
+                     f"/{m['inter_bytes_flat']:.0f}B")
+            if hier_dedup == "on" and comm_mode == "hier":
+                inter += f" shipped={m['inter_bytes_shipped']:.0f}B"
         print(f"step {i:5d} loss={m['loss']:.4f} "
               f"cond={m['condense_rate']:.4f} bucket={rec['bucket']} "
-              f"C={cap} drop={m['dispatch_drop']:.3f} "
-              f"{rec['step_ms']:.1f}ms", flush=True)
+              f"C={cap} local={m['local_frac']:.2f} "
+              f"drop=({m['dispatch_drop']:.3f},{m['combine_drop']:.3f})"
+              f"{inter} {rec['step_ms']:.1f}ms", flush=True)
     total = time.perf_counter() - t_start
     print(f"done: {args.steps} steps in {total:.1f}s; final loss "
           f"{steps[-1]['loss']:.4f}" if steps else "done: 0 steps")
     return {"arch": cfg.name, "cfg": cfg, "device": str(device),
             "global_batch": gb, "seq_len": args.seq_len, "steps": steps,
-            "total_s": total}
+            "total_s": total, "luffy": luffy, "dist": dist}
 
 
 if __name__ == "__main__":

@@ -70,11 +70,11 @@ class Model(nn.Module):
         return engine.cache_struct(self.cfg, batch, s_max, device=self.device)
 
     def forward_train(self, batch, threshold, capacity: int, *,
-                      luffy: LuffyConfig):
+                      luffy: LuffyConfig, dist=None):
         """(total loss, metrics) of one batch; see
         :func:`repro_torch.models.transformer.forward_train`."""
         return tf.forward_train(self.params, self.cfg, luffy, batch,
-                                threshold, capacity)
+                                threshold, capacity, dist=dist)
 
     @torch.inference_mode()
     def prefill(self, tokens, s_max: int, *, luffy: LuffyConfig):

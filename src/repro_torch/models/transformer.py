@@ -1,7 +1,7 @@
 """The decoder stack (counterpart of ``repro/models/transformer.py``):
 parameter init, embedding, the tied LM head, the chunked cross-entropy
-and the train forward. The single-device branch of the reference's
-``_moe_apply_dist`` is :func:`repro_torch.core.moe_layer.moe_core_planned`.
+and the train forward, on one device or over ``M`` virtual
+expert-parallel ranks (:func:`_moe_apply_dist`).
 
 Where the reference stacks layers by pattern position for ``lax.scan``,
 the port keeps ``params["layers"]`` as a plain list, one dict per layer,
@@ -12,14 +12,16 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.comm.hierarchical import CommContext
 from repro_torch.condense.plan import CondenseCarry
 from repro_torch.config import LuffyConfig, ModelConfig
 from repro_torch.core import moe_layer as moe
+from repro_torch.dist import DistContext
 from repro_torch.models import blocks as bk
 from repro_torch.plan.exchange import MoEAux
 
@@ -115,12 +117,52 @@ def _zero_aux(device) -> MoEAux:
     return MoEAux(*([z] * len(MoEAux._fields)))
 
 
+def _moe_apply_dist(p_moe, x, sideband, s_prev, threshold, cfg, luffy,
+                    comm: Optional[CommContext], mode: str, capacity: int,
+                    cond_carry):
+    """The MoE sublayer over the batch: on one device, or over the ``M``
+    ranks of ``comm``, the batch split rank-major (the reference's train
+    branch of ``_moe_apply_dist``). Each rank's tokens run the rank-local
+    core; the sideband, the similarity history and the condense carry
+    come back at the sequences' (new) homes, and the ledger is averaged
+    over the ranks (the reference's pmean). Returns (y, sideband, s_next,
+    aux, cond_carry)."""
+    B, S, d = x.shape
+    carry = None
+    if cond_carry is not None:
+        carry = CondenseCarry(cond_carry["rep"].reshape(-1),
+                              cond_carry["cexp"].reshape(-1),
+                              cond_carry["age"], cond_carry["valid"])
+    if comm is None or comm.mode == "local":
+        y, sb, s_next, aux, _, cc = moe.moe_core_planned(
+            p_moe, x, sideband, cfg, luffy, mode=mode, capacity=capacity,
+            threshold=threshold, s_prev=s_prev, condense_carry=carry)
+    else:
+        M = comm.size()
+        n_seq = B // M
+        sb = {"labels": sideband["labels"].reshape(M, n_seq, S),
+              "seq_len": sideband["seq_len"].reshape(M, n_seq)}
+        y, sb, s_next, aux, _, cc = moe.moe_core_planned(
+            p_moe, x.reshape(M, n_seq, S, d), sb, cfg, luffy, mode=mode,
+            capacity=capacity, threshold=threshold, s_prev=s_prev,
+            condense_carry=carry, comm=comm)
+        y = y.reshape(B, S, d)
+        sb = {"labels": sb["labels"].reshape(B, S),
+              "seq_len": sb["seq_len"].reshape(B)}
+        aux = MoEAux(*(comm.pmean(a) for a in aux))
+    if s_next is not None:
+        G = luffy.condense_group
+        s_next = s_next.reshape(B, S // G, G, G)
+    return y, sb, s_next, aux, (cond_carry if cc is None else cc)
+
+
 def _layer_full(p, cfg: ModelConfig, luffy: LuffyConfig, layer: int,
-                moe_mode: str, capacity: int, x, sideband, s_prev,
+                moe_mode: str, capacity: int, comm, x, sideband, s_prev,
                 threshold, cond_carry):
-    """One decoder layer of the train forward: causal attention, then the
-    MoE sublayer (condensing, carrying the similarity history and the
-    condense carry) or the dense FFN. Returns (x, s_prev, aux,
+    """One decoder layer of the train forward: causal attention over the
+    whole batch, then the MoE sublayer (condensing, carrying the
+    similarity history and the condense carry, and migrating sequences
+    across ranks) or the dense FFN. Returns (x, sideband, s_prev, aux,
     cond_carry)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
@@ -130,33 +172,29 @@ def _layer_full(p, cfg: ModelConfig, luffy: LuffyConfig, layer: int,
     x = x + att
     if cfg.ffn_kind(layer) != "moe":
         xn = bk.norm_apply(p["ffn_norm"], x, cfg.norm)
-        return (x + bk.ffn_apply(p["ffn"], cfg, xn), s_prev,
+        return (x + bk.ffn_apply(p["ffn"], cfg, xn), sideband, s_prev,
                 _zero_aux(x.device), cond_carry)
-    carry = None
-    if cond_carry is not None:
-        carry = CondenseCarry(cond_carry["rep"].reshape(-1),
-                              cond_carry["cexp"].reshape(-1),
-                              cond_carry["age"], cond_carry["valid"])
-    x, _, s_next, aux, _, cc = moe.moe_core_planned(
-        p["moe"], x, sideband, cfg, luffy, mode=moe_mode,
-        capacity=capacity, threshold=threshold, s_prev=s_prev,
-        condense_carry=carry)
-    if s_next is not None:
-        G = luffy.condense_group
-        s_prev = s_next.reshape(B, S // G, G, G)
-    return x, s_prev, aux, (cond_carry if cc is None else cc)
+    x, sideband, s_next, aux, cond_carry = _moe_apply_dist(
+        p["moe"], x, sideband, s_prev, threshold, cfg, luffy, comm,
+        moe_mode, capacity, cond_carry)
+    return (x, sideband, s_prev if s_next is None else s_next, aux,
+            cond_carry)
 
 
 def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
                   batch: Dict[str, torch.Tensor], threshold,
-                  capacity: int):
-    """The train forward on one device (the single-device branch of the
-    reference's ``forward_train``). batch: tokens [B, S], labels [B, S]
-    (< 0 ignored), seq_len [B]; threshold: f32 scalar tensor (Eq. 2);
-    capacity: the MoE dispatch capacity. Returns (total loss, metrics):
-    the total adds ``router_aux_coef`` times the mean router aux loss;
-    the metrics are detached scalars."""
+                  capacity: int, dist: Optional[DistContext] = None):
+    """The train forward (the reference's ``forward_train``). batch:
+    tokens [B, S], labels [B, S] (< 0 ignored), seq_len [B]; threshold:
+    f32 scalar tensor (Eq. 2); capacity: the MoE dispatch capacity per
+    (rank, expert); dist: the expert-parallel ranks (None: one device).
+    The dense layers run on the whole batch in its current rank-major
+    order, which is each rank's computation row for row; the loss is
+    the global mean. Returns (total loss, metrics): the total adds
+    ``router_aux_coef`` times the mean router aux loss; the metrics are
+    detached scalars."""
     _check_arch(cfg)
+    comm = None if dist is None else dist.comm(luffy.comm_mode)
     x = embed_tokens(params, cfg, batch["tokens"])
     B, S = x.shape[0], x.shape[1]
     sideband = {"labels": batch["labels"],
@@ -182,14 +220,14 @@ def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
     # layer launches again in the backward (counted by chip_smoke.py)
     with ckpt.set_checkpoint_early_stop(False):
         for i, p in enumerate(params["layers"]):
-            args = (p, cfg, eff_luffy, i, moe_mode, capacity, x, sideband,
-                    s_prev, threshold, cond_carry)
+            args = (p, cfg, eff_luffy, i, moe_mode, capacity, comm, x,
+                    sideband, s_prev, threshold, cond_carry)
             if cfg.remat:
                 out = ckpt.checkpoint(_layer_full, *args,
                                       use_reentrant=False)
             else:
                 out = _layer_full(*args)
-            x, s_prev, aux, cond_carry = out
+            x, sideband, s_prev, aux, cond_carry = out
             aux_sum = MoEAux(*(a + b for a, b in zip(aux_sum, aux)))
 
     sl, sc = chunked_xent(params, cfg, x, sideband["labels"])
@@ -206,7 +244,14 @@ def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
         "combine_drop": aux_mean.combine_drop,
         "condense_rate": aux_mean.condense_rate,
         "local_frac": aux_mean.local_frac,
-        # condensation ledger: per-forward sums over the MoE sublayers
+        "traffic_before": aux_mean.traffic_before,
+        "traffic_after": aux_mean.traffic_after,
+        "inter_bytes_flat": aux_mean.inter_bytes_flat,
+        "inter_bytes_dedup": aux_mean.inter_bytes_dedup,
+        "inter_bytes_shipped": aux_mean.inter_bytes_shipped,
+        # plan and condensation ledgers: per-forward sums over the MoE
+        # sublayers
+        "plans_built": aux_sum.plans_built,
         "measured_pairs": aux_sum.measured_pairs,
         "condense_built": aux_sum.condense_built,
         "condense_reused": aux_sum.condense_reused,

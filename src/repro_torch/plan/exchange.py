@@ -1,56 +1,96 @@
 """Plan/execute split for the MoE exchange (counterpart of
-``repro/plan/exchange.py``), single device.
+``repro/plan/exchange.py``).
 
-:func:`build_exchange_plan` decides the condensation map (§V), dispatch
-slots and capacity drops from the router output; :func:`execute_plan`
-packs the dispatch buffer, runs the expert FFN, combines and
-un-condenses. This slice ports one device (M = 1): modes ``vanilla``,
-``decode`` and ``migrate`` (which is the identity on one device, as in
-the reference, whose migration needs M > 1), synchronous execution on
-the dense wire, the ``exact`` similarity backend without plan reuse.
-Expert parallelism (M > 1) raises ``NotImplementedError`` naming the
-queue item that brings it.
+:func:`build_exchange_plan` decides everything about one exchange from
+the router output: the condensation map (§V), dispatch slots and
+capacity drops, the wire format, the inter-node ledger and, across
+ranks, the migration plan (§IV). :func:`execute_plan` moves the bytes
+the plan prescribes: dispatch, the expert FFN, combine and un-condense.
+
+Two layouts. On one device (``comm`` absent or ``"local"``) tensors are
+the device's own, modes ``vanilla``, ``decode`` and ``migrate`` (the
+identity there, as in the reference). Across ``M`` expert-parallel
+ranks (``comm`` flat or hier, :mod:`repro_torch.comm.hierarchical`)
+every tensor is rank-major with a leading rank axis, the ranks' per-rank
+work runs vectorised, and the collectives of the comm context are the
+only place ranks meet: the dense wire (flat or two-phase, the combine
+regrouped to the sequences' new homes under migration, with its
+``combine_slack`` drop path) or the deduplicated hier wire
+(:mod:`repro_torch.condense.wire`), each at ``wire_dtype``. One
+synchronous schedule; the pipelined executor, plan reuse, replica lanes
+and wire error feedback raise, naming the queue item that brings them.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
+from repro_torch.comm import dtypes as wdt
+from repro_torch.comm.hierarchical import CommContext
+from repro_torch.comm.ledger import dispatch_node_ledger
+from repro_torch.condense import wire as cwire
 from repro_torch.condense.plan import (CondenseCarry, CondensePlan,
                                        build_condense_plan,
                                        identity_condense_plan, uncondense)
 from repro_torch.config import LuffyConfig, ModelConfig
 from repro_torch.core.gating import GateOutput, dispatch_positions
 from repro_torch.kernels import ops as kops
+from repro_torch.plan import objectives
 
 MODES = ("vanilla", "migrate", "decode")
 
 
 class MoEAux(NamedTuple):
-    """The reference's per-sublayer ledger, the fields one device has."""
-    aux_loss: torch.Tensor        # [] router load-balance loss
-    dispatch_drop: torch.Tensor   # [] fraction of kept rows dropped
-    combine_drop: torch.Tensor    # [] 0: nothing regroups on one device
-    condense_rate: torch.Tensor   # [] fraction of tokens condensed
-    local_frac: torch.Tensor      # [] 1: every combine row stays local
-    measured_pairs: torch.Tensor  # [] pairs the similarity measured
-    condense_built: torch.Tensor  # [] 1 when the similarity build ran
-    condense_reused: torch.Tensor  # [] 1 when a carried map was reused
+    """The reference's per-sublayer ledger, field for field ([] on one
+    device, [M] per rank across ranks until the layer averages them)."""
+    aux_loss: torch.Tensor        # router load-balance loss
+    dispatch_drop: torch.Tensor   # fraction of kept rows dropped
+    combine_drop: torch.Tensor    # fraction dropped at the combine regroup
+    condense_rate: torch.Tensor   # fraction of tokens condensed
+    local_frac: torch.Tensor      # fraction of combine rows staying home
+    traffic_before: torch.Tensor  # link-cost-weighted combine rows
+    traffic_after: torch.Tensor   # without / with migration
+    inter_bytes_flat: torch.Tensor   # dispatch bytes a flat a2a ships
+    inter_bytes_dedup: torch.Tensor  # ... after per-node dedup
+    plans_built: torch.Tensor     # 1 when the migration planner ran
+    plans_reused: torch.Tensor    # plan reuse is not ported: 0
+    reuse_mismatch: torch.Tensor  # 0
+    measured_pairs: torch.Tensor  # pairs the similarity measured
+    condense_built: torch.Tensor  # 1 when the similarity build ran
+    condense_reused: torch.Tensor  # 1 when a carried map was reused
+    inter_bytes_shipped: torch.Tensor  # bytes the dedup wire shipped
 
 
 class ExchangePlan(NamedTuple):
-    """Every decision about one single-device exchange, as data."""
+    """Every decision about one exchange, as data ([T, ...] on one
+    device, [M, T, ...] across ranks)."""
     condense: bool                # condensation active this call
-    capacity: int                 # per-expert dispatch capacity C
+    capacity: int                 # per-(source, expert) dispatch capacity
     group_size: int               # condensation group G
-    expert_idx: torch.Tensor      # [T, k] expert ids
-    gate_weights: torch.Tensor    # [T, k] combine weights
-    positions: torch.Tensor       # [T, k] dispatch buffer positions
-    valid: torch.Tensor           # [T, k] row takes a dispatch slot
+    expert_idx: torch.Tensor      # [.., T, k] global expert ids
+    gate_weights: torch.Tensor    # [.., T, k] combine weights
+    positions: torch.Tensor       # [.., T, k] dispatch buffer positions
+    valid: torch.Tensor           # [.., T, k] row takes a dispatch slot
     aux_loss: torch.Tensor
     dispatch_drop: torch.Tensor
     condense_plan: CondensePlan
+    # -- across ranks (the one-device defaults otherwise) --------------
+    comm: CommContext = CommContext.local()
+    mode: str = "vanilla"
+    migrate: bool = False         # migrate mode with M > 1
+    wire: str = "dense"           # "dense" | "dedup"
+    wire_dtype: str = "f32"
+    combine_slack: float = 1.0
+    perm: Optional[np.ndarray] = None       # [M*n_seq] new global slot
+    dest_global: Optional[torch.Tensor] = None   # [M, n_seq]
+    traffic_before: Optional[torch.Tensor] = None   # [M]
+    traffic_after: Optional[torch.Tensor] = None
+    inter_bytes_flat: Optional[torch.Tensor] = None   # [M]
+    inter_bytes_dedup: Optional[torch.Tensor] = None
 
 
 def _rms(x, scale, eps=1e-6):
@@ -67,23 +107,46 @@ def expert_ffn(ew, h, act_name: str):
                            act_name)
 
 
-def _check_one_device(params, cfg: ModelConfig):
-    e_local = params["experts"]["w_up"].shape[0]
-    if e_local != cfg.moe.num_experts:
-        raise NotImplementedError(
-            f"expert parallelism: this device holds {e_local} of "
-            f"{cfg.moe.num_experts} experts (M > 1), which comes with "
-            f"the expert-parallel slice (ROADMAP Queue 1 item 3)")
+def _check_whole_stack(params, cfg: ModelConfig):
+    e_held = params["experts"]["w_up"].shape[0]
+    if e_held != cfg.moe.num_experts:
+        raise ValueError(
+            f"a local comm context needs the whole expert stack, got "
+            f"{e_held} of {cfg.moe.num_experts} experts; expert "
+            f"parallelism runs the whole stack over virtual ranks "
+            f"(comm_mode 'flat' or 'hier' with model axis > 1)")
+
+
+def check_ported(luffy: LuffyConfig):
+    """Raise on the reference's options this port does not run yet,
+    naming the queue item that brings each."""
+    later = [
+        (luffy.exec_mode == "pipeline",
+         "exec_mode='pipeline' (the pipelined executor)", "item 5"),
+        (luffy.plan_objective != "traffic",
+         f"plan_objective={luffy.plan_objective!r}", "item 7"),
+        (luffy.plan_reuse != "off", f"plan_reuse={luffy.plan_reuse!r}",
+         "item 4"),
+        (luffy.wire_error_feedback, "wire_error_feedback", "item 6"),
+    ]
+    for bad, what, item in later:
+        if bad:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP Queue 1 {item})")
+    if luffy.exec_mode not in ("sync", "decode_overlap", "pipeline"):
+        raise ValueError(f"unknown exec_mode {luffy.exec_mode!r}")
 
 
 def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
                         luffy: LuffyConfig, *, mode: str, capacity: int,
                         sideband: Dict[str, torch.Tensor], threshold=None,
                         s_prev: Optional[torch.Tensor] = None,
-                        condense_carry: Optional[CondenseCarry] = None
+                        condense_carry: Optional[CondenseCarry] = None,
+                        comm: Optional[CommContext] = None
                         ) -> ExchangePlan:
-    """Decide one single-device exchange: condensation map, dispatch
-    slots and drops.
+    """Decide one exchange. With ``comm`` flat or hier it is the
+    expert-parallel one (:func:`build_exchange_plan_ranks`); otherwise
+    the single-device one: condensation map, dispatch slots and drops.
 
     gate: router output over ``xn`` [T, d] (T = n_seq * S); sideband
     must hold ``seq_len`` [n_seq]. Condensation runs when
@@ -93,6 +156,12 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
     Condensed tokens take no dispatch slot. No payload moves here."""
     if mode not in MODES:
         raise ValueError(f"exchange mode {mode!r}: one of {MODES}")
+    check_ported(luffy)
+    if comm is not None and comm.mode != "local":
+        return build_exchange_plan_ranks(
+            gate, xn, cfg, luffy, comm, mode=mode, capacity=capacity,
+            sideband=sideband, threshold=threshold, s_prev=s_prev,
+            condense_carry=condense_carry)
     m = cfg.moe
     T = xn.shape[0]
     n_seq = sideband["seq_len"].shape[0]
@@ -127,10 +196,12 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
                         dispatch_drop=d_drop, condense_plan=cp)
 
 
-def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig
+def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
+                 sideband: Optional[Dict[str, torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, MoEAux, Optional[Dict]]:
     """Pack the dispatch buffer, run the expert FFN, combine, and
-    un-condense.
+    un-condense. Across ranks see :func:`execute_plan_ranks`, which also
+    returns the migrated sideband and similarity history.
 
     x: [n_seq, S, d] pre-norm hidden. Returns ``(x + moe_delta, aux,
     cond_carry)``, ``cond_carry`` being the condense-reuse carry for the
@@ -141,7 +212,9 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig
     condensed token's whole output row (residual included) by its
     representative's."""
     from repro_torch.models.blocks import _dtype
-    _check_one_device(params, cfg)
+    if plan.comm.mode != "local":
+        return execute_plan_ranks(params, x, plan, cfg, sideband)
+    _check_whole_stack(params, cfg)
     m = cfg.moe
     cdt = _dtype(cfg.compute_dtype)
     n_seq, S, d = x.shape
@@ -187,7 +260,360 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig
                 "age": sig.age, "valid": sig.valid}
     z = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = MoEAux(plan.aux_loss, plan.dispatch_drop, z, cp.rate,
-                 torch.ones_like(z), cp.measured_pairs,
-                 z if cp.built is None else cp.built,
-                 z if cp.reused is None else cp.reused)
+                 torch.ones_like(z), z, z, z, z, z, z, z,
+                 cp.measured_pairs, z if cp.built is None else cp.built,
+                 z if cp.reused is None else cp.reused, z)
     return y_tok.reshape(n_seq, S, d), aux, cond_carry
+
+
+# ---------------------------------------------------------------------------
+# across M expert-parallel ranks (rank-major tensors)
+# ---------------------------------------------------------------------------
+
+def _scatter_rows(n_slots: int, slot, valid, rows):
+    """A zero [n_slots, ...] buffer with ``rows[i]`` at ``slot[i]`` where
+    ``valid[i]``; every valid slot is written once, the rest go to a
+    trash row that is dropped."""
+    idx = torch.where(valid, slot, torch.full_like(slot, n_slots))
+    buf = torch.zeros((n_slots + 1, *rows.shape[1:]), dtype=rows.dtype,
+                      device=rows.device)
+    return buf.index_copy(0, idx, rows)[:n_slots]
+
+
+def build_exchange_plan_ranks(gate: GateOutput, xn, cfg: ModelConfig,
+                              luffy: LuffyConfig, comm: CommContext, *,
+                              mode: str, capacity: int,
+                              sideband: Dict[str, torch.Tensor],
+                              threshold=None,
+                              s_prev: Optional[torch.Tensor] = None,
+                              condense_carry: Optional[CondenseCarry] = None
+                              ) -> ExchangePlan:
+    """Decide one expert-parallel exchange for every rank.
+
+    gate: router output over ``xn [M, T, d]`` (rank r's tokens, T =
+    n_seq * S); sideband ``seq_len [M, n_seq]``; ``s_prev`` the carried
+    similarity of every rank's groups, rank-major. The migration plan is
+    Algorithm 1 under the "traffic" objective over the M * n_seq global
+    slots, priced by the topology's link cost; it runs on the host
+    (:mod:`repro_torch.core.migration`), so the per-(slot, rank) expert
+    counts and the lengths are copied off the device once per
+    sublayer."""
+    from repro_torch.models.blocks import _dtype
+    m = cfg.moe
+    M, T, d = xn.shape
+    n_seq = sideband["seq_len"].shape[1]
+    S = T // n_seq
+    E, k, C = m.num_experts, m.top_k, capacity
+    if E % M:
+        raise ValueError(f"{E} experts do not split over {M} ranks")
+    E_local = E // M
+    G = luffy.condense_group
+    dev = xn.device
+    ranks = comm.index(dev)
+    cdt = _dtype(cfg.compute_dtype)
+    expert_idx, gate_w = gate.expert_idx, gate.gate_weights   # [M, T, k]
+
+    pos_in_seq = torch.arange(S, device=dev)
+    token_valid = (pos_in_seq[None, None, :]
+                   < sideband["seq_len"][..., None]).reshape(M, T)
+    keep = token_valid[..., None].expand(M, T, k)
+
+    do_condense = luffy.enable_condensation and mode != "decode"
+    if do_condense:
+        if threshold is None:
+            raise ValueError("condensation needs a threshold")
+        cp = build_condense_plan(
+            xn.reshape(M * T, d), expert_idx[..., 0].reshape(M * T),
+            threshold, group_size=G,
+            s_prev=None if s_prev is None else s_prev.reshape(-1, G, G),
+            s1=luffy.s1, s2=luffy.s2, backend=luffy.similarity_backend,
+            reuse_mode=luffy.condense_reuse, carry=condense_carry, ranks=M)
+        keep = keep & cp.is_rep.reshape(M, T)[..., None]
+    else:
+        cp = identity_condense_plan(M * T, luffy.similarity_backend,
+                                    device=dev, ranks=M)
+
+    pos = dispatch_positions(expert_idx, keep, E)
+    valid = keep & (pos < C)
+    kept = keep.float().sum(dim=(1, 2))
+    d_drop = 1.0 - valid.float().sum(dim=(1, 2)) / torch.clamp(kept, min=1.0)
+
+    wire_dtype = wdt.validate_wire_dtype(luffy.wire_dtype)
+    wire = ("dedup" if (luffy.hier_dedup == "on" and comm.mode == "hier"
+                        and M > 1) else "dense")
+    topo = comm.topology
+    zM = torch.zeros((M,), dtype=torch.float32, device=dev)
+    if topo is not None and topo.hierarchical and M > 1:
+        row_bytes = float((d + 2) * torch.finfo(cdt).bits // 8)
+        ib_flat, ib_dedup = dispatch_node_ledger(
+            expert_idx, valid, ranks, e_local=E_local, topo=topo,
+            row_bytes=row_bytes)
+        if comm.mode != "hier":
+            ib_dedup = ib_flat          # the flat path ships every copy
+    else:
+        ib_flat = ib_dedup = zM
+
+    migrate = mode == "migrate" and luffy.enable_migration and M > 1
+    if migrate:
+        oh = F.one_hot(expert_idx // E_local, M).float() \
+            * valid[..., None].float()                        # [M,T,k,M]
+        counts = oh.reshape(M, n_seq, S, k, M).sum(dim=(2, 3))
+        lens = sideband["seq_len"].float()
+        mplan = objectives.plan_migration_with_objective(
+            counts.reshape(M * n_seq, M).cpu().numpy(),
+            lens.reshape(M * n_seq).cpu().numpy(), n_seq,
+            objective=luffy.plan_objective, topo=topo, q=luffy.q,
+            d_model=d, speed=luffy.gpu_speed)
+        perm = mplan.perm
+        dest_global = torch.as_tensor(perm, device=dev).long() \
+            .reshape(M, n_seq)
+        t_before = torch.full((M,), float(mplan.traffic_before),
+                              dtype=torch.float32, device=dev)
+        t_after = torch.full((M,), float(mplan.traffic_after),
+                             dtype=torch.float32, device=dev)
+    else:
+        perm = None
+        dest_global = ranks[:, None] * n_seq \
+            + torch.arange(n_seq, device=dev)[None, :]
+        t_before = t_after = zM
+    return ExchangePlan(
+        condense=do_condense, capacity=C, group_size=G,
+        expert_idx=expert_idx, gate_weights=gate_w, positions=pos,
+        valid=valid, aux_loss=gate.aux_loss, dispatch_drop=d_drop,
+        condense_plan=cp, comm=comm, mode=mode, migrate=migrate, wire=wire,
+        wire_dtype=wire_dtype, combine_slack=luffy.combine_slack,
+        perm=perm, dest_global=dest_global, traffic_before=t_before,
+        traffic_after=t_after, inter_bytes_flat=ib_flat,
+        inter_bytes_dedup=ib_dedup)
+
+
+def _exchange_sideband(sb: Dict[str, torch.Tensor], dest_global
+                       ) -> Dict[str, torch.Tensor]:
+    """Move per-sequence state [M, n_seq, ...] to the sequences' new
+    homes: slot ``i`` goes to global slot ``dest_global[i]``. The
+    reference ships it through the combine all-to-all with one writer per
+    slot; across virtual ranks that is exactly this permutation."""
+    n = dest_global.numel()
+    inv = torch.empty_like(dest_global.reshape(-1))
+    inv[dest_global.reshape(-1)] = torch.arange(n, device=inv.device)
+    return {key: v.reshape(n, *v.shape[2:]).index_select(0, inv)
+            .reshape(v.shape) for key, v in sb.items()}
+
+
+def execute_plan_ranks(params, x, plan: ExchangePlan, cfg: ModelConfig,
+                       sideband: Dict[str, torch.Tensor]):
+    """Run one expert-parallel exchange for every rank.
+
+    params: the MoE sublayer's parameters with the whole expert stack
+    [E, ...] (rank r owns experts [r*E_local, (r+1)*E_local)); x:
+    [M, n_seq, S, d] pre-norm hidden; sideband: labels [M, n_seq, S],
+    seq_len [M, n_seq]. The expert FFN runs once over every rank's rows,
+    [E, M*C, d]. Returns ``(y, aux, cond_carry, sideband, s_next)``: in
+    vanilla mode ``y = x + moe_delta``; in migrate mode ``y`` is the
+    post-block hidden at the sequences' new slots, and the sideband,
+    the rep map and the similarity history have moved with them. aux
+    fields are per rank, [M]."""
+    from repro_torch.models.blocks import _dtype
+    m = cfg.moe
+    cdt = _dtype(cfg.compute_dtype)
+    comm = plan.comm
+    M, n_seq, S, d = x.shape
+    T, E, k, C = n_seq * S, m.num_experts, m.top_k, plan.capacity
+    E_local = E // M
+    migrate = plan.migrate
+    dev = x.device
+    ranks = comm.index(dev)
+    expert_idx, gate_w = plan.expert_idx, plan.gate_weights
+    pos, valid = plan.positions, plan.valid
+    dest_global = plan.dest_global
+    xf = x.reshape(M, T, d)
+    scale = params["norm"]["scale"]
+
+    def ffn(x_rows):
+        """x_rows [M, E_local, M, C, d] -> expert outputs, one launch."""
+        h = _rms(x_rows, scale).to(cdt)
+        return expert_ffn(params["experts"], h.reshape(E, M * C, d),
+                          cfg.act).reshape(M, E_local, M, C, d)
+
+    if plan.wire == "dedup":
+        dest_gpos = prim_tk = None
+        if migrate:
+            tok = torch.arange(T, device=dev)
+            dslot = dest_global[:, tok // S]                      # [M, T]
+            dest_gpos = (dslot // n_seq) * T + (dslot % n_seq) * S + tok % S
+            prim_tk = (torch.arange(k, device=dev) == 0).expand(M, T, k)
+        x_rows, gw_rows, rvalid, wst = cwire.dedup_dispatch(
+            xf.to(cdt), expert_idx, gate_w, valid, pos, comm=comm,
+            e_local=E_local, capacity=C, wire_dtype=plan.wire_dtype,
+            dest_gpos=dest_gpos, prim=prim_tk)
+        y_rows = ffn(x_rows)
+        n_rv = torch.clamp(rvalid.float().sum(dim=(1, 2, 3)), min=1.0)
+        if not migrate:
+            delta = cwire.dedup_combine(y_rows * gw_rows[..., None], wst,
+                                        comm=comm,
+                                        wire_dtype=plan.wire_dtype)
+            y_tok = xf + delta.to(xf.dtype)
+            local_frac = torch.full((M,), 1.0 / M, device=dev)
+            new_sb = dict(sideband)
+        else:
+            out_rows = (y_rows * gw_rows[..., None]
+                        + x_rows * wst["prim"][..., None])
+            y_tok = cwire.dedup_combine_migrate(
+                out_rows, wst, comm=comm,
+                wire_dtype=plan.wire_dtype).to(xf.dtype)
+            dd = torch.where(wst["dgpos"] >= 0, wst["dgpos"] // T,
+                             torch.full_like(wst["dgpos"], -1))
+            local_frac = (dd == ranks[:, None, None, None]).float() \
+                .sum(dim=(1, 2, 3)) / n_rv
+            new_sb = _exchange_sideband(sideband, dest_global)
+        c_drop = torch.zeros((M,), device=dev)
+        row_bytes = wdt.wire_row_bytes(d, plan.wire_dtype,
+                                       torch.finfo(cdt).bits // 8)
+        shipped = wst["shipped_rows"] * row_bytes
+        return _finish_ranks(plan, y_tok, new_sb, c_drop, local_frac,
+                             shipped, n_seq, S)
+
+    # ---- dense wire: payload [x, gate weight, primary flag] per copy
+    tok_seq = (torch.arange(T, device=dev) // S)[None, :, None]
+    tok_pos = (torch.arange(T, device=dev) % S)[None, :, None]
+    dest_of_tok = torch.gather(dest_global, 1, tok_seq[..., 0]
+                               .expand(M, T))[..., None].expand(M, T, k)
+    is_primary = (torch.arange(k, device=dev) == 0).expand(M, T, k)
+    payload = torch.cat([
+        xf.to(cdt)[:, :, None, :].expand(M, T, k, d),
+        gate_w[..., None].to(cdt), is_primary[..., None].to(cdt)], dim=-1)
+    meta = torch.stack([dest_of_tok + 1, tok_pos.expand(M, T, k)], -1)
+    slot = (ranks[:, None, None] * E + expert_idx) * C + pos  # [M, T, k]
+    buf = _scatter_rows(M * E * C, slot.reshape(-1), valid.reshape(-1),
+                        payload.reshape(-1, d + 2)).reshape(M, E, C, d + 2)
+    mbuf = _scatter_rows(M * E * C, slot.reshape(-1), valid.reshape(-1),
+                         meta.reshape(-1, 2)).reshape(M, E, C, 2)
+    buf = cwire.ship_rows(comm.all_to_all, buf, d, plan.wire_dtype)
+    mbuf = comm.all_to_all(mbuf)
+    rows = buf.reshape(M, M, E_local, C, d + 2).transpose(1, 2)
+    rmeta = mbuf.reshape(M, M, E_local, C, 2).transpose(1, 2)
+    xr, gw, prim = rows[..., :d], rows[..., d:d + 1], rows[..., d + 1:]
+    out = ffn(xr) * gw                                       # [M,El,M,C,d]
+    if migrate:
+        out = out + xr * prim            # the primary copy's residual
+
+    if not migrate:
+        back = out.transpose(1, 2).reshape(M, E, C, d)
+        back = cwire.ship_rows(comm.combine, back, d, plan.wire_dtype)
+        e_safe = torch.where(valid, slot, torch.zeros_like(slot))
+        vals = back.reshape(M * E * C, d).index_select(
+            0, e_safe.reshape(-1)).reshape(M, T, k, d)
+        vals = vals * valid[..., None].to(cdt)
+        y_tok = xf + vals.sum(dim=2).to(xf.dtype)
+        c_drop = torch.zeros((M,), device=dev)
+        local_frac = torch.full((M,), 1.0 / M, device=dev)
+        new_sb = dict(sideband)
+    else:
+        # regroup rows by destination rank, residual rows first
+        R = E_local * M * C
+        o_f = out.reshape(M, R, d)
+        dslot = rmeta[..., 0].reshape(M, R) - 1
+        rpos = rmeta[..., 1].reshape(M, R)
+        rprim = prim.reshape(M, R) > 0.5
+        rvalid = dslot >= 0
+        ddev = torch.where(rvalid, dslot // n_seq,
+                           torch.full_like(dslot, M))
+        prio = (~rvalid).long() * 2 + (~rprim).long()
+        order = torch.sort(prio, dim=1, stable=True).indices
+        o_f = torch.gather(o_f, 1, order[..., None].expand(M, R, d))
+        dslot, rpos, ddev, rvalid = (torch.gather(a, 1, order) for a in
+                                     (dslot, rpos, ddev, rvalid))
+        C_comb = max(8, int(math.ceil(plan.combine_slack * E_local * C
+                                      / 8)) * 8)
+        oh = F.one_hot(ddev, M + 1)[..., :M]
+        rank = torch.gather(torch.cumsum(oh, dim=1) - oh, 2,
+                            torch.where(rvalid, ddev, torch.zeros_like(ddev))
+                            [..., None])[..., 0]
+        keep_c = rvalid & (rank < C_comb)
+        n_rv = torch.clamp(rvalid.float().sum(dim=1), min=1.0)
+        c_drop = 1.0 - keep_c.float().sum(dim=1) / n_rv
+        local_frac = (keep_c & (ddev == ranks[:, None])).float() \
+            .sum(dim=1) / n_rv
+        cslot = ((ranks[:, None] * M + ddev.clamp(max=M - 1)) * C_comb
+                 + rank.clamp(max=C_comb - 1))
+        cbuf = _scatter_rows(M * M * C_comb, cslot.reshape(-1),
+                             keep_c.reshape(-1), o_f.reshape(-1, d))
+        cmeta = _scatter_rows(M * M * C_comb, cslot.reshape(-1),
+                              keep_c.reshape(-1),
+                              torch.stack([dslot % n_seq + 1, rpos], -1)
+                              .reshape(-1, 2).to(torch.int64))
+        cbuf = cwire.ship_rows(comm.combine, cbuf.reshape(M, M, C_comb, d),
+                               d, plan.wire_dtype)
+        cmeta = comm.combine(cmeta.reshape(M, M, C_comb, 2))
+        rslot = cmeta[..., 0].reshape(M, M * C_comb) - 1
+        rp = cmeta[..., 1].reshape(M, M * C_comb)
+        ok = rslot >= 0
+        at = (ranks[:, None] * n_seq + rslot) * S + rp
+        at = torch.where(ok, at, torch.full_like(at, M * T))
+        y_grid = torch.zeros((M * T + 1, d), dtype=cdt, device=dev)
+        y_grid = y_grid.index_add(0, at.reshape(-1),
+                                  cbuf.reshape(M * M * C_comb, d))
+        y_tok = y_grid[:M * T].reshape(M, T, d).to(xf.dtype)
+        new_sb = _exchange_sideband(sideband, dest_global)
+    return _finish_ranks(plan, y_tok, new_sb, c_drop, local_frac,
+                         torch.zeros((M,), device=dev), n_seq, S)
+
+
+def _finish_ranks(plan: ExchangePlan, y_tok, new_sb, c_drop, local_frac,
+                  shipped, n_seq: int, S: int):
+    """The executor's tail: un-condense through kernel K3 (with the rep
+    map moved to the sequences' new homes under migration), migrate the
+    similarity history and the condense carry, and the per-rank ledger."""
+    M, T, d = y_tok.shape
+    G = plan.group_size
+    dev = y_tok.device
+    cp = plan.condense_plan
+    s_next = cp.s_next
+    cond_carry = None
+    if plan.condense:
+        local = cp.rep_idx.reshape(M, T) \
+            - (torch.arange(M, device=dev) * T)[:, None]
+        sig = cp.signature
+        carry = {}
+        if sig is not None:
+            carry = {"cexp": sig.expert.reshape(M, n_seq, S),
+                     "age": sig.age.reshape(M, n_seq),
+                     "valid": sig.valid.reshape(M, n_seq)}
+        if not plan.migrate:
+            y_tok = uncondense(y_tok.reshape(M * T, d), cp.rep_idx)
+            rep = (local % G).reshape(M, n_seq, S)
+        else:
+            moved = _exchange_sideband(
+                {"rep": (local % S).reshape(M, n_seq, S), **carry},
+                plan.dest_global)
+            rep_sb = moved.pop("rep")
+            carry = moved
+            seq = torch.arange(M * n_seq, device=dev)[:, None] * S
+            y_tok = uncondense(y_tok.reshape(M * T, d),
+                               (seq + rep_sb.reshape(M * n_seq, S))
+                               .reshape(-1))
+            rep = rep_sb % G
+            ng = S // G
+            s_mig = s_next.reshape(M, n_seq, ng, G, G).to(torch.bfloat16)
+            s_next = _exchange_sideband({"s": s_mig}, plan.dest_global)[
+                "s"].float().reshape(-1, G, G)
+        if sig is not None:
+            cond_carry = {"rep": rep.reshape(M * n_seq, S),
+                          "cexp": carry["cexp"].reshape(M * n_seq, S),
+                          "age": carry["age"].reshape(-1),
+                          "valid": carry["valid"].reshape(-1)}
+    ones = torch.ones((M,), dtype=torch.float32, device=dev)
+    zM = torch.zeros_like(ones)
+
+    def per_rank(v):
+        return zM if v is None else v * ones if v.dim() == 0 else v
+
+    aux = MoEAux(
+        plan.aux_loss, plan.dispatch_drop, c_drop, per_rank(cp.rate),
+        local_frac, plan.traffic_before, plan.traffic_after,
+        plan.inter_bytes_flat, plan.inter_bytes_dedup,
+        ones if plan.migrate else zM, zM, zM,
+        per_rank(cp.measured_pairs), per_rank(cp.built),
+        per_rank(cp.reused), shipped)
+    return (y_tok.reshape(M, n_seq, S, d), aux, cond_carry, new_sb,
+            s_next)

@@ -1,6 +1,7 @@
-"""The train step on one device (counterpart of ``repro/train_lib.py``):
-loss, backward, AdamW, and the LUFFY state that carries the adaptive
-threshold (paper Eq. 2) from step to step.
+"""The train step (counterpart of ``repro/train_lib.py``): loss,
+backward, AdamW, and the LUFFY state that carries the adaptive threshold
+(paper Eq. 2) from step to step, on one device or over virtual
+expert-parallel ranks (``dist``).
 
 The threshold is an f32 tensor computed on the device from the running
 loss, as the reference computes it inside its jitted step (a Python
@@ -10,7 +11,7 @@ between steps (:func:`pick_bucket_host`).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -19,6 +20,7 @@ from repro_torch.condense.plan import adaptive_threshold
 from repro_torch.config import LuffyConfig, ModelConfig, OptimConfig, \
     ShapeConfig
 from repro_torch.core import moe_layer
+from repro_torch.dist import DistContext
 from repro_torch.models import transformer as tf
 
 
@@ -34,14 +36,18 @@ def init_luffy_state(device) -> LuffyState:
                       torch.zeros((), dtype=torch.int32, device=device))
 
 
-def tokens_per_device(shape: ShapeConfig) -> int:
-    return max(1, shape.global_batch * shape.seq_len)
+def tokens_per_device(shape: ShapeConfig,
+                      dist: Optional[DistContext] = None) -> int:
+    """Tokens each rank holds: the batch splits over the model axis."""
+    div = 1 if dist is None else dist.batch_size_divisor
+    return max(1, shape.global_batch * shape.seq_len // max(1, div))
 
 
 def capacity_for_bucket(cfg: ModelConfig, shape: ShapeConfig,
-                        luffy: LuffyConfig, bucket: int) -> int:
+                        luffy: LuffyConfig, bucket: int,
+                        dist: Optional[DistContext] = None) -> int:
     rate = luffy.rate_buckets[bucket] if luffy.enable_condensation else 0.0
-    return moe_layer.capacity_for(cfg.moe, tokens_per_device(shape),
+    return moe_layer.capacity_for(cfg.moe, tokens_per_device(shape, dist),
                                   cfg.moe.num_experts, rate=rate)
 
 
@@ -56,13 +62,16 @@ def threshold_for(lstate: LuffyState, luffy: LuffyConfig):
 
 
 def loss_and_metrics(params, batch, lstate: LuffyState, cfg: ModelConfig,
-                     luffy: LuffyConfig, capacity: int):
+                     luffy: LuffyConfig, capacity: int,
+                     dist: Optional[DistContext] = None):
     return tf.forward_train(params, cfg, luffy, batch,
-                            threshold_for(lstate, luffy), capacity)
+                            threshold_for(lstate, luffy), capacity,
+                            dist=dist)
 
 
 def make_train_step(cfg: ModelConfig, luffy: LuffyConfig,
-                    ocfg: OptimConfig, capacity: int):
+                    ocfg: OptimConfig, capacity: int,
+                    dist: Optional[DistContext] = None):
     """Returns step(params, opt_state, lstate, batch) -> (params,
     opt_state, lstate, metrics). ``params`` is a nested dict of leaf
     tensors that require grad (``Model.params``); they and the moments
@@ -73,7 +82,7 @@ def make_train_step(cfg: ModelConfig, luffy: LuffyConfig,
         for p in leaves:
             p.grad = None
         loss, metrics = loss_and_metrics(params, batch, lstate, cfg, luffy,
-                                         capacity)
+                                         capacity, dist)
         loss.backward()
         grads = optim.tree_map(
             lambda p: p.grad if p.grad is not None else torch.zeros_like(p),

@@ -145,3 +145,145 @@ def test_gather_rows_kernel_bitwise_and_grad(dtype, T, d, n_idx):
     assert y.grad.dtype == y.dtype
     assert torch.equal(y.grad.cpu(), want)
     assert torch.equal(kcond.gather_rows_bwd(dy, idx, T), y.grad)
+
+
+def _u8(t):
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", ["f8e4m3", "bf16", "f32"])
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("T,d,R", [(8192, 768, 16384), (64, 33, 96)])
+def test_pack_quantize_kernel_bitwise(wire, x_dtype, T, d, R):
+    """K4 against its plain version, bitwise (uint8 views of payload and
+    scales), at the train path's [8192, 768] rows and 4 ranks x 2 nodes x
+    2048 wire slots, and at d=33 (zero padding) with empty slots; a
+    second launch repeats bit for bit."""
+    from repro_torch.kernels import pack as kpack
+    _cuda_or_skip()
+    r = np.random.default_rng(7)
+    x = torch.as_tensor((r.standard_normal((T, d)) * 3).astype(np.float32))
+    x[1] = 0.0                                   # all-zero blocks
+    x = x.to(getattr(torch, x_dtype)).cuda()
+    tok = torch.as_tensor(r.integers(-1, T, R), dtype=torch.int32).cuda()
+    tok[::5] = -1
+    before = (kpack.pack_quant.launches, kpack.pack_cast.launches)
+    q, sc = ops.pack_quantize(x, tok, wire)
+    torch.cuda.synchronize()
+    f8 = wire == "f8e4m3"
+    assert (kpack.pack_quant.launches, kpack.pack_cast.launches) == (
+        before[0] + f8, before[1] + (not f8))
+    wq, wsc = ref.pack_quantize_ref(x, tok, wire)
+    assert q.dtype == wq.dtype and q.shape == wq.shape
+    assert torch.equal(_u8(q), _u8(wq))
+    assert (sc is None) == (wsc is None)
+    if f8:
+        assert torch.equal(sc, wsc)
+        assert torch.equal(sc.cpu(), ref.pack_quantize_ref(
+            x.cpu(), tok.cpu(), wire)[1])
+    q2, sc2 = ops.pack_quantize(x, tok, wire)
+    assert torch.equal(_u8(q2), _u8(q))
+
+
+@pytest.mark.gpu
+def test_pack_quantize_f8_edges():
+    """Blocks whose payload lands on +-448 exactly and one ulp above,
+    e4m3's ties, its subnormals and signed zeros: bitwise PyTorch's own
+    cast."""
+    from repro_torch.kernels import pack as kpack
+    _cuda_or_skip()
+    up = float(np.nextafter(np.float32(448.0), np.float32(1e9)))
+    vals = [448.0, -448.0, up, -up, 464.0, 440.0, 1e-9, -2.0 ** -10,
+            2.0 ** -9, 0.0, -0.0, 3.0, -17.5]
+    x = torch.zeros((4, 64))
+    x[0, :len(vals)] = torch.tensor(vals)
+    x[1, :32] = 448.0
+    x[2, 32:] = -torch.linspace(0, 448, 32)
+    x[3, :3] = torch.tensor([up, 1.0, -up])
+    x = x.cuda()
+    tok = torch.arange(4, dtype=torch.int32).cuda()
+    q, sc = kpack.pack_quant(x, tok)
+    wq, wsc = ref.pack_quantize_ref(x, tok, "f8e4m3")
+    assert torch.equal(_u8(q), _u8(wq)) and torch.equal(sc, wsc)
+    assert torch.equal(_u8(q).cpu(), _u8(ref.pack_quantize_ref(
+        x.cpu(), tok.cpu(), "f8e4m3")[0]))
+    assert int(_u8(q)[1, 0]) == 0x7E         # 448 is e4m3fn's largest
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_tok", [True, False])
+def test_pack_quant_backward_matches_plain(x_dtype, with_tok):
+    """K4's backward kernel (the reference's transpose of the f8 codec)
+    against its plain version within 1e-6 of the largest entry (two
+    32-element sums in another order; 2e-2 at bf16, one rounding of the
+    result), and repeating bit for bit; and the cast wires' gradient
+    through the wire against plain autograd."""
+    from repro_torch.kernels import pack as kpack
+    _cuda_or_skip()
+    r = np.random.default_rng(8)
+    T, d, R = 2048, 768, 4096
+    dt = getattr(torch, x_dtype)
+    x = torch.as_tensor((r.standard_normal((T, d)) * 2).astype(np.float32))
+    x = x.to(dt).cuda()
+    tok = torch.as_tensor(r.integers(-1, T, R), dtype=torch.int32).cuda() \
+        if with_tok else None
+    g = torch.as_tensor((r.standard_normal((R if with_tok else T, d))
+                         * 1e-2).astype(np.float32)).to(dt).cuda()
+    before = kpack.pack_quant_bwd.launches
+    got = ops.pack_quant_bwd(x, tok, g)
+    torch.cuda.synchronize()
+    assert kpack.pack_quant_bwd.launches == before + 1
+    want = ref.pack_quant_bwd_ref(x, tok, g)
+    tol = 1e-6 if x_dtype == "float32" else 2e-2
+    scale = want.float().abs().max()
+    assert (got.float() - want.float()).abs().max() <= tol * scale
+    assert torch.equal(ops.pack_quant_bwd(x, tok, g), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", ["f8e4m3", "bf16", "f32"])
+def test_wire_backward_matches_plain_autograd(wire):
+    """The wire's gradient on the card (K4 forward, the K4 backward
+    kernel on the f8 wire) against the plain path: autograd through the
+    plain pack and cast on the cast wires (equal), the plain backward on
+    the CPU on the f8 wire (2e-2 of the largest entry: bf16 rows)."""
+    from repro_torch.condense.wire import _Ship
+    from repro_torch.kernels import pack as kpack
+    _cuda_or_skip()
+    r = np.random.default_rng(9)
+    T, d = 2048, 768
+    x = torch.as_tensor(r.standard_normal((T, d)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    # two "nodes": each token heads to at most one slot of each
+    back = torch.stack([torch.as_tensor(r.permutation(T)),
+                        torch.as_tensor(r.permutation(T)) + T], 1)
+    back[torch.as_tensor(r.random((T, 2)) < 0.4)] = -1
+    tok = torch.full((2 * T + 1,), -1, dtype=torch.int32)
+    tok[torch.where(back >= 0, back, 2 * T).reshape(-1)] = \
+        torch.arange(T, dtype=torch.int32)[:, None].expand(T, 2).reshape(-1)
+    tok = tok[:2 * T]
+    g = torch.as_tensor((r.standard_normal((2, T, d)) * 1e-2)
+                        .astype(np.float32)).to(torch.bfloat16)
+
+    def ship(dev):
+        xs = x.to(dev).requires_grad_()
+        y = _Ship.apply(xs, tok.to(dev), back.to(dev), lambda t: t, wire,
+                        torch.bfloat16, (2, T))
+        y.backward(g.to(dev))
+        return xs.grad
+
+    before = kpack.pack_quant_bwd.launches
+    got = ship("cuda")
+    torch.cuda.synchronize()
+    assert kpack.pack_quant_bwd.launches == before + (wire == "f8e4m3")
+    if wire == "f8e4m3":
+        want = ship("cpu")
+        err = (got.cpu().float() - want.float()).abs().max()
+        assert err <= 2e-2 * want.float().abs().max()
+    else:
+        xs = x.cuda().requires_grad_()
+        q, _ = ref.pack_quantize_ref(xs, tok.cuda(), wire)
+        q.reshape(2, T, d).to(torch.bfloat16).backward(g.cuda())
+        assert torch.equal(got, xs.grad)

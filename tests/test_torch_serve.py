@@ -215,9 +215,13 @@ def test_moe_core_matches_reference(mode, cdt):
 
 
 def test_moe_core_later_slices_raise():
-    """What later slices bring raises: expert parallelism (a device
-    holding fewer than all experts, M > 1), the lsh similarity backend
-    and condense-plan reuse. Migration itself is the identity at M = 1."""
+    """What the port does not run raises, each naming the queue item that
+    brings it: the pipelined executor, the planner objectives other than
+    "traffic", plan reuse, wire error feedback, the lsh similarity
+    backend and condense-plan reuse. A device holding part of the expert
+    stack under a local comm context is an error (expert parallelism
+    runs the whole stack over virtual ranks). Migration itself is the
+    identity at M = 1."""
     _, tcfg = _cfgs("float32")
     g = torch.Generator().manual_seed(0)
     p = tmoe.moe_init(g, tcfg, device="cpu")
@@ -226,17 +230,20 @@ def test_moe_core_later_slices_raise():
     sb = {"seq_len": torch.full((1,), G, dtype=torch.int32)}
     thr = torch.tensor(0.5)
     shard = {**p, "experts": {k: w[:2] for k, w in p["experts"].items()}}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(ValueError, match="whole expert stack"):
         tmoe.moe_core(shard, x, sb, tcfg, LuffyConfig(), mode="migrate",
                       capacity=8, threshold=thr)
-    with pytest.raises(NotImplementedError, match="lsh"):
-        tmoe.moe_core(p, x, sb, tcfg,
-                      LuffyConfig(similarity_backend="lsh"),
-                      mode="vanilla", capacity=8, threshold=thr)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tmoe.moe_core(p, x, sb, tcfg,
-                      LuffyConfig(condense_reuse="signature"),
-                      mode="vanilla", capacity=8, threshold=thr)
+    for luffy, item in (
+            (LuffyConfig(exec_mode="pipeline"), "Queue 1 item 5"),
+            (LuffyConfig(plan_objective="overlap"), "Queue 1 item 7"),
+            (LuffyConfig(plan_objective="replicate"), "Queue 1 item 7"),
+            (LuffyConfig(plan_reuse="signature"), "Queue 1 item 4"),
+            (LuffyConfig(wire_error_feedback=True), "Queue 1 item 6"),
+            (LuffyConfig(similarity_backend="lsh"), "lsh"),
+            (LuffyConfig(condense_reuse="signature"), "Queue 1 item 4")):
+        with pytest.raises(NotImplementedError, match=item):
+            tmoe.moe_core(p, x, sb, tcfg, luffy, mode="vanilla", capacity=8,
+                          threshold=thr)
     y_mig = tmoe.moe_core(p, x, sb, tcfg, LuffyConfig(), mode="migrate",
                           capacity=8, threshold=thr)[0]
     y_van = tmoe.moe_core(p, x, sb, tcfg, LuffyConfig(), mode="vanilla",
