@@ -914,27 +914,46 @@ def phase_kernels_k4():
             f"({n_rows} filled): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
             f"ms, index_select+codec {lib_ms:.4f} ms; bound "
             f"{out[rec_name]['bound_ms']:.4f} ms by bytes")
-    # the backward kernel: the f8 codec's transpose at the same rows
-    g = (torch.randn((R, D), generator=gen, device="cuda") * 1e-2) \
-        .to(torch.bfloat16)
-    got = kpack.pack_quant_bwd(x, tok, g)
-    torch.cuda.synchronize()
-    want = ref.pack_quant_bwd_ref(x, tok, g)
-    err = (got.float() - want.float()).abs().max().item()
-    scale = want.float().abs().max().item()
-    again = torch.equal(kpack.pack_quant_bwd(x, tok, g), got)
-    ok = err <= 2e-2 * scale and again
-    log(f"  K4 bwd [{R},{D}] bf16: max|err|={err:.3e} (tol 2e-2 x "
-        f"{scale:.3e}: one bf16 rounding of sums in another order); "
-        f"repeats {again} {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit("K4's backward disagrees with its plain version")
+    # the backward kernel: the f8 codec's transpose at the same rows, at
+    # the cotangent scales the CPU codec test uses. At 1 most of the
+    # payload's cotangent f8(g * scale) is nonzero on the filled rows; at
+    # 1e-2 and 1e-4 it is zero there and only the scale's (tie) term is
+    # left, as in the reference's f8 training (ROADMAP, parity rules).
+    _, sc = wdt.quantize_rows(ref.pack_rows_ref(x, tok), "f8e4m3")
+    filled = tok >= 0
+    errs = {}
+    for g_scale in (1.0, 1e-2, 1e-4):
+        g = (torch.randn((R, D), generator=gen, device="cuda") * g_scale) \
+            .to(torch.bfloat16)
+        ct_q = (g.float().reshape(R, -1, wdt.SCALE_BLOCK) * sc[..., None]) \
+            .to(wdt.F8).float()
+        share = (ct_q[filled] != 0).float().mean().item()
+        got = kpack.pack_quant_bwd(x, tok, g)
+        torch.cuda.synchronize()
+        want = ref.pack_quant_bwd_ref(x, tok, g)
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        again = torch.equal(kpack.pack_quant_bwd(x, tok, g), got)
+        ok = err <= 2e-2 * scale and again
+        if g_scale == 1.0:
+            ok = ok and share > 0.5
+        errs[g_scale] = err
+        log(f"  K4 bwd [{R},{D}] bf16, cotangent x{g_scale:g}: "
+            f"f8(g*scale) nonzero on {share:.4f} of the filled entries; "
+            f"max|err|={err:.3e} (tol 2e-2 x {scale:.3e}: one bf16 "
+            f"rounding of sums in another order); repeats {again} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"K4's backward disagrees with its plain "
+                             f"version at cotangent x{g_scale:g} (or its "
+                             f"payload path went unexercised)")
     ms = time_ms(lambda: kpack.pack_quant_bwd(x, tok, g), 50)
     plain_ms = time_ms(lambda: ref.pack_quant_bwd_ref(x, tok, g), 20)
     nbytes = in_bytes + 2 * R * D * 2
     out["pack_quantize_bwd"] = dict(ms=ms, plain_ms=plain_ms,
-                                    library_ms=None,
-                                    **_bound(nbytes, 0.0), max_abs_err=err)
+                                    library_ms=None, **_bound(nbytes, 0.0),
+                                    max_abs_err=max(errs.values()),
+                                    errs=errs)
     log(f"  K4 bwd: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
         f"{out['pack_quantize_bwd']['bound_ms']:.4f} ms by bytes")
     del x, tok, g, got, want
@@ -947,17 +966,17 @@ def _record_perms():
     (forward and recompute calls). Returns (list, undo)."""
     import repro_torch.plan.exchange as tex
     perms = []
-    orig = tex.build_exchange_plan_ranks
+    orig = tex.build_exchange_plan
 
     def rec(*a, **kw):
         pl = orig(*a, **kw)
         perms.append(None if pl.perm is None else pl.perm.copy())
         return pl
 
-    tex.build_exchange_plan_ranks = rec
+    tex.build_exchange_plan = rec
 
     def undo():
-        tex.build_exchange_plan_ranks = orig
+        tex.build_exchange_plan = orig
 
     return perms, undo
 
@@ -1110,7 +1129,7 @@ def phase_ep_parity():
     batch = SyntheticLM(cfg, shape).batch(0)
     thr = torch.tensor(0.6)
     runs = {}
-    orig = tex.build_exchange_plan_ranks
+    orig = tex.build_exchange_plan
     for dev in ("cuda", "cpu"):
         model.to(dev)
         plans = []
@@ -1120,7 +1139,7 @@ def phase_ep_parity():
             plans.append((pl.perm.copy(), pl.condense_plan.rep_idx.cpu()))
             return pl
 
-        tex.build_exchange_plan_ranks = rec
+        tex.build_exchange_plan = rec
         try:
             model.zero_grad(set_to_none=True)
             tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
@@ -1128,7 +1147,7 @@ def phase_ep_parity():
                                           dist=dist)
             loss.backward()
         finally:
-            tex.build_exchange_plan_ranks = orig
+            tex.build_exchange_plan = orig
         gn = torch.sqrt(sum(torch.sum(p.grad.double() ** 2)
                             for p in model.parameters())).item()
         runs[dev] = (loss.item(), gn, plans)
@@ -1144,7 +1163,7 @@ def phase_ep_parity():
     log("EP parity: " + json.dumps(info))
     if not perms_equal:
         raise SystemExit(f"cuda vs cpu migration perms differ: {info}")
-    if n_diff > 0.001 * n_tok:
+    if n_diff:
         raise SystemExit(f"cuda vs cpu rep maps differ on {n_diff} of "
                          f"{n_tok} tokens")
     if not info["loss_rel"] <= 1e-4:
@@ -1341,7 +1360,10 @@ def main() -> int:
                 "transposes the reference's jnp codec)",
                 el["pack_quant_bwd"], timed_k4["pack_quantize_bwd"],
                 {"launches_path": "EP train, --wire-dtype f8e4m3",
-                 "timed_at": "4x2x2048 bf16 cotangent rows of 768"}),
+                 "timed_at": "4x2x2048 bf16 cotangent rows of 768",
+                 "max_abs_err_by_cotangent_scale": {
+                     f"{g:g}": e for g, e in
+                     timed_k4["pack_quantize_bwd"]["errs"].items()}}),
     ]
     for rec in records[:5]:
         rec["launches_ep_train"] = el[rec["name"]]

@@ -29,8 +29,8 @@ class CondenseOutput(NamedTuple):
     rep_idx: torch.Tensor         # [T] int64 each token's representative
     is_rep: torch.Tensor          # [T] bool token represents itself
     sim: torch.Tensor             # [n_groups, G, G] f32 (next s_prev)
-    rate: torch.Tensor            # [] f32 fraction of tokens condensed
-    measured_pairs: torch.Tensor  # [] f32 pairs actually measured
+    rate: torch.Tensor            # [ranks] f32 fraction condensed
+    measured_pairs: torch.Tensor  # [ranks] f32 pairs actually measured
 
 
 class CondenseSignature(NamedTuple):
@@ -56,8 +56,8 @@ class CondensePlan(NamedTuple):
     rep_idx: torch.Tensor         # [T] int64
     is_rep: torch.Tensor          # [T] bool
     s_next: Optional[torch.Tensor]  # [n_groups, G, G] f32
-    rate: torch.Tensor            # [] f32
-    measured_pairs: torch.Tensor  # [] f32
+    rate: torch.Tensor            # [ranks] f32
+    measured_pairs: torch.Tensor  # [ranks] f32
     signature: Optional[CondenseSignature] = None
     built: Optional[torch.Tensor] = None    # [] f32, 1 when sim was built
     reused: Optional[torch.Tensor] = None   # [] f32, 1 when reused
@@ -65,13 +65,12 @@ class CondensePlan(NamedTuple):
 
 def identity_condense_plan(T: int, backend: str = "exact", *,
                            device, ranks: int = 1) -> CondensePlan:
-    """The condense-nothing plan: every token represents itself. With
-    ``ranks > 1`` the T tokens are the ranks' in rank-major order and
-    the rate and pair count are per rank ([ranks])."""
-    idx = torch.arange(T, device=device)
-    z = torch.zeros(() if ranks == 1 else (ranks,), dtype=torch.float32,
-                    device=device)
-    return CondensePlan(backend=backend, rep_idx=idx,
+    """The condense-nothing plan: every token represents itself. The T
+    tokens are the ranks' in rank-major order; the rate and pair count
+    are per rank ([ranks])."""
+    z = torch.zeros((ranks,), dtype=torch.float32, device=device)
+    return CondensePlan(backend=backend,
+                        rep_idx=torch.arange(T, device=device),
                         is_rep=torch.ones((T,), dtype=torch.bool,
                                           device=device),
                         s_next=None, rate=z, measured_pairs=z)
@@ -117,9 +116,9 @@ def condense_tokens(x, primary_expert, threshold, *, group_size: int,
 
     x: [T, d] router input; primary_expert: [T]; threshold: f32 scalar
     tensor (Eq. 2 or static); s_prev: [n_groups, G, G] carried
-    similarity. Returns the global rep map over [T]. With ``ranks > 1``
-    the tokens are the ranks' in rank-major order (groups never span
-    two ranks) and the rate and measured pairs are per rank."""
+    similarity. The tokens are those of ``ranks`` ranks in rank-major
+    order (groups never span two ranks). Returns the global rep map over
+    [T]; the rate and measured pairs are per rank ([ranks])."""
     T, d = x.shape
     G = group_size
     if T % G:
@@ -133,12 +132,8 @@ def condense_tokens(x, primary_expert, threshold, *, group_size: int,
     offsets = torch.arange(ng, device=x.device)[:, None] * G
     rep_idx = (reps + offsets).reshape(T)
     is_rep = rep_idx == torch.arange(T, device=x.device)
-    if ranks == 1:
-        rate = 1.0 - torch.mean(is_rep.float())
-        pairs = torch.sum(measured) * float(G * G)
-    else:
-        rate = 1.0 - torch.mean(is_rep.reshape(ranks, -1).float(), dim=1)
-        pairs = torch.sum(measured.reshape(ranks, -1), dim=1) * float(G * G)
+    rate = 1.0 - torch.mean(is_rep.reshape(ranks, -1).float(), dim=1)
+    pairs = torch.sum(measured.reshape(ranks, -1), dim=1) * float(G * G)
     return CondenseOutput(rep_idx, is_rep, sim, rate, pairs)
 
 

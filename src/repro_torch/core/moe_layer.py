@@ -1,8 +1,7 @@
 """The MoE sublayer (counterpart of ``repro/core/moe_layer.py``):
-parameters, capacity, and ``moe_core_planned`` = gate + build + execute,
-on one device or, with a flat or hier comm context, for every
-expert-parallel rank at once (rank-major tensors,
-:mod:`repro_torch.comm.hierarchical`)."""
+parameters, capacity, and ``moe_core_planned`` = gate + build + execute
+for every expert-parallel rank at once (rank-major tensors,
+:mod:`repro_torch.comm.hierarchical`; one device is one rank)."""
 from __future__ import annotations
 
 import math
@@ -14,8 +13,8 @@ from repro_torch.comm.hierarchical import CommContext
 from repro_torch.condense.plan import CondenseCarry
 from repro_torch.config import LuffyConfig, MoEConfig, ModelConfig
 from repro_torch.core.gating import gate_apply, gate_init
-from repro_torch.plan.exchange import (MoEAux, _rms, build_exchange_plan,
-                                       execute_plan)
+from repro_torch.plan import exchange as pex
+from repro_torch.plan.exchange import MoEAux, _rms
 
 
 def moe_init(generator, cfg: ModelConfig, *, device):
@@ -56,46 +55,43 @@ def moe_core_planned(params, x, sideband: Dict[str, torch.Tensor],
                      s_prev: Optional[torch.Tensor] = None,
                      condense_carry: Optional[CondenseCarry] = None,
                      comm: Optional[CommContext] = None):
-    """One MoE sublayer: gate on the RMS-normed tokens, build the plan
+    """One MoE sublayer for the ``M`` ranks of ``comm`` (None: one
+    device, M = 1): gate on the RMS-normed tokens, build the plan
     (condensing when ``luffy.enable_condensation`` and the mode is not
-    ``decode``), execute it. x: [n_seq, S, d] pre-norm hidden (with a
-    flat or hier ``comm``: [M, n_seq, S, d] and a rank-major sideband);
-    ``threshold`` an f32 scalar tensor, ``s_prev`` the similarity carried
-    from the previous MoE sublayer. Returns ``(y, sideband, s_next, aux,
-    plan, cond_carry)``: on one device ``y = x + moe_delta`` and the
-    sideband is unchanged; across ranks in migrate mode ``y``, the
-    sideband and ``s_next`` are at the sequences' new homes and aux is
-    per rank. ``s_next`` / ``cond_carry`` are None without
-    condensation."""
+    ``decode``), execute it. x: [M, n_seq, S, d] pre-norm hidden and a
+    rank-major sideband (seq_len [M, n_seq]); ``threshold`` an f32
+    scalar tensor, ``s_prev`` the similarity carried from the previous
+    MoE sublayer. Returns ``(y, sideband, s_next, aux, plan,
+    cond_carry)``, rank-major, aux per rank [M]: ``y = x + moe_delta``
+    with the sideband unchanged, or in migrate mode across ranks ``y``,
+    the sideband and ``s_next`` at the sequences' new homes. ``s_next``
+    / ``cond_carry`` are None without condensation."""
     from repro_torch.models.blocks import _dtype
-    S, d = x.shape[-2:]
-    lead = x.shape[:-2]
-    ep = comm is not None and comm.mode != "local"
-    T = S * (lead[-1] if ep else lead[0])
-    xn = _rms(x.reshape(*lead[:-1], T, d), params["norm"]["scale"]) \
+    M, n_seq, S, d = x.shape
+    xn = _rms(x.reshape(M, n_seq * S, d), params["norm"]["scale"]) \
         .to(_dtype(cfg.compute_dtype))
     gate = gate_apply(params["router"], xn, cfg.moe.top_k)
-    plan = build_exchange_plan(gate, xn, cfg, luffy, mode=mode,
-                               capacity=capacity, sideband=sideband,
-                               threshold=threshold, s_prev=s_prev,
-                               condense_carry=condense_carry, comm=comm)
-    if ep:
-        y, aux, cond_carry, sb, s_next = execute_plan(params, x, plan, cfg,
+    plan = pex.build_exchange_plan(gate, xn, cfg, luffy, mode=mode,
+                                   capacity=capacity, sideband=sideband,
+                                   threshold=threshold, s_prev=s_prev,
+                                   condense_carry=condense_carry, comm=comm)
+    y, aux, cond_carry, sb, s_next = pex.execute_plan(params, x, plan, cfg,
                                                       sideband)
-        return y, sb, s_next, aux, plan, cond_carry
-    y, aux, cond_carry = execute_plan(params, x, plan, cfg)
-    return (y, dict(sideband), plan.condense_plan.s_next, aux, plan,
-            cond_carry)
+    return y, sb, s_next, aux, plan, cond_carry
 
 
 def moe_core(params, x, sideband: Dict[str, torch.Tensor], cfg: ModelConfig,
              luffy: LuffyConfig, *, mode: str, capacity: int, threshold=None,
-             s_prev: Optional[torch.Tensor] = None,
-             comm: Optional[CommContext] = None
+             s_prev: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                         Optional[torch.Tensor], MoEAux]:
-    """The reference's 4-tuple ``(y, sideband, s_next, aux)`` of
-    :func:`moe_core_planned`."""
-    return moe_core_planned(params, x, sideband, cfg, luffy, mode=mode,
-                            capacity=capacity, threshold=threshold,
-                            s_prev=s_prev, comm=comm)[:4]
+    """The reference's one-device ``moe_core``: x [n_seq, S, d] and the
+    sideband [n_seq, ...] in, the 4-tuple ``(y, sideband, s_next, aux)``
+    out in the same layout (aux scalars). It is :func:`moe_core_planned`
+    with one rank."""
+    y, sb, s_next, aux, _, _ = moe_core_planned(
+        params, x[None], {key: v[None] for key, v in sideband.items()},
+        cfg, luffy, mode=mode, capacity=capacity, threshold=threshold,
+        s_prev=s_prev)
+    return (y[0], {key: v[0] for key, v in sb.items()}, s_next,
+            MoEAux(*(a[0] for a in aux)))

@@ -120,40 +120,35 @@ def _zero_aux(device) -> MoEAux:
 def _moe_apply_dist(p_moe, x, sideband, s_prev, threshold, cfg, luffy,
                     comm: Optional[CommContext], mode: str, capacity: int,
                     cond_carry):
-    """The MoE sublayer over the batch: on one device, or over the ``M``
-    ranks of ``comm``, the batch split rank-major (the reference's train
+    """The MoE sublayer over the batch, split rank-major over the ``M``
+    ranks of ``comm`` (None: one device, M = 1; the reference's train
     branch of ``_moe_apply_dist``). Each rank's tokens run the rank-local
     core; the sideband, the similarity history and the condense carry
     come back at the sequences' (new) homes, and the ledger is averaged
     over the ranks (the reference's pmean). Returns (y, sideband, s_next,
     aux, cond_carry)."""
     B, S, d = x.shape
+    comm = CommContext.local() if comm is None else comm
+    M = comm.size()
+    n_seq = B // M
     carry = None
     if cond_carry is not None:
         carry = CondenseCarry(cond_carry["rep"].reshape(-1),
                               cond_carry["cexp"].reshape(-1),
                               cond_carry["age"], cond_carry["valid"])
-    if comm is None or comm.mode == "local":
-        y, sb, s_next, aux, _, cc = moe.moe_core_planned(
-            p_moe, x, sideband, cfg, luffy, mode=mode, capacity=capacity,
-            threshold=threshold, s_prev=s_prev, condense_carry=carry)
-    else:
-        M = comm.size()
-        n_seq = B // M
-        sb = {"labels": sideband["labels"].reshape(M, n_seq, S),
-              "seq_len": sideband["seq_len"].reshape(M, n_seq)}
-        y, sb, s_next, aux, _, cc = moe.moe_core_planned(
-            p_moe, x.reshape(M, n_seq, S, d), sb, cfg, luffy, mode=mode,
-            capacity=capacity, threshold=threshold, s_prev=s_prev,
-            condense_carry=carry, comm=comm)
-        y = y.reshape(B, S, d)
-        sb = {"labels": sb["labels"].reshape(B, S),
-              "seq_len": sb["seq_len"].reshape(B)}
-        aux = MoEAux(*(comm.pmean(a) for a in aux))
+    sb = {key: v.reshape(M, n_seq, *v.shape[1:])
+          for key, v in sideband.items()}
+    y, sb, s_next, aux, _, cc = moe.moe_core_planned(
+        p_moe, x.reshape(M, n_seq, S, d), sb, cfg, luffy, mode=mode,
+        capacity=capacity, threshold=threshold, s_prev=s_prev,
+        condense_carry=carry, comm=comm)
+    sb = {key: v.reshape(B, *v.shape[2:]) for key, v in sb.items()}
+    aux = MoEAux(*(comm.pmean(a) for a in aux))
     if s_next is not None:
         G = luffy.condense_group
         s_next = s_next.reshape(B, S // G, G, G)
-    return y, sb, s_next, aux, (cond_carry if cc is None else cc)
+    return (y.reshape(B, S, d), sb, s_next, aux,
+            cond_carry if cc is None else cc)
 
 
 def _layer_full(p, cfg: ModelConfig, luffy: LuffyConfig, layer: int,

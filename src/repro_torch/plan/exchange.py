@@ -7,23 +7,24 @@ capacity drops, the wire format, the inter-node ledger and, across
 ranks, the migration plan (§IV). :func:`execute_plan` moves the bytes
 the plan prescribes: dispatch, the expert FFN, combine and un-condense.
 
-Two layouts. On one device (``comm`` absent or ``"local"``) tensors are
-the device's own, modes ``vanilla``, ``decode`` and ``migrate`` (the
-identity there, as in the reference). Across ``M`` expert-parallel
-ranks (``comm`` flat or hier, :mod:`repro_torch.comm.hierarchical`)
-every tensor is rank-major with a leading rank axis, the ranks' per-rank
-work runs vectorised, and the collectives of the comm context are the
-only place ranks meet: the dense wire (flat or two-phase, the combine
-regrouped to the sequences' new homes under migration, with its
-``combine_slack`` drop path) or the deduplicated hier wire
-(:mod:`repro_torch.condense.wire`), each at ``wire_dtype``. One
+Every tensor is rank-major with a leading axis over the ``M``
+expert-parallel ranks of the comm context
+(:mod:`repro_torch.comm.hierarchical`); the ranks' per-rank work runs
+vectorised, and the collectives of the comm context are the only place
+ranks meet. One device is the case ``M = 1`` under a ``"local"``
+context: its collectives are the identity, nothing crosses a wire and
+migration is the identity, as in the reference. Across ranks the dense
+wire runs flat or two-phase (the combine regrouped to the sequences' new
+homes under migration, with its ``combine_slack`` drop path), or the
+deduplicated hier wire (:mod:`repro_torch.condense.wire`), each at
+``wire_dtype``. Modes ``vanilla``, ``decode`` and ``migrate``. One
 synchronous schedule; the pipelined executor, plan reuse, replica lanes
 and wire error feedback raise, naming the queue item that brings them.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,8 +46,8 @@ MODES = ("vanilla", "migrate", "decode")
 
 
 class MoEAux(NamedTuple):
-    """The reference's per-sublayer ledger, field for field ([] on one
-    device, [M] per rank across ranks until the layer averages them)."""
+    """The reference's per-sublayer ledger, field for field ([M], per
+    rank, until the layer averages them)."""
     aux_loss: torch.Tensor        # router load-balance loss
     dispatch_drop: torch.Tensor   # fraction of kept rows dropped
     combine_drop: torch.Tensor    # fraction dropped at the combine regroup
@@ -66,31 +67,29 @@ class MoEAux(NamedTuple):
 
 
 class ExchangePlan(NamedTuple):
-    """Every decision about one exchange, as data ([T, ...] on one
-    device, [M, T, ...] across ranks)."""
+    """Every decision about one exchange, as data ([M, T, ...])."""
     condense: bool                # condensation active this call
     capacity: int                 # per-(source, expert) dispatch capacity
     group_size: int               # condensation group G
-    expert_idx: torch.Tensor      # [.., T, k] global expert ids
-    gate_weights: torch.Tensor    # [.., T, k] combine weights
-    positions: torch.Tensor       # [.., T, k] dispatch buffer positions
-    valid: torch.Tensor           # [.., T, k] row takes a dispatch slot
-    aux_loss: torch.Tensor
-    dispatch_drop: torch.Tensor
+    expert_idx: torch.Tensor      # [M, T, k] global expert ids
+    gate_weights: torch.Tensor    # [M, T, k] combine weights
+    positions: torch.Tensor       # [M, T, k] dispatch buffer positions
+    valid: torch.Tensor           # [M, T, k] row takes a dispatch slot
+    aux_loss: torch.Tensor        # [M]
+    dispatch_drop: torch.Tensor   # [M]
     condense_plan: CondensePlan
-    # -- across ranks (the one-device defaults otherwise) --------------
-    comm: CommContext = CommContext.local()
-    mode: str = "vanilla"
-    migrate: bool = False         # migrate mode with M > 1
-    wire: str = "dense"           # "dense" | "dedup"
-    wire_dtype: str = "f32"
-    combine_slack: float = 1.0
-    perm: Optional[np.ndarray] = None       # [M*n_seq] new global slot
-    dest_global: Optional[torch.Tensor] = None   # [M, n_seq]
-    traffic_before: Optional[torch.Tensor] = None   # [M]
-    traffic_after: Optional[torch.Tensor] = None
-    inter_bytes_flat: Optional[torch.Tensor] = None   # [M]
-    inter_bytes_dedup: Optional[torch.Tensor] = None
+    comm: CommContext
+    mode: str
+    migrate: bool                 # migrate mode with M > 1
+    wire: str                     # "dense" | "dedup"
+    wire_dtype: str               # what crosses the wire when M > 1
+    combine_slack: float
+    perm: Optional[np.ndarray]    # [M*n_seq] new global slot (migrate)
+    dest_global: Optional[torch.Tensor]   # [M, n_seq] (migrate)
+    traffic_before: torch.Tensor  # [M]
+    traffic_after: torch.Tensor
+    inter_bytes_flat: torch.Tensor   # [M]
+    inter_bytes_dedup: torch.Tensor
 
 
 def _rms(x, scale, eps=1e-6):
@@ -111,10 +110,10 @@ def _check_whole_stack(params, cfg: ModelConfig):
     e_held = params["experts"]["w_up"].shape[0]
     if e_held != cfg.moe.num_experts:
         raise ValueError(
-            f"a local comm context needs the whole expert stack, got "
-            f"{e_held} of {cfg.moe.num_experts} experts; expert "
-            f"parallelism runs the whole stack over virtual ranks "
-            f"(comm_mode 'flat' or 'hier' with model axis > 1)")
+            f"the MoE layer needs the whole expert stack, got {e_held} of "
+            f"{cfg.moe.num_experts} experts; expert parallelism runs it "
+            f"over virtual ranks, rank r reading its experts from the "
+            f"stack (comm_mode 'flat' or 'hier' with model axis > 1)")
 
 
 def check_ported(luffy: LuffyConfig):
@@ -137,6 +136,16 @@ def check_ported(luffy: LuffyConfig):
         raise ValueError(f"unknown exec_mode {luffy.exec_mode!r}")
 
 
+def _scatter_rows(n_slots: int, slot, valid, *rows):
+    """One zero [n_slots, ...] buffer per tensor of ``rows``, with
+    ``rows[i]`` at ``slot[i]`` where ``valid[i]``; every valid slot is
+    written once, the rest go to a trash row that is dropped."""
+    idx = torch.where(valid, slot, torch.full_like(slot, n_slots))
+    return [torch.zeros((n_slots + 1, *r.shape[1:]), dtype=r.dtype,
+                        device=r.device).index_copy(0, idx, r)[:n_slots]
+            for r in rows]
+
+
 def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
                         luffy: LuffyConfig, *, mode: str, capacity: int,
                         sideband: Dict[str, torch.Tensor], threshold=None,
@@ -144,161 +153,28 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
                         condense_carry: Optional[CondenseCarry] = None,
                         comm: Optional[CommContext] = None
                         ) -> ExchangePlan:
-    """Decide one exchange. With ``comm`` flat or hier it is the
-    expert-parallel one (:func:`build_exchange_plan_ranks`); otherwise
-    the single-device one: condensation map, dispatch slots and drops.
+    """Decide one exchange for every rank of ``comm`` (None: one device,
+    a local context).
 
-    gate: router output over ``xn`` [T, d] (T = n_seq * S); sideband
-    must hold ``seq_len`` [n_seq]. Condensation runs when
+    gate: router output over ``xn [M, T, d]`` (rank r's tokens, T =
+    n_seq * S); sideband ``seq_len [M, n_seq]``. Condensation runs when
     ``luffy.enable_condensation`` and the mode is not ``decode``; it
     needs ``threshold`` (an f32 scalar tensor) and takes the carried
-    similarity ``s_prev`` (reshaped to [n_groups, G, G]) when given.
-    Condensed tokens take no dispatch slot. No payload moves here."""
+    similarity ``s_prev`` of every rank's groups, rank-major, when given.
+    Condensed tokens take no dispatch slot. With ``M > 1`` the migration
+    plan is Algorithm 1 under the "traffic" objective over the M * n_seq
+    global slots, priced by the topology's link cost; it runs on the host
+    (:mod:`repro_torch.core.migration`), so the per-(slot, rank) expert
+    counts and the lengths are copied off the device once per sublayer.
+    No payload moves here."""
+    from repro_torch.models.blocks import _dtype
     if mode not in MODES:
         raise ValueError(f"exchange mode {mode!r}: one of {MODES}")
     check_ported(luffy)
-    if comm is not None and comm.mode != "local":
-        return build_exchange_plan_ranks(
-            gate, xn, cfg, luffy, comm, mode=mode, capacity=capacity,
-            sideband=sideband, threshold=threshold, s_prev=s_prev,
-            condense_carry=condense_carry)
-    m = cfg.moe
-    T = xn.shape[0]
-    n_seq = sideband["seq_len"].shape[0]
-    S = T // n_seq
-    G = luffy.condense_group
-    pos_in_seq = torch.arange(S, device=xn.device)[None].expand(n_seq, S)
-    token_valid = (pos_in_seq < sideband["seq_len"][:, None]).reshape(T)
-    keep = token_valid[:, None].expand(T, m.top_k)
-
-    do_condense = luffy.enable_condensation and mode != "decode"
-    if do_condense:
-        if threshold is None:
-            raise ValueError("condensation needs a threshold")
-        cp = build_condense_plan(
-            xn, gate.expert_idx[:, 0], threshold, group_size=G,
-            s_prev=None if s_prev is None else s_prev.reshape(-1, G, G),
-            s1=luffy.s1, s2=luffy.s2, backend=luffy.similarity_backend,
-            reuse_mode=luffy.condense_reuse, carry=condense_carry)
-        keep = keep & cp.is_rep[:, None]
-    else:
-        cp = identity_condense_plan(T, luffy.similarity_backend,
-                                    device=xn.device)
-
-    pos = dispatch_positions(gate.expert_idx, keep, m.num_experts)
-    valid = keep & (pos < capacity)
-    kept = keep.float().sum()
-    d_drop = 1.0 - valid.float().sum() / torch.clamp(kept, min=1.0)
-    return ExchangePlan(condense=do_condense, capacity=capacity,
-                        group_size=G, expert_idx=gate.expert_idx,
-                        gate_weights=gate.gate_weights, positions=pos,
-                        valid=valid, aux_loss=gate.aux_loss,
-                        dispatch_drop=d_drop, condense_plan=cp)
-
-
-def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
-                 sideband: Optional[Dict[str, torch.Tensor]] = None
-                 ) -> Tuple[torch.Tensor, MoEAux, Optional[Dict]]:
-    """Pack the dispatch buffer, run the expert FFN, combine, and
-    un-condense. Across ranks see :func:`execute_plan_ranks`, which also
-    returns the migrated sideband and similarity history.
-
-    x: [n_seq, S, d] pre-norm hidden. Returns ``(x + moe_delta, aux,
-    cond_carry)``, ``cond_carry`` being the condense-reuse carry for the
-    next sublayer (None without condensation). Rounding follows the
-    reference: rows are packed in the compute dtype, RMS-normed from
-    those rounded rows, scaled by the compute-dtype gate weight and
-    summed over k in the compute dtype. Un-condense replaces each
-    condensed token's whole output row (residual included) by its
-    representative's."""
-    from repro_torch.models.blocks import _dtype
-    if plan.comm.mode != "local":
-        return execute_plan_ranks(params, x, plan, cfg, sideband)
-    _check_whole_stack(params, cfg)
-    m = cfg.moe
-    cdt = _dtype(cfg.compute_dtype)
-    n_seq, S, d = x.shape
-    T, E, C, k = n_seq * S, m.num_experts, plan.capacity, m.top_k
-    xf = x.reshape(T, d)
-
-    # ---- dispatch pack: slot e*C + pos; dropped copies go to a trash
-    # row past the end, so every kept slot is written exactly once
-    v_f = plan.valid.reshape(-1)
-    slot = plan.expert_idx.reshape(-1) * C + plan.positions.reshape(-1)
-    slot = torch.where(v_f, slot, torch.full_like(slot, E * C))
-    buf = torch.zeros((E * C + 1, d), dtype=cdt, device=x.device)
-    buf = buf.index_copy(0, slot, xf.to(cdt).repeat_interleave(k, dim=0))
-    rows = buf[:E * C].reshape(E, C, d)
-
-    # ---- expert FFN on the RMS-normed rows
-    h = _rms(rows, params["norm"]["scale"]).to(cdt)
-    y = expert_ffn(params["experts"], h, cfg.act)
-    y = torch.cat([y.reshape(E * C, d),
-                   torch.zeros((1, d), dtype=y.dtype, device=y.device)])
-
-    # ---- combine: each copy's row back to its token, gate-weighted
-    # index_select, not y[slot]: its backward is an index_add_, where
-    # advanced indexing's sorts the indices (15 ms per layer at B=8,
-    # S=1024 on an H100). Each kept slot is read by one copy only, so the
-    # index_add_ adds one value into zero per row, exact in any order:
-    # the gradient repeats bit for bit. Only the trash row, whose
-    # gradient is dropped, takes several.
-    gw = plan.gate_weights.reshape(-1, 1).to(cdt) * v_f[:, None].to(cdt)
-    vals = y.index_select(0, slot) * gw                       # [T*k, d]
-    delta = vals.reshape(T, k, d).sum(dim=1)
-    y_tok = xf + delta.to(xf.dtype)
-
-    cp = plan.condense_plan
-    cond_carry = None
-    if plan.condense:
-        y_tok = uncondense(y_tok, cp.rep_idx)
-        if cp.signature is not None:
-            sig = cp.signature
-            cond_carry = {
-                "rep": (cp.rep_idx % plan.group_size).reshape(n_seq, S),
-                "cexp": sig.expert.reshape(n_seq, S),
-                "age": sig.age, "valid": sig.valid}
-    z = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = MoEAux(plan.aux_loss, plan.dispatch_drop, z, cp.rate,
-                 torch.ones_like(z), z, z, z, z, z, z, z,
-                 cp.measured_pairs, z if cp.built is None else cp.built,
-                 z if cp.reused is None else cp.reused, z)
-    return y_tok.reshape(n_seq, S, d), aux, cond_carry
-
-
-# ---------------------------------------------------------------------------
-# across M expert-parallel ranks (rank-major tensors)
-# ---------------------------------------------------------------------------
-
-def _scatter_rows(n_slots: int, slot, valid, rows):
-    """A zero [n_slots, ...] buffer with ``rows[i]`` at ``slot[i]`` where
-    ``valid[i]``; every valid slot is written once, the rest go to a
-    trash row that is dropped."""
-    idx = torch.where(valid, slot, torch.full_like(slot, n_slots))
-    buf = torch.zeros((n_slots + 1, *rows.shape[1:]), dtype=rows.dtype,
-                      device=rows.device)
-    return buf.index_copy(0, idx, rows)[:n_slots]
-
-
-def build_exchange_plan_ranks(gate: GateOutput, xn, cfg: ModelConfig,
-                              luffy: LuffyConfig, comm: CommContext, *,
-                              mode: str, capacity: int,
-                              sideband: Dict[str, torch.Tensor],
-                              threshold=None,
-                              s_prev: Optional[torch.Tensor] = None,
-                              condense_carry: Optional[CondenseCarry] = None
-                              ) -> ExchangePlan:
-    """Decide one expert-parallel exchange for every rank.
-
-    gate: router output over ``xn [M, T, d]`` (rank r's tokens, T =
-    n_seq * S); sideband ``seq_len [M, n_seq]``; ``s_prev`` the carried
-    similarity of every rank's groups, rank-major. The migration plan is
-    Algorithm 1 under the "traffic" objective over the M * n_seq global
-    slots, priced by the topology's link cost; it runs on the host
-    (:mod:`repro_torch.core.migration`), so the per-(slot, rank) expert
-    counts and the lengths are copied off the device once per
-    sublayer."""
-    from repro_torch.models.blocks import _dtype
+    comm = CommContext.local() if comm is None else comm
+    if xn.shape[0] != comm.size():
+        raise ValueError(f"{comm.mode} exchange over {comm.size()} ranks "
+                         f"got tokens {tuple(xn.shape)}")
     m = cfg.moe
     M, T, d = xn.shape
     n_seq = sideband["seq_len"].shape[1]
@@ -309,7 +185,6 @@ def build_exchange_plan_ranks(gate: GateOutput, xn, cfg: ModelConfig,
     E_local = E // M
     G = luffy.condense_group
     dev = xn.device
-    ranks = comm.index(dev)
     cdt = _dtype(cfg.compute_dtype)
     expert_idx, gate_w = gate.expert_idx, gate.gate_weights   # [M, T, k]
 
@@ -346,7 +221,7 @@ def build_exchange_plan_ranks(gate: GateOutput, xn, cfg: ModelConfig,
     if topo is not None and topo.hierarchical and M > 1:
         row_bytes = float((d + 2) * torch.finfo(cdt).bits // 8)
         ib_flat, ib_dedup = dispatch_node_ledger(
-            expert_idx, valid, ranks, e_local=E_local, topo=topo,
+            expert_idx, valid, comm.index(dev), e_local=E_local, topo=topo,
             row_bytes=row_bytes)
         if comm.mode != "hier":
             ib_dedup = ib_flat          # the flat path ships every copy
@@ -372,9 +247,7 @@ def build_exchange_plan_ranks(gate: GateOutput, xn, cfg: ModelConfig,
         t_after = torch.full((M,), float(mplan.traffic_after),
                              dtype=torch.float32, device=dev)
     else:
-        perm = None
-        dest_global = ranks[:, None] * n_seq \
-            + torch.arange(n_seq, device=dev)[None, :]
+        perm = dest_global = None
         t_before = t_after = zM
     return ExchangePlan(
         condense=do_condense, capacity=C, group_size=G,
@@ -400,20 +273,29 @@ def _exchange_sideband(sb: Dict[str, torch.Tensor], dest_global
             .reshape(v.shape) for key, v in sb.items()}
 
 
-def execute_plan_ranks(params, x, plan: ExchangePlan, cfg: ModelConfig,
-                       sideband: Dict[str, torch.Tensor]):
-    """Run one expert-parallel exchange for every rank.
+def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
+                 sideband: Dict[str, torch.Tensor]):
+    """Run one exchange for every rank: pack the dispatch rows, run the
+    expert FFN, combine, and un-condense.
 
     params: the MoE sublayer's parameters with the whole expert stack
     [E, ...] (rank r owns experts [r*E_local, (r+1)*E_local)); x:
-    [M, n_seq, S, d] pre-norm hidden; sideband: labels [M, n_seq, S],
-    seq_len [M, n_seq]. The expert FFN runs once over every rank's rows,
-    [E, M*C, d]. Returns ``(y, aux, cond_carry, sideband, s_next)``: in
-    vanilla mode ``y = x + moe_delta``; in migrate mode ``y`` is the
-    post-block hidden at the sequences' new slots, and the sideband,
-    the rep map and the similarity history have moved with them. aux
-    fields are per rank, [M]."""
+    [M, n_seq, S, d] pre-norm hidden; sideband: seq_len [M, n_seq] and
+    any per-sequence state (labels [M, n_seq, S]). The expert FFN runs
+    once over every rank's rows, [E, M*C, d]. Returns ``(y, aux,
+    cond_carry, sideband, s_next)``: in vanilla and decode mode ``y = x
+    + moe_delta`` and the sideband is unchanged; in migrate mode (M > 1)
+    ``y`` is the post-block hidden at the sequences' new slots, and the
+    sideband, the rep map and the similarity history have moved with
+    them. aux fields are per rank, [M]; ``cond_carry`` is the
+    condense-reuse carry for the next sublayer (None without
+    condensation). Rounding follows the reference: rows are packed in
+    the compute dtype, RMS-normed from those rounded rows, scaled by the
+    compute-dtype gate weight and summed over k in the compute dtype.
+    Un-condense replaces each condensed token's whole output row
+    (residual included) by its representative's."""
     from repro_torch.models.blocks import _dtype
+    _check_whole_stack(params, cfg)
     m = cfg.moe
     cdt = _dtype(cfg.compute_dtype)
     comm = plan.comm
@@ -434,6 +316,11 @@ def execute_plan_ranks(params, x, plan: ExchangePlan, cfg: ModelConfig,
         h = _rms(x_rows, scale).to(cdt)
         return expert_ffn(params["experts"], h.reshape(E, M * C, d),
                           cfg.act).reshape(M, E_local, M, C, d)
+
+    def ship(fn, buf):
+        # one device ships nothing: its rows keep the compute dtype
+        return cwire.ship_rows(fn, buf, d, plan.wire_dtype) if M > 1 \
+            else fn(buf)
 
     if plan.wire == "dedup":
         dest_gpos = prim_tk = None
@@ -466,49 +353,60 @@ def execute_plan_ranks(params, x, plan: ExchangePlan, cfg: ModelConfig,
             local_frac = (dd == ranks[:, None, None, None]).float() \
                 .sum(dim=(1, 2, 3)) / n_rv
             new_sb = _exchange_sideband(sideband, dest_global)
-        c_drop = torch.zeros((M,), device=dev)
         row_bytes = wdt.wire_row_bytes(d, plan.wire_dtype,
                                        torch.finfo(cdt).bits // 8)
         shipped = wst["shipped_rows"] * row_bytes
-        return _finish_ranks(plan, y_tok, new_sb, c_drop, local_frac,
-                             shipped, n_seq, S)
+        return _finish(plan, y_tok, new_sb, None, local_frac, shipped,
+                       n_seq, S)
 
-    # ---- dense wire: payload [x, gate weight, primary flag] per copy
-    tok_seq = (torch.arange(T, device=dev) // S)[None, :, None]
-    tok_pos = (torch.arange(T, device=dev) % S)[None, :, None]
-    dest_of_tok = torch.gather(dest_global, 1, tok_seq[..., 0]
-                               .expand(M, T))[..., None].expand(M, T, k)
-    is_primary = (torch.arange(k, device=dev) == 0).expand(M, T, k)
-    payload = torch.cat([
-        xf.to(cdt)[:, :, None, :].expand(M, T, k, d),
-        gate_w[..., None].to(cdt), is_primary[..., None].to(cdt)], dim=-1)
-    meta = torch.stack([dest_of_tok + 1, tok_pos.expand(M, T, k)], -1)
+    # ---- dense wire: each copy's row, and beside it its gate weight (and
+    # under migration its primary flag). The side columns move in their
+    # own buffer through the same collective, so the rows stay d wide.
+    side = gate_w[..., None].to(cdt)
+    if migrate:          # the primary copy carries the token's residual
+        side = torch.cat([side, (torch.arange(k, device=dev) == 0).to(cdt)
+                          .expand(M, T, k)[..., None]], dim=-1)
     slot = (ranks[:, None, None] * E + expert_idx) * C + pos  # [M, T, k]
-    buf = _scatter_rows(M * E * C, slot.reshape(-1), valid.reshape(-1),
-                        payload.reshape(-1, d + 2)).reshape(M, E, C, d + 2)
-    mbuf = _scatter_rows(M * E * C, slot.reshape(-1), valid.reshape(-1),
-                         meta.reshape(-1, 2)).reshape(M, E, C, 2)
-    buf = cwire.ship_rows(comm.all_to_all, buf, d, plan.wire_dtype)
-    mbuf = comm.all_to_all(mbuf)
-    rows = buf.reshape(M, M, E_local, C, d + 2).transpose(1, 2)
-    rmeta = mbuf.reshape(M, M, E_local, C, 2).transpose(1, 2)
-    xr, gw, prim = rows[..., :d], rows[..., d:d + 1], rows[..., d + 1:]
+    w = side.shape[-1]
+    buf, sbuf = _scatter_rows(
+        M * E * C, slot.reshape(-1), valid.reshape(-1),
+        xf.to(cdt)[:, :, None, :].expand(M, T, k, d).reshape(-1, d),
+        side.reshape(-1, w))
+    buf, sbuf = buf.reshape(M, E, C, d), sbuf.reshape(M, E, C, w)
+    xr = ship(comm.all_to_all, buf).reshape(M, M, E_local, C, d) \
+        .transpose(1, 2)
+    sr = comm.all_to_all(sbuf).reshape(M, M, E_local, C, w).transpose(1, 2)
+    gw, prim = sr[..., :1], sr[..., 1:]
     out = ffn(xr) * gw                                       # [M,El,M,C,d]
-    if migrate:
-        out = out + xr * prim            # the primary copy's residual
 
     if not migrate:
         back = out.transpose(1, 2).reshape(M, E, C, d)
-        back = cwire.ship_rows(comm.combine, back, d, plan.wire_dtype)
+        back = ship(comm.combine, back)
+        # index_select, not back[slot]: its backward is an index_add_,
+        # where advanced indexing's sorts the indices (15 ms per layer at
+        # B=8, S=1024 on an H100). Each kept slot is read by one copy, so
+        # the index_add_ adds one value into zero per row, and the dropped
+        # copies read slot 0 times 0, adding exact zeros: the gradient
+        # repeats bit for bit.
         e_safe = torch.where(valid, slot, torch.zeros_like(slot))
         vals = back.reshape(M * E * C, d).index_select(
             0, e_safe.reshape(-1)).reshape(M, T, k, d)
         vals = vals * valid[..., None].to(cdt)
         y_tok = xf + vals.sum(dim=2).to(xf.dtype)
-        c_drop = torch.zeros((M,), device=dev)
+        c_drop = None
         local_frac = torch.full((M,), 1.0 / M, device=dev)
         new_sb = dict(sideband)
     else:
+        out = out + xr * prim
+        # each row's destination (global slot + 1, 0 = empty) and position
+        tok = torch.arange(T, device=dev)
+        dest_of_tok = dest_global[:, tok // S][..., None].expand(M, T, k)
+        meta = torch.stack([dest_of_tok + 1,
+                            (tok % S)[None, :, None].expand(M, T, k)], -1)
+        mbuf, = _scatter_rows(M * E * C, slot.reshape(-1),
+                              valid.reshape(-1), meta.reshape(-1, 2))
+        rmeta = comm.all_to_all(mbuf.reshape(M, E, C, 2)) \
+            .reshape(M, M, E_local, C, 2).transpose(1, 2)
         # regroup rows by destination rank, residual rows first
         R = E_local * M * C
         o_f = out.reshape(M, R, d)
@@ -536,14 +434,12 @@ def execute_plan_ranks(params, x, plan: ExchangePlan, cfg: ModelConfig,
             .sum(dim=1) / n_rv
         cslot = ((ranks[:, None] * M + ddev.clamp(max=M - 1)) * C_comb
                  + rank.clamp(max=C_comb - 1))
-        cbuf = _scatter_rows(M * M * C_comb, cslot.reshape(-1),
-                             keep_c.reshape(-1), o_f.reshape(-1, d))
-        cmeta = _scatter_rows(M * M * C_comb, cslot.reshape(-1),
-                              keep_c.reshape(-1),
-                              torch.stack([dslot % n_seq + 1, rpos], -1)
-                              .reshape(-1, 2).to(torch.int64))
-        cbuf = cwire.ship_rows(comm.combine, cbuf.reshape(M, M, C_comb, d),
-                               d, plan.wire_dtype)
+        cbuf, cmeta = _scatter_rows(
+            M * M * C_comb, cslot.reshape(-1), keep_c.reshape(-1),
+            o_f.reshape(-1, d),
+            torch.stack([dslot % n_seq + 1, rpos], -1).reshape(-1, 2)
+            .to(torch.int64))
+        cbuf = ship(comm.combine, cbuf.reshape(M, M, C_comb, d))
         cmeta = comm.combine(cmeta.reshape(M, M, C_comb, 2))
         rslot = cmeta[..., 0].reshape(M, M * C_comb) - 1
         rp = cmeta[..., 1].reshape(M, M * C_comb)
@@ -555,15 +451,15 @@ def execute_plan_ranks(params, x, plan: ExchangePlan, cfg: ModelConfig,
                                   cbuf.reshape(M * M * C_comb, d))
         y_tok = y_grid[:M * T].reshape(M, T, d).to(xf.dtype)
         new_sb = _exchange_sideband(sideband, dest_global)
-    return _finish_ranks(plan, y_tok, new_sb, c_drop, local_frac,
-                         torch.zeros((M,), device=dev), n_seq, S)
+    return _finish(plan, y_tok, new_sb, c_drop, local_frac, None, n_seq, S)
 
 
-def _finish_ranks(plan: ExchangePlan, y_tok, new_sb, c_drop, local_frac,
-                  shipped, n_seq: int, S: int):
+def _finish(plan: ExchangePlan, y_tok, new_sb, c_drop, local_frac,
+            shipped, n_seq: int, S: int):
     """The executor's tail: un-condense through kernel K3 (with the rep
     map moved to the sequences' new homes under migration), migrate the
-    similarity history and the condense carry, and the per-rank ledger."""
+    similarity history and the condense carry, and the per-rank ledger
+    (``c_drop`` / ``shipped`` None: zero)."""
     M, T, d = y_tok.shape
     G = plan.group_size
     dev = y_tok.device
@@ -602,18 +498,16 @@ def _finish_ranks(plan: ExchangePlan, y_tok, new_sb, c_drop, local_frac,
                           "cexp": carry["cexp"].reshape(M * n_seq, S),
                           "age": carry["age"].reshape(-1),
                           "valid": carry["valid"].reshape(-1)}
-    ones = torch.ones((M,), dtype=torch.float32, device=dev)
-    zM = torch.zeros_like(ones)
+    zM = torch.zeros((M,), dtype=torch.float32, device=dev)
 
-    def per_rank(v):
-        return zM if v is None else v * ones if v.dim() == 0 else v
+    def per_rank(v):     # a scalar flag -> [M]; None -> 0
+        return zM if v is None else v.expand(M)
 
     aux = MoEAux(
-        plan.aux_loss, plan.dispatch_drop, c_drop, per_rank(cp.rate),
+        plan.aux_loss, plan.dispatch_drop, per_rank(c_drop), cp.rate,
         local_frac, plan.traffic_before, plan.traffic_after,
         plan.inter_bytes_flat, plan.inter_bytes_dedup,
-        ones if plan.migrate else zM, zM, zM,
-        per_rank(cp.measured_pairs), per_rank(cp.built),
-        per_rank(cp.reused), shipped)
+        zM + float(plan.migrate), zM, zM, cp.measured_pairs,
+        per_rank(cp.built), per_rank(cp.reused), per_rank(shipped))
     return (y_tok.reshape(M, n_seq, S, d), aux, cond_carry, new_sb,
             s_next)

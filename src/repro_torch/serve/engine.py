@@ -106,8 +106,10 @@ def prefill_capacity(cfg: ModelConfig, batch: int, seq_len: int) -> int:
 
 def _ffn_sublayer(p, cfg, luffy, x, layer, mode, capacity, sideband):
     if cfg.ffn_kind(layer) == "moe":
-        return moe.moe_core(p["moe"], x, sideband, cfg, luffy, mode=mode,
-                            capacity=capacity)[0]
+        # one rank: the layer's rank-major form, its aux unread
+        return moe.moe_core_planned(
+            p["moe"], x[None], {k: v[None] for k, v in sideband.items()},
+            cfg, luffy, mode=mode, capacity=capacity)[0][0]
     xn = bk.norm_apply(p["ffn_norm"], x, cfg.norm)
     return x + bk.ffn_apply(p["ffn"], cfg, xn)
 

@@ -245,14 +245,14 @@ def test_virtual_ranks_hold_the_reference_shards(oracle):
 def test_forward_matches_reference(oracle, monkeypatch, cdt, cm, dd, wd):
     _, tcfg = _cfgs(cdt)
     plans = []
-    orig = tex.build_exchange_plan_ranks
+    orig = tex.build_exchange_plan
 
     def rec(*a, **kw):
         pl = orig(*a, **kw)
         plans.append(pl)
         return pl
 
-    monkeypatch.setattr(tex, "build_exchange_plan_ranks", rec)
+    monkeypatch.setattr(tex, "build_exchange_plan", rec)
     cap = train_lib.capacity_for_bucket(
         tcfg, ShapeConfig("t", S, B, "train"), _luffy(cm, dd, wd), 0,
         _dist())

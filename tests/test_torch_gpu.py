@@ -211,15 +211,31 @@ def test_pack_quantize_f8_edges():
     assert int(_u8(q)[1, 0]) == 0x7E         # 448 is e4m3fn's largest
 
 
+def _payload_share(x, tok, g):
+    """The share of the filled rows' entries whose payload cotangent
+    f8(g * scale) is nonzero: how much of the kernel's ct_q / scale term
+    a check exercises."""
+    from repro_torch.comm import dtypes as wdt
+    src = x if tok is None else ref.pack_rows_ref(x, tok)
+    _, sc = wdt.quantize_rows(src, "f8e4m3")
+    ct_q = (g.float().reshape(g.shape[0], -1, wdt.SCALE_BLOCK)
+            * sc[..., None]).to(wdt.F8)
+    filled = slice(None) if tok is None else tok >= 0
+    return (ct_q.float()[filled] != 0).float().mean().item()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("with_tok", [True, False])
-def test_pack_quant_backward_matches_plain(x_dtype, with_tok):
+@pytest.mark.parametrize("g_scale", [1.0, 1e-2, 1e-4])
+def test_pack_quant_backward_matches_plain(x_dtype, with_tok, g_scale):
     """K4's backward kernel (the reference's transpose of the f8 codec)
     against its plain version within 1e-6 of the largest entry (two
     32-element sums in another order; 2e-2 at bf16, one rounding of the
-    result), and repeating bit for bit; and the cast wires' gradient
-    through the wire against plain autograd."""
+    result), and repeating bit for bit, at the cotangent scales of the
+    CPU codec test: at 1 most payload cotangents f8(g * scale) are
+    nonzero, at 1e-2 and 1e-4 none are on the filled rows (the tie term
+    alone)."""
     from repro_torch.kernels import pack as kpack
     _cuda_or_skip()
     r = np.random.default_rng(8)
@@ -230,7 +246,12 @@ def test_pack_quant_backward_matches_plain(x_dtype, with_tok):
     tok = torch.as_tensor(r.integers(-1, T, R), dtype=torch.int32).cuda() \
         if with_tok else None
     g = torch.as_tensor((r.standard_normal((R if with_tok else T, d))
-                         * 1e-2).astype(np.float32)).to(dt).cuda()
+                         * g_scale).astype(np.float32)).to(dt).cuda()
+    share = _payload_share(x, tok, g)
+    if g_scale == 1.0:
+        assert share > 0.5
+    else:
+        assert share == 0.0
     before = kpack.pack_quant_bwd.launches
     got = ops.pack_quant_bwd(x, tok, g)
     torch.cuda.synchronize()
@@ -244,11 +265,14 @@ def test_pack_quant_backward_matches_plain(x_dtype, with_tok):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("wire", ["f8e4m3", "bf16", "f32"])
-def test_wire_backward_matches_plain_autograd(wire):
+@pytest.mark.parametrize("g_scale", [1.0, 1e-2])
+def test_wire_backward_matches_plain_autograd(wire, g_scale):
     """The wire's gradient on the card (K4 forward, the K4 backward
     kernel on the f8 wire) against the plain path: autograd through the
     plain pack and cast on the cast wires (equal), the plain backward on
-    the CPU on the f8 wire (2e-2 of the largest entry: bf16 rows)."""
+    the CPU on the f8 wire (2e-2 of the largest entry: bf16 rows), at a
+    cotangent scale that drives the f8 payload cotangent (1) and one
+    that zeroes it (1e-2)."""
     from repro_torch.condense.wire import _Ship
     from repro_torch.kernels import pack as kpack
     _cuda_or_skip()
@@ -264,7 +288,7 @@ def test_wire_backward_matches_plain_autograd(wire):
     tok[torch.where(back >= 0, back, 2 * T).reshape(-1)] = \
         torch.arange(T, dtype=torch.int32)[:, None].expand(T, 2).reshape(-1)
     tok = tok[:2 * T]
-    g = torch.as_tensor((r.standard_normal((2, T, d)) * 1e-2)
+    g = torch.as_tensor((r.standard_normal((2, T, d)) * g_scale)
                         .astype(np.float32)).to(torch.bfloat16)
 
     def ship(dev):
