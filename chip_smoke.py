@@ -57,7 +57,24 @@ Phases, each of which must pass or the script exits non-zero:
     perms and rep maps;
 14. EP profile: where one full-width EP train step's time goes, with the
     host planner's time and the device time of the virtual-rank
-    collectives (device-memory permutes, not network transfers) and K4.
+    collectives (device-memory permutes, not network transfers) and K4;
+15. K5 and K6: flash attention against its plain version at hymba's
+    batched-prefill shape ([4,2048,25,64] bf16 on 5 KV heads, window
+    1024), causal without a window, non-causal and at a ragged S=100 in
+    f32; the Mamba scan and its final state against the recurrence at
+    [4,2048,3200]x16 and a ragged [2,100,200]x16; then timed beside the
+    plain version, SDPA with the same band mask (K5) and the bounds;
+16. hymba serve: full-width hymba-1.5b (32 layers, random weights from a
+    seed) served through ``repro_torch.launch.serve --arch hymba-1.5b
+    --prefill batch`` (B=4, prompt 2048, 32 greedy tokens): K5 and K6
+    launched exactly 32 times per batched prefill and never in the step
+    feed or decode; the step-fed and the batched last-token logits agree;
+17. hymba paths and parity: a 4-layer full-width cut at f32 compute, the
+    batched prefill (K5 + K6) against the step feed (attn_decode +
+    mamba_step) past the window; reduced hymba at f32 with GQA kept,
+    card against CPU;
+18. hymba profile: one full-width batched prefill under torch.profiler,
+    K5's and K6's shares and the device-busy share.
 
 Then one JSON line with every kernel's record, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -115,6 +132,27 @@ EP_PARITY = dict(B=4, S=256, layers=2, M=4, nodes=2)
 # over 16 experts (4 per rank, 2 nodes of 2 ranks), a third of the tokens
 # kept (condensation drops the rest, as at the first steps)
 K4_M, K4_N, K4_T, K4_KEEP = 4, 2, 2048, 0.35
+
+# hymba-1.5b's batched prefill: K5 at [4,2048,25,64] on 5 KV heads with a
+# 1024 window, K6 at [4,2048,3200] x 16
+HYMBA_ARGS = ["--arch", "hymba-1.5b", "--batch", "4", "--prompt-len", "2048",
+              "--gen", "32", "--prefill", "batch", "--device", "cuda",
+              "--seed", "0"]
+K5_SHAPE = (4, 2048, 25, 5, 64)           # B, S, H, KV, hd
+K5_WINDOW = 1024
+K6_SHAPE = (4, 2048, 3200, 16)            # B, S, di, N
+K5_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+K6_TOL = 2e-5
+# the launcher's bf16 run: the batched prefill (K5's f32 softmax weights,
+# the conv as a sum of bf16 products) and the step feed (bf16 softmax
+# weights in attn_decode, the conv as an einsum) round bf16 at other
+# points through 32 layers; 8 bf16 ulps of logits in [4, 8). The
+# algorithm is held at f32 by HYMBA_PATHS_TOL.
+HYMBA_FEED_TOL = 0.25
+# f32 compute: the same sums in another order (CPU, reduced: 2e-6)
+HYMBA_PATHS = dict(B=2, S=1100, layers=4)
+HYMBA_PATHS_TOL = 1e-3
+HYMBA_PARITY_TOL = 1e-4
 
 SERVE_ARGS = ["--arch", "moe-gpt2", "--batch", "8", "--prompt-len", "128",
               "--gen", "32", "--prefill", "batch", "--device", "cuda",
@@ -295,12 +333,16 @@ def _k1_bwd_plain(h, wu, wg, wd, dy, act):
         return torch.autograd.grad(out, leaves, dy)
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, peak=F32_FLOPS):
+    """Bound at ``peak`` FLOP/s (f32 outside the tensor cores unless the
+    inputs' type says otherwise), with the bf16 tensor-core bound and the
+    f32 one beside it."""
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_bf16_tc_ms=max(t_bytes, flops / BF16_TC_FLOPS * 1e3))
+                bound_bf16_tc_ms=max(t_bytes, flops / BF16_TC_FLOPS * 1e3),
+                bound_f32_ms=max(t_bytes, flops / F32_FLOPS * 1e3))
 
 
 def phase_kernels_train():
@@ -611,9 +653,13 @@ def phase_profile():
 def _kernel_counters():
     from repro_torch.kernels import condense as kcond
     from repro_torch.kernels import expert_ffn as kexp
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.kernels import mamba_scan as kms
     from repro_torch.kernels import pack as kpack
     from repro_torch.kernels import similarity as ksim
     return {"expert_ffn": kexp.expert_ffn,
+            "flash_attention": kfa.flash_attention,
+            "mamba_scan": kms.mamba_scan,
             "expert_ffn_bwd": kexp.expert_ffn_bwd,
             "masked_similarity": ksim.masked_similarity,
             "gather_rows": kcond.gather_rows,
@@ -641,7 +687,8 @@ def phase_train():
     want = {"expert_ffn": fwd, "expert_ffn_bwd": n_moe * len(steps),
             "masked_similarity": fwd, "gather_rows": fwd,
             "gather_rows_bwd": n_moe * len(steps), "pack_quant": 0,
-            "pack_cast": 0, "pack_quant_bwd": 0}
+            "pack_cast": 0, "pack_quant_bwd": 0, "flash_attention": 0,
+            "mamba_scan": 0}
     for st in steps:
         log(f"  train step {st['step']}: loss {st['loss']:.5f} "
             f"condense_rate {st['condense_rate']:.5f} bucket {st['bucket']}"
@@ -1005,7 +1052,8 @@ def _ep_expected(cfg, n_steps: int, f8: bool):
             "gather_rows_bwd": bwd, "pack_quant": fwd if f8 else 0,
             "pack_cast": 0 if f8 else fwd,
             # the dispatch pack's and the combine partials' codec
-            "pack_quant_bwd": 2 * bwd if f8 else 0}
+            "pack_quant_bwd": 2 * bwd if f8 else 0,
+            "flash_attention": 0, "mamba_scan": 0}
 
 
 def _check_law(steps, luffy, cfg):
@@ -1276,6 +1324,293 @@ def phase_ep_profile():
     return info
 
 
+def _band_pairs(S: int, causal: bool, window):
+    """Live (q, k) pairs of one (b, h) under the mask by position."""
+    import numpy as np
+    q = np.arange(S)
+    hi = q + 1 if causal else np.full(S, S)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(S, int)
+    return int((hi - lo).sum())
+
+
+def _sdpa_band(q, k, v, causal, window):
+    """F.scaled_dot_product_attention with the same boolean band mask, kv
+    expanded: the yardstick, never called by the port."""
+    import torch
+    import torch.nn.functional as F
+    S, H = q.shape[1], q.shape[2]
+    pos = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    rep = H // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(rep, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(rep, dim=2).transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+
+def phase_kernels_k56():
+    """K5 and K6 against their plain versions on the card at hymba's
+    prefill shapes and ragged ones, then timed. Returns {name: record}."""
+    import torch
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.kernels import mamba_scan as kms
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(56)
+    out = {}
+
+    def qkv(B, S, H, KV, hd, dtype):
+        return [torch.randn(s, generator=gen, device="cuda").to(dtype)
+                for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+    B, S, H, KV, hd = K5_SHAPE
+    checks = []
+    for name, shape, dt, causal, window in (
+            ("prefill", K5_SHAPE, "bfloat16", True, K5_WINDOW),
+            ("causal", K5_SHAPE, "bfloat16", True, None),
+            ("noncausal", (2, 512, 25, 5, 64), "bfloat16", False, None),
+            ("ragged_f32", (2, 100, 25, 5, 64), "float32", True, 30),
+            ("noncausal_f32", (2, 100, 4, 2, 64), "float32", False, None)):
+        q, k, v = qkv(*shape, getattr(torch, dt))
+        got = kfa.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), atol=K5_TOL[dt],
+                            rtol=K5_TOL[dt])
+        checks.append(dict(case=name, shape=shape, dtype=dt, causal=causal,
+                           window=window, max_abs_err=err, ok=ok))
+        log(f"  K5 {name:13s} {shape} {dt:8s} causal={causal} window="
+            f"{window}: max|err|={err:.3e} tol={K5_TOL[dt]:g} "
+            f"{'ok' if ok else 'FAIL'}")
+        if name == "prefill":
+            ms = time_ms(lambda: kfa.flash_attention(
+                q, k, v, causal=True, window=K5_WINDOW), 10, 2)
+            plain_ms = time_ms(lambda: ref.flash_attention_ref(
+                q, k, v, causal=True, window=K5_WINDOW), 5, 1)
+            lib_ms = time_ms(_sdpa_band(q, k, v, True, K5_WINDOW), 10, 2)
+            pairs = B * H * _band_pairs(S, True, K5_WINDOW)
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+            # inputs are bf16: the bound at the bf16 tensor-core rate, the
+            # f32 FMA bound (what this kernel's arithmetic runs on) beside
+            out["flash_attention"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                live_pairs=pairs, max_abs_err=err,
+                **_bound(nbytes, pairs * 4.0 * hd, BF16_TC_FLOPS))
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    if not all(c["ok"] for c in checks):
+        raise SystemExit(f"K5 disagrees with its plain version: {checks}")
+    r5 = out["flash_attention"]
+    r5["checks"] = checks
+    log(f"  K5 [4,2048,25,64] bf16, 5 KV heads, window {K5_WINDOW}: kernel "
+        f"{r5['ms']:.4f} ms, plain {r5['plain_ms']:.4f} ms, SDPA (band "
+        f"mask) {r5['library_ms']:.4f} ms; {r5['live_pairs']} live pairs, "
+        f"{r5['flops'] / 1e9:.2f} GFLOP, {r5['bytes'] / 1e6:.1f} MB; bound "
+        f"{r5['bound_ms']:.4f} ms by {r5['bound_by']} at the bf16 "
+        f"tensor-core rate, {r5['bound_f32_ms']:.4f} ms at f32 FMA")
+
+    checks = []
+    for name, (b, s, di, n) in (("prefill", K6_SHAPE),
+                                ("ragged", (2, 100, 200, 16))):
+        dt = torch.rand((b, s, di), generator=gen, device="cuda") * 0.1
+        x = torch.randn((b, s, di), generator=gen, device="cuda")
+        bm = torch.randn((b, s, n), generator=gen, device="cuda")
+        cm = torch.randn((b, s, n), generator=gen, device="cuda")
+        a = -torch.exp(torch.randn((di, n), generator=gen, device="cuda"))
+        y, h = kms.mamba_scan(dt, x, bm, cm, a)
+        torch.cuda.synchronize()
+        wy, wh = ref.mamba_scan_ref(dt, x, bm, cm, a)
+        err_y = (y - wy).abs().max().item()
+        err_h = (h - wh).abs().max().item()
+        ok = (torch.allclose(y, wy, atol=K6_TOL, rtol=K6_TOL)
+              and torch.allclose(h, wh, atol=K6_TOL, rtol=K6_TOL))
+        checks.append(dict(case=name, shape=(b, s, di, n), max_abs_err_y=err_y,
+                           max_abs_err_h=err_h, ok=ok))
+        log(f"  K6 {name:8s} [{b},{s},{di}]x{n}: max|err| y={err_y:.3e} "
+            f"final state={err_h:.3e} tol={K6_TOL:g} "
+            f"{'ok' if ok else 'FAIL'}")
+        if name == "prefill":
+            del wy, wh
+            torch.cuda.empty_cache()
+            args = (dt, x, bm, cm, a)
+            ms = time_ms(lambda: kms.mamba_scan(*args), 10, 2)
+            plain_ms = time_ms(lambda: ref.mamba_scan_ref(*args), 2, 1)
+            nbytes = 4 * (3 * dt.numel() + 2 * bm.numel() + a.numel()
+                          + h.numel())
+            # per state update: dt*a, exp, *h, dt*x, *B, +, *C, + (the
+            # lane reduction): 8 operations, the exp counted as one
+            out["mamba_scan"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=None,
+                state_updates=b * s * di * n,
+                max_abs_err=max(err_y, err_h),
+                **_bound(nbytes, 8.0 * b * s * di * n))
+        del dt, x, bm, cm, a, y, h
+        torch.cuda.empty_cache()
+    if not all(c["ok"] for c in checks):
+        raise SystemExit(f"K6 disagrees with its plain version: {checks}")
+    r6 = out["mamba_scan"]
+    r6["checks"] = checks
+    log(f"  K6 [4,2048,3200]x16 f32: kernel {r6['ms']:.4f} ms, plain "
+        f"{r6['plain_ms']:.4f} ms (no one PyTorch call computes it); "
+        f"{r6['state_updates']} state updates, {r6['bytes'] / 1e6:.1f} MB; "
+        f"bound {r6['bound_ms']:.4f} ms by {r6['bound_by']}")
+    return out
+
+
+def phase_hymba_slice():
+    """Full-width hymba-1.5b served through the launcher with every kernel
+    counter set to 0 just before and read just after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    cfg = get_config("hymba-1.5b")
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    res = serve.main(HYMBA_ARGS)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = {k: 0 for k in counters}
+    want["flash_attention"] = want["mamba_scan"] = (
+        cfg.num_layers * serve.N_BATCHED_PREFILLS)
+    B, S, G = res["batch"], res["prompt_len"], res["gen"]
+    logits = ([res["prefill_logits"]] + res["step_logits"]
+              + res["gen_logits"])
+    finite = all(bool(torch.isfinite(t).all()) for t in logits)
+    shapes_ok = all(tuple(t.shape) == (B, cfg.vocab_size) for t in logits)
+    feed_vs_batch = (res["step_logits"][-1].float()
+                     - res["prefill_logits"]).abs().max().item()
+    info = dict(arch=res["arch"], batch=B, prompt_len=S, gen=G,
+                prefill_s=res["prefill_s"],
+                prefill_tok_s=res["prefill_tok_s"],
+                prompt_feed_s=res["prompt_feed_s"],
+                prompt_feed_ms_per_step=res["prompt_feed_s"] / S * 1e3,
+                decode_ms_per_step=res["decode_ms_per_step"],
+                peak_mem_gib=res["peak_mem_bytes"] / 2 ** 30,
+                launches=launches, launches_expected=want,
+                feed_vs_batch_max_abs=feed_vs_batch,
+                logits_max_abs=res["prefill_logits"].abs().max().item(),
+                sample_tokens=res["tokens"][0, :10].tolist())
+    log("hymba slice: " + json.dumps(info))
+    if not finite or not shapes_ok:
+        raise SystemExit(f"hymba logits: finite={finite} shapes={shapes_ok}")
+    if launches != want:
+        raise SystemExit(f"hymba kernel launches {launches} differ from what "
+                         f"the path calls, {want}")
+    if not feed_vs_batch <= HYMBA_FEED_TOL:
+        raise SystemExit(f"hymba step-fed and batched logits differ by "
+                         f"{feed_vs_batch} (tol {HYMBA_FEED_TOL})")
+    del res, logits
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_hymba_paths():
+    """A 4-layer full-width hymba cut at f32 compute: the batched prefill
+    (K5 + K6) against the step feed (attn_decode + mamba_step, which
+    launch neither) past the window; then reduced hymba at f32 with GQA
+    kept (2 KV heads), card against CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.config import LuffyConfig, reduced
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.kernels import mamba_scan as kms
+    from repro_torch.models.model import build_model
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    P = HYMBA_PATHS
+    cfg = dataclasses.replace(get_config("hymba-1.5b"),
+                              num_layers=P["layers"], compute_dtype="float32")
+    model = build_model(cfg, device="cuda", seed=0)
+    toks = torch.as_tensor(np.random.default_rng(9).integers(
+        1, cfg.vocab_size, (P["B"], P["S"])), device="cuda")
+    before = (kfa.flash_attention.launches, kms.mamba_scan.launches)
+    lg_batch = model.prefill(toks, P["S"], luffy=luffy)[0]
+    mid = (kfa.flash_attention.launches, kms.mamba_scan.launches)
+    cache = model.new_cache(P["B"], P["S"])
+    for t in range(P["S"]):
+        lg_feed, cache = model.decode_step(cache, toks[:, t:t + 1],
+                                           luffy=luffy)
+    after = (kfa.flash_attention.launches, kms.mamba_scan.launches)
+    err = (lg_feed - lg_batch).abs().max().item()
+    info = dict(layers=P["layers"], batch=P["B"], prompt_len=P["S"],
+                feed_vs_batch_max_abs=err, tol=HYMBA_PATHS_TOL,
+                logits_max_abs=lg_batch.abs().max().item(),
+                prefill_launches=[m - b for m, b in zip(mid, before)],
+                feed_launches=[a - m for a, m in zip(after, mid)])
+    del model, cache
+    torch.cuda.empty_cache()
+
+    rcfg = reduced(get_config("hymba-1.5b"))
+    rcfg = dataclasses.replace(rcfg, compute_dtype="float32",
+                               attn=dataclasses.replace(rcfg.attn,
+                                                        num_kv_heads=2))
+    model = build_model(rcfg, device="cuda", seed=0)
+    rt = torch.as_tensor(np.random.default_rng(10).integers(
+        1, rcfg.vocab_size, (2, 128)))
+    lg = model.prefill(rt.cuda(), 128, luffy=luffy)[0].cpu()
+    model.to("cpu")               # the same parameters, moved
+    lc = model.prefill(rt, 128, luffy=luffy)[0]
+    info.update(reduced_cuda_vs_cpu_max_abs=(lg - lc).abs().max().item(),
+                reduced_tol=HYMBA_PARITY_TOL,
+                reduced_logits_max_abs=lc.abs().max().item())
+    log("hymba paths: " + json.dumps(info))
+    n = P["layers"]
+    if info["prefill_launches"] != [n, n] or info["feed_launches"] != [0, 0]:
+        raise SystemExit(f"hymba paths launched K5/K6 {info}")
+    if not err <= HYMBA_PATHS_TOL:
+        raise SystemExit(f"f32 batched prefill and step feed differ: {info}")
+    if not info["reduced_cuda_vs_cpu_max_abs"] <= HYMBA_PARITY_TOL:
+        raise SystemExit(f"reduced hymba cuda vs cpu differ: {info}")
+    return info
+
+
+def phase_hymba_profile():
+    """One full-width hymba batched prefill (B=4, S=2048) under
+    torch.profiler, after a warm-up: device-busy share, top device ops,
+    K5's and K6's shares of the device time."""
+    import numpy as np
+    import torch
+    from repro_torch.config import LuffyConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config("hymba-1.5b")
+    model = build_model(cfg, device="cuda", seed=0)
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (4, 2048)), dtype=torch.int32, device="cuda")
+    model.prefill(toks, 2080, luffy=luffy)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(toks, 2080, luffy=luffy)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    ops = {"flash_attention": ("flash_kernel",),
+           "mamba_scan": ("mamba_scan_kernel",)}
+    shares = {k: sum(d for d, key, _ in rows if any(n in key for n in o))
+              / busy if busy else None for k, o in ops.items()}
+    info = dict(wall_ms=wall_us / 1e3, device_ms=busy / 1e3,
+                device_busy_share=busy / wall_us if rows else None,
+                kernel_share=shares,
+                top=[{"op": k[:60], "ms": d / 1e3, "count": c}
+                     for d, k, c in rows[:10]])
+    log("hymba profile: " + json.dumps(info))
+    if not rows:
+        log("hymba profile: the profiler saw no device time (not measured)")
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
 def _record(name, source, replaces, launches, t, extra=None):
     rec = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
@@ -1309,6 +1644,12 @@ def main() -> int:
     ep_bf16 = phase_ep_bf16()
     phase_ep_parity()
     phase_ep_profile()
+    log("kernels K5, K6:")
+    timed_k56 = phase_kernels_k56()
+    hymba_info = phase_hymba_slice()
+    phase_hymba_paths()
+    phase_hymba_profile()
+    hl = hymba_info["launches"]
     el = ep_info["launches"]
     tl = train_info["launches"]
     k1 = dict(timed["train"], max_abs_err=max(
@@ -1364,6 +1705,21 @@ def main() -> int:
                  "max_abs_err_by_cotangent_scale": {
                      f"{g:g}": e for g, e in
                      timed_k4["pack_quantize_bwd"]["errs"].items()}}),
+        _record("flash_attention", "src/repro_torch/csrc/flash_attn.cu",
+                "src/repro/kernels/flash_attn.py:87", hl["flash_attention"],
+                timed_k56["flash_attention"],
+                {"launches_path": "hymba-1.5b serve, 2 batched prefills",
+                 "timed_at": "[4,2048,25,64] bf16, 5 KV heads, causal, "
+                             "window 1024",
+                 "bound_f32_ms": timed_k56["flash_attention"]["bound_f32_ms"],
+                 "library": "F.scaled_dot_product_attention, same band mask",
+                 "checks": timed_k56["flash_attention"]["checks"]}),
+        _record("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
+                "src/repro/kernels/mamba_scan.py:66", hl["mamba_scan"],
+                timed_k56["mamba_scan"],
+                {"launches_path": "hymba-1.5b serve, 2 batched prefills",
+                 "timed_at": "[4,2048,3200]x16 f32",
+                 "checks": timed_k56["mamba_scan"]["checks"]}),
     ]
     for rec in records[:5]:
         rec["launches_ep_train"] = el[rec["name"]]

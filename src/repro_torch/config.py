@@ -18,6 +18,7 @@ class AttnConfig:
     num_heads: int
     num_kv_heads: int
     head_dim: int
+    rope_theta: float = 10_000.0
     use_rope: bool = True
     # sliding-window pattern cycled over layers; None = full attention
     window_pattern: Tuple[Optional[int], ...] = (None,)
@@ -47,15 +48,31 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-style selective SSM (hymba's parallel branch). The port
+    runs ``kind="mamba"``; "rwkv6" raises until its slice."""
+    kind: str = "mamba"            # "mamba" | "rwkv6"
+    state_dim: int = 16            # N: per-channel state size
+    expand: int = 2                # d_inner = expand * d_model
+    conv_dim: int = 4              # depthwise conv width
+    head_dim: int = 64             # rwkv6 head size
+    dt_rank: int = 0               # 0 => ceil(d_model / 16)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    kind: str                      # "decoder" (the only kind this slice runs)
+    kind: str                      # "decoder" (the only kind the port runs)
     num_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
     attn: Optional[AttnConfig] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # hybrid (hymba): attention and SSM branches on one shared norm,
+    # mean-fused
+    parallel_ssm: bool = False
     layer_ffn_pattern: Tuple[str, ...] = ("dense",)
     norm: str = "rms"              # "rms" | "ln"
     act: str = "silu"              # "silu" | "gelu" (tanh approximation)
@@ -170,6 +187,6 @@ def reduced(model: ModelConfig, *, num_layers: int = 2, d_model: int = 256,
         d_model=d_model,
         d_ff=min(model.d_ff, 2 * d_model),
         vocab_size=min(model.vocab_size, 1024),
-        attn=attn, moe=moe,
+        attn=attn, moe=moe, ssm=model.ssm,
         remat=False,
     )

@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 KERNELS = ("expert_ffn", "expert_ffn_bwd", "similarity", "condense",
-           "pack")
+           "pack", "flash_attn", "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -87,12 +87,14 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def entry(name: str, fn_name: str, n_ptr: int, n_int: int):
+def entry(name: str, fn_name: str, n_ptr: int, n_int: int,
+          n_float: int = 0):
     """The C function ``fn_name`` of kernel library ``name``, typed as
-    n_ptr pointers, n_int ints, then the stream; returns an int."""
+    n_ptr pointers, n_int ints, n_float floats, then the stream; returns
+    an int."""
     fn = getattr(load(name), fn_name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn

@@ -1,0 +1,63 @@
+"""Streaming-softmax attention on the card: the wrapper of
+``csrc/flash_attn.cu`` (the port of Pallas kernel K5,
+``repro/kernels/flash_attn.py::flash_attention``), the attention core of
+hymba's batched prefill. Causal and sliding-window masks by position
+(0..S-1 in every row), fully masked key tiles never visited, grouped KV
+heads read in place. Forward only (no backward yet: ROADMAP Queue 2).
+The plain version is :func:`repro_torch.kernels.ref.flash_attention_ref`.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_HEAD_DIM = 128
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None):
+    """q: [B,S,H,hd]; k, v: [B,S,KV,hd] with H % KV == 0, one CUDA device,
+    all float32 or all bfloat16; hd % 4 == 0 and hd <= 128. Launches the
+    kernel on the current stream; returns [B,S,H,hd] in q's dtype. Adds
+    one to ``flash_attention.launches`` per launch."""
+    if not (q.device.type == "cuda" and k.device == q.device
+            and v.device == q.device):
+        raise ValueError(f"q, k, v must lie on one CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or not (
+            k.dtype == v.dtype == q.dtype):
+        raise TypeError(f"q, k, v must all be float32 or all bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"q must be [B,S,H,hd] and k, v [B,S,KV,hd], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if H % KV or hd % 4 or hd > MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes H % KV == 0, hd % 4 == 0 and hd "
+                         f"<= {MAX_HEAD_DIM}, got H={H} KV={KV} hd={hd}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be positive, got {window}")
+    scale = scale or 1.0 / math.sqrt(hd)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    fn = _build.entry("flash_attn", "flash_attention_launch", 4, 8, 1)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, H, KV, hd, int(causal), int(window or 0),
+                int(q.dtype == torch.bfloat16), float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 from repro_torch.kernels import condense as _condense
 from repro_torch.kernels import expert_ffn as _expert_ffn
+from repro_torch.kernels import flash_attn as _flash_attn
+from repro_torch.kernels import mamba_scan as _mamba_scan
 from repro_torch.kernels import pack as _pack
 from repro_torch.kernels import ref
 from repro_torch.kernels import similarity as _similarity
@@ -51,3 +53,18 @@ def pack_quant_bwd(x, tok, g):
     if _device(x, "pack_quant_bwd") == "cpu":
         return ref.pack_quant_bwd_ref(x, tok, g)
     return _pack.pack_quant_bwd(x, tok, g)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    scale=None):
+    if _device(q, "flash_attention") == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       scale=scale)
+    return _flash_attn.flash_attention(q, k, v, causal=causal, window=window,
+                                       scale=scale)
+
+
+def mamba_scan(dt, x, bmat, cmat, a):
+    if _device(dt, "mamba_scan") == "cpu":
+        return ref.mamba_scan_ref(dt, x, bmat, cmat, a)
+    return _mamba_scan.mamba_scan(dt, x, bmat, cmat, a)

@@ -3,6 +3,8 @@
 what each kernel is held against."""
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -80,3 +82,44 @@ def pack_quant_bwd_ref(x, tok, g):
     q, sc = wdt.quantize_rows(src, "f8e4m3")
     ct_q, ct_sc = wdt.dequantize_t(g, q, sc)
     return wdt.quantize_t(src, ct_q, ct_sc).to(x.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
+                        scale=None):
+    """q: [B,S,H,hd]; k, v: [B,S,KV,hd] (KV heads expanded here). Plain
+    masked softmax attention by position, f32 math, result in q's dtype
+    (``repro/kernels/ref.py::flash_attention_ref``)."""
+    S, H, hd = q.shape[1], q.shape[2], q.shape[3]
+    scale = scale or 1.0 / math.sqrt(hd)
+    n_rep = H // k.shape[2]
+    k = torch.repeat_interleave(k, n_rep, dim=2) if n_rep > 1 else k
+    v = torch.repeat_interleave(v, n_rep, dim=2) if n_rep > 1 else v
+    pos = torch.arange(S, device=q.device)
+    qp, kp = pos[:, None], pos[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= (qp - kp) < window
+    lg = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    lg = torch.where(mask, lg, torch.full((), -1e30, device=q.device))
+    w = torch.softmax(lg, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(q.dtype)
+
+
+def mamba_scan_ref(dt, x, bmat, cmat, a):
+    """The per-step recurrence (``repro/kernels/ref.py::mamba_scan_ref``)
+    from the zero state, f32: dt/x [B,S,di]; bmat/cmat [B,S,N]; a [di,N].
+    Returns (y [B,S,di] in dt's dtype, the final state h [B,di,N] f32).
+    Materialises the [B,S,di,N] decay and input terms."""
+    da = torch.exp(dt.float()[..., None] * a.float())           # [B,S,di,N]
+    dbx = (dt * x).float()[..., None] * bmat.float()[..., None, :]
+    cf = cmat.float()
+    B, S, di = dt.shape
+    h = torch.zeros((B, di, a.shape[-1]), dtype=torch.float32,
+                    device=dt.device)
+    ys = []
+    for t in range(S):
+        h = da[:, t] * h + dbx[:, t]
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
+    return torch.stack(ys, 1).to(dt.dtype), h

@@ -3,13 +3,17 @@ its fixed-batch path).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch moe-gpt2 \\
         --batch 8 --prompt-len 128 --gen 32 --prefill batch
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+        --batch 4 --prompt-len 2048 --gen 32 --prefill batch
 
 Weights are random, drawn from ``--seed``; the prompts too. With
 ``--prefill batch`` one whole-prompt prefill runs first as a warm-up and
 then once more timed. Then the prompt is fed token by token into the
-KV cache, and ``--gen`` tokens are decoded greedily. The expert FFN runs
-in the hand-written kernel on the card (``--device cuda``, the default,
-which must exist) and in its plain version on the CPU (``--device cpu``).
+cache (KV and, for hymba, the Mamba state), and ``--gen`` tokens are
+decoded greedily. The kernels of the path (moe-gpt2: the expert FFN;
+hymba's batched prefill: flash attention and the Mamba scan) run
+hand-written on the card (``--device cuda``, the default, which must
+exist) and in their plain versions on the CPU (``--device cpu``).
 """
 from __future__ import annotations
 

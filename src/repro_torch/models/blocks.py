@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ACTS
 
 NEG_INF = -1e30
@@ -63,6 +64,28 @@ def norm_apply(p, x, kind: str, eps: float = 1e-6):
         var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
         out = (xf - mu) * torch.rsqrt(var + eps)
         out = out * p["scale"].float() + p["bias"].float()
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, *, device=None):
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x, positions, theta: float):
+    """Half-split rotary embedding in f32, cast back. x: [..., S, H, hd];
+    positions: [..., S] integer."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)    # [hd/2]
+    ang = positions[..., None].float() * freqs                 # [.., S, hd/2]
+    cos = torch.cos(ang)[..., None, :]            # broadcast over heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
 
@@ -127,27 +150,39 @@ def attend(q, k, v, mask, scale: float, logit_cap=None):
 
 
 def attn_apply(p, cfg: ModelConfig, x, positions, *, layer: int,
-               causal: bool = True):
+               causal: bool = True, flash: bool = False):
     """Full-sequence self-attention (prefill), direct path.
-    x: [B,S,d]; positions: [B,S]. Returns (out [B,S,d], (k, v))."""
+    x: [B,S,d]; positions: [B,S]. With ``flash`` the core runs through
+    ``ops.flash_attention`` (K5), which masks by index, so positions
+    must be 0..S-1 in every row; else through ``attend``. Returns (out
+    [B,S,d], (k, v)), k after RoPE."""
     a = cfg.attn
-    if a.use_rope:
-        raise NotImplementedError("RoPE comes with the 'other "
-                                  "architectures' slice")
     if x.shape[1] > ATTN_DIRECT_MAX:
         raise NotImplementedError(
             f"sequences over {ATTN_DIRECT_MAX} take the streaming "
-            f"attention path, which comes with the flash-attention slice")
+            f"attention path (attend_chunked), which is not ported yet "
+            f"(ROADMAP Queue 1 item 8)")
     cdt = _dtype(cfg.compute_dtype)
     xq = x.to(cdt)
     q = _split_heads(xq @ p["wq"].to(cdt), a.num_heads, a.head_dim)
     k = _split_heads(xq @ p["wk"].to(cdt), a.num_kv_heads, a.head_dim)
     v = _split_heads(xq @ p["wv"].to(cdt), a.num_kv_heads, a.head_dim)
+    if a.use_rope:
+        q = apply_rope(q, positions, a.rope_theta)
+        k = apply_rope(k, positions, a.rope_theta)
     scale = a.softmax_scale or 1.0 / math.sqrt(a.head_dim)
-    mask = make_attn_mask(positions, positions, causal=causal,
-                          window=a.window_for_layer(layer),
-                          chunked=a.chunked_local)
-    out = attend(q, k, v, mask, scale, a.logit_cap)
+    window = a.window_for_layer(layer)
+    if flash:
+        if a.chunked_local or a.logit_cap is not None:
+            raise NotImplementedError(
+                "K5 masks causal and sliding windows only (no chunked "
+                "window, no logit cap)")
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  scale=scale)
+    else:
+        mask = make_attn_mask(positions, positions, causal=causal,
+                              window=window, chunked=a.chunked_local)
+        out = attend(q, k, v, mask, scale, a.logit_cap)
     out = out.reshape(out.shape[:-2] + (a.q_dim,))
     return (out @ p["wo"].to(cdt)).to(x.dtype), (k, v)
 

@@ -1,7 +1,8 @@
 """The decoder stack (counterpart of ``repro/models/transformer.py``):
-parameter init, embedding, the tied LM head, the chunked cross-entropy
-and the train forward, on one device or over ``M`` virtual
-expert-parallel ranks (:func:`_moe_apply_dist`).
+parameter init, embedding, the LM head (tied or not), the chunked
+cross-entropy, hymba's hybrid token mixer and the train forward, on one
+device or over ``M`` virtual expert-parallel ranks
+(:func:`_moe_apply_dist`).
 
 Where the reference stacks layers by pattern position for ``lax.scan``,
 the port keeps ``params["layers"]`` as a plain list, one dict per layer,
@@ -23,6 +24,7 @@ from repro_torch.config import LuffyConfig, ModelConfig
 from repro_torch.core import moe_layer as moe
 from repro_torch.dist import DistContext
 from repro_torch.models import blocks as bk
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.plan.exchange import MoEAux
 
 
@@ -35,7 +37,24 @@ def _check_arch(cfg: ModelConfig):
     if cfg.kind != "decoder" or cfg.attn is None:
         raise NotImplementedError(
             f"{cfg.name}: only attention decoders are ported; other "
-            f"kinds come with the 'other architectures' slice")
+            f"kinds come with their own slices (ROADMAP Queue 1 item 8)")
+    if cfg.ssm is not None and not (cfg.parallel_ssm
+                                    and cfg.ssm.kind == "mamba"):
+        raise NotImplementedError(
+            f"{cfg.name}: of the SSM mixers only hymba's parallel Mamba "
+            f"branch is ported (RWKV-6 and stacked SSMs: ROADMAP Queue 1 "
+            f"item 8)")
+
+
+def hybrid_mixer(p, cfg: ModelConfig, x, positions, layer: int):
+    """hymba's token mixer over a whole sequence: attention (its core on
+    K5) and the Mamba branch (its scan on K6) on one shared norm,
+    mean-fused, ``x + 0.5 * (att + sso)``. Returns (x, (k, v))."""
+    xn = bk.norm_apply(p["attn_norm"], x, cfg.norm)
+    att, kv = bk.attn_apply(p["attn"], cfg, xn, positions, layer=layer,
+                            causal=True, flash=True)
+    sso = ssm_mod.mamba_apply(p["ssm"], cfg, xn)
+    return x + 0.5 * (att + sso), kv
 
 
 def _init_layer(generator, cfg: ModelConfig, layer: int, *, device):
@@ -44,6 +63,8 @@ def _init_layer(generator, cfg: ModelConfig, layer: int, *, device):
         "attn_norm": bk.norm_init(cfg.d_model, cfg.norm, pdt, device=device),
         "attn": bk.attn_init(generator, cfg, device=device),
     }
+    if cfg.ssm is not None:           # parallel branch: no norm of its own
+        p["ssm"] = ssm_mod.mamba_init(generator, cfg, device=device)
     if cfg.ffn_kind(layer) == "moe":
         p["moe"] = moe.moe_init(generator, cfg, device=device)
     else:
@@ -189,6 +210,10 @@ def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
     ``router_aux_coef`` times the mean router aux loss; the metrics are
     detached scalars."""
     _check_arch(cfg)
+    if cfg.ssm is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training a hybrid needs backwards for K5 and K6, "
+            f"which are not ported yet (ROADMAP Queue 2)")
     comm = None if dist is None else dist.comm(luffy.comm_mode)
     x = embed_tokens(params, cfg, batch["tokens"])
     B, S = x.shape[0], x.shape[1]

@@ -4,7 +4,9 @@ caches (counterpart of ``repro/serve/engine.py``), one device.
 Cache layout, one entry per layer: ``{"k", "v": [B, W, kv, hd],
 "cpos": [B, W]}`` with ``W = min(window, s_max)``; a window layer keeps a
 ring buffer (slot = rpos % W), a global layer a full buffer. ``cpos``
-holds each slot's relative position, -1 when empty. ``offset`` [B] is
+holds each slot's relative position, -1 when empty. A hybrid layer
+(hymba) also carries its Mamba state, ``"ssm_h": [B, di, N]`` and
+``"ssm_conv": [B, K-1, di]``, both f32. ``offset`` [B] is
 each slot's frame origin (rpos = pos - offset) and ``pos`` the step
 count. :func:`decode_step` updates the cache tensors in place, which
 saves a copy of every layer's cache per token, and returns the cache.
@@ -20,7 +22,9 @@ import torch
 from repro_torch.config import LuffyConfig, ModelConfig
 from repro_torch.core import moe_layer as moe
 from repro_torch.models import blocks as bk
-from repro_torch.models.transformer import embed_tokens, logits_fn
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.transformer import (embed_tokens, hybrid_mixer,
+                                            logits_fn)
 
 NEG_INF = -1e30
 
@@ -38,11 +42,14 @@ def cache_struct(cfg: ModelConfig, batch: int, s_max: int, *, device):
     for i in range(cfg.num_layers):
         W = _win(cfg, i, s_max)
         shape = (batch, W, a.num_kv_heads, a.head_dim)
-        layers.append({
-            "k": torch.zeros(shape, dtype=cdt, device=device),
-            "v": torch.zeros(shape, dtype=cdt, device=device),
-            "cpos": torch.full((batch, W), -1, dtype=torch.int32,
-                               device=device)})
+        g = {"k": torch.zeros(shape, dtype=cdt, device=device),
+             "v": torch.zeros(shape, dtype=cdt, device=device),
+             "cpos": torch.full((batch, W), -1, dtype=torch.int32,
+                                device=device)}
+        if cfg.ssm is not None:
+            st = ssm_mod.mamba_init_state(cfg, batch, device=device)
+            g["ssm_h"], g["ssm_conv"] = st["h"], st["conv"]
+        layers.append(g)
     return {"layers": layers,
             "offset": torch.zeros((batch,), dtype=torch.int32, device=device),
             "pos": 0}
@@ -54,9 +61,6 @@ def attn_decode(p, cfg: ModelConfig, x, pos: int, offset, ck, cv, cpos, *,
     token's k/v at its slot's ring index (in place), then attends.
     Returns (out, ck, cv, cpos)."""
     a = cfg.attn
-    if a.use_rope:
-        raise NotImplementedError("RoPE comes with the 'other "
-                                  "architectures' slice")
     cdt = bk._dtype(cfg.compute_dtype)
     B = x.shape[0]
     xq = x.to(cdt)
@@ -64,6 +68,9 @@ def attn_decode(p, cfg: ModelConfig, x, pos: int, offset, ck, cv, cpos, *,
     k_new = (xq @ p["wk"].to(cdt)).reshape(B, 1, a.num_kv_heads, a.head_dim)
     v_new = (xq @ p["wv"].to(cdt)).reshape(B, 1, a.num_kv_heads, a.head_dim)
     rpos = pos - offset                            # [B] relative positions
+    if a.use_rope:
+        q = bk.apply_rope(q, rpos[:, None], a.rope_theta)
+        k_new = bk.apply_rope(k_new, rpos[:, None], a.rope_theta)
     W = ck.shape[1]
     rslot = (rpos % W).long()
     b_idx = torch.arange(B, device=x.device)
@@ -128,7 +135,13 @@ def decode_step(params, cfg: ModelConfig, luffy: LuffyConfig, cache, tokens):
         att, g["k"], g["v"], g["cpos"] = attn_decode(
             p["attn"], cfg, xn, pos, offset, g["k"], g["v"], g["cpos"],
             window=cfg.attn.window_for_layer(i))
-        x = x + att
+        if cfg.ssm is not None:       # hymba: the parallel Mamba branch
+            sso, st = ssm_mod.mamba_step(
+                p["ssm"], cfg, xn, {"h": g["ssm_h"], "conv": g["ssm_conv"]})
+            g["ssm_h"], g["ssm_conv"] = st["h"], st["conv"]
+            x = x + 0.5 * (att + sso)
+        else:
+            x = x + att
         x = _ffn_sublayer(p, cfg, luffy, x, i, "decode", cap, sb)
     logits = logits_fn(params, cfg, x)[:, 0]
     cache["pos"] = pos + 1
@@ -139,7 +152,10 @@ def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
             s_max: int):
     """Full forward over the prompt [B,S]. Returns (last-token logits
     [B,V] f32, per-layer (k, v)). Condensation and migration are forced
-    off: serving prompts are neither condensed nor re-homed."""
+    off: serving prompts are neither condensed nor re-homed. As in the
+    reference, a Mamba branch's final state is not returned: the
+    launcher builds the decode cache by feeding the prompt step by
+    step."""
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
@@ -150,10 +166,13 @@ def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
     cap = prefill_capacity(cfg, B, S) if cfg.uses_moe else 0
     kvs = []
     for i, p in enumerate(params["layers"]):
-        xn = bk.norm_apply(p["attn_norm"], x, cfg.norm)
-        att, kv = bk.attn_apply(p["attn"], cfg, xn, positions, layer=i,
-                                causal=True)
-        x = x + att
+        if cfg.ssm is not None:       # hymba: K5 and K6
+            x, kv = hybrid_mixer(p, cfg, x, positions, i)
+        else:
+            xn = bk.norm_apply(p["attn_norm"], x, cfg.norm)
+            att, kv = bk.attn_apply(p["attn"], cfg, xn, positions, layer=i,
+                                    causal=True)
+            x = x + att
         x = _ffn_sublayer(p, cfg, nl, x, i, "vanilla", cap, sb)
         kvs.append(kv)
     logits = logits_fn(params, cfg, x[:, -1:])[:, 0]

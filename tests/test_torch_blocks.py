@@ -1,6 +1,6 @@
 """repro_torch.models.blocks against repro.models.blocks on the same
-numpy inputs: norms, attention masks, masked attention and the dense
-FFN (f32 compute, 1e-5)."""
+numpy inputs: norms, attention masks, masked attention (with RoPE, and
+through K5's core), and the dense FFN (f32 compute, 1e-5)."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -71,8 +71,39 @@ def test_ffn_apply(gated, act):
 
 def test_attn_apply_prefill():
     """Direct-path self-attention with the output projection, and the
-    k/v it hands to the cache."""
+    k/v it hands to the cache; then the same with RoPE (hymba's
+    attention), where the cached k is the rotated one. f32 cos/sin of
+    the same angles differ by a few ulps between XLA and torch, hence
+    the tolerance and not bitwise."""
     a = dict(num_heads=4, num_kv_heads=2, head_dim=8, use_rope=False)
+    kw = dict(name="t", kind="decoder", num_layers=2, d_model=32, d_ff=64,
+              vocab_size=16, compute_dtype="float32")
+    p = {n: R.standard_normal(s).astype(np.float32) * 0.2 for n, s in
+         (("wq", (32, 32)), ("wk", (32, 16)), ("wv", (32, 16)),
+          ("wo", (32, 32)))}
+    x = R.standard_normal((2, 7, 32)).astype(np.float32)
+    pos = np.tile(np.arange(7), (2, 1))
+    for rope in (False, True):
+        ac = {**a, "use_rope": rope}
+        tcfg = ModelConfig(attn=AttnConfig(**ac), **kw)
+        jcfg = JModel(family="dense", attn=JAttn(**ac), **kw)
+        out, (k, v) = tb.attn_apply(
+            {n: torch.as_tensor(w) for n, w in p.items()}, tcfg,
+            torch.as_tensor(x), torch.as_tensor(pos), layer=0)
+        jout, (jk, jv) = jb.attn_apply(
+            {n: jnp.asarray(w) for n, w in p.items()}, jcfg, jnp.asarray(x),
+            jnp.asarray(pos), layer=0)
+        for got, want in ((out, jout), (k, jk), (v, jv)):
+            _close(got, want)
+
+
+@pytest.mark.parametrize("window", [None, 3])
+def test_attn_apply_flash_core(window):
+    """The K5 core (on the CPU its plain version) in place of ``attend``:
+    RoPE, GQA and a sliding window, against the reference's attn_apply
+    (f32, sums in another order)."""
+    a = dict(num_heads=4, num_kv_heads=2, head_dim=8,
+             window_pattern=(window,))
     kw = dict(name="t", kind="decoder", num_layers=2, d_model=32, d_ff=64,
               vocab_size=16, compute_dtype="float32")
     tcfg = ModelConfig(attn=AttnConfig(**a), **kw)
@@ -80,17 +111,17 @@ def test_attn_apply_prefill():
     p = {n: R.standard_normal(s).astype(np.float32) * 0.2 for n, s in
          (("wq", (32, 32)), ("wk", (32, 16)), ("wv", (32, 16)),
           ("wo", (32, 32)))}
-    x = R.standard_normal((2, 7, 32)).astype(np.float32)
-    pos = np.tile(np.arange(7), (2, 1))
-    out, (k, v) = tb.attn_apply({n: torch.as_tensor(w) for n, w in p.items()},
-                                tcfg, torch.as_tensor(x),
-                                torch.as_tensor(pos), layer=0)
-    jout, (jk, jv) = jb.attn_apply({n: jnp.asarray(w) for n, w in p.items()},
-                                   jcfg, jnp.asarray(x), jnp.asarray(pos),
-                                   layer=0)
-    for got, want in ((out, jout), (k, jk), (v, jv)):
-        _close(got, want)
-    with pytest.raises(NotImplementedError, match="RoPE"):
-        tb.attn_apply({}, dataclasses.replace(
-            tcfg, attn=AttnConfig(**{**a, "use_rope": True})),
-            torch.as_tensor(x), torch.as_tensor(pos), layer=0)
+    x = R.standard_normal((2, 9, 32)).astype(np.float32)
+    pos = np.tile(np.arange(9), (2, 1))
+    out, _ = tb.attn_apply({n: torch.as_tensor(w) for n, w in p.items()},
+                           tcfg, torch.as_tensor(x), torch.as_tensor(pos),
+                           layer=0, flash=True)
+    jout, _ = jb.attn_apply({n: jnp.asarray(w) for n, w in p.items()}, jcfg,
+                            jnp.asarray(x), jnp.asarray(pos), layer=0)
+    _close(out, jout)
+    with pytest.raises(NotImplementedError, match="K5"):
+        tb.attn_apply({n: torch.as_tensor(w) for n, w in p.items()},
+                      dataclasses.replace(tcfg, attn=AttnConfig(
+                          **a, logit_cap=30.0)),
+                      torch.as_tensor(x), torch.as_tensor(pos), layer=0,
+                      flash=True)

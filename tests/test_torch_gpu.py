@@ -311,3 +311,62 @@ def test_wire_backward_matches_plain_autograd(wire, g_scale):
         q, _ = ref.pack_quantize_ref(xs, tok.cuda(), wire)
         q.reshape(2, T, d).to(torch.bfloat16).backward(g.cuda())
         assert torch.equal(got, xs.grad)
+
+
+# K5 at hymba's batched-prefill shape (bf16, 25 heads on 5 KV heads,
+# window 1024), without a window, non-causal, and at a ragged S in f32.
+# Tolerances as tests/test_kernels.py: 2e-5 f32 (sums in another order),
+# 3e-2 bf16 (one bf16 rounding of the output; both versions f32 inside).
+FLASH_CASES = [((4, 2048, 25, 5, 64), "bfloat16", True, 1024),
+               ((2, 512, 8, 2, 64), "float32", True, None),
+               ((2, 512, 8, 2, 64), "float32", False, None),
+               ((2, 100, 4, 2, 32), "float32", True, 30),
+               ((1, 100, 4, 4, 128), "bfloat16", False, 17)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,causal,window", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(shape, dtype, causal, window):
+    _cuda_or_skip()
+    from repro_torch.kernels import flash_attn as kfa
+    B, S, H, KV, hd = shape
+    r = np.random.default_rng(S + hd)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(r.standard_normal(s).astype(np.float32))
+               .to(dt).cuda() for s in ((B, S, H, hd), (B, S, KV, hd),
+                                        (B, S, KV, hd)))
+    before = kfa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,di,N", [(4, 2048, 3200, 16), (2, 100, 200, 16),
+                                      (1, 33, 70, 8), (3, 1, 48, 16)])
+def test_mamba_scan_kernel_matches_plain(B, S, di, N):
+    """K6 and its final state against the per-step recurrence, 2e-5 (f32
+    sums over the state in another order); hymba's prefill shape, a
+    ragged S and di, N = 8 and a single step."""
+    _cuda_or_skip()
+    from repro_torch.kernels import mamba_scan as kms
+    r = np.random.default_rng(di)
+    dt = torch.as_tensor(np.abs(r.standard_normal((B, S, di))) * 0.1,
+                         dtype=torch.float32).cuda()
+    x = torch.as_tensor(r.standard_normal((B, S, di)),
+                        dtype=torch.float32).cuda()
+    bm, cm = (torch.as_tensor(r.standard_normal((B, S, N)),
+                              dtype=torch.float32).cuda() for _ in range(2))
+    a = -torch.exp(torch.as_tensor(r.standard_normal((di, N)),
+                                   dtype=torch.float32)).cuda()
+    before = kms.mamba_scan.launches
+    y, h = ops.mamba_scan(dt, x, bm, cm, a)
+    torch.cuda.synchronize()
+    assert kms.mamba_scan.launches == before + 1
+    wy, wh = ref.mamba_scan_ref(dt, x, bm, cm, a)
+    torch.testing.assert_close(y, wy, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(h, wh, atol=2e-5, rtol=2e-5)

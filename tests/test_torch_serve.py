@@ -110,8 +110,8 @@ def served():
 
 def test_configs_agree():
     """The port's copied configs equal the reference's field by field:
-    the reduced model, and the defaults of LuffyConfig, OptimConfig and
-    a ShapeConfig."""
+    reduced moe-gpt2, hymba-1.5b (full and reduced), and the defaults of
+    LuffyConfig, OptimConfig and a ShapeConfig."""
     from repro import config as jconfig
     from repro_torch import config as tconfig
     for name in ("LuffyConfig", "OptimConfig"):
@@ -134,6 +134,19 @@ def test_configs_agree():
             else:
                 assert got == want, f.name
     assert get_config("moe-gpt2").name == jget_config("moe-gpt2").name
+    # hymba-1.5b at full width and reduced, every field and sub-field
+    for make in (lambda g: g("hymba-1.5b"),
+                 lambda g: (reduced if g is get_config else jreduced)(
+                     g("hymba-1.5b"))):
+        tcfg, jcfg = make(get_config), make(jget_config)
+        for f in dataclasses.fields(tcfg):
+            got, want = getattr(tcfg, f.name), getattr(jcfg, f.name)
+            if dataclasses.is_dataclass(got):
+                for g in dataclasses.fields(got):
+                    assert getattr(got, g.name) == getattr(want, g.name), \
+                        ("hymba", f.name, g.name)
+            else:
+                assert got == want, ("hymba", f.name)
 
 
 @pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
