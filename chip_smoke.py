@@ -8,7 +8,8 @@ Phases, each of which must pass or the script exits non-zero:
 1. device: the card's name, count, and name / power limit from nvidia-smi;
 2. build: every hand-written kernel from ``src/repro_torch/csrc`` into
    ``build/`` (one ``nvcc`` per source, all at once), with the compiler's
-   register / shared-memory / spill report;
+   register / shared-memory / spill report, K5's tensor-core kernel's
+   picked out;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the serving and training paths give it (K1 forward and
    backward, K2 masked similarity, K3 row gather and its backward), then
@@ -60,10 +61,14 @@ Phases, each of which must pass or the script exits non-zero:
     collectives (device-memory permutes, not network transfers) and K4;
 15. K5 and K6: flash attention against its plain version at hymba's
     batched-prefill shape ([4,2048,25,64] bf16 on 5 KV heads, window
-    1024), causal without a window, non-causal and at a ragged S=100 in
-    f32; the Mamba scan and its final state against the recurrence at
-    [4,2048,3200]x16 and a ragged [2,100,200]x16; then timed beside the
-    plain version, SDPA with the same band mask (K5) and the bounds;
+    1024), causal without a window, non-causal, the tensor-core kernel's
+    bf16 edges (ragged S=100, S=1000 with window 1000, S=64, H == KV,
+    q x 8, hd 128), bf16 at hd 32 (the FMA kernel) and f32; a second
+    launch at the prefill shape bitwise equal to the first; the Mamba
+    scan and its final state against the recurrence at [4,2048,3200]x16
+    and a ragged [2,100,200]x16; then timed beside the plain version,
+    SDPA with the same band mask (K5, in turns) and the bounds, with K5's
+    TFLOP/s on live pairs and its share of the bound;
 16. hymba serve: full-width hymba-1.5b (32 layers, random weights from a
     seed) served through ``repro_torch.launch.serve --arch hymba-1.5b
     --prefill batch`` (B=4, prompt 2048, 32 greedy tokens): K5 and K6
@@ -142,10 +147,28 @@ K5_SHAPE = (4, 2048, 25, 5, 64)           # B, S, H, KV, hd
 K5_WINDOW = 1024
 K6_SHAPE = (4, 2048, 3200, 16)            # B, S, di, N
 K5_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# (name, (B, S, H, KV, hd), dtype, causal, window, q scale). bf16 at hd 64
+# and 128 runs the tensor-core kernel, the rest the FMA kernel. The
+# tensor-core kernel's edges: a ragged S, a window edge not aligned to a
+# 128-key tile, S under one query tile, H == KV, logits of tens (q x 8).
+K5_CASES = (
+    ("prefill", K5_SHAPE, "bfloat16", True, K5_WINDOW, 1.0),
+    ("causal", K5_SHAPE, "bfloat16", True, None, 1.0),
+    ("noncausal", (2, 512, 25, 5, 64), "bfloat16", False, None, 1.0),
+    ("ragged_w30", (2, 100, 25, 5, 64), "bfloat16", True, 30, 1.0),
+    ("s1000_w1000", (2, 1000, 25, 5, 64), "bfloat16", True, 1000, 1.0),
+    ("s64", (2, 64, 25, 5, 64), "bfloat16", True, None, 1.0),
+    ("h_eq_kv", (2, 300, 8, 8, 64), "bfloat16", True, 100, 1.0),
+    ("q_x8", (2, 512, 25, 5, 64), "bfloat16", True, 200, 8.0),
+    ("hd128", (2, 1024, 8, 2, 128), "bfloat16", True, 300, 1.0),
+    ("hd32_fma", (2, 100, 4, 2, 32), "bfloat16", True, 30, 1.0),
+    ("ragged_f32", (2, 100, 25, 5, 64), "float32", True, 30, 1.0),
+    ("noncausal_f32", (2, 100, 4, 2, 64), "float32", False, None, 1.0))
 K6_TOL = 2e-5
-# the launcher's bf16 run: the batched prefill (K5's f32 softmax weights,
-# the conv as a sum of bf16 products) and the step feed (bf16 softmax
-# weights in attn_decode, the conv as an einsum) round bf16 at other
+# the launcher's bf16 run: the batched prefill (K5's softmax weights
+# rounded to bf16 before normalising, the conv as a sum of bf16
+# products) and the step feed (normalised bf16 softmax weights in
+# attn_decode, the conv as an einsum) round bf16 at other
 # points through 32 layers; 8 bf16 ulps of logits in [4, 8). The
 # algorithm is held at f32 by HYMBA_PATHS_TOL.
 HYMBA_FEED_TOL = 0.25
@@ -196,6 +219,32 @@ def phase_device():
     return name, count, smi[0]
 
 
+def _ptxas_report(text: str, symbol: str):
+    """ptxas -v lines of each entry function whose name holds ``symbol``:
+    [{"entry", "registers", "spill_stores", "spill_loads", "target"}]."""
+    import re
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)' for '(\w+)'", line)
+        if m:
+            cur = (dict(entry=m.group(1), target=m.group(2))
+                   if symbol in m.group(1) else None)
+            if cur:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -207,7 +256,13 @@ def phase_build():
             if any(w in line for w in ("registers", "spill", "smem",
                                        "Compiling", "(cached)")):
                 log(f"    {line.strip()}")
-    return paths
+    k5_tc = _ptxas_report(_build.BUILD_LOG.get("flash_attn", ""),
+                          "flash_wgmma_kernel")
+    for r in k5_tc:
+        log(f"  K5 tensor-core kernel {r['entry']} for {r['target']}: "
+            f"{r.get('registers')} registers, spill stores / loads "
+            f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes")
+    return paths, k5_tc
 
 
 def _k1_inputs(R: int, h_dtype, gen):
@@ -1363,19 +1418,15 @@ def phase_kernels_k56():
     gen.manual_seed(56)
     out = {}
 
-    def qkv(B, S, H, KV, hd, dtype):
-        return [torch.randn(s, generator=gen, device="cuda").to(dtype)
-                for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+    def qkv(B, S, H, KV, hd, dtype, q_scale=1.0):
+        q, k, v = [torch.randn(s, generator=gen, device="cuda")
+                   for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+        return (q * q_scale).to(dtype), k.to(dtype), v.to(dtype)
 
     B, S, H, KV, hd = K5_SHAPE
     checks = []
-    for name, shape, dt, causal, window in (
-            ("prefill", K5_SHAPE, "bfloat16", True, K5_WINDOW),
-            ("causal", K5_SHAPE, "bfloat16", True, None),
-            ("noncausal", (2, 512, 25, 5, 64), "bfloat16", False, None),
-            ("ragged_f32", (2, 100, 25, 5, 64), "float32", True, 30),
-            ("noncausal_f32", (2, 100, 4, 2, 64), "float32", False, None)):
-        q, k, v = qkv(*shape, getattr(torch, dt))
+    for name, shape, dt, causal, window, q_scale in K5_CASES:
+        q, k, v = qkv(*shape, getattr(torch, dt), q_scale)
         got = kfa.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -1383,24 +1434,40 @@ def phase_kernels_k56():
         ok = torch.allclose(got.float(), want.float(), atol=K5_TOL[dt],
                             rtol=K5_TOL[dt])
         checks.append(dict(case=name, shape=shape, dtype=dt, causal=causal,
-                           window=window, max_abs_err=err, ok=ok))
+                           window=window, q_scale=q_scale, max_abs_err=err,
+                           ok=ok))
         log(f"  K5 {name:13s} {shape} {dt:8s} causal={causal} window="
-            f"{window}: max|err|={err:.3e} tol={K5_TOL[dt]:g} "
-            f"{'ok' if ok else 'FAIL'}")
+            f"{window} q x{q_scale:g}: max|err|={err:.3e} "
+            f"tol={K5_TOL[dt]:g} {'ok' if ok else 'FAIL'}")
         if name == "prefill":
-            ms = time_ms(lambda: kfa.flash_attention(
-                q, k, v, causal=True, window=K5_WINDOW), 10, 2)
+            again = kfa.flash_attention(q, k, v, causal=True,
+                                        window=K5_WINDOW)
+            torch.cuda.synchronize()
+            repeat_ok = torch.equal(got, again)
+            checks.append(dict(case="prefill_repeat_bitwise", ok=repeat_ok))
+            log(f"  K5 prefill, launched again: bitwise equal {repeat_ok}")
+            # turns, kernel and yardstick, as in one call
+            ms, lib_ms = [], []
+            for _ in range(2):
+                ms.append(time_ms(lambda: kfa.flash_attention(
+                    q, k, v, causal=True, window=K5_WINDOW), 20, 3))
+                lib_ms.append(time_ms(_sdpa_band(q, k, v, True, K5_WINDOW),
+                                      20, 3))
             plain_ms = time_ms(lambda: ref.flash_attention_ref(
                 q, k, v, causal=True, window=K5_WINDOW), 5, 1)
-            lib_ms = time_ms(_sdpa_band(q, k, v, True, K5_WINDOW), 10, 2)
             pairs = B * H * _band_pairs(S, True, K5_WINDOW)
             nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
             # inputs are bf16: the bound at the bf16 tensor-core rate, the
-            # f32 FMA bound (what this kernel's arithmetic runs on) beside
-            out["flash_attention"] = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                live_pairs=pairs, max_abs_err=err,
-                **_bound(nbytes, pairs * 4.0 * hd, BF16_TC_FLOPS))
+            # f32 FMA bound (what the FMA kernel's arithmetic runs on)
+            # beside
+            rec = dict(ms=min(ms), plain_ms=plain_ms, library_ms=min(lib_ms),
+                       ms_runs=ms, library_ms_runs=lib_ms,
+                       live_pairs=pairs, max_abs_err=err,
+                       **_bound(nbytes, pairs * 4.0 * hd, BF16_TC_FLOPS))
+            rec["tflops_live"] = rec["flops"] / rec["ms"] / 1e9
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            out["flash_attention"] = rec
+            del again
         del q, k, v, got, want
         torch.cuda.empty_cache()
     if not all(c["ok"] for c in checks):
@@ -1408,11 +1475,16 @@ def phase_kernels_k56():
     r5 = out["flash_attention"]
     r5["checks"] = checks
     log(f"  K5 [4,2048,25,64] bf16, 5 KV heads, window {K5_WINDOW}: kernel "
-        f"{r5['ms']:.4f} ms, plain {r5['plain_ms']:.4f} ms, SDPA (band "
-        f"mask) {r5['library_ms']:.4f} ms; {r5['live_pairs']} live pairs, "
-        f"{r5['flops'] / 1e9:.2f} GFLOP, {r5['bytes'] / 1e6:.1f} MB; bound "
+        f"{r5['ms']:.4f} ms (runs {r5['ms_runs']}), plain "
+        f"{r5['plain_ms']:.4f} ms, SDPA (band mask) {r5['library_ms']:.4f} "
+        f"ms (runs {r5['library_ms_runs']}); {r5['live_pairs']} live pairs, "
+        f"{r5['flops'] / 1e9:.2f} GFLOP, {r5['bytes'] / 1e6:.1f} MB: "
+        f"{r5['tflops_live']:.1f} TFLOP/s on live pairs; bound "
         f"{r5['bound_ms']:.4f} ms by {r5['bound_by']} at the bf16 "
-        f"tensor-core rate, {r5['bound_f32_ms']:.4f} ms at f32 FMA")
+        f"tensor-core rate ({100 * r5['bound_share']:.1f}% of it), "
+        f"{r5['bound_f32_ms']:.4f} ms at f32 FMA; K5 "
+        f"{'no slower than' if r5['ms'] <= r5['library_ms'] else 'SLOWER than'}"
+        f" SDPA")
 
     checks = []
     for name, (b, s, di, n) in (("prefill", K6_SHAPE),
@@ -1594,7 +1666,7 @@ def phase_hymba_profile():
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = _device_rows(prof)
     busy = sum(r[0] for r in rows)
-    ops = {"flash_attention": ("flash_kernel",),
+    ops = {"flash_attention": ("flash_kernel", "flash_wgmma_kernel"),
            "mamba_scan": ("mamba_scan_kernel",)}
     shares = {k: sum(d for d, key, _ in rows if any(n in key for n in o))
               / busy if busy else None for k, o in ops.items()}
@@ -1604,6 +1676,10 @@ def phase_hymba_profile():
                 top=[{"op": k[:60], "ms": d / 1e3, "count": c}
                      for d, k, c in rows[:10]])
     log("hymba profile: " + json.dumps(info))
+    if shares["flash_attention"] is not None:
+        log(f"hymba profile: K5 {100 * shares['flash_attention']:.1f}% of "
+            f"the prefill's device time (PR 14: 42.0%), K6 "
+            f"{100 * shares['mamba_scan']:.1f}%")
     if not rows:
         log("hymba profile: the profiler saw no device time (not measured)")
     del model
@@ -1629,7 +1705,7 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     t_start = time.perf_counter()
     name, count, smi = phase_device()
-    phase_build()
+    _, k5_ptxas = phase_build()
     log("kernels:")
     checks, timed = phase_kernels()
     timed_train = phase_kernels_train()
@@ -1648,7 +1724,7 @@ def main() -> int:
     timed_k56 = phase_kernels_k56()
     hymba_info = phase_hymba_slice()
     phase_hymba_paths()
-    phase_hymba_profile()
+    hymba_prof = phase_hymba_profile()
     hl = hymba_info["launches"]
     el = ep_info["launches"]
     tl = train_info["launches"]
@@ -1713,6 +1789,11 @@ def main() -> int:
                              "window 1024",
                  "bound_f32_ms": timed_k56["flash_attention"]["bound_f32_ms"],
                  "library": "F.scaled_dot_product_attention, same band mask",
+                 "tflops_live": timed_k56["flash_attention"]["tflops_live"],
+                 "bound_share": timed_k56["flash_attention"]["bound_share"],
+                 "ptxas_tensor_core_kernel": k5_ptxas,
+                 "prefill_share": hymba_prof["kernel_share"][
+                     "flash_attention"],
                  "checks": timed_k56["flash_attention"]["checks"]}),
         _record("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
                 "src/repro/kernels/mamba_scan.py:66", hl["mamba_scan"],

@@ -7,25 +7,53 @@
 // the Pallas kernel's: f32 scores and running (m, l, acc); masked scores
 // set to NEG = -1e30; m clamped at -0.5e30 so a row with nothing live yet
 // gives exp(...) = 0, not NaN; masked p set to 0; out = acc / max(l, 1e-30).
-//
-// Layout: one block of 256 threads per (b, h, 64-query tile). The block
-// walks the key tiles of its band only, from max(0, q0 - W + 1) to the
-// causal end (all key tiles when not causal), which is the Pallas kernel's
-// early-out of fully masked tiles as a loop bound. GQA: head h reads KV
-// head h / (H / KV), so the grouped k and v are never expanded in memory.
-// Tiles of q, k, v (any float type in memory, f32 in shared memory, rows
-// padded by one word against bank conflicts) and of p; four threads per
-// query row, each holding 16 scores of a key tile and hd / 4 columns of
-// acc in registers; row max and sum over the four with xor shuffles.
-// Ragged S is masked. Plain f32 FMAs, no tensor cores: a simple kernel
-// that is right first (tensor cores, TMA and wgmma are later work).
+// Both kernels walk only the key tiles of the band, from
+// max(0, q0 - W + 1) to the causal end (all key tiles when not causal):
+// the Pallas kernel's early-out of fully masked tiles as a loop bound.
+// GQA: head h reads KV head h / (H / KV) in place, never expanded.
 //
 // What bounds it on an H100: operations. At hymba's prefill (B=4, S=2048,
 // 25 heads of 64, window 1024) about 1.57 M live (q, k) pairs per (b, h),
 // 4 x hd FLOPs each: ~40 GFLOP per layer against ~50 MB of bf16 q, k, v
-// and out; chip_smoke.py computes the bound at the f32 and the bf16
-// tensor-core rates.
+// and out, so the least time is the bf16 tensor-core rate's (~0.04 ms).
+//
+// Dispatch, by dtype and head dim (flash_attention_launch):
+//   * bf16 with hd in {64, 128}: flash_wgmma_kernel, on the tensor cores.
+//     One block of 288 threads per (b, h, 128-query tile): two consumer
+//     warpgroups of 64 query rows each and one producer warp.
+//       - The producer warp's one thread brings the q tile and then the
+//         band's 128-key k and v tiles into shared memory by TMA, through
+//         4-D tensor maps over [B, S, heads, hd] with a box of
+//         (64, 1, 128, 1) and the 128-byte swizzle (a 64-wide bf16 row is
+//         one 128-byte atom; hd = 128 is two boxes side by side). Rows past
+//         S come back as zeros, never from the next sequence. k and v go
+//         into a ring of STAGES stages; "full" mbarriers count the bytes
+//         in, "empty" mbarriers count the consumer warps out, so tile j+1
+//         loads while tile j computes.
+//       - Each consumer warpgroup computes S = Q K^T with wgmma m64n128k16
+//         (q and k both K-major from shared memory: k's natural [BK, hd]
+//         rows), then the online softmax on the accumulator in registers
+//         (row max and row sum over the quad of lanes that share a row;
+//         exp2 on scores pre-scaled by log2(e), so m, NEG and the clamp
+//         are in log2 units), then O += P V with wgmma m64n64k16 per 64
+//         columns of hd: P is the f32 tile rescaled and rounded to bf16
+//         in registers as the A operand (the m64nN accumulator fragment is
+//         the A fragment of the next product), v the MN-major B operand.
+//         l sums the f32 p before the rounding.
+//       - The per-element mask runs only on tiles that cross the diagonal,
+//         the window's edge or S; interior tiles skip it.
+//       - No atomics and no split over keys: a launch repeats bit for bit.
+//     Blocks go out heaviest query tile first (the band is shorter near
+//     the start of the sequence).
+//   * everything else (f32 at any hd, which keeps the f32 contract that
+//     TF32 would break; bf16 at other hd): flash_kernel, plain f32 FMAs.
+//     One block of 256 threads per (b, h, 64-query tile); tiles of q, k, v
+//     (f32 in shared memory, rows padded by one word) and of p; four
+//     threads per query row, each holding 16 scores of a key tile and
+//     hd / 4 columns of acc in registers; row max and sum over the four
+//     with xor shuffles; ragged S is masked.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,11 +61,17 @@
 
 namespace {
 
+constexpr float NEG = -1e30f;
+constexpr float M_FLOOR = -0.5e30f;
+
+// ---------------------------------------------------------------------------
+// the FMA kernel (f32, and bf16 at head dims the wgmma kernel does not take)
+// ---------------------------------------------------------------------------
+
 constexpr int BQ = 64;   // queries per block
 constexpr int BK = 64;   // keys per tile
 constexpr int NT = 256;  // threads per block: 4 per query row
 constexpr int KPT = BK / 4;  // scores per thread per key tile
-constexpr float NEG = -1e30f;
 
 __host__ __device__ constexpr int smem_floats(int hd) {
   return 3 * BQ * (hd + 1) + BQ * (BK + 1);
@@ -124,7 +158,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(fmaxf(m, mx), -0.5e30f);
+    const float m_new = fmaxf(fmaxf(m, mx), M_FLOOR);
     float sum = 0.0f;
 #pragma unroll
     for (int j = 0; j < KPT; ++j) {
@@ -176,12 +210,449 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// the tensor-core kernel (bf16, hd 64 or 128): wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int BQ = 128;       // queries per block: two warpgroups of 64
+constexpr int BK = 128;       // keys per tile
+constexpr int NT = 288;       // 2 consumer warpgroups + 1 producer warp
+constexpr int ATOM = 64;      // bf16 columns in one 128-byte swizzle row
+constexpr int ROW_B = 128;    // bytes of one swizzled row
+constexpr int CONSUMER_WARPS = 8;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
+      : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile whose
+// 1024-byte atoms (8 rows of 128 bytes) start at `addr`: start address,
+// leading and stride byte offsets (16-byte units) and the swizzle mode.
+// Every operand here is one atom wide in its contiguous direction (q and
+// k: 16 of 64 hd columns per k-step; v: 64 columns of hd per product),
+// so the only live stride is the 8-row step, 1024 bytes; both offset
+// fields carry it.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  constexpr uint64_t step = 1024 >> 4;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (step << 16) |
+         (step << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Ties each register to this point, after the wgmma wait: the compiler
+// may not read an accumulator before the product has landed in it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define F16(i) F4(i), F4(i + 4), F4(i + 8), F4(i + 12)
+
+// d[64] (+)= A[64 x 16] B[16 x 128]^T, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                    uint64_t da, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : F16(0), F16(16), F16(32), F16(48)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[32] += A[64 x 16] B[16 x 64], A bf16 in registers (the m64nNk16 A
+// fragment), B MN-major in shared memory (the transpose bit set).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t* a,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : F16(0), F16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef F16
+#undef F4
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+template <int HD, int STAGES>
+struct Smem {
+  static constexpr int NA = HD / ATOM;           // swizzle atoms across hd
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int TILE_BYTES = BK * HD * 2;  // one k or v tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * TILE_BYTES;
+  // q, full[STAGES], empty[STAGES]; 1024 bytes of slack to align the base
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+template <int HD, int STAGES>
+__global__ void __launch_bounds__(NT, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ out, int B, int S, int H,
+                   int KV, float scale_log2, int causal, int window) {
+  using L = Smem<HD, STAGES>;
+  constexpr int NA = L::NA;
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzle atoms are 1024 bytes: align the base to them, so
+  // the descriptors' base offset is 0
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sq = base;
+  const uint32_t bar_q = base + L::BAR_OFF;
+  const uint32_t bar_full = bar_q + 8;
+  const uint32_t bar_empty = bar_full + 8 * STAGES;
+
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int bh = blockIdx.x % (B * H);
+  const int qt = n_qt - 1 - blockIdx.x / (B * H);   // heaviest tiles first
+  const int h = bh % H, b = bh / H;
+  const int kvh = h / (H / KV);
+  const int q0 = qt * BQ;
+  const int lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int hi = causal ? (min(q0 + BQ, S) - 1) / BK : (S - 1) / BK;
+  const int n_tiles = hi - lo + 1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {
+    // producer: one thread issues every copy of the block
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, L::Q_BYTES);
+#pragma unroll
+      for (int a = 0; a < NA; ++a)
+        tma_load_4d(sq + a * BQ * ROW_B, &tq, bar_q, a * ATOM, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(bar_empty + 8 * s, ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * s, 2 * L::TILE_BYTES);
+        const int k0 = (lo + t) * BK;
+        const uint32_t dk = base + L::K_OFF + s * L::TILE_BYTES;
+        const uint32_t dv = base + L::V_OFF + s * L::TILE_BYTES;
+#pragma unroll
+        for (int a = 0; a < NA; ++a) {
+          tma_load_4d(dk + a * BK * ROW_B, &tk, bar_full + 8 * s, a * ATOM,
+                      kvh, k0, b);
+          tma_load_4d(dv + a * BK * ROW_B, &tv, bar_full + 8 * s, a * ATOM,
+                      kvh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows qw0 .. qw0 + 63; this thread
+  // rows r0 and r0 + 8, and in each 8-column group of a product the
+  // columns c8 and c8 + 1
+  const int wg = warp / 4;
+  const int qw0 = q0 + wg * 64;
+  const int r0 = qw0 + 16 * (warp % 4) + lane / 4;
+  const int c8 = 2 * (lane % 4);
+  const uint32_t sq_wg = sq + wg * 64 * ROW_B;
+
+  float o[NA][32];
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) o[a][j] = 0.0f;
+  float s[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) s[j] = 0.0f;
+  float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;
+
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % STAGES;
+    const int k0 = (lo + t) * BK;
+    const uint32_t sk = base + L::K_OFF + st * L::TILE_BYTES;
+    const uint32_t sv = base + L::V_OFF + st * L::TILE_BYTES;
+    mbar_wait(bar_full + 8 * st, (t / STAGES) & 1);
+
+    // S = Q K^T: hd / 16 k-steps of 32 bytes inside each 128-byte atom
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_m64n128k16_ss(
+          s, desc_sw128(sq_wg + (kk / 4) * BQ * ROW_B + off),
+          desc_sw128(sk + (kk / 4) * BK * ROW_B + off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+
+#pragma unroll
+    for (int j = 0; j < 64; ++j) s[j] *= scale_log2;
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > qw0) ||
+                      (window > 0 && qw0 + 63 - k0 >= window);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < 64; ++j) {
+        const int kpos = k0 + 8 * (j / 4) + c8 + (j & 1);
+        const int qpos = r0 + 8 * ((j / 2) & 1);
+        bool ok = kpos < S;
+        if (causal) ok = ok && kpos <= qpos;
+        if (window > 0) ok = ok && qpos - kpos < window;
+        if (!ok) s[j] = NEG;
+      }
+    }
+
+    // online softmax; registers 4i, 4i+1 are row r0, 4i+2, 4i+3 row r0+8
+    float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(fmaxf(m0, mx0), M_FLOOR);
+    const float mn1 = fmaxf(fmaxf(m1, mx1), M_FLOOR);
+    const float alpha0 = ex2(m0 - mn0), alpha1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      // a masked score is NEG <= mn - 0.5e30, so its p is exactly 0
+      s[4 * i] = ex2(s[4 * i] - mn0);
+      s[4 * i + 1] = ex2(s[4 * i + 1] - mn0);
+      s[4 * i + 2] = ex2(s[4 * i + 2] - mn1);
+      s[4 * i + 3] = ex2(s[4 * i + 3] - mn1);
+      sum0 += s[4 * i] + s[4 * i + 1];
+      sum1 += s[4 * i + 2] + s[4 * i + 3];
+    }
+    // this thread's share of the row sums; the quad adds them at the end
+    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        o[a][4 * i] *= alpha0;
+        o[a][4 * i + 1] *= alpha0;
+        o[a][4 * i + 2] *= alpha1;
+        o[a][4 * i + 3] *= alpha1;
+      }
+    uint32_t p[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+
+    // O += P V: 8 k-steps of 16 keys (2048 bytes of v) per 64 hd columns
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int a = 0; a < NA; ++a)
+        wgmma_m64n64k16_rs(o[a], p + 4 * kk,
+                           desc_sw128(sv + a * BK * ROW_B + kk * 16 * ROW_B));
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fence_regs(o[a]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  const size_t row = (size_t)H * HD;
+  __nv_bfloat16* o0 = out + ((size_t)b * S + r0) * row + (size_t)h * HD + c8;
+  __nv_bfloat16* o1 = o0 + 8 * row;
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = a * ATOM + 8 * i;
+      if (r0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
+            __floats2bfloat162_rn(o[a][4 * i] / d0, o[a][4 * i + 1] / d0);
+      if (r0 + 8 < S)
+        *reinterpret_cast<__nv_bfloat162*>(o1 + col) =
+            __floats2bfloat162_rn(o[a][4 * i + 2] / d1,
+                                  o[a][4 * i + 3] / d1);
+    }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime so
+// that the library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [B, S, heads, hd] bf16, contiguous, boxes of (64, 1, 128, 1)
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B, int S,
+            int heads, int hd) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)S * heads * hd * 2};
+  const cuuint32_t box[4] = {ATOM, 1, BK, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, int STAGES>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int S, int H, int KV, float scale, int causal, int window,
+           cudaStream_t stream) {
+  static_assert(BQ == BK, "one box shape serves q, k and v");
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap mq, mk, mv;
+  if (!encode(fn, &mq, q, B, S, H, HD) || !encode(fn, &mk, k, B, S, KV, HD) ||
+      !encode(fn, &mv, v, B, S, KV, HD))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int bytes = Smem<HD, STAGES>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_wgmma_kernel<HD, STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_qt = (S + BQ - 1) / BQ;
+  flash_wgmma_kernel<HD, STAGES><<<B * H * n_qt, NT, bytes, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), B, S, H, KV,
+      scale * LOG2E, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Launches the kernel on `stream`; returns a cudaError_t (0 = ok).
 // q, out [B, S, H, hd]; k, v [B, S, KV, hd], contiguous, all f32 (bf16 =
-// 0) or all bf16 (bf16 = 1); H % KV == 0; hd % 4 == 0 and hd <= 128 (the
-// wrapper checks); window <= 0 means none. Nothing is allocated here.
+// 0) or all bf16 (bf16 = 1); H % KV == 0; hd % 4 == 0 and hd <= 128; for
+// bf16 at hd 64 or 128 (the tensor-core kernel) every pointer 16-byte
+// aligned (the wrapper sees to both); window <= 0 means none. Nothing is
+// allocated here. A tensor map that fails to encode returns
+// cudaErrorInvalidValue, a driver without cuTensorMapEncodeTiled
+// cudaErrorNotSupported.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
                                       int H, int KV, int hd, int causal,
@@ -192,7 +663,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (hd % 4 != 0 || hd > 128 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (bf16) {
-    if (hd <= 64)
+    if (hd == 64)
+      return tc::launch<64, 3>(q, k, v, out, B, S, H, KV, scale, causal,
+                               window, s);
+    if (hd == 128)
+      return tc::launch<128, 2>(q, k, v, out, B, S, H, KV, scale, causal,
+                                window, s);
+    if (hd < 64)
       return launch<__nv_bfloat16, 16>(q, k, v, out, B, S, H, KV, hd, scale,
                                        causal, window, s);
     return launch<__nv_bfloat16, 32>(q, k, v, out, B, S, H, KV, hd, scale,

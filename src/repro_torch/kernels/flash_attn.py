@@ -5,6 +5,14 @@ hymba's batched prefill. Causal and sliding-window masks by position
 (0..S-1 in every row), fully masked key tiles never visited, grouped KV
 heads read in place. Forward only (no backward yet: ROADMAP Queue 2).
 The plain version is :func:`repro_torch.kernels.ref.flash_attention_ref`.
+
+What bounds it is operations at the bf16 tensor-core rate, so the source
+dispatches by dtype and head dim: bf16 at hd 64 or 128 runs on the
+tensor cores (``wgmma`` for Q K^T and P V, K/V tiles brought in by TMA
+through a ring of mbarrier-guarded stages; P is rounded to bf16 before
+P V, as :func:`repro_torch.models.blocks.attend` rounds it), everything
+else (f32 at any hd, bf16 at other hd) on plain f32 FMAs. Both take the
+Pallas kernel's arithmetic and repeat bit for bit (no atomics).
 """
 from __future__ import annotations
 
@@ -46,7 +54,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
     scale = scale or 1.0 / math.sqrt(hd)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # TMA reads from 16-byte-aligned addresses; a contiguous view can sit
+    # at any offset of its storage
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     out = torch.empty_like(q)
     fn = _build.entry("flash_attn", "flash_attention_launch", 4, 8, 1)
     with torch.cuda.device(q.device):

@@ -315,13 +315,34 @@ def test_wire_backward_matches_plain_autograd(wire, g_scale):
 
 # K5 at hymba's batched-prefill shape (bf16, 25 heads on 5 KV heads,
 # window 1024), without a window, non-causal, and at a ragged S in f32.
+# bf16 at hd 64 and 128 runs the tensor-core kernel: its edges are a
+# ragged S (rows past S zero-filled by TMA and masked), a window edge not
+# aligned to a 128-key tile, S shorter than one query tile and H == KV;
+# bf16 at hd 32 keeps the FMA kernel's bf16 instantiation tested.
 # Tolerances as tests/test_kernels.py: 2e-5 f32 (sums in another order),
-# 3e-2 bf16 (one bf16 rounding of the output; both versions f32 inside).
+# 3e-2 bf16 (bf16 roundings of the output and, on the tensor cores, of
+# the softmax weights before P V; scores and sums f32 in both).
 FLASH_CASES = [((4, 2048, 25, 5, 64), "bfloat16", True, 1024),
                ((2, 512, 8, 2, 64), "float32", True, None),
                ((2, 512, 8, 2, 64), "float32", False, None),
                ((2, 100, 4, 2, 32), "float32", True, 30),
-               ((1, 100, 4, 4, 128), "bfloat16", False, 17)]
+               ((1, 100, 4, 4, 128), "bfloat16", False, 17),
+               ((2, 100, 25, 5, 64), "bfloat16", True, 30),
+               ((2, 1000, 8, 2, 64), "bfloat16", True, 1000),
+               ((2, 64, 4, 2, 64), "bfloat16", True, None),
+               ((2, 300, 4, 4, 64), "bfloat16", True, 100),
+               ((2, 1024, 8, 2, 128), "bfloat16", True, 300),
+               ((2, 100, 4, 2, 32), "bfloat16", True, 30)]
+
+
+def _flash_qkv(shape, dtype, seed, q_scale=1.0):
+    B, S, H, KV, hd = shape
+    r = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    return [torch.as_tensor(r.standard_normal(s).astype(np.float32) * c)
+            .to(dt).cuda() for s, c in (((B, S, H, hd), q_scale),
+                                        ((B, S, KV, hd), 1.0),
+                                        ((B, S, KV, hd), 1.0))]
 
 
 @pytest.mark.gpu
@@ -329,12 +350,8 @@ FLASH_CASES = [((4, 2048, 25, 5, 64), "bfloat16", True, 1024),
 def test_flash_attention_kernel_matches_plain(shape, dtype, causal, window):
     _cuda_or_skip()
     from repro_torch.kernels import flash_attn as kfa
-    B, S, H, KV, hd = shape
-    r = np.random.default_rng(S + hd)
     dt = getattr(torch, dtype)
-    q, k, v = (torch.as_tensor(r.standard_normal(s).astype(np.float32))
-               .to(dt).cuda() for s in ((B, S, H, hd), (B, S, KV, hd),
-                                        (B, S, KV, hd)))
+    q, k, v = _flash_qkv(shape, dtype, seed=shape[1] + shape[4])
     before = kfa.flash_attention.launches
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -343,6 +360,34 @@ def test_flash_attention_kernel_matches_plain(shape, dtype, causal, window):
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     tol = 2e-5 if dtype == "float32" else 3e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,window", [(True, 200), (False, None)])
+def test_flash_attention_kernel_large_logits(causal, window):
+    """q scaled by 8 (logits of tens): the tensor-core kernel's running
+    max, its NEG / clamp path and the rescaling of acc, at 3e-2."""
+    _cuda_or_skip()
+    from repro_torch.kernels import flash_attn as kfa
+    q, k, v = _flash_qkv((2, 512, 8, 2, 64), "bfloat16", seed=8, q_scale=8.0)
+    got = kfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                               rtol=3e-2)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_repeats_bitwise():
+    """A second launch at hymba's prefill shape is bitwise equal to the
+    first: no atomics, no split over keys."""
+    _cuda_or_skip()
+    from repro_torch.kernels import flash_attn as kfa
+    q, k, v = _flash_qkv((4, 2048, 25, 5, 64), "bfloat16", seed=15)
+    a = kfa.flash_attention(q, k, v, causal=True, window=1024)
+    b = kfa.flash_attention(q, k, v, causal=True, window=1024)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
