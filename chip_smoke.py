@@ -8,18 +8,21 @@ Phases, each of which must pass or the script exits non-zero:
 1. device: the card's name, count, and name / power limit from nvidia-smi;
 2. build: every hand-written kernel from ``src/repro_torch/csrc`` into
    ``build/`` (one ``nvcc`` per source, all at once), with the compiler's
-   register / shared-memory / spill report, K5's tensor-core kernel's
-   picked out;
+   register / shared-memory / spill report, K1's and K5's tensor-core
+   kernels' picked out;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the shapes the serving and training paths give it (K1 forward and
-   backward, K2 masked similarity, K3 row gather and its backward), then
-   timed (CUDA events) beside the plain version, a PyTorch yardstick and
-   its bound;
+   the shapes the serving and training paths give it (K1 forward on both
+   routes, also with bf16 weights passed in, and its backward, K2 masked
+   similarity, K3 row gather and its backward, the group-local entry bit
+   for bit the general one), then timed (CUDA events) beside the plain
+   version, a PyTorch yardstick (K1: f32 and bf16 bmm, in turns; the bf16
+   weight cast timed on its own) and its bound;
 4. slice: full-width moe-gpt2 (16 experts, random weights from a seed)
    served through the port's launcher, ``repro_torch.launch.serve``:
    batched prefill (warm-up + timed), step-wise prompt feed into the KV
    cache, greedy decode. K1 must have launched as many times as the path
-   calls it;
+   calls it, and its tensor-core route must have cast each expert weight
+   tensor to bf16 exactly once;
 5. parity: the same full-width weights at 2 layers, batched prefill on
    the card (kernels) against the CPU (plain versions);
 6. profile: where a full-width prefill's and decode step's time goes
@@ -29,7 +32,9 @@ Phases, each of which must pass or the script exits non-zero:
    adaptive threshold, AdamW, 6 steps, so the rate bucket switches from
    step 3 on). Losses must be finite, the bucket must switch, and K1
    forward, K1 backward, K2, K3 and K3's backward must have launched as
-   many times as the path calls them (the per-layer recompute included).
+   many times as the path calls them (the per-layer recompute included),
+   and each expert weight tensor must have been cast to bf16 once per
+   step (the recompute reads the forward's copy).
    The same run is made again from the same seed and must repeat its
    losses, condensation rates and buckets bit for bit;
 8. train parity: one train step of a 2-layer full-width cut (B=2,
@@ -202,6 +207,22 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def device_ms(fn, n: int = 20) -> float:
+    """Device time per call of ``fn`` (every kernel, copy and memset it
+    launched), from torch.profiler: what a call costs the card, where the
+    CUDA-event time of back-to-back calls may be the host's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r[0] for r in _device_rows(prof)) / n / 1e3
+
+
 def phase_device():
     import torch
     name = torch.cuda.get_device_name(0)
@@ -256,13 +277,15 @@ def phase_build():
             if any(w in line for w in ("registers", "spill", "smem",
                                        "Compiling", "(cached)")):
                 log(f"    {line.strip()}")
-    k5_tc = _ptxas_report(_build.BUILD_LOG.get("flash_attn", ""),
-                          "flash_wgmma_kernel")
-    for r in k5_tc:
-        log(f"  K5 tensor-core kernel {r['entry']} for {r['target']}: "
-            f"{r.get('registers')} registers, spill stores / loads "
-            f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes")
-    return paths, k5_tc
+    tc = {k: _ptxas_report(_build.BUILD_LOG.get(src, ""), sym)
+          for k, src, sym in (("K1", "expert_ffn", "ffn_wgmma_kernel"),
+                              ("K5", "flash_attn", "flash_wgmma_kernel"))}
+    for k, reps in tc.items():
+        for r in reps:
+            log(f"  {k} tensor-core kernel {r['entry']} for {r['target']}: "
+                f"{r.get('registers')} registers, spill stores / loads "
+                f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes")
+    return paths, tc
 
 
 def _k1_inputs(R: int, h_dtype, gen):
@@ -276,8 +299,8 @@ def _k1_inputs(R: int, h_dtype, gen):
 
 
 def _k1_library(h, wu, wg, wd, act):
-    """One-call-per-product PyTorch yardstick (torch.bmm), never used by
-    the port."""
+    """One-call-per-product PyTorch yardstick (torch.bmm, f32 on the
+    kernel's own inputs), never used by the port."""
     import torch
     import torch.nn.functional as F
     hf = h.float()
@@ -286,68 +309,110 @@ def _k1_library(h, wu, wg, wd, act):
     return torch.bmm(a * torch.bmm(hf, wu), wd).to(h.dtype)
 
 
+def _k1_library_bf16(h, wu, wg, wd, act):
+    """The bf16 yardstick: torch.bmm on bf16 h and bf16 weights (cuBLAS on
+    the tensor cores), the hidden in bf16; never used by the port."""
+    import torch
+    import torch.nn.functional as F
+    gt = torch.bmm(h, wg)
+    a = F.gelu(gt, approximate="tanh") if act == "gelu" else F.silu(gt)
+    return torch.bmm(a * torch.bmm(h, wu), wd)
+
+
 def phase_kernels():
     """K1 against its plain version at every shape, both h types and
-    both activations; then timed at the path's own setting."""
+    both activations (f32 weights, as the paths hold them: bf16 h takes
+    the tensor-core route through the bf16 weight cache, f32 h the FMA
+    route), and bf16 weights passed in directly; then timed at the path's
+    setting with a warm cache, in turns with the f32 and bf16 bmm
+    yardsticks, and the weight cast on its own."""
     import torch
     from repro_torch.kernels import expert_ffn as kexp
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     checks = []
+
+    def check(shape, R, h_name, w_name, act, args):
+        got = kexp.expert_ffn(*args, act)
+        torch.cuda.synchronize()
+        want = ref.expert_ffn_ref(*args, act)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = K1_TOL[h_name]
+        ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+        rt = kexp.route(args[0].dtype, args[1].dtype, D, F_)
+        checks.append(dict(shape=shape, R=R, h=h_name, w=w_name, act=act,
+                           route=rt, max_abs_err=err, tol=tol, ok=ok))
+        log(f"  K1 {shape:8s} R={R:4d} h={h_name:8s} w={w_name:8s} {act} "
+            f"({rt}): max|err|={err:.3e} tol={tol:g} "
+            f"{'ok' if ok else 'FAIL'}")
+
     for shape, R in K1_SHAPES.items():
         for h_name in ("bfloat16", "float32"):
             for act in ("gelu", "silu"):
                 args = _k1_inputs(R, getattr(torch, h_name), gen)
-                got = kexp.expert_ffn(*args, act)
-                torch.cuda.synchronize()
-                want = ref.expert_ffn_ref(*args, act)
-                err = (got.float() - want.float()).abs().max().item()
-                tol = K1_TOL[h_name]
-                ok = torch.allclose(got.float(), want.float(), atol=tol,
-                                    rtol=tol)
-                checks.append(dict(shape=shape, R=R, h=h_name, act=act,
-                                   max_abs_err=err, tol=tol, ok=ok))
-                log(f"  K1 {shape:8s} R={R:3d} h={h_name:8s} {act}: "
-                    f"max|err|={err:.3e} tol={tol:g} "
-                    f"{'ok' if ok else 'FAIL'}")
-                del args, got, want
+                check(shape, R, h_name, "float32", act, args)
+                del args
+        args = _k1_inputs(R, torch.bfloat16, gen)
+        args = (args[0], *(w.to(torch.bfloat16) for w in args[1:]))
+        check(shape, R, "bfloat16", "bfloat16", "gelu", args)
+        del args
+        torch.cuda.empty_cache()
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise SystemExit(f"K1 disagrees with its plain version: {bad}")
 
     timed = {}
     for shape, R in K1_SHAPES.items():
-        # the path's setting: bf16 rows, f32 weights, tanh-gelu
+        # the path's setting: bf16 rows, f32 weights, tanh-gelu; the first
+        # call fills the weight cache, the timed ones read it
         args = _k1_inputs(R, torch.bfloat16, gen)
-        iters = 50 if R <= 8 else 20
-        ms = time_ms(lambda: kexp.expert_ffn(*args, "gelu"), iters)
-        plain_ms = time_ms(lambda: ref.expert_ffn_ref(*args, "gelu"), iters)
-        lib_ms = time_ms(lambda: _k1_library(*args, "gelu"), iters)
         h, wu, wg, wd = args
-        nbytes = (2 * h.numel() * h.element_size()
-                  + sum(w.numel() * w.element_size() for w in (wu, wg, wd)))
+        wb = [w.to(torch.bfloat16) for w in (wu, wg, wd)]
+        kexp.expert_ffn(*args, "gelu")
+        iters = 50 if R <= 8 else 20
+        ms, lib_ms, lib16_ms = [], [], []
+        for _ in range(2):      # in turns, as in one call
+            ms.append(time_ms(lambda: kexp.expert_ffn(*args, "gelu"), iters))
+            lib_ms.append(time_ms(lambda: _k1_library(*args, "gelu"), iters))
+            lib16_ms.append(time_ms(lambda: _k1_library_bf16(h, *wb, "gelu"),
+                                    iters))
+        dev_ms = device_ms(lambda: kexp.expert_ffn(*args, "gelu"))
+        cast_ms = time_ms(lambda: [w.to(torch.bfloat16) for w in
+                                   (wu, wg, wd)], iters)
+        plain_ms = time_ms(lambda: ref.expert_ffn_ref(*args, "gelu"), iters)
+        # the bound at bf16 weights (the tensor-core route's operands):
+        # h read, out written, each weight read once
         flops = 2.0 * E * R * D * F_ * 3
-        t_bytes = nbytes / HBM_BPS * 1e3
-        t_f32 = flops / F32_FLOPS * 1e3
-        bound = max(t_bytes, t_f32)
+        io = 2 * h.numel() * h.element_size()
+        b16 = _bound(io + sum(w.numel() * 2 for w in wb), flops,
+                     BF16_TC_FLOPS)
+        b32 = _bound(io + sum(w.numel() * 4 for w in (wu, wg, wd)), flops)
         err = max(c["max_abs_err"] for c in checks if c["shape"] == shape
                   and c["h"] == "bfloat16" and c["act"] == "gelu")
-        timed[shape] = dict(
-            R=R, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=bound, bound_by="bytes" if t_bytes >= t_f32
-            else "operations", bytes=nbytes, flops=flops,
-            bound_bf16_tc_ms=max(t_bytes, flops / BF16_TC_FLOPS * 1e3),
-            max_abs_err=err)
-        log(f"  K1 {shape:8s} [{E},{R},{D}]x{F_} bf16 h, f32 w, gelu: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bmm "
-            f"{lib_ms:.4f} ms; bound {bound:.4f} ms by "
-            f"{timed[shape]['bound_by']} ({nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP at f32 {F32_FLOPS / 1e12:g} TFLOP/s); "
-            f"bound at bf16 tensor-core rate "
-            f"{timed[shape]['bound_bf16_tc_ms']:.4f} ms")
-        del args
-    torch.cuda.empty_cache()
+        t = dict(R=R, route=kexp.route(h.dtype, wu.dtype, D, F_),
+                 ms=min(ms), ms_runs=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                 library_ms=min(lib_ms), library_ms_runs=lib_ms,
+                 library_bf16_ms=min(lib16_ms), library_bf16_ms_runs=lib16_ms,
+                 cast_ms=cast_ms, **b16,
+                 bound_f32_weights_ms=b32["bound_ms"],
+                 bound_f32_weights_by=b32["bound_by"], max_abs_err=err)
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        timed[shape] = t
+        log(f"  K1 {shape:8s} [{E},{R},{D}]x{F_} bf16 h, f32 w, gelu "
+            f"({t['route']}): kernel {t['ms']:.4f} ms (runs {ms}; device "
+            f"time {dev_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, bmm f32 {t['library_ms']:.4f} ms, bmm bf16 "
+            f"{t['library_bf16_ms']:.4f} ms; weight cast (not in the kernel's "
+            f"time) {cast_ms:.4f} ms; bound at bf16 weights "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
+            f"({t['bytes'] / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
+            f"{100 * t['bound_share']:.1f}% of it); at f32 weights and f32 "
+            f"FMAs {t['bound_f32_weights_ms']:.4f} ms; kernel / bmm f32 "
+            f"{t['ms'] / t['library_ms']:.3f}, / bmm bf16 "
+            f"{t['ms'] / t['library_bf16_ms']:.3f}")
+        del args, h, wu, wg, wd, wb
+        torch.cuda.empty_cache()
     return checks, timed
 
 
@@ -535,8 +600,8 @@ def phase_kernels_train():
         torch.bfloat16)
     got = kcond.gather_rows_bwd(dy, idx, K3_T)
     torch.cuda.synchronize()
-    # on the CPU the plain version adds in index order, as the kernel
-    # does: bitwise; on the card it adds with atomics: within f32
+    # on the CPU the plain version adds in index order, as the kernels
+    # do: bitwise; on the card it adds with atomics: within f32
     # reassociation, rounded once to bf16
     exact = bool(torch.equal(got.cpu(), ref.gather_rows_bwd_ref(
         dy.cpu(), idx.cpu(), K3_T)))
@@ -551,19 +616,50 @@ def phase_kernels_train():
         f"{'ok' if ok_card else 'FAIL'}; a second launch repeats: {again}")
     if not (exact and ok_card and again):
         raise SystemExit("K3 backward disagrees with its plain version")
-    ms = time_ms(lambda: kcond.gather_rows_bwd(dy, idx, K3_T), 100)
+    # the group-local entry the path takes (the map is group-local):
+    # bit for bit the general entry, the CPU plain version and itself
+    got_g = kcond.gather_rows_bwd(dy, idx, K3_T, K2_G)
+    torch.cuda.synchronize()
+    same_g = dict(general=bool(torch.equal(got_g, got)),
+                  cpu_plain=bool(torch.equal(got_g.cpu(), got.cpu()))
+                  and exact,
+                  repeat=bool(torch.equal(
+                      kcond.gather_rows_bwd(dy, idx, K3_T, K2_G), got_g)))
+    log(f"  K3 bwd grouped (G={K2_G}): bitwise equal to {same_g}")
+    if not all(same_g.values()):
+        raise SystemExit(f"K3's grouped backward differs: {same_g}")
+    ms, gen_ms, lib_ms = [], [], []
+    for _ in range(2):          # in turns, as in one call
+        ms.append(time_ms(lambda: kcond.gather_rows_bwd(dy, idx, K3_T, K2_G),
+                          100))
+        gen_ms.append(time_ms(lambda: kcond.gather_rows_bwd(dy, idx, K3_T),
+                              100))
+        lib_ms.append(time_ms(lambda: dy.new_zeros((K3_T, D)).index_add_(
+            0, idx, dy), 100))
     plain_ms = time_ms(lambda: ref.gather_rows_bwd_ref(dy, idx, K3_T), 100)
-    lib_ms = time_ms(lambda: dy.new_zeros((K3_T, D)).index_add_(0, idx, dy),
-                     100)
+    dev = {k: device_ms(f, 50) for k, f in (
+        ("device_ms", lambda: kcond.gather_rows_bwd(dy, idx, K3_T, K2_G)),
+        ("general_device_ms", lambda: kcond.gather_rows_bwd(dy, idx, K3_T)),
+        ("library_device_ms", lambda: dy.new_zeros((K3_T, D)).index_add_(
+            0, idx, dy)))}
     nbytes = 2 * dy.numel() * dy.element_size() + idx.numel() * 8
-    out["gather_rows_bwd"] = dict(ms=ms, plain_ms=plain_ms,
-                                  library_ms=lib_ms,
+    out["gather_rows_bwd"] = dict(ms=min(ms), ms_runs=ms,
+                                  general_ms=min(gen_ms),
+                                  general_ms_runs=gen_ms, plain_ms=plain_ms,
+                                  library_ms=min(lib_ms),
+                                  library_ms_runs=lib_ms, **dev,
                                   **_bound(nbytes, float(dy.numel())),
-                                  max_abs_err=err)
-    log(f"  K3 bwd: kernel (with its sort) {ms:.4f} ms, plain {plain_ms:.4f}"
-        f" ms, bf16 index_add_ {lib_ms:.4f} ms; bound "
-        f"{out['gather_rows_bwd']['bound_ms']:.4f} ms by "
-        f"{out['gather_rows_bwd']['bound_by']}")
+                                  max_abs_err=err, bitwise=same_g)
+    r3 = out["gather_rows_bwd"]
+    log(f"  K3 bwd: grouped kernel {r3['ms']:.4f} ms (runs {ms}), general "
+        f"(with its sort) {r3['general_ms']:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bf16 index_add_ {r3['library_ms']:.4f} ms (runs {lib_ms}); "
+        f"bound {r3['bound_ms']:.4f} ms by {r3['bound_by']}; device time "
+        f"(profiler) grouped {dev['device_ms']:.4f}, general "
+        f"{dev['general_device_ms']:.4f}, index_add_ "
+        f"{dev['library_device_ms']:.4f} ms; grouped "
+        f"{'faster' if r3['ms'] < r3['library_ms'] else 'NOT faster'} than "
+        f"index_add_")
     torch.cuda.empty_cache()
     return out
 
@@ -574,9 +670,9 @@ def phase_slice():
     from repro_torch.launch import serve
     from repro_torch.configs import get_config
     n_layers = get_config("moe-gpt2").num_layers
-    kexp.expert_ffn.launches = 0
+    kexp.expert_ffn.launches = kexp.weight_bf16.casts = 0
     res = serve.main(SERVE_ARGS)
-    launches = kexp.expert_ffn.launches
+    launches, casts = kexp.expert_ffn.launches, kexp.weight_bf16.casts
     B, S, G = res["batch"], res["prompt_len"], res["gen"]
     want = n_layers * (serve.N_BATCHED_PREFILLS + S + G)
     logits = ([res["prefill_logits"]] + res["step_logits"]
@@ -592,6 +688,9 @@ def phase_slice():
                 decode_ms_per_step=res["decode_ms_per_step"],
                 peak_mem_gib=res["peak_mem_bytes"] / 2 ** 30,
                 k1_launches=launches, k1_launches_expected=want,
+                # the tensor-core route's bf16 weight copies: one per
+                # weight tensor for the whole run (the weights never change)
+                weight_casts=casts, weight_casts_expected=3 * n_layers,
                 feed_vs_batch_max_abs=feed_vs_batch,
                 sample_tokens=res["tokens"][0, :10].tolist())
     log("slice: " + json.dumps(info))
@@ -600,6 +699,9 @@ def phase_slice():
     if launches != want:
         raise SystemExit(f"K1 launched {launches} times in the slice run, "
                          f"the path calls it {want} times")
+    if casts != 3 * n_layers:
+        raise SystemExit(f"{casts} bf16 weight casts in the slice run, not "
+                         f"one per expert weight tensor ({3 * n_layers})")
     del res, logits
     torch.cuda.empty_cache()
     return info
@@ -731,11 +833,14 @@ def phase_train():
     import statistics
     import torch
     from repro_torch.launch import train
+    from repro_torch.kernels import expert_ffn as kexp
     counters = _kernel_counters()
     for fn in counters.values():
         fn.launches = 0
+    kexp.weight_bf16.casts = 0
     res = train.main(TRAIN_ARGS)
     launches = {k: fn.launches for k, fn in counters.items()}
+    casts = kexp.weight_bf16.casts
     cfg, steps = res["cfg"], res["steps"]
     n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
     fwd = n_moe * (2 if cfg.remat else 1) * len(steps)   # + recompute
@@ -758,7 +863,11 @@ def phase_train():
                 step_ms=[st["step_ms"] for st in steps],
                 median_step_ms_after_0=med, tokens_per_s=tokens / med * 1e3,
                 peak_mem_gib=max(st["peak_mem_bytes"] for st in steps)
-                / 2 ** 30, launches=launches, launches_expected=want)
+                / 2 ** 30, launches=launches, launches_expected=want,
+                # one bf16 copy per expert weight tensor and optimizer step:
+                # the remat recompute reads the forward's
+                weight_casts=casts,
+                weight_casts_expected=3 * n_moe * len(steps))
     log("train: " + json.dumps(info))
     if not all(math.isfinite(x) for x in info["losses"]):
         raise SystemExit(f"train losses not finite: {info['losses']}")
@@ -768,6 +877,9 @@ def phase_train():
     if launches != want:
         raise SystemExit(f"kernel launches {launches} differ from what the "
                          f"path calls, {want}")
+    if casts != info["weight_casts_expected"]:
+        raise SystemExit(f"{casts} bf16 weight casts in the train run, not "
+                         f"{info['weight_casts_expected']}")
     del res, steps
     torch.cuda.empty_cache()
     again = train.main(TRAIN_ARGS)["steps"]
@@ -861,12 +973,13 @@ def phase_train_parity():
     return info
 
 
-KERNEL_OPS = {"expert_ffn": ("gate_up_kernel", "down_kernel"),
+KERNEL_OPS = {"expert_ffn": ("gate_up_kernel", "down_kernel",
+                             "ffn_wgmma_kernel"),
               "expert_ffn_bwd": ("hidden_kernel", "wgrad_kernel",
                                  "dh_kernel"),
               "masked_similarity": ("sim_kernel",),
               "gather_rows": ("gather_kernel",),
-              "gather_rows_bwd": ("segment_sum_kernel",)}
+              "gather_rows_bwd": ("segment_sum_kernel", "group_sum_kernel")}
 
 
 def phase_train_profile():
@@ -1705,7 +1818,7 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     t_start = time.perf_counter()
     name, count, smi = phase_device()
-    _, k5_ptxas = phase_build()
+    _, tc_ptxas = phase_build()
     log("kernels:")
     checks, timed = phase_kernels()
     timed_train = phase_kernels_train()
@@ -1736,7 +1849,16 @@ def main() -> int:
                 {"launches_by_path": {"serve": slice_info["k1_launches"],
                                       "train": tl["expert_ffn"]},
                  "timed_at": "train shape [16,2048,768]x3072, bf16 h, f32 "
-                             "weights, gelu",
+                             "weights read through the warm bf16 cache "
+                             "(the tensor-core route), gelu; bound at bf16 "
+                             "weights",
+                 "dispatch": k1["route"], "cast_ms": k1["cast_ms"],
+                 "device_ms": k1["device_ms"],
+                 "library": "torch.bmm f32 on the same inputs",
+                 "library_bf16_ms": k1["library_bf16_ms"],
+                 "bound_f32_weights_ms": k1["bound_f32_weights_ms"],
+                 "bound_share": k1["bound_share"],
+                 "ptxas_tensor_core_kernel": tc_ptxas["K1"],
                  "max_abs_err_all_checks": max(c["max_abs_err"]
                                                for c in checks),
                  "shapes": timed}),
@@ -1759,7 +1881,12 @@ def main() -> int:
                 "transposes the reference's gather)", tl["gather_rows_bwd"],
                 timed_train["gather_rows_bwd"],
                 {"timed_at": "[8192,768] bf16 rows, 9 representatives per "
-                             "group of 128, the sort included"}),
+                             "group of 128, the group-local entry the path "
+                             "takes (general_ms: the general entry with its "
+                             "sort)",
+                 **{k: timed_train["gather_rows_bwd"][k] for k in (
+                     "general_ms", "device_ms", "general_device_ms",
+                     "library_device_ms", "bitwise")}}),
         _record("pack_quantize_f8", "src/repro_torch/csrc/pack.cu",
                 "src/repro/kernels/pack.py:72", el["pack_quant"],
                 timed_k4["pack_quantize_f8"],
@@ -1791,7 +1918,7 @@ def main() -> int:
                  "library": "F.scaled_dot_product_attention, same band mask",
                  "tflops_live": timed_k56["flash_attention"]["tflops_live"],
                  "bound_share": timed_k56["flash_attention"]["bound_share"],
-                 "ptxas_tensor_core_kernel": k5_ptxas,
+                 "ptxas_tensor_core_kernel": tc_ptxas["K5"],
                  "prefill_share": hymba_prof["kernel_share"][
                      "flash_attention"],
                  "checks": timed_k56["flash_attention"]["checks"]}),

@@ -137,11 +137,14 @@ def condense_tokens(x, primary_expert, threshold, *, group_size: int,
     return CondenseOutput(rep_idx, is_rep, sim, rate, pairs)
 
 
-def uncondense(y, rep_idx):
+def uncondense(y, rep_idx, group_size=None):
     """y: [T, d] MoE outputs (garbage at condensed rows); each condensed
     token takes its representative's row (token_to_token, §VI), through
-    kernel K3. Differentiable in y."""
-    return kops.gather_rows(y, rep_idx)
+    kernel K3. Differentiable in y. ``group_size`` G says the map is
+    group-local (every representative lies in its token's group of G, as
+    :func:`condense_tokens` makes it), so the card's backward needs no
+    global sort."""
+    return kops.gather_rows(y, rep_idx, group_size)
 
 
 @torch.no_grad()

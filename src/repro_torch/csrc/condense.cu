@@ -14,15 +14,29 @@
 // are one per warp.
 //
 // The backward is the port's own: the reference's gradient is XLA's
-// transpose of jnp.take. It is a segmented sum, not a scatter-add: the
-// wrapper sorts idx stably (order) and finds where each destination's run
-// of sources starts (start, n_dst + 1 entries); one warp per destination
-// row adds its sources' rows in f32, in ascending source order, and
-// writes the row once in dy's type. No atomics, so a run repeats bit for
-// bit, and the sums equal index_add_'s on the CPU, which adds in index
-// order too.
+// transpose of jnp.take. It is a segmented sum, not a scatter-add: row j
+// of dx is the f32 sum of the dy rows i with idx[i] = j, in ascending i,
+// written once in dy's type. No atomics, so a run repeats bit for bit, and
+// the sums equal index_add_'s on the CPU, which adds in index order too.
+// Two entries:
+//   * general (gather_rows_bwd_launch, any map): the wrapper sorts idx
+//     stably (order) and finds where each destination's run of sources
+//     starts (start, n_dst + 1 entries); one warp per destination row adds
+//     its sources' rows.
+//   * group-local (gather_rows_bwd_grouped_launch): the un-condense map
+//     sends every token to a row of its own group of G (condensation's
+//     groups), so the sort is a block's work. One block per (group, column
+//     chunk of 8 copy words): it reads the group's G indices, counts each
+//     destination's sources and places them stably in shared memory (no
+//     global sort, no host step); it copies the group's [G x chunk] slab
+//     of dy into shared memory with every load in flight at once; then
+//     each thread sums the sources of one (destination row, copy word) in
+//     ascending order from shared memory and writes that word once. A row
+//     with no sources is written as zeros. An index outside its own group
+//     traps. Its sums are the general entry's, in the same order: bit for
+//     bit the same dx.
 //
-// What bounds both on an H100: bytes. At moe-gpt2's full train width
+// What bounds all three on an H100: bytes. At moe-gpt2's full train width
 // (T = 8192 rows of d = 768 bf16) one launch reads and writes 12.6 MB
 // each, about 7.5 us at 3.35 TB/s.
 
@@ -76,6 +90,96 @@ segment_sum_kernel(const T* __restrict__ dy, const int64_t* __restrict__ order,
   }
 }
 
+
+// ---- the group-local backward
+
+constexpr int GROUP_NT = 256;   // threads per (group, chunk) block
+constexpr int CHUNK = 8;        // copy words per row in one block
+constexpr int MAX_G = 1024;     // largest group (shared memory)
+
+template <typename T, typename V>
+__global__ void __launch_bounds__(GROUP_NT)
+group_sum_kernel(const V* __restrict__ dy, const int64_t* __restrict__ idx,
+                 V* __restrict__ dx, int G, int vec_per_row) {
+  constexpr int W = sizeof(V) / sizeof(T);   // elements per copy word
+  extern __shared__ int4 smem_i4[];
+  V* slab = reinterpret_cast<V*>(smem_i4);                   // [G][CHUNK]
+  int* dst = reinterpret_cast<int*>(slab + (size_t)G * CHUNK);  // [G]
+  int* start = dst + G;                                      // [G]
+  int* count = start + G;                                    // [G]
+  int* src = count + G;                                      // [G]
+  const int64_t g0 = (int64_t)blockIdx.x * G;
+  const int v0 = blockIdx.y * CHUNK;
+  const int nv = min(CHUNK, vec_per_row - v0);
+  const int tid = threadIdx.x;
+
+  // the slab: every load issued before any is waited on
+  for (int it = tid; it < G * CHUNK; it += GROUP_NT) {
+    const int i = it / CHUNK, v = it % CHUNK;
+    if (v < nv) slab[it] = dy[(g0 + i) * vec_per_row + v0 + v];
+  }
+  for (int i = tid; i < G; i += GROUP_NT) {
+    const int64_t j = idx[g0 + i] - g0;
+    if (j < 0 || j >= G) __trap();   // a map that leaves its group is a bug
+    dst[i] = static_cast<int>(j);
+  }
+  __syncthreads();
+  // destination j's sources start after those of every smaller j
+  for (int j = tid; j < G; j += GROUP_NT) {
+    int lt = 0, eq = 0;
+    for (int i = 0; i < G; ++i) {
+      lt += dst[i] < j;
+      eq += dst[i] == j;
+    }
+    start[j] = lt;
+    count[j] = eq;
+  }
+  __syncthreads();
+  // source i goes after the sources of its destination that precede it
+  for (int i = tid; i < G; i += GROUP_NT) {
+    const int j = dst[i];
+    int rank = 0;
+    for (int k = 0; k < i; ++k) rank += dst[k] == j;
+    src[start[j] + rank] = i;
+  }
+  __syncthreads();
+
+  for (int it = tid; it < G * CHUNK; it += GROUP_NT) {
+    const int j = it / CHUNK, v = it % CHUNK;
+    if (v >= nv) continue;
+    float acc[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) acc[w] = 0.0f;
+    const int b = start[j], e = b + count[j];
+    for (int k = b; k < e; ++k) {
+      const V raw = slab[src[k] * CHUNK + v];
+      const T* x = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int w = 0; w < W; ++w) acc[w] += to_f32(x[w]);
+    }
+    V o;
+    T* y = reinterpret_cast<T*>(&o);
+#pragma unroll
+    for (int w = 0; w < W; ++w) y[w] = from_f32<T>(acc[w]);
+    dx[(g0 + j) * vec_per_row + v0 + v] = o;
+  }
+}
+
+template <typename T, typename V>
+int launch_grouped(const void* dy, const int64_t* idx, void* dx,
+                   int n_groups, int G, int row_bytes, cudaStream_t stream) {
+  const int vec = row_bytes / (int)sizeof(V);
+  const int bytes = G * CHUNK * (int)sizeof(V) + 4 * G * (int)sizeof(int);
+  cudaError_t e = cudaFuncSetAttribute(
+      group_sum_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(n_groups, (vec + CHUNK - 1) / CHUNK);
+  group_sum_kernel<T, V><<<grid, GROUP_NT, bytes, stream>>>(
+      static_cast<const V*>(dy), idx, static_cast<V*>(dx), G, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
@@ -121,4 +225,39 @@ extern "C" int gather_rows_bwd_launch(const void* dy, const void* order,
         static_cast<const float*>(dy), ord, st, static_cast<float*>(dx),
         n_dst, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the group-local backward on `stream`; returns a cudaError_t (0 =
+// ok). dy and dx are [n_groups * G, d] in f32 (bf16 = 0) or bf16 (bf16 =
+// 1); idx is int64 [n_groups * G], each in its own group: idx[i] / G ==
+// i / G. row_bytes is one row's size, width the copy word in bytes (16, 4
+// or 2; at least 4 for f32), which must divide row_bytes and the alignment
+// of dy and dx. 1 <= G <= 1024. Nothing is allocated here.
+extern "C" int gather_rows_bwd_grouped_launch(const void* dy, const void* idx,
+                                              void* dx, int n_groups, int G,
+                                              int row_bytes, int width,
+                                              int bf16, void* stream) {
+  cudaGetLastError();  // start from a clean slate; report only our launch
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t* ix = static_cast<const int64_t*>(idx);
+  if (G < 1 || G > MAX_G) return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16) {
+    if (width == 16)
+      return launch_grouped<__nv_bfloat16, uint4>(dy, ix, dx, n_groups, G,
+                                                  row_bytes, s);
+    if (width == 4)
+      return launch_grouped<__nv_bfloat16, uint32_t>(dy, ix, dx, n_groups,
+                                                     G, row_bytes, s);
+    if (width == 2)
+      return launch_grouped<__nv_bfloat16, uint16_t>(dy, ix, dx, n_groups,
+                                                     G, row_bytes, s);
+  } else {
+    if (width == 16)
+      return launch_grouped<float, uint4>(dy, ix, dx, n_groups, G, row_bytes,
+                                          s);
+    if (width == 4)
+      return launch_grouped<float, uint32_t>(dy, ix, dx, n_groups, G,
+                                             row_bytes, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

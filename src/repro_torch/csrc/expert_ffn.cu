@@ -3,38 +3,63 @@
 //   out[e] = (act(h[e] @ w_gate[e]) * (h[e] @ w_up[e])) @ w_down[e]
 //
 // Replaces the Pallas kernel repro/kernels/expert_ffn.py::_ffn_kernel (K1).
-// h is [E, R, d] in f32 or bf16, the weights [E, d, F] / [E, F, d] in f32
-// or bf16, independently. Every product and sum is an f32 FMA (no TF32, no
-// tensor cores), the hidden act(gt) * up stays f32, and the output is cast
-// to h's type. Unlike the Pallas kernel, ragged R (any R >= 1) is masked.
+// h is [E, R, d], the weights [E, d, F] / [E, F, d]. Two routes, chosen by
+// the wrapper (kernels/expert_ffn.py::route) and entered through two C
+// functions; both are two kernels on the caller's stream, gate/up into a
+// scratch hidden [E, R, F], then down, and both mask ragged R (any R >= 1).
 //
-// Design: two kernels on the caller's stream.
-//   1. gate_up: one block per (F tile, R tile, expert) computes the up and
-//      gate tiles together from shared-memory slabs of h and both weights,
-//      and writes act(gt) * up to a wrapper-allocated f32 scratch [E, R, F].
-//   2. down:    one block per (d tile, R tile, expert) multiplies that
-//      hidden by w_down and writes the output tile in h's type.
-// Each block is 256 threads over a (16*TM)x64 output tile, each thread a
-// TMx4 micro-tile strided by 16 so shared-memory reads are conflict-free
-// and global stores coalesce. Two tilings: TM=4 (64 rows, 16-deep slabs)
-// for prefill, and TM=1 (16 rows, 32-deep slabs) for R <= 16, where a
-// 64-row tile would spend 7/8 of its FMAs on padding and the deeper slab
-// keeps more weight bytes in flight per block.
+// 1. The tensor-core route (expert_ffn_wgmma_launch): bf16 h and bf16
+//    weights, d and F multiples of 64. bf16 products summed in f32 by
+//    wgmma; the hidden act(gt) * up is rounded to bf16 (it is the down
+//    product's A operand), the output too.
+//      - ffn_wgmma_kernel<GATED> is one GEMM shape for both halves, on
+//        output tiles of (128 columns of N, 128 rows of R, expert): one
+//        block of 288 threads per SM (two consumer warpgroups of 64 rows
+//        and one producer warp) walks the tiles, N fastest, so the ring
+//        fills the next tile's stages while a tile's epilogue runs. gate/up: K = d, N = F, two B operands (w_gate, w_up) and two
+//        m64n128 f32 accumulators per warpgroup, act(g) * u in the epilogue.
+//        down: K = F, N = d, one B operand (w_down).
+//      - The producer's one thread brings each 64-deep stage into a ring of
+//        mbarrier-guarded stages by TMA through 3-D tensor maps over
+//        [E, rows, cols] (the 128-byte swizzle; a box is 64 columns): A as
+//        one [128 x 64] box, K-major; each B as two [64 x 64] boxes of N
+//        side by side, MN-major (N contiguous in w_gate, w_up, w_down). Rows
+//        past R, and columns past N, come back as zeros, never from the
+//        next expert. "full" barriers count the bytes in, "empty" ones the
+//        consumer warps out.
+//      - Each consumer warpgroup issues wgmma m64n128k16 per 16 of K, B
+//        with the transpose bit and a live leading-byte offset (the 8 KB
+//        step from one 64-column box to the next), keeps one stage's
+//        products in flight (wait_group 1) and frees the stage before it.
+//        A warpgroup whose 64 rows all lie past R issues nothing (decode).
+//      - No atomics and no split over K: a launch repeats bit for bit.
+// 2. The FMA route (expert_ffn_launch): everything else (f32 h, which
+//    keeps the f32 contract, or other widths): h in f32 or bf16, weights
+//    in f32 or bf16, independently, every product and sum an f32 FMA (no
+//    TF32, no tensor cores), the hidden f32, the output cast to h's type.
+//    One block of 256 threads per (64-column tile, R tile, expert), each
+//    thread a TMx4 micro-tile strided by 16 so shared-memory reads are
+//    conflict-free and global stores coalesce. Two tilings: TM=4 (64 rows,
+//    16-deep slabs) for prefill, and TM=1 (16 rows, 32-deep slabs) for
+//    R <= 16, where a 64-row tile would spend 7/8 of its FMAs on padding.
 //
-// What bounds it on an H100:
-//   * decode (R = 8 rows per expert): weight bytes. One moe-gpt2 layer holds
-//     3 x 16 x 768 x 3072 f32 weights = 453 MB, about 135 us at 3.35 TB/s,
-//     against 1.8 GFLOP. The 16-row tiling streams each weight once.
-//   * prefill (R = 256 rows per expert): operations. 58 GFLOP per layer in
-//     f32 FMAs (67 TFLOP/s peak outside the tensor cores) against the same
-//     453 MB of weights.
-// Later work, not done here: bf16 wgmma with an f32 accumulator fed by TMA,
-// which moves prefill onto the tensor cores, and fusing the hidden so it
-// never goes through device memory.
+// What bounds it on an H100 (moe-gpt2: 16 experts, d 768, F 3072):
+//   * decode (R = 8 rows per expert): weight bytes. bf16 weights are
+//     226.5 MB per layer, about 68 us at 3.35 TB/s; 1.8 GFLOP. Every
+//     weight tile is read once (one row tile), 384 gate/up blocks keep the
+//     card's 132 SMs streaming.
+//   * prefill (R = 256) and train (R = 2048): operations at the bf16
+//     tensor-core rate, 58 and 464 GFLOP per layer (0.06 and 0.47 ms at
+//     989 TFLOP/s) against 239 and 327 MB of h, weights and output. The
+//     hidden's round trip through device memory (bf16, 403 MB at the train
+//     shape, ~0.12 ms) is what fusing the two halves would save.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -199,6 +224,208 @@ void launch(const void* h, const void* wu, const void* wg, const void* wd,
                                 stream);
 }
 
+
+// ---------------------------------------------------------------------------
+// the tensor-core route (bf16 h and weights, d and F multiples of 64)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using namespace hopper;
+
+constexpr int BM = 128;      // rows per block: two warpgroups of 64
+constexpr int BN = 128;      // output columns per block
+constexpr int BK = 64;       // depth of a stage: one 128-byte swizzle row
+constexpr int BOX_N = 64;    // columns of one B box (one swizzle row)
+constexpr int NT = 288;      // 2 consumer warpgroups + 1 producer warp
+constexpr int CONSUMER_WARPS = 8;
+constexpr int ROW_B = 128;   // bytes of one swizzled row
+constexpr int A_BYTES = BM * BK * 2;        // 16 KB
+constexpr int BOX_B_BYTES = BK * BOX_N * 2; // 8 KB
+constexpr int B_BYTES = BK * BN * 2;        // 16 KB: two boxes
+
+template <bool GATED, int STAGES>
+struct Smem {
+  static constexpr int STAGE = A_BYTES + (GATED ? 2 : 1) * B_BYTES;
+  static constexpr int BAR_OFF = STAGES * STAGE;
+  // full[STAGES], empty[STAGES]; 1024 bytes of slack to align the base
+  static constexpr int BYTES = BAR_OFF + 16 * STAGES + 1024;
+};
+
+// GATED: out = hidden [E, R, N = F] = bf16(act(A @ B0) * (A @ B1)), A = h
+//        [E, R, K = d], B0 = w_gate, B1 = w_up [E, K, N];
+// else:  out [E, R, N = d] = bf16(A @ B0), A = hidden [E, R, K = F], B0 =
+//        w_down [E, K, N].
+template <bool GATED, int STAGES>
+__global__ void __launch_bounds__(NT, 1)
+ffn_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap tb0,
+                 const __grid_constant__ CUtensorMap tb1,
+                 __nv_bfloat16* __restrict__ out, int E, int R, int K,
+                 int N, int act) {
+  using L = Smem<GATED, STAGES>;
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzle atoms are 1024 bytes: align the base to them, so
+  // the descriptors' base offset is 0
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_full = base + L::BAR_OFF;
+  const uint32_t bar_empty = bar_full + 8 * STAGES;
+  // output tiles, N fastest, then R, then the expert; block b takes
+  // tiles b, b + gridDim.x, ... and the ring runs on across them
+  const int n_nt = (N + BN - 1) / BN, n_rt = (R + BM - 1) / BM;
+  const int n_tiles = n_nt * n_rt * E;
+  const int nk = K / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {
+    // producer: one thread issues every copy of the block
+    if (lane == 0) {
+      int t = 0;   // stages filled so far
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int n0 = (tile % n_nt) * BN;
+        const int r0 = (tile / n_nt % n_rt) * BM;
+        const int e = tile / (n_nt * n_rt);
+        for (int kt = 0; kt < nk; ++kt, ++t) {
+          const int s = t % STAGES;
+          mbar_wait(bar_empty + 8 * s, ((t / STAGES) & 1) ^ 1);
+          mbar_expect_tx(bar_full + 8 * s, L::STAGE);
+          const uint32_t st = base + s * L::STAGE;
+          const uint32_t full = bar_full + 8 * s;
+          tma_load_3d(st, &ta, full, kt * BK, r0, e);
+#pragma unroll
+          for (int j = 0; j < BN / BOX_N; ++j) {
+            tma_load_3d(st + A_BYTES + j * BOX_B_BYTES, &tb0, full,
+                        n0 + j * BOX_N, kt * BK, e);
+            if constexpr (GATED)
+              tma_load_3d(st + A_BYTES + B_BYTES + j * BOX_B_BYTES, &tb1,
+                          full, n0 + j * BOX_N, kt * BK, e);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows rw0 .. rw0 + 63 of a tile; this
+  // thread rows row0 and row0 + 8, and in each 8-column group the columns
+  // c8, c8 + 1
+  const int wg = warp / 4;
+  const int c8 = 2 * (lane % 4);
+  int t = 0;   // stages consumed so far
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int n0 = (tile % n_nt) * BN;
+    const int r0 = (tile / n_nt % n_rt) * BM;
+    const int e = tile / (n_nt * n_rt);
+    const int rw0 = r0 + wg * 64;
+    const bool live = rw0 < R;   // uniform over the warpgroup
+    float acc0[64], acc1[64];    // gate and up (GATED), or down and unused
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc0[j] = acc1[j] = 0.0f;
+
+    for (int kt = 0; kt < nk; ++kt, ++t) {
+      const int s = t % STAGES;
+      const uint32_t st = base + s * L::STAGE;
+      mbar_wait(bar_full + 8 * s, (t / STAGES) & 1);
+      if (live) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          // A: 32 bytes of K inside each row; B: 16 rows of K, 2048 bytes
+          const uint64_t da = desc_sw128(st + wg * 64 * ROW_B + kk * 32);
+          const uint32_t b = st + A_BYTES + kk * 16 * ROW_B;
+          wgmma_m64n128k16_ss<1>(acc0, da, desc_sw128(b, BOX_B_BYTES), 1);
+          if constexpr (GATED)
+            wgmma_m64n128k16_ss<1>(acc1, da,
+                                   desc_sw128(b + B_BYTES, BOX_B_BYTES), 1);
+        }
+        wgmma_commit();
+        wgmma_wait1();   // the previous stage's products have landed
+      }
+      if (kt > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_empty + 8 * ((t - 1) % STAGES));
+      }
+    }
+    if (live) {
+      wgmma_wait0();
+      fence_regs(acc0);
+      if constexpr (GATED) fence_regs(acc1);
+    }
+    // the tile's last stage is free: the producer fills the next tile's
+    // stages while this one's epilogue runs
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * ((t - 1) % STAGES));
+    if (!live) continue;
+
+    const int row0 = rw0 + 16 * (warp % 4) + lane / 4;
+    __nv_bfloat16* o0 = out + ((size_t)e * R + row0) * N + n0 + c8;
+    __nv_bfloat16* o1 = o0 + (size_t)8 * N;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      // registers 4i, 4i+1: row0; 4i+2, 4i+3: row0 + 8
+      const int col = n0 + 8 * i + c8;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = GATED ? act_fn(acc0[4 * i + j], act) * acc1[4 * i + j]
+                     : acc0[4 * i + j];
+      if (col < N) {
+        if (row0 < R)
+          *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * i) =
+              __floats2bfloat162_rn(v[0], v[1]);
+        if (row0 + 8 < R)
+          *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * i) =
+              __floats2bfloat162_rn(v[2], v[3]);
+      }
+    }
+  }
+}
+
+// [E, rows, cols] bf16, contiguous, boxes of (64, box_rows, 1)
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int E,
+            int rows, int cols, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {BOX_N, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One block per SM (at most one per tile), each walking its tiles.
+template <bool GATED, int STAGES>
+cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb0,
+                        const CUtensorMap& tb1, void* out, int E, int R,
+                        int K, int N, int act, int n_sm,
+                        cudaStream_t stream) {
+  constexpr int bytes = Smem<GATED, STAGES>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      ffn_wgmma_kernel<GATED, STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (long long)((N + BN - 1) / BN) *
+                          ((R + BM - 1) / BM) * E;
+  const int grid = static_cast<int>(tiles < n_sm ? tiles : n_sm);
+  ffn_wgmma_kernel<GATED, STAGES><<<grid, NT, bytes, stream>>>(
+      ta, tb0, tb1, static_cast<__nv_bfloat16*>(out), E, R, K, N, act);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Launches both kernels on `stream`; returns cudaGetLastError() (0 = ok).
@@ -221,4 +448,39 @@ extern "C" int expert_ffn_launch(const void* h, const void* wu, const void* wg,
   else
     launch<float, float>(h, wu, wg, wd, out, hf, E, R, d, F, act, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core route: launches both kernels on `stream`; returns a
+// cudaError_t (0 = ok). h [E, R, d], w_up / w_gate [E, d, F], w_down
+// [E, F, d], out [E, R, d] and the scratch hidden `hid` [E, R, F] all
+// bf16, contiguous and 16-byte aligned (the wrapper sees to it); d and F
+// multiples of 64; act 0 = silu, 1 = gelu. Nothing is allocated here. A
+// tensor map that fails to encode returns cudaErrorInvalidValue, a driver
+// without cuTensorMapEncodeTiled cudaErrorNotSupported.
+extern "C" int expert_ffn_wgmma_launch(const void* h, const void* wu,
+                                       const void* wg, const void* wd,
+                                       void* out, void* hid, int E, int R,
+                                       int d, int F, int act, void* stream) {
+  using namespace tc;
+  cudaGetLastError();  // start from a clean slate; report only our launches
+  if (d % BK != 0 || F % BK != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap mh, mwg, mwu, mhid, mwd;
+  if (!encode(fn, &mh, h, E, R, d, BM) || !encode(fn, &mwg, wg, E, d, F, BK) ||
+      !encode(fn, &mwu, wu, E, d, F, BK) ||
+      !encode(fn, &mhid, hid, E, R, F, BM) ||
+      !encode(fn, &mwd, wd, E, F, d, BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev = 0, n_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = launch_gemm<true, 4>(mh, mwg, mwu, hid, E, R, d, F, act, n_sm, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(
+      launch_gemm<false, 6>(mhid, mwd, mwd, out, E, R, F, d, 0, n_sm, s));
 }

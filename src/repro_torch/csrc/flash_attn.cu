@@ -58,6 +58,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -216,6 +217,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 namespace tc {
 
+using namespace hopper;
+
 constexpr int BQ = 128;       // queries per block: two warpgroups of 64
 constexpr int BK = 128;       // keys per tile
 constexpr int NT = 288;       // 2 consumer warpgroups + 1 producer warp
@@ -224,108 +227,8 @@ constexpr int ROW_B = 128;    // bytes of one swizzled row
 constexpr int CONSUMER_WARPS = 8;
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 state;\n"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
-      : "memory");
-}
-
-// Returns once the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One box of a 4-D tensor map (coordinates innermost first) into shared
-// memory; completion is counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile whose
-// 1024-byte atoms (8 rows of 128 bytes) start at `addr`: start address,
-// leading and stride byte offsets (16-byte units) and the swizzle mode.
-// Every operand here is one atom wide in its contiguous direction (q and
-// k: 16 of 64 hd columns per k-step; v: 64 columns of hd per product),
-// so the only live stride is the 8-row step, 1024 bytes; both offset
-// fields carry it.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  constexpr uint64_t step = 1024 >> 4;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (step << 16) |
-         (step << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Ties each register to this point, after the wgmma wait: the compiler
-// may not read an accumulator before the product has landed in it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
 #define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define F16(i) F4(i), F4(i + 4), F4(i + 8), F4(i + 12)
-
-// d[64] (+)= A[64 x 16] B[16 x 128]^T, A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
-                                                    uint64_t da, uint64_t db,
-                                                    int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : F16(0), F16(16), F16(32), F16(48)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
 
 // d[32] += A[64 x 16] B[16 x 64], A bf16 in registers (the m64nNk16 A
 // fragment), B MN-major in shared memory (the transpose bit set).
@@ -468,7 +371,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
-      wgmma_m64n128k16_ss(
+      wgmma_m64n128k16_ss<0>(
           s, desc_sw128(sq_wg + (kk / 4) * BQ * ROW_B + off),
           desc_sw128(sk + (kk / 4) * BK * ROW_B + off), kk > 0);
     }
@@ -572,34 +475,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             __floats2bfloat162_rn(o[a][4 * i + 2] / d1,
                                   o[a][4 * i + 3] / d1);
     }
-}
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime so
-// that the library needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // [B, S, heads, hd] bf16, contiguous, boxes of (64, 1, 128, 1)

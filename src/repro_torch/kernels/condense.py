@@ -5,9 +5,12 @@ un-condense step ``y[rep_idx]``, and of its backward.
 :class:`GatherRows` is its autograd function. The gradient of a row
 gather sums ``dy`` into the representatives (the reference gets it from
 XLA's transpose of ``jnp.take``, outside any Pallas kernel); the port's
-backward kernel forms those sums in f32, in a fixed order, with no
-atomics, so a train step repeats bit for bit. The plain versions are
-:func:`repro_torch.kernels.ref.gather_rows_ref` and
+backward kernels form those sums in f32, in ascending source order, with
+no atomics, so a train step repeats bit for bit. Given ``group_size``
+(the un-condense map keeps every token in its condensation group), the
+backward is one group-local kernel with no global sort; without it, a
+stable sort and a segmented sum. Both give the same bits. The plain
+versions are :func:`repro_torch.kernels.ref.gather_rows_ref` and
 :func:`repro_torch.kernels.ref.gather_rows_bwd_ref`.
 """
 from __future__ import annotations
@@ -57,12 +60,18 @@ def gather_rows(y, rep_idx):
 gather_rows.launches = 0
 
 
-def gather_rows_bwd(dy, rep_idx, n_src: int):
+MAX_GROUP = 1024   # the grouped kernel's shared memory holds G <= 1024
+
+
+def gather_rows_bwd(dy, rep_idx, n_src: int, group_size=None):
     """dy: [T, d] f32 or bf16 on a CUDA device; rep_idx: [T] integer, each
-    in [0, n_src). Launches the backward kernel on the current stream;
+    in [0, n_src). Launches a backward kernel on the current stream;
     returns dx [n_src, d] in dy's dtype, row j the f32 sum of the dy rows
-    i with rep_idx[i] = j in ascending i. Adds one to
-    ``gather_rows_bwd.launches`` per launch."""
+    i with rep_idx[i] = j in ascending i. With ``group_size`` G the map
+    must be group-local (rep_idx[i] // G == i // G, n_src == T, T % G ==
+    0; the kernel traps on an index outside its group) and one kernel
+    sorts within each group; without it a global stable sort comes first.
+    Adds one to ``gather_rows_bwd.launches`` per launch."""
     if dy.device.type != "cuda" or rep_idx.device != dy.device:
         raise ValueError(f"dy and rep_idx must lie on one CUDA device, got "
                          f"{dy.device} and {rep_idx.device}")
@@ -72,18 +81,34 @@ def gather_rows_bwd(dy, rep_idx, n_src: int):
         raise ValueError(f"dy must be [T, d] and rep_idx [T], got "
                          f"{tuple(dy.shape)} and {tuple(rep_idx.shape)}")
     dy = dy.contiguous()
-    # the sources of each destination, in ascending order: a stable sort
-    # and where each destination's run of them starts
-    srt, order = torch.sort(rep_idx.to(torch.int64), stable=True)
-    start = torch.searchsorted(
-        srt, torch.arange(n_src + 1, dtype=torch.int64, device=dy.device))
-    dx = torch.empty((n_src, dy.shape[1]), dtype=dy.dtype, device=dy.device)
-    fn = _build.entry("condense", "gather_rows_bwd_launch", 4, 3)
-    with torch.cuda.device(dy.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(dy.data_ptr(), order.data_ptr(), start.data_ptr(),
-                dx.data_ptr(), n_src, dy.shape[1],
-                int(dy.dtype == torch.bfloat16), stream)
+    T, d = dy.shape
+    bf16 = int(dy.dtype == torch.bfloat16)
+    dx = torch.empty((n_src, d), dtype=dy.dtype, device=dy.device)
+    if group_size is not None:
+        G = int(group_size)
+        if not (1 <= G <= MAX_GROUP and T % G == 0 and n_src == T):
+            raise ValueError(f"the group-local backward takes 1 <= G <= "
+                             f"{MAX_GROUP}, T % G == 0 and n_src == T, got "
+                             f"G={G}, T={T}, n_src={n_src}")
+        idx = rep_idx.to(torch.int64).contiguous()
+        row_bytes = d * dy.element_size()
+        width = min(_width(dy, row_bytes), _width(dx, row_bytes))
+        fn = _build.entry("condense", "gather_rows_bwd_grouped_launch", 3, 5)
+        with torch.cuda.device(dy.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(dy.data_ptr(), idx.data_ptr(), dx.data_ptr(), T // G, G,
+                    row_bytes, width, bf16, stream)
+    else:
+        # the sources of each destination, in ascending order: a stable
+        # sort and where each destination's run of them starts
+        srt, order = torch.sort(rep_idx.to(torch.int64), stable=True)
+        start = torch.searchsorted(
+            srt, torch.arange(n_src + 1, dtype=torch.int64, device=dy.device))
+        fn = _build.entry("condense", "gather_rows_bwd_launch", 4, 3)
+        with torch.cuda.device(dy.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(dy.data_ptr(), order.data_ptr(), start.data_ptr(),
+                    dx.data_ptr(), n_src, d, bf16, stream)
     if rc != 0:
         raise RuntimeError(f"gather_rows_bwd launch failed: cudaError {rc}")
     gather_rows_bwd.launches += 1
@@ -95,15 +120,17 @@ gather_rows_bwd.launches = 0
 
 class GatherRows(torch.autograd.Function):
     """K3 and its backward as a differentiable op (CUDA only); the index
-    gets no gradient."""
+    gets no gradient. ``group_size`` (None: any map) picks the backward."""
 
     @staticmethod
-    def forward(ctx, y, rep_idx):
+    def forward(ctx, y, rep_idx, group_size=None):
         ctx.save_for_backward(rep_idx)
         ctx.n_src = y.shape[0]
+        ctx.group_size = group_size
         return gather_rows(y, rep_idx)
 
     @staticmethod
     def backward(ctx, dy):
         (rep_idx,) = ctx.saved_tensors
-        return gather_rows_bwd(dy, rep_idx, ctx.n_src), None
+        return (gather_rows_bwd(dy, rep_idx, ctx.n_src, ctx.group_size),
+                None, None)

@@ -4,15 +4,30 @@
 ``csrc/expert_ffn_bwd.cu``, which the reference does not have (XLA
 differentiates its einsum path).
 
-``out[e] = (act(h[e] @ w_gate[e]) * (h[e] @ w_up[e])) @ w_down[e]`` with
-f32 math, for h [E, R, d] in f32 or bf16 and weights in f32 or bf16.
-:class:`ExpertFFN` is the autograd function over both: it saves h and
-the weights (not the f32 hidden, which the backward recomputes). The
+``out[e] = (act(h[e] @ w_gate[e]) * (h[e] @ w_up[e])) @ w_down[e]`` for
+h [E, R, d] in f32 or bf16 and weights in f32 or bf16. :func:`route`
+picks the forward's kernels, as K5's dispatch does, by type and width:
+
+* ``"wgmma"`` (bf16 h, d and F multiples of 64): Hopper's tensor cores,
+  bf16 products summed in f32, the hidden ``act(gt) * up`` rounded to
+  bf16 before the down product, the output bf16. f32 weights (the
+  paths' masters) are read through bf16 copies, one cast per weight
+  tensor and version (:func:`weight_bf16`): an optimizer step's in-place
+  update or a new tensor makes a new copy, and a dropped tensor's copy
+  goes with it.
+* ``"fma"`` (f32 h, or other widths): f32 FMAs, f32 math throughout.
+
+:class:`ExpertFFN` is the autograd function over the forward and the
+backward kernel: it saves h and the weights as given (f32 masters stay
+f32 in the backward, which recomputes the hidden in f32 FMAs). The
 sources say what bounds the kernels and how they are laid out; the
 plain version is :func:`repro_torch.kernels.ref.expert_ffn_ref`, whose
 autograd gradient is the backward's plain version.
 """
 from __future__ import annotations
+
+import weakref
+from typing import Dict, Tuple
 
 import torch
 
@@ -20,6 +35,53 @@ from repro_torch.kernels import _build
 
 ACT_CODES = {"silu": 0, "gelu": 1}
 _DTYPES = (torch.float32, torch.bfloat16)
+TC_WIDTH = 64   # the tensor-core route's d and F are multiples of this
+
+
+def route(h_dtype, w_dtype, d: int, F: int) -> str:
+    """The forward's kernels for h of ``h_dtype`` and weights of
+    ``w_dtype`` (f32 or bf16) at widths d, F: ``"wgmma"`` for bf16 h at
+    d and F multiples of 64, else ``"fma"``. f32 h keeps f32 math (TF32
+    or bf16 products would break its 1e-4 contract)."""
+    if h_dtype not in _DTYPES or w_dtype not in _DTYPES:
+        raise TypeError(f"h and the weights must be float32 or bfloat16, "
+                        f"got {h_dtype} and {w_dtype}")
+    if h_dtype == torch.bfloat16 and d % TC_WIDTH == 0 \
+            and F % TC_WIDTH == 0:
+        return "wgmma"
+    return "fma"
+
+
+# id(w) -> (a weak reference to w, w._version at the cast, the bf16 copy)
+_WEIGHT_CACHE: Dict[int, Tuple[weakref.ref, int, torch.Tensor]] = {}
+
+
+def weight_bf16(w: torch.Tensor) -> torch.Tensor:
+    """``w`` in bf16: itself if it is bf16, else its cast, made once per
+    version of ``w`` and kept while ``w`` lives (the entry holds ``w``
+    only weakly and goes when ``w`` is freed). Adds one to
+    ``weight_bf16.casts`` per cast made."""
+    if w.dtype == torch.bfloat16:
+        return w
+    key = id(w)
+    hit = _WEIGHT_CACHE.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    cast = w.detach().to(torch.bfloat16, memory_format=torch.contiguous_format)
+    _WEIGHT_CACHE[key] = (
+        weakref.ref(w, lambda _, k=key: _WEIGHT_CACHE.pop(k, None)),
+        w._version, cast)
+    weight_bf16.casts += 1
+    return cast
+
+
+weight_bf16.casts = 0
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, contiguous and 16-byte aligned, as TMA reads it."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _check(h, w_up, w_gate, w_down, act_name):
@@ -52,21 +114,32 @@ def _check(h, w_up, w_gate, w_down, act_name):
 
 
 def expert_ffn(h, w_up, w_gate, w_down, act_name: str = "silu"):
-    """Launch the kernel on the current stream; raises on a refused
-    launch. Adds one to ``expert_ffn.launches`` per launch."""
+    """Launch the forward on the current stream through :func:`route`'s
+    kernels; raises on a refused launch. Adds one to
+    ``expert_ffn.launches`` per launch (two kernels)."""
     _check(h, w_up, w_gate, w_down, act_name)
     E, R, d = h.shape
     F = w_up.shape[-1]
+    tc = route(h.dtype, w_up.dtype, d, F) == "wgmma"
+    if tc:
+        h = _aligned(h)
+        w_up, w_gate, w_down = (_aligned(weight_bf16(w))
+                                for w in (w_up, w_gate, w_down))
     out = torch.empty_like(h)
-    hid = torch.empty((E, R, F), dtype=torch.float32, device=h.device)
-    fn = _build.entry("expert_ffn", "expert_ffn_launch", 6, 7)
+    hid = torch.empty((E, R, F), dtype=torch.bfloat16 if tc else
+                      torch.float32, device=h.device)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(h.data_ptr(), w_up.data_ptr(), w_gate.data_ptr(),
-                w_down.data_ptr(), out.data_ptr(), hid.data_ptr(),
-                E, R, d, F, int(h.dtype == torch.bfloat16),
-                int(w_up.dtype == torch.bfloat16), ACT_CODES[act_name],
-                stream)
+        ptrs = (h.data_ptr(), w_up.data_ptr(), w_gate.data_ptr(),
+                w_down.data_ptr(), out.data_ptr(), hid.data_ptr())
+        if tc:
+            fn = _build.entry("expert_ffn", "expert_ffn_wgmma_launch", 6, 5)
+            rc = fn(*ptrs, E, R, d, F, ACT_CODES[act_name], stream)
+        else:
+            fn = _build.entry("expert_ffn", "expert_ffn_launch", 6, 7)
+            rc = fn(*ptrs, E, R, d, F, int(h.dtype == torch.bfloat16),
+                    int(w_up.dtype == torch.bfloat16), ACT_CODES[act_name],
+                    stream)
     if rc != 0:
         raise RuntimeError(f"expert_ffn launch failed: cudaError {rc}")
     expert_ffn.launches += 1

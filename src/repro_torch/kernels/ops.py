@@ -37,10 +37,12 @@ def masked_similarity(x, mask):
     return _similarity.masked_similarity(x, mask)
 
 
-def gather_rows(y, rep_idx):
+def gather_rows(y, rep_idx, group_size=None):
+    """``group_size`` G: rep_idx keeps every row in its group of G, and the
+    card's backward sorts within groups (the plain version needs no sort)."""
     if _device(y, "gather_rows") == "cpu":
         return ref.gather_rows_ref(y, rep_idx)
-    return _condense.GatherRows.apply(y, rep_idx)
+    return _condense.GatherRows.apply(y, rep_idx, group_size)
 
 
 def pack_quantize(x, tok, wire_dtype: str = "f32"):

@@ -476,7 +476,7 @@ def _finish(plan: ExchangePlan, y_tok, new_sb, c_drop, local_frac,
                      "age": sig.age.reshape(M, n_seq),
                      "valid": sig.valid.reshape(M, n_seq)}
         if not plan.migrate:
-            y_tok = uncondense(y_tok.reshape(M * T, d), cp.rep_idx)
+            y_tok = uncondense(y_tok.reshape(M * T, d), cp.rep_idx, G)
             rep = (local % G).reshape(M, n_seq, S)
         else:
             moved = _exchange_sideband(
@@ -487,7 +487,7 @@ def _finish(plan: ExchangePlan, y_tok, new_sb, c_drop, local_frac,
             seq = torch.arange(M * n_seq, device=dev)[:, None] * S
             y_tok = uncondense(y_tok.reshape(M * T, d),
                                (seq + rep_sb.reshape(M * n_seq, S))
-                               .reshape(-1))
+                               .reshape(-1), G)
             rep = rep_sb % G
             ng = S // G
             s_mig = s_next.reshape(M, n_seq, ng, G, G).to(torch.bfloat16)

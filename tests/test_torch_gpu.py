@@ -91,6 +91,56 @@ def test_expert_ffn_backward_matches_plain(shape, h_dtype, act):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 8, 256, 512), (4, 160, 192, 320),
+                                   (16, 160, 768, 3072)])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_expert_ffn_tensor_cores_bf16_weights(shape, act):
+    """K1's tensor-core route with bf16 weights passed in directly (no
+    cast), at F and d multiples of 64 but not of 128 (columns past N in
+    the last tile) and at moe-gpt2's widths; a second launch repeats bit
+    for bit."""
+    _cuda_or_skip()
+    E, R, d, F = shape
+    h, ws = _inputs(E, R, d, F, seed=8)
+    th = torch.as_tensor(h).to(torch.bfloat16).cuda()
+    tw = [torch.as_tensor(w).to(torch.bfloat16).cuda() for w in ws]
+    assert kexp.route(th.dtype, tw[0].dtype, d, F) == "wgmma"
+    casts = kexp.weight_bf16.casts
+    got = ops.expert_ffn(th, *tw, act)
+    torch.cuda.synchronize()
+    assert kexp.weight_bf16.casts == casts
+    want = ref.expert_ffn_ref(th, *tw, act)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+    assert torch.equal(kexp.expert_ffn(th, *tw, act), got)
+
+
+@pytest.mark.gpu
+def test_expert_ffn_weight_cache_follows_in_place_updates():
+    """An in-place copy_ into an f32 weight (as AdamW's update) makes the
+    tensor-core route cast again: the result is the plain version's on
+    the new weights, not the cached copy's."""
+    _cuda_or_skip()
+    h, ws = _inputs(4, 160, 256, 512, seed=9)
+    _, ws2 = _inputs(4, 160, 256, 512, seed=10)
+    th = torch.as_tensor(h).to(torch.bfloat16).cuda()
+    tw = [torch.as_tensor(w).cuda() for w in ws]
+    first = ops.expert_ffn(th, *tw, "gelu")
+    casts = kexp.weight_bf16.casts
+    assert torch.equal(ops.expert_ffn(th, *tw, "gelu"), first)
+    assert kexp.weight_bf16.casts == casts            # a warm cache
+    for w, w2 in zip(tw, ws2):
+        w.copy_(torch.as_tensor(w2))
+    got = ops.expert_ffn(th, *tw, "gelu")
+    torch.cuda.synchronize()
+    assert kexp.weight_bf16.casts == casts + 3
+    want = ref.expert_ffn_ref(th, *tw, "gelu")
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+    assert not torch.equal(got, first)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("NG,G,d", [(64, 128, 768), (3, 96, 40),
                                     (3, 200, 64)])
 @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
@@ -145,6 +195,48 @@ def test_gather_rows_kernel_bitwise_and_grad(dtype, T, d, n_idx):
     assert y.grad.dtype == y.dtype
     assert torch.equal(y.grad.cpu(), want)
     assert torch.equal(kcond.gather_rows_bwd(dy, idx, T), y.grad)
+
+
+def _group_local_map(r, n_groups, G, reps_per_group):
+    reps = np.sort(np.stack([r.choice(G, reps_per_group, replace=False)
+                             for _ in range(n_groups)]), axis=1)
+    rep_of = np.take_along_axis(
+        reps, r.integers(0, reps_per_group, (n_groups, G)), axis=1)
+    rep_of[np.arange(n_groups)[:, None], reps] = reps
+    return (rep_of + G * np.arange(n_groups)[:, None]).reshape(-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_groups,G,d,reps", [
+    (64, 128, 768, 9),        # the train path's [8192, 768]
+    (8, 128, 768, 1),         # one representative per group
+    (8, 128, 768, 128),       # every token its own representative
+    (16, 128, 7, 5),          # a ragged row (2-byte words at bf16)
+    (5, 96, 40, 3)])
+def test_gather_rows_grouped_backward_bitwise(dtype, n_groups, G, d, reps):
+    """K3's group-local backward, through the autograd path the
+    un-condense takes: bit for bit the general entry (sort + segmented
+    sum), the CPU plain version and a second launch."""
+    from repro_torch.kernels import condense as kcond
+    _cuda_or_skip()
+    r = np.random.default_rng(12)
+    T = n_groups * G
+    idx = torch.as_tensor(_group_local_map(r, n_groups, G, reps)).cuda()
+    y = torch.as_tensor(r.standard_normal((T, d)).astype(np.float32))
+    y = y.to(getattr(torch, dtype)).cuda().requires_grad_()
+    dy = torch.as_tensor(r.standard_normal((T, d)).astype(np.float32))
+    dy = dy.to(y.dtype).cuda()
+    before = kcond.gather_rows_bwd.launches
+    ops.gather_rows(y, idx, G).backward(dy)
+    torch.cuda.synchronize()
+    assert kcond.gather_rows_bwd.launches == before + 1
+    general = kcond.gather_rows_bwd(dy, idx, T)
+    assert y.grad.dtype == y.dtype
+    assert torch.equal(y.grad, general)
+    assert torch.equal(y.grad.cpu(), ref.gather_rows_bwd_ref(
+        dy.cpu(), idx.cpu(), T))
+    assert torch.equal(kcond.gather_rows_bwd(dy, idx, T, G), y.grad)
 
 
 def _u8(t):
