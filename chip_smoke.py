@@ -8,15 +8,21 @@ Phases, each of which must pass or the script exits non-zero:
 1. device: the card's name, count, and name / power limit from nvidia-smi;
 2. build: every hand-written kernel from ``src/repro_torch/csrc`` into
    ``build/`` (one ``nvcc`` per source, all at once), with the compiler's
-   register / shared-memory / spill report, K1's and K5's tensor-core
-   kernels' picked out;
+   register / shared-memory / spill report, K1's (forward and backward)
+   and K5's tensor-core kernels' and K3's gather's picked out: none may
+   spill;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the serving and training paths give it (K1 forward on both
-   routes, also with bf16 weights passed in, and its backward, K2 masked
-   similarity, K3 row gather and its backward, the group-local entry bit
-   for bit the general one), then timed (CUDA events) beside the plain
-   version, a PyTorch yardstick (K1: f32 and bf16 bmm, in turns; the bf16
-   weight cast timed on its own) and its bound;
+   routes, also with bf16 weights passed in; its backward on both routes
+   at the train, decode and ragged shapes and at d = 192, F = 320, the
+   tensor-core route also against its rounding model and repeated bit for
+   bit; K2 masked similarity, K3 row gather (int64 and int32 index) and
+   its backward, the group-local entry bit for bit the general one), then
+   timed (CUDA events, and profiler device time where the host's time
+   could hide the kernel's) beside the plain version, a PyTorch yardstick
+   (K1: f32 and bf16 bmm, in turns; the bf16 weight cast timed on its
+   own; K1's backward in turns with its FMA route and the f32 and bf16
+   bmm composites; K3: index_select) and its bound;
 4. slice: full-width moe-gpt2 (16 experts, random weights from a seed)
    served through the port's launcher, ``repro_torch.launch.serve``:
    batched prefill (warm-up + timed), step-wise prompt feed into the KV
@@ -34,13 +40,17 @@ Phases, each of which must pass or the script exits non-zero:
    forward, K1 backward, K2, K3 and K3's backward must have launched as
    many times as the path calls them (the per-layer recompute included),
    and each expert weight tensor must have been cast to bf16 once per
-   step (the recompute reads the forward's copy).
+   step (the recompute and the backward read the forward's copy), its
+   second bf16 term made once per step by the backward.
    The same run is made again from the same seed and must repeat its
    losses, condensation rates and buckets bit for bit;
 8. train parity: one train step of a 2-layer full-width cut (B=2,
    S=256, f32 compute) on the card against the CPU: rep maps, loss and
    gradient norm; the card's step, made twice, repeats every gradient
-   bit for bit;
+   bit for bit; then one bf16 step of the same cut on the card, its
+   gradients through K1's tensor-core backward against those with the
+   backward forced to its FMA kernels (global norm within 1e-2, every
+   parameter's cosine >= 0.999);
 9. train profile: where one full-width train step's time goes;
 10. K4: the dedup wire's pack-quantize kernel (f8 and cast variants) and
     its backward kernel against their plain versions on the card, at the
@@ -119,6 +129,13 @@ K1_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # K1 backward at the train path's shapes: B=8 x S=1024 gives C=2048 rows
 # per expert at bucket 0; R=8 is decode-like, R=160 ragged.
 K1_BWD_SHAPES = {"train": 2048, "decode": 8, "ragged": 160}
+# ... and d, F multiples of 64 but not of 128 (half tiles), E=4, R=160
+K1_BWD_NARROW = (4, 160, 192, 320)
+# the tensor-core backward against its rounding model
+# (ref.expert_ffn_bwd_bf16_ref): f32 sums in another order, and a P, DU
+# or DG entry that rounds to the other side of a bf16 tie; a share of
+# each tensor's largest entry
+K1_BWD_MODEL_TOL = 1e-2
 # K2 at full width: 64 groups of G=128 tokens (B=8 x S=1024); K3 gathers
 # the 8192 token rows. K3's backward sums them into the representatives:
 # at the train run's condensation rate (~0.93) a group of 128 keeps ~9.
@@ -279,12 +296,19 @@ def phase_build():
                 log(f"    {line.strip()}")
     tc = {k: _ptxas_report(_build.BUILD_LOG.get(src, ""), sym)
           for k, src, sym in (("K1", "expert_ffn", "ffn_wgmma_kernel"),
+                              ("K1_bwd", "expert_ffn_bwd",
+                               "bwd_wgmma_kernel"),
+                              ("K3", "condense", "gather_kernel"),
                               ("K5", "flash_attn", "flash_wgmma_kernel"))}
     for k, reps in tc.items():
         for r in reps:
-            log(f"  {k} tensor-core kernel {r['entry']} for {r['target']}: "
+            log(f"  {k} kernel {r['entry']} for {r['target']}: "
                 f"{r.get('registers')} registers, spill stores / loads "
                 f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes")
+    spills = [r['entry'] for reps in tc.values() for r in reps
+              if r.get("spill_stores") or r.get("spill_loads")]
+    if spills:
+        raise SystemExit(f"register spills in {spills}")
     return paths, tc
 
 
@@ -416,30 +440,42 @@ def phase_kernels():
     return checks, timed
 
 
-def _k1_bwd_library(h, wu, wg, wd, dy, act):
-    """The backward as torch.bmm products (cuBLAS f32), a yardstick the
-    port never calls: recompute gt and up, then the six gradient
-    products."""
+def _act_and_grad(gt, act):
+    """act(gt) and act'(gt) in gt's type, through PyTorch's own ops."""
     import torch
     import torch.nn.functional as F
-    hf, dyf = h.float(), dy.float()
-    gt, up = torch.bmm(hf, wg), torch.bmm(hf, wu)
     if act == "gelu":
         with torch.enable_grad():
             g = gt.detach().requires_grad_()
             a = F.gelu(g, approximate="tanh")
             da = torch.autograd.grad(a.sum(), g)[0]
-        a = a.detach()
-    else:
-        s = torch.sigmoid(gt)
-        a, da = gt * s, s * (1 + gt * (1 - s))
-    dhh = torch.bmm(dyf, wd.transpose(1, 2))
+        return a.detach(), da
+    s = torch.sigmoid(gt)
+    return gt * s, s * (1 + gt * (1 - s))
+
+
+def _k1_bwd_products(h, wu, wg, wd, dy, act):
+    """The backward as eight torch.bmm products and the elementwise terms
+    between them, in the inputs' types: a yardstick the port never calls
+    (f32 inputs: cuBLAS f32; bf16 inputs: the tensor cores, f32 sums,
+    bf16 results)."""
+    import torch
+    gt, up = torch.bmm(h, wg), torch.bmm(h, wu)
+    a, da = _act_and_grad(gt, act)
+    dhh = torch.bmm(dy, wd.transpose(1, 2))
     dup, dgt = dhh * a, dhh * up * da
-    dwd = torch.bmm((a * up).transpose(1, 2), dyf)
-    dwu = torch.bmm(hf.transpose(1, 2), dup)
-    dwg = torch.bmm(hf.transpose(1, 2), dgt)
-    dh = (torch.bmm(dup, wu.transpose(1, 2))
-          + torch.bmm(dgt, wg.transpose(1, 2)))
+    ht = h.transpose(1, 2)
+    dwd = torch.bmm((a * up).transpose(1, 2), dy)
+    dwu, dwg = torch.bmm(ht, dup), torch.bmm(ht, dgt)
+    dh = torch.bmm(dup, wu.transpose(1, 2)) + torch.bmm(dgt, wg.transpose(1, 2))
+    return dh, dwu, dwg, dwd
+
+
+def _k1_bwd_library(h, wu, wg, wd, dy, act):
+    """The f32 yardstick: the products on f32 copies of h and dy and the
+    f32 weights."""
+    dh, dwu, dwg, dwd = _k1_bwd_products(h.float(), wu, wg, wd, dy.float(),
+                                         act)
     return dh.to(h.dtype), dwu, dwg, dwd
 
 
@@ -465,10 +501,78 @@ def _bound(nbytes, flops, peak=F32_FLOPS):
                 bound_f32_ms=max(t_bytes, flops / F32_FLOPS * 1e3))
 
 
+def _k1_narrow_inputs(E_, R, D_, Fw, h_dtype, gen):
+    """K1 inputs at other widths, scaled as moe_init scales them."""
+    import torch
+    h = torch.randn((E_, R, D_), generator=gen, device="cuda").to(h_dtype)
+    ws = [torch.randn(s, generator=gen, device="cuda") * sc
+          for s, sc in (((E_, D_, Fw), D_ ** -0.5), ((E_, D_, Fw), D_ ** -0.5),
+                        ((E_, Fw, D_), Fw ** -0.5 / math.sqrt(24)))]
+    return (h, *ws)
+
+
+def _k1_bwd_timed(h, wu, wg, wd, dy, err):
+    """K1's backward at the train shape on its route (the tensor cores) in
+    turns with the FMA route (forced through bwd_route), the plain
+    version, and the f32 and bf16 bmm composites; its device time; the
+    bound at the bf16 tensor-core rate."""
+    import torch
+    from repro_torch.kernels import expert_ffn as kexp
+    args = (h, wu, wg, wd, dy, "gelu")
+    wb = [w.to(torch.bfloat16) for w in (wu, wg, wd)]
+    route = kexp.bwd_route
+
+    def fma():
+        kexp.bwd_route = lambda *a: "fma"
+        try:
+            return kexp.expert_ffn_bwd(*args)
+        finally:
+            kexp.bwd_route = route
+
+    kexp.expert_ffn_bwd(*args)            # the weight terms' cache warm
+    ms, fma_ms, plain_ms, lib_ms, lib16_ms = [], [], [], [], []
+    for _ in range(2):                    # in turns, as in one call
+        ms.append(time_ms(lambda: kexp.expert_ffn_bwd(*args), 10, 2))
+        fma_ms.append(time_ms(fma, 3, 1))
+        plain_ms.append(time_ms(lambda: _k1_bwd_plain(*args), 3, 1))
+        lib_ms.append(time_ms(lambda: _k1_bwd_library(*args), 3, 1))
+        lib16_ms.append(time_ms(lambda: _k1_bwd_products(
+            h, *wb, dy, "gelu"), 10, 2))
+    dev_ms = device_ms(lambda: kexp.expert_ffn_bwd(*args), 5)
+    E_, R_, D_ = h.shape
+    nbytes = (2 * h.numel() * h.element_size()      # h, dy
+              + h.numel() * h.element_size()        # dh
+              + sum(w.numel() * (w.element_size() + 4)
+                    for w in (wu, wg, wd)))         # w, dw
+    flops = 8 * 2.0 * E_ * R_ * D_ * F_
+    t = dict(R=R_, route=kexp.bwd_route(h.dtype, wu.dtype, D_, F_),
+             ms=min(ms), ms_runs=ms, device_ms=dev_ms, fma_ms=min(fma_ms),
+             fma_ms_runs=fma_ms, plain_ms=min(plain_ms),
+             library_ms=min(lib_ms), library_ms_runs=lib_ms,
+             library_bf16_ms=min(lib16_ms), library_bf16_ms_runs=lib16_ms,
+             **_bound(nbytes, flops, BF16_TC_FLOPS),
+             # the hi + lo terms double the products the kernels issue
+             bound_issued_ms=2 * flops / BF16_TC_FLOPS * 1e3,
+             max_abs_err=err)
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    log(f"  K1 bwd [{E},{R_},{D}]x{F_} bf16 h and dy, f32 w, gelu "
+        f"({t['route']}): kernel {t['ms']:.4f} ms (runs {ms}; device time "
+        f"{dev_ms:.4f} ms), FMA route {t['fma_ms']:.3f} ms, plain "
+        f"{t['plain_ms']:.3f} ms, bmm f32 {t['library_ms']:.3f} ms, bmm "
+        f"bf16 {t['library_bf16_ms']:.4f} ms (runs {lib16_ms}); bound "
+        f"{t['bound_ms']:.4f} ms by {t['bound_by']} at the bf16 tensor-core "
+        f"rate ({flops / 1e12:.3f} TFLOP, {100 * t['bound_share']:.1f}% of "
+        f"it; the 16 products issued {t['bound_issued_ms']:.4f} ms), "
+        f"{t['bound_f32_ms']:.3f} ms at f32 FMA; kernel / bmm f32 "
+        f"{t['ms'] / t['library_ms']:.3f}, / bmm bf16 "
+        f"{t['ms'] / t['library_bf16_ms']:.3f}")
+    return t
+
+
 def phase_kernels_train():
-    """K1 backward, K2 and K3 against their plain versions at the train
-    path's shapes, then timed beside the plain version, a PyTorch
-    yardstick and the bound. Returns {kernel: record}."""
+    """K1 backward, K2, K3 and K3's backward against their plain versions
+    at the train path's shapes, then timed beside the plain version, a
+    PyTorch yardstick and the bound. Returns {kernel: record}."""
     import numpy as np
     import torch
     from repro_torch.kernels import condense as kcond
@@ -479,12 +583,19 @@ def phase_kernels_train():
     gen.manual_seed(4321)
     out = {}
 
-    # ---- K1 backward
+    # ---- K1 backward: f32 h takes the FMA route, bf16 h the tensor cores
+    # (bwd_route), which is also held to its rounding model and repeated
     checks, timed = [], {}
-    for shape, R in K1_BWD_SHAPES.items():
+    shapes = [(name, (E, R, D, F_)) for name, R in K1_BWD_SHAPES.items()]
+    shapes.append(("narrow", K1_BWD_NARROW))
+    for shape, (E_, R, D_, Fw) in shapes:
         for h_name in ("float32", "bfloat16"):
-            h, wu, wg, wd = _k1_inputs(R, getattr(torch, h_name), gen)
+            h, wu, wg, wd = (_k1_inputs(R, getattr(torch, h_name), gen)
+                             if shape != "narrow" else
+                             _k1_narrow_inputs(E_, R, D_, Fw,
+                                               getattr(torch, h_name), gen))
             dy = torch.randn(h.shape, generator=gen, device="cuda").to(h.dtype)
+            rt = kexp.bwd_route(h.dtype, wu.dtype, D_, Fw)
             got = kexp.expert_ffn_bwd(h, wu, wg, wd, dy, "gelu")
             torch.cuda.synchronize()
             want = _k1_bwd_plain(h, wu, wg, wd, dy, "gelu")
@@ -493,31 +604,32 @@ def phase_kernels_train():
                     for g, w in zip(got, want)]
             ok = all(torch.allclose(g.float(), w.float(), atol=tol, rtol=tol)
                      for g, w in zip(got, want))
-            checks.append(dict(shape=shape, R=R, h=h_name, ok=ok, tol=tol,
-                               max_abs_err=max(errs)))
-            log(f"  K1 bwd {shape:6s} R={R:4d} h={h_name:8s} gelu: "
-                f"max|err| dh/dwu/dwg/dwd = "
+            c = dict(shape=shape, E=E_, R=R, d=D_, F=Fw, h=h_name, route=rt,
+                     tol=tol, max_abs_err=max(errs))
+            msg = ""
+            if rt == "wgmma":
+                # the rounding model the CPU tests hold to the reference;
+                # 1e-2 of each tensor's largest entry; a bitwise repeat
+                model = ref.expert_ffn_bwd_bf16_ref(h, wu, wg, wd, dy, "gelu")
+                rel = [(g.float() - m.float()).abs().max().item()
+                       / m.float().abs().max().item()
+                       for g, m in zip(got, model)]
+                again = kexp.expert_ffn_bwd(h, wu, wg, wd, dy, "gelu")
+                rep = all(torch.equal(a, b) for a, b in zip(again, got))
+                ok = ok and max(rel) <= K1_BWD_MODEL_TOL and rep
+                c.update(model_rel_err=max(rel), repeat_bitwise=rep)
+                msg = (f"; against its rounding model max|err|/max = "
+                       + "/".join(f"{e:.2e}" for e in rel)
+                       + f" (tol {K1_BWD_MODEL_TOL:g}), repeats {rep}")
+                del model, again
+            c["ok"] = ok
+            checks.append(c)
+            log(f"  K1 bwd {shape:6s} [{E_},{R},{D_}]x{Fw} h={h_name:8s} gelu "
+                f"({rt}): max|err| dh/dwu/dwg/dwd = "
                 + "/".join(f"{e:.2e}" for e in errs)
-                + f" tol={tol:g} {'ok' if ok else 'FAIL'}")
+                + f" tol={tol:g}{msg} {'ok' if ok else 'FAIL'}")
             if shape == "train" and h_name == "bfloat16":
-                args = (h, wu, wg, wd, dy, "gelu")
-                ms = time_ms(lambda: kexp.expert_ffn_bwd(*args), 5, 1)
-                plain_ms = time_ms(lambda: _k1_bwd_plain(*args), 5, 1)
-                lib_ms = time_ms(lambda: _k1_bwd_library(*args), 5, 1)
-                E_, R_, D_ = h.shape
-                nbytes = (2 * h.numel() * h.element_size()      # h, dy
-                          + h.numel() * h.element_size()        # dh
-                          + sum(w.numel() * (w.element_size() + 4)
-                                for w in (wu, wg, wd)))         # w, dw
-                timed = dict(R=R, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms,
-                             **_bound(nbytes, 8 * 2.0 * E_ * R_ * D_ * F_),
-                             max_abs_err=max(errs))
-                log(f"  K1 bwd [{E},{R},{D}]x{F_} bf16 h, f32 w: kernel "
-                    f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bmm {lib_ms:.3f}"
-                    f" ms; bound {timed['bound_ms']:.3f} ms by "
-                    f"{timed['bound_by']} (bf16 tensor-core rate "
-                    f"{timed['bound_bf16_tc_ms']:.3f} ms)")
+                timed = _k1_bwd_timed(h, wu, wg, wd, dy, max(errs))
             del h, wu, wg, wd, dy, got, want
             torch.cuda.empty_cache()
     if not all(c["ok"] for c in checks):
@@ -566,29 +678,9 @@ def phase_kernels_train():
         raise SystemExit(f"K2 disagrees with its plain version: {checks}")
     out["masked_similarity"] = dict(timed, checks=checks)
 
-    # ---- K3: [8192, 768] bf16 rows (the residual stream's type)
-    y = torch.randn((K3_T, D), generator=gen, device="cuda").to(
-        torch.bfloat16)
-    idx = torch.as_tensor(r.integers(0, K3_T, K3_T), device="cuda")
-    got = kcond.gather_rows(y, idx)
-    torch.cuda.synchronize()
-    exact = bool(torch.equal(got, ref.gather_rows_ref(y, idx)))
-    log(f"  K3 [{K3_T},{D}] bf16: bitwise equal to the plain version: "
-        f"{exact}")
-    if not exact:
-        raise SystemExit("K3 disagrees with its plain version")
-    ms = time_ms(lambda: kcond.gather_rows(y, idx), 100)
-    plain_ms = time_ms(lambda: ref.gather_rows_ref(y, idx), 100)
-    lib_ms = time_ms(lambda: torch.index_select(y, 0, idx), 100)
-    nbytes = 2 * y.numel() * y.element_size() + idx.numel() * 8
-    out["gather_rows"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              **_bound(nbytes, 0.0), max_abs_err=0.0)
-    log(f"  K3: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
-        f"{lib_ms:.4f} ms; bound {out['gather_rows']['bound_ms']:.4f} ms "
-        f"by bytes")
-
-    # ---- K3 backward: the un-condense map of 64 groups of 128 tokens,
-    # each token sent to one of its group's 9 representatives
+    # ---- K3: [8192, 768] bf16 rows (the residual stream's type); the
+    # path's map is the un-condense map of 64 groups of 128 tokens, each
+    # token sent to one of its group's 9 representatives
     reps = np.sort(np.stack([r.choice(K2_G, K3_REPS_PER_GROUP, replace=False)
                              for _ in range(K2_GROUPS)]), axis=1)
     pick = r.integers(0, K3_REPS_PER_GROUP, (K2_GROUPS, K2_G))
@@ -596,6 +688,43 @@ def phase_kernels_train():
     rep_of[np.arange(K2_GROUPS)[:, None], reps] = reps     # reps keep theirs
     idx = torch.as_tensor((rep_of + K2_G * np.arange(K2_GROUPS)[:, None])
                           .reshape(-1), device="cuda")
+    y = torch.randn((K3_T, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    rand_idx = torch.as_tensor(r.integers(0, K3_T, K3_T), device="cuda")
+    exact = {name: bool(torch.equal(kcond.gather_rows(y, ix),
+                                    ref.gather_rows_ref(y, ix)))
+             for name, ix in (("path_map", idx), ("random_map", rand_idx),
+                              ("int32_index", rand_idx.to(torch.int32)))}
+    log(f"  K3 [{K3_T},{D}] bf16: bitwise equal to the plain version: "
+        f"{exact}")
+    if not all(exact.values()):
+        raise SystemExit(f"K3 disagrees with its plain version: {exact}")
+    ms, lib_ms = [], []
+    for _ in range(2):          # in turns, as in one call
+        ms.append(time_ms(lambda: kcond.gather_rows(y, idx), 200))
+        lib_ms.append(time_ms(lambda: torch.index_select(y, 0, idx), 200))
+    plain_ms = time_ms(lambda: ref.gather_rows_ref(y, idx), 200)
+    dev = {k: device_ms(f, 50) for k, f in (
+        ("device_ms", lambda: kcond.gather_rows(y, idx)),
+        ("library_device_ms", lambda: torch.index_select(y, 0, idx)))}
+    # the bytes this map needs: each distinct source row read once, every
+    # output row written once, the index read
+    n_src = int(torch.unique(idx).numel())
+    nbytes = (n_src + K3_T) * D * y.element_size() + idx.numel() * 8
+    out["gather_rows"] = dict(ms=min(ms), ms_runs=ms, plain_ms=plain_ms,
+                              library_ms=min(lib_ms), library_ms_runs=lib_ms,
+                              **dev, source_rows=n_src,
+                              **_bound(nbytes, 0.0), max_abs_err=0.0,
+                              bitwise=exact)
+    r3 = out["gather_rows"]
+    log(f"  K3 on the path's map ({n_src} source rows): kernel "
+        f"{r3['ms']:.4f} ms (runs {ms}), index_select {r3['library_ms']:.4f}"
+        f" ms (runs {lib_ms}), plain {plain_ms:.4f} ms by CUDA events; "
+        f"device time (profiler) {dev['device_ms']:.4f} ms, index_select "
+        f"{dev['library_device_ms']:.4f} ms; bound {r3['bound_ms']:.4f} ms "
+        f"by bytes ({nbytes / 1e6:.1f} MB)")
+
+    # ---- K3 backward on the same map
     dy = torch.randn((K3_T, D), generator=gen, device="cuda").to(
         torch.bfloat16)
     got = kcond.gather_rows_bwd(dy, idx, K3_T)
@@ -837,10 +966,11 @@ def phase_train():
     counters = _kernel_counters()
     for fn in counters.values():
         fn.launches = 0
-    kexp.weight_bf16.casts = 0
+    kexp.weight_bf16.casts = kexp.weight_bf16.lo_casts = 0
     res = train.main(TRAIN_ARGS)
     launches = {k: fn.launches for k, fn in counters.items()}
     casts = kexp.weight_bf16.casts
+    lo_casts = kexp.weight_bf16.lo_casts
     cfg, steps = res["cfg"], res["steps"]
     n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
     fwd = n_moe * (2 if cfg.remat else 1) * len(steps)   # + recompute
@@ -865,8 +995,9 @@ def phase_train():
                 peak_mem_gib=max(st["peak_mem_bytes"] for st in steps)
                 / 2 ** 30, launches=launches, launches_expected=want,
                 # one bf16 copy per expert weight tensor and optimizer step:
-                # the remat recompute reads the forward's
-                weight_casts=casts,
+                # the remat recompute and the backward read the forward's;
+                # the backward makes each one's second bf16 term once
+                weight_casts=casts, weight_lo_casts=lo_casts,
                 weight_casts_expected=3 * n_moe * len(steps))
     log("train: " + json.dumps(info))
     if not all(math.isfinite(x) for x in info["losses"]):
@@ -877,9 +1008,11 @@ def phase_train():
     if launches != want:
         raise SystemExit(f"kernel launches {launches} differ from what the "
                          f"path calls, {want}")
-    if casts != info["weight_casts_expected"]:
-        raise SystemExit(f"{casts} bf16 weight casts in the train run, not "
-                         f"{info['weight_casts_expected']}")
+    if casts != info["weight_casts_expected"] \
+            or lo_casts != info["weight_casts_expected"]:
+        raise SystemExit(f"{casts} bf16 weight casts and {lo_casts} second "
+                         f"terms in the train run, not "
+                         f"{info['weight_casts_expected']} each")
     del res, steps
     torch.cuda.empty_cache()
     again = train.main(TRAIN_ARGS)["steps"]
@@ -970,13 +1103,74 @@ def phase_train_parity():
         raise SystemExit("the card's train step does not repeat bit for bit")
     del model, runs, dg, da
     torch.cuda.empty_cache()
+    info["bf16_grad_check"] = _bf16_grad_check(cfg, batch, cap, luffy, thr)
+    return info
+
+
+def _bf16_grad_check(cfg, batch, cap, luffy, thr):
+    """One bf16 train step of the same cut (bf16 compute, same parameters
+    and batch) on the card, its gradients made twice: through K1's
+    tensor-core backward and with bwd_route forced to the FMA kernels
+    (f32 sums of the bf16 operands). The bf16 loss curve moves with
+    rounding, so this is the backward's end-to-end check: the global
+    gradient norms within 1e-2 relative and every parameter's gradient
+    cosine >= 0.999."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import expert_ffn as kexp
+    from repro_torch.models.model import build_model
+    cfg16 = dataclasses.replace(cfg, compute_dtype=get_config(
+        "moe-gpt2").compute_dtype)
+    model = build_model(cfg16, device="cuda", seed=0)
+    tb = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    route = kexp.bwd_route
+    names = [n for n, _ in model.named_parameters()]
+    runs = {}
+    for name in ("tensor_cores", "fma"):
+        before = kexp.expert_ffn_bwd.launches
+        if name == "fma":
+            kexp.bwd_route = lambda *a: "fma"
+        try:
+            runs[name] = _train_step_once(model, tb, cap, luffy,
+                                          thr.to("cuda"))
+        finally:
+            kexp.bwd_route = route
+        runs[name] += (kexp.expert_ffn_bwd.launches - before,)
+    (lt, gt, rt, dt, nt), (lf, gf, rf, df, nf) = (runs["tensor_cores"],
+                                                  runs["fma"])
+    cos = {}
+    for n, a, b in zip(names, dt, df):
+        if a is None or b is None:
+            cos[n] = 1.0 if a is b else 0.0
+            continue
+        a, b = a.double().flatten(), b.double().flatten()
+        na, nb = a.norm().item(), b.norm().item()
+        cos[n] = 1.0 if na == nb == 0.0 else (
+            (a @ b).item() / (na * nb) if na and nb else 0.0)
+    worst = min(cos, key=cos.get)
+    info = dict(compute_dtype=cfg16.compute_dtype, loss_tensor_cores=lt,
+                loss_fma=lf, grad_norm_tensor_cores=gt, grad_norm_fma=gf,
+                grad_norm_rel=abs(gt - gf) / gf, min_cosine=cos[worst],
+                min_cosine_param=worst, k1_bwd_launches=[nt, nf],
+                rep_maps_equal=len(rt) == len(rf) and all(
+                    torch.equal(a, b) for a, b in zip(rt, rf)))
+    log("train parity, bf16 gradients (tensor cores vs FMA backward): "
+        + json.dumps(info))
+    if not (info["grad_norm_rel"] <= 1e-2 and info["min_cosine"] >= 0.999):
+        raise SystemExit(f"the bf16 gradients of K1's tensor-core backward "
+                         f"differ from the FMA route's: {info}")
+    if nt != nf or nt == 0 or lt != lf or not info["rep_maps_equal"]:
+        raise SystemExit(f"the two bf16 steps did not run the same forward "
+                         f"through K1's backward: {info}")
+    del model, runs, dt, df
+    torch.cuda.empty_cache()
     return info
 
 
 KERNEL_OPS = {"expert_ffn": ("gate_up_kernel", "down_kernel",
                              "ffn_wgmma_kernel"),
               "expert_ffn_bwd": ("hidden_kernel", "wgrad_kernel",
-                                 "dh_kernel"),
+                                 "dh_kernel", "bwd_wgmma_kernel"),
               "masked_similarity": ("sim_kernel",),
               "gather_rows": ("gather_kernel",),
               "gather_rows_bwd": ("segment_sum_kernel", "group_sum_kernel")}
@@ -1843,6 +2037,7 @@ def main() -> int:
     tl = train_info["launches"]
     k1 = dict(timed["train"], max_abs_err=max(
         c["max_abs_err"] for c in checks if c["shape"] == "train"))
+    k1b = timed_train["expert_ffn_bwd"]
     records = [
         _record("expert_ffn", "src/repro_torch/csrc/expert_ffn.cu",
                 "src/repro/kernels/expert_ffn.py:52", tl["expert_ffn"], k1,
@@ -1865,9 +2060,21 @@ def main() -> int:
         _record("expert_ffn_bwd", "src/repro_torch/csrc/expert_ffn_bwd.cu",
                 "src/repro/kernels/expert_ffn.py:52 (no Pallas backward; "
                 "XLA differentiates the reference)", tl["expert_ffn_bwd"],
-                timed_train["expert_ffn_bwd"],
+                k1b,
                 {"timed_at": "train shape [16,2048,768]x3072, bf16 h and "
-                             "dy, f32 weights, gelu"}),
+                             "dy, f32 weights (their bf16 terms cached), "
+                             "gelu; bound at the bf16 tensor-core rate",
+                 "dispatch": k1b["route"], "device_ms": k1b["device_ms"],
+                 "fma_ms": k1b["fma_ms"],
+                 "library": "torch.bmm f32 composite on the same inputs",
+                 "library_bf16_ms": k1b["library_bf16_ms"],
+                 "bound_issued_ms": k1b["bound_issued_ms"],
+                 "bound_share": k1b["bound_share"],
+                 "ptxas_tensor_core_kernel": tc_ptxas["K1_bwd"],
+                 "max_abs_err_all_checks": max(
+                     c["max_abs_err"] for c in k1b["checks"]),
+                 "max_model_rel_err": max(
+                     c.get("model_rel_err", 0.0) for c in k1b["checks"])}),
         _record("masked_similarity", "src/repro_torch/csrc/similarity.cu",
                 "src/repro/kernels/similarity.py:81",
                 tl["masked_similarity"], timed_train["masked_similarity"],
@@ -1875,7 +2082,13 @@ def main() -> int:
         _record("gather_rows", "src/repro_torch/csrc/condense.cu",
                 "src/repro/kernels/condense.py:26", tl["gather_rows"],
                 timed_train["gather_rows"],
-                {"timed_at": "[8192,768] bf16 rows"}),
+                {"timed_at": "[8192,768] bf16 rows, the path's map (9 "
+                             "representatives per group of 128)",
+                 "library": "torch.index_select",
+                 **{k: timed_train["gather_rows"][k] for k in (
+                     "device_ms", "library_device_ms", "source_rows",
+                     "bitwise")},
+                 "ptxas": tc_ptxas["K3"]}),
         _record("gather_rows_bwd", "src/repro_torch/csrc/condense.cu",
                 "src/repro/kernels/condense.py:26 (no Pallas backward; XLA "
                 "transposes the reference's gather)", tl["gather_rows_bwd"],

@@ -7,11 +7,15 @@
 // raw bytes, so the result is bit for bit the source row whatever its type
 // (bf16 or f32).
 //
-// Design: one block of 256 threads per tile of 8 rows (one warp per row);
-// a warp copies its row in 16-byte vectors when the row's bytes and both
-// base pointers allow it, else in 4- or 2-byte words (the wrapper picks
-// the widest width that divides the row and the alignment). Index loads
-// are one per warp.
+// Design: one block of 256 threads per tile of 8 rows (one warp per row),
+// so that at moe-gpt2's 8192 rows every row's copy is in flight at once
+// (1024 blocks, 8 per SM). A warp copies its row in 16-byte vectors when
+// the row's bytes and both base pointers allow it, else in 4- or 2-byte
+// words (the wrapper picks the widest width that divides the row and the
+// alignment). Lane 0 reads the row's index (int32 or int64, as the caller
+// holds it) and hands it to the warp; then each lane issues every load of
+// its words before its first store, unrolled by the row's width (3 vectors
+// a lane at d = 768 in bf16), so a row's bytes are in flight together.
 //
 // The backward is the port's own: the reference's gradient is XLA's
 // transpose of jnp.take. It is a segmented sum, not a scatter-add: row j
@@ -50,26 +54,64 @@ namespace {
 constexpr int ROWS = 8;  // rows per block, one warp each
 constexpr int NT = 32 * ROWS;
 
-template <typename V>
+// N: copy words per lane and pass (a row of at most 32 N words is one
+// pass); I: the index type.
+template <typename V, int N, typename I>
 __global__ void __launch_bounds__(NT)
-gather_kernel(const V* __restrict__ y, const int64_t* __restrict__ idx,
+gather_kernel(const V* __restrict__ y, const I* __restrict__ idx,
               V* __restrict__ out, int T, int n_src, int vec_per_row) {
   const int row = blockIdx.x * ROWS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (row >= T) return;
-  const int64_t src = idx[row];
+  if (row >= T) return;   // uniform over the warp
+  int64_t src = 0;
+  if (lane == 0) src = static_cast<int64_t>(idx[row]);
+  src = __shfl_sync(0xffffffffu, src, 0);
   if (src < 0 || src >= n_src) __trap();  // an index out of range is a bug
   const V* s = y + (size_t)src * vec_per_row;
   V* o = out + (size_t)row * vec_per_row;
-  for (int v = lane; v < vec_per_row; v += 32) o[v] = s[v];
+  for (int v0 = 0; v0 < vec_per_row; v0 += 32 * N) {
+    V buf[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int v = v0 + lane + 32 * i;
+      if (v < vec_per_row) buf[i] = s[v];
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int v = v0 + lane + 32 * i;
+      if (v < vec_per_row) o[v] = buf[i];
+    }
+  }
+}
+
+template <typename V, typename I>
+void launch(const void* y, const void* idx, void* out, int T, int n_src,
+            int row_bytes, cudaStream_t stream) {
+  const int vec = row_bytes / (int)sizeof(V);
+  const int passes = (vec + 31) / 32;   // words per lane for one pass
+  const dim3 grid((T + ROWS - 1) / ROWS);
+  const V* ty = static_cast<const V*>(y);
+  const I* ti = static_cast<const I*>(idx);
+  V* to = static_cast<V*>(out);
+  if (passes <= 1)
+    gather_kernel<V, 1, I><<<grid, NT, 0, stream>>>(ty, ti, to, T, n_src, vec);
+  else if (passes == 2)
+    gather_kernel<V, 2, I><<<grid, NT, 0, stream>>>(ty, ti, to, T, n_src, vec);
+  else if (passes == 3)
+    gather_kernel<V, 3, I><<<grid, NT, 0, stream>>>(ty, ti, to, T, n_src, vec);
+  else if (passes == 4)
+    gather_kernel<V, 4, I><<<grid, NT, 0, stream>>>(ty, ti, to, T, n_src, vec);
+  else
+    gather_kernel<V, 8, I><<<grid, NT, 0, stream>>>(ty, ti, to, T, n_src, vec);
 }
 
 template <typename V>
-void launch(const void* y, const int64_t* idx, void* out, int T, int n_src,
-            int row_bytes, cudaStream_t stream) {
-  const int vec = row_bytes / (int)sizeof(V);
-  gather_kernel<V><<<(T + ROWS - 1) / ROWS, NT, 0, stream>>>(
-      static_cast<const V*>(y), idx, static_cast<V*>(out), T, n_src, vec);
+void launch_width(const void* y, const void* idx, int idx64, void* out,
+                  int T, int n_src, int row_bytes, cudaStream_t stream) {
+  if (idx64)
+    launch<V, int64_t>(y, idx, out, T, n_src, row_bytes, stream);
+  else
+    launch<V, int32_t>(y, idx, out, T, n_src, row_bytes, stream);
 }
 
 template <typename T>
@@ -183,21 +225,21 @@ int launch_grouped(const void* dy, const int64_t* idx, void* dx,
 }  // namespace
 
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
-// idx is int64 [T] into the n_src rows of y; row_bytes is one row's size;
-// width is the copy word in bytes (16, 4 or 2), which must divide
-// row_bytes and the alignment of y and out. Nothing is allocated here.
+// idx is [T] into the n_src rows of y, int64 (idx64 = 1) or int32
+// (idx64 = 0); row_bytes is one row's size; width is the copy word in
+// bytes (16, 4 or 2), which must divide row_bytes and the alignment of y
+// and out. Nothing is allocated here.
 extern "C" int gather_rows_launch(const void* y, const void* idx, void* out,
                                   int T, int n_src, int row_bytes, int width,
-                                  void* stream) {
+                                  int idx64, void* stream) {
   cudaGetLastError();  // start from a clean slate; report only our launch
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t* ix = static_cast<const int64_t*>(idx);
   if (width == 16)
-    launch<uint4>(y, ix, out, T, n_src, row_bytes, s);
+    launch_width<uint4>(y, idx, idx64, out, T, n_src, row_bytes, s);
   else if (width == 4)
-    launch<uint32_t>(y, ix, out, T, n_src, row_bytes, s);
+    launch_width<uint32_t>(y, idx, idx64, out, T, n_src, row_bytes, s);
   else if (width == 2)
-    launch<uint16_t>(y, ix, out, T, n_src, row_bytes, s);
+    launch_width<uint16_t>(y, idx, idx64, out, T, n_src, row_bytes, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -390,21 +390,6 @@ ffn_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
   }
 }
 
-// [E, rows, cols] bf16, contiguous, boxes of (64, box_rows, 1)
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int E,
-            int rows, int cols, int box_rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
-                              (cuuint64_t)E};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
-                                 (cuuint64_t)rows * cols * 2};
-  const cuuint32_t box[3] = {BOX_N, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // One block per SM (at most one per tile), each walking its tiles.
 template <bool GATED, int STAGES>
 cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb0,
@@ -468,10 +453,11 @@ extern "C" int expert_ffn_wgmma_launch(const void* h, const void* wu,
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap mh, mwg, mwu, mhid, mwd;
-  if (!encode(fn, &mh, h, E, R, d, BM) || !encode(fn, &mwg, wg, E, d, F, BK) ||
-      !encode(fn, &mwu, wu, E, d, F, BK) ||
-      !encode(fn, &mhid, hid, E, R, F, BM) ||
-      !encode(fn, &mwd, wd, E, F, d, BK))
+  if (!tma_map_bf16_3d(fn, &mh, h, E, R, d, BM) ||
+      !tma_map_bf16_3d(fn, &mwg, wg, E, d, F, BK) ||
+      !tma_map_bf16_3d(fn, &mwu, wu, E, d, F, BK) ||
+      !tma_map_bf16_3d(fn, &mhid, hid, E, R, F, BM) ||
+      !tma_map_bf16_3d(fn, &mwd, wd, E, F, d, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int dev = 0, n_sm = 0;

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels (K1's
-// wgmma route in expert_ffn.cu, K5's in flash_attn.cu): mbarriers, TMA
-// tile loads, wgmma shared-memory descriptors and the wgmma fences, and
-// the host-side lookup of cuTensorMapEncodeTiled.
+// wgmma routes in expert_ffn.cu and expert_ffn_bwd.cu, K5's in
+// flash_attn.cu): mbarriers, TMA tile loads, wgmma shared-memory
+// descriptors and the wgmma fences, and the host-side lookup of
+// cuTensorMapEncodeTiled with a bf16 tensor-map encoder.
 #pragma once
 
 #include <cuda.h>
@@ -112,10 +113,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #define HOPPER_F16(i) \
   HOPPER_F4(i), HOPPER_F4(i + 4), HOPPER_F4(i + 8), HOPPER_F4(i + 12)
 
-// d[64] (+)= A[64 x 16] B[16 x 128], both bf16 in shared memory: A
-// K-major; B K-major (TB = 0, its natural [128 x 16] rows) or MN-major
-// (TB = 1, the transpose bit set: [16 x 128] rows, N contiguous).
-template <int TB>
+// d[64] (+)= A[64 x 16] B[16 x 128], both bf16 in shared memory: B
+// K-major (TB = 0, its natural [128 x 16] rows) or MN-major (TB = 1, the
+// transpose bit set: [16 x 128] rows, N contiguous); A likewise K-major
+// (TA = 0) or MN-major (TA = 1: [16 x 64] rows, M contiguous).
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
                                                     uint64_t da, uint64_t db,
                                                     int accumulate) {
@@ -130,9 +132,26 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      "%64, %65, p, 1, 1, %68, %67;\n}\n"
       : HOPPER_F16(0), HOPPER_F16(16), HOPPER_F16(32), HOPPER_F16(48)
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
+}
+
+// d[32] (+)= A[64 x 16] B[16 x 64]: the n64 shape, the same layouts.
+template <int TB, int TA = 0>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %36, %35;\n}\n"
+      : HOPPER_F16(0), HOPPER_F16(16)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
 }
 
 #undef HOPPER_F16
@@ -164,6 +183,23 @@ inline EncodeTiled encode_tiled() {
     fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// A 3-D tensor map over a contiguous bf16 [E, rows, cols] tensor, boxes
+// of (64 columns, box_rows rows, 1) in the 128-byte swizzle: a box row is
+// one swizzle row. Rows past `rows` and columns past `cols` load as zeros.
+inline bool tma_map_bf16_3d(EncodeTiled fn, CUtensorMap* map, const void* ptr,
+                            int E, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -18,6 +18,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 KERNELS = ("expert_ffn", "expert_ffn_bwd", "similarity", "condense",
@@ -98,3 +100,16 @@ def entry(name: str, fn_name: str, n_ptr: int, n_int: int,
                        + [ctypes.c_float] * n_float + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def raw_stream(device_index: int) -> int:
+    """The current CUDA stream of device ``device_index`` as the integer
+    handle a C entry takes, without building a ``torch.cuda.Stream``
+    (the short host path of the small kernels' wrappers)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def current_device() -> int:
+    """The current CUDA device's index (``torch.cuda.current_device``
+    without its initialisation check: the caller holds a CUDA tensor)."""
+    return torch._C._cuda_getDevice()

@@ -20,37 +20,62 @@ import torch
 from repro_torch.kernels import _build
 
 
-def _width(t: torch.Tensor, row_bytes: int) -> int:
+def _copy_width(row_bytes: int, *ptrs: int) -> int:
+    """The widest copy word (16, 4 or 2 bytes) dividing ``row_bytes`` and
+    every pointer."""
+    a = row_bytes
+    for p in ptrs:
+        a |= p
     for w in (16, 4, 2):
-        if row_bytes % w == 0 and t.data_ptr() % w == 0:
+        if a % w == 0:
             return w
-    raise ValueError(f"rows of {row_bytes} bytes at {t.data_ptr():#x} are "
-                     f"not 2-byte aligned")
+    raise ValueError(f"rows of {row_bytes} bytes at {ptrs} are not 2-byte "
+                     f"aligned")
+
+
+# C entries of csrc/condense.cu by name, looked up at first use
+_ENTRIES = {}
+
+
+def _entry(fn_name: str, n_ptr: int, n_int: int):
+    fn = _ENTRIES.get(fn_name)
+    if fn is None:
+        fn = _ENTRIES[fn_name] = _build.entry("condense", fn_name, n_ptr,
+                                              n_int)
+    return fn
 
 
 def gather_rows(y, rep_idx):
-    """y: [T_src, d] (any 2- or 4-byte dtype); rep_idx: [T] integer, each
-    in [0, T_src). Launches the kernel on the current stream; returns
-    y[rep_idx]. Adds one to ``gather_rows.launches`` per launch."""
+    """y: [T_src, d] (any 2- or 4-byte dtype); rep_idx: [T] int32 or
+    int64, each in [0, T_src). Launches the kernel on the current stream;
+    returns y[rep_idx]. Adds one to ``gather_rows.launches`` per launch."""
     if y.device.type != "cuda" or rep_idx.device != y.device:
         raise ValueError(f"y and rep_idx must lie on one CUDA device, got "
                          f"{y.device} and {rep_idx.device}")
     if y.dim() != 2 or rep_idx.dim() != 1:
         raise ValueError(f"y must be [T, d] and rep_idx [T], got "
                          f"{tuple(y.shape)} and {tuple(rep_idx.shape)}")
-    if rep_idx.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"rep_idx must be int32 or int64, got {rep_idx.dtype}")
+    idx_dtype = rep_idx.dtype
+    if idx_dtype is not torch.int64 and idx_dtype is not torch.int32:
+        raise TypeError(f"rep_idx must be int32 or int64, got {idx_dtype}")
     y = y.contiguous()
-    idx = rep_idx.to(torch.int64).contiguous()
+    idx = rep_idx.contiguous()
+    n_src, d = y.shape
     T = idx.shape[0]
-    out = torch.empty((T, y.shape[1]), dtype=y.dtype, device=y.device)
-    row_bytes = y.shape[1] * y.element_size()
-    width = min(_width(y, row_bytes), _width(out, row_bytes))
-    fn = _build.entry("condense", "gather_rows_launch", 3, 4)
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(y.data_ptr(), idx.data_ptr(), out.data_ptr(), T, y.shape[0],
-                row_bytes, width, stream)
+    dev = y.device
+    # empty_like skips torch.empty's argument parsing: un-condense keeps T
+    out = torch.empty_like(y) if T == n_src else y.new_empty((T, d))
+    row_bytes = d * y.element_size()
+    y_ptr, out_ptr = y.data_ptr(), out.data_ptr()
+    fn = _entry("gather_rows_launch", 3, 5)
+    args = (y_ptr, idx.data_ptr(), out_ptr, T, n_src, row_bytes,
+            _copy_width(row_bytes, y_ptr, out_ptr),
+            int(idx_dtype is torch.int64))
+    if dev.index == _build.current_device():
+        rc = fn(*args, _build.raw_stream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, _build.raw_stream(dev.index))
     if rc != 0:
         raise RuntimeError(f"gather_rows launch failed: cudaError {rc}")
     gather_rows.launches += 1
@@ -92,8 +117,8 @@ def gather_rows_bwd(dy, rep_idx, n_src: int, group_size=None):
                              f"G={G}, T={T}, n_src={n_src}")
         idx = rep_idx.to(torch.int64).contiguous()
         row_bytes = d * dy.element_size()
-        width = min(_width(dy, row_bytes), _width(dx, row_bytes))
-        fn = _build.entry("condense", "gather_rows_bwd_grouped_launch", 3, 5)
+        width = _copy_width(row_bytes, dy.data_ptr(), dx.data_ptr())
+        fn = _entry("gather_rows_bwd_grouped_launch", 3, 5)
         with torch.cuda.device(dy.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = fn(dy.data_ptr(), idx.data_ptr(), dx.data_ptr(), T // G, G,
@@ -104,7 +129,7 @@ def gather_rows_bwd(dy, rep_idx, n_src: int, group_size=None):
         srt, order = torch.sort(rep_idx.to(torch.int64), stable=True)
         start = torch.searchsorted(
             srt, torch.arange(n_src + 1, dtype=torch.int64, device=dy.device))
-        fn = _build.entry("condense", "gather_rows_bwd_launch", 4, 3)
+        fn = _entry("gather_rows_bwd_launch", 4, 3)
         with torch.cuda.device(dy.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = fn(dy.data_ptr(), order.data_ptr(), start.data_ptr(),

@@ -6,28 +6,33 @@ differentiates its einsum path).
 
 ``out[e] = (act(h[e] @ w_gate[e]) * (h[e] @ w_up[e])) @ w_down[e]`` for
 h [E, R, d] in f32 or bf16 and weights in f32 or bf16. :func:`route`
-picks the forward's kernels, as K5's dispatch does, by type and width:
+picks the forward's kernels and :func:`bwd_route` the backward's, by one
+rule of type and width (as K5's dispatch does):
 
 * ``"wgmma"`` (bf16 h, d and F multiples of 64): Hopper's tensor cores,
-  bf16 products summed in f32, the hidden ``act(gt) * up`` rounded to
-  bf16 before the down product, the output bf16. f32 weights (the
-  paths' masters) are read through bf16 copies, one cast per weight
-  tensor and version (:func:`weight_bf16`): an optimizer step's in-place
-  update or a new tensor makes a new copy, and a dropped tensor's copy
-  goes with it.
+  bf16 products summed in f32. The forward rounds the hidden
+  ``act(gt) * up`` to bf16 before the down product and returns bf16. f32
+  weights (the paths' masters) are read through bf16 copies, one cast
+  per weight tensor and version (:func:`weight_bf16`): an optimizer
+  step's in-place update or a new tensor makes a new copy, and a dropped
+  tensor's copy goes with it. The backward carries f32 weights as two
+  bf16 terms, the forward's copy and :func:`weight_bf16_lo`'s remainder
+  (made once per version too), and P, DU and DG likewise, so that its
+  sums stay within the 5e-2 the port holds K1 to against f32 math; its
+  weight gradients are f32, dh bf16. The rounding model is
+  :func:`repro_torch.kernels.ref.expert_ffn_bwd_bf16_ref`.
 * ``"fma"`` (f32 h, or other widths): f32 FMAs, f32 math throughout.
 
 :class:`ExpertFFN` is the autograd function over the forward and the
-backward kernel: it saves h and the weights as given (f32 masters stay
-f32 in the backward, which recomputes the hidden in f32 FMAs). The
-sources say what bounds the kernels and how they are laid out; the
-plain version is :func:`repro_torch.kernels.ref.expert_ffn_ref`, whose
-autograd gradient is the backward's plain version.
+backward kernels: it saves h and the weights as given. The sources say
+what bounds the kernels and how they are laid out; the plain version is
+:func:`repro_torch.kernels.ref.expert_ffn_ref`, whose autograd gradient
+is the backward's plain version.
 """
 from __future__ import annotations
 
 import weakref
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
@@ -52,30 +57,76 @@ def route(h_dtype, w_dtype, d: int, F: int) -> str:
     return "fma"
 
 
-# id(w) -> (a weak reference to w, w._version at the cast, the bf16 copy)
-_WEIGHT_CACHE: Dict[int, Tuple[weakref.ref, int, torch.Tensor]] = {}
+def bwd_route(h_dtype, w_dtype, d: int, F: int) -> str:
+    """The backward's kernels, by :func:`route`'s rule (a function of its
+    own, so that a caller can force one direction alone)."""
+    return route(h_dtype, w_dtype, d, F)
+
+
+# the weight's memory and layout -> [a weak reference to the tensor the
+# copy was made from, its _version then, the bf16 copy, the bf16 remainder
+# w - copy or None until asked for]. Keyed by memory, not by the tensor
+# object: the backward under non-reentrant checkpointing gets detached
+# aliases of the weights (the same memory and version counter).
+_WEIGHT_CACHE: Dict[tuple, list] = {}
+
+
+def _cache_key(w: torch.Tensor) -> tuple:
+    return (w.data_ptr(), tuple(w.shape), w.stride(), w.dtype, w.device)
+
+
+def _cached(w: torch.Tensor):
+    hit = _WEIGHT_CACHE.get(_cache_key(w))
+    if hit is not None and hit[0]() is not None and hit[1] == w._version:
+        return hit
+    return None
+
+
+def _drop(key, ref):
+    """The weak reference's callback: forget the entry it guards."""
+    hit = _WEIGHT_CACHE.get(key)
+    if hit is not None and hit[0] is ref:
+        del _WEIGHT_CACHE[key]
 
 
 def weight_bf16(w: torch.Tensor) -> torch.Tensor:
     """``w`` in bf16: itself if it is bf16, else its cast, made once per
-    version of ``w`` and kept while ``w`` lives (the entry holds ``w``
-    only weakly and goes when ``w`` is freed). Adds one to
-    ``weight_bf16.casts`` per cast made."""
+    version of ``w``'s memory and kept while the tensor it was made from
+    lives (the entry holds that tensor only weakly and goes when it is
+    freed); an alias of ``w`` with its layout (``w.detach()``) reads the
+    same copy. Adds one to ``weight_bf16.casts`` per cast made."""
     if w.dtype == torch.bfloat16:
         return w
-    key = id(w)
-    hit = _WEIGHT_CACHE.get(key)
-    if hit is not None and hit[0]() is w and hit[1] == w._version:
+    hit = _cached(w)
+    if hit is not None:
         return hit[2]
+    key = _cache_key(w)
     cast = w.detach().to(torch.bfloat16, memory_format=torch.contiguous_format)
-    _WEIGHT_CACHE[key] = (
-        weakref.ref(w, lambda _, k=key: _WEIGHT_CACHE.pop(k, None)),
-        w._version, cast)
+    _WEIGHT_CACHE[key] = [weakref.ref(w, lambda r, k=key: _drop(k, r)),
+                          w._version, cast, None]
     weight_bf16.casts += 1
     return cast
 
 
 weight_bf16.casts = 0
+
+
+def weight_bf16_lo(w: torch.Tensor) -> torch.Tensor:
+    """The remainder ``bf16(w - weight_bf16(w))`` of an f32 ``w``: with
+    the copy, ``w`` to 16 bits. Made once per version of ``w`` and kept
+    beside the copy (reading the copy through the cache); adds one to
+    ``weight_bf16.lo_casts`` per remainder made."""
+    if w.dtype == torch.bfloat16:
+        raise TypeError("a bf16 weight is exact: it has no remainder")
+    hi = weight_bf16(w)
+    entry = _cached(w)
+    if entry[3] is None:
+        entry[3] = torch.sub(w.detach(), hi).to(torch.bfloat16)
+        weight_bf16.lo_casts += 1
+    return entry[3]
+
+
+weight_bf16.lo_casts = 0
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -150,33 +201,53 @@ expert_ffn.launches = 0
 
 
 def expert_ffn_bwd(h, w_up, w_gate, w_down, dy, act_name: str = "silu"):
-    """Launch the backward on the current stream: returns (dh in h's
-    dtype, dw_up, dw_gate, dw_down in f32). Raises on a refused launch.
-    Adds one to ``expert_ffn_bwd.launches`` per launch (three kernels)."""
+    """Launch the backward on the current stream through
+    :func:`bwd_route`'s kernels: returns (dh in h's dtype, dw_up, dw_gate,
+    dw_down in f32). Raises on a refused launch. Adds one to
+    ``expert_ffn_bwd.launches`` per launch (three kernels on the FMA route,
+    six on the tensor cores)."""
     _check(h, w_up, w_gate, w_down, act_name)
     if dy.shape != h.shape or dy.dtype != h.dtype or dy.device != h.device:
         raise ValueError(f"dy must match h ({tuple(h.shape)}, {h.dtype}, "
                          f"{h.device}), got {tuple(dy.shape)}, {dy.dtype}, "
                          f"{dy.device}")
-    dy = dy.contiguous()
     E, R, d = h.shape
     F = w_up.shape[-1]
+    tc = bwd_route(h.dtype, w_up.dtype, d, F) == "wgmma"
     dh = torch.empty_like(h)
     f32 = dict(dtype=torch.float32, device=h.device)
     dwu = torch.empty(w_up.shape, **f32)
     dwg = torch.empty(w_gate.shape, **f32)
     dwd = torch.empty(w_down.shape, **f32)
-    scratch = [torch.empty((E, R, F), **f32) for _ in range(3)]
-    fn = _build.entry("expert_ffn_bwd", "expert_ffn_bwd_launch", 12, 7)
+    ws = (w_up, w_gate, w_down)
+    act = ACT_CODES[act_name]
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(h.data_ptr(), dy.data_ptr(), w_up.data_ptr(),
-                w_gate.data_ptr(), w_down.data_ptr(), dh.data_ptr(),
-                dwu.data_ptr(), dwg.data_ptr(), dwd.data_ptr(),
-                *(t.data_ptr() for t in scratch), E, R, d, F,
-                int(h.dtype == torch.bfloat16),
-                int(w_up.dtype == torch.bfloat16), ACT_CODES[act_name],
-                stream)
+        if tc:
+            h, dy = _aligned(h), _aligned(dy)
+            split = w_up.dtype != torch.bfloat16
+            his = [_aligned(weight_bf16(w)) for w in ws]
+            los = [_aligned(weight_bf16_lo(w)) for w in ws] if split else his
+            # P, DU, DG, each as its hi and lo bf16 terms, then dhh in
+            # f32 (two planes)
+            scratch = torch.empty((8, E, R, F), dtype=torch.bfloat16,
+                                  device=h.device)
+            fn = _build.entry("expert_ffn_bwd", "expert_ffn_bwd_wgmma_launch",
+                              13, 6)
+            rc = fn(h.data_ptr(), dy.data_ptr(),
+                    *(t.data_ptr() for t in (*his, *los)), dh.data_ptr(),
+                    dwu.data_ptr(), dwg.data_ptr(), dwd.data_ptr(),
+                    scratch.data_ptr(), E, R, d, F, int(split), act, stream)
+        else:
+            dy = dy.contiguous()
+            scratch = [torch.empty((E, R, F), **f32) for _ in range(3)]
+            fn = _build.entry("expert_ffn_bwd", "expert_ffn_bwd_launch", 12, 7)
+            rc = fn(h.data_ptr(), dy.data_ptr(),
+                    *(w.data_ptr() for w in ws), dh.data_ptr(),
+                    dwu.data_ptr(), dwg.data_ptr(), dwd.data_ptr(),
+                    *(t.data_ptr() for t in scratch), E, R, d, F,
+                    int(h.dtype == torch.bfloat16),
+                    int(w_up.dtype == torch.bfloat16), act, stream)
     if rc != 0:
         raise RuntimeError(f"expert_ffn_bwd launch failed: cudaError {rc}")
     expert_ffn_bwd.launches += 1

@@ -29,6 +29,52 @@ def expert_ffn_ref(h, w_up, w_gate, w_down, act_name: str = "silu"):
     return out.to(h.dtype)
 
 
+def act_grad(x, act_name: str):
+    """d act / dx by the kernels' formula (``csrc/common.cuh``)."""
+    if act_name == "silu":
+        s = torch.sigmoid(x)
+        return s * (1.0 + x * (1.0 - s))
+    k0, k1 = math.sqrt(2.0 / math.pi), 0.044715
+    t = torch.tanh(k0 * (x + k1 * x * x * x))
+    return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * k0 * (
+        1.0 + 3.0 * k1 * x * x)
+
+
+def bf16_split(x):
+    """x as two bf16 terms (hi, lo): hi = bf16(x), lo = bf16(x - hi).
+    hi + lo holds x to 16 bits; a bf16 x has lo = 0."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x.float() - hi.float()).to(torch.bfloat16)
+
+
+def _pair(x):
+    hi, lo = bf16_split(x)
+    return hi.float() + lo.float()       # exact in f32
+
+
+def expert_ffn_bwd_bf16_ref(h, w_up, w_gate, w_down, dy,
+                            act_name: str = "silu"):
+    """The tensor-core backward's rounding points
+    (``csrc/expert_ffn_bwd.cu``, route 1), f32 sums: h, dy bf16; the
+    weights as their bf16 hi + lo terms; gt, up, dhh, then P = act(gt) *
+    up, DU = dhh * act(gt), DG = dhh * up * act'(gt) in f32; the weight
+    gradients h^T (DU hi + lo), h^T (DG hi + lo), (P hi + lo)^T dy in f32;
+    dh = bf16(DU) W_up^T + bf16(DG) W_gate^T, rounded to h's dtype.
+    Returns (dh, dw_up, dw_gate, dw_down)."""
+    hf, dyf = h.float(), dy.float()
+    wu, wg, wd = (_pair(w.float()) for w in (w_up, w_gate, w_down))
+    gt, up = hf @ wg, hf @ wu
+    dhh = dyf @ wd.transpose(1, 2)
+    a = ACTS[act_name](gt)
+    p, du, dg = a * up, dhh * a, dhh * up * act_grad(gt, act_name)
+    ht = hf.transpose(1, 2)
+    dwu, dwg = ht @ _pair(du), ht @ _pair(dg)
+    dwd = _pair(p).transpose(1, 2) @ dyf
+    dh = (du.to(torch.bfloat16).float() @ wu.transpose(1, 2)
+          + dg.to(torch.bfloat16).float() @ wg.transpose(1, 2))
+    return dh.to(h.dtype), dwu, dwg, dwd
+
+
 def masked_similarity_ref(x, mask):
     """x: [.., G, d]; mask: [.., G, G] bool. The Pallas kernel's formula
     (``repro/kernels/similarity.py::_sim_kernel``): the f32 Gram product

@@ -141,6 +141,74 @@ def test_expert_ffn_weight_cache_follows_in_place_updates():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 8, 256, 512), (4, 160, 192, 320)])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_expert_ffn_backward_tensor_cores(shape, act):
+    """K1's tensor-core backward (bf16 h and dy, f32 weights) against the
+    f32 plain version within the bf16 tolerance and against its rounding
+    model within 1e-2 of each gradient's largest entry, at a decode-like R
+    and at d, F multiples of 64 but not of 128; a second launch repeats
+    bit for bit; the backward reads the forward's bf16 weight copies (no
+    new cast) and makes each weight's second term once."""
+    _cuda_or_skip()
+    E, R, d, F = shape
+    h, ws = _inputs(E, R, d, F, seed=11)
+    dy = np.random.default_rng(12).standard_normal(h.shape).astype(np.float32)
+    th = torch.as_tensor(h).to(torch.bfloat16).cuda().requires_grad_()
+    tw = [torch.as_tensor(w).cuda().requires_grad_() for w in ws]
+    tdy = torch.as_tensor(dy).to(torch.bfloat16).cuda()
+    assert kexp.bwd_route(th.dtype, tw[0].dtype, d, F) == "wgmma"
+    out = ops.expert_ffn(th, *tw, act)
+    casts = (kexp.weight_bf16.casts, kexp.weight_bf16.lo_casts)
+    out.backward(tdy)
+    torch.cuda.synchronize()
+    assert (kexp.weight_bf16.casts, kexp.weight_bf16.lo_casts) == (
+        casts[0], casts[1] + 3)
+    got = [th.grad] + [w.grad for w in tw]
+    rh = th.detach().clone().requires_grad_()
+    rw = [w.detach().clone().requires_grad_() for w in tw]
+    ref.expert_ffn_ref(rh, *rw, act).backward(tdy)
+    want = [rh.grad] + [w.grad for w in rw]
+    model = ref.expert_ffn_bwd_bf16_ref(th.detach(), *(w.detach() for w in tw),
+                                        tdy, act)
+    for name, g, w, m in zip(("dh", "dw_up", "dw_gate", "dw_down"), got,
+                             want, model):
+        assert g.dtype == w.dtype, name
+        torch.testing.assert_close(g.float(), w.float(), atol=TOL["bfloat16"],
+                                   rtol=TOL["bfloat16"], msg=name)
+        err = (g.float() - m.float()).abs().max().item()
+        assert err <= 1e-2 * m.float().abs().max().item(), name
+    again = kexp.expert_ffn_bwd(th.detach(), *(w.detach() for w in tw), tdy,
+                                act)
+    assert torch.equal(again[0], got[0])
+    assert all(torch.equal(a, g) for a, g in zip(again[1:], got[1:]))
+    assert (kexp.weight_bf16.casts, kexp.weight_bf16.lo_casts) == (
+        casts[0], casts[1] + 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,d", [(8192, 768), (1000, 7), (300, 3000)])
+def test_gather_rows_kernel_int32_index(dtype, T, d):
+    """K3 with the index as int32 (read as it is, no conversion) and as
+    int64, at the train path's rows, at d = 7 (2- or 4-byte copy words)
+    and at a row longer than one pass of the warp's loads: bitwise."""
+    from repro_torch.kernels import condense as kcond
+    _cuda_or_skip()
+    r = np.random.default_rng(13)
+    y = torch.as_tensor(r.standard_normal((T, d)).astype(np.float32))
+    y = y.to(getattr(torch, dtype)).cuda()
+    idx = torch.as_tensor(r.integers(0, T, T)).cuda()
+    want = ref.gather_rows_ref(y, idx)
+    for ix in (idx.to(torch.int32), idx):
+        before = kcond.gather_rows.launches
+        got = kcond.gather_rows(y, ix)
+        torch.cuda.synchronize()
+        assert kcond.gather_rows.launches == before + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("NG,G,d", [(64, 128, 768), (3, 96, 40),
                                     (3, 200, 64)])
 @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])

@@ -1,6 +1,7 @@
 """The choices the port makes around K1's and K3's card kernels, on the
-CPU: K1's route (tensor cores or f32 FMAs) as a pure function of types
-and widths, the cache of bf16 weight copies the tensor-core route reads,
+CPU: K1's forward and backward routes (tensor cores or f32 FMAs) as pure
+functions of types and widths, the cache of bf16 weight copies (and the
+backward's second bf16 terms) the tensor-core routes read,
 and the group-local un-condense whose card backward needs no global sort,
 held against the JAX reference (K3's Pallas kernel in interpret mode, and
 the VJP of the reference's gather) on a map made from a numpy seed.
@@ -24,7 +25,7 @@ from repro_torch.kernels import expert_ffn as kexp
 BF16, F32 = torch.bfloat16, torch.float32
 
 
-@pytest.mark.parametrize("h,w,d,F,want", [
+ROUTES = [
     (BF16, F32, 768, 3072, "wgmma"),      # the paths: bf16 rows, f32 masters
     (BF16, BF16, 768, 3072, "wgmma"),
     (BF16, F32, 64, 192, "wgmma"),        # F a multiple of 64, not of 128
@@ -33,12 +34,25 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, F32, 33, 3072, "fma"),         # d not a multiple of 64
     (BF16, BF16, 768, 100, "fma"),        # F not a multiple of 64
     (BF16, F32, 32, 64, "fma"),
-])
+]
+
+
+@pytest.mark.parametrize("h,w,d,F,want", ROUTES)
 def test_k1_route_by_type_and_width(h, w, d, F, want):
     assert kexp.route(h, w, d, F) == want
     assert kexp.route(h, w, d, F) == want          # no state
     with pytest.raises(TypeError):
         kexp.route(torch.float16, w, d, F)
+
+
+@pytest.mark.parametrize("h,w,d,F,want", ROUTES)
+def test_k1_bwd_route_by_type_and_width(h, w, d, F, want):
+    """The backward takes the forward's rule, through a function of its
+    own that a caller may replace alone."""
+    assert kexp.bwd_route(h, w, d, F) == want
+    assert kexp.bwd_route(h, w, d, F) == kexp.route(h, w, d, F)
+    with pytest.raises(TypeError):
+        kexp.bwd_route(h, torch.float16, d, F)
 
 
 def test_weight_cast_cache_hits_misses_and_holds_no_tensor():
@@ -55,11 +69,90 @@ def test_weight_cast_cache_hits_misses_and_holds_no_tensor():
     wb = w.to(BF16)
     assert kexp.weight_bf16(wb) is wb                # bf16 is used as is
     assert kexp.weight_bf16.casts == before + 2
-    ref, key = weakref.ref(w), id(w)
+    ref, key = weakref.ref(w), kexp._cache_key(w)
     del w
     gc.collect()
     assert ref() is None                             # no strong reference
     assert key not in kexp._WEIGHT_CACHE             # and its copy is gone
+
+
+def test_weight_lo_term_cached_per_version_beside_the_copy():
+    """The backward's second bf16 term of an f32 weight: made once per
+    version from the forward's cached copy (no second cast), holding the
+    weight to 16 bits; an in-place update makes both anew."""
+    w = torch.randn((2, 64, 128)) * 0.05
+    casts = kexp.weight_bf16.casts
+    lo_casts = kexp.weight_bf16.lo_casts
+    hi = kexp.weight_bf16(w)
+    lo = kexp.weight_bf16_lo(w)
+    assert lo.dtype == BF16 and kexp.weight_bf16_lo(w) is lo
+    assert kexp.weight_bf16(w) is hi
+    assert (kexp.weight_bf16.casts, kexp.weight_bf16.lo_casts) == (
+        casts + 1, lo_casts + 1)
+    assert torch.equal(lo, (w - hi.float()).to(BF16))
+    err = (hi.float() + lo.float() - w).abs()
+    assert torch.all(err <= w.abs() * 2.0 ** -16)
+    w.mul_(2.0)
+    lo2 = kexp.weight_bf16_lo(w)                     # a new version
+    assert lo2 is not lo
+    assert (kexp.weight_bf16.casts, kexp.weight_bf16.lo_casts) == (
+        casts + 2, lo_casts + 2)
+    with pytest.raises(TypeError):
+        kexp.weight_bf16_lo(w.to(BF16))              # bf16 is exact
+
+
+def test_weight_cast_cache_hits_through_a_detached_alias():
+    """The backward under non-reentrant checkpointing gets the weights as
+    detached aliases: they read the copy and the remainder made for the
+    weight (same memory, layout and version); a view of other layout and
+    an update through the alias miss."""
+    w = torch.randn((2, 64, 128), requires_grad=True)
+    hi = kexp.weight_bf16(w)
+    lo = kexp.weight_bf16_lo(w)
+    casts = (kexp.weight_bf16.casts, kexp.weight_bf16.lo_casts)
+    alias = w.detach()
+    assert kexp.weight_bf16(alias) is hi and kexp.weight_bf16_lo(alias) is lo
+    assert (kexp.weight_bf16.casts, kexp.weight_bf16.lo_casts) == casts
+    part = alias[:1]                                 # another layout
+    assert kexp.weight_bf16(part) is not hi
+    assert kexp.weight_bf16.casts == casts[0] + 1
+    alias.add_(1.0)                                  # shared version counter
+    hi2 = kexp.weight_bf16(w)
+    assert hi2 is not hi and torch.equal(hi2, w.detach().to(BF16))
+
+
+class _CastProbe(torch.autograd.Function):
+    """Reads the weight's bf16 copy in its forward and its backward, as
+    K1's autograd function does; records what the backward saw."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        kexp.weight_bf16(w)
+        ctx.save_for_backward(x, w)
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        _CastProbe.seen.append(w)
+        kexp.weight_bf16(w)
+        return g @ w.t(), x.t() @ g
+
+
+def test_weight_cast_cache_hits_in_a_checkpointed_backward():
+    """Under torch.utils.checkpoint (non-reentrant, as the train path's
+    remat), the backward sees a detached alias of the weight, not the
+    weight; the copy made in the forward still serves it and the
+    recompute: one cast per weight and version."""
+    from torch.utils.checkpoint import checkpoint
+    w = torch.randn((8, 8), requires_grad=True)
+    x = torch.randn((4, 8), requires_grad=True)
+    _CastProbe.seen = []
+    before = kexp.weight_bf16.casts
+    checkpoint(_CastProbe.apply, x, w, use_reentrant=False).sum().backward()
+    assert len(_CastProbe.seen) == 1 and _CastProbe.seen[0] is not w
+    assert kexp.weight_bf16.casts == before + 1
+    assert torch.equal(w.grad, x.t() @ torch.ones((4, 8)))
 
 
 def test_weight_cast_cache_misses_on_a_new_tensor_of_equal_values():
