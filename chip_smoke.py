@@ -5,12 +5,13 @@
 
 Phases, each of which must pass or the script exits non-zero:
 
-1. device: the card's name, count, and name / power limit from nvidia-smi;
+1. device: the card's name, count, and name / power limit and maximum
+   SM clock (for the special-function unit's rate) from nvidia-smi;
 2. build: every hand-written kernel from ``src/repro_torch/csrc`` into
    ``build/`` (one ``nvcc`` per source, all at once), with the compiler's
    register / shared-memory / spill report, K1's (forward and backward)
-   and K5's tensor-core kernels' and K3's gather's picked out: none may
-   spill;
+   and K5's tensor-core kernels', K3's gather's, K4's vector backward's
+   and K6's picked out: none may spill (K6: its N = 16 instances);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the serving and training paths give it (K1 forward on both
    routes, also with bf16 weights passed in; its backward on both routes
@@ -57,7 +58,8 @@ Phases, each of which must pass or the script exits non-zero:
     expert-parallel train shape (8192 token rows of 768, 4 ranks x 2 nodes
     x 2048 wire slots) and at d=33 with empty slots; bitwise for the
     forward, then timed beside the plain version, the PyTorch composite
-    (index_select, then the codec) and the byte bound;
+    (index_select, then the codec) and the byte bound (the backward also
+    by profiler device time);
 11. EP train: full-width, full-depth moe-gpt2 trained expert-parallel over
     4 virtual ranks (2 nodes x 2) through ``repro_torch.launch.train
     --model-axis 4 --comm-mode hier --nodes 2 --hier-dedup on --wire-dtype
@@ -79,21 +81,29 @@ Phases, each of which must pass or the script exits non-zero:
     1024), causal without a window, non-causal, the tensor-core kernel's
     bf16 edges (ragged S=100, S=1000 with window 1000, S=64, H == KV,
     q x 8, hd 128), bf16 at hd 32 (the FMA kernel) and f32; a second
-    launch at the prefill shape bitwise equal to the first; the Mamba
-    scan and its final state against the recurrence at [4,2048,3200]x16
-    and a ragged [2,100,200]x16; then timed beside the plain version,
-    SDPA with the same band mask (K5, in turns) and the bounds, with K5's
-    TFLOP/s on live pairs and its share of the bound;
+    launch at the prefill shape bitwise equal to the first; K6's two
+    entries, the Mamba scan and its final state against the recurrence,
+    and the fused entry (softplus, scan, skip, silu gate, rounding)
+    against the mixer's ops one by one, at [4,2048,3200]x16, a ragged
+    [2,100,200]x16 and [1,33,70]x8 (fused: f32 within 2e-5, bf16 within
+    one bf16 ulp of each element plus the f32 gate, z a strided view);
+    then timed (CUDA events and profiler device time for K6) beside the
+    plain version, SDPA with the same band mask (K5, in turns) and the
+    bounds (K6's with the special-function unit's: one exp per state
+    update), with K5's TFLOP/s on live pairs and its share of the bound,
+    and K6's resident blocks per SM from the occupancy calculator;
 16. hymba serve: full-width hymba-1.5b (32 layers, random weights from a
     seed) served through ``repro_torch.launch.serve --arch hymba-1.5b
     --prefill batch`` (B=4, prompt 2048, 32 greedy tokens): K5 and K6
-    launched exactly 32 times per batched prefill and never in the step
-    feed or decode; the step-fed and the batched last-token logits agree;
+    launched exactly 32 times per batched prefill, every K6 launch through
+    its fused entry, and never in the step feed or decode; the step-fed
+    and the batched last-token logits agree;
 17. hymba paths and parity: a 4-layer full-width cut at f32 compute, the
     batched prefill (K5 + K6) against the step feed (attn_decode +
     mamba_step) past the window; reduced hymba at f32 with GQA kept,
     card against CPU;
-18. hymba profile: one full-width batched prefill under torch.profiler,
+18. hymba profile: full-width batched prefills, tokens/s over three on
+    the host clock, then one under torch.profiler: the top-10 device ops,
     K5's and K6's shares and the device-busy share.
 
 Then one JSON line with every kernel's record, and last
@@ -118,6 +128,12 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
+# special-function unit (ex2, lg2, rcp): 16 results per clock per SM on
+# sm_90, one eighth of the FMA rate; the clock is the card's maximum SM
+# clock, read by phase 1
+SMS = 132
+SFU_PER_CLK_SM = 16
+CARD = {}
 
 # K1 at the shapes of the serve run below: B=8 x S=128 prefill gives
 # C=256 rows per expert, a decode step of B=8 gives C=8; R=160 is ragged;
@@ -168,6 +184,9 @@ HYMBA_ARGS = ["--arch", "hymba-1.5b", "--batch", "4", "--prompt-len", "2048",
 K5_SHAPE = (4, 2048, 25, 5, 64)           # B, S, H, KV, hd
 K5_WINDOW = 1024
 K6_SHAPE = (4, 2048, 3200, 16)            # B, S, di, N
+# K6 (both entries): hymba's prefill, a ragged S and di, N = 8
+K6_CASES = {"prefill": K6_SHAPE, "ragged": (2, 100, 200, 16),
+            "n8": (1, 33, 70, 8)}
 K5_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # (name, (B, S, H, KV, hd), dtype, causal, window, q scale). bf16 at hd 64
 # and 128 runs the tensor-core kernel, the rest the FMA kernel. The
@@ -237,7 +256,20 @@ def device_ms(fn, n: int = 20) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return sum(r[0] for r in _device_rows(prof)) / n / 1e3
+    return _per_call_ms(_device_rows(prof), n)
+
+
+def _per_call_ms(rows, n: int) -> float:
+    """Device ms per call from the profiler's (us, name, count) rows of n
+    calls: each kernel's mean duration times its launches per call. The
+    profiler can record fewer launches than were made (seen in a long
+    process); a mean over the recorded ones does not count the missing
+    ones as zero."""
+    for _, key, c in rows:
+        if c % n:
+            log(f"    profiler: {c} launches of {key[:50]} recorded in {n} "
+                f"calls")
+    return sum(d / c * max(1, round(c / n)) for d, _, c in rows) / 1e3
 
 
 def phase_device():
@@ -251,6 +283,13 @@ def phase_device():
     log(f"device: {name} x{count}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     log(smi[0])
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    CARD["sm_clock_hz"] = float(clk) * 1e6
+    log(f"max SM clock {clk} MHz: special-function rate "
+        f"{SMS * SFU_PER_CLK_SM * CARD['sm_clock_hz'] / 1e12:.3f} T/s")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("tf32: matmul off, cudnn off (plain versions run in full f32)")
@@ -299,14 +338,19 @@ def phase_build():
                               ("K1_bwd", "expert_ffn_bwd",
                                "bwd_wgmma_kernel"),
                               ("K3", "condense", "gather_kernel"),
-                              ("K5", "flash_attn", "flash_wgmma_kernel"))}
+                              ("K4_bwd", "pack", "pack_quant_bwd_kernel"),
+                              ("K5", "flash_attn", "flash_wgmma_kernel"),
+                              ("K6", "mamba_scan", "mamba_scan_kernel"))}
     for k, reps in tc.items():
         for r in reps:
             log(f"  {k} kernel {r['entry']} for {r['target']}: "
                 f"{r.get('registers')} registers, spill stores / loads "
                 f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes")
-    spills = [r['entry'] for reps in tc.values() for r in reps
-              if r.get("spill_stores") or r.get("spill_loads")]
+    # K6: the N = 16 instances (hymba's) must not spill; N = 8's are
+    # reported
+    spills = [r['entry'] for k, reps in tc.items() for r in reps
+              if (r.get("spill_stores") or r.get("spill_loads"))
+              and not (k == "K6" and "ILi16E" not in r["entry"])]
     if spills:
         raise SystemExit(f"register spills in {spills}")
     return paths, tc
@@ -499,6 +543,21 @@ def _bound(nbytes, flops, peak=F32_FLOPS):
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_bf16_tc_ms=max(t_bytes, flops / BF16_TC_FLOPS * 1e3),
                 bound_f32_ms=max(t_bytes, flops / F32_FLOPS * 1e3))
+
+
+def _bound_sfu(nbytes, flops, sfu_ops):
+    """The bound with the special-function unit's: max(bytes / HBM,
+    FMA-pipe FLOPs / 67 TFLOP/s, SFU ops / (SMs x 16 x the max SM
+    clock)); ``bound_by`` "operations" where either pipe bounds it."""
+    rec = _bound(nbytes, flops)
+    t_sfu = sfu_ops / (SMS * SFU_PER_CLK_SM * CARD["sm_clock_hz"]) * 1e3
+    rec.update(sfu_ops=sfu_ops, bound_sfu_ms=t_sfu,
+               sm_clock_mhz=CARD["sm_clock_hz"] / 1e6,
+               bound_fma_ms=flops / F32_FLOPS * 1e3,
+               bound_bytes_ms=nbytes / HBM_BPS * 1e3)
+    if t_sfu > rec["bound_ms"]:
+        rec.update(bound_ms=t_sfu, bound_by="operations")
+    return rec
 
 
 def _k1_narrow_inputs(E_, R, D_, Fw, h_dtype, gen):
@@ -946,6 +1005,7 @@ def _kernel_counters():
     return {"expert_ffn": kexp.expert_ffn,
             "flash_attention": kfa.flash_attention,
             "mamba_scan": kms.mamba_scan,
+            "mamba_scan_fused": kms.mamba_scan_fused,
             "expert_ffn_bwd": kexp.expert_ffn_bwd,
             "masked_similarity": ksim.masked_similarity,
             "gather_rows": kcond.gather_rows,
@@ -978,7 +1038,7 @@ def phase_train():
             "masked_similarity": fwd, "gather_rows": fwd,
             "gather_rows_bwd": n_moe * len(steps), "pack_quant": 0,
             "pack_cast": 0, "pack_quant_bwd": 0, "flash_attention": 0,
-            "mamba_scan": 0}
+            "mamba_scan": 0, "mamba_scan_fused": 0}
     for st in steps:
         log(f"  train step {st['step']}: loss {st['loss']:.5f} "
             f"condense_rate {st['condense_rate']:.5f} bucket {st['bucket']}"
@@ -1357,14 +1417,18 @@ def phase_kernels_k4():
                              f"version at cotangent x{g_scale:g} (or its "
                              f"payload path went unexercised)")
     ms = time_ms(lambda: kpack.pack_quant_bwd(x, tok, g), 50)
+    dev_ms = device_ms(lambda: kpack.pack_quant_bwd(x, tok, g), 50)
     plain_ms = time_ms(lambda: ref.pack_quant_bwd_ref(x, tok, g), 20)
     nbytes = in_bytes + 2 * R * D * 2
-    out["pack_quantize_bwd"] = dict(ms=ms, plain_ms=plain_ms,
-                                    library_ms=None, **_bound(nbytes, 0.0),
-                                    max_abs_err=max(errs.values()),
-                                    errs=errs)
-    log(f"  K4 bwd: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
-        f"{out['pack_quantize_bwd']['bound_ms']:.4f} ms by bytes")
+    rec = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+               **_bound(nbytes, 0.0), max_abs_err=max(errs.values()),
+               errs=errs)
+    rec["bound_share_device"] = rec["bound_ms"] / dev_ms
+    out["pack_quantize_bwd"] = rec
+    log(f"  K4 bwd: kernel {ms:.4f} ms by CUDA events, {dev_ms:.4f} ms of "
+        f"device time ({100 * rec['bound_share_device']:.1f}% of the "
+        f"bound), plain {plain_ms:.4f} ms; bound {rec['bound_ms']:.4f} ms "
+        f"by bytes")
     del x, tok, g, got, want
     torch.cuda.empty_cache()
     return out
@@ -1415,7 +1479,7 @@ def _ep_expected(cfg, n_steps: int, f8: bool):
             "pack_cast": 0 if f8 else fwd,
             # the dispatch pack's and the combine partials' codec
             "pack_quant_bwd": 2 * bwd if f8 else 0,
-            "flash_attention": 0, "mamba_scan": 0}
+            "flash_attention": 0, "mamba_scan": 0, "mamba_scan_fused": 0}
 
 
 def _check_law(steps, luffy, cfg):
@@ -1794,8 +1858,7 @@ def phase_kernels_k56():
         f" SDPA")
 
     checks = []
-    for name, (b, s, di, n) in (("prefill", K6_SHAPE),
-                                ("ragged", (2, 100, 200, 16))):
+    for name, (b, s, di, n) in K6_CASES.items():
         dt = torch.rand((b, s, di), generator=gen, device="cuda") * 0.1
         x = torch.randn((b, s, di), generator=gen, device="cuda")
         bm = torch.randn((b, s, n), generator=gen, device="cuda")
@@ -1808,7 +1871,8 @@ def phase_kernels_k56():
         err_h = (h - wh).abs().max().item()
         ok = (torch.allclose(y, wy, atol=K6_TOL, rtol=K6_TOL)
               and torch.allclose(h, wh, atol=K6_TOL, rtol=K6_TOL))
-        checks.append(dict(case=name, shape=(b, s, di, n), max_abs_err_y=err_y,
+        checks.append(dict(entry="mamba_scan", case=name,
+                           shape=(b, s, di, n), max_abs_err_y=err_y,
                            max_abs_err_h=err_h, ok=ok))
         log(f"  K6 {name:8s} [{b},{s},{di}]x{n}: max|err| y={err_y:.3e} "
             f"final state={err_h:.3e} tol={K6_TOL:g} "
@@ -1818,27 +1882,130 @@ def phase_kernels_k56():
             torch.cuda.empty_cache()
             args = (dt, x, bm, cm, a)
             ms = time_ms(lambda: kms.mamba_scan(*args), 10, 2)
+            dev_ms = device_ms(lambda: kms.mamba_scan(*args), 10)
             plain_ms = time_ms(lambda: ref.mamba_scan_ref(*args), 2, 1)
+            upd = b * s * di * n
             nbytes = 4 * (3 * dt.numel() + 2 * bm.numel() + a.numel()
                           + h.numel())
-            # per state update: dt*a, exp, *h, dt*x, *B, +, *C, + (the
-            # lane reduction): 8 operations, the exp counted as one
-            out["mamba_scan"] = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=None,
-                state_updates=b * s * di * n,
-                max_abs_err=max(err_y, err_h),
-                **_bound(nbytes, 8.0 * b * s * di * n))
+            # per state update on the FMA pipes: dt*a, *h, +, dt*x, *B, *C,
+            # + (the sum over the state): 7 FLOPs; on the special-function
+            # unit: one ex2
+            rec = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                       library_ms=None, state_updates=upd,
+                       max_abs_err=max(err_y, err_h),
+                       **_bound_sfu(nbytes, 7.0 * upd, upd))
+            rec["bound_share_device"] = rec["bound_ms"] / dev_ms
+            out["mamba_scan"] = rec
         del dt, x, bm, cm, a, y, h
         torch.cuda.empty_cache()
+
+    # the fused entry, with its operands as _mamba_inner passes them: z the
+    # second half of one [B,S,2di] product, B and C column slices of one
+    # projection (dt_rank 100, hymba's)
+    for name, (b, s, di, n) in K6_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            def rn(*shape):
+                return torch.randn(shape, generator=gen, device="cuda")
+            xb, z = torch.chunk(rn(b, s, 2 * di).to(dtype), 2, dim=-1)
+            _, bm, cm = torch.split(rn(b, s, 100 + 2 * n), [100, n, n], -1)
+            args = (rn(b, s, di) - 1.0, rn(di) * 0.5, xb.contiguous(), z,
+                    rn(di), bm, cm, -torch.exp(rn(di, n)))
+            y, h = kms.mamba_scan_fused(*args)
+            torch.cuda.synchronize()
+            wy, wh = ref.mamba_scan_fused_ref(*args)
+            err_y = (y.float() - wy.float()).abs().max().item()
+            err_h = (h - wh).abs().max().item()
+            ok_h = torch.allclose(h, wh, atol=K6_TOL, rtol=K6_TOL)
+            bf = {}
+            if dtype == torch.float32:
+                ok = ok_h and torch.allclose(y, wy, atol=K6_TOL, rtol=K6_TOL)
+            else:
+                # one bf16 ulp plus the f32 gate: the rounding of two values
+                # within 2e-5; how far one ulp alone would reach, beside it
+                ulps = _bf16_ulps(y, wy)
+                bf = dict(max_bf16_ulps=ulps.max().item(),
+                          n_over_1_ulp=int((ulps > 1).sum()),
+                          max_over_ulp_plus_gate=_bf16_ulps(
+                              y, wy, K6_TOL).max().item())
+                ok = ok_h and bf["max_over_ulp_plus_gate"] <= 1.0
+            dname = str(dtype)[6:]
+            checks.append(dict(entry="mamba_scan_fused", case=name,
+                               shape=(b, s, di, n), dtype=dname,
+                               max_abs_err_y=err_y, max_abs_err_h=err_h,
+                               **bf, ok=ok))
+            log(f"  K6 fused {name:8s} [{b},{s},{di}]x{n} {dname:8s}: "
+                f"max|err| y={err_y:.3e}"
+                + (f" ({bf['max_bf16_ulps']:g} bf16 ulps at most, "
+                   f"{bf['n_over_1_ulp']} elements over one; over one ulp "
+                   f"+ the f32 gate {bf['max_over_ulp_plus_gate']:.3f}, "
+                   f"tol 1)" if bf else f" (tol {K6_TOL:g})")
+                + f" final state={err_h:.3e} {'ok' if ok else 'FAIL'}")
+            if name == "prefill" and dtype == torch.bfloat16:
+                del wy, wh
+                torch.cuda.empty_cache()
+                ms = time_ms(lambda: kms.mamba_scan_fused(*args), 10, 2)
+                dev_ms = device_ms(lambda: kms.mamba_scan_fused(*args), 10)
+                plain_ms = time_ms(lambda: ref.mamba_scan_fused_ref(*args),
+                                   2, 1)
+                el, upd = b * s * di, b * s * di * n
+                # per element: dt_lin 4 B in, x and z 2 B each in, y 2 B
+                # out; B and C rows, a, the bias and skip, the final state
+                nbytes = (el * (4 + 2 + 2 + 2) + 4 * 2 * b * s * n
+                          + 4 * (di * n + 2 * di + b * di * n))
+                # FMA pipes: the scan's 7 FLOPs per update, per element the
+                # bias add, max and add of softplus, dt*x, the skip's two,
+                # silu's add and the gate; special-function unit: one ex2
+                # per update, softplus's exp and log and silu's exp per
+                # element
+                rec = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           library_ms=None, state_updates=upd, elements=el,
+                           **_bound_sfu(nbytes, 7.0 * upd + 8.0 * el,
+                                        upd + 3.0 * el))
+                rec["bound_share_device"] = rec["bound_ms"] / dev_ms
+                out["mamba_scan_fused"] = rec
+            del args, xb, z, bm, cm, y, h
+            torch.cuda.empty_cache()
     if not all(c["ok"] for c in checks):
-        raise SystemExit(f"K6 disagrees with its plain version: {checks}")
-    r6 = out["mamba_scan"]
-    r6["checks"] = checks
-    log(f"  K6 [4,2048,3200]x16 f32: kernel {r6['ms']:.4f} ms, plain "
-        f"{r6['plain_ms']:.4f} ms (no one PyTorch call computes it); "
-        f"{r6['state_updates']} state updates, {r6['bytes'] / 1e6:.1f} MB; "
-        f"bound {r6['bound_ms']:.4f} ms by {r6['bound_by']}")
+        raise SystemExit(f"K6 disagrees with its plain version: "
+                         f"{[c for c in checks if not c['ok']]}")
+    b, s, di, n = K6_SHAPE
+    for key, what in (("mamba_scan", "[4,2048,3200]x16 f32"),
+                      ("mamba_scan_fused", "[4,2048,3200]x16 bf16 x, z, y")):
+        r6 = out[key]
+        occ = kms.occupancy(key == "mamba_scan_fused", torch.bfloat16
+                            if key == "mamba_scan_fused" else torch.float32)
+        blocks = b * -(-di // (occ["threads_per_block"] * 4 // n))
+        r6["occupancy"] = dict(occ, grid_blocks=blocks,
+                               grid_blocks_per_sm=blocks / SMS,
+                               achieved="not measured (no ncu here)")
+        log(f"  K6 {key}: {occ['blocks_per_sm']} blocks of "
+            f"{occ['threads_per_block']} threads ({occ['warps_per_sm']} "
+            f"warps, {occ['smem_per_block']} B shared each) fit an SM; the "
+            f"grid's {blocks} blocks give {blocks / SMS:.2f} per SM")
+        r6["max_abs_err"] = max(c["max_abs_err_y"] for c in checks
+                                if c["entry"] == key and
+                                c.get("dtype", "float32") == "float32")
+        r6["checks"] = [c for c in checks if c["entry"] == key]
+        log(f"  K6 {key} {what}: kernel {r6['ms']:.4f} ms by CUDA events, "
+            f"{r6['device_ms']:.4f} ms of device time, plain "
+            f"{r6['plain_ms']:.4f} ms (no one PyTorch call computes it); "
+            f"{r6['bytes'] / 1e6:.1f} MB, {r6['sfu_ops'] / 1e6:.1f} M "
+            f"special-function ops; bound {r6['bound_ms']:.4f} ms by "
+            f"{r6['bound_by']} (bytes {r6['bound_bytes_ms']:.4f}, FMA "
+            f"{r6['bound_fma_ms']:.4f}, special-function "
+            f"{r6['bound_sfu_ms']:.4f} at {r6['sm_clock_mhz']:.0f} MHz), "
+            f"{100 * r6['bound_share_device']:.1f}% of it")
     return out
+
+
+def _bf16_ulps(got, want, tol=0.0):
+    """|got - want| over one bf16 ulp of the larger magnitude of the two
+    plus ``tol * (1 + |want|)``, elementwise."""
+    import torch
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    ulp = torch.ldexp(torch.ones_like(g), e - 8)
+    return (g - w).abs() / (ulp + tol * (1.0 + w.abs()))
 
 
 def phase_hymba_slice():
@@ -1854,8 +2021,9 @@ def phase_hymba_slice():
     res = serve.main(HYMBA_ARGS)
     launches = {k: fn.launches for k, fn in counters.items()}
     want = {k: 0 for k in counters}
-    want["flash_attention"] = want["mamba_scan"] = (
-        cfg.num_layers * serve.N_BATCHED_PREFILLS)
+    # every K6 launch of the path goes through the fused entry
+    want["flash_attention"] = want["mamba_scan"] = \
+        want["mamba_scan_fused"] = cfg.num_layers * serve.N_BATCHED_PREFILLS
     B, S, G = res["batch"], res["prompt_len"], res["gen"]
     logits = ([res["prefill_logits"]] + res["step_logits"]
               + res["gen_logits"])
@@ -1949,9 +2117,10 @@ def phase_hymba_paths():
 
 
 def phase_hymba_profile():
-    """One full-width hymba batched prefill (B=4, S=2048) under
-    torch.profiler, after a warm-up: device-busy share, top device ops,
-    K5's and K6's shares of the device time."""
+    """Full-width hymba batched prefills (B=4, S=2048) after a warm-up:
+    three on the host clock to a synchronise (tokens/s), then one under
+    torch.profiler: device-busy share, the top-10 device ops, K5's and
+    K6's shares of the device time."""
     import numpy as np
     import torch
     from repro_torch.config import LuffyConfig
@@ -1965,6 +2134,12 @@ def phase_hymba_profile():
         1, cfg.vocab_size, (4, 2048)), dtype=torch.int32, device="cuda")
     model.prefill(toks, 2080, luffy=luffy)
     torch.cuda.synchronize()
+    wall_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        model.prefill(toks, 2080, luffy=luffy)
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1977,21 +2152,29 @@ def phase_hymba_profile():
            "mamba_scan": ("mamba_scan_kernel",)}
     shares = {k: sum(d for d, key, _ in rows if any(n in key for n in o))
               / busy if busy else None for k, o in ops.items()}
-    info = dict(wall_ms=wall_us / 1e3, device_ms=busy / 1e3,
+    info = dict(prefill_wall_ms=wall_ms,
+                tokens_per_s=[4 * 2048 / w * 1e3 for w in wall_ms],
+                wall_ms=wall_us / 1e3, device_ms=busy / 1e3,
                 device_busy_share=busy / wall_us if rows else None,
                 kernel_share=shares,
                 top=[{"op": k[:60], "ms": d / 1e3, "count": c}
                      for d, k, c in rows[:10]])
     log("hymba profile: " + json.dumps(info))
+    log(f"hymba prefill: {min(wall_ms):.1f} ms best of 3, "
+        f"{max(info['tokens_per_s']):.0f} tokens/s")
     if shares["flash_attention"] is not None:
         log(f"hymba profile: K5 {100 * shares['flash_attention']:.1f}% of "
-            f"the prefill's device time (PR 14: 42.0%), K6 "
+            f"the prefill's device time, K6 (fused) "
             f"{100 * shares['mamba_scan']:.1f}%")
     if not rows:
         log("hymba profile: the profiler saw no device time (not measured)")
     del model
     torch.cuda.empty_cache()
     return info
+
+
+_K6_KEYS = ("device_ms", "bound_share_device", "bound_bytes_ms",
+            "bound_fma_ms", "bound_sfu_ms", "sm_clock_mhz", "occupancy")
 
 
 def _record(name, source, replaces, launches, t, extra=None):
@@ -2118,6 +2301,8 @@ def main() -> int:
                 el["pack_quant_bwd"], timed_k4["pack_quantize_bwd"],
                 {"launches_path": "EP train, --wire-dtype f8e4m3",
                  "timed_at": "4x2x2048 bf16 cotangent rows of 768",
+                 "device_ms": timed_k4["pack_quantize_bwd"]["device_ms"],
+                 "ptxas": tc_ptxas["K4_bwd"],
                  "max_abs_err_by_cotangent_scale": {
                      f"{g:g}": e for g, e in
                      timed_k4["pack_quantize_bwd"]["errs"].items()}}),
@@ -2138,9 +2323,25 @@ def main() -> int:
         _record("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
                 "src/repro/kernels/mamba_scan.py:66", hl["mamba_scan"],
                 timed_k56["mamba_scan"],
-                {"launches_path": "hymba-1.5b serve, 2 batched prefills",
-                 "timed_at": "[4,2048,3200]x16 f32",
+                {"launches_path": "hymba-1.5b serve, 2 batched prefills "
+                                  "(every launch through the fused entry)",
+                 "timed_at": "[4,2048,3200]x16 f32, the contract entry",
+                 **{k: timed_k56["mamba_scan"][k] for k in _K6_KEYS},
+                 "ptxas": tc_ptxas["K6"],
                  "checks": timed_k56["mamba_scan"]["checks"]}),
+        _record("mamba_scan_fused", "src/repro_torch/csrc/mamba_scan.cu",
+                "src/repro/kernels/mamba_scan.py:66",
+                hl["mamba_scan_fused"], timed_k56["mamba_scan_fused"],
+                {"launches_path": "hymba-1.5b serve, 2 batched prefills",
+                 "fuses": "the f32 passes around the scan, softplus "
+                          "(src/repro/models/ssm.py:72), skip and gate "
+                          "(:104-106)",
+                 "timed_at": "[4,2048,3200]x16, bf16 x, z and y, f32 "
+                             "dt_lin; max_abs_err of the f32 checks",
+                 **{k: timed_k56["mamba_scan_fused"][k] for k in _K6_KEYS},
+                 "prefill_share": hymba_prof["kernel_share"]["mamba_scan"],
+                 "prefill_tokens_per_s": hymba_prof["tokens_per_s"],
+                 "checks": timed_k56["mamba_scan_fused"]["checks"]}),
     ]
     for rec in records[:5]:
         rec["launches_ep_train"] = el[rec["name"]]

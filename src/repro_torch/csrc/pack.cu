@@ -34,13 +34,24 @@
 //   ct_v = sum(q * g) - sum(f8(g * v) / v^2 * x)    (0 for an all-zero block)
 //   dx   = f8(g * v) / v  +  sign(x) * ct_v * (1/448) / n_ties  on the ties
 // with f8(.) the e4m3 cast the reference applies to the payload's
-// cotangent, so cotangents below e4m3's range come back as 0. One warp per
-// block as in the forward; the two sums are warp reductions (their order
-// differs from the plain version's, a tolerance-level difference).
+// cotangent, so cotangents below e4m3's range come back as 0. Its
+// arithmetic per element is the forward's (the same scale and payload, bit
+// for bit) and the scalar kernel's; only the two sums run in another order
+// than the plain version's, a tolerance-level difference.
+// Design (pack_quant_bwd_kernel, d a multiple of 8): one warp per wire row,
+// eight rows per block; a lane holds 8 consecutive elements (16-byte loads
+// of bf16, two of f32), so 4 lanes share a scale block and its amax, tie
+// count and two sums take two shuffle levels each. Every load of a row (up
+// to 1024 elements) is in flight before its arithmetic starts, and the
+// result goes out in 16-byte stores. pack_quant_bwd_scalar_kernel (one element per
+// lane, one block per row) takes any other d.
 //
 // What bounds it on an H100: bytes (each wire row reads a d-wide source
 // row and writes d_pad bytes plus scales, or a d-wide cast row; the
 // backward reads the source row and the cotangent and writes one row).
+// The backward's arithmetic comes next: two IEEE divisions per element
+// (payload, cotangent) and two e4m3 round trips, which stay as they are, for
+// the bits; the conversions take no branch and decode from the bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,40 +64,37 @@ constexpr int NT = 256;
 constexpr int BLOCK = 32;
 constexpr float F8_INV = 1.0f / 448.0f;
 
-// c10::detail::fp8e4m3fn_from_fp32_value, step for step
+// c10::detail::fp8e4m3fn_from_fp32_value, step for step; its three cases
+// (NaN, subnormal, normal) are all computed and one selected, so the
+// conversion has no branch
 __device__ __forceinline__ uint8_t f32_to_e4m3fn(float f) {
   constexpr uint32_t fp8_max = UINT32_C(1087) << 20;  // 480.0f
   constexpr uint32_t denorm_mask = UINT32_C(141) << 23;
   uint32_t f_bits = __float_as_uint(f);
   const uint32_t sign = f_bits & UINT32_C(0x80000000);
   f_bits ^= sign;
-  uint8_t result;
-  if (f_bits >= fp8_max) {
-    result = 0x7f;  // NaN
-  } else if (f_bits < (UINT32_C(121) << 23)) {
-    // subnormal in e4m3: let the f32 adder round, then take the bits
-    f_bits = __float_as_uint(
-        __fadd_rn(__uint_as_float(f_bits), __uint_as_float(denorm_mask)));
-    result = static_cast<uint8_t>(f_bits - denorm_mask);
-  } else {
-    const uint32_t mant_odd = (f_bits >> 20) & 1;
-    f_bits += (static_cast<uint32_t>(7 - 127) << 23) + 0x7FFFF;
-    f_bits += mant_odd;
-    result = static_cast<uint8_t>(f_bits >> 20);
-  }
-  return result | static_cast<uint8_t>(sign >> 24);
+  // subnormal in e4m3: let the f32 adder round, then take the bits
+  const uint32_t sub = __float_as_uint(__fadd_rn(
+      __uint_as_float(f_bits), __uint_as_float(denorm_mask))) - denorm_mask;
+  const uint32_t mant_odd = (f_bits >> 20) & 1;
+  const uint32_t nrm =
+      (f_bits + (static_cast<uint32_t>(7 - 127) << 23) + 0x7FFFF + mant_odd) >>
+      20;
+  const uint32_t result = f_bits >= fp8_max                    ? 0x7fu
+                          : f_bits < (UINT32_C(121) << 23) ? sub
+                                                               : nrm;
+  return static_cast<uint8_t>(result | (sign >> 24));
 }
 
-// c10::detail::fp8e4m3fn_to_fp32_value's values: exact
+// c10::detail::fp8e4m3fn_to_fp32_value's values, exact, from the bits: a
+// normal (1 + m / 8) 2^(e - 7) has f32 exponent field e + 120 and mantissa
+// m << 20; a subnormal m 2^-9 is (m + 2^23) - 2^23 scaled
 __device__ __forceinline__ float e4m3fn_to_f32(uint8_t b) {
-  const int e = (b >> 3) & 0xF, m = b & 7;
-  float v;
-  if (e == 0xF && m == 7)
-    v = __int_as_float(0x7fc00000);  // NaN
-  else if (e == 0)
-    v = ldexpf(static_cast<float>(m), -9);
-  else
-    v = ldexpf(static_cast<float>(8 + m), e - 10);
+  const uint32_t e = (b >> 3) & 0xF, m = b & 7;
+  const float sub =
+      (__uint_as_float(0x4B000000u | m) - 8388608.0f) * 0.001953125f;
+  float v = e ? __uint_as_float(((e + 120) << 23) | (m << 20)) : sub;
+  if (e == 0xF && m == 7) v = __int_as_float(0x7fc00000);  // NaN
   return (b & 0x80) ? -v : v;
 }
 
@@ -132,12 +140,13 @@ pack_cast_kernel(const Tin* __restrict__ x, const int* __restrict__ tok,
     o[c] = from_f32<Tout>(t >= 0 ? to_f32(x[(size_t)t * d + c]) : 0.0f);
 }
 
-// dx [R, d] (x's type) of the rows x[tok[r]] (tok null: row r itself)
+// dx [R, d] (x's type) of the rows x[tok[r]] (tok null: row r itself), any d
 template <typename T>
 __global__ void __launch_bounds__(NT)
-pack_quant_bwd_kernel(const T* __restrict__ x, const int* __restrict__ tok,
-                      const T* __restrict__ g, T* __restrict__ dx,
-                      int n_src, int d, int d_pad) {
+pack_quant_bwd_scalar_kernel(const T* __restrict__ x,
+                             const int* __restrict__ tok,
+                             const T* __restrict__ g, T* __restrict__ dx,
+                             int n_src, int d, int d_pad) {
   const int row = blockIdx.x;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int t = tok == nullptr ? row : tok[row];
@@ -172,6 +181,126 @@ pack_quant_bwd_kernel(const T* __restrict__ x, const int* __restrict__ tok,
                                 -(xv >= 0.0f ? 0.0f : ch));
     if (c < d) dx[(size_t)row * d + c] = from_f32<T>(out);
   }
+}
+
+constexpr int BWD_ROWS = 8;  // rows per block of the vector backward
+constexpr int BWD_PASSES = 4;  // 256-element passes of a row held in flight
+
+// 8 elements from 16-byte words: one word of bf16, two of f32
+template <typename T>
+__device__ __forceinline__ void unpack8(const uint4 (&w)[sizeof(T) / 2],
+                                        float (&v)[8]) {
+  if constexpr (sizeof(T) == 2) {
+    const uint32_t u[4] = {w[0].x, w[0].y, w[0].z, w[0].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(u[i] << 16);
+      v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      v[4 * k] = __uint_as_float(w[k].x);
+      v[4 * k + 1] = __uint_as_float(w[k].y);
+      v[4 * k + 2] = __uint_as_float(w[k].z);
+      v[4 * k + 3] = __uint_as_float(w[k].w);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const float (&v)[8]) {
+  if constexpr (sizeof(T) == 2) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      u[i] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+  } else {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+// the vector backward: as pack_quant_bwd_scalar_kernel, d a multiple of 8
+// and every row 16-byte aligned
+template <typename T>
+__global__ void __launch_bounds__(BWD_ROWS * 32)
+pack_quant_bwd_kernel(const T* __restrict__ x, const int* __restrict__ tok,
+                      const T* __restrict__ g, T* __restrict__ dx, int R,
+                      int n_src, int d) {
+  constexpr int W = sizeof(T) / 2;  // 16-byte words per lane per pass
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * BWD_ROWS + threadIdx.x / 32;
+  if (row >= R) return;
+  const int t = tok == nullptr ? row : tok[row];
+  if (t >= n_src) __trap();
+  for (int base = 0; base < d; base += 256 * BWD_PASSES) {
+    uint4 gw[BWD_PASSES][W], xw[BWD_PASSES][W];
+#pragma unroll
+    for (int u = 0; u < BWD_PASSES; ++u) {
+      const int c = base + 256 * u + 8 * lane;
+      const bool in = c < d;
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        const uint4 z = make_uint4(0, 0, 0, 0);
+        gw[u][k] = in ? reinterpret_cast<const uint4*>(
+                            g + (size_t)row * d + c)[k] : z;
+        xw[u][k] = in && t >= 0 ? reinterpret_cast<const uint4*>(
+                                      x + (size_t)t * d + c)[k] : z;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < BWD_PASSES; ++u) {
+      const int c = base + 256 * u + 8 * lane;
+      if (base + 256 * u >= d) break;  // the whole warp's pass lies past d
+      float xv[8], gv[8];
+      unpack8<T>(xw[u], xv);
+      unpack8<T>(gw[u], gv);
+      float amax = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(xv[i]));
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+      const bool live = amax > 0.0f;
+      const float v = live ? __fmul_rn(amax, F8_INV) : 1.0f;
+      const float inv_v2 = __fdiv_rn(1.0f, __fmul_rn(v, v));
+      float bt[8], bm = 0.0f, bw = 0.0f;
+      int ties = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        ties += fabsf(xv[i]) == amax;
+        const float q = e4m3fn_to_f32(f32_to_e4m3fn(__fdiv_rn(xv[i], v)));
+        bt[i] = e4m3fn_to_f32(f32_to_e4m3fn(__fmul_rn(gv[i], v)));
+        bm = __fadd_rn(bm, __fmul_rn(q, gv[i]));
+        bw = __fadd_rn(bw, __fmul_rn(__fmul_rn(bt[i], inv_v2), xv[i]));
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        ties += __shfl_xor_sync(0xffffffffu, ties, o);
+        bm = __fadd_rn(bm, __shfl_xor_sync(0xffffffffu, bm, o));
+        bw = __fadd_rn(bw, __shfl_xor_sync(0xffffffffu, bw, o));
+      }
+      const float cc = live ? __fadd_rn(bm, -bw) : 0.0f;
+      const float ch = __fdiv_rn(__fmul_rn(cc, F8_INV),
+                                 static_cast<float>(ties));
+      float out[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float chi = fabsf(xv[i]) == amax ? ch : 0.0f;
+        out[i] = __fadd_rn(__fadd_rn(__fdiv_rn(bt[i], v),
+                                     xv[i] >= 0.0f ? chi : 0.0f),
+                           -(xv[i] >= 0.0f ? 0.0f : chi));
+      }
+      if (c < d) store8(dx + (size_t)row * d + c, out);
+    }
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
@@ -237,14 +366,30 @@ extern "C" int pack_quant_bwd_launch(const void* x, const void* tok,
   if (d_pad % BLOCK || d_pad < d) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tk = static_cast<const int*>(tok);
-  if (bf16)
-    pack_quant_bwd_kernel<__nv_bfloat16><<<R, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), tk,
-        static_cast<const __nv_bfloat16*>(g),
-        static_cast<__nv_bfloat16*>(dx), n_src, d, d_pad);
-  else
-    pack_quant_bwd_kernel<float><<<R, NT, 0, s>>>(
-        static_cast<const float*>(x), tk, static_cast<const float*>(g),
-        static_cast<float*>(dx), n_src, d, d_pad);
+  const bool vec = d % 8 == 0 && aligned16(x) && aligned16(g) &&
+                   aligned16(dx);
+  const int blocks = (R + BWD_ROWS - 1) / BWD_ROWS;
+  if (bf16) {
+    using T = __nv_bfloat16;
+    const T* xb = static_cast<const T*>(x);
+    const T* gb = static_cast<const T*>(g);
+    T* db = static_cast<T*>(dx);
+    if (vec)
+      pack_quant_bwd_kernel<T><<<blocks, BWD_ROWS * 32, 0, s>>>(
+          xb, tk, gb, db, R, n_src, d);
+    else
+      pack_quant_bwd_scalar_kernel<T><<<R, NT, 0, s>>>(xb, tk, gb, db, n_src,
+                                                       d, d_pad);
+  } else {
+    const float* xf = static_cast<const float*>(x);
+    const float* gf = static_cast<const float*>(g);
+    float* df = static_cast<float*>(dx);
+    if (vec)
+      pack_quant_bwd_kernel<float><<<blocks, BWD_ROWS * 32, 0, s>>>(
+          xf, tk, gf, df, R, n_src, d);
+    else
+      pack_quant_bwd_scalar_kernel<float><<<R, NT, 0, s>>>(xf, tk, gf, df,
+                                                           n_src, d, d_pad);
+  }
   return static_cast<int>(cudaGetLastError());
 }

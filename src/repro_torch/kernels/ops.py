@@ -70,3 +70,11 @@ def mamba_scan(dt, x, bmat, cmat, a):
     if _device(dt, "mamba_scan") == "cpu":
         return ref.mamba_scan_ref(dt, x, bmat, cmat, a)
     return _mamba_scan.mamba_scan(dt, x, bmat, cmat, a)
+
+
+def mamba_scan_fused(dt_lin, dt_bias, x, z, d_skip, bmat, cmat, a):
+    if _device(dt_lin, "mamba_scan_fused") == "cpu":
+        return ref.mamba_scan_fused_ref(dt_lin, dt_bias, x, z, d_skip, bmat,
+                                        cmat, a)
+    return _mamba_scan.mamba_scan_fused(dt_lin, dt_bias, x, z, d_skip, bmat,
+                                        cmat, a)

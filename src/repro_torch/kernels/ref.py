@@ -169,3 +169,23 @@ def mamba_scan_ref(dt, x, bmat, cmat, a):
         h = da[:, t] * h + dbx[:, t]
         ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
     return torch.stack(ys, 1).to(dt.dtype), h
+
+
+def softplus(x):
+    """``jax.nn.softplus``: logaddexp(x, 0) for every x (``F.softplus``
+    returns x itself above its threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def mamba_scan_fused_ref(dt_lin, dt_bias, x, z, d_skip, bmat, cmat, a):
+    """The tail of hymba's Mamba branch around the scan
+    (``models/ssm.py::_mamba_inner`` from the zero state), op for op:
+    dt = softplus(dt_lin + dt_bias) in f32, the scan, then ``(y + d_skip *
+    x) * silu(z)`` in f32, rounded to x's type. Returns (y, the final
+    state h [B,di,N] f32)."""
+    dt = softplus(dt_lin + dt_bias.float())
+    xf = x.float()
+    y, h = mamba_scan_ref(dt, xf, bmat, cmat, a)
+    y = y + d_skip * xf
+    y = y * F.silu(z.float())
+    return y.to(x.dtype), h

@@ -3,8 +3,9 @@
 ported yet).
 
 A full sequence (:func:`mamba_apply`) scans from the zero state through
-``ops.mamba_scan``: kernel K6 on the card, its plain version on the CPU,
-for any S and d_inner. A decode step (:func:`mamba_step`) advances the
+``ops.mamba_scan_fused``: on the card kernel K6 with the f32 passes
+around the scan (softplus, skip, gate, rounding) taken in, on the CPU its
+plain version, the same ops one by one; any S and d_inner. A decode step (:func:`mamba_step`) advances the
 carried state by one token in plain PyTorch, as the reference's
 ``lax.scan`` path does. The rounding points are the reference's: ``xc``
 is rounded to the compute dtype before ``x_proj``; ``dt``, B, C, the
@@ -18,14 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.blocks import _dtype, dense_init
-
-
-def _softplus(x):
-    """``jax.nn.softplus``: logaddexp(x, 0) for every x (``F.softplus``
-    returns x itself above its threshold)."""
-    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def d_inner(cfg: ModelConfig) -> int:
@@ -67,16 +62,17 @@ def _mamba_inner(p, cfg: ModelConfig, x_conv, z, h0=None):
     xc = F.silu(x_conv).to(cdt)
     proj = (xc @ p["x_proj"].to(cdt)).float()
     dt, bmat, cmat = torch.split(proj, [dt_rank, n, n], dim=-1)
-    dt = _softplus(dt @ p["dt_proj"].float() + p["dt_bias"].float())
+    dt_lin = dt @ p["dt_proj"].float()
     a = -torch.exp(p["a_log"])                                     # [di,N]
-    xf = xc.float()
     if h0 is None:
-        y, h = ops.mamba_scan(dt, xf, bmat, cmat, a)
-    else:
-        da = torch.exp(dt[:, 0, :, None] * a)                      # [B,di,N]
-        dbx = (dt[:, 0] * xf[:, 0])[..., None] * bmat[:, 0, None, :]
-        h = da * h0 + dbx
-        y = torch.einsum("bdn,bn->bd", h, cmat[:, 0])[:, None]
+        return ops.mamba_scan_fused(dt_lin, p["dt_bias"], xc, z,
+                                    p["d_skip"], bmat, cmat, a)
+    dt = ref.softplus(dt_lin + p["dt_bias"].float())
+    xf = xc.float()
+    da = torch.exp(dt[:, 0, :, None] * a)                          # [B,di,N]
+    dbx = (dt[:, 0] * xf[:, 0])[..., None] * bmat[:, 0, None, :]
+    h = da * h0 + dbx
+    y = torch.einsum("bdn,bn->bd", h, cmat[:, 0])[:, None]
     y = y + p["d_skip"] * xf
     y = y * F.silu(z.float())
     return y.to(cdt), h

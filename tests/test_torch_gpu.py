@@ -423,6 +423,55 @@ def test_pack_quant_backward_matches_plain(x_dtype, with_tok, g_scale):
     assert torch.equal(ops.pack_quant_bwd(x, tok, g), got)
 
 
+def _wire_map(r, T, n_groups, slots):
+    """A dedup-wire slot -> token map as ``condense.wire.dedup_dispatch``
+    builds it: per (rank, node) group of ``slots``, a filled prefix of
+    distinct tokens, then empty slots (-1)."""
+    tok = np.full((n_groups, slots), -1, np.int32)
+    for grp in range(n_groups):
+        n = int(r.integers(0, slots + 1))
+        tok[grp, :n] = r.choice(T, n, replace=False)
+    return tok.reshape(-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["train_map", "d33", "d40", "empty_rows"])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_pack_quant_backward_maps_and_widths(case, x_dtype):
+    """K4's backward on the path's own kind of map (the train row map: 4
+    ranks x 2 nodes of 1024 slots, filled prefixes), at d = 33 (the scalar
+    kernel), d = 40 (the vector kernel with a part-filled scale block) and
+    with every other row empty (tok = -1): within 1e-6 of the largest
+    entry at f32 and 2e-2 at bf16, repeating bit for bit, one launch."""
+    from repro_torch.kernels import pack as kpack
+    _cuda_or_skip()
+    r = np.random.default_rng(11)
+    dt = getattr(torch, x_dtype)
+    T, d = {"train_map": (2048, 768), "d33": (64, 33), "d40": (64, 40),
+            "empty_rows": (512, 768)}[case]
+    if case == "train_map":
+        tok = _wire_map(r, T, 8, 1024)
+    else:
+        tok = r.integers(0, T, 2 * T).astype(np.int32)
+        tok[::2 if case == "empty_rows" else 5] = -1
+    x = torch.as_tensor((r.standard_normal((T, d)) * 2).astype(np.float32))
+    x[3] = 0.0                                   # all-zero blocks
+    x = x.to(dt).cuda()
+    tok = torch.as_tensor(tok).cuda()
+    g = torch.as_tensor(r.standard_normal((tok.numel(), d)).astype(
+        np.float32)).to(dt).cuda()
+    before = kpack.pack_quant_bwd.launches
+    got = ops.pack_quant_bwd(x, tok, g)
+    torch.cuda.synchronize()
+    assert kpack.pack_quant_bwd.launches == before + 1
+    want = ref.pack_quant_bwd_ref(x, tok, g)
+    assert got.dtype == dt and got.shape == want.shape
+    tol = 1e-6 if x_dtype == "float32" else 2e-2
+    scale = want.float().abs().max()
+    assert (got.float() - want.float()).abs().max() <= tol * scale
+    assert torch.equal(ops.pack_quant_bwd(x, tok, g), got)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("wire", ["f8e4m3", "bf16", "f32"])
 @pytest.mark.parametrize("g_scale", [1.0, 1e-2])
@@ -575,3 +624,55 @@ def test_mamba_scan_kernel_matches_plain(B, S, di, N):
     wy, wh = ref.mamba_scan_ref(dt, x, bm, cm, a)
     torch.testing.assert_close(y, wy, atol=2e-5, rtol=2e-5)
     torch.testing.assert_close(h, wh, atol=2e-5, rtol=2e-5)
+
+
+def _bf16_excess(got, want, tol=2e-5):
+    """|got - want| over one bf16 ulp of the larger magnitude of the two
+    plus the f32 gate's ``tol * (1 + |want|)``, elementwise: at most 1
+    where two values within the f32 gate round to bf16 apart (the f32
+    term covers the elements where y + d_skip * x cancels, whose ulp is
+    far below the scan's f32 error)."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    ulp = torch.ldexp(torch.ones_like(g), e - 8)
+    return (g - w).abs() / (ulp + tol * (1.0 + w.abs()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,di,N", [(4, 2048, 3200, 16), (2, 100, 200, 16),
+                                      (1, 33, 70, 8), (3, 1, 48, 16)])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_mamba_scan_fused_kernel_matches_plain(B, S, di, N, x_dtype):
+    """The fused K6 entry (softplus, scan, skip, gate, rounding) against
+    its plain version, the ops of ``_mamba_inner`` one by one: z the second
+    half of one [B,S,2di] product and B, C column slices of one projection,
+    as the model passes them. f32: y and the final state within 2e-5 (the
+    scan's sums in another order); bf16: y within one bf16 ulp of each
+    element plus the f32 gate (the rounding of values within 2e-5), the
+    state within 2e-5. One launch, counted by both K6 counters."""
+    _cuda_or_skip()
+    from repro_torch.kernels import mamba_scan as kms
+    r = np.random.default_rng(di + S)
+    dt = getattr(torch, x_dtype)
+
+    def rn(*shape, scale=1.0):
+        return torch.as_tensor(r.standard_normal(shape) * scale,
+                               dtype=torch.float32).cuda()
+
+    x, z = torch.chunk(rn(B, S, 2 * di).to(dt), 2, dim=-1)
+    x = x.contiguous()
+    _, bm, cm = torch.split(rn(B, S, 7 + 2 * N), [7, N, N], dim=-1)
+    args = (rn(B, S, di) - 1.0, rn(di, scale=0.5), x, z, rn(di), bm, cm,
+            -torch.exp(rn(di, N)))
+    before = (kms.mamba_scan.launches, kms.mamba_scan_fused.launches)
+    y, h = ops.mamba_scan_fused(*args)
+    torch.cuda.synchronize()
+    assert (kms.mamba_scan.launches, kms.mamba_scan_fused.launches) == (
+        before[0] + 1, before[1] + 1)
+    wy, wh = ref.mamba_scan_fused_ref(*args)
+    assert y.dtype == dt and y.shape == wy.shape
+    torch.testing.assert_close(h, wh, atol=2e-5, rtol=2e-5)
+    if x_dtype == "float32":
+        torch.testing.assert_close(y, wy, atol=2e-5, rtol=2e-5)
+    else:
+        assert _bf16_excess(y, wy).max().item() <= 1.0

@@ -115,6 +115,81 @@ def test_mamba_scan_plain_matches_reference_oracle(B, S, di, N):
     np.testing.assert_allclose(h.numpy(), h64, atol=2e-5, rtol=2e-5)
 
 
+def _fused_inputs(B, S, di, N, cdt, seed, dt_rank=7):
+    """The fused entry's operands as ``_mamba_inner`` passes them: x in the
+    compute dtype, z the second half of one [B,S,2di] product (a strided
+    view), B and C column slices of one f32 projection."""
+    r = np.random.default_rng(seed)
+    xz = torch.as_tensor(r.standard_normal((B, S, 2 * di)),
+                         dtype=torch.float32).to(getattr(torch, cdt))
+    x, z = torch.chunk(xz, 2, dim=-1)
+    proj = torch.as_tensor(r.standard_normal((B, S, dt_rank + 2 * N)),
+                           dtype=torch.float32)
+    _, bm, cm = torch.split(proj, [dt_rank, N, N], dim=-1)
+    dt_lin = torch.as_tensor(r.standard_normal((B, S, di)) - 1.0,
+                             dtype=torch.float32)
+    bias = torch.as_tensor(r.standard_normal(di) * 0.5, dtype=torch.float32)
+    d_skip = torch.as_tensor(r.standard_normal(di), dtype=torch.float32)
+    a = -torch.exp(torch.as_tensor(r.standard_normal((di, N)),
+                                   dtype=torch.float32))
+    return dt_lin, bias, x.contiguous(), z, d_skip, bm, cm, a
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,di,N", [(2, 70, 96, 16), (1, 33, 40, 8)])
+def test_mamba_scan_fused_plain_is_the_mixers_ops(cdt, B, S, di, N):
+    """The fused entry's plain version, and ``ops.mamba_scan_fused`` on
+    CPU tensors, are bit for bit the op sequence the mixer ran around the
+    scan before the passes were fused (softplus of dt_lin + bias, the
+    f32 scan, skip, silu gate, rounding), with z a strided view."""
+    dt_lin, bias, x, z, d_skip, bm, cm, a = _fused_inputs(B, S, di, N, cdt,
+                                                          seed=di + S)
+    assert not z.is_contiguous() and not bm.is_contiguous()
+    dt = torch.logaddexp(dt_lin + bias.float(), torch.zeros(()))
+    xf = x.float()
+    y, h = ref.mamba_scan_ref(dt, xf, bm, cm, a)
+    y = y + d_skip * xf
+    y = (y * torch.nn.functional.silu(z.float())).to(x.dtype)
+    got = ref.mamba_scan_fused_ref(dt_lin, bias, x, z, d_skip, bm, cm, a)
+    via_ops = ops.mamba_scan_fused(dt_lin, bias, x, z, d_skip, bm, cm, a)
+    for gy, gh in (got, via_ops):
+        assert gy.dtype == x.dtype and torch.equal(gy, y)
+        assert torch.equal(gh, h)
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_mamba_scan_fused_plain_matches_reference(cdt):
+    """The fused entry's plain version against the same steps of the
+    reference's ``_mamba_inner`` in JAX (softplus, the oracle's scan,
+    skip, gate, rounding) on the same numpy inputs, at ``MIXER_TOL``."""
+    args = _fused_inputs(2, 70, 96, 16, cdt, seed=21)
+    dt_lin, bias, x, z, d_skip, bm, cm, a = (
+        jnp.asarray(t.float().numpy()) for t in args)
+    jdt = getattr(jnp, cdt)
+    xj, zj = x.astype(jdt), z.astype(jdt)
+    dt = jax.nn.softplus(dt_lin + bias)
+    xf = xj.astype(jnp.float32)
+    want = jref.mamba_scan_ref(dt, xf, bm, cm, a)
+    want = ((want + d_skip * xf) * jax.nn.silu(zj.astype(jnp.float32))
+            ).astype(jdt)
+    got, _ = ops.mamba_scan_fused(*args)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=MIXER_TOL[cdt], rtol=MIXER_TOL[cdt])
+
+
+def test_mamba_scan_fused_dispatch():
+    """CPU tensors take the fused entry's plain version and launch
+    nothing; the CUDA wrapper raises on them (no fallback)."""
+    args = _fused_inputs(1, 8, 16, 16, "bfloat16", seed=0)
+    before = (kms.mamba_scan.launches, kms.mamba_scan_fused.launches)
+    y, h = ops.mamba_scan_fused(*args)
+    assert (kms.mamba_scan.launches, kms.mamba_scan_fused.launches) == before
+    assert y.dtype == torch.bfloat16 and h.shape == (1, 16, 16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kms.mamba_scan_fused(*args)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """On the CPU the ops take the plain versions and launch nothing; the
     CUDA wrappers raise on CPU tensors (no fallback)."""
