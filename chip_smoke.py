@@ -9,21 +9,27 @@ Phases, each of which must pass or the script exits non-zero:
    SM clock (for the special-function unit's rate) from nvidia-smi;
 2. build: every hand-written kernel from ``src/repro_torch/csrc`` into
    ``build/`` (one ``nvcc`` per source, all at once), with the compiler's
-   register / shared-memory / spill report, K1's (forward and backward)
-   and K5's tensor-core kernels', K3's gather's, K4's vector backward's
-   and K6's picked out: none may spill (K6: its N = 16 instances);
+   register / shared-memory / spill report, K1's (forward and backward),
+   K2's and K5's tensor-core kernels', K3's gather's, K4's vector forward's
+   and backward's and K6's picked out: none may spill (K6: its N = 16
+   instances);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the serving and training paths give it (K1 forward on both
    routes, also with bf16 weights passed in; its backward on both routes
    at the train, decode and ragged shapes and at d = 192, F = 320, the
    tensor-core route also against its rounding model and repeated bit for
-   bit; K2 masked similarity, K3 row gather (int64 and int32 index) and
-   its backward, the group-local entry bit for bit the general one), then
+   bit; K2 masked similarity on both routes (bf16 rows on the tensor
+   cores, f32 on FMAs) repeating bit for bit with skipped tiles zero, and
+   its fused entry, the skip rules in the kernel, with every unmeasured
+   entry and the measured fractions bit for bit its plain version; K3 row
+   gather (int64 and int32 index) and its backward, the group-local entry
+   bit for bit the general one), then
    timed (CUDA events, and profiler device time where the host's time
    could hide the kernel's) beside the plain version, a PyTorch yardstick
    (K1: f32 and bf16 bmm, in turns; the bf16 weight cast timed on its
    own; K1's backward in turns with its FMA route and the f32 and bf16
-   bmm composites; K3: index_select) and its bound;
+   bmm composites; K3: index_select; K2: both entries and the f32 route)
+   and its bound;
 4. slice: full-width moe-gpt2 (16 experts, random weights from a seed)
    served through the port's launcher, ``repro_torch.launch.serve``:
    batched prefill (warm-up + timed), step-wise prompt feed into the KV
@@ -38,8 +44,9 @@ Phases, each of which must pass or the script exits non-zero:
    ``repro_torch.launch.train`` (B=8, S=1024, condensation with the
    adaptive threshold, AdamW, 6 steps, so the rate bucket switches from
    step 3 on). Losses must be finite, the bucket must switch, and K1
-   forward, K1 backward, K2, K3 and K3's backward must have launched as
-   many times as the path calls them (the per-layer recompute included),
+   forward, K1 backward, K2 (every launch through its fused entry), K3
+   and K3's backward must have launched as many times as the path calls
+   them (the per-layer recompute included),
    and each expert weight tensor must have been cast to bf16 once per
    step (the recompute and the backward read the forward's copy), its
    second bf16 term made once per step by the backward.
@@ -57,9 +64,9 @@ Phases, each of which must pass or the script exits non-zero:
     its backward kernel against their plain versions on the card, at the
     expert-parallel train shape (8192 token rows of 768, 4 ranks x 2 nodes
     x 2048 wire slots) and at d=33 with empty slots; bitwise for the
-    forward, then timed beside the plain version, the PyTorch composite
-    (index_select, then the codec) and the byte bound (the backward also
-    by profiler device time);
+    forward, then timed (CUDA events, profiler device time and the
+    wrapper's host time a call) beside the plain version, the PyTorch
+    composite (index_select, then the codec) and the byte bound;
 11. EP train: full-width, full-depth moe-gpt2 trained expert-parallel over
     4 virtual ranks (2 nodes x 2) through ``repro_torch.launch.train
     --model-axis 4 --comm-mode hier --nodes 2 --hier-dedup on --wire-dtype
@@ -159,6 +166,7 @@ K2_GROUPS, K2_G = 64, 128
 K3_T = 8192
 K3_REPS_PER_GROUP = 9
 K2_TOL = 1e-5          # f32 sums of the same rows in another order
+K2_S1, K2_S2 = 0.8, 0.2   # the skip rules' thresholds (LuffyConfig's)
 
 TRAIN_ARGS = ["--arch", "moe-gpt2", "--steps", "6", "--global-batch", "8",
               "--seq-len", "1024", "--device", "cuda", "--seed", "0"]
@@ -259,6 +267,20 @@ def device_ms(fn, n: int = 20) -> float:
     return _per_call_ms(_device_rows(prof), n)
 
 
+def _host_us(fn, iters: int = 200) -> float:
+    """Host time per call of ``fn`` over calls that are not synchronised
+    (a wrapper's own cost while the card keeps up)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
+
+
 def _per_call_ms(rows, n: int) -> float:
     """Device ms per call from the profiler's (us, name, count) rows of n
     calls: each kernel's mean duration times its launches per call. The
@@ -337,7 +359,9 @@ def phase_build():
           for k, src, sym in (("K1", "expert_ffn", "ffn_wgmma_kernel"),
                               ("K1_bwd", "expert_ffn_bwd",
                                "bwd_wgmma_kernel"),
+                              ("K2", "similarity", "sim_wgmma_kernel"),
                               ("K3", "condense", "gather_kernel"),
+                              ("K4", "pack", "pack_quant_kernel"),
                               ("K4_bwd", "pack", "pack_quant_bwd_kernel"),
                               ("K5", "flash_attn", "flash_wgmma_kernel"),
                               ("K6", "mamba_scan", "mamba_scan_kernel"))}
@@ -698,44 +722,143 @@ def phase_kernels_train():
 
     # ---- K2: 64 groups of [128, 768]; the mask is the first block's
     # same-expert mask (16 experts), plus whole groups with nothing to
-    # measure, whose tiles the kernel skips
+    # measure, whose tiles the kernel skips. bf16 rows take the tensor
+    # cores (route "wgmma"), f32 rows the FMA kernel
     r = np.random.default_rng(11)
-    expert = torch.as_tensor(r.integers(0, E, (K2_GROUPS, K2_G)),
-                             device="cuda")
+    top2 = torch.as_tensor(r.integers(0, E, (K2_GROUPS * K2_G, 2)),
+                           device="cuda")
+    expert = top2[:, 0].reshape(K2_GROUPS, K2_G)   # the path's strided ids
     mask = expert[:, :, None] == expert[:, None, :]
     mask[::4] = False
     checks, timed = [], {}
+    xs = {}
     for x_name in ("float32", "bfloat16"):
         x = torch.randn((K2_GROUPS, K2_G, D), generator=gen,
                         device="cuda").to(getattr(torch, x_name))
+        xs[x_name] = x
+        rt = ksim.route(x.dtype, D)
         got = ksim.masked_similarity(x, mask)
         torch.cuda.synchronize()
         want = ref.masked_similarity_ref(x, mask)
         err = (got - want).abs().max().item()
         skipped_zero = bool(torch.all(got[::4] == 0))
-        ok = err <= K2_TOL and skipped_zero
-        checks.append(dict(x=x_name, max_abs_err=err, ok=ok))
-        log(f"  K2 [{K2_GROUPS}x{K2_G},{D}] x={x_name:8s}: max|err|="
-            f"{err:.3e} tol={K2_TOL:g}, skipped tiles zero: {skipped_zero} "
-            f"{'ok' if ok else 'FAIL'}")
-        if x_name == "bfloat16":
-            ms = time_ms(lambda: ksim.masked_similarity(x, mask), 50)
-            plain_ms = time_ms(lambda: ref.masked_similarity_ref(x, mask),
-                               50)
-            tiles = mask.reshape(K2_GROUPS, 2, 64, 2, 64).any(dim=(2, 4))
-            n_tiles = int(tiles.sum())
-            nbytes = (x.numel() * x.element_size() + mask.numel()
-                      + 4 * mask.numel())
-            flops = n_tiles * 64 * 64 * D * 2.0        # this run's tiles
-            timed = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                         computed_tiles=n_tiles, **_bound(nbytes, flops),
-                         max_abs_err=err)
-            log(f"  K2 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-                f"{n_tiles} of {tiles.numel()} tiles computed; bound "
-                f"{timed['bound_ms']:.4f} ms by {timed['bound_by']}")
+        again = bool(torch.equal(ksim.masked_similarity(x, mask), got))
+        ok = err <= K2_TOL and skipped_zero and again
+        checks.append(dict(x=x_name, route=rt, max_abs_err=err,
+                           repeat_bitwise=again, ok=ok))
+        log(f"  K2 [{K2_GROUPS}x{K2_G},{D}] x={x_name:8s} ({rt}): max|err|="
+            f"{err:.3e} tol={K2_TOL:g}, skipped tiles zero: {skipped_zero}, "
+            f"repeats {again} {'ok' if ok else 'FAIL'}")
     if not all(c["ok"] for c in checks):
         raise SystemExit(f"K2 disagrees with its plain version: {checks}")
+    # the fused entry (the skip rules in the kernel), as fast_similarity
+    # calls it: the first block's s_prev (0.5: every same-expert pair
+    # measured) and a carried one with pairs known high and known low,
+    # from rows near 16 centres
+    xb = xs["bfloat16"]
+    centres = torch.randn((E, D), generator=gen, device="cuda")
+    cid = torch.as_tensor(r.integers(0, E, (K2_GROUPS, K2_G)), device="cuda")
+    x0 = centres[cid] + 0.6 * torch.randn((K2_GROUPS, K2_G, D),
+                                          generator=gen, device="cuda")
+    first = torch.full((K2_GROUPS, K2_G, K2_G), 0.5, device="cuda")
+    carried = ref.masked_similarity_fused_ref(x0, expert, first, K2_S1,
+                                              K2_S2)[0].contiguous()
+    same = expert[:, :, None] == expert[:, None, :]
+    fused_checks = []
+    for sp_name, sp in (("first", first), ("carried", carried),
+                        ("none", None)):
+        for x_name, x in (("bfloat16", xb), ("float32", xs["float32"])):
+            sim, frac = ksim.masked_similarity_fused(x, expert, sp, K2_S1,
+                                                     K2_S2)
+            torch.cuda.synchronize()
+            want, wfrac = ref.masked_similarity_fused_ref(x, expert, sp,
+                                                          K2_S1, K2_S2)
+            measured = same if sp is None else \
+                same & ~(sp > K2_S1) & ~(sp < K2_S2)
+            exact = bool(torch.equal(sim[~measured], want[~measured]))
+            err = (sim[measured] - want[measured]).abs().max().item()
+            frac_eq = bool(torch.equal(frac, wfrac))
+            again = ksim.masked_similarity_fused(x, expert, sp, K2_S1, K2_S2)
+            rep = bool(torch.equal(again[0], sim)
+                       and torch.equal(again[1], frac))
+            ok = exact and err <= K2_TOL and frac_eq and rep
+            fused_checks.append(dict(
+                s_prev=sp_name, x=x_name, route=ksim.route(x.dtype, D),
+                measured_share=measured.float().mean().item(),
+                unmeasured_bitwise=exact, max_abs_err=err,
+                measured_frac_bitwise=frac_eq, repeat_bitwise=rep, ok=ok))
+            log(f"  K2 fused s_prev={sp_name:7s} x={x_name:8s}: measured "
+                f"{measured.float().mean().item():.4f} of the pairs, the "
+                f"rest bitwise {exact}, measured max|err|={err:.3e} tol="
+                f"{K2_TOL:g}, measured_frac bitwise {frac_eq}, repeats "
+                f"{rep} {'ok' if ok else 'FAIL'}")
+    if not all(c["ok"] for c in fused_checks):
+        raise SystemExit(f"K2's fused entry disagrees with its plain "
+                         f"version: {fused_checks}")
+    # timed at bf16 (the path's rows), both entries, by profiler device
+    # time. The bound counts what this mask needs: the rows of the groups
+    # with an entry to measure (a skipped tile loads none), the products
+    # of the 64 x 64 tiles with one, all of the mask and the output
+    tiles = mask.reshape(K2_GROUPS, 2, 64, 2, 64).any(dim=(2, 4))
+    n_tiles = int(tiles.sum())
+    live_groups = int(mask.any(dim=(1, 2)).sum())
+    x = xb
+    contract = lambda: ksim.masked_similarity(x, mask)      # noqa: E731
+    fused = lambda: ksim.masked_similarity_fused(           # noqa: E731
+        x, expert, carried, K2_S1, K2_S2)
+    ms = time_ms(contract, 50)
+    dev = device_ms(contract, 50)
+    f32_dev = device_ms(lambda: ksim.masked_similarity(xs["float32"], mask),
+                        20)
+    plain_ms = time_ms(lambda: ref.masked_similarity_ref(x, mask), 50)
+    nbytes = (live_groups * K2_G * D * x.element_size() + mask.numel()
+              + 4 * mask.numel())
+    flops = n_tiles * 64 * 64 * D * 2.0        # this run's tiles
+    timed = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, library_ms=None,
+                 route=ksim.route(x.dtype, D),
+                 tile=ksim.TILES[ksim.route(x.dtype, D)],
+                 computed_tiles=n_tiles, live_groups=live_groups,
+                 **_bound(nbytes, flops, BF16_TC_FLOPS),
+                 device_ms_f32_route=f32_dev,
+                 max_abs_err=max(c["max_abs_err"] for c in checks))
+    timed["bound_share_device"] = timed["bound_ms"] / dev
+    log(f"  K2 bf16 ({timed['route']}, {timed['tile']} tiles): {dev:.4f} ms "
+        f"of device time ({100 * timed['bound_share_device']:.1f}% of the "
+        f"bound), events {ms:.4f} ms, plain {plain_ms:.4f} ms; f32 route "
+        f"{f32_dev:.4f} ms device; {n_tiles} of {tiles.numel()} 64 x 64 "
+        f"tiles and {live_groups} of {K2_GROUPS} groups live; bound "
+        f"{timed['bound_ms']:.4f} ms by {timed['bound_by']} at the bf16 "
+        f"tensor-core rate ({nbytes / 1e6:.2f} MB), "
+        f"{timed['bound_f32_ms']:.4f} at f32 FMA")
     out["masked_similarity"] = dict(timed, checks=checks)
+    # the fused entry at the carried s_prev: rows of the groups with a pair
+    # to measure, expert ids, s_prev in, similarity and fractions out
+    f_meas = same & ~(carried > K2_S1) & ~(carried < K2_S2)
+    f_tiles = int(f_meas.reshape(K2_GROUPS, 2, 64, 2, 64)
+                  .any(dim=(2, 4)).sum())
+    f_groups = int(f_meas.any(dim=(1, 2)).sum())
+    f_ms = time_ms(fused, 50)
+    f_dev = device_ms(fused, 50)
+    f_plain = time_ms(lambda: ref.masked_similarity_fused_ref(
+        x, expert, carried, K2_S1, K2_S2), 50)
+    f_bytes = (f_groups * K2_G * D * x.element_size() + expert.numel() * 8
+               + 4 * carried.numel() + 4 * carried.numel()
+               + 4 * K2_GROUPS)
+    f_flops = f_tiles * 64 * 64 * D * 2.0
+    rec = dict(ms=f_ms, device_ms=f_dev, plain_ms=f_plain, library_ms=None,
+               route=ksim.route(x.dtype, D),
+               tile=ksim.TILES[ksim.route(x.dtype, D)],
+               computed_tiles=f_tiles, live_groups=f_groups,
+               **_bound(f_bytes, f_flops, BF16_TC_FLOPS),
+               max_abs_err=max(c["max_abs_err"] for c in fused_checks))
+    rec["bound_share_device"] = rec["bound_ms"] / f_dev
+    log(f"  K2 fused (carried s_prev): {f_dev:.4f} ms of device time "
+        f"({100 * rec['bound_share_device']:.1f}% of the bound), events "
+        f"{f_ms:.4f} ms, plain (the op sequence it replaces) {f_plain:.4f} "
+        f"ms; {f_tiles} of {K2_GROUPS * 4} 64 x 64 tiles and {f_groups} "
+        f"groups live; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+        f"({f_bytes / 1e6:.2f} MB)")
+    out["masked_similarity_fused"] = dict(rec, checks=fused_checks)
 
     # ---- K3: [8192, 768] bf16 rows (the residual stream's type); the
     # path's map is the un-condense map of 64 groups of 128 tokens, each
@@ -1008,6 +1131,7 @@ def _kernel_counters():
             "mamba_scan_fused": kms.mamba_scan_fused,
             "expert_ffn_bwd": kexp.expert_ffn_bwd,
             "masked_similarity": ksim.masked_similarity,
+            "masked_similarity_fused": ksim.masked_similarity_fused,
             "gather_rows": kcond.gather_rows,
             "gather_rows_bwd": kcond.gather_rows_bwd,
             "pack_quant": kpack.pack_quant,
@@ -1034,8 +1158,10 @@ def phase_train():
     cfg, steps = res["cfg"], res["steps"]
     n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
     fwd = n_moe * (2 if cfg.remat else 1) * len(steps)   # + recompute
+    # K2: every launch through the fused entry (fast_similarity)
     want = {"expert_ffn": fwd, "expert_ffn_bwd": n_moe * len(steps),
-            "masked_similarity": fwd, "gather_rows": fwd,
+            "masked_similarity": fwd, "masked_similarity_fused": fwd,
+            "gather_rows": fwd,
             "gather_rows_bwd": n_moe * len(steps), "pack_quant": 0,
             "pack_cast": 0, "pack_quant_bwd": 0, "flash_attention": 0,
             "mamba_scan": 0, "mamba_scan_fused": 0}
@@ -1231,7 +1357,7 @@ KERNEL_OPS = {"expert_ffn": ("gate_up_kernel", "down_kernel",
                              "ffn_wgmma_kernel"),
               "expert_ffn_bwd": ("hidden_kernel", "wgrad_kernel",
                                  "dh_kernel", "bwd_wgmma_kernel"),
-              "masked_similarity": ("sim_kernel",),
+              "masked_similarity": ("sim_kernel", "sim_wgmma_kernel"),
               "gather_rows": ("gather_kernel",),
               "gather_rows_bwd": ("segment_sum_kernel", "group_sum_kernel")}
 
@@ -1369,20 +1495,26 @@ def phase_kernels_k4():
     in_bytes = n_rows * D * x.element_size() + R * 4
     for wire, rec_name in (("f8e4m3", "pack_quantize_f8"),
                            ("bf16", "pack_quantize_cast")):
-        ms = time_ms(lambda: kpack.pack_quantize(x, tok, wire), 50)
+        fn = lambda: kpack.pack_quantize(x, tok, wire)      # noqa: E731
+        ms = time_ms(fn, 50)
+        dev = device_ms(fn, 50)
+        host_us = _host_us(fn)
         plain_ms = time_ms(lambda: ref.pack_quantize_ref(x, tok, wire), 50)
         lib_ms = time_ms(lambda: wdt.quantize_rows(
             x.index_select(0, tok.clamp(min=0).long()), wire), 50)
         out_bytes = (R * d_pad + R * (d_pad // 32) * 4 if wire == "f8e4m3"
                      else R * D * 2)
-        out[rec_name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             rows=R, filled_rows=n_rows,
-                             **_bound(in_bytes + out_bytes, 0.0),
-                             max_abs_err=0.0)
+        rec = dict(ms=ms, device_ms=dev, host_us=host_us, plain_ms=plain_ms,
+                   library_ms=lib_ms, rows=R, filled_rows=n_rows,
+                   **_bound(in_bytes + out_bytes, 0.0), max_abs_err=0.0)
+        rec["bound_share_device"] = rec["bound_ms"] / dev
+        out[rec_name] = rec
         log(f"  K4 {wire} [{K4_M * K4_T},{D}] bf16 -> {R} wire rows "
-            f"({n_rows} filled): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, index_select+codec {lib_ms:.4f} ms; bound "
-            f"{out[rec_name]['bound_ms']:.4f} ms by bytes")
+            f"({n_rows} filled): {dev:.4f} ms of device time "
+            f"({100 * rec['bound_share_device']:.1f}% of the bound), events "
+            f"{ms:.4f} ms, the wrapper's host time {host_us:.1f} us a call; "
+            f"plain {plain_ms:.4f} ms, index_select+codec {lib_ms:.4f} ms; "
+            f"bound {rec['bound_ms']:.4f} ms by bytes")
     # the backward kernel: the f8 codec's transpose at the same rows, at
     # the cotangent scales the CPU codec test uses. At 1 most of the
     # payload's cotangent f8(g * scale) is nonzero on the filled rows; at
@@ -1474,7 +1606,8 @@ def _ep_expected(cfg, n_steps: int, f8: bool):
     fwd = n_moe * (2 if cfg.remat else 1) * n_steps     # + recompute
     bwd = n_moe * n_steps
     return {"expert_ffn": fwd, "expert_ffn_bwd": bwd,
-            "masked_similarity": fwd, "gather_rows": fwd,
+            "masked_similarity": fwd, "masked_similarity_fused": fwd,
+            "gather_rows": fwd,
             "gather_rows_bwd": bwd, "pack_quant": fwd if f8 else 0,
             "pack_cast": 0 if f8 else fwd,
             # the dispatch pack's and the combine partials' codec
@@ -1724,7 +1857,8 @@ def phase_ep_profile():
         objectives.plan_migration_with_objective = plan_orig
     rows = _device_rows(prof)
     busy = sum(r[0] for r in rows)
-    ops = dict(KERNEL_OPS, pack_quant=("pack_quant_kernel",),
+    ops = dict(KERNEL_OPS, pack_quant=("pack_quant_kernel",
+                                       "pack_quant_scalar_kernel"),
                pack_cast=("pack_cast_kernel",),
                pack_quant_bwd=("pack_quant_bwd_kernel",))
     shares = {k: sum(d for d, key, _ in rows if any(n in key for n in o))
@@ -2261,7 +2395,29 @@ def main() -> int:
         _record("masked_similarity", "src/repro_torch/csrc/similarity.cu",
                 "src/repro/kernels/similarity.py:81",
                 tl["masked_similarity"], timed_train["masked_similarity"],
-                {"timed_at": "64 groups of [128,768] bf16 rows"}),
+                {"launches_note": "both entries; on the train and EP paths "
+                                  "every launch is the fused entry's",
+                 "timed_at": "64 groups of [128,768] bf16 rows, the "
+                             "contract entry (a mask); bound at the bf16 "
+                             "tensor-core rate",
+                 **{k: timed_train["masked_similarity"][k] for k in (
+                     "device_ms", "route", "tile", "bound_share_device",
+                     "bound_f32_ms", "device_ms_f32_route", "live_groups",
+                     "checks")},
+                 "ptxas_tensor_core_kernel": tc_ptxas["K2"]}),
+        _record("masked_similarity_fused",
+                "src/repro_torch/csrc/similarity.cu",
+                "src/repro/kernels/similarity.py:81",
+                tl["masked_similarity_fused"],
+                timed_train["masked_similarity_fused"],
+                {"fuses": "the skip rules of src/repro/condense/"
+                          "backends.py:131-158 (fast_similarity)",
+                 "timed_at": "64 groups of [128,768] bf16 rows, strided "
+                             "int64 expert ids, a carried s_prev; bound at "
+                             "the bf16 tensor-core rate",
+                 **{k: timed_train["masked_similarity_fused"][k] for k in (
+                     "device_ms", "route", "tile", "bound_share_device",
+                     "live_groups", "checks")}}),
         _record("gather_rows", "src/repro_torch/csrc/condense.cu",
                 "src/repro/kernels/condense.py:26", tl["gather_rows"],
                 timed_train["gather_rows"],
@@ -2287,14 +2443,19 @@ def main() -> int:
                 "src/repro/kernels/pack.py:72", el["pack_quant"],
                 timed_k4["pack_quantize_f8"],
                 {"launches_path": "EP train, --wire-dtype f8e4m3",
-                 "timed_at": "[8192,768] bf16 rows -> 4x2x2048 wire rows"}),
+                 "timed_at": "[8192,768] bf16 rows -> 4x2x2048 wire rows",
+                 **{k: timed_k4["pack_quantize_f8"][k] for k in (
+                     "device_ms", "host_us", "bound_share_device")},
+                 "ptxas": tc_ptxas["K4"]}),
         _record("pack_quantize_cast", "src/repro_torch/csrc/pack.cu",
                 "src/repro/kernels/pack.py:105",
                 ep_bf16["launches"]["pack_cast"],
                 timed_k4["pack_quantize_cast"],
                 {"launches_path": "EP train, --wire-dtype bf16",
                  "timed_at": "[8192,768] bf16 rows -> 4x2x2048 bf16 wire "
-                             "rows"}),
+                             "rows",
+                 **{k: timed_k4["pack_quantize_cast"][k] for k in (
+                     "device_ms", "host_us", "bound_share_device")}}),
         _record("pack_quantize_bwd", "src/repro_torch/csrc/pack.cu",
                 "src/repro/kernels/pack.py:72 (no Pallas backward; XLA "
                 "transposes the reference's jnp codec)",
@@ -2343,7 +2504,7 @@ def main() -> int:
                  "prefill_tokens_per_s": hymba_prof["tokens_per_s"],
                  "checks": timed_k56["mamba_scan_fused"]["checks"]}),
     ]
-    for rec in records[:5]:
+    for rec in records[:6]:
         rec["launches_ep_train"] = el[rec["name"]]
     log(f"total {time.perf_counter() - t_start:.1f}s on {smi}")
     print(smi, flush=True)

@@ -3,12 +3,12 @@
 :mod:`repro_torch.condense`."""
 from __future__ import annotations
 
-from repro_torch.condense.backends import fast_similarity, pairwise_cosine
+from repro_torch.condense.backends import fast_similarity
 from repro_torch.condense.plan import (CondenseOutput, _components_and_reps,
                                        adaptive_threshold, condense_tokens,
                                        uncondense)
 
 __all__ = [
     "CondenseOutput", "_components_and_reps", "adaptive_threshold",
-    "condense_tokens", "fast_similarity", "pairwise_cosine", "uncondense",
+    "condense_tokens", "fast_similarity", "uncondense",
 ]

@@ -19,10 +19,18 @@
 // the scale keeps |x / scale| <= 448). This file must not be built with
 // --use_fast_math.
 //
-// Design: one block per wire row. f8: 8 warps, each warp takes one
-// 32-element scale block at a time, one element per lane, the block's
-// amax by a butterfly of warp shuffles. cast: the block's threads stride
-// over the row. tok is read once per block.
+// Design (f8, pack_quant_kernel, d a multiple of 8): one warp per wire
+// row, eight rows per block; a lane holds 8 consecutive elements (one
+// 16-byte load of bf16, two of f32), so 4 lanes share a 32-element scale
+// block and its amax takes two shuffle levels; the payload goes out 8
+// bytes a lane, the scale from one lane in four; tok is read once per
+// warp. An empty slot (-1; about three quarters of the expert-parallel
+// path's slots) loads nothing and writes its zero row and 1.0 scales in
+// 16-byte stores. pack_quant_scalar_kernel (one block per row, one
+// element per lane, the amax by a butterfly over the warp) takes any other
+// d. cast (pack_cast_kernel): one block per row, its threads striding over
+// the row; at the path's shape it runs at about two thirds of its byte
+// bound by device time, so it kept its first design.
 //
 // The backward (pack_quant_bwd_kernel) is the port's own: the reference
 // trains through its jnp path, whose gradient JAX forms by transposing
@@ -104,11 +112,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// f8, any d: one block per wire row, one element per lane
 template <typename T>
 __global__ void __launch_bounds__(NT)
-pack_quant_kernel(const T* __restrict__ x, const int* __restrict__ tok,
-                  uint8_t* __restrict__ q, float* __restrict__ sc,
-                  int n_src, int d, int d_pad) {
+pack_quant_scalar_kernel(const T* __restrict__ x, const int* __restrict__ tok,
+                         uint8_t* __restrict__ q, float* __restrict__ sc,
+                         int n_src, int d, int d_pad) {
   const int row = blockIdx.x;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int t = tok[row];
@@ -299,6 +308,75 @@ pack_quant_bwd_kernel(const T* __restrict__ x, const int* __restrict__ tok,
   }
 }
 
+constexpr int FWD_ROWS = 8;    // rows per block of the vector forward
+constexpr int FWD_PASSES = 4;  // 256-element passes of a row held in flight
+
+// f8, d a multiple of 8 and every source row 16-byte aligned: one warp per
+// wire row; a lane holds 8 consecutive elements, so 4 lanes share a scale
+// block; the payload goes out 8 bytes a lane and one lane in four writes
+// the scale. An empty slot loads nothing and writes its zero payload and
+// its 1.0 scales in 16-byte stores.
+template <typename T>
+__global__ void __launch_bounds__(FWD_ROWS * 32)
+pack_quant_kernel(const T* __restrict__ x, const int* __restrict__ tok,
+                  uint8_t* __restrict__ q, float* __restrict__ sc, int R,
+                  int n_src, int d, int d_pad) {
+  constexpr int W = sizeof(T) / 2;  // 16-byte words per lane per pass
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * FWD_ROWS + threadIdx.x / 32;
+  if (row >= R) return;
+  const int t = tok[row];
+  if (t >= n_src) __trap();  // an index out of range is a bug
+  const int nb = d_pad / BLOCK;
+  uint8_t* qr = q + (size_t)row * d_pad;
+  float* sr = sc + (size_t)row * nb;
+  if (t < 0) {
+    for (int c = 16 * lane; c < d_pad; c += 512)
+      *reinterpret_cast<uint4*>(qr + c) = make_uint4(0, 0, 0, 0);
+    if (nb % 4 == 0) {  // the row's scales start 16-byte aligned
+      for (int b = 4 * lane; b < nb; b += 128)
+        *reinterpret_cast<float4*>(sr + b) = make_float4(1.f, 1.f, 1.f, 1.f);
+    } else {
+      for (int b = lane; b < nb; b += 32) sr[b] = 1.0f;
+    }
+    return;
+  }
+  const T* xr = x + (size_t)t * d;
+  for (int base = 0; base < d_pad; base += 256 * FWD_PASSES) {
+    uint4 xw[FWD_PASSES][W];
+#pragma unroll
+    for (int u = 0; u < FWD_PASSES; ++u) {
+      const int c = base + 256 * u + 8 * lane;
+#pragma unroll
+      for (int k = 0; k < W; ++k)
+        xw[u][k] = c < d ? reinterpret_cast<const uint4*>(xr + c)[k]
+                         : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < FWD_PASSES; ++u) {
+      const int c = base + 256 * u + 8 * lane;
+      if (base + 256 * u >= d_pad) break;  // the whole warp's pass lies past
+      float v[8];
+      unpack8<T>(xw[u], v);
+      float amax = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(v[i]));
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+      const float s = amax > 0.0f ? __fmul_rn(amax, F8_INV) : 1.0f;
+      uint32_t w[2] = {0, 0};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        w[i / 4] |= static_cast<uint32_t>(f32_to_e4m3fn(__fdiv_rn(v[i], s)))
+                    << (8 * (i % 4));
+      if (c < d_pad) {
+        *reinterpret_cast<uint2*>(qr + c) = make_uint2(w[0], w[1]);
+        if (lane % 4 == 0) sr[c / BLOCK] = s;
+      }
+    }
+  }
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -318,12 +396,26 @@ extern "C" int pack_quant_launch(const void* x, const void* tok, void* q,
   const int* tk = static_cast<const int*>(tok);
   uint8_t* qo = static_cast<uint8_t*>(q);
   float* so = static_cast<float*>(sc);
-  if (bf16)
-    pack_quant_kernel<__nv_bfloat16><<<R, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), tk, qo, so, n_src, d, d_pad);
-  else
-    pack_quant_kernel<float><<<R, NT, 0, s>>>(
-        static_cast<const float*>(x), tk, qo, so, n_src, d, d_pad);
+  const bool vec = d % 8 == 0 && aligned16(x) && aligned16(q) &&
+                   aligned16(sc);
+  const int blocks = (R + FWD_ROWS - 1) / FWD_ROWS;
+  if (bf16) {
+    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+    if (vec)
+      pack_quant_kernel<__nv_bfloat16><<<blocks, FWD_ROWS * 32, 0, s>>>(
+          xb, tk, qo, so, R, n_src, d, d_pad);
+    else
+      pack_quant_scalar_kernel<__nv_bfloat16><<<R, NT, 0, s>>>(
+          xb, tk, qo, so, n_src, d, d_pad);
+  } else {
+    const float* xf = static_cast<const float*>(x);
+    if (vec)
+      pack_quant_kernel<float><<<blocks, FWD_ROWS * 32, 0, s>>>(
+          xf, tk, qo, so, R, n_src, d, d_pad);
+    else
+      pack_quant_scalar_kernel<float><<<R, NT, 0, s>>>(xf, tk, qo, so, n_src,
+                                                       d, d_pad);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -37,6 +37,12 @@ def masked_similarity(x, mask):
     return _similarity.masked_similarity(x, mask)
 
 
+def masked_similarity_fused(x, expert, s_prev, s1: float, s2: float):
+    if _device(x, "masked_similarity_fused") == "cpu":
+        return ref.masked_similarity_fused_ref(x, expert, s_prev, s1, s2)
+    return _similarity.masked_similarity_fused(x, expert, s_prev, s1, s2)
+
+
 def gather_rows(y, rep_idx, group_size=None):
     """``group_size`` G: rep_idx keeps every row in its group of G, and the
     card's backward sorts within groups (the plain version needs no sort)."""

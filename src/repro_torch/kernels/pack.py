@@ -29,19 +29,30 @@ def _check(x, tok):
     if x.device.type != "cuda" or tok.device != x.device:
         raise ValueError(f"x and tok must lie on one CUDA device, got "
                          f"{x.device} and {tok.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if x.dtype is not torch.float32 and x.dtype is not torch.bfloat16:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.dim() != 2 or tok.dim() != 1:
         raise ValueError(f"x must be [T, d] and tok [R], got "
                          f"{tuple(x.shape)} and {tuple(tok.shape)}")
-    return x.contiguous(), tok.to(torch.int32).contiguous()
+    if tok.dtype is not torch.int32:
+        tok = tok.to(torch.int32)
+    return x.contiguous(), tok.contiguous()
+
+
+# C entries of csrc/pack.cu by name, looked up at first use
+_ENTRIES = {}
 
 
 def _run(fn_name: str, n_ptr: int, n_int: int, x, *args):
-    fn = _build.entry("pack", fn_name, n_ptr, n_int)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*args, stream)
+    fn = _ENTRIES.get(fn_name)
+    if fn is None:
+        fn = _ENTRIES[fn_name] = _build.entry("pack", fn_name, n_ptr, n_int)
+    dev = x.device
+    if dev.index == _build.current_device():
+        rc = fn(*args, _build.raw_stream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, _build.raw_stream(dev.index))
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: cudaError {rc}")
 
@@ -53,14 +64,13 @@ def pack_quant(x, tok):
     x, tok = _check(x, tok)
     T, d = x.shape
     R, d_pad = tok.shape[0], wdt.pad_to_block(d)
-    q = torch.empty((R, d_pad), dtype=torch.uint8, device=x.device)
-    sc = torch.empty((R, d_pad // wdt.SCALE_BLOCK), dtype=torch.float32,
-                     device=x.device)
+    q = x.new_empty((R, d_pad), dtype=wdt.F8)
+    sc = x.new_empty((R, d_pad // wdt.SCALE_BLOCK), dtype=torch.float32)
     _run("pack_quant_launch", 4, 5, x, x.data_ptr(), tok.data_ptr(),
          q.data_ptr(), sc.data_ptr(), R, T, d, d_pad,
-         int(x.dtype == torch.bfloat16))
+         int(x.dtype is torch.bfloat16))
     pack_quant.launches += 1
-    return q.view(wdt.F8), sc
+    return q, sc
 
 
 pack_quant.launches = 0
@@ -71,15 +81,15 @@ def pack_cast(x, tok, out_dtype):
     ``out_dtype`` (f32 or bf16). Adds one to ``pack_cast.launches`` per
     launch."""
     x, tok = _check(x, tok)
-    if out_dtype not in (torch.float32, torch.bfloat16):
+    if out_dtype is not torch.float32 and out_dtype is not torch.bfloat16:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got "
                         f"{out_dtype}")
     T, d = x.shape
     R = tok.shape[0]
-    out = torch.empty((R, d), dtype=out_dtype, device=x.device)
+    out = x.new_empty((R, d), dtype=out_dtype)
     _run("pack_cast_launch", 3, 5, x, x.data_ptr(), tok.data_ptr(),
-         out.data_ptr(), R, T, d, int(x.dtype == torch.bfloat16),
-         int(out_dtype == torch.bfloat16))
+         out.data_ptr(), R, T, d, int(x.dtype is torch.bfloat16),
+         int(out_dtype is torch.bfloat16))
     pack_cast.launches += 1
     return out
 

@@ -89,6 +89,31 @@ def masked_similarity_ref(x, mask):
     return torch.where(mask, sim, torch.zeros((), dtype=sim.dtype))
 
 
+def masked_similarity_fused_ref(x, expert, s_prev, s1: float, s2: float):
+    """§V-A fast similarity over every group: x [NG, G, d]; expert [NG, G]
+    primary expert ids; s_prev [NG, G, G] carried similarity or None.
+    Cross-expert pairs are 0, pairs with s_prev > s1 are 1, pairs with
+    s_prev < s2 are 0, and the rest are measured by
+    :func:`masked_similarity_ref`. Returns (sim [NG, G, G] f32,
+    measured_frac [NG]). The op sequence of the reference's
+    ``repro/condense/backends.py::fast_similarity`` (exact backend)."""
+    same_expert = expert[:, :, None] == expert[:, None, :]
+    if s_prev is not None:
+        known_hi = s_prev > s1
+        uncertain = same_expert & ~known_hi & ~(s_prev < s2)
+    else:
+        known_hi = torch.zeros_like(same_expert)
+        uncertain = same_expert
+    measured = uncertain                  # the exact backend measures all
+    cos = masked_similarity_ref(x, measured)
+    zero = torch.zeros((), dtype=torch.float32, device=cos.device)
+    sim = torch.where(measured, cos, zero)
+    sim = torch.where(known_hi & same_expert, torch.ones_like(zero), sim)
+    sim = torch.where(same_expert, sim, zero)
+    measured_frac = measured.float().mean(dim=(1, 2))
+    return sim, measured_frac
+
+
 def gather_rows_ref(y, rep_idx):
     """y: [T_src, d]; rep_idx: [T] -> y[rep_idx] (differentiable)."""
     return torch.index_select(y, 0, rep_idx.to(torch.int64))

@@ -54,6 +54,118 @@ def test_masked_similarity_plain_matches_pallas(x_dtype, tol):
     np.testing.assert_array_equal(batched[0].numpy(), got)
 
 
+def _fast_similarity_ops(x, expert, s_prev, s1, s2):
+    """``condense/backends.py::fast_similarity`` as it was written before
+    K2's fused entry: the skip rules op by op around K2's contract entry."""
+    same_expert = expert[:, :, None] == expert[:, None, :]
+    if s_prev is not None:
+        known_hi = s_prev > s1
+        uncertain = same_expert & ~known_hi & ~(s_prev < s2)
+    else:
+        known_hi = torch.zeros_like(same_expert)
+        uncertain = same_expert
+    measured = uncertain
+    cos = ops.masked_similarity(x, measured)
+    zero = torch.zeros((), dtype=torch.float32, device=cos.device)
+    sim = torch.where(measured, cos, zero)
+    sim = torch.where(known_hi & same_expert, torch.ones_like(zero), sim)
+    sim = torch.where(same_expert, sim, zero)
+    return sim, measured.float().mean(dim=(1, 2))
+
+
+def _skip_rule_inputs(seed, n_groups, G, d, E, with_history):
+    """Clustered rows, top-2 expert ids read as the path reads them (a
+    strided int64 view of the first column), and a carried similarity
+    with pairs above s1, below s2, exactly at both and NaN."""
+    r = np.random.default_rng(seed)
+    x = _clustered(seed + 1, n_groups * G, d).reshape(n_groups, G, d)
+    top2 = torch.as_tensor(r.integers(0, E, (n_groups * G, 2)))
+    expert = top2[:, 0].reshape(n_groups, G)
+    s_prev = None
+    if with_history:
+        sp = r.random((n_groups, G, G)).astype(np.float32)
+        sp[0, :4, :4] = np.float32(0.8)
+        sp[0, 4:8, 4:8] = np.float32(0.2)
+        sp[0, 8, :] = np.nan
+        s_prev = torch.as_tensor(sp)
+    return x, expert, s_prev
+
+
+@pytest.mark.parametrize("with_history", [False, True])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_masked_similarity_fused_ref_is_the_op_sequence(with_history,
+                                                        x_dtype):
+    """The fused entry's plain version, CPU dispatch through ops and
+    fast_similarity itself: bit for bit the op sequence it replaced."""
+    from repro_torch.condense import backends
+    x, expert, s_prev = _skip_rule_inputs(9, 3, 96, 40, 4, with_history)
+    tx = torch.as_tensor(x).to(getattr(torch, x_dtype))
+    want = _fast_similarity_ops(tx, expert, s_prev, 0.8, 0.2)
+    for got in (ref.masked_similarity_fused_ref(tx, expert, s_prev, 0.8,
+                                                0.2),
+                ops.masked_similarity_fused(tx, expert, s_prev, 0.8, 0.2),
+                backends.fast_similarity(tx, expert, s_prev, 0.8, 0.2)):
+        assert got[0].dtype == torch.float32 and got[1].shape == (3,)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("with_history", [False, True])
+@pytest.mark.parametrize("x_dtype,tol", [("float32", 1e-5),
+                                         ("bfloat16", 2e-2)])
+def test_masked_similarity_fused_matches_pallas(with_history, x_dtype, tol):
+    """The fused entry's plain version against the reference's
+    fast_similarity with the Pallas K2 (interpret mode), vmapped over the
+    groups: measured pairs within K2's tolerance, every other entry (0
+    cross-expert, 1 known high, 0 known low) and measured_frac exact."""
+    from repro.condense import backends as jbackends
+    x, expert, s_prev = _skip_rule_inputs(12, 2, G, 64, 4, with_history)
+    jx = jnp.asarray(x).astype(x_dtype)
+    je = jnp.asarray(expert.numpy())
+
+    def one(xg, eg, sg):
+        return jbackends.fast_similarity(xg, eg, sg, 0.8, 0.2,
+                                         use_kernel=True)
+
+    if s_prev is None:
+        jsim, jfrac = jax.vmap(lambda xg, eg: one(xg, eg, None))(jx, je)
+    else:
+        jsim, jfrac = jax.vmap(one)(jx, je, jnp.asarray(s_prev.numpy()))
+    jsim, jfrac = np.asarray(jsim), np.asarray(jfrac)
+    tx = torch.as_tensor(x).to(getattr(torch, x_dtype))
+    sim, frac = ops.masked_similarity_fused(tx, expert, s_prev, 0.8, 0.2)
+    sim = sim.numpy()
+    same = (expert[:, :, None] == expert[:, None, :]).numpy()
+    measured = same.copy()
+    if s_prev is not None:
+        sp = s_prev.numpy()
+        measured &= ~(sp > 0.8) & ~(sp < 0.2)
+        assert np.all(sim[same & (sp > 0.8)] == 1.0)
+    assert 0 < measured.sum() < same.sum() or s_prev is None
+    np.testing.assert_array_equal(sim[~measured], jsim[~measured])
+    np.testing.assert_allclose(sim[measured], jsim[measured], atol=tol,
+                               rtol=0)
+    np.testing.assert_array_equal(frac.numpy(), jfrac)
+
+
+def test_masked_similarity_fused_dispatches_by_device(monkeypatch):
+    """CPU tensors take the plain version and never reach the card's
+    wrapper, whose launch count stays put."""
+    from repro_torch.kernels import similarity as ksim
+
+    def card(*a, **kw):
+        raise AssertionError("a CPU tensor reached the card's wrapper")
+
+    fused = ksim.masked_similarity_fused
+    before = (ksim.masked_similarity.launches, fused.launches)
+    monkeypatch.setattr(ksim, "masked_similarity_fused", card)
+    x, expert, s_prev = _skip_rule_inputs(3, 2, 64, 32, 3, True)
+    tx = torch.as_tensor(x)
+    got = ops.masked_similarity_fused(tx, expert, s_prev, 0.8, 0.2)
+    want = ref.masked_similarity_fused_ref(tx, expert, s_prev, 0.8, 0.2)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (ksim.masked_similarity.launches, fused.launches) == before
+
+
 def _chain(G, perm):
     adj = np.zeros((G, G), bool)
     adj[perm[:-1], perm[1:]] = True

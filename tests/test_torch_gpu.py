@@ -235,6 +235,136 @@ def test_masked_similarity_kernel_matches_plain(NG, G, d, x_dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("NG,G,d", [(64, 128, 768), (3, 96, 48),
+                                    (3, 200, 64)])
+def test_masked_similarity_tensor_cores(NG, G, d):
+    """K2's bf16 route (wgmma, 64 x 128 tiles) against its plain version at
+    1e-5, at the train path's 64 groups of [128, 768], at d not a multiple
+    of the 64-wide slab and at a ragged G; skipped tiles and masked entries
+    exactly zero; a second launch bit for bit the first."""
+    from repro_torch.kernels import similarity as ksim
+    _cuda_or_skip()
+    assert ksim.route(torch.bfloat16, d) == "wgmma"
+    r = np.random.default_rng(15)
+    x = torch.as_tensor(r.standard_normal((NG, G, d)).astype(np.float32))
+    x = x.to(torch.bfloat16).cuda()
+    mask = torch.as_tensor(r.random((NG, G, G)) < 0.4).cuda()
+    mask[1] = False                          # a group with nothing to measure
+    mask[2, :64, :] = False                  # skipped 64-row tiles
+    mask[0, :, 5] = True                     # a column measured everywhere
+    before = ksim.masked_similarity.launches
+    got = ops.masked_similarity(x, mask)
+    torch.cuda.synchronize()
+    assert ksim.masked_similarity.launches == before + 1
+    want = ref.masked_similarity_ref(x, mask)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert torch.all(got[1] == 0) and torch.all(got[~mask] == 0)
+    assert torch.all(got[2, :64] == 0)
+    assert torch.equal(ops.masked_similarity(x, mask), got)
+
+
+def _skip_rule_inputs(NG, G, d, x_dtype, history, seed=16):
+    """Rows near 8 centres, the path's strided int64 expert ids and a
+    carried similarity from the plain version of a first block (pairs
+    known high and known low), or none."""
+    r = np.random.default_rng(seed)
+    c = r.standard_normal((8, d))
+    x = c[r.integers(0, 8, (NG, G))] + 0.6 * r.standard_normal((NG, G, d))
+    x = torch.as_tensor(x.astype(np.float32)).to(getattr(torch, x_dtype))
+    top2 = torch.as_tensor(r.integers(0, 16, (NG * G, 2))).cuda()
+    expert = top2[:, 0].reshape(NG, G)
+    x = x.cuda()
+    s_prev = None
+    if history:
+        x0 = torch.as_tensor(x.float().cpu().numpy()[:, ::-1].copy()).cuda()
+        s_prev = ref.masked_similarity_fused_ref(
+            x0, expert, torch.full((NG, G, G), 0.5, device="cuda"), 0.8,
+            0.2)[0].contiguous()
+        s_prev[0, 3, :] = float("nan")
+    return x, expert, s_prev
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("NG,G,d,x_dtype,history", [
+    (64, 128, 768, "bfloat16", True),     # the train path, a carried s_prev
+    (64, 128, 768, "bfloat16", False),
+    (64, 128, 768, "float32", True),      # f32 compute: the FMA kernel
+    (5, 96, 64, "bfloat16", False),       # a ragged G, no s_prev
+    (3, 200, 64, "bfloat16", True),       # 8 tiles a group: the most
+    (3, 120, 40, "bfloat16", True)])      # the FMA kernel, a ragged G
+def test_masked_similarity_fused_matches_plain(NG, G, d, x_dtype, history):
+    """K2's fused entry against its plain version on the same card
+    tensors: measured pairs within 1e-5, every other entry (0, or 1 where
+    s_prev > s1) bit for bit, measured_frac bitwise at G = 128 and within
+    one f32 ulp elsewhere; both counters; a second launch bit for bit."""
+    from repro_torch.kernels import similarity as ksim
+    _cuda_or_skip()
+    x, expert, s_prev = _skip_rule_inputs(NG, G, d, x_dtype, history)
+    before = (ksim.masked_similarity.launches,
+              ksim.masked_similarity_fused.launches)
+    sim, frac = ops.masked_similarity_fused(x, expert, s_prev, 0.8, 0.2)
+    torch.cuda.synchronize()
+    assert (ksim.masked_similarity.launches,
+            ksim.masked_similarity_fused.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    want, wfrac = ref.masked_similarity_fused_ref(x, expert, s_prev, 0.8,
+                                                  0.2)
+    same = expert[:, :, None] == expert[:, None, :]
+    measured = same.clone()
+    if s_prev is not None:
+        measured &= ~(s_prev > 0.8) & ~(s_prev < 0.2)
+        assert bool(torch.any(same & (s_prev > 0.8)))
+    assert torch.equal(sim[~measured], want[~measured])
+    torch.testing.assert_close(sim[measured], want[measured], atol=1e-5,
+                               rtol=1e-5)
+    if G == 128:
+        assert torch.equal(frac, wfrac)
+    else:
+        torch.testing.assert_close(frac, wfrac, atol=0, rtol=1.2e-7)
+    assert torch.equal(frac.cpu(), measured.float().cpu().mean(dim=(1, 2)))
+    again = ops.masked_similarity_fused(x, expert, s_prev, 0.8, 0.2)
+    assert torch.equal(again[0], sim) and torch.equal(again[1], frac)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,d", [(264, 64), (200, 40)])
+def test_masked_similarity_fused_refuses_a_group_past_one_cluster(G, d):
+    """A group of more than 8 tiles (G > 256 on the tensor cores, G > 128
+    on the FMA kernel) does not fit one cluster: the fused entry raises
+    before it launches."""
+    from repro_torch.kernels import similarity as ksim
+    _cuda_or_skip()
+    x, expert, s_prev = _skip_rule_inputs(2, G, d, "bfloat16", False)
+    before = ksim.masked_similarity_fused.launches
+    with pytest.raises(ValueError, match="cluster"):
+        ops.masked_similarity_fused(x, expert, s_prev, 0.8, 0.2)
+    assert ksim.masked_similarity_fused.launches == before
+
+
+@pytest.mark.gpu
+def test_masked_similarity_misaligned_views():
+    """An s_prev view one float into its storage and a mask view one byte
+    into its storage (the kernels read them in 16- and 4-byte words) give
+    what their contiguous copies give."""
+    _cuda_or_skip()
+    NG, G, d = 4, 128, 64
+    x, expert, s_prev = _skip_rule_inputs(NG, G, d, "bfloat16", True)
+    sp = torch.empty(s_prev.numel() + 1, device="cuda")[1:].view_as(s_prev)
+    sp.copy_(s_prev)
+    assert sp.data_ptr() % 16
+    want = ops.masked_similarity_fused(x, expert, s_prev, 0.8, 0.2)
+    got = ops.masked_similarity_fused(x, expert, sp, 0.8, 0.2)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    mask = expert[:, :, None] == expert[:, None, :]
+    mk = torch.empty(mask.numel() + 1, dtype=torch.bool,
+                     device="cuda")[1:].view_as(mask)
+    mk.copy_(mask)
+    assert mk.data_ptr() % 4
+    assert torch.equal(ops.masked_similarity(x, mk),
+                       ops.masked_similarity(x, mask))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("T,d,n_idx", [(8192, 768, 8192), (1000, 7, 1000),
                                        (2048, 64, 32)])
@@ -344,6 +474,37 @@ def test_pack_quantize_kernel_bitwise(wire, x_dtype, T, d, R):
             x.cpu(), tok.cpu(), wire)[1])
     q2, sc2 = ops.pack_quantize(x, tok, wire)
     assert torch.equal(_u8(q2), _u8(q))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", ["empty", "full", "path"])
+@pytest.mark.parametrize("wire", ["f8e4m3", "bf16"])
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [768, 40, 33])
+def test_pack_quantize_maps_and_widths(d, x_dtype, wire, fill):
+    """K4's forward on both wires, bitwise its plain version: the vector
+    f8 kernel at d = 768 and d = 40 (a padded scale block), the scalar one
+    at d = 33, with every slot empty, every slot filled, and the path's
+    quarter filled."""
+    from repro_torch.kernels import pack as kpack
+    _cuda_or_skip()
+    r = np.random.default_rng(17)
+    T, R = 512, 1000
+    x = torch.as_tensor((r.standard_normal((T, d)) * 5).astype(np.float32))
+    x[3] = 0.0
+    x = x.to(getattr(torch, x_dtype)).cuda()
+    tok = {"empty": np.full(R, -1),
+           "full": r.integers(0, T, R),
+           "path": np.where(r.random(R) < 0.26, r.integers(0, T, R), -1)}
+    tok = torch.as_tensor(tok[fill], dtype=torch.int32).cuda()
+    tok[tok == 7] = 3                            # some all-zero rows
+    q, sc = ops.pack_quantize(x, tok, wire)
+    wq, wsc = ref.pack_quantize_ref(x, tok, wire)
+    assert q.dtype == wq.dtype and q.shape == wq.shape
+    assert torch.equal(_u8(q), _u8(wq))
+    if wire == "f8e4m3":
+        assert torch.equal(sc, wsc)
+    assert torch.equal(_u8(ops.pack_quantize(x, tok, wire)[0]), _u8(q))
 
 
 @pytest.mark.gpu

@@ -1,8 +1,8 @@
-"""The choices the port makes around K1's and K3's card kernels, on the
-CPU: K1's forward and backward routes (tensor cores or f32 FMAs) as pure
-functions of types and widths, the cache of bf16 weight copies (and the
-backward's second bf16 terms) the tensor-core routes read,
-and the group-local un-condense whose card backward needs no global sort,
+"""The choices the port makes around K1's, K2's and K3's card kernels, on
+the CPU: K1's forward and backward routes and K2's route (tensor cores or
+f32 FMAs) as pure functions of types and widths, the cache of bf16 weight
+copies (and the backward's second bf16 terms) the tensor-core routes
+read, and the group-local un-condense whose card backward needs no global sort,
 held against the JAX reference (K3's Pallas kernel in interpret mode, and
 the VJP of the reference's gather) on a map made from a numpy seed.
 Values and gradients bitwise: a gather copies rows, and its f32 gradient
@@ -53,6 +53,26 @@ def test_k1_bwd_route_by_type_and_width(h, w, d, F, want):
     assert kexp.bwd_route(h, w, d, F) == kexp.route(h, w, d, F)
     with pytest.raises(TypeError):
         kexp.bwd_route(h, torch.float16, d, F)
+
+
+SIM_ROUTES = [
+    (BF16, 768, "wgmma"),      # the train path: bf16 rows of moe-gpt2's width
+    (BF16, 48, "wgmma"),       # d a multiple of 16, not of the 64-wide slab
+    (BF16, 16, "wgmma"),
+    (BF16, 40, "fma"),       # d a multiple of 8, not of 16
+    (BF16, 33, "fma"),
+    (F32, 768, "fma"),       # f32 rows keep f32 math
+    (F32, 64, "fma"),
+]
+
+
+@pytest.mark.parametrize("x,d,want", SIM_ROUTES)
+def test_k2_route_by_type_and_width(x, d, want):
+    from repro_torch.kernels import similarity as ksim
+    assert ksim.route(x, d) == want
+    assert ksim.route(x, d) == want              # no state
+    with pytest.raises(TypeError):
+        ksim.route(torch.float16, d)
 
 
 def test_weight_cast_cache_hits_misses_and_holds_no_tensor():
