@@ -112,6 +112,29 @@ Phases, each of which must pass or the script exits non-zero:
 18. hymba profile: full-width batched prefills, tokens/s over three on
     the host clock, then one under torch.profiler: the top-10 device ops,
     K5's and K6's shares and the device-busy share.
+19. EP serve: full-width moe-gpt2 served over 4 virtual ranks through
+    ``repro_torch.launch.serve --model-axis 4`` (the run of phase 4
+    otherwise: the batched prefill sequence-sharded over the ranks; the
+    decode the one-device one, which the reference's all-reduce decode
+    equals on virtual ranks): K1 launched exactly 12 x (2 + 128 + 32) =
+    1944 times (one launch per MoE sublayer holds every rank's rows) and
+    no other kernel, 36 bf16 weight casts, finite logits, the decode's
+    tokens and logits bit for bit phase 4's (M = 1, same seed); then
+    phase 6's profile over the 4 ranks, and prefill tokens/s, decode
+    ms/step and device-busy shares beside M = 1's;
+20. EP serve parity: a 2-layer full-width cut over 4 virtual ranks, the
+    sequence-sharded prefill and 8 decode steps on the card against the
+    CPU, within 3e-2, on a prompt of three token ids that must make some
+    rank drop tokens (each rank's and layer's dispatch drop is logged);
+21. sequence-sharded train: full-width moe-gpt2 through
+    ``repro_torch.launch.train --model-axis 4 --global-batch 6`` (6
+    sequences do not split over 4 ranks, so the sequence does;
+    condensation and migration off, as in the reference), 2 steps: finite
+    losses, K1 and its backward launched exactly as the path calls them
+    and nothing else, one bf16 weight cast and second term per expert
+    weight tensor a step; then one f32 step of a 2-layer cut (B=2,
+    S=256) on the card against the CPU: loss within 1e-4, every gradient
+    leaf within 1e-5 by its relative norm error (the worst is logged).
 
 Then one JSON line with every kernel's record, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -230,6 +253,17 @@ SERVE_ARGS = ["--arch", "moe-gpt2", "--batch", "8", "--prompt-len", "128",
               "--gen", "32", "--prefill", "batch", "--device", "cuda",
               "--seed", "0"]
 PARITY_TOL = 3e-2
+# expert-parallel serving over 4 virtual ranks (sequence-sharded prefill;
+# the decode is the one-device one), the same run as SERVE_ARGS otherwise
+EP_SERVE_ARGS = SERVE_ARGS + ["--model-axis", "4"]
+EP_SERVE_PARITY = dict(B=2, S=64, steps=8, layers=2, M=4)
+# the sequence-sharded train shape: 6 sequences do not split over 4 ranks
+SEQ_TRAIN_ARGS = ["--arch", "moe-gpt2", "--steps", "2", "--global-batch",
+                  "6", "--seq-len", "1024", "--model-axis", "4", "--device",
+                  "cuda", "--seed", "0"]
+SEQ_TRAIN_PARITY = dict(B=2, S=256, layers=2, M=4)
+# f32: every gradient leaf's relative norm error, card against CPU
+SEQ_TRAIN_GRAD_TOL = 1e-5
 
 
 def log(msg: str):
@@ -1013,9 +1047,13 @@ def phase_slice():
     if casts != 3 * n_layers:
         raise SystemExit(f"{casts} bf16 weight casts in the slice run, not "
                          f"one per expert weight tensor ({3 * n_layers})")
+    # the decode's logits and tokens, for the EP serve phase (M = 4)
+    out = {"step": torch.stack(res["step_logits"]).cpu(),
+           "gen": torch.stack(res["gen_logits"]).cpu(),
+           "tokens": res["tokens"], "prefill": res["prefill_logits"].cpu()}
     del res, logits
     torch.cuda.empty_cache()
-    return info
+    return info, out
 
 
 def phase_parity():
@@ -1083,23 +1121,32 @@ def _profile(fn, n: int):
                 top=top)
 
 
-def phase_profile():
+def phase_profile(model_axis: int = 1):
     """Where the time goes at full width: one batched prefill (B=8,
-    S=128) and 8 decode steps (B=8) under torch.profiler. Runs after the
-    slice's launch counts were read."""
+    S=128) and 8 decode steps (B=8) under torch.profiler, on one rank or
+    over ``model_axis`` virtual ranks (the launcher's prefill context;
+    the decode is the one-device one). Runs after the serve runs' launch
+    counts were read."""
     import torch
     from repro_torch.config import LuffyConfig
     from repro_torch.configs import get_config
+    from repro_torch.dist import make_dist
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.model import build_model
     cfg = get_config("moe-gpt2")
     model = build_model(cfg, device="cuda", seed=0)
     luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    pdist = None
+    if model_axis > 1:
+        pdist = make_dist(make_host_mesh(model=model_axis), "prefill", 8,
+                          moe_arch=True)
     import numpy as np
     toks = torch.as_tensor(
         np.random.default_rng(0).integers(1, cfg.vocab_size, (8, 128)),
         dtype=torch.int32, device="cuda")
-    model.prefill(toks, 160, luffy=luffy)
-    pf = _profile(lambda: model.prefill(toks, 160, luffy=luffy), 2)
+    model.prefill(toks, 160, luffy=luffy, dist=pdist)
+    pf = _profile(lambda: model.prefill(toks, 160, luffy=luffy, dist=pdist),
+                  2)
     state = {"cache": model.new_cache(8, 160)}
 
     def step():
@@ -1109,7 +1156,7 @@ def phase_profile():
     for _ in range(4):
         step()
     dec = _profile(step, 8)
-    info = {"prefill": pf, "decode_step": dec}
+    info = {"model_axis": model_axis, "prefill": pf, "decode_step": dec}
     log("profile: " + json.dumps(info))
     if not pf["top"] or not dec["top"]:
         log("profile: the profiler saw no device time (not measured)")
@@ -1727,7 +1774,8 @@ def phase_ep_parity():
     cfg = dataclasses.replace(get_config("moe-gpt2"), num_layers=P["layers"],
                               compute_dtype="float32")
     shape = ShapeConfig("t", P["S"], P["B"], "train")
-    dist = make_dist(make_host_mesh(model=P["M"], nodes=P["nodes"]), P["B"])
+    dist = make_dist(make_host_mesh(model=P["M"], nodes=P["nodes"]), "train",
+                     P["B"], moe_arch=True)
     luffy = LuffyConfig(condense_group=128, combine_slack=2.0,
                         comm_mode="hier", hier_dedup="on",
                         wire_dtype="f8e4m3")
@@ -1804,7 +1852,8 @@ def phase_ep_profile():
     from repro_torch.plan import objectives
     cfg = get_config("moe-gpt2")
     shape = ShapeConfig("train", 1024, 8, "train")
-    dist = make_dist(make_host_mesh(model=4, nodes=2), 8)
+    dist = make_dist(make_host_mesh(model=4, nodes=2), "train", 8,
+                     moe_arch=True)
     model = build_model(cfg, device="cuda", seed=0)
     params = model.params
     ocfg = OptimConfig(lr=1e-3, total_steps=6, warmup_steps=2)
@@ -2311,6 +2360,233 @@ _K6_KEYS = ("device_ms", "bound_share_device", "bound_bytes_ms",
             "bound_fma_ms", "bound_sfu_ms", "sm_clock_mhz", "occupancy")
 
 
+def phase_ep_serve(one):
+    """Full-width moe-gpt2 served over 4 virtual ranks through the
+    launcher (``--model-axis 4``: the batched prefill sequence-sharded,
+    the decode the one-device one, which the reference's all-reduce
+    decode equals on virtual ranks), with every kernel counter set to 0
+    just before and read just after; its decode bit for bit the M = 1 run
+    of phase 4 (``one``: same seed, same prompts); then where its time
+    goes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import expert_ffn as kexp
+    from repro_torch.launch import serve
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    kexp.weight_bf16.casts = 0
+    res = serve.main(EP_SERVE_ARGS)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    casts = kexp.weight_bf16.casts
+    n_layers = get_config("moe-gpt2").num_layers
+    B, S, G = res["batch"], res["prompt_len"], res["gen"]
+    # one K1 launch per MoE sublayer in each of the 2 batched prefills
+    # (every rank's rows in one [M * E/M, C, d] call), S step-fed and G
+    # greedy decode steps ([E, C, d]): 12 x (2 + 128 + 32) = 1944
+    want = dict.fromkeys(launches, 0)
+    want["expert_ffn"] = n_layers * (serve.N_BATCHED_PREFILLS + S + G)
+    step = torch.stack(res["step_logits"]).cpu()
+    gen = torch.stack(res["gen_logits"]).cpu()
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (step, gen, res["prefill_logits"]))
+    same_tokens = torch.equal(res["tokens"], one["tokens"])
+    bitwise = bool(same_tokens and torch.equal(step, one["step"])
+                   and torch.equal(gen, one["gen"]))
+    step_err = (step - one["step"]).abs().max().item()
+    gen_err = (gen - one["gen"]).abs().max().item() if same_tokens else None
+    info = dict(model_axis=res["model_axis"], batch=B, prompt_len=S, gen=G,
+                prefill_s=res["prefill_s"],
+                prefill_tok_s=res["prefill_tok_s"],
+                prompt_feed_s=res["prompt_feed_s"],
+                decode_ms_per_step=res["decode_ms_per_step"],
+                peak_mem_gib=res["peak_mem_bytes"] / 2 ** 30,
+                launches=launches, launches_expected=want,
+                weight_casts=casts, weight_casts_expected=3 * n_layers,
+                decode_vs_m1_bitwise=bitwise,
+                step_fed_vs_m1_max_abs=step_err,
+                greedy_tokens_equal_m1=same_tokens,
+                greedy_vs_m1_max_abs=gen_err,
+                # the prefill's per-rank capacity drops other tokens than
+                # one rank's does, so it is not held to M = 1
+                prefill_vs_m1_max_abs=(res["prefill_logits"].cpu()
+                                       - one["prefill"]).abs().max().item())
+    log("EP serve: " + json.dumps(info))
+    if not finite:
+        raise SystemExit("EP serve logits not finite")
+    if launches != want:
+        raise SystemExit(f"EP serve kernel launches {launches} differ from "
+                         f"what the path calls, {want}")
+    if casts != 3 * n_layers:
+        raise SystemExit(f"{casts} bf16 weight casts in the EP serve run, "
+                         f"not one per expert weight tensor")
+    if not bitwise:
+        raise SystemExit(f"EP decode is not the M = 1 decode bit for bit: "
+                         f"{info}")
+    del res, step, gen
+    torch.cuda.empty_cache()
+    info["profile"] = phase_profile(model_axis=4)
+    return info
+
+
+def phase_ep_serve_parity():
+    """A 2-layer full-width cut served over 4 virtual ranks on the card
+    (kernels) and on the CPU (plain versions), same weights and tokens:
+    the sequence-sharded prefill and 8 decode steps. The prompt is three
+    token ids, which piles the routing onto a few experts and overflows a
+    rank's capacity, so which tokens drop depends on a rank's token
+    order; the run fails unless some rank dropped some."""
+    import numpy as np
+    import torch
+    import repro_torch.plan.exchange as tex
+    from repro_torch.config import LuffyConfig
+    from repro_torch.configs import get_config
+    from repro_torch.dist import make_dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    P = EP_SERVE_PARITY
+    cfg = dataclasses.replace(get_config("moe-gpt2"), num_layers=P["layers"])
+    model = build_model(cfg, device="cuda", seed=0)
+    pdist = make_dist(make_host_mesh(model=P["M"]), "prefill", P["B"],
+                      moe_arch=True)
+    toks = torch.as_tensor(np.random.default_rng(7).integers(
+        1, 4, (P["B"], P["S"])), dtype=torch.int32)
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    out, drops = {}, {}
+    orig = tex.build_exchange_plan
+    for dev in ("cuda", "cpu"):
+        model.to(dev)
+        t = toks.to(dev)
+        rec = []
+
+        def plan(*a, **kw):
+            pl = orig(*a, **kw)
+            rec.append(pl.dispatch_drop.float().cpu())
+            return pl
+
+        tex.build_exchange_plan = plan
+        try:
+            lg = [model.prefill(t, P["S"], luffy=luffy, dist=pdist)[0]]
+        finally:
+            tex.build_exchange_plan = orig
+        drops[dev] = torch.stack(rec)                 # [layers, M]
+        cache = model.new_cache(P["B"], P["S"])
+        for i in range(P["steps"]):
+            lg.append(model.decode_step(cache, t[:, i:i + 1],
+                                        luffy=luffy)[0])
+        out[dev] = torch.stack(lg).float().cpu()
+    err = (out["cuda"] - out["cpu"]).abs().amax(dim=(1, 2)).tolist()
+    info = dict(prefill_max_abs=err[0], decode_max_abs=max(err[1:]),
+                tol=PARITY_TOL, logits_max=out["cpu"].abs().max().item(),
+                dispatch_drop_cuda=drops["cuda"].tolist(),
+                dispatch_drop_cpu=drops["cpu"].tolist())
+    log("EP serve parity, 2-layer cut, cuda vs cpu: " + json.dumps(info))
+    if not all(math.isfinite(e) and e <= PARITY_TOL for e in err):
+        raise SystemExit(f"EP serve cuda vs cpu differ: {err}")
+    if not (drops["cuda"].shape == (P["layers"], P["M"])
+            and float(drops["cuda"].max()) > 0.0):
+        raise SystemExit(f"the EP serve parity prompt dropped no token on "
+                         f"any rank: {info}")
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_seq_train():
+    """Full-width moe-gpt2 trained sequence-sharded over 4 virtual ranks
+    (6 sequences do not split over 4; condensation and migration off) with
+    exact launch counts; then one f32 step of a 2-layer cut on the card
+    against the CPU."""
+    import torch
+    from repro_torch import optim, train_lib
+    from repro_torch.config import LuffyConfig, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import make_dist
+    from repro_torch.kernels import expert_ffn as kexp
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    kexp.weight_bf16.casts = kexp.weight_bf16.lo_casts = 0
+    res, launches, _ = _ep_run(SEQ_TRAIN_ARGS)
+    casts, lo_casts = kexp.weight_bf16.casts, kexp.weight_bf16.lo_casts
+    cfg, steps = res["cfg"], res["steps"]
+    n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
+    # the vanilla exchange without condensation: K1 and its backward only
+    want = dict.fromkeys(launches, 0)
+    want["expert_ffn"] = n_moe * (2 if cfg.remat else 1) * len(steps)
+    want["expert_ffn_bwd"] = n_moe * len(steps)
+    info = dict(seq_sharded=res["dist"].seq_sharded,
+                condensation=res["luffy"].enable_condensation,
+                migration=res["luffy"].enable_migration,
+                global_batch=res["global_batch"], seq_len=res["seq_len"],
+                losses=[st["loss"] for st in steps],
+                dispatch_drop=[st["dispatch_drop"] for st in steps],
+                capacity=steps[0]["capacity"],
+                step_ms=[st["step_ms"] for st in steps],
+                peak_mem_gib=max(st["peak_mem_bytes"] for st in steps)
+                / 2 ** 30, launches=launches, launches_expected=want,
+                weight_casts=casts, weight_lo_casts=lo_casts,
+                weight_casts_expected=3 * n_moe * len(steps))
+    log("seq-sharded train: " + json.dumps(info))
+    if not info["seq_sharded"] or info["condensation"] or info["migration"]:
+        raise SystemExit(f"not the sequence-sharded train shape: {info}")
+    if not all(math.isfinite(x) for x in info["losses"]):
+        raise SystemExit(f"seq-sharded train losses not finite: {info}")
+    if launches != want:
+        raise SystemExit(f"seq-sharded train launches {launches} differ "
+                         f"from what the path calls, {want}")
+    if casts != info["weight_casts_expected"] \
+            or lo_casts != info["weight_casts_expected"]:
+        raise SystemExit(f"{casts} / {lo_casts} bf16 weight casts in the "
+                         f"seq-sharded train run")
+    del res, steps
+    torch.cuda.empty_cache()
+
+    P = SEQ_TRAIN_PARITY
+    cfg = dataclasses.replace(get_config("moe-gpt2"), num_layers=P["layers"],
+                              compute_dtype="float32")
+    shape = ShapeConfig("t", P["S"], P["B"], "train")
+    dist = make_dist(make_host_mesh(model=P["M"]), "train", P["B"],
+                     moe_arch=True)
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    cap = train_lib.capacity_for_bucket(cfg, shape, luffy, 0, dist)
+    model = build_model(cfg, device="cuda", seed=0)
+    batch = SyntheticLM(cfg, shape).batch(0)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model.to(dev)
+        model.zero_grad(set_to_none=True)
+        loss, m = model.forward_train(
+            {k: torch.as_tensor(v, device=dev) for k, v in batch.items()},
+            torch.tensor(0.6, device=dev), cap, luffy=luffy, dist=dist)
+        loss.backward()
+        grads = {k: p.grad.double().cpu()
+                 for k, p in optim.leaves_with_path(model.params)
+                 if p.grad is not None}
+        runs[dev] = (loss.item(), grads, m["dispatch_drop"].item())
+    (lg, gg, dg), (lc, gc, dc) = runs["cuda"], runs["cpu"]
+    # every gradient leaf by its relative norm error, as
+    # tests/test_torch_ep_serve.py holds the CPU's against jax.grad
+    leaf_rel = {k: (torch.linalg.vector_norm(gg[k] - g)
+                    / torch.clamp(torch.linalg.vector_norm(g), min=1e-30))
+                .item() for k, g in gc.items()}
+    worst = max(leaf_rel, key=leaf_rel.get)
+    par = dict(loss_cuda=lg, loss_cpu=lc, loss_rel=abs(lg - lc) / abs(lc),
+               grad_leaves=len(gc), same_leaves=sorted(gg) == sorted(gc),
+               grad_leaf_worst=worst, grad_leaf_worst_rel=leaf_rel[worst],
+               grad_leaf_tol=SEQ_TRAIN_GRAD_TOL, dispatch_drop_cuda=dg,
+               dispatch_drop_cpu=dc, capacity=cap)
+    log("seq-sharded train parity, 2-layer f32 cut, cuda vs cpu: "
+        + json.dumps(par))
+    if not (par["loss_rel"] <= 1e-4 and par["same_leaves"]
+            and par["grad_leaf_worst_rel"] <= SEQ_TRAIN_GRAD_TOL):
+        raise SystemExit(f"seq-sharded train cuda vs cpu differ: {par}")
+    info["parity"] = par
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
 def _record(name, source, replaces, launches, t, extra=None):
     rec = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
@@ -2334,9 +2610,9 @@ def main() -> int:
     checks, timed = phase_kernels()
     timed_train = phase_kernels_train()
     timed_k4 = phase_kernels_k4()
-    slice_info = phase_slice()
+    slice_info, slice_out = phase_slice()
     phase_parity()
-    phase_profile()
+    serve_prof = phase_profile()
     train_info = phase_train()
     phase_train_parity()
     phase_train_profile()
@@ -2349,6 +2625,21 @@ def main() -> int:
     hymba_info = phase_hymba_slice()
     phase_hymba_paths()
     hymba_prof = phase_hymba_profile()
+    ep_serve = phase_ep_serve(slice_out)
+    del slice_out
+    phase_ep_serve_parity()
+    seq_train = phase_seq_train()
+    log("serve M=1 vs M=4: " + json.dumps({
+        "prefill_tok_s": [slice_info["prefill_tok_s"],
+                          ep_serve["prefill_tok_s"]],
+        "decode_ms_per_step": [slice_info["decode_ms_per_step"],
+                               ep_serve["decode_ms_per_step"]],
+        "prefill_device_busy_share": [
+            serve_prof["prefill"]["device_busy_share"],
+            ep_serve["profile"]["prefill"]["device_busy_share"]],
+        "decode_device_busy_share": [
+            serve_prof["decode_step"]["device_busy_share"],
+            ep_serve["profile"]["decode_step"]["device_busy_share"]]}))
     hl = hymba_info["launches"]
     el = ep_info["launches"]
     tl = train_info["launches"]
@@ -2359,7 +2650,10 @@ def main() -> int:
         _record("expert_ffn", "src/repro_torch/csrc/expert_ffn.cu",
                 "src/repro/kernels/expert_ffn.py:52", tl["expert_ffn"], k1,
                 {"launches_by_path": {"serve": slice_info["k1_launches"],
-                                      "train": tl["expert_ffn"]},
+                                      "train": tl["expert_ffn"],
+                                      "seq_sharded_train":
+                                          seq_train["launches"]["expert_ffn"]},
+                 "launches_ep_serve": ep_serve["launches"]["expert_ffn"],
                  "timed_at": "train shape [16,2048,768]x3072, bf16 h, f32 "
                              "weights read through the warm bf16 cache "
                              "(the tensor-core route), gelu; bound at bf16 "

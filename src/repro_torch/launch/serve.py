@@ -5,6 +5,8 @@ its fixed-batch path).
         --batch 8 --prompt-len 128 --gen 32 --prefill batch
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --batch 4 --prompt-len 2048 --gen 32 --prefill batch
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch moe-gpt2 \\
+        --model-axis 4 --batch 8 --prompt-len 128 --gen 32 --prefill batch
 
 Weights are random, drawn from ``--seed``; the prompts too. With
 ``--prefill batch`` one whole-prompt prefill runs first as a warm-up and
@@ -14,6 +16,18 @@ decoded greedily. The kernels of the path (moe-gpt2: the expert FFN;
 hymba's batched prefill: flash attention and the Mamba scan) run
 hand-written on the card (``--device cuda``, the default, which must
 exist) and in their plain versions on the CPU (``--device cpu``).
+
+``--model-axis M > 1`` serves over M virtual expert-parallel ranks held
+by this one process (a flat mesh, as the reference's): the batched
+prefill's MoE sublayers run sequence-sharded over the ranks (rank r
+holds positions [r*S/M, (r+1)*S/M) of every prompt, at one rank's
+capacity). The decode steps are the one-device ones: the reference's
+all-reduce decode gives their values bit for bit on virtual ranks
+(:mod:`repro_torch.dist`). Attention and the KV cache are the
+one-device ones. The reference uses
+its mesh only when it has more than one device, so on one device it
+serves as M = 1; virtual ranks have no such cap, so the port's default
+is 1. An arch without MoE sublayers serves the same with any M.
 """
 from __future__ import annotations
 
@@ -39,6 +53,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="step: feed the prompt token by token into the "
                          "cache; batch: also run (and time) one whole-"
                          "prompt prefill first")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="expert-parallel ranks (virtual, in this process)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
@@ -55,6 +71,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = parse_args(argv)
     from repro_torch.config import LuffyConfig, reduced
     from repro_torch.configs import get_config
+    from repro_torch.dist import make_dist, single_device
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.model import build_model, resolve_device
 
     device = resolve_device(args.device)
@@ -65,20 +83,28 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
     B, S = args.batch, args.prompt_len
     s_max = S + args.gen
+    pdist = single_device()
+    if args.model_axis > 1:
+        mesh = make_host_mesh(model=args.model_axis)
+        pdist = make_dist(mesh, "prefill", B, moe_arch=cfg.uses_moe)
+        print(f"mesh {dict(zip(mesh.axis_names, mesh.shape))} (virtual "
+              f"ranks); prefill seq_sharded={pdist.seq_sharded}, decode "
+              f"as on one device", flush=True)
     r = np.random.default_rng(args.seed)
     prompts = torch.as_tensor(r.integers(1, cfg.vocab_size, (B, S)),
                               dtype=torch.int32, device=device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     result: Dict = {"arch": cfg.name, "device": str(device), "batch": B,
-                    "prompt_len": S, "gen": args.gen}
+                    "prompt_len": S, "gen": args.gen,
+                    "model_axis": args.model_axis}
 
     if args.prefill == "batch":
         for _ in range(N_BATCHED_PREFILLS - 1):             # warm-up
-            model.prefill(prompts, s_max, luffy=luffy)
+            model.prefill(prompts, s_max, luffy=luffy, dist=pdist)
         _sync(device)
         t0 = time.perf_counter()
-        logits_pf, _ = model.prefill(prompts, s_max, luffy=luffy)
+        logits_pf, _ = model.prefill(prompts, s_max, luffy=luffy, dist=pdist)
         _sync(device)
         dt = time.perf_counter() - t0
         result.update(prefill_s=dt, prefill_tok_s=B * S / dt,

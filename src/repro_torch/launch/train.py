@@ -17,7 +17,11 @@ by this one process (``repro_torch.comm.hierarchical``): the batch
 splits over them, each holds E/M experts, sequences migrate between
 them (§IV), and the dispatch and combine run flat or two-phase over
 ``--nodes`` nodes, on the dense or the deduplicated wire, at
-``--wire-dtype``. The reference's default model axis of 4 is capped by
+``--wire-dtype``. When the global batch does not split over M, the
+sequence does (rank r holds positions [r*S/M, (r+1)*S/M) of every
+sequence, the reference's sequence-parallel train shape), and, as in the
+reference, condensation and migration are then off (the launcher says
+so). The reference's default model axis of 4 is capped by
 its device count (one device gives one rank); virtual ranks have no such
 cap, so the port's default is 1. On the card (``--device cuda``, the
 default, which must exist) the expert FFN, the similarity, the
@@ -107,16 +111,21 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     dist = single_device()
     if args.model_axis > 1:
         mesh = make_host_mesh(model=args.model_axis, nodes=nodes)
-        dist = make_dist(mesh, gb)
+        dist = make_dist(mesh, "train", gb, moe_arch=cfg.uses_moe)
         topo = dist.topology
         print(f"mesh {dict(zip(mesh.axis_names, mesh.shape))} (virtual "
               f"ranks) topology {topo.num_nodes}x{topo.devices_per_node} "
               f"bw_ratio={topo.bw_ratio:.1f} comm_mode={comm_mode}",
               flush=True)
+        if dist.seq_sharded:
+            print(f"global batch {gb} does not split over {args.model_axis} "
+                  f"ranks: sequence-sharded, condensation and migration off",
+                  flush=True)
     hier_dedup = args.hier_dedup or "off"
+    layout_ok = cfg.uses_moe and not dist.seq_sharded
     luffy = LuffyConfig(
-        enable_condensation=not args.no_condensation and cfg.uses_moe,
-        enable_migration=not args.no_migration and cfg.uses_moe,
+        enable_condensation=not args.no_condensation and layout_ok,
+        enable_migration=not args.no_migration and layout_ok,
         condense_group=min(128, args.seq_len), combine_slack=2.0,
         comm_mode=comm_mode, hier_dedup=hier_dedup,
         wire_dtype=args.wire_dtype or "f32")

@@ -77,8 +77,9 @@ class Model(nn.Module):
                                 threshold, capacity, dist=dist)
 
     @torch.inference_mode()
-    def prefill(self, tokens, s_max: int, *, luffy: LuffyConfig):
-        return engine.prefill(self.params, self.cfg, luffy, tokens, s_max)
+    def prefill(self, tokens, s_max: int, *, luffy: LuffyConfig, dist=None):
+        return engine.prefill(self.params, self.cfg, luffy, tokens, s_max,
+                              dist)
 
     @torch.inference_mode()
     def decode_step(self, cache, tokens, *, luffy: LuffyConfig):

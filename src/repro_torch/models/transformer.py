@@ -2,7 +2,8 @@
 parameter init, embedding, the LM head (tied or not), the chunked
 cross-entropy, hymba's hybrid token mixer and the train forward, on one
 device or over ``M`` virtual expert-parallel ranks
-(:func:`_moe_apply_dist`).
+(:func:`_moe_apply_dist`, batch-sharded; :func:`moe_apply_vanilla`,
+either layout).
 
 Where the reference stacks layers by pattern position for ``lax.scan``,
 the port keeps ``params["layers"]`` as a plain list, one dict per layer,
@@ -138,6 +139,42 @@ def _zero_aux(device) -> MoEAux:
     return MoEAux(*([z] * len(MoEAux._fields)))
 
 
+def moe_apply_vanilla(p_moe, x, sideband, cfg: ModelConfig,
+                      luffy: LuffyConfig, dist: DistContext, capacity: int):
+    """The MoE sublayer's vanilla exchange over ``dist``'s ranks in
+    ``dist``'s layout, at one rank's ``capacity``: the sequence-sharded
+    train forward and the expert-parallel prefill. x: [B, S, d];
+    sideband: per-position entries [B, S] (labels) and per-sequence ones
+    [B] (seq_len). Returns (y, aux), aux averaged over the ranks.
+
+    Sequence-sharded, rank r holds positions [r*S/M, (r+1)*S/M) of every
+    sequence (the reference's specs ``P(bax, sax, ...)``), its tokens
+    row-major over (sequence, local position); a per-position sideband
+    entry is split the same way and a per-sequence one replicated, as
+    the reference's specs place them. Batch-sharded, it is
+    :func:`_moe_apply_dist`'s layout."""
+    comm = dist.comm(luffy.comm_mode)
+    if not dist.seq_sharded:
+        y, _, _, aux, _ = _moe_apply_dist(p_moe, x, sideband, None, None,
+                                          cfg, luffy, comm, "vanilla",
+                                          capacity, None)
+        return y, aux
+    B, S, d = x.shape
+    comm = CommContext.local() if comm is None else comm
+    M = comm.size()
+    if S % M:
+        raise ValueError(f"a sequence of {S} positions does not split "
+                         f"over a model axis of {M}")
+    xr = x.reshape(B, M, S // M, d).transpose(0, 1)
+    sb = {key: (v.reshape(B, M, S // M).transpose(0, 1) if v.dim() == 2
+                else v.expand(M, B)) for key, v in sideband.items()}
+    y, _, _, aux, _, _ = moe.moe_core_planned(
+        p_moe, xr, sb, cfg, luffy, mode="vanilla", capacity=capacity,
+        comm=comm)
+    return (y.transpose(0, 1).reshape(B, S, d),
+            MoEAux(*(comm.pmean(a) for a in aux)))
+
+
 def _moe_apply_dist(p_moe, x, sideband, s_prev, threshold, cfg, luffy,
                     comm: Optional[CommContext], mode: str, capacity: int,
                     cond_carry):
@@ -173,16 +210,19 @@ def _moe_apply_dist(p_moe, x, sideband, s_prev, threshold, cfg, luffy,
 
 
 def _layer_full(p, cfg: ModelConfig, luffy: LuffyConfig, layer: int,
-                moe_mode: str, capacity: int, comm, x, sideband, s_prev,
+                moe_mode: str, capacity: int, dist, x, sideband, s_prev,
                 threshold, cond_carry):
     """One decoder layer of the train forward: causal attention over the
     whole batch, then the MoE sublayer (condensing, carrying the
     similarity history and the condense carry, and migrating sequences
-    across ranks) or the dense FFN. Returns (x, sideband, s_prev, aux,
-    cond_carry)."""
+    across ranks; or sequence-sharded) or the dense FFN. Returns (x,
+    sideband, s_prev, aux, cond_carry)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     xn = bk.norm_apply(p["attn_norm"], x, cfg.norm)
+    # sequence-sharded, the reference attends each rank's queries against
+    # all-gathered K/V (_attn_seqpar): on one device that is this causal
+    # attention over the whole sequence, so it has no separate path
     att, _ = bk.attn_apply(p["attn"], cfg, xn, positions, layer=layer,
                            causal=True)
     x = x + att
@@ -190,6 +230,11 @@ def _layer_full(p, cfg: ModelConfig, luffy: LuffyConfig, layer: int,
         xn = bk.norm_apply(p["ffn_norm"], x, cfg.norm)
         return (x + bk.ffn_apply(p["ffn"], cfg, xn), sideband, s_prev,
                 _zero_aux(x.device), cond_carry)
+    if dist is not None and dist.seq_sharded:
+        x, aux = moe_apply_vanilla(p["moe"], x, sideband, cfg, luffy, dist,
+                                   capacity)
+        return x, sideband, s_prev, aux, cond_carry
+    comm = None if dist is None else dist.comm(luffy.comm_mode)
     x, sideband, s_next, aux, cond_carry = _moe_apply_dist(
         p["moe"], x, sideband, s_prev, threshold, cfg, luffy, comm,
         moe_mode, capacity, cond_carry)
@@ -214,13 +259,14 @@ def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
         raise NotImplementedError(
             f"{cfg.name}: training a hybrid needs backwards for K5 and K6, "
             f"which are not ported yet (ROADMAP Queue 2)")
-    comm = None if dist is None else dist.comm(luffy.comm_mode)
+    seq_sharded = dist is not None and dist.seq_sharded
     x = embed_tokens(params, cfg, batch["tokens"])
     B, S = x.shape[0], x.shape[1]
     sideband = {"labels": batch["labels"],
                 "seq_len": batch["seq_len"].to(torch.int32)}
     G = luffy.condense_group
-    use_cond = luffy.enable_condensation and cfg.uses_moe and S % G == 0
+    use_cond = (luffy.enable_condensation and cfg.uses_moe and S % G == 0
+                and not seq_sharded)
     s_prev = cond_carry = None
     if use_cond:
         # 0.5 = "uncertain": the first block measures every pair (§V-A
@@ -233,14 +279,14 @@ def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
                       "valid": zf.clone()}
     eff_luffy = luffy if use_cond else dataclasses.replace(
         luffy, enable_condensation=False)
-    moe_mode = ("migrate" if luffy.enable_migration and cfg.uses_moe
-                else "vanilla")
+    moe_mode = ("migrate" if (luffy.enable_migration and cfg.uses_moe
+                              and not seq_sharded) else "vanilla")
     aux_sum = _zero_aux(x.device)
     # the recompute runs each layer to its end, so every kernel of the
     # layer launches again in the backward (counted by chip_smoke.py)
     with ckpt.set_checkpoint_early_stop(False):
         for i, p in enumerate(params["layers"]):
-            args = (p, cfg, eff_luffy, i, moe_mode, capacity, comm, x,
+            args = (p, cfg, eff_luffy, i, moe_mode, capacity, dist, x,
                     sideband, s_prev, threshold, cond_carry)
             if cfg.remat:
                 out = ckpt.checkpoint(_layer_full, *args,

@@ -1,5 +1,11 @@
 """Serving engine: prefill and single-token decode with per-layer KV
-caches (counterpart of ``repro/serve/engine.py``), one device.
+caches (counterpart of ``repro/serve/engine.py``), on one device or
+over virtual expert-parallel ranks (``dist``, :mod:`repro_torch.dist`):
+the prefill's MoE sublayers sequence-sharded over the ranks. The decode
+step is the one-device one at any number of ranks: the reference's
+all-reduce decode gives its values on virtual ranks (see
+:mod:`repro_torch.dist`), and attention and the cache are the
+one-device ones in both.
 
 Cache layout, one entry per layer: ``{"k", "v": [B, W, kv, hd],
 "cpos": [B, W]}`` with ``W = min(window, s_max)``; a window layer keeps a
@@ -21,10 +27,11 @@ import torch
 
 from repro_torch.config import LuffyConfig, ModelConfig
 from repro_torch.core import moe_layer as moe
+from repro_torch.dist import DistContext
 from repro_torch.models import blocks as bk
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.transformer import (embed_tokens, hybrid_mixer,
-                                            logits_fn)
+                                            logits_fn, moe_apply_vanilla)
 
 NEG_INF = -1e30
 
@@ -105,9 +112,12 @@ def decode_capacity(cfg: ModelConfig, batch: int) -> int:
                             slack=2.0)
 
 
-def prefill_capacity(cfg: ModelConfig, batch: int, seq_len: int) -> int:
-    """The MoE dispatch capacity of one (batch, seq_len) prefill."""
-    return moe.capacity_for(cfg.moe, max(1, batch * seq_len),
+def prefill_capacity(cfg: ModelConfig, batch: int, seq_len: int,
+                     dist: Optional[DistContext] = None) -> int:
+    """The MoE dispatch capacity of one (batch, seq_len) prefill, at one
+    rank's tokens (``DistContext.token_divisor``)."""
+    div = 1 if dist is None else dist.token_divisor
+    return moe.capacity_for(cfg.moe, max(1, batch * seq_len // div),
                             cfg.moe.num_experts)
 
 
@@ -149,8 +159,11 @@ def decode_step(params, cfg: ModelConfig, luffy: LuffyConfig, cache, tokens):
 
 
 def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
-            s_max: int):
-    """Full forward over the prompt [B,S]. Returns (last-token logits
+            s_max: int, dist: Optional[DistContext] = None):
+    """Full forward over the prompt [B,S]; dist: the expert-parallel
+    ranks (None or one rank: one device), whose MoE sublayers run the
+    vanilla exchange in ``dist``'s layout (sequence-sharded for the
+    prefill shape) at one rank's capacity. Returns (last-token logits
     [B,V] f32, per-layer (k, v)). Condensation and migration are forced
     off: serving prompts are neither condensed nor re-homed. As in the
     reference, a Mamba branch's final state is not returned: the
@@ -163,7 +176,8 @@ def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
                                 device=x.device)}
     nl = dataclasses.replace(luffy, enable_condensation=False,
                              enable_migration=False)
-    cap = prefill_capacity(cfg, B, S) if cfg.uses_moe else 0
+    cap = prefill_capacity(cfg, B, S, dist) if cfg.uses_moe else 0
+    ranks = dist is not None and dist.enabled
     kvs = []
     for i, p in enumerate(params["layers"]):
         if cfg.ssm is not None:       # hymba: K5 and K6
@@ -173,7 +187,10 @@ def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
             att, kv = bk.attn_apply(p["attn"], cfg, xn, positions, layer=i,
                                     causal=True)
             x = x + att
-        x = _ffn_sublayer(p, cfg, nl, x, i, "vanilla", cap, sb)
+        if ranks and cfg.ffn_kind(i) == "moe":
+            x = moe_apply_vanilla(p["moe"], x, sb, cfg, nl, dist, cap)[0]
+        else:
+            x = _ffn_sublayer(p, cfg, nl, x, i, "vanilla", cap, sb)
         kvs.append(kv)
     logits = logits_fn(params, cfg, x[:, -1:])[:, 0]
     return logits.float(), kvs

@@ -38,8 +38,8 @@ def init_luffy_state(device) -> LuffyState:
 
 def tokens_per_device(shape: ShapeConfig,
                       dist: Optional[DistContext] = None) -> int:
-    """Tokens each rank holds: the batch splits over the model axis."""
-    div = 1 if dist is None else dist.batch_size_divisor
+    """Tokens each rank holds (``DistContext.token_divisor``)."""
+    div = 1 if dist is None else dist.token_divisor
     return max(1, shape.global_batch * shape.seq_len // max(1, div))
 
 

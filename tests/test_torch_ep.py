@@ -208,7 +208,8 @@ def oracle(tmp_path_factory):
 
 
 def _dist():
-    return make_dist(make_host_mesh(model=M, nodes=NODES), B)
+    return make_dist(make_host_mesh(model=M, nodes=NODES), "train", B,
+                     moe_arch=True)
 
 
 def _luffy(cm, dd, wd, **kw):
@@ -362,6 +363,8 @@ def test_ep_launcher_cpu_end_to_end(capsys):
     assert "inter=" in out and "shipped=" in out and "local=" in out
     with pytest.raises(SystemExit):
         ttrain.parse_args(["--model-axis", "4", "--exec-mode", "pipeline"])
-    with pytest.raises(ValueError, match="does not split"):
+    # 8 sequences do not split over 3 ranks, so the sequence would, and
+    # 128 positions do not
+    with pytest.raises(ValueError, match="128 positions does not split"):
         ttrain.main(["--reduced", "--steps", "1", "--model-axis", "3",
                      "--device", "cpu"])
