@@ -134,7 +134,26 @@ Phases, each of which must pass or the script exits non-zero:
     and nothing else, one bf16 weight cast and second term per expert
     weight tensor a step; then one f32 step of a 2-layer cut (B=2,
     S=256) on the card against the CPU: loss within 1e-4, every gradient
-    leaf within 1e-5 by its relative norm error (the worst is logged).
+    leaf within 1e-5 by its relative norm error (the worst is logged);
+22. reuse and lsh: (a) K2's fused entry restricted to LSH buckets (the
+    ``CODES`` instances) against its plain version at 64 groups of
+    [128, 768], bf16 and f32, with and without a carried s_prev, codes
+    of ``lsh_codes`` at bits 8 and 1: measured entries within 1e-5, the
+    rest and the measured fractions bit for bit, a bitwise repeat, no
+    ptxas spill in the CODES instances; timed in turns with the exact
+    entry (profiler device time) beside the byte bound; (b) phase 11's
+    EP run with ``--plan-reuse always --condense-reuse always
+    --similarity-backend lsh``: launch counts derived from the step
+    records (K2's fused entry 2 x condense_built a step, the greedy
+    2 x plans_built), the shipped-bytes law, finite losses, a second run
+    from the same seed bit for bit (losses, rep maps, perms); then phase
+    14's profile with the same flags, the planner's host time and the
+    step's device syncs beside phase 14's; (c) the reuse guarantee at
+    full width, condensation off: one forward with zeroed routers,
+    ``plan_reuse="signature"`` bit for bit "off" with plans_built 12 ->
+    1, then random routers bit for bit with plan_reuse_mismatch 11;
+    (d) reduced EP at f32 with always / lsh, card against CPU: LSH
+    codes, rep maps, perms and counters equal, loss within 1e-4.
 
 Then one JSON line with every kernel's record, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -264,6 +283,11 @@ SEQ_TRAIN_ARGS = ["--arch", "moe-gpt2", "--steps", "2", "--global-batch",
 SEQ_TRAIN_PARITY = dict(B=2, S=256, layers=2, M=4)
 # f32: every gradient leaf's relative norm error, card against CPU
 SEQ_TRAIN_GRAD_TOL = 1e-5
+# plan reuse, condense reuse and the lsh backend on the EP train run
+REUSE_FLAGS = ["--plan-reuse", "always", "--condense-reuse", "always",
+               "--similarity-backend", "lsh"]
+EP_REUSE_ARGS = EP_ARGS + REUSE_FLAGS
+REUSE_PARITY = dict(B=8, S=128, layers=3, M=4, nodes=2)
 
 
 def log(msg: str):
@@ -1613,39 +1637,55 @@ def phase_kernels_k4():
     return out
 
 
-def _record_perms():
+def _record_plans():
     """Wrap the expert-parallel planner entry to keep every plan's perm
-    (forward and recompute calls). Returns (list, undo)."""
+    and rep map (on the card) and count the greedy's calls, forward and
+    recompute. Returns (plans, greedy, undo)."""
     import repro_torch.plan.exchange as tex
-    perms = []
+    from repro_torch.plan import objectives
+    plans, greedy = [], [0]
     orig = tex.build_exchange_plan
+    plan_orig = objectives.plan_migration_with_objective
 
     def rec(*a, **kw):
         pl = orig(*a, **kw)
-        perms.append(None if pl.perm is None else pl.perm.copy())
+        plans.append((None if pl.perm is None else pl.perm.copy(),
+                      pl.condense_plan.rep_idx.clone()))
         return pl
 
+    def count(*a, **kw):
+        greedy[0] += 1
+        return plan_orig(*a, **kw)
+
     tex.build_exchange_plan = rec
+    objectives.plan_migration_with_objective = count
 
     def undo():
         tex.build_exchange_plan = orig
+        objectives.plan_migration_with_objective = plan_orig
 
-    return perms, undo
+    return plans, greedy, undo
 
 
 def _ep_run(args):
     """One launcher run with every kernel counter set to 0 just before
-    and read just after; returns (result, launches, perms)."""
+    and read just after; returns (result, launches, plans, greedy calls),
+    plans as (perm, rep map) pairs."""
     from repro_torch.launch import train
+    from repro_torch.kernels import similarity as ksim
     counters = _kernel_counters()
     for fn in counters.values():
         fn.launches = 0
-    perms, undo = _record_perms()
+    ksim.masked_similarity_fused.lsh_launches = 0
+    plans, greedy, undo = _record_plans()
     try:
         res = train.main(args)
     finally:
         undo()
-    return res, {k: fn.launches for k, fn in counters.items()}, perms
+    launches = {k: fn.launches for k, fn in counters.items()}
+    launches["masked_similarity_fused_lsh"] = \
+        ksim.masked_similarity_fused.lsh_launches
+    return res, launches, plans, greedy[0]
 
 
 def _ep_expected(cfg, n_steps: int, f8: bool):
@@ -1659,7 +1699,8 @@ def _ep_expected(cfg, n_steps: int, f8: bool):
             "pack_cast": 0 if f8 else fwd,
             # the dispatch pack's and the combine partials' codec
             "pack_quant_bwd": 2 * bwd if f8 else 0,
-            "flash_attention": 0, "mamba_scan": 0, "mamba_scan_fused": 0}
+            "flash_attention": 0, "mamba_scan": 0, "mamba_scan_fused": 0,
+            "masked_similarity_fused_lsh": 0}
 
 
 def _check_law(steps, luffy, cfg):
@@ -1682,7 +1723,8 @@ def phase_ep_train():
     import statistics
     import numpy as np
     import torch
-    res, launches, perms = _ep_run(EP_ARGS)
+    res, launches, plans, _ = _ep_run(EP_ARGS)
+    perms = [p for p, _ in plans]
     cfg, steps, luffy = res["cfg"], res["steps"], res["luffy"]
     want = _ep_expected(cfg, len(steps), f8=True)
     for st in steps:
@@ -1697,7 +1739,8 @@ def phase_ep_train():
     tokens = res["global_batch"] * res["seq_len"]
     keys = ("loss", "condense_rate", "bucket", "local_frac",
             "traffic_before", "traffic_after", "inter_bytes_flat",
-            "inter_bytes_dedup", "inter_bytes_shipped", "step_ms")
+            "inter_bytes_dedup", "inter_bytes_shipped", "measured_pairs",
+            "step_ms")
     info = dict(arch=res["arch"], model_axis=res["dist"].model_size,
                 nodes=res["dist"].nodes, wire=luffy.wire_dtype,
                 global_batch=res["global_batch"], seq_len=res["seq_len"],
@@ -1718,7 +1761,8 @@ def phase_ep_train():
                          f"the path calls, {want}")
     del res, steps
     torch.cuda.empty_cache()
-    again, _, perms2 = _ep_run(EP_ARGS)
+    again, _, plans2, _ = _ep_run(EP_ARGS)
+    perms2 = [p for p, _ in plans2]
     same = {k: [st[k] for st in again["steps"]] == info["per_step"][k]
             for k in ("loss", "condense_rate", "bucket")}
     same["perms"] = len(perms) == len(perms2) and all(
@@ -1736,7 +1780,7 @@ def phase_ep_train():
 def phase_ep_bf16():
     """2 full-width EP steps on the bf16 wire: K4's cast kernel."""
     import torch
-    res, launches, _ = _ep_run(EP_BF16_ARGS)
+    res, launches, _, _ = _ep_run(EP_BF16_ARGS)
     cfg, steps = res["cfg"], res["steps"]
     want = _ep_expected(cfg, len(steps), f8=False)
     info = dict(wire=res["luffy"].wire_dtype,
@@ -1834,11 +1878,30 @@ COMM_OPS = ("all_to_all", "node_all_to_all", "local_all_gather",
             "local_psum_scatter")
 
 
-def phase_ep_profile():
+def _count_syncs(fn):
+    """The synchronizing CUDA calls ``fn`` makes (torch's sync debug
+    mode warns on each), or None where the mode reports none."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n = sum("synchroniz" in str(w.message) for w in caught)
+    return n or None
+
+
+def phase_ep_profile(overrides=None, label="EP profile"):
     """One full-width EP train step (after a warm-up step) under
     torch.profiler: device-busy share, top device ops, each kernel's
     share, the device time inside the virtual-rank collectives
-    (device-memory permutes) and the host planner's time."""
+    (device-memory permutes) and the host planner's time; then one more
+    step outside the profiler, counting its device syncs. ``overrides``:
+    LuffyConfig fields beyond the EP run's."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch import optim, train_lib
@@ -1859,7 +1922,7 @@ def phase_ep_profile():
     ocfg = OptimConfig(lr=1e-3, total_steps=6, warmup_steps=2)
     luffy = LuffyConfig(condense_group=128, combine_slack=2.0,
                         comm_mode="hier", hier_dedup="on",
-                        wire_dtype="f8e4m3")
+                        wire_dtype="f8e4m3", **(overrides or {}))
     cap = train_lib.capacity_for_bucket(cfg, shape, luffy, 0, dist)
     step = train_lib.make_train_step(cfg, luffy, ocfg, cap, dist)
     state = [optim.init_opt_state(params, ocfg),
@@ -1874,8 +1937,10 @@ def phase_ep_profile():
     one(0)
     torch.cuda.synchronize()
     originals = {n: getattr(CommContext, n) for n in COMM_OPS}
+    from repro_torch.core import migration as mig
     plan_orig = objectives.plan_migration_with_objective
-    planner = {"ms": 0.0, "calls": 0}
+    home_orig = mig.home_plan
+    planner = {"ms": 0.0, "calls": 0, "home_ms": 0.0, "home_calls": 0}
 
     def wrap(name, fn):
         def inner(self, x):
@@ -1890,9 +1955,17 @@ def phase_ep_profile():
         planner["calls"] += 1
         return out
 
+    def timed_home(*a, **kw):
+        t0 = time.perf_counter()
+        out = home_orig(*a, **kw)
+        planner["home_ms"] += (time.perf_counter() - t0) * 1e3
+        planner["home_calls"] += 1
+        return out
+
     for n, fn in originals.items():
         setattr(CommContext, n, wrap(n, fn))
     objectives.plan_migration_with_objective = timed_plan
+    mig.home_plan = timed_home
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1904,6 +1977,7 @@ def phase_ep_profile():
         for n, fn in originals.items():
             setattr(CommContext, n, fn)
         objectives.plan_migration_with_objective = plan_orig
+        mig.home_plan = home_orig
     rows = _device_rows(prof)
     busy = sum(r[0] for r in rows)
     ops = dict(KERNEL_OPS, pack_quant=("pack_quant_kernel",
@@ -1923,11 +1997,15 @@ def phase_ep_profile():
                 collectives_device_ms=comm_us / 1e3,
                 collectives_share=comm_us / busy if busy else None,
                 planner_host_ms=planner["ms"], planner_calls=planner["calls"],
+                keep_home_host_ms=planner["home_ms"],
+                keep_home_calls=planner["home_calls"],
+                overrides=overrides or {},
                 top=[{"op": k[:60], "ms": d / 1e3, "count": c}
                      for d, k, c in rows[:10]])
-    log("EP profile: " + json.dumps(info))
+    info["step_syncs"] = _count_syncs(lambda: one(2))
+    log(f"{label}: " + json.dumps(info))
     if not rows:
-        log("EP profile: the profiler saw no device time (not measured)")
+        log(f"{label}: the profiler saw no device time (not measured)")
     del model, params, state
     torch.cuda.empty_cache()
     return info
@@ -2507,7 +2585,7 @@ def phase_seq_train():
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.model import build_model
     kexp.weight_bf16.casts = kexp.weight_bf16.lo_casts = 0
-    res, launches, _ = _ep_run(SEQ_TRAIN_ARGS)
+    res, launches, _, _ = _ep_run(SEQ_TRAIN_ARGS)
     casts, lo_casts = kexp.weight_bf16.casts, kexp.weight_bf16.lo_casts
     cfg, steps = res["cfg"], res["steps"]
     n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
@@ -2587,6 +2665,392 @@ def phase_seq_train():
     return info
 
 
+def phase_reuse_kernels():
+    """Phase 22a: K2's fused entry restricted to LSH buckets (the CODES
+    instances) against its plain version, then timed in turns with the
+    exact entry."""
+    import numpy as np
+    import torch
+    from repro_torch.condense.backends import lsh_codes
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import similarity as ksim
+    # no spill in the CODES instances (both kernels, RULES and CODES true)
+    reps = [r for r in _ptxas_report(_build.BUILD_LOG.get("similarity", ""),
+                                     "sim_") if "Lb1ELb1E" in r["entry"]]
+    for r in reps:
+        log(f"  K2 CODES instance {r['entry']}: {r.get('registers')} "
+            f"registers, spill stores / loads {r.get('spill_stores')} / "
+            f"{r.get('spill_loads')} bytes")
+    if any(r.get("spill_stores") or r.get("spill_loads") for r in reps):
+        raise SystemExit(f"register spills in K2's CODES instances: {reps}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    r = np.random.default_rng(22)
+    top2 = torch.as_tensor(r.integers(0, E, (K2_GROUPS * K2_G, 2)),
+                           device="cuda")
+    expert = top2[:, 0].reshape(K2_GROUPS, K2_G)   # the path's strided ids
+    centres = torch.randn((E, D), generator=gen, device="cuda")
+    cid = torch.as_tensor(r.integers(0, E, (K2_GROUPS, K2_G)), device="cuda")
+    x0 = centres[cid] + 0.6 * torch.randn((K2_GROUPS, K2_G, D),
+                                          generator=gen, device="cuda")
+    first = torch.full((K2_GROUPS, K2_G, K2_G), 0.5, device="cuda")
+    carried = ref.masked_similarity_fused_ref(x0, expert, first, K2_S1,
+                                              K2_S2)[0].contiguous()
+    same = expert[:, :, None] == expert[:, None, :]
+    xs = {"bfloat16": x0.to(torch.bfloat16), "float32": x0}
+    checks = []
+    for bits in (8, 1):
+        code = lsh_codes(xs["bfloat16"], bits=bits)
+        bucket = code[:, :, None] == code[:, None, :]
+        for sp_name, sp in (("carried", carried), ("none", None)):
+            for x_name, x in xs.items():
+                c = code if x_name == "bfloat16" else lsh_codes(x, bits=bits)
+                sim, frac = ksim.masked_similarity_fused(
+                    x, expert, sp, K2_S1, K2_S2, code=c)
+                torch.cuda.synchronize()
+                want, wfrac = ref.masked_similarity_fused_ref(
+                    x, expert, sp, K2_S1, K2_S2, c)
+                unc = same if sp is None else \
+                    same & ~(sp > K2_S1) & ~(sp < K2_S2)
+                cb = bucket if x_name == "bfloat16" else \
+                    c[:, :, None] == c[:, None, :]
+                measured = unc & cb
+                exact = bool(torch.equal(sim[~measured], want[~measured]))
+                err = (sim[measured] - want[measured]).abs().max().item()
+                frac_eq = bool(torch.equal(frac, wfrac))
+                again = ksim.masked_similarity_fused(x, expert, sp, K2_S1,
+                                                     K2_S2, code=c)
+                rep = bool(torch.equal(again[0], sim)
+                           and torch.equal(again[1], frac))
+                tiles = measured.reshape(K2_GROUPS, 2, 64, 2, 64) \
+                    .any(dim=(2, 4))
+                ok = exact and err <= K2_TOL and frac_eq and rep
+                checks.append(dict(
+                    bits=bits, s_prev=sp_name, x=x_name,
+                    route=ksim.route(x.dtype, D),
+                    uncertain_share=unc.float().mean().item(),
+                    measured_share=measured.float().mean().item(),
+                    live_64x64_tiles=int(tiles.sum()),
+                    unmeasured_bitwise=exact, max_abs_err=err,
+                    measured_frac_bitwise=frac_eq, repeat_bitwise=rep,
+                    ok=ok))
+                log(f"  K2 lsh bits={bits} s_prev={sp_name:7s} x={x_name:8s}"
+                    f": uncertain {unc.float().mean().item():.4f}, measured "
+                    f"{measured.float().mean().item():.4f} of the pairs, "
+                    f"{int(tiles.sum())} of {tiles.numel()} 64 x 64 tiles "
+                    f"live; the rest bitwise {exact}, measured max|err|="
+                    f"{err:.3e} tol={K2_TOL:g}, measured_frac bitwise "
+                    f"{frac_eq}, repeats {rep} {'ok' if ok else 'FAIL'}")
+    if not all(c["ok"] for c in checks):
+        raise SystemExit(f"K2's LSH instances disagree with their plain "
+                         f"version: {[c for c in checks if not c['ok']]}")
+    # timed at bf16 with the carried s_prev, in turns with the exact entry
+    x = xs["bfloat16"]
+    codes = {b: lsh_codes(x, bits=b) for b in (8, 1)}
+    fns = {"exact": lambda: ksim.masked_similarity_fused(
+        x, expert, carried, K2_S1, K2_S2)}
+    for b, c in codes.items():
+        fns[f"lsh{b}"] = (lambda c=c: ksim.masked_similarity_fused(
+            x, expert, carried, K2_S1, K2_S2, code=c))
+    turns = {k: [] for k in fns}
+    for _ in range(2):
+        for k, fn in fns.items():
+            turns[k].append(device_ms(fn, 50))
+    c8 = codes[8]
+    meas = same & ~(carried > K2_S1) & ~(carried < K2_S2) \
+        & (c8[:, :, None] == c8[:, None, :])
+    f_tiles = int(meas.reshape(K2_GROUPS, 2, 64, 2, 64).any(dim=(2, 4))
+                  .sum())
+    f_groups = int(meas.any(dim=(1, 2)).sum())
+    ms = time_ms(fns["lsh8"], 50)
+    plain = time_ms(lambda: ref.masked_similarity_fused_ref(
+        x, expert, carried, K2_S1, K2_S2, c8), 50)
+    nbytes = (f_groups * K2_G * D * x.element_size() + expert.numel() * 8
+              + 4 * carried.numel() + 4 * c8.numel() + 4 * carried.numel()
+              + 4 * K2_GROUPS)
+    rec = dict(ms=ms, device_ms=turns["lsh8"][-1], plain_ms=plain,
+               library_ms=None, route=ksim.route(x.dtype, D),
+               tile=ksim.TILES[ksim.route(x.dtype, D)],
+               computed_tiles=f_tiles, live_groups=f_groups,
+               measured_share=meas.float().mean().item(),
+               **_bound(nbytes, f_tiles * 64 * 64 * D * 2.0, BF16_TC_FLOPS),
+               device_ms_in_turns=turns,
+               max_abs_err=max(c["max_abs_err"] for c in checks),
+               checks=checks, ptxas=reps)
+    rec["bound_share_device"] = rec["bound_ms"] / rec["device_ms"]
+    log(f"  K2 lsh bits=8 (carried s_prev): {rec['device_ms']:.4f} ms of "
+        f"device time ({100 * rec['bound_share_device']:.1f}% of the bound)"
+        f", events {ms:.4f} ms, plain {plain:.4f} ms; {f_tiles} of "
+        f"{K2_GROUPS * 4} 64 x 64 tiles and {f_groups} groups live; bound "
+        f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({nbytes / 1e6:.2f} "
+        f"MB); device ms in turns {json.dumps(turns)}")
+    del x0, xs, carried, first
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_reuse_ep(ep_info, ep_prof):
+    """Phase 22b: phase 11's EP run with plan reuse, condense reuse and
+    the lsh backend: launch counts from the step records, the
+    shipped-bytes law, a bitwise repeat; then phase 14's profile with the
+    same flags."""
+    import statistics
+    import numpy as np
+    import torch
+    res, launches, plans, greedy = _ep_run(EP_REUSE_ARGS)
+    cfg, steps, luffy = res["cfg"], res["steps"], res["luffy"]
+    n = len(steps)
+    remat = 2 if cfg.remat else 1
+    built = [st["condense_built"] for st in steps]
+    k2 = int(round(sum(built))) * remat
+    want = _ep_expected(cfg, n, f8=True)
+    want.update(masked_similarity=k2, masked_similarity_fused=k2,
+                masked_similarity_fused_lsh=k2)
+    greedy_want = int(round(sum(st["plans_built"] for st in steps))) * remat
+    for st in steps:
+        log(f"  EP reuse step {st['step']}: loss {st['loss']:.5f} plans "
+            f"{st['plans_built']:.0f}/{st['plans_reused']:.0f} condense "
+            f"{st['condense_built']:.0f}/{st['condense_reused']:.0f} "
+            f"measured_pairs {st['measured_pairs']:.0f} condense_rate "
+            f"{st['condense_rate']:.5f} bucket {st['bucket']} (C="
+            f"{st['capacity']}) {st['step_ms']:.1f} ms (phase 11: "
+            f"{ep_info['per_step']['step_ms'][st['step']]:.1f} ms, rate "
+            f"{ep_info['per_step']['condense_rate'][st['step']]:.5f}, "
+            f"bucket {ep_info['per_step']['bucket'][st['step']]}, "
+            f"measured_pairs "
+            f"{ep_info['per_step']['measured_pairs'][st['step']]:.0f})")
+    keys = ("loss", "plans_built", "plans_reused", "plan_reuse_mismatch",
+            "condense_built", "condense_reused", "measured_pairs",
+            "condense_rate", "bucket", "local_frac", "inter_bytes_shipped",
+            "step_ms")
+    med = statistics.median(st["step_ms"] for st in steps[1:])
+    info = dict(flags=REUSE_FLAGS, per_step={k: [st[k] for st in steps]
+                                             for k in keys},
+                median_step_ms_after_0=med,
+                median_step_ms_after_0_phase11=ep_info[
+                    "median_step_ms_after_0"],
+                peak_mem_gib=max(st["peak_mem_bytes"] for st in steps)
+                / 2 ** 30, launches=launches, launches_expected=want,
+                greedy_calls=greedy, greedy_calls_expected=greedy_want,
+                plans=len(plans))
+    log("EP reuse train: " + json.dumps(info))
+    if not all(math.isfinite(x) for x in info["per_step"]["loss"]):
+        raise SystemExit(f"EP reuse losses not finite: {info}")
+    bad = _check_law(steps, luffy, cfg)
+    if bad:
+        raise SystemExit(f"shipped-bytes law broken under reuse: {bad}")
+    if launches != want:
+        raise SystemExit(f"EP reuse launches {launches} differ from what the "
+                         f"step records call for, {want}")
+    if greedy != greedy_want:
+        raise SystemExit(f"{greedy} greedy calls, the step records say "
+                         f"{greedy_want}")
+    del res, steps
+    torch.cuda.empty_cache()
+    again, _, plans2, _ = _ep_run(EP_REUSE_ARGS)
+    same = {k: [st[k] for st in again["steps"]] == info["per_step"][k]
+            for k in ("loss", "condense_rate", "bucket", "measured_pairs")}
+    same["perms"] = len(plans) == len(plans2) and all(
+        (a[0] is None and b[0] is None) or np.array_equal(a[0], b[0])
+        for a, b in zip(plans, plans2))
+    same["rep_maps"] = len(plans) == len(plans2) and all(
+        torch.equal(a[1], b[1]) for a, b in zip(plans, plans2))
+    info["repeat_bitwise"] = same
+    log(f"EP reuse repeat, same seed: bit-equal {same}")
+    if not all(same.values()):
+        raise SystemExit(f"the EP reuse run does not repeat: {same}")
+    del again, plans, plans2
+    torch.cuda.empty_cache()
+    prof = phase_ep_profile(dict(plan_reuse="always",
+                                 condense_reuse="always",
+                                 similarity_backend="lsh"),
+                            label="EP reuse profile")
+    cmp = {k: [ep_prof[k], prof[k]] for k in (
+        "wall_ms", "device_ms", "device_busy_share", "planner_host_ms",
+        "planner_calls", "keep_home_host_ms", "keep_home_calls",
+        "step_syncs")}
+    log("EP profile, phase 14 vs reuse + lsh: " + json.dumps(cmp))
+    info["profile"] = prof
+    info["profile_vs_phase14"] = cmp
+    return info
+
+
+def phase_reuse_guarantee():
+    """Phase 22c: at full width, condensation off, one forward with
+    zeroed routers under plan_reuse "signature" bit for bit "off" with
+    the greedy run once, then random routers bit for bit with every
+    carried plan rebuilt."""
+    import numpy as np
+    import torch
+    import repro_torch.plan.exchange as tex
+    from repro_torch.config import LuffyConfig, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe_layer import capacity_for
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import make_dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    cfg = get_config("moe-gpt2")
+    B, S, M = 8, 1024, 4
+    dist = make_dist(make_host_mesh(model=M, nodes=2), "train", B,
+                     moe_arch=True)
+    # room for every routed copy, so no drop couples a sequence's counts
+    # to the others' on its rank; distinct lengths, so the greedy's order
+    # has no tie
+    cap = capacity_for(cfg.moe, B // M * S, cfg.moe.num_experts,
+                       slack=cfg.moe.num_experts / cfg.moe.top_k)
+    model = build_model(cfg, device="cuda", seed=0)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in SyntheticLM(
+        cfg, ShapeConfig("t", S, B, "train")).batch(0).items()}
+    batch["seq_len"] = torch.as_tensor(
+        np.random.default_rng(0).permutation(np.arange(S - B, S)),
+        device="cuda")
+    counters = ("plans_built", "plans_reused", "plan_reuse_mismatch")
+    orig = tex.build_exchange_plan
+    out = {}
+    routers = [layer["moe"]["router"]["w_gate"]
+               for layer in model.params["layers"]]
+    saved = [w.detach().clone() for w in routers]
+    for zero in (True, False):
+        with torch.no_grad():
+            for w, w0 in zip(routers, saved):
+                w.copy_(torch.zeros_like(w0) if zero else w0)
+        for mode in ("off", "signature"):
+            luffy = LuffyConfig(enable_condensation=False, combine_slack=2.0,
+                                comm_mode="hier", hier_dedup="on",
+                                wire_dtype="f8e4m3", plan_reuse=mode)
+            perms = []
+
+            def rec(*a, **kw):
+                pl = orig(*a, **kw)
+                perms.append(pl.perm.copy())
+                return pl
+
+            tex.build_exchange_plan = rec
+            try:
+                with torch.no_grad():
+                    loss, m = model.forward_train(
+                        batch, torch.tensor(0.6, device="cuda"), cap,
+                        luffy=luffy, dist=dist)
+            finally:
+                tex.build_exchange_plan = orig
+            out[(zero, mode)] = (loss.item(),
+                                 {k: v.item() for k, v in m.items()}, perms)
+    info = {}
+    ok = True
+    for zero in (True, False):
+        (l0, m0, p0), (l1, m1, p1) = out[(zero, "off")],             out[(zero, "signature")]
+        same = (l0 == l1 and all(m0[k] == m1[k] for k in m0
+                                 if k not in counters)
+                and len(p0) == len(p1)
+                and all(np.array_equal(a, b) for a, b in zip(p0, p1)))
+        name = "zeroed_routers" if zero else "random_routers"
+        info[name] = dict(loss_off=l0, loss_signature=l1, bitwise=same,
+                          off={k: m0[k] for k in counters},
+                          signature={k: m1[k] for k in counters},
+                          local_frac=m1["local_frac"],
+                          dispatch_drop=m1["dispatch_drop"])
+        n_moe = len(p1)
+        if zero:
+            want = (1.0, n_moe - 1.0, 0.0)
+        else:
+            want = (float(n_moe), 0.0, n_moe - 1.0)
+        ok &= same and tuple(m1[k] for k in counters) == want             and m0["plans_built"] == n_moe
+        info[name]["signature_expected"] = dict(zip(counters, want))
+    log("reuse guarantee, full width: " + json.dumps(info))
+    if not ok:
+        raise SystemExit(f"plan_reuse 'signature' is not 'off' bit for bit "
+                         f"with the expected counters: {info}")
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_reuse_parity():
+    """Phase 22d: reduced EP at f32 with plan and condense reuse "always"
+    and the lsh backend, card against CPU: codes, rep maps, perms and
+    counters equal, loss within 1e-4."""
+    import numpy as np
+    import torch
+    import repro_torch.plan.exchange as tex
+    from repro_torch.condense import backends as tbackends
+    from repro_torch.config import LuffyConfig, ShapeConfig, reduced
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import make_dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch import train_lib
+    P = REUSE_PARITY
+    cfg = dataclasses.replace(reduced(get_config("moe-gpt2"),
+                                      num_layers=P["layers"]),
+                              compute_dtype="float32")
+    shape = ShapeConfig("t", P["S"], P["B"], "train")
+    dist = make_dist(make_host_mesh(model=P["M"], nodes=P["nodes"]), "train",
+                     P["B"], moe_arch=True)
+    luffy = LuffyConfig(condense_group=min(128, P["S"]), combine_slack=2.0,
+                        comm_mode="hier", hier_dedup="on", wire_dtype="f32",
+                        plan_reuse="always", condense_reuse="always",
+                        condense_reuse_max_age=1, similarity_backend="lsh")
+    cap = train_lib.capacity_for_bucket(cfg, shape, luffy, 0, dist)
+    model = build_model(cfg, device="cuda", seed=0)
+    batch = SyntheticLM(cfg, shape).batch(0)
+    orig_plan, orig_codes = tex.build_exchange_plan, tbackends.lsh_codes
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model.to(dev)
+        plans, codes = [], []
+
+        def rec(*a, **kw):
+            pl = orig_plan(*a, **kw)
+            plans.append((pl.perm.copy(), pl.condense_plan.rep_idx.cpu()))
+            return pl
+
+        def rec_codes(*a, **kw):
+            c = orig_codes(*a, **kw)
+            codes.append(c.cpu())
+            return c
+
+        tex.build_exchange_plan = rec
+        tbackends.lsh_codes = rec_codes
+        try:
+            with torch.no_grad():
+                loss, m = model.forward_train(
+                    {k: torch.as_tensor(v, device=dev)
+                     for k, v in batch.items()},
+                    torch.tensor(0.6, device=dev), cap, luffy=luffy,
+                    dist=dist)
+        finally:
+            tex.build_exchange_plan = orig_plan
+            tbackends.lsh_codes = orig_codes
+        runs[dev] = (loss.item(), {k: v.item() for k, v in m.items()},
+                     plans, codes)
+    (lg, mg, pg, cg), (lc, mc, pc, cc) = runs["cuda"], runs["cpu"]
+    counters = ("plans_built", "plans_reused", "plan_reuse_mismatch",
+                "condense_built", "condense_reused", "measured_pairs")
+    info = dict(loss_cuda=lg, loss_cpu=lc, loss_rel=abs(lg - lc) / abs(lc),
+                counters_cuda={k: mg[k] for k in counters},
+                counters_cpu={k: mc[k] for k in counters},
+                codes_calls=len(cg),
+                codes_equal=len(cg) == len(cc) and all(
+                    torch.equal(a, b) for a, b in zip(cg, cc)),
+                perms_equal=len(pg) == len(pc) and all(
+                    np.array_equal(a[0], b[0]) for a, b in zip(pg, pc)),
+                rep_maps_equal=len(pg) == len(pc) and all(
+                    torch.equal(a[1], b[1]) for a, b in zip(pg, pc)),
+                condense_rate=[mg["condense_rate"], mc["condense_rate"]])
+    log("reuse parity, reduced EP f32, cuda vs cpu: " + json.dumps(info))
+    if not (info["codes_equal"] and info["perms_equal"]
+            and info["rep_maps_equal"] and len(cg) > 0
+            and info["counters_cuda"] == info["counters_cpu"]
+            and mg["condense_reused"] > 0 and mg["plans_reused"] > 0
+            and info["loss_rel"] <= 1e-4):
+        raise SystemExit(f"reuse + lsh, cuda vs cpu differ: {info}")
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
 def _record(name, source, replaces, launches, t, extra=None):
     rec = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
@@ -2619,7 +3083,7 @@ def main() -> int:
     ep_info = phase_ep_train()
     ep_bf16 = phase_ep_bf16()
     phase_ep_parity()
-    phase_ep_profile()
+    ep_prof = phase_ep_profile()
     log("kernels K5, K6:")
     timed_k56 = phase_kernels_k56()
     hymba_info = phase_hymba_slice()
@@ -2629,6 +3093,11 @@ def main() -> int:
     del slice_out
     phase_ep_serve_parity()
     seq_train = phase_seq_train()
+    log("reuse and lsh:")
+    timed_lsh = phase_reuse_kernels()
+    reuse_ep = phase_reuse_ep(ep_info, ep_prof)
+    phase_reuse_guarantee()
+    phase_reuse_parity()
     log("serve M=1 vs M=4: " + json.dumps({
         "prefill_tok_s": [slice_info["prefill_tok_s"],
                           ep_serve["prefill_tok_s"]],
@@ -2797,6 +3266,22 @@ def main() -> int:
                  "prefill_share": hymba_prof["kernel_share"]["mamba_scan"],
                  "prefill_tokens_per_s": hymba_prof["tokens_per_s"],
                  "checks": timed_k56["mamba_scan_fused"]["checks"]}),
+        _record("masked_similarity_fused_lsh",
+                "src/repro_torch/csrc/similarity.cu",
+                "src/repro/kernels/similarity.py:81",
+                reuse_ep["launches"]["masked_similarity_fused_lsh"],
+                timed_lsh,
+                {"fuses": "the skip rules and the lsh backend's bucket "
+                          "restriction of src/repro/condense/backends.py:"
+                          "87-158 (the CODES instances)",
+                 "launches_path": "EP train with " + " ".join(REUSE_FLAGS),
+                 "timed_at": "64 groups of [128,768] bf16 rows, strided "
+                             "int64 expert ids, a carried s_prev, codes at "
+                             "bits 8; bound at the bf16 tensor-core rate",
+                 **{k: timed_lsh[k] for k in (
+                     "device_ms", "device_ms_in_turns", "route", "tile",
+                     "bound_share_device", "live_groups", "computed_tiles",
+                     "measured_share", "checks", "ptxas")}}),
     ]
     for rec in records[:6]:
         rec["launches_ep_train"] = el[rec["name"]]

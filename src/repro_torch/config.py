@@ -112,10 +112,16 @@ class LuffyConfig:
     # §V-B adaptive threshold (Eq. 2); static_threshold when off
     adaptive_threshold: bool = True
     static_threshold: float = 0.5
-    # "exact" measures every uncertain pair ("lsh" is not ported yet:
-    # condense/plan.py raises on it)
+    # similarity backend (condense/backends.py): "exact" measures every
+    # uncertain pair; "lsh" only those whose lsh_bits-bit signed random
+    # projection codes (a fixed matrix drawn from lsh_seed) collide
     similarity_backend: str = "exact"
-    # cross-sublayer condense-plan reuse; only "off" is ported
+    lsh_bits: int = 8
+    lsh_seed: int = 0
+    # cross-sublayer condense-plan reuse (condense/plan.py): "off"
+    # rebuilds every MoE sublayer; "signature" reuses the carried rep map
+    # while the primary experts match and every sequence's age is under
+    # condense_reuse_max_age; "always" skips the expert compare
     condense_reuse: str = "off"
     condense_reuse_max_age: int = 4
     # condensation-rate buckets: capacity C' = ceil(C * (1 - rate))
@@ -134,7 +140,10 @@ class LuffyConfig:
     hier_dedup: str = "off"
     # only "sync" is ported ("pipeline" raises, ROADMAP Queue 1 item 5)
     exec_mode: str = "sync"
-    # only "traffic" and plan_reuse "off" are ported (items 7 and 4)
+    # only "traffic" is ported (item 7). plan_reuse (plan/exchange.py):
+    # "off" replans every MoE sublayer; "signature" skips the greedy when
+    # the routing signature matches the carried plan's; "always" trusts
+    # the carried plan
     plan_objective: str = "traffic"
     plan_reuse: str = "off"
     # precision rows cross nodes at: "f32" (the compute dtype), "bf16"

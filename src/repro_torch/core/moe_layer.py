@@ -54,15 +54,17 @@ def moe_core_planned(params, x, sideband: Dict[str, torch.Tensor],
                      capacity: int, threshold=None,
                      s_prev: Optional[torch.Tensor] = None,
                      condense_carry: Optional[CondenseCarry] = None,
-                     comm: Optional[CommContext] = None):
+                     comm: Optional[CommContext] = None, reuse_from=None):
     """One MoE sublayer for the ``M`` ranks of ``comm`` (None: one
     device, M = 1): gate on the RMS-normed tokens, build the plan
     (condensing when ``luffy.enable_condensation`` and the mode is not
     ``decode``), execute it. x: [M, n_seq, S, d] pre-norm hidden and a
     rank-major sideband (seq_len [M, n_seq]); ``threshold`` an f32
     scalar tensor, ``s_prev`` the similarity carried from the previous
-    MoE sublayer. Returns ``(y, sideband, s_next, aux, plan,
-    cond_carry)``, rank-major, aux per rank [M]: ``y = x + moe_delta``
+    MoE sublayer, ``condense_carry`` and ``reuse_from`` (a plan or its
+    signature) the condense and plan reuse carries. Returns ``(y,
+    sideband, s_next, aux, plan, cond_carry)``, rank-major, aux per rank
+    [M]: ``y = x + moe_delta``
     with the sideband unchanged, or in migrate mode across ranks ``y``,
     the sideband and ``s_next`` at the sequences' new homes. ``s_next``
     / ``cond_carry`` are None without condensation."""
@@ -74,7 +76,8 @@ def moe_core_planned(params, x, sideband: Dict[str, torch.Tensor],
     plan = pex.build_exchange_plan(gate, xn, cfg, luffy, mode=mode,
                                    capacity=capacity, sideband=sideband,
                                    threshold=threshold, s_prev=s_prev,
-                                   condense_carry=condense_carry, comm=comm)
+                                   condense_carry=condense_carry, comm=comm,
+                                   reuse_from=reuse_from)
     y, aux, cond_carry, sb, s_next = pex.execute_plan(params, x, plan, cfg,
                                                       sideband)
     return y, sb, s_next, aux, plan, cond_carry

@@ -18,7 +18,12 @@
 // similarity s_prev [NG, G, G] f32 (or none) each pair is cross-expert
 // (0), known high, s_prev > s1 (1), known low, s_prev < s2 (0), or
 // measured; the mask is formed on chip and never written to device
-// memory. It also
+// memory. With LSH bucket codes [NG, G] int32
+// (condense/backends.py's lsh backend) a pair that would be measured is
+// measured only where its row's and column's codes are equal, else 0;
+// the early-out below sees the restricted codes. Those are instances of
+// their own (CODES): without codes the kernels are the exact entry's.
+// It also
 // writes each group's measured fraction, count / G^2 (an f32 division,
 // exact at G = 128): the blocks of a group form one thread-block cluster
 // and its first block sums their counts from their shared memory, in rank
@@ -26,26 +31,26 @@
 // tensor cores, G <= 128 on the FMA kernel (the path's G is at most 128).
 //
 // Two kernels, chosen by the caller (kernels/similarity.py::route):
-//   - sim_wgmma_kernel<BM, BN, RULES> (bf16 rows, d a multiple of 16): one
-//     block per BM x BN output tile of a group (TC_BM x TC_BN = 64 x 128: at
-//     G = 128 a group is two blocks, 128 on the card; 64 x 64 and 128 x 128
-//     were slower, tools/k2_variants.py), one warpgroup per 64 x 64 of
-//     it; bf16 wgmma (m64n64k16, both operands K-major in shared memory)
-//     with f32 accumulators, over 64-wide slabs along d, two slabs to a
-//     barrier. A slab's 16-byte chunks are loaded into registers one pair
-//     ahead, summed there into the square sums (f32 FMAs, one partial sum
-//     per row and 16-byte chunk position, k ascending in each, the 8
-//     positions added in order at the end) and stored to a 4-slot ring in
-//     the 128-byte swizzle, so the sums read no shared memory: the wgmma
-//     operands are its largest traffic.
+//   - sim_wgmma_kernel<BM, BN, RULES, CODES> (bf16 rows, d a multiple of 16):
+//     one block per BM x BN output tile of a group (TC_BM x TC_BN = 64 x 128:
+//     at G = 128 a group is two blocks, 128 on the card; 64 x 64 and 128 x 128
+//     were slower, tools/k2_variants.py), one warpgroup per 64 x 64 of it;
+//     bf16 wgmma (m64n64k16, both operands K-major in shared memory) with f32
+//     accumulators, over 64-wide slabs along d, two slabs to a barrier. A
+//     slab's 16-byte chunks are loaded into registers one pair ahead, summed
+//     there into the square sums (f32 FMAs, one partial sum per row and
+//     16-byte chunk position, k ascending in each, the 8 positions added in
+//     order at the end) and stored to a 4-slot ring in the 128-byte swizzle,
+//     so the sums read no shared memory: the wgmma operands are its largest
+//     traffic.
 //     Where the tile's rows are among its columns' rows (always at
 //     G <= 128) only the column rows load. bf16 x bf16 products are exact
 //     in f32, so only the order of the sum differs from the FMA kernel's.
 //     The epilogue normalises with rsqrtf (two ulps) and takes no branch
 //     on the code.
-//   - sim_kernel<TX, RULES> (f32 rows, or other d): 64 x 64 tiles of f32
-//     FMAs, each thread a 4 x 4 micro-tile strided by 16 (the kernel of
-//     the first port, its arithmetic unchanged: IEEE 1 / sqrtf).
+//   - sim_kernel<TX, RULES, CODES> (f32 rows, or other d): 64 x 64 tiles
+//     of f32 FMAs, each thread a 4 x 4 micro-tile strided by 16 (the
+//     kernel of the first port, its arithmetic unchanged: IEEE 1 / sqrtf).
 // Both first form their tile's codes (mask or skip rules), read coalesced
 // 4 entries a thread at a time into shared memory: a tile with nothing to
 // measure writes its zeros and ones and returns before loading any row
@@ -89,6 +94,7 @@ struct MaskArgs {
   const uint8_t* mask;   // [NG, G, G] (contract entry)
   const void* expert;    // [NG, G] ids at element stride es (fused entry)
   const float* s_prev;   // [NG, G, G] or null
+  const int* code;       // [NG, G] LSH bucket codes (CODES instances)
   float* frac;           // [NG] measured fraction
   long long es;
   int e64;
@@ -100,17 +106,19 @@ __device__ __forceinline__ long long load_id(const MaskArgs& a, size_t k) {
                : static_cast<const int*>(a.expert)[k * a.es];
 }
 
-// Code of one entry from its mask byte or s_prev value (v) and whether
-// its row's and column's experts agree.
-template <bool RULES>
+// Code of one entry from its mask byte or s_prev value (v), whether its
+// row's and column's experts agree, and (CODES) whether their bucket
+// codes do: an uncertain pair of two buckets is 0, not measured.
+template <bool RULES, bool CODES>
 __device__ __forceinline__ uint32_t entry_code(const MaskArgs& a, float v,
-                                               bool same) {
+                                               bool same, bool bucket) {
   if constexpr (!RULES) {
     return v != 0.0f ? MEASURE : ZERO;
   } else {
     if (!same) return ZERO;
-    if (a.s_prev == nullptr) return MEASURE;
-    return v > a.s1 ? ONE : (v < a.s2 ? ZERO : MEASURE);
+    const uint32_t m = (!CODES || bucket) ? MEASURE : ZERO;
+    if (a.s_prev == nullptr) return m;
+    return v > a.s1 ? ONE : (v < a.s2 ? ZERO : m);
   }
 }
 
@@ -119,9 +127,10 @@ __device__ __forceinline__ uint32_t entry_code(const MaskArgs& a, float v,
 // as 16-byte ones). A thread's quads share their 4 columns, so it loads
 // their 4 column ids and one row id a quad itself (the row id is one
 // address for the warp); every load is issued before any code is formed,
-// and no barrier comes between. A thread keeps its quads' codes in q_code
-// (4 bytes each). Returns the number of measured entries it found.
-template <bool RULES, int BM, int BN, int NTH>
+// and no barrier comes between; with CODES their bucket codes the same
+// way. A thread keeps its quads' codes in q_code (4 bytes each). Returns
+// the number of measured entries it found.
+template <bool RULES, bool CODES, int BM, int BN, int NTH>
 __device__ __forceinline__ int tile_codes(
     const MaskArgs& a, size_t gG, int G, int i0, int j0, uint8_t* s_code,
     uint32_t (&q_code)[BM * BN / 4 / NTH]) {
@@ -134,14 +143,17 @@ __device__ __forceinline__ int tile_codes(
   const bool reads = !RULES || a.s_prev != nullptr;
   float4 v[PER];
   long long rid[PER], cid[4];
+  int rcode[PER], ccode[4];
 #pragma unroll
   for (int u = 0; u < PER; ++u) {
     const int i = i0 + (tid + u * NTH) / QR, j = j0 + lj;
     const size_t o = (gG + i) * G + j;
     v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
     rid[u] = 0;
+    rcode[u] = 0;
     if (i >= G) continue;
     if constexpr (RULES) rid[u] = load_id(a, gG + i);
+    if constexpr (CODES) rcode[u] = a.code[gG + i];
     if (!reads) continue;
     if (vec && j + 3 < G) {
       if constexpr (RULES) {
@@ -164,8 +176,10 @@ __device__ __forceinline__ int tile_codes(
     }
   }
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
+  for (int k = 0; k < 4; ++k) {
     cid[k] = RULES && j0 + lj + k < G ? load_id(a, gG + j0 + lj + k) : 0;
+    ccode[k] = CODES && j0 + lj + k < G ? a.code[gG + j0 + lj + k] : 0;
+  }
   int cnt = 0;
 #pragma unroll
   for (int u = 0; u < PER; ++u) {
@@ -176,7 +190,8 @@ __device__ __forceinline__ int tile_codes(
     for (int k = 0; k < 4; ++k) {
       if (i0 + li < G && j0 + lj + k < G) {
         const bool same = !RULES || rid[u] == cid[k];
-        const uint32_t c = entry_code<RULES>(a, e[k], same);
+        const uint32_t c =
+            entry_code<RULES, CODES>(a, e[k], same, rcode[u] == ccode[k]);
         cnt += c == MEASURE;
         packed |= c << (8 * k);
       }
@@ -269,7 +284,7 @@ __device__ __forceinline__ void group_done() {
 // f32 FMA kernel (any d; f32 rows keep f32 math)
 // ---------------------------------------------------------------------------
 
-template <typename TX, bool RULES>
+template <typename TX, bool RULES, bool CODES>
 __global__ void __launch_bounds__(NT)
 sim_kernel(const TX* __restrict__ x, const MaskArgs a, float* __restrict__ out,
            int G, int d) {
@@ -291,8 +306,8 @@ sim_kernel(const TX* __restrict__ x, const MaskArgs a, float* __restrict__ out,
 
   // ---- the tile's codes; tile-level early-out: anything to measure?
   uint32_t q_code[PER];
-  const int cnt = tile_codes<RULES, BT, BT, NT>(a, gG, G, i0, j0, s_code,
-                                                q_code);
+  const int cnt = tile_codes<RULES, CODES, BT, BT, NT>(a, gG, G, i0, j0,
+                                                       s_code, q_code);
   const int any = __syncthreads_or(cnt);
   if constexpr (RULES) group_count<NT>(a, cnt, g, G, sred);
   if (!any) {
@@ -435,7 +450,7 @@ __host__ __device__ constexpr size_t wg_smem() {
          + (wg_threads<BM, BN>() / 32 + 1) * sizeof(int);
 }
 
-template <int BM, int BN, bool RULES>
+template <int BM, int BN, bool RULES, bool CODES>
 __global__ void __launch_bounds__(wg_threads<BM, BN>())
 sim_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const MaskArgs a,
                  float* __restrict__ out, int G, int d) {
@@ -466,8 +481,8 @@ sim_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const MaskArgs a,
 
   // ---- the tile's codes; tile-level early-out: anything to measure?
   uint32_t q_code[PER];
-  const int cnt = tile_codes<RULES, BM, BN, NTH>(a, gG, G, i0, j0, s_code,
-                                                 q_code);
+  const int cnt = tile_codes<RULES, CODES, BM, BN, NTH>(a, gG, G, i0, j0,
+                                                        s_code, q_code);
   const int any = __syncthreads_or(cnt);
   if constexpr (RULES) group_count<NTH>(a, cnt, g, G, sred);
   if (!any) {
@@ -650,35 +665,36 @@ cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-template <bool RULES>
+template <bool RULES, bool CODES>
 cudaError_t launch_wgmma(const void* x, const MaskArgs& a, float* out, int NG,
                          int G, int d, cudaStream_t s) {
   constexpr size_t smem = wg_smem<TC_BM, TC_BN>();
   static bool attr_set = false;   // per instantiation, once per process
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sim_wgmma_kernel<TC_BM, TC_BN, RULES>,
+        sim_wgmma_kernel<TC_BM, TC_BN, RULES, CODES>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   const dim3 grid((G + TC_BN - 1) / TC_BN, (G + TC_BM - 1) / TC_BM, NG);
-  return launch(sim_wgmma_kernel<TC_BM, TC_BN, RULES>, grid,
+  return launch(sim_wgmma_kernel<TC_BM, TC_BN, RULES, CODES>, grid,
                 wg_threads<TC_BM, TC_BN>(), smem, RULES, s,
                 static_cast<const __nv_bfloat16*>(x), a, out, G, d);
 }
 
 // tc: the tensor-core kernel (bf16 rows, d % 16 == 0), else the FMA one.
 // The fused entry's blocks of a group form a cluster.
-template <bool RULES>
+template <bool RULES, bool CODES>
 cudaError_t launch_any(const void* x, const MaskArgs& a, float* out, int NG,
                        int G, int d, int x_bf16, int tc, cudaStream_t s) {
-  if (tc) return launch_wgmma<RULES>(x, a, out, NG, G, d, s);
+  if (tc) return launch_wgmma<RULES, CODES>(x, a, out, NG, G, d, s);
   const dim3 grid((G + BT - 1) / BT, (G + BT - 1) / BT, NG);
   if (x_bf16)
-    return launch(sim_kernel<__nv_bfloat16, RULES>, grid, NT, 0, RULES, s,
-                  static_cast<const __nv_bfloat16*>(x), a, out, G, d);
-  return launch(sim_kernel<float, RULES>, grid, NT, 0, RULES, s,
+    return launch(sim_kernel<__nv_bfloat16, RULES, CODES>, grid, NT, 0,
+                  RULES, s, static_cast<const __nv_bfloat16*>(x), a, out, G,
+                  d);
+  return launch(sim_kernel<float, RULES, CODES>, grid, NT, 0, RULES, s,
                 static_cast<const float*>(x), a, out, G, d);
 }
 
@@ -698,7 +714,7 @@ extern "C" int masked_similarity_launch(const void* x, const void* mask,
   if (bad_route(x_bf16, d, tc)) return (int)cudaErrorInvalidValue;
   MaskArgs a = {};
   a.mask = static_cast<const uint8_t*>(mask);
-  const cudaError_t e = launch_any<false>(
+  const cudaError_t e = launch_any<false, false>(
       x, a, static_cast<float*>(out), NG, G, d, x_bf16, tc,
       static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
@@ -706,13 +722,14 @@ extern "C" int masked_similarity_launch(const void* x, const void* mask,
 }
 
 // The fused entry: expert ids [NG, G] (int64 if e64, else int32) at
-// element stride es; s_prev [NG, G, G] f32 or null; out [NG, G, G] f32;
-// frac [NG] f32. A group's tiles (TC_BM x TC_BN, or 64 x 64 on the FMA
-// kernel) must fit one cluster.
+// element stride es; s_prev [NG, G, G] f32 or null; code [NG, G] int32
+// LSH bucket codes, contiguous, or null (the exact backend); out
+// [NG, G, G] f32; frac [NG] f32. A group's tiles (TC_BM x TC_BN, or
+// 64 x 64 on the FMA kernel) must fit one cluster.
 extern "C" int masked_similarity_fused_launch(
-    const void* x, const void* expert, const void* s_prev, void* out,
-    void* frac, int NG, int G, int d, int x_bf16, int tc, int e64, int es,
-    float s1, float s2, void* stream) {
+    const void* x, const void* expert, const void* s_prev, const void* code,
+    void* out, void* frac, int NG, int G, int d, int x_bf16, int tc, int e64,
+    int es, float s1, float s2, void* stream) {
   cudaGetLastError();
   if (bad_route(x_bf16, d, tc)) return (int)cudaErrorInvalidValue;
   const int em = tc ? TC_BM : BT, en = tc ? TC_BN : BT;
@@ -721,14 +738,19 @@ extern "C" int masked_similarity_fused_launch(
   MaskArgs a = {};
   a.expert = expert;
   a.s_prev = static_cast<const float*>(s_prev);
+  a.code = static_cast<const int*>(code);
   a.frac = static_cast<float*>(frac);
   a.es = es;
   a.e64 = e64;
   a.s1 = s1;
   a.s2 = s2;
-  const cudaError_t e = launch_any<true>(
-      x, a, static_cast<float*>(out), NG, G, d, x_bf16, tc,
-      static_cast<cudaStream_t>(stream));
+  const cudaError_t e =
+      code ? launch_any<true, true>(x, a, static_cast<float*>(out), NG, G, d,
+                                    x_bf16, tc,
+                                    static_cast<cudaStream_t>(stream))
+           : launch_any<true, false>(x, a, static_cast<float*>(out), NG, G,
+                                     d, x_bf16, tc,
+                                     static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return static_cast<int>(cudaGetLastError());
 }

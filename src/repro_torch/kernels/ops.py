@@ -37,10 +37,13 @@ def masked_similarity(x, mask):
     return _similarity.masked_similarity(x, mask)
 
 
-def masked_similarity_fused(x, expert, s_prev, s1: float, s2: float):
+def masked_similarity_fused(x, expert, s_prev, s1: float, s2: float,
+                            code=None):
     if _device(x, "masked_similarity_fused") == "cpu":
-        return ref.masked_similarity_fused_ref(x, expert, s_prev, s1, s2)
-    return _similarity.masked_similarity_fused(x, expert, s_prev, s1, s2)
+        return ref.masked_similarity_fused_ref(x, expert, s_prev, s1, s2,
+                                               code)
+    return _similarity.masked_similarity_fused(x, expert, s_prev, s1, s2,
+                                               code)
 
 
 def gather_rows(y, rep_idx, group_size=None):

@@ -89,14 +89,18 @@ def masked_similarity_ref(x, mask):
     return torch.where(mask, sim, torch.zeros((), dtype=sim.dtype))
 
 
-def masked_similarity_fused_ref(x, expert, s_prev, s1: float, s2: float):
+def masked_similarity_fused_ref(x, expert, s_prev, s1: float, s2: float,
+                                code=None):
     """§V-A fast similarity over every group: x [NG, G, d]; expert [NG, G]
-    primary expert ids; s_prev [NG, G, G] carried similarity or None.
-    Cross-expert pairs are 0, pairs with s_prev > s1 are 1, pairs with
-    s_prev < s2 are 0, and the rest are measured by
-    :func:`masked_similarity_ref`. Returns (sim [NG, G, G] f32,
-    measured_frac [NG]). The op sequence of the reference's
-    ``repro/condense/backends.py::fast_similarity`` (exact backend)."""
+    primary expert ids; s_prev [NG, G, G] carried similarity or None;
+    code [NG, G] LSH bucket codes or None. Cross-expert pairs are 0,
+    pairs with s_prev > s1 are 1, pairs with s_prev < s2 are 0, the rest
+    are measured by :func:`masked_similarity_ref` where the codes of row
+    and column are equal (every one without codes) and 0 elsewhere.
+    Returns (sim [NG, G, G] f32, measured_frac [NG], the measured share).
+    The op sequence of the reference's
+    ``repro/condense/backends.py::fast_similarity``, the exact backend
+    without codes, the lsh backend with them."""
     same_expert = expert[:, :, None] == expert[:, None, :]
     if s_prev is not None:
         known_hi = s_prev > s1
@@ -104,7 +108,9 @@ def masked_similarity_fused_ref(x, expert, s_prev, s1: float, s2: float):
     else:
         known_hi = torch.zeros_like(same_expert)
         uncertain = same_expert
-    measured = uncertain                  # the exact backend measures all
+    measured = uncertain
+    if code is not None:
+        measured = uncertain & (code[:, :, None] == code[:, None, :])
     cos = masked_similarity_ref(x, measured)
     zero = torch.zeros((), dtype=torch.float32, device=cos.device)
     sim = torch.where(measured, cos, zero)

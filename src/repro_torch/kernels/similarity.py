@@ -6,7 +6,8 @@
 0)`` for x [NG, G, d] in f32 or bf16, one launch over every group.
 :func:`masked_similarity` takes the mask; :func:`masked_similarity_fused`
 forms it from §V-A's skip rules inside the kernel and applies them to the
-result (``condense/backends.py::fast_similarity``). :func:`route` picks the
+result (``condense/backends.py::fast_similarity``), and with LSH bucket
+codes measures only the pairs whose codes collide. :func:`route` picks the
 kernel: bf16 rows at d a multiple of 16 go to the tensor cores. The source
 says what bounds the kernels and how they are laid out; the plain versions
 are :func:`repro_torch.kernels.ref.masked_similarity_ref` and
@@ -109,16 +110,21 @@ def masked_similarity(x, mask):
 masked_similarity.launches = 0
 
 
-def masked_similarity_fused(x, expert, s_prev, s1: float, s2: float):
+def masked_similarity_fused(x, expert, s_prev, s1: float, s2: float,
+                            code=None):
     """§V-A fast similarity in one launch. x: [NG, G, d] f32 or bf16;
     expert: [NG, G] int32 or int64 primary expert ids (a strided view is
-    read in place); s_prev: [NG, G, G] f32 carried similarity, or None.
-    Cross-expert pairs are 0, pairs with s_prev > s1 are 1, pairs with
-    s_prev < s2 are 0, the rest are measured. A group's tiles (``TILES``)
-    must fit one cluster: G <= 256 on the tensor cores, G <= 128 on the
-    FMA kernel. Returns (sim [NG, G, G] f32, measured_frac [NG] f32, each
-    group's measured share of its G² pairs). Adds one to ``masked_similarity_fused.launches`` and to
-    ``masked_similarity.launches`` per launch."""
+    read in place); s_prev: [NG, G, G] f32 carried similarity, or None;
+    code: [NG, G] int32 LSH bucket codes, or None. Cross-expert pairs are
+    0, pairs with s_prev > s1 are 1, pairs with s_prev < s2 are 0, the
+    rest are measured, with codes only where the row's and the column's
+    codes are equal (0 elsewhere). A group's tiles (``TILES``) must fit
+    one cluster: G <= 256 on the tensor cores, G <= 128 on the FMA
+    kernel. Returns (sim [NG, G, G] f32, measured_frac [NG] f32, each
+    group's measured share of its G² pairs). Adds one to
+    ``masked_similarity_fused.launches`` and to
+    ``masked_similarity.launches`` per launch, and with codes to
+    ``masked_similarity_fused.lsh_launches``."""
     x = _rows(x)
     NG, G, d = x.shape
     dev = x.device
@@ -137,6 +143,13 @@ def masked_similarity_fused(x, expert, s_prev, s1: float, s2: float):
                              f"got {s_prev.dtype} {tuple(s_prev.shape)} on "
                              f"{s_prev.device}")
         s_prev = _aligned(s_prev, 16)
+    if code is not None:
+        if code.device != dev or code.dtype != torch.int32 \
+                or tuple(code.shape) != (NG, G):
+            raise ValueError(f"code must be [NG, G] int32 on {dev}, got "
+                             f"{code.dtype} {tuple(code.shape)} on "
+                             f"{code.device}")
+        code = code.contiguous()
     rt = route(x.dtype, d)
     tm, tn = TILES[rt]
     if -(-G // tm) * -(-G // tn) > MAX_CLUSTER:
@@ -145,9 +158,10 @@ def masked_similarity_fused(x, expert, s_prev, s1: float, s2: float):
                          f"cluster")
     out = torch.empty((NG, G, G), dtype=torch.float32, device=dev)
     frac = torch.empty((NG,), dtype=torch.float32, device=dev)
-    rc = _call(_entry("masked_similarity_fused_launch", 5, 7, 2), dev,
+    rc = _call(_entry("masked_similarity_fused_launch", 6, 7, 2), dev,
                x.data_ptr(), expert.data_ptr(),
                None if s_prev is None else s_prev.data_ptr(),
+               None if code is None else code.data_ptr(),
                out.data_ptr(), frac.data_ptr(), NG, G, d,
                int(x.dtype == torch.bfloat16), int(rt == "wgmma"),
                int(expert.dtype == torch.int64), expert.stride(1),
@@ -157,7 +171,10 @@ def masked_similarity_fused(x, expert, s_prev, s1: float, s2: float):
                            f"cudaError {rc}")
     masked_similarity.launches += 1
     masked_similarity_fused.launches += 1
+    if code is not None:
+        masked_similarity_fused.lsh_launches += 1
     return out, frac
 
 
 masked_similarity_fused.launches = 0
+masked_similarity_fused.lsh_launches = 0

@@ -4,6 +4,9 @@
         [--reduced] --steps N --global-batch B --seq-len S \\
         [--model-axis M [--comm-mode {flat,hier}] [--nodes N] \\
          [--hier-dedup {off,on}] [--wire-dtype {f32,bf16,f8e4m3}]] \\
+        [--plan-reuse {off,signature,always}] \\
+        [--condense-reuse {off,signature,always}] [--condense-max-age N] \\
+        [--similarity-backend {exact,lsh}] [--lsh-bits N] \\
         [--no-condensation] [--no-migration] [--device cpu]
 
 Weights are random, drawn from ``--seed``; batches come from the
@@ -21,13 +24,19 @@ them (§IV), and the dispatch and combine run flat or two-phase over
 sequence does (rank r holds positions [r*S/M, (r+1)*S/M) of every
 sequence, the reference's sequence-parallel train shape), and, as in the
 reference, condensation and migration are then off (the launcher says
-so). The reference's default model axis of 4 is capped by
-its device count (one device gives one rank); virtual ranks have no such
-cap, so the port's default is 1. On the card (``--device cuda``, the
-default, which must exist) the expert FFN, the similarity, the
-un-condense gather and the dedup pack run in the hand-written kernels;
-on the CPU (``--device cpu``) in their plain versions. A flag of the
-reference that is not ported is not defined here.
+so). ``--plan-reuse`` and ``--condense-reuse`` skip the migration greedy
+and the similarity build at MoE sublayers where a carried plan
+revalidates; ``--similarity-backend lsh`` measures only the pairs whose
+LSH bucket codes collide. Each step record carries the per-forward
+counts ``plans_built``, ``plans_reused``, ``plan_reuse_mismatch``,
+``condense_built`` and ``condense_reused``. The reference's default
+model axis of 4 is capped by its device count (one device gives one
+rank); virtual ranks have no such cap, so the port's default is 1. On
+the card (``--device cuda``, the default, which must exist) the expert
+FFN, the similarity, the un-condense gather and the dedup pack run in
+the hand-written kernels; on the CPU (``--device cpu``) in their plain
+versions. A flag of the reference that is not ported is not defined
+here.
 """
 from __future__ import annotations
 
@@ -67,6 +76,28 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--wire-dtype", choices=["f32", "bf16", "f8e4m3"],
                     default=None,
                     help="precision rows cross nodes at (default f32)")
+    ap.add_argument("--plan-reuse", default="off",
+                    choices=["off", "signature", "always"],
+                    help="cross-layer migration-plan reuse: replan every "
+                         "MoE sublayer, revalidate a carried plan by "
+                         "routing signature, or trust it")
+    ap.add_argument("--similarity-backend", default=None,
+                    choices=["exact", "lsh"],
+                    help="condensation similarity backend: measure every "
+                         "uncertain pair, or only LSH-bucket collisions "
+                         "(default exact)")
+    ap.add_argument("--lsh-bits", type=int, default=None,
+                    help="signed random projections per LSH bucket code "
+                         "(default 8)")
+    ap.add_argument("--condense-reuse", default="off",
+                    choices=["off", "signature", "always"],
+                    help="cross-layer condense-plan reuse: rebuild the "
+                         "similarity every MoE sublayer, revalidate the "
+                         "carried rep map by primary-expert signature, or "
+                         "trust it up to the age bound")
+    ap.add_argument("--condense-max-age", type=int, default=4,
+                    help="staleness bound (sublayers) on a reused condense "
+                         "plan")
     ap.add_argument("--no-condensation", action="store_true")
     ap.add_argument("--no-migration", action="store_true",
                     help="keep sequences home (migration is the identity "
@@ -128,7 +159,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         enable_migration=not args.no_migration and layout_ok,
         condense_group=min(128, args.seq_len), combine_slack=2.0,
         comm_mode=comm_mode, hier_dedup=hier_dedup,
-        wire_dtype=args.wire_dtype or "f32")
+        wire_dtype=args.wire_dtype or "f32", plan_reuse=args.plan_reuse,
+        similarity_backend=args.similarity_backend or "exact",
+        lsh_bits=8 if args.lsh_bits is None else args.lsh_bits,
+        condense_reuse=args.condense_reuse,
+        condense_reuse_max_age=args.condense_max_age)
     ocfg = OptimConfig(name=args.optimizer, lr=args.lr,
                        total_steps=args.steps,
                        warmup_steps=max(2, args.steps // 20))
@@ -178,6 +213,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                      f"/{m['inter_bytes_flat']:.0f}B")
             if hier_dedup == "on" and comm_mode == "hier":
                 inter += f" shipped={m['inter_bytes_shipped']:.0f}B"
+        if luffy.plan_reuse != "off" or luffy.condense_reuse != "off":
+            inter += (f" plans={m['plans_built']:.0f}/"
+                      f"{m['plans_reused']:.0f}"
+                      f" cplans={m['condense_built']:.0f}/"
+                      f"{m['condense_reused']:.0f}")
         print(f"step {i:5d} loss={m['loss']:.4f} "
               f"cond={m['condense_rate']:.4f} bucket={rec['bucket']} "
               f"C={cap} local={m['local_frac']:.2f} "

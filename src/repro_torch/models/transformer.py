@@ -26,7 +26,8 @@ from repro_torch.core import moe_layer as moe
 from repro_torch.dist import DistContext
 from repro_torch.models import blocks as bk
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.plan.exchange import MoEAux
+from repro_torch.plan.exchange import MoEAux, PlanSignature, \
+    invalid_signature
 
 
 def pattern_period(cfg: ModelConfig) -> int:
@@ -155,9 +156,9 @@ def moe_apply_vanilla(p_moe, x, sideband, cfg: ModelConfig,
     :func:`_moe_apply_dist`'s layout."""
     comm = dist.comm(luffy.comm_mode)
     if not dist.seq_sharded:
-        y, _, _, aux, _ = _moe_apply_dist(p_moe, x, sideband, None, None,
-                                          cfg, luffy, comm, "vanilla",
-                                          capacity, None)
+        y, _, _, aux, _, _ = _moe_apply_dist(p_moe, x, sideband, None, None,
+                                             cfg, luffy, comm, "vanilla",
+                                             capacity, None)
         return y, aux
     B, S, d = x.shape
     comm = CommContext.local() if comm is None else comm
@@ -177,14 +178,15 @@ def moe_apply_vanilla(p_moe, x, sideband, cfg: ModelConfig,
 
 def _moe_apply_dist(p_moe, x, sideband, s_prev, threshold, cfg, luffy,
                     comm: Optional[CommContext], mode: str, capacity: int,
-                    cond_carry):
+                    cond_carry, plan_carry: Optional[PlanSignature] = None):
     """The MoE sublayer over the batch, split rank-major over the ``M``
     ranks of ``comm`` (None: one device, M = 1; the reference's train
     branch of ``_moe_apply_dist``). Each rank's tokens run the rank-local
     core; the sideband, the similarity history and the condense carry
     come back at the sequences' (new) homes, and the ledger is averaged
-    over the ranks (the reference's pmean). Returns (y, sideband, s_next,
-    aux, cond_carry)."""
+    over the ranks (the reference's pmean). ``plan_carry``: the plan
+    reuse carry (None: not threaded). Returns (y, sideband, s_next, aux,
+    cond_carry, plan_carry)."""
     B, S, d = x.shape
     comm = CommContext.local() if comm is None else comm
     M = comm.size()
@@ -196,27 +198,28 @@ def _moe_apply_dist(p_moe, x, sideband, s_prev, threshold, cfg, luffy,
                               cond_carry["age"], cond_carry["valid"])
     sb = {key: v.reshape(M, n_seq, *v.shape[1:])
           for key, v in sideband.items()}
-    y, sb, s_next, aux, _, cc = moe.moe_core_planned(
+    y, sb, s_next, aux, plan, cc = moe.moe_core_planned(
         p_moe, x.reshape(M, n_seq, S, d), sb, cfg, luffy, mode=mode,
         capacity=capacity, threshold=threshold, s_prev=s_prev,
-        condense_carry=carry, comm=comm)
+        condense_carry=carry, comm=comm, reuse_from=plan_carry)
     sb = {key: v.reshape(B, *v.shape[2:]) for key, v in sb.items()}
     aux = MoEAux(*(comm.pmean(a) for a in aux))
     if s_next is not None:
         G = luffy.condense_group
         s_next = s_next.reshape(B, S // G, G, G)
     return (y.reshape(B, S, d), sb, s_next, aux,
-            cond_carry if cc is None else cc)
+            cond_carry if cc is None else cc,
+            None if plan_carry is None else plan.signature)
 
 
 def _layer_full(p, cfg: ModelConfig, luffy: LuffyConfig, layer: int,
                 moe_mode: str, capacity: int, dist, x, sideband, s_prev,
-                threshold, cond_carry):
+                threshold, cond_carry, plan_carry):
     """One decoder layer of the train forward: causal attention over the
     whole batch, then the MoE sublayer (condensing, carrying the
-    similarity history and the condense carry, and migrating sequences
-    across ranks; or sequence-sharded) or the dense FFN. Returns (x,
-    sideband, s_prev, aux, cond_carry)."""
+    similarity history, the condense carry and the plan carry, and
+    migrating sequences across ranks; or sequence-sharded) or the dense
+    FFN. Returns (x, sideband, s_prev, aux, cond_carry, plan_carry)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     xn = bk.norm_apply(p["attn_norm"], x, cfg.norm)
@@ -229,17 +232,17 @@ def _layer_full(p, cfg: ModelConfig, luffy: LuffyConfig, layer: int,
     if cfg.ffn_kind(layer) != "moe":
         xn = bk.norm_apply(p["ffn_norm"], x, cfg.norm)
         return (x + bk.ffn_apply(p["ffn"], cfg, xn), sideband, s_prev,
-                _zero_aux(x.device), cond_carry)
+                _zero_aux(x.device), cond_carry, plan_carry)
     if dist is not None and dist.seq_sharded:
         x, aux = moe_apply_vanilla(p["moe"], x, sideband, cfg, luffy, dist,
                                    capacity)
-        return x, sideband, s_prev, aux, cond_carry
+        return x, sideband, s_prev, aux, cond_carry, plan_carry
     comm = None if dist is None else dist.comm(luffy.comm_mode)
-    x, sideband, s_next, aux, cond_carry = _moe_apply_dist(
+    x, sideband, s_next, aux, cond_carry, plan_carry = _moe_apply_dist(
         p["moe"], x, sideband, s_prev, threshold, cfg, luffy, comm,
-        moe_mode, capacity, cond_carry)
+        moe_mode, capacity, cond_carry, plan_carry)
     return (x, sideband, s_prev if s_next is None else s_next, aux,
-            cond_carry)
+            cond_carry, plan_carry)
 
 
 def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
@@ -281,19 +284,28 @@ def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
         luffy, enable_condensation=False)
     moe_mode = ("migrate" if (luffy.enable_migration and cfg.uses_moe
                               and not seq_sharded) else "vanilla")
+    # the plan reuse carry threads through every migrating stack (under
+    # plan_reuse "off" its valid flag stays 0), a host signature of the
+    # shape of the planner's inputs
+    plan_carry = None
+    if moe_mode == "migrate":
+        M = 1 if dist is None else dist.model_size
+        plan_carry = invalid_signature(B, M)
     aux_sum = _zero_aux(x.device)
     # the recompute runs each layer to its end, so every kernel of the
-    # layer launches again in the backward (counted by chip_smoke.py)
+    # layer launches again in the backward (counted by chip_smoke.py);
+    # it gets the layer's carries as they were, so it takes the
+    # forward's reuse decisions
     with ckpt.set_checkpoint_early_stop(False):
         for i, p in enumerate(params["layers"]):
             args = (p, cfg, eff_luffy, i, moe_mode, capacity, dist, x,
-                    sideband, s_prev, threshold, cond_carry)
+                    sideband, s_prev, threshold, cond_carry, plan_carry)
             if cfg.remat:
                 out = ckpt.checkpoint(_layer_full, *args,
                                       use_reentrant=False)
             else:
                 out = _layer_full(*args)
-            x, sideband, s_prev, aux, cond_carry = out
+            x, sideband, s_prev, aux, cond_carry, plan_carry = out
             aux_sum = MoEAux(*(a + b for a, b in zip(aux_sum, aux)))
 
     sl, sc = chunked_xent(params, cfg, x, sideband["labels"])
@@ -318,6 +330,8 @@ def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
         # plan and condensation ledgers: per-forward sums over the MoE
         # sublayers
         "plans_built": aux_sum.plans_built,
+        "plans_reused": aux_sum.plans_reused,
+        "plan_reuse_mismatch": aux_sum.reuse_mismatch,
         "measured_pairs": aux_sum.measured_pairs,
         "condense_built": aux_sum.condense_built,
         "condense_reused": aux_sum.condense_reused,

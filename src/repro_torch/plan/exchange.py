@@ -17,14 +17,22 @@ migration is the identity, as in the reference. Across ranks the dense
 wire runs flat or two-phase (the combine regrouped to the sequences' new
 homes under migration, with its ``combine_slack`` drop path), or the
 deduplicated hier wire (:mod:`repro_torch.condense.wire`), each at
-``wire_dtype``. Modes ``vanilla``, ``decode`` and ``migrate``. One
-synchronous schedule; the pipelined executor, plan reuse, replica lanes
-and wire error feedback raise, naming the queue item that brings them.
+``wire_dtype``. Modes ``vanilla``, ``decode`` and ``migrate``.
+
+Plan reuse (``LuffyConfig.plan_reuse``): a :class:`PlanSignature`, the
+planner inputs a plan expects at the next exchange, threads through the
+layer stack; under "signature" a sublayer whose counts and lengths equal
+the carried ones skips the greedy and emits the keep-home plan (what the
+greedy would return), under "always" a valid carry is trusted. The
+planner's inputs are on the host already, so the signature is numpy and
+reuse adds no device sync. One synchronous schedule; the pipelined
+executor, replica lanes and wire error feedback raise, naming the queue
+item that brings them.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -38,6 +46,7 @@ from repro_torch.condense.plan import (CondenseCarry, CondensePlan,
                                        build_condense_plan,
                                        identity_condense_plan, uncondense)
 from repro_torch.config import LuffyConfig, ModelConfig
+from repro_torch.core import migration as mig
 from repro_torch.core.gating import GateOutput, dispatch_positions
 from repro_torch.kernels import ops as kops
 from repro_torch.plan import objectives
@@ -58,12 +67,49 @@ class MoEAux(NamedTuple):
     inter_bytes_flat: torch.Tensor   # dispatch bytes a flat a2a ships
     inter_bytes_dedup: torch.Tensor  # ... after per-node dedup
     plans_built: torch.Tensor     # 1 when the migration planner ran
-    plans_reused: torch.Tensor    # plan reuse is not ported: 0
-    reuse_mismatch: torch.Tensor  # 0
+    plans_reused: torch.Tensor    # 1 when a carried plan was reused
+    reuse_mismatch: torch.Tensor  # 1 when a valid carry failed to match
     measured_pairs: torch.Tensor  # pairs the similarity measured
     condense_built: torch.Tensor  # 1 when the similarity build ran
     condense_reused: torch.Tensor  # 1 when a carried map was reused
     inter_bytes_shipped: torch.Tensor  # bytes the dedup wire shipped
+
+
+class PlanSignature(NamedTuple):
+    """What a carried plan revalidates against: the migration planner's
+    inputs expected at the next exchange, the per-(global slot, rank)
+    expert counts and the sequence lengths, rows in the post-migration
+    slot order (:func:`next_signature`). The greedy is deterministic in
+    them, so observed == expected means a replan would keep every
+    sequence home. ``valid`` > 0.5 once a plan was built. Host numpy."""
+    counts: np.ndarray            # [n_slots, M] f32
+    lens: np.ndarray              # [n_slots] f32
+    valid: np.float32             # [] 1 once a plan has been built
+
+
+def routing_signature_matches(sig: PlanSignature, counts, lens) -> bool:
+    """Observed planner inputs == expected, and the carry is valid."""
+    if (tuple(sig.counts.shape) != tuple(np.shape(counts))
+            or tuple(sig.lens.shape) != tuple(np.shape(lens))):
+        return False
+    return bool(sig.valid > 0.5 and np.all(sig.counts == counts)
+                and np.all(sig.lens == lens))
+
+
+def next_signature(counts, lens, perm) -> PlanSignature:
+    """The planner inputs expected after executing a plan with ``perm``:
+    slot ``perm[i]`` next holds the sequence whose counts and length sit
+    in row ``i`` today."""
+    n = counts.shape[0]
+    inv = np.zeros(n, np.int32)
+    inv[np.asarray(perm)] = np.arange(n, dtype=np.int32)
+    return PlanSignature(counts[inv], lens[inv], np.float32(1.0))
+
+
+def invalid_signature(n_slots: int, M: int) -> PlanSignature:
+    """The 'no carried plan' signature, of the shape a plan's would have."""
+    return PlanSignature(np.zeros((n_slots, M), np.float32),
+                         np.zeros((n_slots,), np.float32), np.float32(0.0))
 
 
 class ExchangePlan(NamedTuple):
@@ -90,6 +136,10 @@ class ExchangePlan(NamedTuple):
     traffic_after: torch.Tensor
     inter_bytes_flat: torch.Tensor   # [M]
     inter_bytes_dedup: torch.Tensor
+    signature: Optional[PlanSignature] = None  # the carry to thread on
+    plans_built: float = 0.0      # the greedy ran
+    plans_reused: float = 0.0     # a carried plan was reused
+    reuse_mismatch: float = 0.0   # a valid carry failed revalidation
 
 
 def _rms(x, scale, eps=1e-6):
@@ -124,8 +174,6 @@ def check_ported(luffy: LuffyConfig):
          "exec_mode='pipeline' (the pipelined executor)", "item 5"),
         (luffy.plan_objective != "traffic",
          f"plan_objective={luffy.plan_objective!r}", "item 7"),
-        (luffy.plan_reuse != "off", f"plan_reuse={luffy.plan_reuse!r}",
-         "item 4"),
         (luffy.wire_error_feedback, "wire_error_feedback", "item 6"),
     ]
     for bad, what, item in later:
@@ -134,6 +182,8 @@ def check_ported(luffy: LuffyConfig):
                 f"{what} is not ported yet (ROADMAP Queue 1 {item})")
     if luffy.exec_mode not in ("sync", "decode_overlap", "pipeline"):
         raise ValueError(f"unknown exec_mode {luffy.exec_mode!r}")
+    if luffy.plan_reuse not in ("off", "signature", "always"):
+        raise ValueError(f"unknown plan_reuse {luffy.plan_reuse!r}")
 
 
 def _scatter_rows(n_slots: int, slot, valid, *rows):
@@ -151,7 +201,9 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
                         sideband: Dict[str, torch.Tensor], threshold=None,
                         s_prev: Optional[torch.Tensor] = None,
                         condense_carry: Optional[CondenseCarry] = None,
-                        comm: Optional[CommContext] = None
+                        comm: Optional[CommContext] = None,
+                        reuse_from: Optional[Union["ExchangePlan",
+                                                   PlanSignature]] = None
                         ) -> ExchangePlan:
     """Decide one exchange for every rank of ``comm`` (None: one device,
     a local context).
@@ -166,7 +218,18 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
     global slots, priced by the topology's link cost; it runs on the host
     (:mod:`repro_torch.core.migration`), so the per-(slot, rank) expert
     counts and the lengths are copied off the device once per sublayer.
-    No payload moves here."""
+    No payload moves here.
+
+    reuse_from: a plan (or its :class:`PlanSignature`) of an earlier
+    sublayer of the same forward. Under ``luffy.plan_reuse="signature"``
+    a valid carry whose counts and lengths equal the observed ones skips
+    the greedy and emits the keep-home plan, which is what the greedy
+    would return; a valid carry that does not match is rebuilt and
+    counted in ``reuse_mismatch``. "always" trusts a valid carry. Reuse
+    engages only under the "traffic" objective, and the emitted
+    signature's valid flag is 0 under "off", so such a carry never
+    revalidates. The signature needs the host copies the planner already
+    makes, so reuse adds no device sync."""
     from repro_torch.models.blocks import _dtype
     if mode not in MODES:
         raise ValueError(f"exchange mode {mode!r}: one of {MODES}")
@@ -202,7 +265,10 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
             threshold, group_size=G,
             s_prev=None if s_prev is None else s_prev.reshape(-1, G, G),
             s1=luffy.s1, s2=luffy.s2, backend=luffy.similarity_backend,
-            reuse_mode=luffy.condense_reuse, carry=condense_carry, ranks=M)
+            lsh_bits=luffy.lsh_bits, lsh_seed=luffy.lsh_seed,
+            reuse_mode=luffy.condense_reuse,
+            max_age=luffy.condense_reuse_max_age, carry=condense_carry,
+            ranks=M)
         keep = keep & cp.is_rep.reshape(M, T)[..., None]
     else:
         cp = identity_condense_plan(M * T, luffy.similarity_backend,
@@ -229,17 +295,42 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
         ib_flat = ib_dedup = zM
 
     migrate = mode == "migrate" and luffy.enable_migration and M > 1
+    reuse_mode = luffy.plan_reuse
+    reuse_on = reuse_mode != "off"
+    built = reused = mismatch = 0.0
+    sig_out = None
     if migrate:
         oh = F.one_hot(expert_idx // E_local, M).float() \
             * valid[..., None].float()                        # [M,T,k,M]
         counts = oh.reshape(M, n_seq, S, k, M).sum(dim=(2, 3))
         lens = sideband["seq_len"].float()
-        mplan = objectives.plan_migration_with_objective(
-            counts.reshape(M * n_seq, M).cpu().numpy(),
-            lens.reshape(M * n_seq).cpu().numpy(), n_seq,
-            objective=luffy.plan_objective, topo=topo, q=luffy.q,
-            d_model=d, speed=luffy.gpu_speed)
+        counts_h = counts.reshape(M * n_seq, M).cpu().numpy()
+        lens_h = lens.reshape(M * n_seq).cpu().numpy()
+        sig_in = (reuse_from.signature
+                  if isinstance(reuse_from, ExchangePlan) else reuse_from)
+        match = False
+        if sig_in is not None:
+            have = bool(sig_in.valid > 0.5)
+            if reuse_mode == "always":
+                match = have
+            else:                               # "off" | "signature"
+                match = routing_signature_matches(sig_in, counts_h, lens_h)
+                mismatch = float(have and not match)
+        if match:
+            # the greedy would keep every sequence home: skip it
+            mplan = mig.home_plan(counts_h, n_seq,
+                                  link_cost=objectives.traffic_link_cost(
+                                      topo))
+        else:
+            mplan = objectives.plan_migration_with_objective(
+                counts_h, lens_h, n_seq, objective=luffy.plan_objective,
+                topo=topo, q=luffy.q, d_model=d, speed=luffy.gpu_speed)
+        built, reused = float(not match), float(match)
         perm = mplan.perm
+        if reuse_on or sig_in is not None:
+            sig_out = next_signature(counts_h, lens_h, perm)
+            if not (reuse_on and luffy.plan_objective == "traffic"):
+                sig_out = sig_out._replace(valid=np.float32(0.0))
         dest_global = torch.as_tensor(perm, device=dev).long() \
             .reshape(M, n_seq)
         t_before = torch.full((M,), float(mplan.traffic_before),
@@ -249,6 +340,8 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
     else:
         perm = dest_global = None
         t_before = t_after = zM
+    if sig_out is None and (reuse_on or reuse_from is not None):
+        sig_out = invalid_signature(M * n_seq, M)
     return ExchangePlan(
         condense=do_condense, capacity=C, group_size=G,
         expert_idx=expert_idx, gate_weights=gate_w, positions=pos,
@@ -257,7 +350,8 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
         wire_dtype=wire_dtype, combine_slack=luffy.combine_slack,
         perm=perm, dest_global=dest_global, traffic_before=t_before,
         traffic_after=t_after, inter_bytes_flat=ib_flat,
-        inter_bytes_dedup=ib_dedup)
+        inter_bytes_dedup=ib_dedup, signature=sig_out, plans_built=built,
+        plans_reused=reused, reuse_mismatch=mismatch)
 
 
 def _exchange_sideband(sb: Dict[str, torch.Tensor], dest_global
@@ -507,7 +601,8 @@ def _finish(plan: ExchangePlan, y_tok, new_sb, c_drop, local_frac,
         plan.aux_loss, plan.dispatch_drop, per_rank(c_drop), cp.rate,
         local_frac, plan.traffic_before, plan.traffic_after,
         plan.inter_bytes_flat, plan.inter_bytes_dedup,
-        zM + float(plan.migrate), zM, zM, cp.measured_pairs,
+        zM + plan.plans_built, zM + plan.plans_reused,
+        zM + plan.reuse_mismatch, cp.measured_pairs,
         per_rank(cp.built), per_rank(cp.reused), per_rank(shipped))
     return (y_tok.reshape(M, n_seq, S, d), aux, cond_carry, new_sb,
             s_next)

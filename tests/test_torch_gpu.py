@@ -327,6 +327,63 @@ def test_masked_similarity_fused_matches_plain(NG, G, d, x_dtype, history):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("NG,G,d,x_dtype,history,bits", [
+    (64, 128, 768, "bfloat16", True, 8),  # the lsh train path, carried
+    (64, 128, 768, "bfloat16", False, 8),
+    (64, 128, 768, "bfloat16", False, 1),  # two buckets: cross-bucket tiles
+    (64, 128, 768, "float32", True, 8),    # f32 compute: the FMA kernel
+    (5, 96, 64, "bfloat16", False, 2),     # a ragged G, no s_prev
+    (3, 120, 40, "bfloat16", True, 1)])    # the FMA kernel, a ragged G
+def test_masked_similarity_fused_with_lsh_codes_matches_plain(
+        NG, G, d, x_dtype, history, bits):
+    """K2's fused entry restricted to LSH buckets against its plain
+    version: the pairs it measures (uncertain, same bucket) within 1e-5,
+    every other entry (0 across buckets, 1 where s_prev > s1) bit for
+    bit, measured_frac bitwise at G = 128 (within one f32 ulp elsewhere)
+    and the restricted count; the lsh counter; a repeat bit for bit; the
+    exact entry's result unchanged beside it."""
+    from repro_torch.condense.backends import lsh_codes
+    from repro_torch.kernels import similarity as ksim
+    _cuda_or_skip()
+    x, expert, s_prev = _skip_rule_inputs(NG, G, d, x_dtype, history)
+    code = lsh_codes(x, bits=bits, seed=0)
+    before = (ksim.masked_similarity_fused.launches,
+              ksim.masked_similarity_fused.lsh_launches)
+    sim, frac = ops.masked_similarity_fused(x, expert, s_prev, 0.8, 0.2,
+                                            code=code)
+    torch.cuda.synchronize()
+    assert (ksim.masked_similarity_fused.launches,
+            ksim.masked_similarity_fused.lsh_launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    want, wfrac = ref.masked_similarity_fused_ref(x, expert, s_prev, 0.8,
+                                                  0.2, code)
+    same = expert[:, :, None] == expert[:, None, :]
+    uncertain = same.clone()
+    if s_prev is not None:
+        uncertain &= ~(s_prev > 0.8) & ~(s_prev < 0.2)
+    measured = uncertain & (code[:, :, None] == code[:, None, :])
+    assert bool(torch.any(uncertain & ~measured))
+    assert torch.equal(sim[~measured], want[~measured])
+    torch.testing.assert_close(sim[measured], want[measured], atol=1e-5,
+                               rtol=1e-5)
+    if G == 128:
+        assert torch.equal(frac, wfrac)
+    else:
+        torch.testing.assert_close(frac, wfrac, atol=0, rtol=1.2e-7)
+    assert torch.equal(frac.cpu(), measured.float().cpu().mean(dim=(1, 2)))
+    again = ops.masked_similarity_fused(x, expert, s_prev, 0.8, 0.2,
+                                        code=code)
+    assert torch.equal(again[0], sim) and torch.equal(again[1], frac)
+    exact, efrac = ops.masked_similarity_fused(x, expert, s_prev, 0.8, 0.2)
+    ewant, ewfrac = ref.masked_similarity_fused_ref(x, expert, s_prev, 0.8,
+                                                    0.2)
+    em = uncertain
+    assert torch.equal(exact[~em], ewant[~em])
+    torch.testing.assert_close(exact[em], ewant[em], atol=1e-5, rtol=1e-5)
+    assert torch.equal(efrac.cpu(), em.float().cpu().mean(dim=(1, 2)))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("G,d", [(264, 64), (200, 40)])
 def test_masked_similarity_fused_refuses_a_group_past_one_cluster(G, d):
     """A group of more than 8 tiles (G > 256 on the tensor cores, G > 128

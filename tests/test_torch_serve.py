@@ -230,11 +230,13 @@ def test_moe_core_matches_reference(mode, cdt):
 def test_moe_core_later_slices_raise():
     """What the port does not run raises, each naming the queue item that
     brings it: the pipelined executor, the planner objectives other than
-    "traffic", plan reuse, wire error feedback, the lsh similarity
-    backend and condense-plan reuse. A device holding part of the expert
-    stack under a local comm context is an error (expert parallelism
-    runs the whole stack over virtual ranks). Migration itself is the
-    identity at M = 1."""
+    "traffic" and wire error feedback. Plan reuse, condense-plan reuse
+    and the lsh similarity backend run since slice 11: on one device
+    without a carry each is the plain sublayer (the lsh backend only
+    measures fewer pairs), and an unknown mode is an error. A device
+    holding part of the expert stack under a local comm context is an
+    error (expert parallelism runs the whole stack over virtual ranks).
+    Migration itself is the identity at M = 1."""
     _, tcfg = _cfgs("float32")
     g = torch.Generator().manual_seed(0)
     p = tmoe.moe_init(g, tcfg, device="cpu")
@@ -250,10 +252,7 @@ def test_moe_core_later_slices_raise():
             (LuffyConfig(exec_mode="pipeline"), "Queue 1 item 5"),
             (LuffyConfig(plan_objective="overlap"), "Queue 1 item 7"),
             (LuffyConfig(plan_objective="replicate"), "Queue 1 item 7"),
-            (LuffyConfig(plan_reuse="signature"), "Queue 1 item 4"),
-            (LuffyConfig(wire_error_feedback=True), "Queue 1 item 6"),
-            (LuffyConfig(similarity_backend="lsh"), "lsh"),
-            (LuffyConfig(condense_reuse="signature"), "Queue 1 item 4")):
+            (LuffyConfig(wire_error_feedback=True), "Queue 1 item 6")):
         with pytest.raises(NotImplementedError, match=item):
             tmoe.moe_core(p, x, sb, tcfg, luffy, mode="vanilla", capacity=8,
                           threshold=thr)
@@ -262,6 +261,27 @@ def test_moe_core_later_slices_raise():
     y_van = tmoe.moe_core(p, x, sb, tcfg, LuffyConfig(), mode="vanilla",
                           capacity=8, threshold=thr)[0]
     assert torch.equal(y_mig, y_van)
+    for luffy in (LuffyConfig(plan_reuse="signature"),
+                  LuffyConfig(condense_reuse="signature"),
+                  LuffyConfig(plan_reuse="always", condense_reuse="always")):
+        y = tmoe.moe_core(p, x, sb, tcfg, luffy, mode="migrate", capacity=8,
+                          threshold=thr)[0]
+        assert torch.equal(y, y_van)
+    _, _, _, aux = tmoe.moe_core(p, x, sb, tcfg,
+                                 LuffyConfig(similarity_backend="lsh"),
+                                 mode="vanilla", capacity=8, threshold=thr)
+    _, _, _, aux_exact = tmoe.moe_core(p, x, sb, tcfg, LuffyConfig(),
+                                       mode="vanilla", capacity=8,
+                                       threshold=thr)
+    assert 0 < aux.measured_pairs < aux_exact.measured_pairs
+    for luffy in (LuffyConfig(plan_reuse="sometimes"),
+                  LuffyConfig(condense_reuse="sometimes")):
+        with pytest.raises(ValueError, match="unknown"):
+            tmoe.moe_core(p, x, sb, tcfg, luffy, mode="vanilla", capacity=8,
+                          threshold=thr)
+    with pytest.raises(ValueError, match="unknown similarity_backend"):
+        tmoe.moe_core(p, x, sb, tcfg, LuffyConfig(similarity_backend="x"),
+                      mode="vanilla", capacity=8, threshold=thr)
 
 
 def test_launcher_cpu_end_to_end():
