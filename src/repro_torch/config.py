@@ -77,6 +77,7 @@ class ModelConfig:
     norm: str = "rms"              # "rms" | "ln"
     act: str = "silu"              # "silu" | "gelu" (tanh approximation)
     gated_mlp: bool = True
+    causal: bool = True            # False for encoder-style (MoE-BERT)
     tie_embeddings: bool = False
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -149,7 +150,9 @@ class LuffyConfig:
     # precision rows cross nodes at: "f32" (the compute dtype), "bf16"
     # or "f8e4m3" with per-32-element f32 scales (repro_torch.comm.dtypes)
     wire_dtype: str = "f32"
-    # not ported (ROADMAP Queue 1 item 6): raises when on
+    # carry each token's wire quantization residual into the next step's
+    # shipped payload (plan/exchange.py::execute_plan); the residual is 0
+    # on an exact wire or one rank
     wire_error_feedback: bool = False
 
 

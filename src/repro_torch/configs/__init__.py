@@ -1,16 +1,23 @@
 """Architecture registry (counterpart of ``repro/configs/__init__.py``).
 
-The port runs ``moe-gpt2`` and ``hymba-1.5b``; other architectures come
-with their own slices and raise here until then."""
+The port runs ``moe-gpt2``, ``moe-transformerxl``, ``moe-bert-large``
+(the paper's Table II models) and ``hymba-1.5b``; the reference's other
+architectures come with their own slices and raise here until then."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.config import ModelConfig
 
-ARCHS = ["moe_gpt2", "hymba_1p5b"]
+ARCHS = ["moe_gpt2", "moe_transformerxl", "moe_bert_large", "hymba_1p5b"]
 
-ALIASES = {"moe-gpt2": "moe_gpt2", "hymba-1.5b": "hymba_1p5b"}
+ALIASES = {"moe-gpt2": "moe_gpt2", "moe-transformerxl": "moe_transformerxl",
+           "moe-bert-large": "moe_bert_large", "hymba-1.5b": "hymba_1p5b"}
+
+# the reference's architectures still to port, all ROADMAP Queue 1 item 8
+NOT_PORTED = ("gemma3-12b", "rwkv6-3b", "seamless-m4t-large-v2",
+              "llama4-maverick-400b-a17b", "yi-34b", "stablelm-12b",
+              "starcoder2-15b", "internvl2-2b", "olmoe-1b-7b")
 
 
 def get_config(name: str, **overrides) -> ModelConfig:
@@ -18,7 +25,7 @@ def get_config(name: str, **overrides) -> ModelConfig:
     if mod_name not in ARCHS:
         raise NotImplementedError(
             f"arch {name!r} is not ported yet (the port runs "
-            f"{', '.join(ALIASES)}; other archs come with their own "
-            f"slices, ROADMAP Queue 1 item 8)")
+            f"{', '.join(ALIASES)}; {', '.join(NOT_PORTED)} are still "
+            f"to port, ROADMAP Queue 1 item 8)")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.config(**overrides)

@@ -54,7 +54,8 @@ def moe_core_planned(params, x, sideband: Dict[str, torch.Tensor],
                      capacity: int, threshold=None,
                      s_prev: Optional[torch.Tensor] = None,
                      condense_carry: Optional[CondenseCarry] = None,
-                     comm: Optional[CommContext] = None, reuse_from=None):
+                     comm: Optional[CommContext] = None, reuse_from=None,
+                     wire_ef: Optional[torch.Tensor] = None):
     """One MoE sublayer for the ``M`` ranks of ``comm`` (None: one
     device, M = 1): gate on the RMS-normed tokens, build the plan
     (condensing when ``luffy.enable_condensation`` and the mode is not
@@ -62,12 +63,14 @@ def moe_core_planned(params, x, sideband: Dict[str, torch.Tensor],
     rank-major sideband (seq_len [M, n_seq]); ``threshold`` an f32
     scalar tensor, ``s_prev`` the similarity carried from the previous
     MoE sublayer, ``condense_carry`` and ``reuse_from`` (a plan or its
-    signature) the condense and plan reuse carries. Returns ``(y,
-    sideband, s_next, aux, plan, cond_carry)``, rank-major, aux per rank
-    [M]: ``y = x + moe_delta``
-    with the sideband unchanged, or in migrate mode across ranks ``y``,
-    the sideband and ``s_next`` at the sequences' new homes. ``s_next``
-    / ``cond_carry`` are None without condensation."""
+    signature) the condense and plan reuse carries, ``wire_ef`` [M,
+    n_seq, S, d] f32 the wire error-feedback residual carried from the
+    previous step (None: not threaded). Returns ``(y, sideband, s_next,
+    aux, plan, cond_carry, wire_ef)``, rank-major, aux per rank [M]:
+    ``y = x + moe_delta`` with the sideband unchanged, or in migrate mode
+    across ranks ``y``, the sideband and ``s_next`` at the sequences' new
+    homes. ``s_next`` / ``cond_carry`` are None without condensation,
+    ``wire_ef`` (this step's residual) without a carried one."""
     from repro_torch.models.blocks import _dtype
     M, n_seq, S, d = x.shape
     xn = _rms(x.reshape(M, n_seq * S, d), params["norm"]["scale"]) \
@@ -78,9 +81,9 @@ def moe_core_planned(params, x, sideband: Dict[str, torch.Tensor],
                                    threshold=threshold, s_prev=s_prev,
                                    condense_carry=condense_carry, comm=comm,
                                    reuse_from=reuse_from)
-    y, aux, cond_carry, sb, s_next = pex.execute_plan(params, x, plan, cfg,
-                                                      sideband)
-    return y, sb, s_next, aux, plan, cond_carry
+    y, aux, cond_carry, sb, s_next, ef = pex.execute_plan(
+        params, x, plan, cfg, sideband, wire_ef=wire_ef)
+    return y, sb, s_next, aux, plan, cond_carry, ef
 
 
 def moe_core(params, x, sideband: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -92,7 +95,7 @@ def moe_core(params, x, sideband: Dict[str, torch.Tensor], cfg: ModelConfig,
     sideband [n_seq, ...] in, the 4-tuple ``(y, sideband, s_next, aux)``
     out in the same layout (aux scalars). It is :func:`moe_core_planned`
     with one rank."""
-    y, sb, s_next, aux, _, _ = moe_core_planned(
+    y, sb, s_next, aux, _, _, _ = moe_core_planned(
         params, x[None], {key: v[None] for key, v in sideband.items()},
         cfg, luffy, mode=mode, capacity=capacity, threshold=threshold,
         s_prev=s_prev)

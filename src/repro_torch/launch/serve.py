@@ -3,6 +3,9 @@ its fixed-batch path).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch moe-gpt2 \\
         --batch 8 --prompt-len 128 --gen 32 --prefill batch
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch moe-transformerxl --batch 8 --prompt-len 256 --gen 16 \\
+        --prefill batch
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --batch 4 --prompt-len 2048 --gen 32 --prefill batch
     PYTHONPATH=src python -m repro_torch.launch.serve --arch moe-gpt2 \\
@@ -12,7 +15,9 @@ Weights are random, drawn from ``--seed``; the prompts too. With
 ``--prefill batch`` one whole-prompt prefill runs first as a warm-up and
 then once more timed. Then the prompt is fed token by token into the
 cache (KV and, for hymba, the Mamba state), and ``--gen`` tokens are
-decoded greedily. The kernels of the path (moe-gpt2: the expert FFN;
+decoded greedily. Every arch is served as a causal decoder, as the
+reference serves it, moe-bert-large (non-causal in training) included.
+The kernels of the path (the MoE archs: the expert FFN;
 hymba's batched prefill: flash attention and the Mamba scan) run
 hand-written on the card (``--device cuda``, the default, which must
 exist) and in their plain versions on the CPU (``--device cpu``).

@@ -1,9 +1,13 @@
 """Training launcher (counterpart of ``repro/launch/train.py``).
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch moe-gpt2 \\
-        [--reduced] --steps N --global-batch B --seq-len S \\
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch {moe-gpt2,moe-transformerxl,moe-bert-large} \\
+        [--reduced | --num-layers N] --steps N --global-batch B \\
+        --seq-len S \\
+        [--optimizer {adamw,adafactor,sgd}] \\
         [--model-axis M [--comm-mode {flat,hier}] [--nodes N] \\
-         [--hier-dedup {off,on}] [--wire-dtype {f32,bf16,f8e4m3}]] \\
+         [--hier-dedup {off,on}] [--wire-dtype {f32,bf16,f8e4m3}] \\
+         [--wire-error-feedback]] \\
         [--plan-reuse {off,signature,always}] \\
         [--condense-reuse {off,signature,always}] [--condense-max-age N] \\
         [--similarity-backend {exact,lsh}] [--lsh-bits N] \\
@@ -11,7 +15,10 @@
 
 Weights are random, drawn from ``--seed``; batches come from the
 synthetic stream (``repro_torch.data.SyntheticLM``). Each step runs the
-LUFFY train step (condensation with the adaptive threshold, AdamW); the
+LUFFY train step (condensation with the adaptive threshold, then
+``--optimizer``: AdamW, or Adafactor, whose bf16 momentum and factored
+second moment let moe-bert-large train at full width on one 80 GB card,
+or SGD with momentum); the
 host then updates the EWMA of the condensation rate and, from step 3 on,
 picks the rate bucket that sets the next step's dispatch capacity.
 
@@ -27,7 +34,10 @@ reference, condensation and migration are then off (the launcher says
 so). ``--plan-reuse`` and ``--condense-reuse`` skip the migration greedy
 and the similarity build at MoE sublayers where a carried plan
 revalidates; ``--similarity-backend lsh`` measures only the pairs whose
-LSH bucket codes collide. Each step record carries the per-forward
+LSH bucket codes collide. ``--wire-error-feedback`` carries each
+token's quantization residual on a lossy wire into the next step's
+shipped payload (one f32 residual per layer and token, allocated only
+when ``--wire-dtype`` is lossy). Each step record carries the per-forward
 counts ``plans_built``, ``plans_reused``, ``plan_reuse_mismatch``,
 ``condense_built`` and ``condense_reused``. The reference's default
 model axis of 4 is capped by its device count (one device gives one
@@ -41,6 +51,7 @@ here.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Dict, Optional, Sequence
 
@@ -57,6 +68,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="d_model of the --reduced variant")
     ap.add_argument("--layers", type=int, default=2,
                     help="layers of the --reduced variant")
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="cut the full-width arch to its first N layers "
+                         "(default: its whole depth)")
     ap.add_argument("--experts", type=int, default=0,
                     help="experts of the --reduced variant (default 4)")
     ap.add_argument("--global-batch", type=int, default=0,
@@ -102,7 +116,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--no-migration", action="store_true",
                     help="keep sequences home (migration is the identity "
                          "on one rank anyway)")
-    ap.add_argument("--optimizer", choices=["adamw"], default="adamw")
+    ap.add_argument("--wire-error-feedback", action="store_true",
+                    help="carry each token's wire quantization residual "
+                         "into the next step's shipped payload; no effect "
+                         "under --wire-dtype f32")
+    ap.add_argument("--optimizer", choices=["adamw", "adafactor", "sgd"],
+                    default="adamw")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
@@ -125,10 +144,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from repro_torch.data import SyntheticLM
     from repro_torch.dist import make_dist, single_device
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
     from repro_torch.models.model import build_model, resolve_device
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if args.num_layers:
+        if args.reduced:
+            raise ValueError("--num-layers cuts the full-width arch; the "
+                             "--reduced variant takes --layers")
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     if args.reduced:
         cfg = reduced(cfg, num_layers=args.layers, d_model=args.d_model,
                       max_experts=args.experts or 4,
@@ -163,14 +188,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         similarity_backend=args.similarity_backend or "exact",
         lsh_bits=8 if args.lsh_bits is None else args.lsh_bits,
         condense_reuse=args.condense_reuse,
-        condense_reuse_max_age=args.condense_max_age)
+        condense_reuse_max_age=args.condense_max_age,
+        wire_error_feedback=args.wire_error_feedback)
     ocfg = OptimConfig(name=args.optimizer, lr=args.lr,
                        total_steps=args.steps,
                        warmup_steps=max(2, args.steps // 20))
     model = build_model(cfg, device=device, seed=args.seed)
     params = model.params
     opt_state = optim.init_opt_state(params, ocfg)
-    lstate = train_lib.init_luffy_state(device)
+    # the residual buffer exists only where a lossy wire can fill it
+    use_ef = (luffy.wire_error_feedback and luffy.wire_dtype != "f32"
+              and cfg.uses_moe)
+    lstate = train_lib.init_luffy_state(
+        device, tf.wire_ef_shape(cfg, gb, args.seq_len) if use_ef else None)
     data = SyntheticLM(cfg, shape)
     steps_by_bucket = {}
 
@@ -203,6 +233,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                    **m)
         if device.type == "cuda":
             rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
+        if use_ef:
+            rec["wire_ef_absmax"] = float(lstate.wire_ef.abs().max())
         steps.append(rec)
         observed_rate = 0.8 * observed_rate + 0.2 * m["condense_rate"]
         if cfg.uses_moe and luffy.enable_condensation and i >= 3:
@@ -228,7 +260,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
           f"{steps[-1]['loss']:.4f}" if steps else "done: 0 steps")
     return {"arch": cfg.name, "cfg": cfg, "device": str(device),
             "global_batch": gb, "seq_len": args.seq_len, "steps": steps,
-            "total_s": total, "luffy": luffy, "dist": dist}
+            "total_s": total, "luffy": luffy, "dist": dist,
+            "optimizer": ocfg.name, "lstate": lstate,
+            "n_params": sum(p.numel()
+                            for _, p in optim.leaves_with_path(params))}
 
 
 if __name__ == "__main__":

@@ -150,12 +150,14 @@ def attend(q, k, v, mask, scale: float, logit_cap=None):
 
 
 def attn_apply(p, cfg: ModelConfig, x, positions, *, layer: int,
-               causal: bool = True, flash: bool = False):
-    """Full-sequence self-attention (prefill), direct path.
-    x: [B,S,d]; positions: [B,S]. With ``flash`` the core runs through
+               causal: bool = True, flash: bool = False, kv_valid=None):
+    """Full-sequence self-attention (train / prefill), direct path.
+    x: [B,S,d]; positions: [B,S]; kv_valid: [B,S] bool, the keys that
+    may be attended (a non-causal arch must not attend to padding), ANDed
+    into the mask. With ``flash`` the core runs through
     ``ops.flash_attention`` (K5), which masks by index, so positions
-    must be 0..S-1 in every row; else through ``attend``. Returns (out
-    [B,S,d], (k, v)), k after RoPE."""
+    must be 0..S-1 in every row, and takes no key mask; else through
+    ``attend``. Returns (out [B,S,d], (k, v)), k after RoPE."""
     a = cfg.attn
     if x.shape[1] > ATTN_DIRECT_MAX:
         raise NotImplementedError(
@@ -173,15 +175,18 @@ def attn_apply(p, cfg: ModelConfig, x, positions, *, layer: int,
     scale = a.softmax_scale or 1.0 / math.sqrt(a.head_dim)
     window = a.window_for_layer(layer)
     if flash:
-        if a.chunked_local or a.logit_cap is not None:
+        if a.chunked_local or a.logit_cap is not None or \
+                kv_valid is not None:
             raise NotImplementedError(
                 "K5 masks causal and sliding windows only (no chunked "
-                "window, no logit cap)")
+                "window, no logit cap, no key-padding mask)")
         out = ops.flash_attention(q, k, v, causal=causal, window=window,
                                   scale=scale)
     else:
         mask = make_attn_mask(positions, positions, causal=causal,
                               window=window, chunked=a.chunked_local)
+        if kv_valid is not None:
+            mask = mask & kv_valid[:, None, :]
         out = attend(q, k, v, mask, scale, a.logit_cap)
     out = out.reshape(out.shape[:-2] + (a.q_dim,))
     return (out @ p["wo"].to(cdt)).to(x.dtype), (k, v)

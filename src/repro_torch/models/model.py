@@ -70,11 +70,12 @@ class Model(nn.Module):
         return engine.cache_struct(self.cfg, batch, s_max, device=self.device)
 
     def forward_train(self, batch, threshold, capacity: int, *,
-                      luffy: LuffyConfig, dist=None):
+                      luffy: LuffyConfig, dist=None, wire_ef=None):
         """(total loss, metrics) of one batch; see
         :func:`repro_torch.models.transformer.forward_train`."""
         return tf.forward_train(self.params, self.cfg, luffy, batch,
-                                threshold, capacity, dist=dist)
+                                threshold, capacity, dist=dist,
+                                wire_ef=wire_ef)
 
     @torch.inference_mode()
     def prefill(self, tokens, s_max: int, *, luffy: LuffyConfig, dist=None):

@@ -141,12 +141,15 @@ def _zero_aux(device) -> MoEAux:
 
 
 def moe_apply_vanilla(p_moe, x, sideband, cfg: ModelConfig,
-                      luffy: LuffyConfig, dist: DistContext, capacity: int):
+                      luffy: LuffyConfig, dist: DistContext, capacity: int,
+                      wire_ef=None):
     """The MoE sublayer's vanilla exchange over ``dist``'s ranks in
     ``dist``'s layout, at one rank's ``capacity``: the sequence-sharded
     train forward and the expert-parallel prefill. x: [B, S, d];
     sideband: per-position entries [B, S] (labels) and per-sequence ones
-    [B] (seq_len). Returns (y, aux), aux averaged over the ranks.
+    [B] (seq_len); wire_ef: the error-feedback residual [B, S, d] f32
+    (None: off), laid out like x. Returns (y, aux, wire_ef), aux averaged
+    over the ranks.
 
     Sequence-sharded, rank r holds positions [r*S/M, (r+1)*S/M) of every
     sequence (the reference's specs ``P(bax, sax, ...)``), its tokens
@@ -156,37 +159,44 @@ def moe_apply_vanilla(p_moe, x, sideband, cfg: ModelConfig,
     :func:`_moe_apply_dist`'s layout."""
     comm = dist.comm(luffy.comm_mode)
     if not dist.seq_sharded:
-        y, _, _, aux, _, _ = _moe_apply_dist(p_moe, x, sideband, None, None,
-                                             cfg, luffy, comm, "vanilla",
-                                             capacity, None)
-        return y, aux
+        y, _, _, aux, _, _, ef = _moe_apply_dist(
+            p_moe, x, sideband, None, None, cfg, luffy, comm, "vanilla",
+            capacity, None, wire_ef=wire_ef)
+        return y, aux, ef
     B, S, d = x.shape
     comm = CommContext.local() if comm is None else comm
     M = comm.size()
     if S % M:
         raise ValueError(f"a sequence of {S} positions does not split "
                          f"over a model axis of {M}")
-    xr = x.reshape(B, M, S // M, d).transpose(0, 1)
+
+    def split(t):
+        return t.reshape(B, M, S // M, d).transpose(0, 1)
+
     sb = {key: (v.reshape(B, M, S // M).transpose(0, 1) if v.dim() == 2
                 else v.expand(M, B)) for key, v in sideband.items()}
-    y, _, _, aux, _, _ = moe.moe_core_planned(
-        p_moe, xr, sb, cfg, luffy, mode="vanilla", capacity=capacity,
-        comm=comm)
+    y, _, _, aux, _, _, ef = moe.moe_core_planned(
+        p_moe, split(x), sb, cfg, luffy, mode="vanilla", capacity=capacity,
+        comm=comm, wire_ef=None if wire_ef is None else split(wire_ef))
     return (y.transpose(0, 1).reshape(B, S, d),
-            MoEAux(*(comm.pmean(a) for a in aux)))
+            MoEAux(*(comm.pmean(a) for a in aux)),
+            None if ef is None else ef.transpose(0, 1).reshape(B, S, d))
 
 
 def _moe_apply_dist(p_moe, x, sideband, s_prev, threshold, cfg, luffy,
                     comm: Optional[CommContext], mode: str, capacity: int,
-                    cond_carry, plan_carry: Optional[PlanSignature] = None):
+                    cond_carry, plan_carry: Optional[PlanSignature] = None,
+                    wire_ef=None):
     """The MoE sublayer over the batch, split rank-major over the ``M``
     ranks of ``comm`` (None: one device, M = 1; the reference's train
     branch of ``_moe_apply_dist``). Each rank's tokens run the rank-local
     core; the sideband, the similarity history and the condense carry
     come back at the sequences' (new) homes, and the ledger is averaged
     over the ranks (the reference's pmean). ``plan_carry``: the plan
-    reuse carry (None: not threaded). Returns (y, sideband, s_next, aux,
-    cond_carry, plan_carry)."""
+    reuse carry (None: not threaded); ``wire_ef``: the error-feedback
+    residual [B, S, d] f32, keyed by (slot, position): it stays at its
+    slot when sequences migrate (None: not threaded). Returns (y,
+    sideband, s_next, aux, cond_carry, plan_carry, wire_ef)."""
     B, S, d = x.shape
     comm = CommContext.local() if comm is None else comm
     M = comm.size()
@@ -198,10 +208,12 @@ def _moe_apply_dist(p_moe, x, sideband, s_prev, threshold, cfg, luffy,
                               cond_carry["age"], cond_carry["valid"])
     sb = {key: v.reshape(M, n_seq, *v.shape[1:])
           for key, v in sideband.items()}
-    y, sb, s_next, aux, plan, cc = moe.moe_core_planned(
+    y, sb, s_next, aux, plan, cc, ef = moe.moe_core_planned(
         p_moe, x.reshape(M, n_seq, S, d), sb, cfg, luffy, mode=mode,
         capacity=capacity, threshold=threshold, s_prev=s_prev,
-        condense_carry=carry, comm=comm, reuse_from=plan_carry)
+        condense_carry=carry, comm=comm, reuse_from=plan_carry,
+        wire_ef=(None if wire_ef is None
+                 else wire_ef.reshape(M, n_seq, S, d)))
     sb = {key: v.reshape(B, *v.shape[2:]) for key, v in sb.items()}
     aux = MoEAux(*(comm.pmean(a) for a in aux))
     if s_next is not None:
@@ -209,54 +221,77 @@ def _moe_apply_dist(p_moe, x, sideband, s_prev, threshold, cfg, luffy,
         s_next = s_next.reshape(B, S // G, G, G)
     return (y.reshape(B, S, d), sb, s_next, aux,
             cond_carry if cc is None else cc,
-            None if plan_carry is None else plan.signature)
+            None if plan_carry is None else plan.signature,
+            None if ef is None else ef.reshape(B, S, d))
 
 
 def _layer_full(p, cfg: ModelConfig, luffy: LuffyConfig, layer: int,
                 moe_mode: str, capacity: int, dist, x, sideband, s_prev,
-                threshold, cond_carry, plan_carry):
-    """One decoder layer of the train forward: causal attention over the
-    whole batch, then the MoE sublayer (condensing, carrying the
-    similarity history, the condense carry and the plan carry, and
-    migrating sequences across ranks; or sequence-sharded) or the dense
-    FFN. Returns (x, sideband, s_prev, aux, cond_carry, plan_carry)."""
+                threshold, cond_carry, plan_carry, wire_ef):
+    """One decoder layer of the train forward: attention over the whole
+    batch (causal, or for a non-causal arch masked to each sequence's
+    ``seq_len`` keys, read from the sideband, which has moved with its
+    sequence), then the MoE sublayer (condensing, carrying the
+    similarity history, the condense carry, the plan carry and the wire
+    residual, and migrating sequences across ranks; or sequence-sharded)
+    or the dense FFN. Returns (x, sideband, s_prev, aux, cond_carry,
+    plan_carry, wire_ef)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    kv_valid = None
+    if not cfg.causal:
+        kv_valid = positions < sideband["seq_len"][:, None]
     xn = bk.norm_apply(p["attn_norm"], x, cfg.norm)
     # sequence-sharded, the reference attends each rank's queries against
-    # all-gathered K/V (_attn_seqpar): on one device that is this causal
-    # attention over the whole sequence, so it has no separate path
+    # all-gathered K/V (_attn_seqpar): on one device that is this
+    # attention over the whole sequence with the same mask, so it has no
+    # separate path
     att, _ = bk.attn_apply(p["attn"], cfg, xn, positions, layer=layer,
-                           causal=True)
+                           causal=cfg.causal, kv_valid=kv_valid)
     x = x + att
     if cfg.ffn_kind(layer) != "moe":
         xn = bk.norm_apply(p["ffn_norm"], x, cfg.norm)
         return (x + bk.ffn_apply(p["ffn"], cfg, xn), sideband, s_prev,
-                _zero_aux(x.device), cond_carry, plan_carry)
+                _zero_aux(x.device), cond_carry, plan_carry, wire_ef)
     if dist is not None and dist.seq_sharded:
-        x, aux = moe_apply_vanilla(p["moe"], x, sideband, cfg, luffy, dist,
-                                   capacity)
-        return x, sideband, s_prev, aux, cond_carry, plan_carry
+        x, aux, ef = moe_apply_vanilla(p["moe"], x, sideband, cfg, luffy,
+                                       dist, capacity, wire_ef)
+        return x, sideband, s_prev, aux, cond_carry, plan_carry, ef
     comm = None if dist is None else dist.comm(luffy.comm_mode)
-    x, sideband, s_next, aux, cond_carry, plan_carry = _moe_apply_dist(
+    x, sideband, s_next, aux, cond_carry, plan_carry, ef = _moe_apply_dist(
         p["moe"], x, sideband, s_prev, threshold, cfg, luffy, comm,
-        moe_mode, capacity, cond_carry, plan_carry)
+        moe_mode, capacity, cond_carry, plan_carry, wire_ef)
     return (x, sideband, s_prev if s_next is None else s_next, aux,
-            cond_carry, plan_carry)
+            cond_carry, plan_carry, ef)
+
+
+def wire_ef_shape(cfg: ModelConfig, batch: int, seq_len: int):
+    """Shape of the cross-step wire error-feedback buffer: one per-token
+    residual slot per layer, ``(num_layers, B, S, d_model)``. The
+    reference's (``wire_ef_shape``) is ``(n_groups, period, B, S, d)``
+    for its layer scan; layer ``g * period + j`` is its ``[g, j]``, so
+    the two have the same memory order."""
+    return (cfg.num_layers, batch, seq_len, cfg.d_model)
 
 
 def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
                   batch: Dict[str, torch.Tensor], threshold,
-                  capacity: int, dist: Optional[DistContext] = None):
+                  capacity: int, dist: Optional[DistContext] = None,
+                  wire_ef: Optional[torch.Tensor] = None):
     """The train forward (the reference's ``forward_train``). batch:
     tokens [B, S], labels [B, S] (< 0 ignored), seq_len [B]; threshold:
     f32 scalar tensor (Eq. 2); capacity: the MoE dispatch capacity per
     (rank, expert); dist: the expert-parallel ranks (None: one device).
     The dense layers run on the whole batch in its current rank-major
     order, which is each rank's computation row for row; the loss is
-    the global mean. Returns (total loss, metrics): the total adds
-    ``router_aux_coef`` times the mean router aux loss; the metrics are
-    detached scalars."""
+    the global mean. wire_ef (:func:`wire_ef_shape`, f32): the previous
+    step's per-layer wire quantization residuals; when given, each MoE
+    layer adds its slot to the shipped payload, and the refreshed
+    residuals come back under ``metrics["_wire_ef"]`` (a new tensor; the
+    given one is not written, since the remat recompute replays each
+    layer on its old slot). Returns (total loss, metrics): the total
+    adds ``router_aux_coef`` times the mean router aux loss; the metrics
+    are detached scalars."""
     _check_arch(cfg)
     if cfg.ssm is not None:
         raise NotImplementedError(
@@ -292,20 +327,25 @@ def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
         M = 1 if dist is None else dist.model_size
         plan_carry = invalid_signature(B, M)
     aux_sum = _zero_aux(x.device)
+    ef_out = None if wire_ef is None else torch.empty_like(wire_ef)
     # the recompute runs each layer to its end, so every kernel of the
     # layer launches again in the backward (counted by chip_smoke.py);
     # it gets the layer's carries as they were, so it takes the
-    # forward's reuse decisions
+    # forward's reuse decisions and rebuilds the forward's residual,
+    # which it drops
     with ckpt.set_checkpoint_early_stop(False):
         for i, p in enumerate(params["layers"]):
             args = (p, cfg, eff_luffy, i, moe_mode, capacity, dist, x,
-                    sideband, s_prev, threshold, cond_carry, plan_carry)
+                    sideband, s_prev, threshold, cond_carry, plan_carry,
+                    None if wire_ef is None else wire_ef[i])
             if cfg.remat:
                 out = ckpt.checkpoint(_layer_full, *args,
                                       use_reentrant=False)
             else:
                 out = _layer_full(*args)
-            x, sideband, s_prev, aux, cond_carry, plan_carry = out
+            x, sideband, s_prev, aux, cond_carry, plan_carry, ef = out
+            if ef_out is not None:
+                ef_out[i].copy_(ef)
             aux_sum = MoEAux(*(a + b for a, b in zip(aux_sum, aux)))
 
     sl, sc = chunked_xent(params, cfg, x, sideband["labels"])
@@ -336,4 +376,7 @@ def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
         "condense_built": aux_sum.condense_built,
         "condense_reused": aux_sum.condense_reused,
     }
-    return total, {k: v.detach() for k, v in metrics.items()}
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if ef_out is not None:
+        metrics["_wire_ef"] = ef_out
+    return total, metrics

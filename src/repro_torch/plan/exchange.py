@@ -26,8 +26,9 @@ the carried ones skips the greedy and emits the keep-home plan (what the
 greedy would return), under "always" a valid carry is trusted. The
 planner's inputs are on the host already, so the signature is numpy and
 reuse adds no device sync. One synchronous schedule; the pipelined
-executor, replica lanes and wire error feedback raise, naming the queue
-item that brings them.
+executor and replica lanes raise, naming the queue item that brings
+them. Wire error feedback carries each token's quantization residual
+from one step's payload into the next's (:func:`execute_plan`).
 """
 from __future__ import annotations
 
@@ -174,7 +175,6 @@ def check_ported(luffy: LuffyConfig):
          "exec_mode='pipeline' (the pipelined executor)", "item 5"),
         (luffy.plan_objective != "traffic",
          f"plan_objective={luffy.plan_objective!r}", "item 7"),
-        (luffy.wire_error_feedback, "wire_error_feedback", "item 6"),
     ]
     for bad, what, item in later:
         if bad:
@@ -368,7 +368,8 @@ def _exchange_sideband(sb: Dict[str, torch.Tensor], dest_global
 
 
 def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
-                 sideband: Dict[str, torch.Tensor]):
+                 sideband: Dict[str, torch.Tensor], *,
+                 wire_ef: Optional[torch.Tensor] = None):
     """Run one exchange for every rank: pack the dispatch rows, run the
     expert FFN, combine, and un-condense.
 
@@ -376,8 +377,19 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
     [E, ...] (rank r owns experts [r*E_local, (r+1)*E_local)); x:
     [M, n_seq, S, d] pre-norm hidden; sideband: seq_len [M, n_seq] and
     any per-sequence state (labels [M, n_seq, S]). The expert FFN runs
-    once over every rank's rows, [E, M*C, d]. Returns ``(y, aux,
-    cond_carry, sideband, s_next)``: in vanilla and decode mode ``y = x
+    once over every rank's rows, [E, M*C, d].
+
+    wire_ef: [M, n_seq, S, d] f32, the error-feedback residual of the
+    previous step (None: off). It is added to the shipped payload only;
+    the residual connection keeps the exact hidden (under migration the
+    primary copy's row carries the residual, so there it is the
+    payload's, as in the reference). The new residual ``payload -
+    dequant(quant(payload))`` at the compute dtype, through the wire's
+    codec, is returned at the same (slot, position), detached: zero on
+    the f32 wire or one rank.
+
+    Returns ``(y, aux, cond_carry, sideband, s_next, wire_ef)``: in
+    vanilla and decode mode ``y = x
     + moe_delta`` and the sideband is unchanged; in migrate mode (M > 1)
     ``y`` is the post-block hidden at the sequences' new slots, and the
     sideband, the rep map and the similarity history have moved with
@@ -404,6 +416,17 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
     dest_global = plan.dest_global
     xf = x.reshape(M, T, d)
     scale = params["norm"]["scale"]
+    x_pay, ef_next = xf, None
+    if wire_ef is not None:
+        x_pay = xf + wire_ef.reshape(M, T, d).to(xf.dtype)
+        if plan.wire_dtype != "f32" and M > 1:
+            pc = x_pay.detach().to(cdt)
+            deq = wdt.dequantize_rows(*wdt.quantize_rows(pc, plan.wire_dtype),
+                                      cdt, d)
+            ef_next = (pc - deq).float().reshape(M, n_seq, S, d)
+        else:       # an exact wire, or nothing crosses it
+            ef_next = torch.zeros((M, n_seq, S, d), dtype=torch.float32,
+                                  device=dev)
 
     def ffn(x_rows):
         """x_rows [M, E_local, M, C, d] -> expert outputs, one launch."""
@@ -424,7 +447,7 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
             dest_gpos = (dslot // n_seq) * T + (dslot % n_seq) * S + tok % S
             prim_tk = (torch.arange(k, device=dev) == 0).expand(M, T, k)
         x_rows, gw_rows, rvalid, wst = cwire.dedup_dispatch(
-            xf.to(cdt), expert_idx, gate_w, valid, pos, comm=comm,
+            x_pay.to(cdt), expert_idx, gate_w, valid, pos, comm=comm,
             e_local=E_local, capacity=C, wire_dtype=plan.wire_dtype,
             dest_gpos=dest_gpos, prim=prim_tk)
         y_rows = ffn(x_rows)
@@ -451,7 +474,7 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
                                        torch.finfo(cdt).bits // 8)
         shipped = wst["shipped_rows"] * row_bytes
         return _finish(plan, y_tok, new_sb, None, local_frac, shipped,
-                       n_seq, S)
+                       n_seq, S) + (ef_next,)
 
     # ---- dense wire: each copy's row, and beside it its gate weight (and
     # under migration its primary flag). The side columns move in their
@@ -464,7 +487,7 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
     w = side.shape[-1]
     buf, sbuf = _scatter_rows(
         M * E * C, slot.reshape(-1), valid.reshape(-1),
-        xf.to(cdt)[:, :, None, :].expand(M, T, k, d).reshape(-1, d),
+        x_pay.to(cdt)[:, :, None, :].expand(M, T, k, d).reshape(-1, d),
         side.reshape(-1, w))
     buf, sbuf = buf.reshape(M, E, C, d), sbuf.reshape(M, E, C, w)
     xr = ship(comm.all_to_all, buf).reshape(M, M, E_local, C, d) \
@@ -545,7 +568,8 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
                                   cbuf.reshape(M * M * C_comb, d))
         y_tok = y_grid[:M * T].reshape(M, T, d).to(xf.dtype)
         new_sb = _exchange_sideband(sideband, dest_global)
-    return _finish(plan, y_tok, new_sb, c_drop, local_frac, None, n_seq, S)
+    return _finish(plan, y_tok, new_sb, c_drop, local_frac, None, n_seq,
+                   S) + (ef_next,)
 
 
 def _finish(plan: ExchangePlan, y_tok, new_sb, c_drop, local_frac,

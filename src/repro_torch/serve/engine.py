@@ -184,6 +184,8 @@ def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
             x, kv = hybrid_mixer(p, cfg, x, positions, i)
         else:
             xn = bk.norm_apply(p["attn_norm"], x, cfg.norm)
+            # causal whatever cfg.causal says: the reference serves
+            # every decoder so
             att, kv = bk.attn_apply(p["attn"], cfg, xn, positions, layer=i,
                                     causal=True)
             x = x + att

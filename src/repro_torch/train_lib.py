@@ -1,7 +1,8 @@
 """The train step (counterpart of ``repro/train_lib.py``): loss,
-backward, AdamW, and the LUFFY state that carries the adaptive threshold
-(paper Eq. 2) from step to step, on one device or over virtual
-expert-parallel ranks (``dist``).
+backward, the optimizer update (AdamW, Adafactor or SGD), and the LUFFY
+state that carries the adaptive threshold (paper Eq. 2) and the wire
+error-feedback residuals from step to step, on one device or over
+virtual expert-parallel ranks (``dist``).
 
 The threshold is an f32 tensor computed on the device from the running
 loss, as the reference computes it inside its jitted step (a Python
@@ -11,7 +12,7 @@ between steps (:func:`pick_bucket_host`).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -28,12 +29,19 @@ class LuffyState(NamedTuple):
     l_ini: torch.Tensor      # [] f32 loss at the first step (Eq. 2)
     l_prev: torch.Tensor     # [] f32 loss at t-1
     step: torch.Tensor       # [] int32
+    # the previous step's per-layer wire quantization residuals,
+    # tf.wire_ef_shape(cfg, B, S) f32; None unless wire error feedback
+    # is on under a lossy wire
+    wire_ef: Optional[torch.Tensor] = None
 
 
-def init_luffy_state(device) -> LuffyState:
+def init_luffy_state(device, wire_ef_shape: Optional[Tuple[int, ...]] = None
+                     ) -> LuffyState:
     neg = torch.full((), -1.0, dtype=torch.float32, device=device)
+    ef = (None if wire_ef_shape is None else
+          torch.zeros(wire_ef_shape, dtype=torch.float32, device=device))
     return LuffyState(neg, neg.clone(),
-                      torch.zeros((), dtype=torch.int32, device=device))
+                      torch.zeros((), dtype=torch.int32, device=device), ef)
 
 
 def tokens_per_device(shape: ShapeConfig,
@@ -66,7 +74,7 @@ def loss_and_metrics(params, batch, lstate: LuffyState, cfg: ModelConfig,
                      dist: Optional[DistContext] = None):
     return tf.forward_train(params, cfg, luffy, batch,
                             threshold_for(lstate, luffy), capacity,
-                            dist=dist)
+                            dist=dist, wire_ef=lstate.wire_ef)
 
 
 def make_train_step(cfg: ModelConfig, luffy: LuffyConfig,
@@ -74,8 +82,9 @@ def make_train_step(cfg: ModelConfig, luffy: LuffyConfig,
                     dist: Optional[DistContext] = None):
     """Returns step(params, opt_state, lstate, batch) -> (params,
     opt_state, lstate, metrics). ``params`` is a nested dict of leaf
-    tensors that require grad (``Model.params``); they and the moments
-    are updated in place."""
+    tensors that require grad (``Model.params``); they and the
+    optimizer state are updated in place. The refreshed wire residuals
+    ride into the next step on ``lstate.wire_ef``."""
 
     def step(params, opt_state, lstate: LuffyState, batch):
         leaves = [p for _, p in optim.leaves_with_path(params)]
@@ -90,11 +99,14 @@ def make_train_step(cfg: ModelConfig, luffy: LuffyConfig,
         params, opt_state, om = optim.update(params, grads, opt_state, ocfg)
         for p in leaves:
             p.grad = None
+        metrics = dict(metrics)
+        ef_next = metrics.pop("_wire_ef", None)
         metrics = dict(metrics, **om, total_loss=loss.detach())
         new_l = metrics["loss"]
         lstate = LuffyState(torch.where(lstate.l_ini > 0, lstate.l_ini,
                                         new_l),
-                            new_l, lstate.step + 1)
+                            new_l, lstate.step + 1,
+                            lstate.wire_ef if ef_next is None else ef_next)
         return params, opt_state, lstate, metrics
 
     return step

@@ -110,7 +110,8 @@ def served():
 
 def test_configs_agree():
     """The port's copied configs equal the reference's field by field:
-    reduced moe-gpt2, hymba-1.5b (full and reduced), and the defaults of
+    reduced moe-gpt2; hymba-1.5b, moe-transformerxl and moe-bert-large,
+    full and reduced (``causal`` included); and the defaults of
     LuffyConfig, OptimConfig and a ShapeConfig."""
     from repro import config as jconfig
     from repro_torch import config as tconfig
@@ -134,19 +135,24 @@ def test_configs_agree():
             else:
                 assert got == want, f.name
     assert get_config("moe-gpt2").name == jget_config("moe-gpt2").name
-    # hymba-1.5b at full width and reduced, every field and sub-field
-    for make in (lambda g: g("hymba-1.5b"),
-                 lambda g: (reduced if g is get_config else jreduced)(
-                     g("hymba-1.5b"))):
-        tcfg, jcfg = make(get_config), make(jget_config)
-        for f in dataclasses.fields(tcfg):
-            got, want = getattr(tcfg, f.name), getattr(jcfg, f.name)
-            if dataclasses.is_dataclass(got):
-                for g in dataclasses.fields(got):
-                    assert getattr(got, g.name) == getattr(want, g.name), \
-                        ("hymba", f.name, g.name)
-            else:
-                assert got == want, ("hymba", f.name)
+    # the other archs at full width and reduced, every field and
+    # sub-field
+    for arch in ("hymba-1.5b", "moe-transformerxl", "moe-bert-large"):
+        for make in (lambda g: g(arch),
+                     lambda g: (reduced if g is get_config else jreduced)(
+                         g(arch))):
+            tcfg, jcfg = make(get_config), make(jget_config)
+            for f in dataclasses.fields(tcfg):
+                got, want = getattr(tcfg, f.name), getattr(jcfg, f.name)
+                if dataclasses.is_dataclass(got):
+                    for g in dataclasses.fields(got):
+                        assert getattr(got, g.name) == \
+                            getattr(want, g.name), (arch, f.name, g.name)
+                else:
+                    assert got == want, (arch, f.name)
+    assert not get_config("moe-bert-large").causal
+    assert not reduced(get_config("moe-bert-large")).causal
+    assert get_config("moe-transformerxl").causal
 
 
 @pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
@@ -229,8 +235,10 @@ def test_moe_core_matches_reference(mode, cdt):
 
 def test_moe_core_later_slices_raise():
     """What the port does not run raises, each naming the queue item that
-    brings it: the pipelined executor, the planner objectives other than
-    "traffic" and wire error feedback. Plan reuse, condense-plan reuse
+    brings it: the pipelined executor and the planner objectives other
+    than "traffic". Wire error feedback runs since slice 12: on one rank
+    nothing crosses a wire, so the residual it returns is zero. Plan
+    reuse, condense-plan reuse
     and the lsh similarity backend run since slice 11: on one device
     without a carry each is the plain sublayer (the lsh backend only
     measures fewer pairs), and an unknown mode is an error. A device
@@ -251,11 +259,16 @@ def test_moe_core_later_slices_raise():
     for luffy, item in (
             (LuffyConfig(exec_mode="pipeline"), "Queue 1 item 5"),
             (LuffyConfig(plan_objective="overlap"), "Queue 1 item 7"),
-            (LuffyConfig(plan_objective="replicate"), "Queue 1 item 7"),
-            (LuffyConfig(wire_error_feedback=True), "Queue 1 item 6")):
+            (LuffyConfig(plan_objective="replicate"), "Queue 1 item 7")):
         with pytest.raises(NotImplementedError, match=item):
             tmoe.moe_core(p, x, sb, tcfg, luffy, mode="vanilla", capacity=8,
                           threshold=thr)
+    ef_in = torch.randn((1, 1, G, tcfg.d_model), generator=g) * 1e-3
+    _, _, _, _, _, _, ef = tmoe.moe_core_planned(
+        p, x[None], {k: v[None] for k, v in sb.items()}, tcfg,
+        LuffyConfig(wire_error_feedback=True, wire_dtype="f8e4m3"),
+        mode="vanilla", capacity=8, threshold=thr, wire_ef=ef_in)
+    assert ef.shape == ef_in.shape and not ef.any()
     y_mig = tmoe.moe_core(p, x, sb, tcfg, LuffyConfig(), mode="migrate",
                           capacity=8, threshold=thr)[0]
     y_van = tmoe.moe_core(p, x, sb, tcfg, LuffyConfig(), mode="vanilla",
