@@ -191,12 +191,42 @@ Phases, each of which must pass or the script exits non-zero:
     1e-3;
 29. paper profile: one train step of each paper model at its phase-24
     shape and optimizer under torch.profiler: device-busy share, top
-    device ops, each kernel's share.
+    device ops, each kernel's share;
+30. pipelined executor, K1 at its chunk: K1 at [16, 512, 768] x 3072
+    (the dense wire's chunk: 4 ranks x a quarter of the capacity of 512)
+    against its plain version and timed as in phase 3; each chunk's rows
+    (RMS norm, then K1) bit for bit the same rows of one [16, 2048, 768]
+    launch, on both routes, at 4 and 3 chunks;
+31. pipelined EP train, dense wire: full-width moe-gpt2 over 4 virtual
+    ranks in 2 nodes of 2 (``--comm-mode hier``, no dedup, bf16 rows,
+    condensation and migration on) with ``--exec-mode pipeline
+    --pipeline-chunks 4``, 2 steps: step 0's loss and forward metrics
+    (``local_frac``, traffic, bytes, counters) bit for bit a sync run's
+    step 0, exact launches (K1 and its backward once per chunk, the
+    recompute too), one bf16 weight copy and second term per expert
+    weight a step, a second run bit for bit (losses, perms);
+32. pipelined EP train, dedup wire: phase 11's run with ``--exec-mode
+    pipeline`` for 2 steps: step 0 bit for bit phase 11's, the
+    shipped-bytes law, K1, K4 and their backwards launched as in sync
+    (only the node hop is chunked);
+33. pipelined EP serve: phase 19's run with ``--exec-mode pipeline``:
+    the prefill's logits and the greedy tokens bit for bit phase 19's,
+    K1 exactly 12 x (2 x 4 + 128 + 32) launches;
+34. pipelined parity: one f32 step of a 2-layer cut of phase 31's
+    configuration (B=4, S=256): on the card pipeline bit for bit sync
+    (loss, forward metrics); card against CPU: loss within 1e-4, perms,
+    rep maps and counters equal, every gradient leaf within 1e-5;
+35. pipelined profile: one step of phase 31's configuration, sync and
+    pipelined in the same call, under torch.profiler: wall and device
+    ms, busy share, the collectives' device ms, the kernels of each
+    stream and how much of K1's time the side stream was busy; fails
+    unless the pipelined step's collectives ran on a second stream.
 
-Phase 23 runs right after phase 10, where the profiler still records
-every launch. Then one JSON line with every kernel's record (the paper
-width's as ``<kernel>@d1024``), and last ``{"ok": true, "device":
-{...}}``. Exits non-zero, printing no result,
+Phase 23 runs right after phase 10, and phases 30-32, 34 and 35 after
+phase 14, where the profiler still records every launch; phase 33 runs
+after phase 19. Then one JSON line with every kernel's record (the paper
+width's as ``<kernel>@d1024``, K1 at the pipeline's chunk as
+``expert_ffn@chunk``), and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
 """
 from __future__ import annotations
@@ -358,6 +388,28 @@ BERT_EP_ARGS = ["--arch", "moe-bert-large", "--num-layers", "4", "--steps",
                                    "--wire-error-feedback"]
 PAPER_PARITY = dict(B=2, S=256, layers=2)
 PAPER_EP_PARITY = dict(B=8, S=128, layers=2, M=4, nodes=2)
+# the pipelined executor (exec_mode="pipeline"): 4 chunks of the EP train
+# capacity of 512 (2048 tokens a rank), so K1 runs at R = 4 x 128 rows;
+# the dense wire (hier, no dedup, rows at the compute dtype) for 2 steps,
+# phase 11's f8 dedup wire for 2, phase 19's EP serve run
+SCHED_CHUNKS = 4
+SCHED_FLAGS = ["--exec-mode", "pipeline", "--pipeline-chunks",
+               str(SCHED_CHUNKS)]
+SCHED_CAPACITY = 512
+SCHED_K1_R = 4 * SCHED_CAPACITY // SCHED_CHUNKS
+DENSE_EP_ARGS = ["--arch", "moe-gpt2", "--steps", "2", "--global-batch", "8",
+                 "--seq-len", "1024", "--device", "cuda", "--seed", "0",
+                 "--model-axis", "4", "--comm-mode", "hier", "--nodes", "2"]
+SCHED_DEDUP_ARGS = EP_ARGS + ["--steps", "2"]
+SCHED_PARITY = dict(B=4, S=256, layers=2, M=4, nodes=2)
+SCHED_GRAD_TOL = 1e-5
+# a train step's forward metrics, which pipeline holds bit for bit to sync
+FWD_KEYS = ("loss", "aux_loss", "dispatch_drop", "combine_drop",
+            "condense_rate", "local_frac", "traffic_before", "traffic_after",
+            "inter_bytes_flat", "inter_bytes_dedup", "inter_bytes_shipped",
+            "plans_built", "plans_reused", "plan_reuse_mismatch",
+            "measured_pairs", "condense_built", "condense_reused", "bucket",
+            "capacity")
 
 
 def log(msg: str):
@@ -2122,6 +2174,535 @@ def phase_ep_profile(overrides=None, label="EP profile"):
     return info
 
 
+# ---------------------------------------------------------------------------
+# phases 30-35: the pipelined executor (exec_mode="pipeline")
+# ---------------------------------------------------------------------------
+
+def _chunk_rows_bitwise(h_dtype):
+    """K1 (after the RMS norm, as the dense wire calls it) on each chunk's
+    rows against the same rows of one launch over the whole capacity, at
+    the EP train path's [16, 4 x 512, 768] x 3072, for 4 and 3 chunks:
+    (rms_bitwise, k1_bitwise, chunk sizes)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe_layer import moe_init
+    from repro_torch.kernels import expert_ffn as kexp
+    from repro_torch.plan.exchange import _rms
+    from repro_torch.sched import plan_chunks
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    cfg = get_config("moe-gpt2")
+    E, D = cfg.moe.num_experts, cfg.d_model
+    M, C = 4, SCHED_CAPACITY
+    ew = moe_init(gen, cfg, device="cuda")["experts"]
+    w = (ew["w_up"], ew["w_gate"], ew["w_down"])
+    x = torch.randn((E, M, C, D), generator=gen, device="cuda")
+    scale = torch.rand((D,), generator=gen, device="cuda") + 0.5
+    h_full = _rms(x, scale)
+    full = kexp.expert_ffn(h_full.to(h_dtype).reshape(E, M * C, D), *w,
+                           "gelu").reshape(E, M, C, D)
+    rms_ok = k1_ok = True
+    sizes = []
+    for n in (SCHED_CHUNKS, 3):
+        ch = plan_chunks(C, n)
+        sizes.append(list(ch.sizes))
+        for o, s in ch.slices():
+            hk = _rms(x[:, :, o:o + s], scale)
+            rms_ok &= torch.equal(hk, h_full[:, :, o:o + s])
+            got = kexp.expert_ffn(hk.to(h_dtype).reshape(E, M * s, D), *w,
+                                  "gelu").reshape(E, M, s, D)
+            k1_ok &= torch.equal(got, full[:, :, o:o + s])
+    return bool(rms_ok), bool(k1_ok), sizes
+
+
+def phase_sched_kernels():
+    """Phase 30: K1 at the pipelined dense wire's chunk shape, [16, 512,
+    768] x 3072 (4 source ranks x a quarter of the capacity of 512),
+    against its plain version and timed as phase 3 does; then each
+    chunk's rows bit for bit the same rows of one [16, 2048, 768] launch,
+    on both routes (bf16 h: tensor cores; f32 h: FMAs)."""
+    import torch
+    checks, timed = phase_kernels(shapes={"chunk": SCHED_K1_R})
+    t = dict(timed["chunk"], checks=len(checks))
+    t["max_abs_err"] = max(c["max_abs_err"] for c in checks)
+    rows = {}
+    for name in ("bfloat16", "float32"):
+        rms_ok, k1_ok, sizes = _chunk_rows_bitwise(getattr(torch, name))
+        rows[name] = dict(rms_bitwise=rms_ok, k1_bitwise=k1_ok,
+                          chunk_sizes=sizes)
+    t["rows_bitwise"] = rows
+    log("sched K1 chunk rows vs one launch: " + json.dumps(rows))
+    bad = [k for k, r in rows.items()
+           if not (r["rms_bitwise"] and r["k1_bitwise"])]
+    if bad:
+        raise SystemExit(f"a chunk's rows are not one launch's bit for bit "
+                         f"({bad}): {rows}")
+    torch.cuda.empty_cache()
+    return t
+
+
+def _sched_expected(cfg, steps, wire):
+    """Exact launches of an EP train run from its step records: on the
+    dense wire (rows at the compute dtype, no K4) K1 and its backward
+    once per chunk of each MoE sublayer (the recompute too); on the
+    dedup wire as sync's (only the hop is chunked)."""
+    n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
+    want = _ep_expected(cfg, len(steps), f8=wire == "f8e4m3")
+    if wire == "dense":
+        chunks = sum(st["chunks"] for st in steps)
+        want.update(expert_ffn=n_moe * (2 if cfg.remat else 1) * chunks,
+                    expert_ffn_bwd=n_moe * chunks, pack_quant=0,
+                    pack_cast=0, pack_quant_bwd=0)
+    return want
+
+
+def _step0_diff(a, b):
+    """The forward metrics of step 0 that differ between two runs."""
+    return {k: (a[k], b[k]) for k in FWD_KEYS if a[k] != b[k]}
+
+
+def phase_sched_ep_dense():
+    """Phase 31: full-width moe-gpt2 EP train over 4 virtual ranks in 2
+    nodes of 2 on the dense wire (condensation and migration on, bf16
+    rows) with ``--exec-mode pipeline --pipeline-chunks 4``: step 0's
+    loss and forward metrics bit for bit a sync run's step 0, exact
+    launches (K1 and its backward once per chunk), one bf16 weight copy
+    and one second term per expert weight a step, and a second run from
+    the same seed bit for bit (losses, rates, buckets, perms)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import expert_ffn as kexp
+    sync, _, _, _ = _ep_run(DENSE_EP_ARGS + ["--steps", "1"])
+    s0 = sync["steps"][0]
+    del sync
+    torch.cuda.empty_cache()
+    kexp.weight_bf16.casts = kexp.weight_bf16.lo_casts = 0
+    res, launches, plans, _ = _ep_run(DENSE_EP_ARGS + SCHED_FLAGS)
+    casts, lo_casts = kexp.weight_bf16.casts, kexp.weight_bf16.lo_casts
+    cfg, steps = res["cfg"], res["steps"]
+    n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
+    want = _sched_expected(cfg, steps, "dense")
+    diff = _step0_diff(s0, steps[0])
+    info = dict(exec_mode=res["luffy"].exec_mode,
+                chunks=[st["chunks"] for st in steps],
+                capacity=[st["capacity"] for st in steps],
+                losses=[st["loss"] for st in steps],
+                local_frac=[st["local_frac"] for st in steps],
+                traffic=[(st["traffic_before"], st["traffic_after"])
+                         for st in steps],
+                step_ms=[st["step_ms"] for st in steps],
+                sync_step0_ms=s0["step_ms"],
+                peak_mem_gib=max(st["peak_mem_bytes"] for st in steps)
+                / 2 ** 30, launches=launches, launches_expected=want,
+                weight_casts=casts, weight_lo_casts=lo_casts,
+                weight_casts_expected=3 * n_moe * len(steps),
+                step0_vs_sync_differ=diff)
+    log("sched EP dense pipeline: " + json.dumps(info))
+    if not all(math.isfinite(x) for x in info["losses"]):
+        raise SystemExit(f"pipelined EP losses not finite: {info}")
+    if diff:
+        raise SystemExit(f"pipelined step 0 is not sync's bit for bit: "
+                         f"{diff}")
+    if launches != want:
+        raise SystemExit(f"pipelined EP launches {launches} differ from what "
+                         f"the path calls, {want}")
+    if casts != info["weight_casts_expected"] \
+            or lo_casts != info["weight_casts_expected"]:
+        raise SystemExit(f"{casts} / {lo_casts} bf16 weight copies in the "
+                         f"pipelined EP run")
+    perms = [p for p, _ in plans]
+    del res, steps
+    torch.cuda.empty_cache()
+    again, _, plans2, _ = _ep_run(DENSE_EP_ARGS + SCHED_FLAGS)
+    perms2 = [p for p, _ in plans2]
+    same = {k: [st[k] for st in again["steps"]] == info[key]
+            for k, key in (("loss", "losses"), ("chunks", "chunks"),
+                           ("local_frac", "local_frac"))}
+    same["perms"] = len(perms) == len(perms2) and all(
+        np.array_equal(a, b) for a, b in zip(perms, perms2))
+    info["repeat_bitwise"] = same
+    log(f"sched EP dense pipeline, repeat: bit-equal {same}")
+    if not all(same.values()):
+        raise SystemExit(f"the pipelined EP run does not repeat: {same}")
+    del again
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_sched_ep_dedup(ep_info=None):
+    """Phase 32: phase 11's run (the f8 dedup wire) with ``--exec-mode
+    pipeline``, 2 steps: step 0 bit for bit phase 11's step 0 (``ep_info``;
+    None: a 1-step sync run made here), the shipped-bytes law, and K4
+    and its backward (and K1) launched exactly as in a sync run: only
+    the node hop is chunked."""
+    import torch
+    if ep_info is None:
+        sync, _, _, _ = _ep_run(SCHED_DEDUP_ARGS + ["--steps", "1"])
+        s0 = sync["steps"][0]
+        del sync
+    else:
+        s0 = {k: v[0] for k, v in ep_info["per_step"].items()}
+    res, launches, _, _ = _ep_run(SCHED_DEDUP_ARGS + SCHED_FLAGS)
+    cfg, steps, luffy = res["cfg"], res["steps"], res["luffy"]
+    want = _sched_expected(cfg, steps, luffy.wire_dtype)
+    keys = [k for k in FWD_KEYS if k in s0]
+    diff = {k: (s0[k], steps[0][k]) for k in keys if s0[k] != steps[0][k]}
+    info = dict(exec_mode=luffy.exec_mode, wire=luffy.wire_dtype,
+                chunks=[st["chunks"] for st in steps],
+                losses=[st["loss"] for st in steps],
+                shipped=[st["inter_bytes_shipped"] for st in steps],
+                step_ms=[st["step_ms"] for st in steps],
+                launches=launches, launches_expected=want,
+                step0_compared=keys, step0_vs_sync_differ=diff)
+    log("sched EP dedup pipeline: " + json.dumps(info))
+    if not all(math.isfinite(x) for x in info["losses"]):
+        raise SystemExit(f"pipelined dedup losses not finite: {info}")
+    if diff:
+        raise SystemExit(f"pipelined dedup step 0 is not sync's bit for "
+                         f"bit: {diff}")
+    bad = _check_law(steps, luffy, cfg)
+    if bad:
+        raise SystemExit(f"shipped-bytes law broken under the pipeline: "
+                         f"{bad}")
+    if launches != want:
+        raise SystemExit(f"pipelined dedup launches {launches} differ from "
+                         f"sync's, {want}")
+    del res, steps
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_sched_serve(sync=None):
+    """Phase 33: phase 19's EP serve run with ``--exec-mode pipeline``:
+    the batched prefill's logits bit for bit the sync prefill's
+    (``sync``: phase 19's result; None: a sync run made here), the same
+    greedy tokens, K1 launched exactly 12 x (2 x chunks + 128 + 32) times
+    (the decode has no all-to-all to chunk) and nothing else."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import expert_ffn as kexp
+    from repro_torch.launch import serve
+    if sync is None:
+        res = serve.main(EP_SERVE_ARGS)
+        sync = {"prefill_logits": res["prefill_logits"].cpu(),
+                "tokens": res["tokens"]}
+        del res
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    kexp.weight_bf16.casts = 0
+    res = serve.main(EP_SERVE_ARGS + SCHED_FLAGS)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    n_layers = get_config("moe-gpt2").num_layers
+    want = dict.fromkeys(launches, 0)
+    want["expert_ffn"] = n_layers * (
+        serve.N_BATCHED_PREFILLS * res["chunks"] + res["prompt_len"]
+        + res["gen"])
+    logits = res["prefill_logits"].cpu()
+    info = dict(chunks=res["chunks"], prefill_tok_s=res["prefill_tok_s"],
+                launches=launches, launches_expected=want,
+                weight_casts=kexp.weight_bf16.casts,
+                prefill_bitwise=torch.equal(logits, sync["prefill_logits"]),
+                prefill_max_abs=(logits - sync["prefill_logits"]).abs()
+                .max().item(),
+                tokens_equal=torch.equal(res["tokens"], sync["tokens"]))
+    log("sched EP serve pipeline: " + json.dumps(info))
+    if not bool(torch.isfinite(logits).all()):
+        raise SystemExit("pipelined EP prefill logits not finite")
+    if not (info["prefill_bitwise"] and info["tokens_equal"]):
+        raise SystemExit(f"pipelined EP prefill is not sync's bit for bit: "
+                         f"{info}")
+    if launches != want or info["chunks"] != SCHED_CHUNKS:
+        raise SystemExit(f"pipelined EP serve launches {launches} differ "
+                         f"from what the path calls, {want}")
+    if info["weight_casts"] != 3 * n_layers:
+        raise SystemExit(f"{info['weight_casts']} bf16 weight copies in the "
+                         f"pipelined EP serve run")
+    del res
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_sched_parity():
+    """Phase 34: one f32 step of a 2-layer full-width cut of the
+    pipelined EP train (dense hier wire, 4 ranks in 2 nodes, condensation
+    and migration on, 4 chunks): on the card, pipeline against sync bit
+    for bit (loss, forward metrics); then card against CPU: loss within
+    1e-4, migration perms, rep maps and the counters equal, every
+    gradient leaf within 1e-5 by its relative norm error."""
+    import numpy as np
+    import torch
+    import repro_torch.plan.exchange as tex
+    from repro_torch import optim, train_lib
+    from repro_torch.config import LuffyConfig, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import make_dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    P = SCHED_PARITY
+    cfg = dataclasses.replace(get_config("moe-gpt2"), num_layers=P["layers"],
+                              compute_dtype="float32")
+    shape = ShapeConfig("t", P["S"], P["B"], "train")
+    dist = make_dist(make_host_mesh(model=P["M"], nodes=P["nodes"]), "train",
+                     P["B"], moe_arch=True)
+    base = LuffyConfig(condense_group=128, combine_slack=2.0,
+                       comm_mode="hier")
+    pipe = dataclasses.replace(base, exec_mode="pipeline",
+                               pipeline_chunks=SCHED_CHUNKS)
+    cap = train_lib.capacity_for_bucket(cfg, shape, base, 0, dist)
+    model = build_model(cfg, device="cuda", seed=0)
+    batch = SyntheticLM(cfg, shape).batch(0)
+    thr = torch.tensor(0.6)
+    orig = tex.build_exchange_plan
+    runs = {}
+    for dev, luffy in (("cuda", base), ("cuda", pipe), ("cpu", pipe)):
+        model.to(dev)
+        plans = []
+
+        def rec(*a, **kw):
+            pl = orig(*a, **kw)
+            plans.append((pl.perm.copy(), pl.condense_plan.rep_idx.cpu(),
+                          pl.pipelined, pl.chunks.n_chunks))
+            return pl
+
+        tex.build_exchange_plan = rec
+        try:
+            model.zero_grad(set_to_none=True)
+            tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            loss, m = model.forward_train(tb, thr.to(dev), cap, luffy=luffy,
+                                          dist=dist)
+            loss.backward()
+        finally:
+            tex.build_exchange_plan = orig
+        grads = {k: p.grad.double().cpu()
+                 for k, p in optim.leaves_with_path(model.params)
+                 if p.grad is not None}
+        runs[(dev, luffy.exec_mode)] = (
+            loss.item(), {k: v.item() for k, v in m.items()}, plans, grads)
+    (ls, ms, _, _) = runs[("cuda", "sync")]
+    (lg, mg, pg, gg) = runs[("cuda", "pipeline")]
+    (lc, mc, pc, gc) = runs[("cpu", "pipeline")]
+    card_diff = {k: (ms[k], mg[k]) for k in FWD_KEYS
+                 if k in ms and ms[k] != mg[k]}
+    counters = ("plans_built", "plans_reused", "condense_built",
+                "condense_reused", "measured_pairs")
+    leaf_rel = {k: (torch.linalg.vector_norm(gg[k] - g)
+                    / torch.clamp(torch.linalg.vector_norm(g), min=1e-30))
+                .item() for k, g in gc.items()}
+    worst = max(leaf_rel, key=leaf_rel.get)
+    info = dict(capacity=cap, pipelined=[p[2] for p in pg],
+                chunks=[p[3] for p in pg], loss_cuda=lg, loss_cpu=lc,
+                loss_rel=abs(lg - lc) / abs(lc),
+                card_pipeline_vs_sync_differ=card_diff,
+                perms_equal=len(pg) == len(pc) and all(
+                    np.array_equal(a[0], b[0]) for a, b in zip(pg, pc)),
+                rep_differ=sum(int((a[1] != b[1]).sum())
+                               for a, b in zip(pg, pc)),
+                counters_equal={k: mg[k] == mc[k] for k in counters},
+                grad_leaves=len(gc), same_leaves=sorted(gg) == sorted(gc),
+                grad_leaf_worst=worst, grad_leaf_worst_rel=leaf_rel[worst],
+                grad_leaf_tol=SCHED_GRAD_TOL)
+    log("sched parity, 2-layer f32 pipelined EP cut: " + json.dumps(info))
+    if not all(info["pipelined"]) or card_diff:
+        raise SystemExit(f"pipelined EP cut on the card is not sync's bit "
+                         f"for bit: {info}")
+    if not (info["perms_equal"] and info["rep_differ"] == 0
+            and all(info["counters_equal"].values())):
+        raise SystemExit(f"pipelined EP cut cuda vs cpu plans differ: {info}")
+    if not (info["loss_rel"] <= 1e-4 and info["same_leaves"]
+            and info["grad_leaf_worst_rel"] <= SCHED_GRAD_TOL):
+        raise SystemExit(f"pipelined EP cut cuda vs cpu differ: {info}")
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
+def _merge(iv):
+    """Union of [start, end) intervals, sorted and merged."""
+    out = []
+    for s, e in sorted(iv):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _overlap_ns(iv, union):
+    """Total length of the intervals ``iv`` inside the merged ``union``."""
+    tot, j = 0, 0
+    for s, e in sorted(iv):
+        while j < len(union) and union[j][1] <= s:
+            j += 1
+        k = j
+        while k < len(union) and union[k][0] < e:
+            tot += min(e, union[k][1]) - max(s, union[k][0])
+            k += 1
+    return tot
+
+
+def _stream_table(prof, wall_us):
+    """Per-stream device time of one profiled step from the profiler's raw
+    events: each kernel, copy and memset with its stream, and the
+    ``comm::`` range (a virtual-rank collective) the host op that
+    launched it ran in, if any, by host thread (the main thread runs the
+    forward, autograd's the recompute and the backward); K1's kernels
+    (forward and backward) and how much of their time another stream was
+    busy."""
+    from torch.autograd import DeviceType
+    evs = prof.profiler.kineto_results.events()
+    ops, comm, dev = {}, [], []
+    for e in evs:
+        if e.device_type() == DeviceType.CUDA:
+            if e.duration_ns() > 0:
+                dev.append((e.device_resource_id(), e.start_ns(),
+                            e.start_ns() + e.duration_ns(), e.name(),
+                            e.linked_correlation_id()))
+            continue
+        if e.name().startswith("comm::"):
+            comm.append((e.start_thread_id(), e.start_ns(), e.end_ns(),
+                         e.name()))
+        elif e.linked_correlation_id() == 0:
+            # a host op (a runtime call links to the op that made it)
+            ops[e.correlation_id()] = (e.start_thread_id(), e.start_ns())
+    main_thread = min(comm, key=lambda c: c[1])[0] if comm else None
+
+    def in_comm(corr):
+        op = ops.get(corr)
+        if op is None:
+            return None
+        for t, s, e, name in comm:
+            if t == op[0] and s <= op[1] < e:
+                return f"{name}@{'main' if t == main_thread else 'autograd'}"
+        return None
+
+    k1_names = KERNEL_OPS["expert_ffn"] + KERNEL_OPS["expert_ffn_bwd"]
+    streams = {}
+    for sid, s, e, name, corr in dev:
+        st = streams.setdefault(sid, dict(kernels=0, ms=0.0, comm_kernels=0,
+                                          comm_ms=0.0, k1_ms=0.0, comm={},
+                                          iv=[]))
+        st["kernels"] += 1
+        st["ms"] += (e - s) / 1e6
+        st["iv"].append((s, e))
+        where = in_comm(corr)
+        if where:
+            st["comm_kernels"] += 1
+            st["comm_ms"] += (e - s) / 1e6
+            c = st["comm"].setdefault(where, [0, 0.0])
+            c[0] += 1
+            c[1] += (e - s) / 1e6
+        if any(n in name for n in k1_names):
+            st["k1_ms"] += (e - s) / 1e6
+    main = max(streams, key=lambda k: streams[k]["k1_ms"]) if streams \
+        else None
+    side = [k for k in streams if k != main]
+    side_union = _merge([iv for k in side for iv in streams[k]["iv"]])
+    k1_iv = [(s, e) for sid, s, e, name, _ in dev if sid == main
+             and any(n in name for n in k1_names)]
+    busy = _merge([(s, e) for _, s, e, _, _ in dev])
+    busy_ms = sum(e - s for s, e in busy) / 1e6
+    return dict(
+        wall_ms=wall_us / 1e3,
+        kernel_ms=sum(st["ms"] for st in streams.values()),
+        busy_ms=busy_ms, busy_share=busy_ms * 1e3 / wall_us if dev else None,
+        collectives_ms=sum(st["comm_ms"] for st in streams.values()),
+        collectives_on_side_ms=sum(streams[k]["comm_ms"] for k in side),
+        k1_ms=sum(st["k1_ms"] for st in streams.values()),
+        k1_overlapped_ms=_overlap_ns(k1_iv, side_union) / 1e6,
+        side_busy_ms=sum(e - s for s, e in side_union) / 1e6,
+        main_stream=main,
+        streams={str(k): {a: v for a, v in st.items() if a != "iv"}
+                 for k, st in streams.items()})
+
+
+def phase_sched_profile():
+    """Phase 35: one full-width EP train step on the dense wire (phase
+    31's configuration) under torch.profiler, sync and pipelined in the
+    same call (each after a warm-up step of its own): wall and device ms,
+    the device-busy share, the collectives' device ms, each stream's
+    kernels and the share of K1's time another stream was busy. Gate:
+    the pipelined step's collectives run on a second stream."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch import optim, train_lib
+    from repro_torch.comm.hierarchical import CommContext
+    from repro_torch.config import LuffyConfig, OptimConfig, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import make_dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    cfg = get_config("moe-gpt2")
+    shape = ShapeConfig("train", 1024, 8, "train")
+    dist = make_dist(make_host_mesh(model=4, nodes=2), "train", 8,
+                     moe_arch=True)
+    ocfg = OptimConfig(lr=1e-3, total_steps=6, warmup_steps=2)
+    data = SyntheticLM(cfg, shape)
+    originals = {n: getattr(CommContext, n) for n in COMM_OPS}
+
+    def wrap(name, fn):
+        def inner(self, x):
+            with record_function("comm::" + name):
+                return fn(self, x)
+        return inner
+
+    out = {}
+    for ex in ("sync", "pipeline"):
+        model = build_model(cfg, device="cuda", seed=0)
+        params = model.params
+        luffy = LuffyConfig(condense_group=128, combine_slack=2.0,
+                            comm_mode="hier", exec_mode=ex,
+                            pipeline_chunks=SCHED_CHUNKS)
+        cap = train_lib.capacity_for_bucket(cfg, shape, luffy, 0, dist)
+        step = train_lib.make_train_step(cfg, luffy, ocfg, cap, dist)
+        state = [optim.init_opt_state(params, ocfg),
+                 train_lib.init_luffy_state("cuda")]
+
+        def one(i):
+            b = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in data.batch(i).items()}
+            _, state[0], state[1], _ = step(params, state[0], state[1], b)
+
+        one(0)
+        torch.cuda.synchronize()
+        for n, fn in originals.items():
+            setattr(CommContext, n, wrap(n, fn))
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                one(1)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+        finally:
+            for n, fn in originals.items():
+                setattr(CommContext, n, fn)
+        out[ex] = _stream_table(prof, wall_us)
+        del model, params, state, step, prof
+        torch.cuda.empty_cache()
+    s, p = out["sync"], out["pipeline"]
+    info = dict(sync=s, pipeline=p, chunks=SCHED_CHUNKS,
+                device_ms_change=p["kernel_ms"] - s["kernel_ms"],
+                wall_ms_change=p["wall_ms"] - s["wall_ms"],
+                k1_ms_change=p["k1_ms"] - s["k1_ms"],
+                k1_overlap_share=(p["k1_overlapped_ms"] / p["k1_ms"]
+                                  if p["k1_ms"] else None))
+    log("sched profile, EP dense step, sync vs pipeline: "
+        + json.dumps(info))
+    if not s["streams"] or not p["streams"]:
+        raise SystemExit("sched profile: the profiler saw no device time, "
+                         "so the side stream cannot be checked")
+    if len(s["streams"]) != 1:
+        log(f"sched profile: the sync step ran on {len(s['streams'])} "
+            f"streams")
+    if not (len(p["streams"]) >= 2 and p["collectives_on_side_ms"] > 0):
+        raise SystemExit(f"the pipelined step's collectives did not run on "
+                         f"a second stream: {p['streams']}")
+    return info
+
+
 def _band_pairs(S: int, causal: bool, window):
     """Live (q, k) pairs of one (b, h) under the mask by position."""
     import numpy as np
@@ -2612,9 +3193,13 @@ def phase_ep_serve(one):
     if not bitwise:
         raise SystemExit(f"EP decode is not the M = 1 decode bit for bit: "
                          f"{info}")
+    # the sync prefill's logits and tokens, for phase 33 (not logged)
+    sync = {"prefill_logits": res["prefill_logits"].cpu(),
+            "tokens": res["tokens"]}
     del res, step, gen
     torch.cuda.empty_cache()
     info["profile"] = phase_profile(model_axis=4)
+    info["sync"] = sync
     return info
 
 
@@ -3668,6 +4253,14 @@ def main() -> int:
     ep_bf16 = phase_ep_bf16()
     phase_ep_parity()
     ep_prof = phase_ep_profile()
+    # the pipelined executor's phases run here, where the profiler still
+    # records every launch (phase 33 follows phase 19)
+    log("pipelined executor:")
+    sched_k1 = phase_sched_kernels()
+    sched_dense = phase_sched_ep_dense()
+    sched_dedup = phase_sched_ep_dedup(ep_info)
+    phase_sched_parity()
+    sched_prof = phase_sched_profile()
     log("kernels K5, K6:")
     timed_k56 = phase_kernels_k56()
     hymba_info = phase_hymba_slice()
@@ -3675,6 +4268,7 @@ def main() -> int:
     hymba_prof = phase_hymba_profile()
     ep_serve = phase_ep_serve(slice_out)
     del slice_out
+    sched_serve = phase_sched_serve(ep_serve.pop("sync"))
     phase_ep_serve_parity()
     seq_train = phase_seq_train()
     log("reuse and lsh:")
@@ -3870,6 +4464,25 @@ def main() -> int:
     ]
     for rec in records[:6]:
         rec["launches_ep_train"] = el[rec["name"]]
+    records.insert(1, _record(
+        "expert_ffn@chunk", "src/repro_torch/csrc/expert_ffn.cu",
+        "src/repro/kernels/expert_ffn.py:52",
+        sched_dense["launches"]["expert_ffn"], sched_k1,
+        {"kernel": "expert_ffn",
+         "timed_at": f"the pipelined dense wire's chunk [16,{SCHED_K1_R},768]"
+                     f"x3072 (4 ranks x {SCHED_CAPACITY // SCHED_CHUNKS} of "
+                     f"the capacity {SCHED_CAPACITY}), bf16 h, f32 weights "
+                     f"(warm bf16 cache), gelu; bound at bf16 weights",
+         "launches_path": f"EP train, dense hier wire, --exec-mode pipeline "
+                          f"--pipeline-chunks {SCHED_CHUNKS}, 2 steps",
+         "launches_dedup_pipeline": sched_dedup["launches"]["expert_ffn"],
+         "launches_ep_serve_pipeline": sched_serve["launches"]["expert_ffn"],
+         "dispatch": sched_k1["route"], "device_ms": sched_k1["device_ms"],
+         "library": "torch.bmm f32 on the same inputs",
+         "library_bf16_ms": sched_k1["library_bf16_ms"],
+         "bound_share": sched_k1["bound_share"],
+         "rows_bitwise": sched_k1["rows_bitwise"],
+         "profile_k1_overlap_share": sched_prof["k1_overlap_share"]}))
     records += _paper_records(paper)
     log(f"total {time.perf_counter() - t_start:.1f}s on {smi}")
     print(smi, flush=True)

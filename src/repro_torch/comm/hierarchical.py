@@ -17,7 +17,8 @@ device memory, not a network transfer.
   compose to the same permutation, so flat and hier agree bit for bit.
 - ``node_all_to_all``: ``x [M, N*c, ...]``, across nodes only.
 - ``local_all_gather``: ``x [M, a, ...]`` -> ``[M, L*a, ...]``, the
-  node's ranks' slices in local-rank order.
+  node's ranks' slices in local-rank order (``local_all_gather_t``, its
+  transpose, for the wire's hand-written backward).
 - ``local_psum_scatter``: ``x [M, L*c, ...]`` -> ``[M, c, ...]``, the
   sum over the node's ranks of their chunk ``l``, added in ascending
   local rank (exact in any order for two ranks).
@@ -134,6 +135,16 @@ class CommContext(NamedTuple):
         b = x.reshape(N, 1, L * a, *x.shape[2:])
         return b.expand(N, L, L * a, *x.shape[2:]).reshape(
             N * L, L * a, *x.shape[2:])
+
+    def local_all_gather_t(self, g):
+        """The transpose of :meth:`local_all_gather`: each rank's slice
+        is the sum of its copies over the node's ranks, summed as
+        autograd's expand backward sums them."""
+        self._require_hier()
+        N, L = self.nodes, self.local_size
+        a = g.shape[1] // L
+        return g.reshape(N, L, L * a, *g.shape[2:]).sum(
+            dim=1, keepdim=True).reshape(N * L, a, *g.shape[2:])
 
     def local_psum_scatter(self, x):
         """Sum over the node's ranks, each keeping its own chunk."""

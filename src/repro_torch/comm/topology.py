@@ -5,8 +5,10 @@ Device order is node-major: global rank ``r = node * devices_per_node +
 local``. The link rates below are the reference's planning defaults,
 kept only as the planner's pricing inputs: what the planner reads is
 their ratio, an inter-node byte costing ``bw_ratio`` = 4 intra-node
-bytes, which makes the port's plans equal the reference's. They are not
-the rate of any device this port runs on.
+bytes, which makes the port's plans equal the reference's; the exchange
+estimate (:mod:`repro_torch.plan.estimate`) prices the links with them
+and the per-message latencies (0 by default, as the reference's). They
+are not the rate of any device this port runs on.
 """
 from __future__ import annotations
 
@@ -21,11 +23,14 @@ DEFAULT_INTER_BW = 1.225e10
 
 @dataclasses.dataclass(frozen=True)
 class Topology:
-    """nodes x devices-per-node with a two-level link cost."""
+    """nodes x devices-per-node with a two-level link cost: bytes/s per
+    link and seconds per message, within a node and across nodes."""
     num_nodes: int
     devices_per_node: int
     intra_bw: float = DEFAULT_INTRA_BW
     inter_bw: float = DEFAULT_INTER_BW
+    intra_lat: float = 0.0
+    inter_lat: float = 0.0
 
     def __post_init__(self):
         if self.num_nodes < 1 or self.devices_per_node < 1:

@@ -23,8 +23,17 @@ rank, but a pre-reduce slot's writers add in the scatter's order.
 The gradient of the wire is the reference's (``repro.comm.dtypes``
 transposes, step for step; see :mod:`repro_torch.comm.dtypes`): each
 collective is a permutation that is its own transpose, so the backward
-moves cotangents back through the same collective. The pipelined hop
-(``chunks=``) is not ported.
+moves cotangents back through the same collective.
+
+``chunks=`` (a :class:`~repro_torch.sched.ChunkPlan` over the unique-row
+axis, or the token axis of the migrate-mode combine) runs the node hop
+as the reference's ``_node_hop`` does: K4's pack-quantize (or the codec)
+runs once over the whole payload, then each chunk's hop runs on the
+pipeline's side stream (:mod:`repro_torch.sched.pipeline`) while the
+previous chunk dequantizes and fans out on the current one, and the
+chunks reassemble in slot order. The hop is a permutation and the codec
+row-wise, so the result is the one-shot hop's bit for bit; the backward
+hops the cotangent chunk by chunk the same way.
 """
 from __future__ import annotations
 
@@ -35,6 +44,8 @@ import torch
 from repro_torch.comm import dtypes as wdt
 from repro_torch.comm.hierarchical import CommContext
 from repro_torch.kernels import ops as kops
+from repro_torch.sched.pipeline import run_pipeline, share, side_stream
+from repro_torch.sched.plan import ChunkPlan
 
 
 def _hop_bytes(hop: Callable, t):
@@ -44,6 +55,41 @@ def _hop_bytes(hop: Callable, t):
     if t.dtype == wdt.F8:
         return hop(t.view(torch.uint8)).view(wdt.F8)
     return hop(t)
+
+
+def _chunk(t, chunks: ChunkPlan, k: int):
+    """Chunk ``k`` of ``t [M, A*R, ...]`` along R (``chunks.capacity``),
+    as ``[M, A*s_k, ...]``."""
+    M, R, rest = t.shape[0], chunks.capacity, t.shape[2:]
+    o, s = chunks.offsets[k], chunks.sizes[k]
+    return t.reshape(M, t.shape[1] // R, R, *rest)[:, :, o:o + s] \
+        .reshape(M, -1, *rest)
+
+
+def _unchunk(parts, chunks: ChunkPlan):
+    """The chunks ``[M, A*s_k, ...]`` back in slot order, ``[M, A*R, ...]``."""
+    M, rest = parts[0].shape[0], parts[0].shape[2:]
+    return torch.cat([p.reshape(M, -1, s, *rest)
+                      for p, s in zip(parts, chunks.sizes)], dim=2) \
+        .reshape(M, -1, *rest)
+
+
+def _hop_chunks(hop: Callable, ts, chunks: Optional[ChunkPlan],
+                land: Callable):
+    """``land`` of the tensors ``ts`` (None kept) moved through ``hop``:
+    in one piece, or chunk by chunk over ``chunks``, each chunk's hop on
+    the side stream and its ``land`` on the current one."""
+    if chunks is None or chunks.n_chunks <= 1:
+        return land(tuple(_hop_bytes(hop, t) for t in ts))
+    stream = side_stream(ts[0].device)
+    share(stream, ts)
+    outs, _ = run_pipeline(
+        chunks.n_chunks,
+        dispatch=lambda k: tuple(
+            None if t is None else _hop_bytes(hop, _chunk(t, chunks, k))
+            for t in ts),
+        compute=lambda k, p: land(p), stream=stream)
+    return _unchunk(outs, chunks)
 
 
 def _sum_nodes(x):
@@ -66,12 +112,15 @@ def _unpack_t(g_rows, back_idx):
 
 class _Ship(torch.autograd.Function):
     """Rows through the wire: quantize (with the dedup pack, kernel K4,
-    when ``tok`` is given), cross ``hop``, dequantize to ``out_dtype``.
-    The backward is the reference's transpose of the same chain."""
+    when ``tok`` is given), cross ``hop`` (chunk by chunk over
+    ``chunks``, :func:`_hop_chunks`), dequantize to ``out_dtype`` and,
+    when ``fan`` (a comm context) is given, fan out over the node's
+    ranks (``fan.local_all_gather``). The backward is the reference's
+    transpose of the same chain."""
 
     @staticmethod
     def forward(ctx, x, tok, back_idx, hop, wire_dtype, out_dtype,
-                shape):
+                shape, chunks=None, fan=None):
         d = x.shape[-1]
         if tok is None:
             q, sc = wdt.quantize_rows(x, wire_dtype)
@@ -79,28 +128,37 @@ class _Ship(torch.autograd.Function):
             q, sc = kops.pack_quantize(x, tok, wire_dtype)
             q = q.reshape(*shape, q.shape[-1])
             sc = None if sc is None else sc.reshape(*shape, sc.shape[-1])
-        q, sc = _hop_bytes(hop, q), _hop_bytes(hop, sc)
+
+        def land(p):
+            y = wdt.dequantize_rows(p[0], p[1], out_dtype, d)
+            return y if fan is None else fan.local_all_gather(y)
+
         ctx.save_for_backward(x, tok, back_idx)
         ctx.hop, ctx.wire_dtype, ctx.q_dtype = hop, wire_dtype, q.dtype
-        return wdt.dequantize_rows(q, sc, out_dtype, d)
+        ctx.chunks, ctx.fan = chunks, fan
+        return _hop_chunks(hop, (q, sc), chunks, land)
 
     @staticmethod
     def backward(ctx, g):
         x, tok, back_idx = ctx.saved_tensors
-        hop, wire = ctx.hop, ctx.wire_dtype
+        hop, wire, chunks = ctx.hop, ctx.wire_dtype, ctx.chunks
+        if ctx.fan is not None:
+            g = ctx.fan.local_all_gather_t(g)
         if wire == "f8e4m3":
             # the row-local transposes commute with the permutation, so
             # the cotangent moves back first and one kernel does the rest
             d = x.shape[-1]
-            g_src = hop(g.to(x.dtype)).reshape(-1, d)
+            g_src = _hop_chunks(hop, (g.to(x.dtype),), chunks,
+                                lambda p: p[0]).reshape(-1, d)
             g_rows = kops.pack_quant_bwd(x.reshape(-1, d), tok, g_src)
             g_rows = g_rows.reshape(g.shape)
         else:
             # a cast wire casts the cotangent to the wire's type and back
-            g_rows = hop(g.to(ctx.q_dtype)).to(x.dtype)
+            g_rows = _hop_chunks(hop, (g.to(ctx.q_dtype),), chunks,
+                                 lambda p: p[0].to(x.dtype))
         if tok is not None:
             g_rows = _unpack_t(g_rows.reshape(-1, x.shape[-1]), back_idx)
-        return g_rows, None, None, None, None, None, None
+        return g_rows, None, None, None, None, None, None, None, None
 
 
 def ship_rows(comm_fn: Callable, buf, d: int, wire_dtype: str):
@@ -130,8 +188,9 @@ def dedup_dispatch(xf, expert_idx, gate_w, valid, pos, *,
                    wire_dtype: str = "f32",
                    dest_gpos: Optional[torch.Tensor] = None,
                    prim: Optional[torch.Tensor] = None,
-                   chunks=None) -> Tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor, Dict]:
+                   chunks: Optional[ChunkPlan] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              Dict]:
     """Ship the deduplicated payload and rebuild the dense expert rows.
 
     xf: [M, T, d] payload rows (compute dtype); expert_idx, gate_w,
@@ -140,11 +199,9 @@ def dedup_dispatch(xf, expert_idx, gate_w, valid, pos, *,
     C], rvalid, state)``: per expert rank, the rows of each source
     rank's dispatch slots, bit for bit the dense wire's after the wire
     codec. Migrate mode (``dest_gpos [M, T]``, ``prim [M, T, k]``) adds
-    each row's destination position and primary flag to the map."""
-    if chunks is not None:
-        raise NotImplementedError(
-            "the pipelined dedup hop (chunks=) is not ported yet (ROADMAP "
-            "Queue 1 item 5)")
+    each row's destination position and primary flag to the map.
+    ``chunks`` (over ``dedup_capacity``) pipelines the node hop and its
+    dequantize and fan-out; K4 runs once."""
     N, L = comm.nodes, comm.local_size
     M = N * L
     _, T, k = expert_idx.shape
@@ -177,8 +234,8 @@ def dedup_dispatch(xf, expert_idx, gate_w, valid, pos, *,
     tok = tok[:R]
     ug = _Ship.apply(xf.reshape(M * T, d), tok,
                      back_idx.reshape(M * T, N), comm.node_all_to_all,
-                     wire_dtype, cdt, (M, N * C_u))           # [M, N*C_u, d]
-    ug = comm.local_all_gather(ug)                            # [M, L*N*C_u, d]
+                     wire_dtype, cdt, (M, N * C_u), chunks,
+                     comm)                                    # [M, L*N*C_u, d]
 
     # re-expansion map in the dense dispatch layout, exact in f32:
     # (uslot + 1, gate weight) [+ (dest_gpos + 1, primary flag)]
@@ -220,12 +277,11 @@ def dedup_dispatch(xf, expert_idx, gate_w, valid, pos, *,
 
 
 def dedup_combine(out_rows, state, *, comm: CommContext,
-                  wire_dtype: str = "f32", chunks=None):
+                  wire_dtype: str = "f32",
+                  chunks: Optional[ChunkPlan] = None):
     """Return gate-weighted expert rows [M, E_local, M, C, d] to their
-    source tokens with per-node pre-reduction. Returns delta [M, T, d]."""
-    if chunks is not None:
-        raise NotImplementedError("the pipelined dedup hop (chunks=) is "
-                                  "not ported yet (ROADMAP Queue 1 item 5)")
+    source tokens with per-node pre-reduction. Returns delta [M, T, d].
+    ``chunks`` (over ``dedup_capacity``) pipelines the return hop."""
     N, L, M, C_u = state["N"], state["L"], state["M"], state["C_u"]
     rvalid, u_safe = state["rvalid"], state["u_safe"]
     headed, un_safe = state["headed"], state["un_safe"]
@@ -242,7 +298,7 @@ def dedup_combine(out_rows, state, *, comm: CommContext,
     comb = comb[:M * M * C_u].reshape(M, N, L, C_u, d).transpose(1, 2)
     part = comm.local_psum_scatter(comb.reshape(M, L * N * C_u, d))
     pback = _Ship.apply(part, None, None, comm.node_all_to_all, wire_dtype,
-                        cdt, None).reshape(M, N, C_u, d)
+                        cdt, None, chunks).reshape(M, N, C_u, d)
     idx = ((ranks[:, None, None] * N + torch.arange(N, device=dev))
            * C_u + un_safe)                                   # [M, T, N]
     g = pback.reshape(M * N * C_u, d).index_select(0, idx.reshape(-1))
@@ -251,13 +307,12 @@ def dedup_combine(out_rows, state, *, comm: CommContext,
 
 
 def dedup_combine_migrate(out_rows, state, *, comm: CommContext,
-                          wire_dtype: str = "f32", chunks=None):
+                          wire_dtype: str = "f32",
+                          chunks: Optional[ChunkPlan] = None):
     """Dest-keyed combine: rows [M, E_local, M, C, d], gate-weighted and
     carrying the primary copy's residual, land at each token's position
-    in the migrated frame. Returns y [M, T, d] at the new homes."""
-    if chunks is not None:
-        raise NotImplementedError("the pipelined dedup hop (chunks=) is "
-                                  "not ported yet (ROADMAP Queue 1 item 5)")
+    in the migrated frame. Returns y [M, T, d] at the new homes.
+    ``chunks`` (over the T token positions) pipelines the return hop."""
     N, L, M, T = state["N"], state["L"], state["M"], state["T"]
     dgpos = state["dgpos"]
     d = out_rows.shape[-1]
@@ -272,5 +327,5 @@ def dedup_combine_migrate(out_rows, state, *, comm: CommContext,
     comb = comb[:M * M * T].reshape(M, N, L, T, d).transpose(1, 2)
     part = comm.local_psum_scatter(comb.reshape(M, L * N * T, d))
     pback = _Ship.apply(part, None, None, comm.node_all_to_all, wire_dtype,
-                        cdt, None).reshape(M, N, T, d)
+                        cdt, None, chunks).reshape(M, N, T, d)
     return _sum_nodes(pback)

@@ -131,6 +131,9 @@ class LuffyConfig:
     # model's speed term P (FLOP/s) of Eq. 1
     q: int = 3
     gpu_speed: float = 1.0e13
+    # per-chunk pipeline issue cost (ms) of the overlap pricing
+    # (sched/cost.py); <= 0 takes DEFAULT_CHUNK_OVERHEAD_MS
+    chunk_overhead_ms: float = -1.0
     # condensation group size G and combine-buffer slack under migration
     condense_group: int = 128
     combine_slack: float = 1.0
@@ -139,8 +142,16 @@ class LuffyConfig:
     # destination node) (repro_torch.condense.wire)
     comm_mode: str = "flat"
     hier_dedup: str = "off"
-    # only "sync" is ported ("pipeline" raises, ROADMAP Queue 1 item 5)
+    # "sync" runs dispatch -> expert FFN -> combine in order; "pipeline"
+    # splits the dispatch capacity into pipeline_chunks 8-aligned chunks
+    # and runs each chunk's collectives on a side stream against the
+    # previous chunk's expert FFN (repro_torch.sched): the forward is
+    # sync's bit for bit, weight gradients add up per chunk. One rank
+    # runs sync. "decode_overlap" runs as sync (no shared experts).
     exec_mode: str = "sync"
+    # capacity chunks of exec_mode="pipeline"; <= 0 takes the chunk
+    # count of the exchange estimate's 1..16 search
+    pipeline_chunks: int = 4
     # only "traffic" is ported (item 7). plan_reuse (plan/exchange.py):
     # "off" replans every MoE sublayer; "signature" skips the greedy when
     # the routing signature matches the carried plan's; "always" trusts
@@ -154,6 +165,16 @@ class LuffyConfig:
     # shipped payload (plan/exchange.py::execute_plan); the residual is 0
     # on an exact wire or one rank
     wire_error_feedback: bool = False
+
+
+def resolve_pipeline_chunks(pipeline_chunks: Optional[int],
+                            plan_objective: str) -> int:
+    """The launchers' ``--pipeline-chunks`` (None = unset): 0, the
+    estimated count, under the "overlap" objective, else 4. An explicit
+    value wins."""
+    if pipeline_chunks is not None:
+        return pipeline_chunks
+    return 0 if plan_objective == "overlap" else 4
 
 
 @dataclass(frozen=True)

@@ -9,7 +9,8 @@ its fixed-batch path).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --batch 4 --prompt-len 2048 --gen 32 --prefill batch
     PYTHONPATH=src python -m repro_torch.launch.serve --arch moe-gpt2 \\
-        --model-axis 4 --batch 8 --prompt-len 128 --gen 32 --prefill batch
+        --model-axis 4 --batch 8 --prompt-len 128 --gen 32 --prefill batch \\
+        [--exec-mode {sync,pipeline,decode_overlap}] [--pipeline-chunks N]
 
 Weights are random, drawn from ``--seed``; the prompts too. With
 ``--prefill batch`` one whole-prompt prefill runs first as a warm-up and
@@ -26,7 +27,12 @@ exist) and in their plain versions on the CPU (``--device cpu``).
 by this one process (a flat mesh, as the reference's): the batched
 prefill's MoE sublayers run sequence-sharded over the ranks (rank r
 holds positions [r*S/M, (r+1)*S/M) of every prompt, at one rank's
-capacity). The decode steps are the one-device ones: the reference's
+capacity), and ``--exec-mode pipeline`` runs their exchange as the
+chunked pipeline (``--pipeline-chunks``, default 4, 0 the exchange
+estimate's count; bit for bit the sync prefill); ``decode_overlap`` runs
+as sync (the port has no shared experts for it to overlap), and the
+decode has no all-to-all to chunk. The launcher prints the resolved
+schedule. The decode steps are the one-device ones: the reference's
 all-reduce decode gives their values bit for bit on virtual ranks
 (:mod:`repro_torch.dist`). Attention and the KV cache are the
 one-device ones. The reference uses
@@ -60,6 +66,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "prompt prefill first")
     ap.add_argument("--model-axis", type=int, default=1,
                     help="expert-parallel ranks (virtual, in this process)")
+    ap.add_argument("--exec-mode",
+                    choices=["sync", "pipeline", "decode_overlap"],
+                    default=None,
+                    help="MoE schedule of the expert-parallel prefill: in "
+                         "order, the chunked pipeline (bit for bit sync), "
+                         "or decode_overlap, which runs as sync here "
+                         "(default sync)")
+    ap.add_argument("--pipeline-chunks", type=int, default=None,
+                    help="capacity chunks of --exec-mode pipeline (default "
+                         "4; 0 takes the exchange estimate's count)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
@@ -74,18 +90,25 @@ def _sync(device: torch.device):
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Serve; returns what was measured (tokens, logits, times)."""
     args = parse_args(argv)
-    from repro_torch.config import LuffyConfig, reduced
+    from repro_torch.config import (LuffyConfig, reduced,
+                                    resolve_pipeline_chunks)
     from repro_torch.configs import get_config
     from repro_torch.dist import make_dist, single_device
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.model import build_model, resolve_device
+    from repro_torch.plan.exchange import schedule_of
+    from repro_torch.serve.engine import prefill_capacity
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     model = build_model(cfg, device=device, seed=args.seed)
-    luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False,
+                        exec_mode=args.exec_mode or "sync",
+                        pipeline_chunks=resolve_pipeline_chunks(
+                            args.pipeline_chunks,
+                            LuffyConfig.plan_objective))
     B, S = args.batch, args.prompt_len
     s_max = S + args.gen
     pdist = single_device()
@@ -95,6 +118,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         print(f"mesh {dict(zip(mesh.axis_names, mesh.shape))} (virtual "
               f"ranks); prefill seq_sharded={pdist.seq_sharded}, decode "
               f"as on one device", flush=True)
+    chunks = 1
+    if cfg.uses_moe:
+        piped, plan, _ = schedule_of(
+            cfg, luffy, pdist.comm(luffy.comm_mode),
+            max(1, B * S // pdist.token_divisor),
+            prefill_capacity(cfg, B, S, pdist))
+        chunks = plan.n_chunks if piped else 1
+    print(f"exec_mode={luffy.exec_mode} pipeline_chunks="
+          f"{luffy.pipeline_chunks} chunks={chunks} in the prefill",
+          flush=True)
     r = np.random.default_rng(args.seed)
     prompts = torch.as_tensor(r.integers(1, cfg.vocab_size, (B, S)),
                               dtype=torch.int32, device=device)
@@ -102,7 +135,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         torch.cuda.reset_peak_memory_stats(device)
     result: Dict = {"arch": cfg.name, "device": str(device), "batch": B,
                     "prompt_len": S, "gen": args.gen,
-                    "model_axis": args.model_axis}
+                    "model_axis": args.model_axis, "chunks": chunks}
 
     if args.prefill == "batch":
         for _ in range(N_BATCHED_PREFILLS - 1):             # warm-up

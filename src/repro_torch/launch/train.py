@@ -8,6 +8,7 @@
         [--model-axis M [--comm-mode {flat,hier}] [--nodes N] \\
          [--hier-dedup {off,on}] [--wire-dtype {f32,bf16,f8e4m3}] \\
          [--wire-error-feedback]] \\
+        [--exec-mode {sync,pipeline}] [--pipeline-chunks N] \\
         [--plan-reuse {off,signature,always}] \\
         [--condense-reuse {off,signature,always}] [--condense-max-age N] \\
         [--similarity-backend {exact,lsh}] [--lsh-bits N] \\
@@ -27,7 +28,13 @@ by this one process (``repro_torch.comm.hierarchical``): the batch
 splits over them, each holds E/M experts, sequences migrate between
 them (§IV), and the dispatch and combine run flat or two-phase over
 ``--nodes`` nodes, on the dense or the deduplicated wire, at
-``--wire-dtype``. When the global batch does not split over M, the
+``--wire-dtype``. ``--exec-mode pipeline`` runs each MoE exchange as
+the chunked pipeline (:mod:`repro_torch.sched`): ``--pipeline-chunks``
+chunks of the dispatch capacity (default 4; 0 takes the exchange
+estimate's count), each chunk's collectives on a side CUDA stream
+against the previous chunk's expert FFN, bit for bit the sync forward;
+the launcher prints the resolved count and each step records it. When
+the global batch does not split over M, the
 sequence does (rank r holds positions [r*S/M, (r+1)*S/M) of every
 sequence, the reference's sequence-parallel train shape), and, as in the
 reference, condensation and migration are then off (the launcher says
@@ -90,6 +97,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--wire-dtype", choices=["f32", "bf16", "f8e4m3"],
                     default=None,
                     help="precision rows cross nodes at (default f32)")
+    ap.add_argument("--exec-mode", choices=["sync", "pipeline"],
+                    default=None,
+                    help="MoE schedule: dispatch, expert FFN and combine "
+                         "in order, or the chunked pipeline with the "
+                         "collectives on a side stream (bit for bit the "
+                         "sync forward; default sync)")
+    ap.add_argument("--pipeline-chunks", type=int, default=None,
+                    help="capacity chunks of --exec-mode pipeline, "
+                         "clipped to capacity/8 (default 4; 0 takes the "
+                         "exchange estimate's count)")
     ap.add_argument("--plan-reuse", default="off",
                     choices=["off", "signature", "always"],
                     help="cross-layer migration-plan reuse: replan every "
@@ -139,13 +156,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = parse_args(argv)
     from repro_torch import optim, train_lib
     from repro_torch.config import (LuffyConfig, OptimConfig, ShapeConfig,
-                                    reduced)
+                                    reduced, resolve_pipeline_chunks)
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.dist import make_dist, single_device
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as tf
     from repro_torch.models.model import build_model, resolve_device
+    from repro_torch.plan.exchange import schedule_of
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -184,6 +202,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         enable_migration=not args.no_migration and layout_ok,
         condense_group=min(128, args.seq_len), combine_slack=2.0,
         comm_mode=comm_mode, hier_dedup=hier_dedup,
+        exec_mode=args.exec_mode or "sync",
+        pipeline_chunks=resolve_pipeline_chunks(
+            args.pipeline_chunks, LuffyConfig.plan_objective),
         wire_dtype=args.wire_dtype or "f32", plan_reuse=args.plan_reuse,
         similarity_backend=args.similarity_backend or "exact",
         lsh_bits=8 if args.lsh_bits is None else args.lsh_bits,
@@ -209,9 +230,20 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             cap = (train_lib.capacity_for_bucket(cfg, shape, luffy, bucket,
                                                  dist)
                    if cfg.uses_moe else 8)
-            steps_by_bucket[bucket] = (cap, train_lib.make_train_step(
-                cfg, luffy, ocfg, cap, dist))
+            chunks = 1
+            if cfg.uses_moe:
+                piped, plan, _ = schedule_of(
+                    cfg, luffy, dist.comm(comm_mode),
+                    train_lib.tokens_per_device(shape, dist), cap)
+                chunks = plan.n_chunks if piped else 1
+            steps_by_bucket[bucket] = (
+                cap, chunks,
+                train_lib.make_train_step(cfg, luffy, ocfg, cap, dist))
         return steps_by_bucket[bucket]
+
+    print(f"exec_mode={luffy.exec_mode} pipeline_chunks="
+          f"{luffy.pipeline_chunks} chunks={get_step(0)[1]} at bucket 0",
+          flush=True)
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -221,7 +253,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     for i in range(args.steps):
         batch = {k: torch.as_tensor(v, device=device)
                  for k, v in data.batch(i).items()}
-        cap, step_fn = get_step(bucket)
+        cap, chunks, step_fn = get_step(bucket)
         _sync(device)
         t0 = time.perf_counter()
         params, opt_state, lstate, m = step_fn(params, opt_state, lstate,
@@ -229,8 +261,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         _sync(device)
         dt = time.perf_counter() - t0
         m = train_lib.finalize_metrics(m)
-        rec = dict(step=i, bucket=bucket, capacity=cap, step_ms=dt * 1e3,
-                   **m)
+        rec = dict(step=i, bucket=bucket, capacity=cap, chunks=chunks,
+                   step_ms=dt * 1e3, **m)
         if device.type == "cuda":
             rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
         if use_ef:

@@ -19,21 +19,30 @@ homes under migration, with its ``combine_slack`` drop path), or the
 deduplicated hier wire (:mod:`repro_torch.condense.wire`), each at
 ``wire_dtype``. Modes ``vanilla``, ``decode`` and ``migrate``.
 
+Schedule (``LuffyConfig.exec_mode``, :func:`plan_static_schedule`):
+"sync", or across ranks "pipeline", which splits the dispatch capacity
+into 8-aligned chunks (``pipeline_chunks``, or the exchange estimate's
+search when it is <= 0) and runs :mod:`repro_torch.sched`'s pipeline:
+on the dense wire each chunk's dispatch and (vanilla) combine on a side
+CUDA stream against the previous chunk's expert FFN on the current one;
+on the dedup wire the node hop chunked over the unique rows. The
+forward is the sync path's bit for bit.
+
 Plan reuse (``LuffyConfig.plan_reuse``): a :class:`PlanSignature`, the
 planner inputs a plan expects at the next exchange, threads through the
 layer stack; under "signature" a sublayer whose counts and lengths equal
 the carried ones skips the greedy and emits the keep-home plan (what the
 greedy would return), under "always" a valid carry is trusted. The
 planner's inputs are on the host already, so the signature is numpy and
-reuse adds no device sync. One synchronous schedule; the pipelined
-executor and replica lanes raise, naming the queue item that brings
-them. Wire error feedback carries each token's quantization residual
-from one step's payload into the next's (:func:`execute_plan`).
+reuse adds no device sync. Replica lanes (the "replicate" objective)
+raise, naming the queue item that brings them. Wire error feedback
+carries each token's quantization residual from one step's payload into
+the next's (:func:`execute_plan`).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -51,8 +60,15 @@ from repro_torch.core import migration as mig
 from repro_torch.core.gating import GateOutput, dispatch_positions
 from repro_torch.kernels import ops as kops
 from repro_torch.plan import objectives
+from repro_torch.plan.estimate import PlanEstimate, estimate_exchange
+from repro_torch.sched import ChunkPlan, plan_chunks, plan_unique_chunks
+from repro_torch.sched.cost import resolve_chunk_overhead_ms
+from repro_torch.sched.pipeline import run_pipeline, share, side_stream
 
 MODES = ("vanilla", "migrate", "decode")
+# the chunk count when pipeline_chunks <= 0 and no topology prices the
+# exchange (the reference's)
+DEFAULT_PIPELINE_CHUNKS = 4
 
 
 class MoEAux(NamedTuple):
@@ -141,6 +157,9 @@ class ExchangePlan(NamedTuple):
     plans_built: float = 0.0      # the greedy ran
     plans_reused: float = 0.0     # a carried plan was reused
     reuse_mismatch: float = 0.0   # a valid carry failed revalidation
+    pipelined: bool = False       # the chunked pipeline, not sync
+    chunks: Optional[ChunkPlan] = None     # capacity partition
+    estimate: Optional[PlanEstimate] = None  # None unless priced (M > 1)
 
 
 def _rms(x, scale, eps=1e-6):
@@ -171,8 +190,6 @@ def check_ported(luffy: LuffyConfig):
     """Raise on the reference's options this port does not run yet,
     naming the queue item that brings each."""
     later = [
-        (luffy.exec_mode == "pipeline",
-         "exec_mode='pipeline' (the pipelined executor)", "item 5"),
         (luffy.plan_objective != "traffic",
          f"plan_objective={luffy.plan_objective!r}", "item 7"),
     ]
@@ -184,6 +201,63 @@ def check_ported(luffy: LuffyConfig):
         raise ValueError(f"unknown exec_mode {luffy.exec_mode!r}")
     if luffy.plan_reuse not in ("off", "signature", "always"):
         raise ValueError(f"unknown plan_reuse {luffy.plan_reuse!r}")
+
+
+def plan_static_schedule(cfg: ModelConfig, luffy: LuffyConfig, topo, M: int,
+                         T: int, d: int, capacity: int, bytes_per_el: int,
+                         wire_dtype: str = "f32"
+                         ) -> Tuple[bool, ChunkPlan, Optional[PlanEstimate]]:
+    """The exchange's token-independent schedule: pipelined or not, the
+    :class:`ChunkPlan` and the :class:`PlanEstimate` (None when nothing
+    prices it). Pipelined only under ``exec_mode="pipeline"`` at M > 1.
+    ``luffy.pipeline_chunks <= 0`` takes the estimate's 1..16 search
+    when the topology prices the exchange, else
+    :data:`DEFAULT_PIPELINE_CHUNKS`; a positive value is the request,
+    clipped by :func:`~repro_torch.sched.plan_chunks`. T is a rank's
+    tokens."""
+    m = cfg.moe
+    pipelined = luffy.exec_mode == "pipeline" and M > 1
+    priced = topo is not None and M > 1
+    ffn_ms = 0.0
+    if priced:
+        # the reference's convention: 4·d·d_ff flops a row (the up and
+        # down products) over every static row at luffy.gpu_speed
+        ffn_rows = m.num_experts * capacity
+        ffn_ms = ffn_rows * 4.0 * d * m.d_ff / luffy.gpu_speed * 1e3
+    o_ms = resolve_chunk_overhead_ms(luffy.chunk_overhead_ms)
+    req = luffy.pipeline_chunks if pipelined else 1
+    if pipelined and req <= 0:
+        if priced:
+            req = estimate_exchange(T, m.top_k, d, topo=topo,
+                                    bytes_per_el=bytes_per_el,
+                                    ffn_ms=ffn_ms, chunks=None,
+                                    chunk_overhead_ms=o_ms,
+                                    wire_dtype=wire_dtype).chunks
+        else:
+            req = DEFAULT_PIPELINE_CHUNKS
+    chunks = plan_chunks(capacity, req)
+    est = None
+    if priced:
+        est = estimate_exchange(T, m.top_k, d, topo=topo,
+                                bytes_per_el=bytes_per_el, ffn_ms=ffn_ms,
+                                chunks=chunks.n_chunks,
+                                chunk_overhead_ms=o_ms,
+                                wire_dtype=wire_dtype)
+    return pipelined, chunks, est
+
+
+def schedule_of(cfg: ModelConfig, luffy: LuffyConfig,
+                comm: Optional[CommContext], tokens: int, capacity: int
+                ) -> Tuple[bool, ChunkPlan, Optional[PlanEstimate]]:
+    """:func:`plan_static_schedule` of an exchange of a rank's ``tokens``
+    over ``comm`` (None: one device) at the compute dtype and wire of
+    ``cfg`` and ``luffy``."""
+    from repro_torch.models.blocks import _dtype
+    comm = CommContext.local() if comm is None else comm
+    return plan_static_schedule(
+        cfg, luffy, comm.topology, comm.size(), tokens, cfg.d_model,
+        capacity, torch.finfo(_dtype(cfg.compute_dtype)).bits // 8,
+        wdt.validate_wire_dtype(luffy.wire_dtype))
 
 
 def _scatter_rows(n_slots: int, slot, valid, *rows):
@@ -283,6 +357,7 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
     wire = ("dedup" if (luffy.hier_dedup == "on" and comm.mode == "hier"
                         and M > 1) else "dense")
     topo = comm.topology
+    pipelined, chunks, est = schedule_of(cfg, luffy, comm, T, C)
     zM = torch.zeros((M,), dtype=torch.float32, device=dev)
     if topo is not None and topo.hierarchical and M > 1:
         row_bytes = float((d + 2) * torch.finfo(cdt).bits // 8)
@@ -351,7 +426,8 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
         perm=perm, dest_global=dest_global, traffic_before=t_before,
         traffic_after=t_after, inter_bytes_flat=ib_flat,
         inter_bytes_dedup=ib_dedup, signature=sig_out, plans_built=built,
-        plans_reused=reused, reuse_mismatch=mismatch)
+        plans_reused=reused, reuse_mismatch=mismatch, pipelined=pipelined,
+        chunks=chunks, estimate=est)
 
 
 def _exchange_sideband(sb: Dict[str, torch.Tensor], dest_global
@@ -377,7 +453,11 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
     [E, ...] (rank r owns experts [r*E_local, (r+1)*E_local)); x:
     [M, n_seq, S, d] pre-norm hidden; sideband: seq_len [M, n_seq] and
     any per-sequence state (labels [M, n_seq, S]). The expert FFN runs
-    once over every rank's rows, [E, M*C, d].
+    once over every rank's rows, [E, M*C, d], or on the pipelined dense
+    wire (``plan.pipelined``) once per capacity chunk, [E, M*Ck, d], with
+    each chunk's all-to-all (and in vanilla mode its combine) on the
+    pipeline's side stream; the chunks reassemble in the sync layout, so
+    the forward is the sync path's bit for bit.
 
     wire_ef: [M, n_seq, S, d] f32, the error-feedback residual of the
     previous step (None: off). It is added to the shipped payload only;
@@ -429,10 +509,12 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
                                   device=dev)
 
     def ffn(x_rows):
-        """x_rows [M, E_local, M, C, d] -> expert outputs, one launch."""
+        """x_rows [M, E_local, M, c, d] -> expert outputs, one launch (c:
+        the capacity, or a chunk of it)."""
+        c = x_rows.shape[3]
         h = _rms(x_rows, scale).to(cdt)
-        return expert_ffn(params["experts"], h.reshape(E, M * C, d),
-                          cfg.act).reshape(M, E_local, M, C, d)
+        return expert_ffn(params["experts"], h.reshape(E, M * c, d),
+                          cfg.act).reshape(M, E_local, M, c, d)
 
     def ship(fn, buf):
         # one device ships nothing: its rows keep the compute dtype
@@ -440,6 +522,12 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
             else fn(buf)
 
     if plan.wire == "dedup":
+        dchunks = mchunks = None
+        if plan.pipelined:
+            n = plan.chunks.n_chunks
+            dchunks = plan_unique_chunks(cwire.dedup_capacity(
+                T, E_local, comm.local_size, C), n)
+            mchunks = plan_unique_chunks(T, n) if migrate else None
         dest_gpos = prim_tk = None
         if migrate:
             tok = torch.arange(T, device=dev)
@@ -449,13 +537,14 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
         x_rows, gw_rows, rvalid, wst = cwire.dedup_dispatch(
             x_pay.to(cdt), expert_idx, gate_w, valid, pos, comm=comm,
             e_local=E_local, capacity=C, wire_dtype=plan.wire_dtype,
-            dest_gpos=dest_gpos, prim=prim_tk)
+            dest_gpos=dest_gpos, prim=prim_tk, chunks=dchunks)
         y_rows = ffn(x_rows)
         n_rv = torch.clamp(rvalid.float().sum(dim=(1, 2, 3)), min=1.0)
         if not migrate:
             delta = cwire.dedup_combine(y_rows * gw_rows[..., None], wst,
                                         comm=comm,
-                                        wire_dtype=plan.wire_dtype)
+                                        wire_dtype=plan.wire_dtype,
+                                        chunks=dchunks)
             y_tok = xf + delta.to(xf.dtype)
             local_frac = torch.full((M,), 1.0 / M, device=dev)
             new_sb = dict(sideband)
@@ -463,8 +552,8 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
             out_rows = (y_rows * gw_rows[..., None]
                         + x_rows * wst["prim"][..., None])
             y_tok = cwire.dedup_combine_migrate(
-                out_rows, wst, comm=comm,
-                wire_dtype=plan.wire_dtype).to(xf.dtype)
+                out_rows, wst, comm=comm, wire_dtype=plan.wire_dtype,
+                chunks=mchunks).to(xf.dtype)
             dd = torch.where(wst["dgpos"] >= 0, wst["dgpos"] // T,
                              torch.full_like(wst["dgpos"], -1))
             local_frac = (dd == ranks[:, None, None, None]).float() \
@@ -477,28 +566,81 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
                        n_seq, S) + (ef_next,)
 
     # ---- dense wire: each copy's row, and beside it its gate weight (and
-    # under migration its primary flag). The side columns move in their
-    # own buffer through the same collective, so the rows stay d wide.
+    # under migration its primary flag and its row metadata: destination
+    # global slot + 1, 0 = empty, and position). The side columns move in
+    # their own buffers through the same collective, so the rows stay d
+    # wide.
     side = gate_w[..., None].to(cdt)
     if migrate:          # the primary copy carries the token's residual
         side = torch.cat([side, (torch.arange(k, device=dev) == 0).to(cdt)
                           .expand(M, T, k)[..., None]], dim=-1)
     slot = (ranks[:, None, None] * E + expert_idx) * C + pos  # [M, T, k]
     w = side.shape[-1]
-    buf, sbuf = _scatter_rows(
-        M * E * C, slot.reshape(-1), valid.reshape(-1),
-        x_pay.to(cdt)[:, :, None, :].expand(M, T, k, d).reshape(-1, d),
-        side.reshape(-1, w))
-    buf, sbuf = buf.reshape(M, E, C, d), sbuf.reshape(M, E, C, w)
-    xr = ship(comm.all_to_all, buf).reshape(M, M, E_local, C, d) \
-        .transpose(1, 2)
-    sr = comm.all_to_all(sbuf).reshape(M, M, E_local, C, w).transpose(1, 2)
-    gw, prim = sr[..., :1], sr[..., 1:]
-    out = ffn(xr) * gw                                       # [M,El,M,C,d]
+    rows = [x_pay.to(cdt)[:, :, None, :].expand(M, T, k, d).reshape(-1, d),
+            side.reshape(-1, w)]
+    if migrate:
+        tok = torch.arange(T, device=dev)
+        dest_of_tok = dest_global[:, tok // S][..., None].expand(M, T, k)
+        rows.append(torch.stack([dest_of_tok + 1,
+                                 (tok % S)[None, :, None].expand(M, T, k)],
+                                -1).reshape(-1, 2))
+    bufs = [b.reshape(M, E, C, b.shape[-1]) for b in _scatter_rows(
+        M * E * C, slot.reshape(-1), valid.reshape(-1), *rows)]
+
+    def arrive(t):
+        """[M, E, c, .] after the all-to-all -> [M, E_local, M, c, .]."""
+        return t.reshape(M, M, E_local, *t.shape[2:]).transpose(1, 2)
+
+    def dispatch(bs):
+        """(rows, side[, meta]) through the all-to-all; the rows at the
+        wire dtype."""
+        return (ship(comm.all_to_all, bs[0]),
+                *(comm.all_to_all(b) for b in bs[1:]))
+
+    def compute(moved):
+        """The expert FFN on one exchange's rows: the gate-weighted output
+        (plus the primary copy's residual under migration), and under
+        migration the primary flags and the row metadata."""
+        xr, sr = arrive(moved[0]), arrive(moved[1])
+        out = ffn(xr) * sr[..., :1]                          # [M,El,M,c,d]
+        if not migrate:
+            return out
+        prim = sr[..., 1:]
+        return out + xr * prim, prim, arrive(moved[2])
+
+    def combine_back(out):
+        return ship(comm.combine, out.transpose(1, 2).reshape(
+            M, E, out.shape[3], d))
+
+    if not plan.pipelined:
+        res = compute(dispatch(bufs))
+        back = None if migrate else combine_back(res)
+    else:
+        # capacity chunks through the pipeline: chunk k+1's dispatch on
+        # the side stream while chunk k's FFN runs; each chunk's rows
+        # are the sync path's rows, reassembled in the sync layout before
+        # anything that depends on row order (the migrate-mode regroup
+        # sorts across all rows, so it stays after the pipeline)
+        ch = plan.chunks
+        stream = side_stream(dev)
+        share(stream, bufs)
+
+        def chunk(j):
+            o, n = ch.offsets[j], ch.sizes[j]
+            return dispatch([b[:, :, o:o + n] for b in bufs])
+
+        outs, backs = run_pipeline(
+            ch.n_chunks, dispatch=chunk,
+            compute=lambda j, moved: compute(moved),
+            combine=None if migrate else (lambda j, out: combine_back(out)),
+            stream=stream)
+        if migrate:
+            res = tuple(torch.cat(parts, dim=3) for parts in zip(*outs))
+            back = None
+        else:
+            back = torch.cat(backs, dim=2)                   # [M, E, C, d]
 
     if not migrate:
-        back = out.transpose(1, 2).reshape(M, E, C, d)
-        back = ship(comm.combine, back)
         # index_select, not back[slot]: its backward is an index_add_,
         # where advanced indexing's sorts the indices (15 ms per layer at
         # B=8, S=1024 on an H100). Each kept slot is read by one copy, so
@@ -514,16 +656,7 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
         local_frac = torch.full((M,), 1.0 / M, device=dev)
         new_sb = dict(sideband)
     else:
-        out = out + xr * prim
-        # each row's destination (global slot + 1, 0 = empty) and position
-        tok = torch.arange(T, device=dev)
-        dest_of_tok = dest_global[:, tok // S][..., None].expand(M, T, k)
-        meta = torch.stack([dest_of_tok + 1,
-                            (tok % S)[None, :, None].expand(M, T, k)], -1)
-        mbuf, = _scatter_rows(M * E * C, slot.reshape(-1),
-                              valid.reshape(-1), meta.reshape(-1, 2))
-        rmeta = comm.all_to_all(mbuf.reshape(M, E, C, 2)) \
-            .reshape(M, M, E_local, C, 2).transpose(1, 2)
+        out, prim, rmeta = res
         # regroup rows by destination rank, residual rows first
         R = E_local * M * C
         o_f = out.reshape(M, R, d)

@@ -1,8 +1,8 @@
 """Migration-planner objectives (counterpart of
 ``repro/plan/objectives.py``): the registry and the ``"traffic"``
 objective, which minimises link-cost-weighted combine rows. The
-reference's ``"overlap"`` and ``"replicate"`` objectives price the
-pipelined executor and expert replicas, which are not ported
+reference's ``"overlap"`` (the pipelined exchange's exposed time) and
+``"replicate"`` (expert replicas) objectives are not ported
 (``repro_torch.plan.exchange.check_ported`` raises on them, naming the
 queue item that brings them).
 """

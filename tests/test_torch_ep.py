@@ -361,8 +361,10 @@ def test_ep_launcher_cpu_end_to_end(capsys):
         assert 0.0 < s["inter_bytes_shipped"] < s["inter_bytes_dedup"] \
             < s["inter_bytes_flat"]
     assert "inter=" in out and "shipped=" in out and "local=" in out
+    # the train launcher's schedules are the reference's: sync, pipeline
     with pytest.raises(SystemExit):
-        ttrain.parse_args(["--model-axis", "4", "--exec-mode", "pipeline"])
+        ttrain.parse_args(["--model-axis", "4", "--exec-mode",
+                           "decode_overlap"])
     # 8 sequences do not split over 3 ranks, so the sequence would, and
     # 128 positions do not
     with pytest.raises(ValueError, match="128 positions does not split"):

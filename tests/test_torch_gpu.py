@@ -894,3 +894,84 @@ def test_mamba_scan_fused_kernel_matches_plain(B, S, di, N, x_dtype):
         torch.testing.assert_close(y, wy, atol=2e-5, rtol=2e-5)
     else:
         assert _bf16_excess(y, wy).max().item() <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h_dtype", ["float32", "bfloat16"])
+def test_expert_ffn_chunk_rows_bitwise(h_dtype):
+    """The pipelined executor's chunk of the dense wire: 4 source ranks x
+    a quarter of the capacity. K1 on a chunk's rows (and the RMS norm
+    before it) gives the same bits as the same rows of one launch over
+    the whole capacity, [16, 4 x 512, 768] x 3072, on each route."""
+    _cuda_or_skip()
+    from repro_torch.plan.exchange import _rms
+    from repro_torch.sched import plan_chunks
+    E, M, C, d, F = 16, 4, 512, 768, 3072
+    h, ws = _inputs(E, M * C, d, F, seed=11)
+    dt = getattr(torch, h_dtype)
+    x = torch.as_tensor(h).cuda()
+    tw = [torch.as_tensor(w).cuda() for w in ws]
+    scale = torch.rand(d, device="cuda") + 0.5
+    full = ops.expert_ffn(_rms(x, scale).to(dt), *tw, "gelu")
+    full = full.reshape(E, M, C, d)
+    for ch in (plan_chunks(C, 4), plan_chunks(C, 3)):
+        for o, s in ch.slices():
+            xk = x.reshape(E, M, C, d)[:, :, o:o + s]
+            hk = _rms(xk, scale).to(dt).reshape(E, M * s, d)
+            got = ops.expert_ffn(hk, *tw, "gelu").reshape(E, M, s, d)
+            assert torch.equal(got, full[:, :, o:o + s]), (ch, o, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hier_dedup", ["off", "on"])
+def test_pipeline_side_stream_equals_sync(hier_dedup):
+    """A reduced EP forward and backward on the card: pipeline (the
+    collectives on the side stream) equals sync bit for bit in the loss
+    and the forward metrics, gradients within 1e-5, and K1 launches once
+    per chunk on the dense wire and once on the dedup wire."""
+    _cuda_or_skip()
+    import dataclasses
+    from repro_torch import optim
+    from repro_torch.config import LuffyConfig, ShapeConfig, reduced
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe_layer import capacity_for
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import make_dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as ttf
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(reduced(get_config("moe-gpt2")),
+                              compute_dtype="float32")
+    B, S = 8, 128
+    model = build_model(cfg, device="cuda", seed=0)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             SyntheticLM(cfg, ShapeConfig("t", S, B, "train")).batch(0)
+             .items()}
+    dist = make_dist(make_host_mesh(model=4, nodes=2), "train", B,
+                     moe_arch=True)
+    cap = capacity_for(cfg.moe, B // 4 * S, cfg.moe.num_experts)
+    n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
+    runs = []
+    for ex in ("sync", "pipeline"):
+        lf = LuffyConfig(comm_mode="hier", hier_dedup=hier_dedup,
+                         wire_dtype="f8e4m3", combine_slack=4.0,
+                         exec_mode=ex, pipeline_chunks=4)
+        params = optim.tree_map(
+            lambda p: p.detach().clone().requires_grad_(), model.params)
+        before = kexp.expert_ffn.launches
+        loss, m = ttf.forward_train(params, cfg, lf, batch,
+                                    torch.tensor(0.6, device="cuda"), cap,
+                                    dist=dist)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append((loss, m, kexp.expert_ffn.launches - before,
+                     {n: p.grad for n, p in optim.leaves_with_path(params)}))
+    (ls, ms, ks, gs), (lp, mp, kp, gp) = runs
+    assert ks == n_moe
+    assert kp == (4 * n_moe if hier_dedup == "off" else n_moe)
+    assert torch.equal(ls, lp)
+    for key in ms:
+        assert torch.equal(torch.as_tensor(ms[key]),
+                           torch.as_tensor(mp[key])), key
+    for n, g in gs.items():
+        assert ((gp[n] - g).norm() / max(g.norm(), 1e-12)).item() <= 1e-5, n

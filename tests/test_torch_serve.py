@@ -235,8 +235,9 @@ def test_moe_core_matches_reference(mode, cdt):
 
 def test_moe_core_later_slices_raise():
     """What the port does not run raises, each naming the queue item that
-    brings it: the pipelined executor and the planner objectives other
-    than "traffic". Wire error feedback runs since slice 12: on one rank
+    brings it: the planner objectives other than "traffic". The
+    pipelined executor runs since slice 13 (``tests/test_torch_sched.py``
+    holds it). Wire error feedback runs since slice 12: on one rank
     nothing crosses a wire, so the residual it returns is zero. Plan
     reuse, condense-plan reuse
     and the lsh similarity backend run since slice 11: on one device
@@ -257,7 +258,6 @@ def test_moe_core_later_slices_raise():
         tmoe.moe_core(shard, x, sb, tcfg, LuffyConfig(), mode="migrate",
                       capacity=8, threshold=thr)
     for luffy, item in (
-            (LuffyConfig(exec_mode="pipeline"), "Queue 1 item 5"),
             (LuffyConfig(plan_objective="overlap"), "Queue 1 item 7"),
             (LuffyConfig(plan_objective="replicate"), "Queue 1 item 7")):
         with pytest.raises(NotImplementedError, match=item):

@@ -395,7 +395,9 @@ def test_dedup_wire_matches_reference(oracle, wd):
 def test_wire_gradient_repeats_and_moves_back():
     """The dedup wire's backward: the f32 wire passes cotangents back
     unchanged to each token (summed over its destination nodes); two
-    backward passes agree bit for bit."""
+    backward passes agree bit for bit; the chunked node hop (the
+    pipelined executor's ``chunks=``) gives the same rows and gradients
+    bit for bit on the f32 and f8 wires."""
     hier = _hier()
     r = np.random.default_rng(2)
     xf = torch.as_tensor(r.standard_normal((M, T, D)).astype(np.float32))
@@ -404,7 +406,7 @@ def test_wire_gradient_repeats_and_moves_back():
     keep = torch.ones((M, T, K), dtype=torch.bool)
     pos = dispatch_positions(e, keep, E_LOCAL * M)
     valid = keep & (pos < C)
-    grads = []
+    grads, rows = [], []
     for wd in ("f32", "f32", "f8e4m3"):
         x = xf.clone().requires_grad_()
         x_rows, gwr, rv, st = twire.dedup_dispatch(
@@ -412,11 +414,21 @@ def test_wire_gradient_repeats_and_moves_back():
             wire_dtype=wd)
         x_rows.sum().backward()
         grads.append(x.grad)
+        rows.append(x_rows.detach())
     assert torch.equal(grads[0], grads[1])
     # each valid copy reads its token's row once: the gradient counts them
     np.testing.assert_array_equal(grads[0].numpy()[..., 0],
                                   valid.sum(-1).float().numpy())
     assert torch.isfinite(grads[2]).all()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        twire.dedup_dispatch(xf, e, gw, valid, pos, comm=hier,
-                             e_local=E_LOCAL, capacity=C, chunks=4)
+    from repro_torch.sched import plan_unique_chunks
+    ch = plan_unique_chunks(
+        twire.dedup_capacity(T, E_LOCAL, hier.local_size, C), 3)
+    assert ch.n_chunks == 3
+    for i, wd in ((0, "f32"), (2, "f8e4m3")):
+        x = xf.clone().requires_grad_()
+        x_rows = twire.dedup_dispatch(
+            x, e, gw, valid, pos, comm=hier, e_local=E_LOCAL, capacity=C,
+            wire_dtype=wd, chunks=ch)[0]
+        x_rows.sum().backward()
+        assert torch.equal(x_rows.detach(), rows[i]), wd
+        assert torch.equal(x.grad, grads[i]), wd
