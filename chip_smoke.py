@@ -4157,6 +4157,739 @@ def run_paper_phases(kern=None):
                 parity=parity, ep_parity=ep_parity, profile=prof)
 
 
+# ---------------------------------------------------------------------------
+# slice 14: K1's group map (replica lanes), the "replicate" and "overlap"
+# objectives, the plan cache with serving templates (phases 36-40)
+# ---------------------------------------------------------------------------
+
+# moe-gpt2's EP lanes over 4 ranks of 4 experts: rank r's rows are groups
+# 5r .. 5r+4, its lane (5r+4) idle or an intra-node peer's expert
+LANE_MAP = (0, 1, 2, 3, -1, 4, 5, 6, 7, 0, 8, 9, 10, 11, -1,
+            12, 13, 14, 15, 9)
+
+
+def _lane_counters():
+    from repro_torch.kernels import expert_ffn as kexp
+    return {"expert_ffn_lanes": kexp.lanes,
+            "expert_ffn_bwd_lanes": kexp.lanes_bwd}
+
+
+def _k1_lane_bound(live, R, D_, Fw, E_w, G, bwd=False):
+    """The lane launch's bound: the products of the live groups only (an
+    idle lane does none), the rows (h, out; and dy, dh) moved once, each
+    weight read once in bf16 (and its f32 gradient written once)."""
+    flops = (8 if bwd else 3) * 2.0 * live * R * D_ * Fw
+    rows = G * R * D_ * 2 * (4 if bwd else 2)
+    wbytes = E_w * 3 * D_ * Fw * (2 + (4 if bwd else 0))
+    return _bound(rows + wbytes, flops, BF16_TC_FLOPS)
+
+
+def phase_k1_lanes(arch: str = "moe-gpt2", R: int = 2048):
+    """Phase 36: K1 and its backward with a group map at the replicate EP
+    run's shape, [20, R, 768] x 3072 over the 16-expert stack (two live
+    lanes, two idle), against the plain version (the mapped stack, and
+    autograd through it for the backward); idle groups exactly zero; the
+    f32 FMA routes and the bf16 ones at R = 160; a bitwise repeat; no
+    cast beyond the stack's own; timed in turns with a [16, R, 768]
+    launch without a map and with the concatenated stack the reference
+    builds (its casts included). The bound counts the live groups'
+    products."""
+    import torch
+    from repro_torch.kernels import expert_ffn as kexp
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(36)
+    E, D_, F_ = _widths(arch)
+    G = len(LANE_MAP)
+    widx = torch.tensor(LANE_MAP, dtype=torch.int32, device="cuda")
+    idle = widx < 0
+    live = int((~idle).sum())
+    checks = []
+
+    def check(name, got, want, tol, zero):
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+        ok = all(torch.allclose(g.float(), w.float(), atol=tol, rtol=tol)
+                 for g, w in zip(got, want))
+        ok = ok and bool(torch.all(zero[idle] == 0))
+        checks.append(dict(check=name, max_abs_err=err, tol=tol, ok=ok))
+        log(f"  K1 lanes {name}: max|err| {err:.3e} tol {tol:g}, idle rows "
+            f"zero {'ok' if ok else 'FAIL'}")
+        return err
+
+    def inputs(rows, h_dtype):
+        _, wu, wg, wd = _k1_inputs(8, torch.float32, gen, arch)
+        h = torch.randn((G, rows, D_), generator=gen,
+                        device="cuda").to(h_dtype)
+        dy = torch.randn(h.shape, generator=gen, device="cuda").to(h_dtype)
+        return h, wu, wg, wd, dy
+
+    def plain_bwd(h, wu, wg, wd, dy):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (h, wu, wg, wd)]
+            out = ref.expert_ffn_ref(*leaves, "gelu", widx)
+            return torch.autograd.grad(out, leaves, dy)
+
+    fwd_err = bwd_err = 0.0
+    for rows, h_dtype in ((160, torch.float32), (160, torch.bfloat16),
+                          (R, torch.bfloat16)):
+        h, wu, wg, wd, dy = inputs(rows, h_dtype)
+        tol = K1_TOL[str(h_dtype).split(".")[1]]
+        rt = kexp.route(h.dtype, wu.dtype, D_, F_)
+        got = kexp.expert_ffn(h, wu, wg, wd, "gelu", widx)
+        torch.cuda.synchronize()
+        fwd_err = max(fwd_err, check(
+            f"forward [{G},{rows},{D_}] {h_dtype} ({rt})", [got],
+            [ref.expert_ffn_ref(h, wu, wg, wd, "gelu", widx)], tol, got))
+        gb = kexp.expert_ffn_bwd(h, wu, wg, wd, dy, "gelu", widx)
+        torch.cuda.synchronize()
+        bwd_err = max(bwd_err, check(
+            f"backward [{G},{rows},{D_}] {h_dtype} "
+            f"({kexp.bwd_route(h.dtype, wu.dtype, D_, F_)})", gb,
+            plain_bwd(h, wu, wg, wd, dy), tol, gb[0]))
+        again = kexp.expert_ffn_bwd(h, wu, wg, wd, dy, "gelu", widx)
+        rep = all(torch.equal(a, b) for a, b in zip(again, gb))
+        checks.append(dict(check=f"backward repeat {h_dtype} {rows}",
+                           ok=rep))
+        log(f"  K1 lanes backward repeat {h_dtype} R={rows}: bit-equal {rep}")
+        del h, wu, wg, wd, dy, got, gb, again
+        torch.cuda.empty_cache()
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise SystemExit(f"K1 with a group map disagrees with its plain "
+                         f"version: {bad}")
+
+    # timing at the EP lane shape: the map launch, a 16-group launch of the
+    # same stack without a map, and the reference's concatenated stack
+    h, wu, wg, wd, dy = inputs(R, torch.bfloat16)
+    ws = (wu, wg, wd)
+    h16, dy16 = h[:E].contiguous(), dy[:E].contiguous()
+    src = widx.clamp(min=0).long()
+    livef = (~idle).float()[:, None, None]
+
+    def concat():
+        # the mapped stack as a new tensor each call, as the reference
+        # concatenates it: every call casts three fresh [20, 768, 3072]
+        # stacks to bf16
+        return kexp.expert_ffn(h, *(w.index_select(0, src) * livef
+                                    for w in ws), "gelu")
+
+    kexp.expert_ffn(h16, *ws, "gelu")            # the stack's cached copy
+    kexp.expert_ffn_bwd(h16, *ws, dy16, "gelu")
+    c0 = (kexp.weight_bf16.casts, kexp.weight_bf16.lo_casts)
+    kexp.expert_ffn(h, *ws, "gelu", widx)
+    kexp.expert_ffn_bwd(h, *ws, dy, "gelu", widx)
+    new_casts = (kexp.weight_bf16.casts - c0[0],
+                 kexp.weight_bf16.lo_casts - c0[1])
+    c1 = kexp.weight_bf16.casts
+    concat()
+    concat_casts = kexp.weight_bf16.casts - c1
+    ms, ms16, msc, bms, bms16 = [], [], [], [], []
+    for _ in range(2):                    # in turns, as in one call
+        ms.append(time_ms(lambda: kexp.expert_ffn(h, *ws, "gelu", widx), 20))
+        ms16.append(time_ms(lambda: kexp.expert_ffn(h16, *ws, "gelu"), 20))
+        msc.append(time_ms(concat, 5, 1))
+        bms.append(time_ms(lambda: kexp.expert_ffn_bwd(
+            h, *ws, dy, "gelu", widx), 5, 1))
+        bms16.append(time_ms(lambda: kexp.expert_ffn_bwd(
+            h16, *ws, dy16, "gelu"), 5, 1))
+    dev = device_ms(lambda: kexp.expert_ffn(h, *ws, "gelu", widx))
+    dev16 = device_ms(lambda: kexp.expert_ffn(h16, *ws, "gelu"))
+    bdev = device_ms(lambda: kexp.expert_ffn_bwd(h, *ws, dy, "gelu", widx),
+                     5)
+    plain_ms = time_ms(lambda: ref.expert_ffn_ref(h, *ws, "gelu", widx), 5,
+                       1)
+    bplain_ms = time_ms(lambda: plain_bwd(h, *ws, dy), 3, 1)
+    # the library yardsticks: torch.bmm on bf16 operands, the mapped stack
+    # gathered from the bf16 copies (not timed: the port never calls them)
+    wm = [w.to(torch.bfloat16).index_select(0, src) * livef.to(torch.bfloat16)
+          for w in ws]
+    lib_ms = time_ms(lambda: _k1_library_bf16(h, *wm, "gelu"), 10)
+    blib_ms = time_ms(lambda: _k1_bwd_products(h, *wm, dy, "gelu"), 5, 1)
+    fb = _k1_lane_bound(live, R, D_, F_, E, G)
+    bb = _k1_lane_bound(live, R, D_, F_, E, G, bwd=True)
+    info = dict(shape=[G, R, D_, F_], map=list(LANE_MAP), live_groups=live,
+                ms=min(ms), ms_runs=ms, device_ms=dev,
+                no_map_16_ms=min(ms16), no_map_16_ms_runs=ms16,
+                no_map_16_device_ms=dev16, concat_ms=min(msc),
+                concat_ms_runs=msc, concat_casts_per_call=concat_casts,
+                bwd_ms=min(bms), bwd_ms_runs=bms, bwd_device_ms=bdev,
+                bwd_no_map_16_ms=min(bms16), bwd_no_map_16_ms_runs=bms16,
+                plain_ms=plain_ms, bwd_plain_ms=bplain_ms, library_ms=lib_ms,
+                bwd_library_ms=blib_ms, map_casts=list(new_casts),
+                max_abs_err=fwd_err, bwd_max_abs_err=bwd_err, checks=checks,
+                **fb, bwd_bound_ms=bb["bound_ms"],
+                bwd_bound_by=bb["bound_by"])
+    info["bound_share"] = info["bound_ms"] / info["ms"]
+    log(f"  K1 lanes [{G},{R},{D_}]x{F_} ({live} live groups) bf16 h, f32 "
+        f"w, gelu: {info['ms']:.4f} ms (runs {ms}; device {dev:.4f} ms), "
+        f"[16,{R},{D_}] without a map {info['no_map_16_ms']:.4f} ms "
+        f"(device {dev16:.4f}), the concatenated stack with its "
+        f"{concat_casts} casts {info['concat_ms']:.4f} ms; bound "
+        f"{info['bound_ms']:.4f} ms by {info['bound_by']} "
+        f"({100 * info['bound_share']:.1f}% of it); plain {plain_ms:.3f} ms, "
+        f"bmm bf16 {lib_ms:.4f} ms; backward {info['bwd_ms']:.4f} ms "
+        f"(device {bdev:.4f}), 16 groups without a map "
+        f"{info['bwd_no_map_16_ms']:.4f} ms, bound "
+        f"{info['bwd_bound_ms']:.4f} ms, plain {bplain_ms:.3f} ms, bmm bf16 "
+        f"{blib_ms:.4f} ms; casts made by the map launches {new_casts}")
+    if new_casts != (0, 0):
+        raise SystemExit(f"K1's map launches cast the weights again: "
+                         f"{new_casts}")
+    del h, h16, wu, wg, wd, dy, dy16, wm
+    torch.cuda.empty_cache()
+    return info
+
+
+# phases 37-39: the expert-parallel train path under the new objectives
+# (dense hier wire, 4 ranks in 2 nodes, condensation and migration on)
+OBJ_EP_ARGS = DENSE_EP_ARGS       # full-width moe-gpt2, 2 steps, B=8 S=1024
+# every MoE router's column 0 pushed by this times the unit vector of
+# batch 0's mean token embedding: at full width a replica pays only when
+# the hot expert holds over 22.4% of the routed copies (3.6x the mean)
+REPLICA_BIAS = 8.0
+# the 2-layer cut's capacity is 40, where the modelled relief beats the
+# replica-consistency cost only at a slower modelled speed (the CPU tests'
+# 1e11 FLOP/s)
+OBJ_PARITY = dict(B=4, S=256, layers=2, M=4, nodes=2, bias=8.0,
+                  gpu_speed=1e11)
+PLAN_CACHE_DIR = "build/plan_cache_smoke"
+# phase 40's serve runs: the serve cell at a 64-token prompt and 8 new
+# tokens (each run feeds the prompt step by step too; 4 runs)
+CACHE_SERVE_B, CACHE_SERVE_S, CACHE_SERVE_G = 8, 64, 8
+CACHE_SERVE_ARGS = ["--arch", "moe-gpt2", "--batch", str(CACHE_SERVE_B),
+                    "--prompt-len", str(CACHE_SERVE_S), "--gen",
+                    str(CACHE_SERVE_G), "--prefill", "batch", "--device",
+                    "cuda", "--seed", "0"]
+# phase 40's timing: rounds of one uncached and one cached run each, in
+# alternating order, after one untimed round
+CACHE_TIMING_ROUNDS = 6
+
+
+def _bias_router(params, tokens, bias):
+    """Push every MoE router's column 0 by ``bias`` times the unit vector
+    of the mean embedding of ``tokens`` (in place, as the CPU tests
+    do)."""
+    import torch
+    with torch.no_grad():
+        table = params["embed"]["table"]
+        emb = table[torch.as_tensor(tokens, device=table.device).long()] \
+            .double().mean(dim=(0, 1))
+        u = (emb / emb.norm()).float()
+        for lay in params["layers"]:
+            if "moe" in lay:
+                lay["moe"]["router"]["w_gate"][:, 0] += bias * u
+
+
+def _biased_models(args, bias):
+    """Make the launcher's ``build_model`` bias its routers by ``bias``
+    on batch 0 of the run's synthetic stream; returns the undo."""
+    import repro_torch.models.model as mmod
+    from repro_torch.config import ShapeConfig
+    from repro_torch.data import SyntheticLM
+    orig = mmod.build_model
+    gb = int(args[args.index("--global-batch") + 1])
+    S = int(args[args.index("--seq-len") + 1])
+
+    def build(cfg, **kw):
+        model = orig(cfg, **kw)
+        tokens = SyntheticLM(cfg, ShapeConfig("train", S, gb, "train")) \
+            .batch(0)["tokens"]
+        _bias_router(model.params, tokens, bias)
+        return model
+
+    mmod.build_model = build
+    return lambda: setattr(mmod, "build_model", orig)
+
+
+def _obj_run(args, bias=REPLICA_BIAS):
+    """One launcher run with a biased router and every kernel and lane
+    counter set to 0 just before and read just after; returns (result,
+    launches, plans as (perm, replica_src, live lanes))."""
+    import repro_torch.plan.exchange as tex
+    from repro_torch.kernels import expert_ffn as kexp
+    from repro_torch.launch import train
+    counters = {**_kernel_counters(), **_lane_counters()}
+    for fn in counters.values():
+        fn.launches = 0
+    kexp.weight_bf16.casts = kexp.weight_bf16.lo_casts = 0
+    plans = []
+    orig = tex.build_exchange_plan
+
+    def rec(*a, **kw):
+        pl = orig(*a, **kw)
+        rs = None if pl.replica_src is None else pl.replica_src.cpu()
+        plans.append((pl.perm.copy(), rs,
+                      0 if rs is None else int((rs >= 0).sum()),
+                      pl.chunks.n_chunks))
+        return pl
+
+    undo = _biased_models(args, bias)
+    tex.build_exchange_plan = rec
+    try:
+        res = train.main(args)
+    finally:
+        tex.build_exchange_plan = orig
+        undo()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    res["casts"] = (kexp.weight_bf16.casts, kexp.weight_bf16.lo_casts)
+    return res, launches, plans
+
+
+def _obj_step_profile(objective, bias=REPLICA_BIAS):
+    """A warm-up step and one profiled step of the full-width EP train
+    (phase 37's configuration, sync) under ``objective``: wall ms,
+    device ms, the busy share and the top device ops."""
+    import torch
+    from repro_torch import optim, train_lib
+    from repro_torch.config import LuffyConfig, OptimConfig, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import make_dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    cfg = get_config("moe-gpt2")
+    shape = ShapeConfig("train", 1024, 8, "train")
+    dist = make_dist(make_host_mesh(model=4, nodes=2), "train", 8,
+                     moe_arch=True)
+    data = SyntheticLM(cfg, shape)
+    model = build_model(cfg, device="cuda", seed=0)
+    params = model.params
+    _bias_router(params, data.batch(0)["tokens"], bias)
+    luffy = LuffyConfig(condense_group=128, combine_slack=2.0,
+                        comm_mode="hier", plan_objective=objective)
+    ocfg = OptimConfig(lr=1e-3, total_steps=6, warmup_steps=2)
+    cap = train_lib.capacity_for_bucket(cfg, shape, luffy, 0, dist)
+    step = train_lib.make_train_step(cfg, luffy, ocfg, cap, dist)
+    state = [optim.init_opt_state(params, ocfg),
+             train_lib.init_luffy_state("cuda")]
+
+    def one(i):
+        b = {k: torch.as_tensor(v, device="cuda")
+             for k, v in data.batch(i).items()}
+        _, state[0], state[1], _ = step(params, state[0], state[1], b)
+
+    one(0)
+    torch.cuda.synchronize()
+    prof = _profile(lambda: one(1), 1)
+    del model, params, state, step
+    torch.cuda.empty_cache()
+    return prof
+
+
+def phase_replicate_ep():
+    """Phase 37: full-width moe-gpt2 EP train over 4 virtual ranks in 2
+    nodes of 2 on the dense wire, condensation and migration on, 2 steps
+    under ``--plan-objective replicate`` with every router biased toward
+    expert 0 (``REPLICA_BIAS``): live lanes in step 0, K1's launches the
+    path's (every one of them with the lane map), one bf16 copy and one
+    second term per expert weight a step, a bit-equal repeat (losses,
+    perms, replica placements), the pipelined run's step 0 bit for bit
+    the sync run's. Against "traffic" on the same parameters and batch, a
+    1-step pair with condensation off (with it on, condensation leaves
+    the hot expert under its capacity at this init and neither objective
+    drops): a lower dispatch drop and the same launches of every kernel;
+    then one profiled step of each objective, condensation on."""
+    import numpy as np
+    import torch
+    args = OBJ_EP_ARGS
+    rep, r_launch, r_plans = _obj_run(args + ["--plan-objective",
+                                              "replicate"])
+    cfg, steps = rep["cfg"], rep["steps"]
+    n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
+    per_step = n_moe * (2 if cfg.remat else 1)     # forward + recompute
+    lanes0 = [p[2] for p in r_plans[:n_moe]]       # step 0's forward
+    kernels = _kernel_counters()
+    base = {k: r_launch[k] for k in kernels}
+    want = {k: v for k, v in _sched_expected(cfg, steps, "dense").items()
+            if k in kernels}
+    info = dict(objective="replicate", bias=REPLICA_BIAS,
+                live_lanes_step0_per_sublayer=lanes0,
+                replica_src_step0=[p[1].tolist() for p in r_plans[:n_moe]],
+                dispatch_drop=[st["dispatch_drop"] for st in steps],
+                losses=[st["loss"] for st in steps],
+                step_ms=[st["step_ms"] for st in steps],
+                launches=r_launch, launches_expected=want,
+                weight_casts=list(rep["casts"]),
+                weight_casts_expected=3 * n_moe * len(steps),
+                plans=len(r_plans), plans_expected=per_step * len(steps))
+    log("replicate EP: " + json.dumps(info))
+    if sum(lanes0) == 0:
+        raise SystemExit(f"no replica lane went live in step 0: {info}")
+    if base != want:
+        raise SystemExit(f"replicate EP launches {base} differ from the "
+                         f"path's {want}")
+    if (r_launch["expert_ffn_lanes"] != r_launch["expert_ffn"]
+            or r_launch["expert_ffn_bwd_lanes"] != r_launch["expert_ffn_bwd"]):
+        raise SystemExit(f"a replicate K1 launch went without its lane map: "
+                         f"{r_launch}")
+    if rep["casts"] != (info["weight_casts_expected"],) * 2:
+        raise SystemExit(f"{rep['casts']} bf16 weight copies / second terms "
+                         f"in the replicate EP run, not "
+                         f"{info['weight_casts_expected']} each")
+    del rep
+    torch.cuda.empty_cache()
+    pair = {}
+    for o in ("traffic", "replicate"):
+        r, la, pl = _obj_run(args + ["--steps", "1", "--no-condensation",
+                                     "--plan-objective", o])
+        pair[o] = dict(drop=r["steps"][0]["dispatch_drop"],
+                       live_lanes=sum(p[2] for p in pl),
+                       launches={k: la[k] for k in kernels})
+        del r
+    info["no_condensation_pair"] = pair
+    log(f"replicate EP, condensation off, step 0: {json.dumps(pair)}")
+    if not pair["replicate"]["drop"] < pair["traffic"]["drop"]:
+        raise SystemExit(f"replicate dropped no fewer copies than traffic "
+                         f"with condensation off: {pair}")
+    if pair["replicate"]["launches"] != pair["traffic"]["launches"]:
+        raise SystemExit(f"replicate and traffic launch the kernels a "
+                         f"different number of times: {pair}")
+    torch.cuda.empty_cache()
+    again, _, a_plans = _obj_run(args + ["--plan-objective", "replicate"])
+    same = dict(losses=[st["loss"] for st in again["steps"]]
+                == info["losses"],
+                perms=len(a_plans) == len(r_plans) and all(
+                    np.array_equal(a[0], b[0])
+                    for a, b in zip(a_plans, r_plans)),
+                replica_src=all(torch.equal(a[1], b[1])
+                                for a, b in zip(a_plans, r_plans)))
+    info["repeat_bitwise"] = same
+    del again
+    torch.cuda.empty_cache()
+    pipe, p_launch, p_plans = _obj_run(args + ["--plan-objective",
+                                               "replicate"] + SCHED_FLAGS)
+    diff = _step0_diff(steps[0], pipe["steps"][0])
+    info.update(pipeline_step0_vs_sync_differ=diff,
+                pipeline_chunks=[p[3] for p in p_plans[:n_moe]],
+                pipeline_launches=p_launch,
+                pipeline_step_ms=[st["step_ms"] for st in pipe["steps"]])
+    log(f"replicate EP repeat bit-equal {same}; pipelined step 0 against "
+        f"sync: differs in {diff}; pipelined K1 launches "
+        f"{p_launch['expert_ffn']} (lanes {p_launch['expert_ffn_lanes']})")
+    if not all(same.values()):
+        raise SystemExit(f"the replicate EP run does not repeat: {same}")
+    if diff:
+        raise SystemExit(f"pipelined replicate step 0 is not sync's bit for "
+                         f"bit: {diff}")
+    if p_launch["expert_ffn_lanes"] != p_launch["expert_ffn"]:
+        raise SystemExit(f"pipelined K1 launches without the map: {p_launch}")
+    del pipe
+    torch.cuda.empty_cache()
+    prof = {o: _obj_step_profile(o) for o in ("traffic", "replicate")}
+    info["profile"] = prof
+    info["device_ms_change"] = (prof["replicate"]["device_ms_per_call"]
+                                - prof["traffic"]["device_ms_per_call"])
+    log("replicate EP profile, one step each: " + json.dumps(
+        {o: {k: v for k, v in p.items()} for o, p in prof.items()})
+        + f"; device ms replicate - traffic {info['device_ms_change']:.3f}")
+    return info
+
+
+def phase_replicate_parity():
+    """Phase 38: one f32 step of a 2-layer full-width cut of phase 37's
+    run (replicate; at this size a lane goes live only at a slower
+    modelled speed, ``OBJ_PARITY``), card against CPU: loss within 1e-4, perms, replica placements and the
+    counters equal, every gradient leaf within 1e-5 by its relative norm
+    error; K1 with the map on the card's FMA route (f32 rows)."""
+    import numpy as np
+    import torch
+    import repro_torch.plan.exchange as tex
+    from repro_torch import optim, train_lib
+    from repro_torch.config import LuffyConfig, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import make_dist
+    from repro_torch.kernels import expert_ffn as kexp
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    P = OBJ_PARITY
+    cfg = dataclasses.replace(get_config("moe-gpt2"), num_layers=P["layers"],
+                              compute_dtype="float32")
+    shape = ShapeConfig("t", P["S"], P["B"], "train")
+    dist = make_dist(make_host_mesh(model=P["M"], nodes=P["nodes"]), "train",
+                     P["B"], moe_arch=True)
+    luffy = LuffyConfig(condense_group=128, combine_slack=2.0,
+                        comm_mode="hier", plan_objective="replicate",
+                        gpu_speed=P["gpu_speed"])
+    cap = train_lib.capacity_for_bucket(cfg, shape, luffy, 0, dist)
+    model = build_model(cfg, device="cuda", seed=0)
+    batch = SyntheticLM(cfg, shape).batch(0)
+    _bias_router(model.params, batch["tokens"], P["bias"])
+    thr = torch.tensor(0.6)
+    orig = tex.build_exchange_plan
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model.to(dev)
+        plans = []
+
+        def rec(*a, **kw):
+            pl = orig(*a, **kw)
+            plans.append((pl.perm.copy(), pl.replica_src.cpu(),
+                          pl.replica_valid.cpu()))
+            return pl
+
+        tex.build_exchange_plan = rec
+        lanes0 = kexp.lanes.launches
+        try:
+            model.zero_grad(set_to_none=True)
+            tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            loss, m = model.forward_train(tb, thr.to(dev), cap, luffy=luffy,
+                                          dist=dist)
+            loss.backward()
+        finally:
+            tex.build_exchange_plan = orig
+        grads = {k: p.grad.double().cpu()
+                 for k, p in optim.leaves_with_path(model.params)
+                 if p.grad is not None}
+        runs[dev] = (loss.item(), {k: v.item() for k, v in m.items()},
+                     plans, grads, kexp.lanes.launches - lanes0)
+    (lg, mg, pg, gg, lane_k1), (lc, mc, pc, gc, _) = runs["cuda"], runs["cpu"]
+    counters = ("plans_built", "plans_reused", "condense_built",
+                "condense_reused", "measured_pairs", "dispatch_drop",
+                "combine_drop", "local_frac")
+    leaf_rel = {k: (torch.linalg.vector_norm(gg[k] - g)
+                    / torch.clamp(torch.linalg.vector_norm(g), min=1e-30))
+                .item() for k, g in gc.items()}
+    worst = max(leaf_rel, key=leaf_rel.get)
+    info = dict(capacity=cap, bias=P["bias"],
+                live_lanes=[int((p[1] >= 0).sum()) for p in pg],
+                k1_lane_launches_cuda=lane_k1, loss_cuda=lg, loss_cpu=lc,
+                loss_rel=abs(lg - lc) / abs(lc),
+                perms_equal=len(pg) == len(pc) and all(
+                    np.array_equal(a[0], b[0]) for a, b in zip(pg, pc)),
+                replica_src_equal=all(torch.equal(a[1], b[1])
+                                      for a, b in zip(pg, pc)),
+                replica_valid_equal=all(torch.equal(a[2], b[2])
+                                        for a, b in zip(pg, pc)),
+                counters_equal={k: mg[k] == mc[k] for k in counters},
+                grad_leaves=len(gc), same_leaves=sorted(gg) == sorted(gc),
+                grad_leaf_worst=worst, grad_leaf_worst_rel=leaf_rel[worst],
+                grad_leaf_tol=SCHED_GRAD_TOL)
+    log("replicate parity, 2-layer f32 EP cut, card vs CPU: "
+        + json.dumps(info))
+    if not any(info["live_lanes"]) or lane_k1 == 0:
+        raise SystemExit(f"no live lane in the replicate parity cut: {info}")
+    if not (info["perms_equal"] and info["replica_src_equal"]
+            and info["replica_valid_equal"]
+            and all(info["counters_equal"].values())):
+        raise SystemExit(f"replicate cut cuda vs cpu plans differ: {info}")
+    if not (info["loss_rel"] <= 1e-4 and info["same_leaves"]
+            and info["grad_leaf_worst_rel"] <= SCHED_GRAD_TOL):
+        raise SystemExit(f"replicate cut cuda vs cpu differ: {info}")
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_overlap_ep():
+    """Phase 39: phase 37's EP train (no router bias) under
+    ``--plan-objective overlap --exec-mode pipeline``, whose default chunk
+    count is the exchange estimate's: 2 steps, the chunk count printed,
+    exact launches (K1 and its backward once per chunk) and a bit-equal
+    repeat (losses, perms)."""
+    import numpy as np
+    import torch
+    args = OBJ_EP_ARGS + ["--plan-objective", "overlap", "--exec-mode",
+                          "pipeline"]
+    res, launches, plans = _obj_run(args, bias=0.0)
+    cfg, steps = res["cfg"], res["steps"]
+    kernels = _kernel_counters()
+    want = {k: v for k, v in _sched_expected(cfg, steps, "dense").items()
+            if k in kernels}
+    base = {k: launches[k] for k in kernels}
+    info = dict(objective="overlap",
+                pipeline_chunks=res["luffy"].pipeline_chunks,
+                chunks=[st["chunks"] for st in steps],
+                losses=[st["loss"] for st in steps],
+                traffic=[(st["traffic_before"], st["traffic_after"])
+                         for st in steps],
+                local_frac=[st["local_frac"] for st in steps],
+                step_ms=[st["step_ms"] for st in steps],
+                launches=launches, launches_expected=want)
+    log("overlap EP: " + json.dumps(info))
+    if base != want or launches["expert_ffn_lanes"]:
+        raise SystemExit(f"overlap EP launches {launches} differ from the "
+                         f"path's {want}")
+    if not all(math.isfinite(x) for x in info["losses"]):
+        raise SystemExit(f"overlap EP losses not finite: {info}")
+    del res
+    torch.cuda.empty_cache()
+    again, _, plans2 = _obj_run(args, bias=0.0)
+    same = dict(losses=[st["loss"] for st in again["steps"]]
+                == info["losses"],
+                perms=len(plans) == len(plans2) and all(
+                    np.array_equal(a[0], b[0]) for a, b in zip(plans, plans2)))
+    info["repeat_bitwise"] = same
+    log(f"overlap EP repeat: bit-equal {same}")
+    if not all(same.values()):
+        raise SystemExit(f"the overlap EP run does not repeat: {same}")
+    del again
+    torch.cuda.empty_cache()
+    return info
+
+
+def _cache_serve_timing(model_axis: int, rounds: int = CACHE_TIMING_ROUNDS):
+    """One full-width moe-gpt2 model at phase 40's batch and prompt: the
+    batched prefill and ``CACHE_SERVE_G`` greedy decode steps from an
+    empty cache, without and with the warm plan cache, in alternating
+    order (uncached, cached, cached, uncached, ...) after one untimed
+    round: each run's prefill tokens/s and decode ms a step (host clock,
+    synchronised), and the plans built by the cached runs (0)."""
+    import shutil
+    import statistics
+    import torch
+    import repro_torch.plan.exchange as tex
+    from repro_torch.config import LuffyConfig, resolve_pipeline_chunks
+    from repro_torch.configs import get_config
+    from repro_torch.dist import make_dist, single_device
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.plan.cache import (PlanCache, precompute_decode_plans,
+                                        precompute_prefill_plans)
+    B, S, G = CACHE_SERVE_B, CACHE_SERVE_S, CACHE_SERVE_G
+    cfg = get_config("moe-gpt2")
+    model = build_model(cfg, device="cuda", seed=0)
+    objective = LuffyConfig.plan_objective
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False,
+                        exec_mode="sync", plan_objective=objective,
+                        pipeline_chunks=resolve_pipeline_chunks(None,
+                                                                objective))
+    pdist = single_device() if model_axis == 1 else make_dist(
+        make_host_mesh(model=model_axis), "prefill", B, moe_arch=True)
+    cache_dir = PLAN_CACHE_DIR + "_timing"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    pc = PlanCache(cache_dir)
+    precompute_prefill_plans(cfg, luffy, pdist, B, S, pc)
+    precompute_decode_plans(cfg, luffy, B, pc)
+    prompts = torch.randint(1, cfg.vocab_size, (B, S), dtype=torch.int32,
+                            device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(0))
+
+    def run(cache_or_none):
+        kv = model.new_cache(B, S + G)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(prompts, S + G, luffy=luffy, dist=pdist,
+                      plan_cache=cache_or_none)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = prompts[:, :1]
+        for _ in range(G):
+            logits, kv = model.decode_step(kv, tok, luffy=luffy,
+                                           plan_cache=cache_or_none)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return B * S / (t1 - t0), (t2 - t1) / G * 1e3
+
+    run(None)
+    run(pc)
+    times = {False: [], True: []}
+    n0 = tex.BUILD_CALLS
+    built_cached = 0
+    for r in range(rounds):
+        for cached in ((False, True) if r % 2 == 0 else (True, False)):
+            b0 = tex.BUILD_CALLS
+            times[cached].append(run(pc if cached else None))
+            if cached:
+                built_cached += tex.BUILD_CALLS - b0
+    out = {}
+    for cached, label in ((False, "uncached"), (True, "cached")):
+        tok_s = [t for t, _ in times[cached]]
+        dec = [d for _, d in times[cached]]
+        out[label] = dict(prefill_tok_s=tok_s, decode_ms_per_step=dec,
+                          prefill_tok_s_median=statistics.median(tok_s),
+                          decode_ms_median=statistics.median(dec))
+    out.update(rounds=rounds, plans_built_uncached=tex.BUILD_CALLS - n0
+               - built_cached, plans_built_cached=built_cached)
+    del model
+    torch.cuda.empty_cache()
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    return out
+
+
+def phase_plan_cache_serve():
+    """Phase 40: full-width moe-gpt2 served through the launcher with
+    ``--plan-cache DIR --precompute-plans`` (``CACHE_SERVE_ARGS``), on
+    one device and over 4 virtual ranks, each against the same run
+    without the cache: no
+    ``build_exchange_plan`` call after the warm-up, logits and tokens bit
+    for bit, the same K1 launches; prefill tokens/s and decode ms a step
+    beside the uncached run's (host clock, one run each)."""
+    import shutil
+    import torch
+    import repro_torch.plan.exchange as tex
+    from repro_torch.launch import serve
+    out = {}
+    for label, args in (("one device", CACHE_SERVE_ARGS),
+                        ("4 ranks", CACHE_SERVE_ARGS
+                         + ["--model-axis", "4"])):
+        runs = {}
+        for cached in (False, True):
+            extra = []
+            if cached:
+                shutil.rmtree(PLAN_CACHE_DIR, ignore_errors=True)
+                extra = ["--plan-cache", PLAN_CACHE_DIR,
+                         "--precompute-plans"]
+            counters = _kernel_counters()
+            for fn in counters.values():
+                fn.launches = 0
+            n0 = tex.BUILD_CALLS
+            res = serve.main(args + extra)
+            runs[cached] = (res, {k: fn.launches
+                                  for k, fn in counters.items()},
+                            tex.BUILD_CALLS - n0)
+        (cold, cl, cb), (warm, wl, wb) = runs[False], runs[True]
+        same = dict(
+            prefill=torch.equal(cold["prefill_logits"],
+                                warm["prefill_logits"]),
+            tokens=torch.equal(cold["tokens"], warm["tokens"]),
+            logits=all(torch.equal(a, b) for a, b in zip(
+                cold["step_logits"] + cold["gen_logits"],
+                warm["step_logits"] + warm["gen_logits"])))
+        info = dict(build_calls_uncached=cb, build_calls_cached=wb,
+                    plan_cache=warm["plan_cache"], bitwise=same,
+                    k1_launches=[cl["expert_ffn"], wl["expert_ffn"]],
+                    launches_equal=cl == wl,
+                    prefill_tok_s=[cold["prefill_tok_s"],
+                                   warm["prefill_tok_s"]],
+                    decode_ms_per_step=[cold["decode_ms_per_step"],
+                                        warm["decode_ms_per_step"]])
+        log(f"plan-cache serve, {label} [uncached, cached]: "
+            + json.dumps(info))
+        if wb != 0 or cb == 0:
+            raise SystemExit(f"plan-cache serve ({label}): {wb} plans built "
+                             f"with a warm cache ({cb} without)")
+        if not all(same.values()) or not info["launches_equal"]:
+            raise SystemExit(f"plan-cache serve ({label}) is not the "
+                             f"uncached run bit for bit: {info}")
+        del runs, cold, warm
+        torch.cuda.empty_cache()
+        info["alternating"] = alt = _cache_serve_timing(
+            1 if label == "one device" else 4)
+        log(f"plan-cache serve, {label}, {alt['rounds']} alternating rounds: "
+            + json.dumps(alt))
+        if alt["plans_built_cached"] != 0:
+            raise SystemExit(f"plan-cache serve ({label}): the cached timing "
+                             f"runs built {alt['plans_built_cached']} plans")
+        out[label] = info
+    shutil.rmtree(PLAN_CACHE_DIR, ignore_errors=True)
+    return out
+
+
+def run_objective_phases(lanes=None):
+    """Phases 36-40 (``lanes``: phase 36's record, None to run it)."""
+    log("objectives, K1's lane map, plan cache (phases 36-40):")
+    lanes = phase_k1_lanes() if lanes is None else lanes
+    rep = phase_replicate_ep()
+    parity = phase_replicate_parity()
+    overlap = phase_overlap_ep()
+    cache = phase_plan_cache_serve()
+    return dict(lanes=lanes, replicate=rep, parity=parity, overlap=overlap,
+                cache=cache)
+
+
 def _record(name, source, replaces, launches, t, extra=None):
     rec = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
@@ -4226,12 +4959,38 @@ def _paper_records(paper):
     ]
 
 
+PHASE_S: dict = {}
+
+
+def _time_phases():
+    """Wrap every module-level ``phase_*`` function so that its wall
+    seconds add up in ``PHASE_S`` (a phase that calls another counts the
+    inner one's time too)."""
+    import functools
+
+    def timed(fn):
+        @functools.wraps(fn)
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                PHASE_S[fn.__name__] = PHASE_S.get(fn.__name__, 0.0) \
+                    + time.perf_counter() - t
+        return run
+
+    g = globals()
+    for n in [n for n in g if n.startswith("phase_") and callable(g[n])]:
+        g[n] = timed(g[n])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    _time_phases()
     t_start = time.perf_counter()
     name, count, smi = phase_device()
     _, tc_ptxas = phase_build()
@@ -4261,6 +5020,9 @@ def main() -> int:
     sched_dedup = phase_sched_ep_dedup(ep_info)
     phase_sched_parity()
     sched_prof = phase_sched_profile()
+    # slice 14's phases run here too, where the profiler still records
+    # every launch
+    objective = run_objective_phases()
     log("kernels K5, K6:")
     timed_k56 = phase_kernels_k56()
     hymba_info = phase_hymba_slice()
@@ -4483,7 +5245,47 @@ def main() -> int:
          "bound_share": sched_k1["bound_share"],
          "rows_bitwise": sched_k1["rows_bitwise"],
          "profile_k1_overlap_share": sched_prof["k1_overlap_share"]}))
+    lanes = objective["lanes"]
+    rl = objective["replicate"]["launches"]
+    lane_at = (f"the replicate EP shape [20,2048,768]x3072 over the "
+               f"16-expert stack, map {list(LANE_MAP)} "
+               f"({lanes['live_groups']} live groups), bf16 h, f32 weights "
+               f"(warm bf16 cache), gelu; bound counts the live groups")
+    records[2:2] = [
+        _record("expert_ffn@lanes", "src/repro_torch/csrc/expert_ffn.cu",
+                "src/repro/kernels/expert_ffn.py:52", rl["expert_ffn_lanes"],
+                lanes,
+                {"kernel": "expert_ffn", "timed_at": lane_at,
+                 "launches_path": "EP train, dense hier wire, "
+                                  "--plan-objective replicate, 2 steps",
+                 "device_ms": lanes["device_ms"],
+                 "no_map_16_groups_ms": lanes["no_map_16_ms"],
+                 "concatenated_stack_ms": lanes["concat_ms"],
+                 "concatenated_stack_casts_per_call":
+                     lanes["concat_casts_per_call"],
+                 "library": "torch.bmm bf16 on the mapped bf16 stack",
+                 "bound_share": lanes["bound_share"],
+                 "checks": lanes["checks"]}),
+        _record("expert_ffn_bwd@lanes",
+                "src/repro_torch/csrc/expert_ffn_bwd.cu",
+                "src/repro/kernels/expert_ffn.py:52 (no Pallas backward; XLA "
+                "differentiates the reference)", rl["expert_ffn_bwd_lanes"],
+                dict(max_abs_err=lanes["bwd_max_abs_err"],
+                     ms=lanes["bwd_ms"], plain_ms=lanes["bwd_plain_ms"],
+                     bound_ms=lanes["bwd_bound_ms"],
+                     bound_by=lanes["bwd_bound_by"],
+                     library_ms=lanes["bwd_library_ms"]),
+                {"kernel": "expert_ffn_bwd", "timed_at": lane_at,
+                 "launches_path": "EP train, dense hier wire, "
+                                  "--plan-objective replicate, 2 steps",
+                 "device_ms": lanes["bwd_device_ms"],
+                 "no_map_16_groups_ms": lanes["bwd_no_map_16_ms"],
+                 "library": "torch.bmm bf16 composite on the mapped stack"}),
+    ]
     records += _paper_records(paper)
+    log("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in sorted(PHASE_S.items(),
+                                            key=lambda kv: -kv[1])}))
     log(f"total {time.perf_counter() - t_start:.1f}s on {smi}")
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -55,7 +55,8 @@ def moe_core_planned(params, x, sideband: Dict[str, torch.Tensor],
                      s_prev: Optional[torch.Tensor] = None,
                      condense_carry: Optional[CondenseCarry] = None,
                      comm: Optional[CommContext] = None, reuse_from=None,
-                     wire_ef: Optional[torch.Tensor] = None):
+                     wire_ef: Optional[torch.Tensor] = None,
+                     plan_template=None):
     """One MoE sublayer for the ``M`` ranks of ``comm`` (None: one
     device, M = 1): gate on the RMS-normed tokens, build the plan
     (condensing when ``luffy.enable_condensation`` and the mode is not
@@ -70,17 +71,24 @@ def moe_core_planned(params, x, sideband: Dict[str, torch.Tensor],
     ``y = x + moe_delta`` with the sideband unchanged, or in migrate mode
     across ranks ``y``, the sideband and ``s_next`` at the sequences' new
     homes. ``s_next`` / ``cond_carry`` are None without condensation,
-    ``wire_ef`` (this step's residual) without a carried one."""
+    ``wire_ef`` (this step's residual) without a carried one.
+    ``plan_template``: a cached serving template
+    (:mod:`repro_torch.plan.cache`); the routing is bound onto it
+    (``instantiate_plan``) and no plan is built."""
     from repro_torch.models.blocks import _dtype
     M, n_seq, S, d = x.shape
     xn = _rms(x.reshape(M, n_seq * S, d), params["norm"]["scale"]) \
         .to(_dtype(cfg.compute_dtype))
     gate = gate_apply(params["router"], xn, cfg.moe.top_k)
-    plan = pex.build_exchange_plan(gate, xn, cfg, luffy, mode=mode,
-                                   capacity=capacity, sideband=sideband,
-                                   threshold=threshold, s_prev=s_prev,
-                                   condense_carry=condense_carry, comm=comm,
-                                   reuse_from=reuse_from)
+    if plan_template is not None:
+        plan = pex.instantiate_plan(plan_template, gate, xn, cfg,
+                                    capacity=capacity, sideband=sideband,
+                                    comm=comm)
+    else:
+        plan = pex.build_exchange_plan(
+            gate, xn, cfg, luffy, mode=mode, capacity=capacity,
+            sideband=sideband, threshold=threshold, s_prev=s_prev,
+            condense_carry=condense_carry, comm=comm, reuse_from=reuse_from)
     y, aux, cond_carry, sb, s_next, ef = pex.execute_plan(
         params, x, plan, cfg, sideband, wire_ef=wire_ef)
     return y, sb, s_next, aux, plan, cond_carry, ef

@@ -3,10 +3,16 @@
 //   out[e] = (act(h[e] @ w_gate[e]) * (h[e] @ w_up[e])) @ w_down[e]
 //
 // Replaces the Pallas kernel repro/kernels/expert_ffn.py::_ffn_kernel (K1).
-// h is [E, R, d], the weights [E, d, F] / [E, F, d]. Two routes, chosen by
+// h is [E, R, d], the weights [Ew, d, F] / [Ew, F, d]. Two routes, chosen by
 // the wrapper (kernels/expert_ffn.py::route) and entered through two C
 // functions; both are two kernels on the caller's stream, gate/up into a
 // scratch hidden [E, R, F], then down, and both mask ragged R (any R >= 1).
+// Both take an optional group map widx [E] (common.cuh): row group e reads
+// weight group widx[e], and -1 is an idle group, left out of the tile walk
+// and zeroed by zero_idle_groups. The expert-parallel path's replica lanes
+// use it: a lane runs an intra-node peer's expert from the one f32 master
+// stack, so no weight stack is concatenated or cast per step. A null map is
+// the identity and keeps the code path and the bits of a launch without.
 //
 // 1. The tensor-core route (expert_ffn_wgmma_launch): bf16 h and bf16
 //    weights, d and F multiples of 64. bf16 products summed in f32 by
@@ -72,21 +78,23 @@ constexpr int NT = 256;  // threads per block: 16 x 16
 template <int TM, int BK, typename TH, typename TW>
 __global__ void __launch_bounds__(NT)
 gate_up_kernel(const TH* __restrict__ h, const TW* __restrict__ wu,
-               const TW* __restrict__ wg, float* __restrict__ hid, int R,
-               int d, int F, int act) {
+               const TW* __restrict__ wg, float* __restrict__ hid,
+               const int* __restrict__ widx, int R, int d, int F, int act) {
   constexpr int BM = 16 * TM;
   __shared__ float sA[BK][BM + 1];  // h slab, transposed; +1 breaks conflicts
   __shared__ float sU[BK][BN];
   __shared__ float sG[BK][BN];
   const int e = blockIdx.z;
+  const int we = widx ? widx[e] : e;  // the weights group e reads
+  if (we < 0) return;                 // idle: its hidden is never read
   const int r0 = blockIdx.y * BM;
   const int f0 = blockIdx.x * BN;
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
   const TH* he = h + (size_t)e * R * d;
-  const TW* ue = wu + (size_t)e * d * F;
-  const TW* ge = wg + (size_t)e * d * F;
+  const TW* ue = wu + (size_t)we * d * F;
+  const TW* ge = wg + (size_t)we * d * F;
   float au[TM][TN] = {};
   float ag[TM][TN] = {};
 
@@ -143,18 +151,21 @@ gate_up_kernel(const TH* __restrict__ h, const TW* __restrict__ wu,
 template <int TM, int BK, typename TH, typename TW>
 __global__ void __launch_bounds__(NT)
 down_kernel(const float* __restrict__ hid, const TW* __restrict__ wd,
-            TH* __restrict__ out, int R, int d, int F) {
+            TH* __restrict__ out, const int* __restrict__ widx, int R, int d,
+            int F) {
   constexpr int BM = 16 * TM;
   __shared__ float sA[BK][BM + 1];
   __shared__ float sB[BK][BN];
   const int e = blockIdx.z;
+  const int we = widx ? widx[e] : e;
+  if (we < 0) return;   // idle: zero_idle_groups writes its output
   const int r0 = blockIdx.y * BM;
   const int c0 = blockIdx.x * BN;
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
   const float* he = hid + (size_t)e * R * F;
-  const TW* de = wd + (size_t)e * F * d;
+  const TW* de = wd + (size_t)we * F * d;
   float acc[TM][TN] = {};
 
   for (int k0 = 0; k0 < F; k0 += BK) {
@@ -199,29 +210,30 @@ down_kernel(const float* __restrict__ hid, const TW* __restrict__ wd,
 
 template <int TM, int BK, typename TH, typename TW>
 void launch_tiled(const void* h, const void* wu, const void* wg,
-                  const void* wd, void* out, float* hid, int E, int R, int d,
-                  int F, int act, cudaStream_t stream) {
+                  const void* wd, void* out, float* hid, const int* widx,
+                  int E, int R, int d, int F, int act, cudaStream_t stream) {
   constexpr int BM = 16 * TM;
   const dim3 block(NT);
   const dim3 g1((F + BN - 1) / BN, (R + BM - 1) / BM, E);
   const dim3 g2((d + BN - 1) / BN, (R + BM - 1) / BM, E);
   gate_up_kernel<TM, BK, TH, TW><<<g1, block, 0, stream>>>(
       static_cast<const TH*>(h), static_cast<const TW*>(wu),
-      static_cast<const TW*>(wg), hid, R, d, F, act);
+      static_cast<const TW*>(wg), hid, widx, R, d, F, act);
   down_kernel<TM, BK, TH, TW><<<g2, block, 0, stream>>>(
-      hid, static_cast<const TW*>(wd), static_cast<TH*>(out), R, d, F);
+      hid, static_cast<const TW*>(wd), static_cast<TH*>(out), widx, R, d, F);
+  if (widx) launch_zero_idle<TH>(widx, out, E, (size_t)R * d, stream);
 }
 
 template <typename TH, typename TW>
 void launch(const void* h, const void* wu, const void* wg, const void* wd,
-            void* out, float* hid, int E, int R, int d, int F, int act,
-            cudaStream_t stream) {
+            void* out, float* hid, const int* widx, int E, int R, int d,
+            int F, int act, cudaStream_t stream) {
   if (R <= 16)
-    launch_tiled<1, 32, TH, TW>(h, wu, wg, wd, out, hid, E, R, d, F, act,
-                                stream);
+    launch_tiled<1, 32, TH, TW>(h, wu, wg, wd, out, hid, widx, E, R, d, F,
+                                act, stream);
   else
-    launch_tiled<4, 16, TH, TW>(h, wu, wg, wd, out, hid, E, R, d, F, act,
-                                stream);
+    launch_tiled<4, 16, TH, TW>(h, wu, wg, wd, out, hid, widx, E, R, d, F,
+                                act, stream);
 }
 
 
@@ -261,8 +273,9 @@ __global__ void __launch_bounds__(NT, 1)
 ffn_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                  const __grid_constant__ CUtensorMap tb0,
                  const __grid_constant__ CUtensorMap tb1,
-                 __nv_bfloat16* __restrict__ out, int E, int R, int K,
-                 int N, int act) {
+                 __nv_bfloat16* __restrict__ out,
+                 const int* __restrict__ widx, int E, int R, int K, int N,
+                 int act) {
   using L = Smem<GATED, STAGES>;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle atoms are 1024 bytes: align the base to them, so
@@ -270,10 +283,11 @@ ffn_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_full = base + L::BAR_OFF;
   const uint32_t bar_empty = bar_full + 8 * STAGES;
-  // output tiles, N fastest, then R, then the expert; block b takes
-  // tiles b, b + gridDim.x, ... and the ring runs on across them
+  // output tiles, N fastest, then R, then the live group; block b takes
+  // tiles b, b + gridDim.x, ... and the ring runs on across them. A map
+  // leaves idle groups out of the walk (zero_idle_groups writes them).
   const int n_nt = (N + BN - 1) / BN, n_rt = (R + BM - 1) / BM;
-  const int n_tiles = n_nt * n_rt * E;
+  const int n_tiles = n_nt * n_rt * (widx ? map_live(widx, E) : E);
   const int nk = K / BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -293,7 +307,9 @@ ffn_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
         const int n0 = (tile % n_nt) * BN;
         const int r0 = (tile / n_nt % n_rt) * BM;
-        const int e = tile / (n_nt * n_rt);
+        const int ec = tile / (n_nt * n_rt);
+        const int e = widx ? map_nth_live(widx, E, ec) : ec;
+        const int we = widx ? widx[e] : e;   // B's group: the weights
         for (int kt = 0; kt < nk; ++kt, ++t) {
           const int s = t % STAGES;
           mbar_wait(bar_empty + 8 * s, ((t / STAGES) & 1) ^ 1);
@@ -304,10 +320,10 @@ ffn_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
 #pragma unroll
           for (int j = 0; j < BN / BOX_N; ++j) {
             tma_load_3d(st + A_BYTES + j * BOX_B_BYTES, &tb0, full,
-                        n0 + j * BOX_N, kt * BK, e);
+                        n0 + j * BOX_N, kt * BK, we);
             if constexpr (GATED)
               tma_load_3d(st + A_BYTES + B_BYTES + j * BOX_B_BYTES, &tb1,
-                          full, n0 + j * BOX_N, kt * BK, e);
+                          full, n0 + j * BOX_N, kt * BK, we);
           }
         }
       }
@@ -324,7 +340,8 @@ ffn_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int n0 = (tile % n_nt) * BN;
     const int r0 = (tile / n_nt % n_rt) * BM;
-    const int e = tile / (n_nt * n_rt);
+    const int ec = tile / (n_nt * n_rt);
+    const int e = widx ? map_nth_live(widx, E, ec) : ec;
     const int rw0 = r0 + wg * 64;
     const bool live = rw0 < R;   // uniform over the warpgroup
     float acc0[64], acc1[64];    // gate and up (GATED), or down and unused
@@ -393,8 +410,8 @@ ffn_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
 // One block per SM (at most one per tile), each walking its tiles.
 template <bool GATED, int STAGES>
 cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb0,
-                        const CUtensorMap& tb1, void* out, int E, int R,
-                        int K, int N, int act, int n_sm,
+                        const CUtensorMap& tb1, void* out, const int* widx,
+                        int E, int R, int K, int N, int act, int n_sm,
                         cudaStream_t stream) {
   constexpr int bytes = Smem<GATED, STAGES>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
@@ -405,7 +422,7 @@ cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb0,
                           ((R + BM - 1) / BM) * E;
   const int grid = static_cast<int>(tiles < n_sm ? tiles : n_sm);
   ffn_wgmma_kernel<GATED, STAGES><<<grid, NT, bytes, stream>>>(
-      ta, tb0, tb1, static_cast<__nv_bfloat16*>(out), E, R, K, N, act);
+      ta, tb0, tb1, static_cast<__nv_bfloat16*>(out), widx, E, R, K, N, act);
   return cudaGetLastError();
 }
 
@@ -415,37 +432,49 @@ cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb0,
 
 // Launches both kernels on `stream`; returns cudaGetLastError() (0 = ok).
 // h_bf16 / w_bf16 select bf16 (1) or f32 (0) storage; act 0 = silu, 1 = gelu.
-// `hid` is f32 scratch of E * R * F elements; nothing is allocated here.
+// h is [E, R, d] (E row groups), the weights [Ew, ...]. widx: null (the
+// identity, Ew = E) or int32 [E] on the device, the weight group each row
+// group reads, in [0, Ew), or -1 for an idle group (zero output, no
+// products). `hid` is f32 scratch of E * R * F elements; nothing is
+// allocated here.
 extern "C" int expert_ffn_launch(const void* h, const void* wu, const void* wg,
-                                 const void* wd, void* out, void* hid, int E,
-                                 int R, int d, int F, int h_bf16, int w_bf16,
-                                 int act, void* stream) {
+                                 const void* wd, void* out, void* hid,
+                                 const void* widx, int E, int Ew, int R, int d,
+                                 int F, int h_bf16, int w_bf16, int act,
+                                 void* stream) {
   cudaGetLastError();  // start from a clean slate; report only our launches
+  (void)Ew;            // the FMA kernels index the weights by pointer
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* hf = static_cast<float*>(hid);
+  const int* wi = static_cast<const int*>(widx);
   if (h_bf16 && w_bf16)
-    launch<__nv_bfloat16, __nv_bfloat16>(h, wu, wg, wd, out, hf, E, R, d, F,
-                                         act, s);
+    launch<__nv_bfloat16, __nv_bfloat16>(h, wu, wg, wd, out, hf, wi, E, R, d,
+                                         F, act, s);
   else if (h_bf16)
-    launch<__nv_bfloat16, float>(h, wu, wg, wd, out, hf, E, R, d, F, act, s);
+    launch<__nv_bfloat16, float>(h, wu, wg, wd, out, hf, wi, E, R, d, F, act,
+                                 s);
   else if (w_bf16)
-    launch<float, __nv_bfloat16>(h, wu, wg, wd, out, hf, E, R, d, F, act, s);
+    launch<float, __nv_bfloat16>(h, wu, wg, wd, out, hf, wi, E, R, d, F, act,
+                                 s);
   else
-    launch<float, float>(h, wu, wg, wd, out, hf, E, R, d, F, act, s);
+    launch<float, float>(h, wu, wg, wd, out, hf, wi, E, R, d, F, act, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The tensor-core route: launches both kernels on `stream`; returns a
-// cudaError_t (0 = ok). h [E, R, d], w_up / w_gate [E, d, F], w_down
-// [E, F, d], out [E, R, d] and the scratch hidden `hid` [E, R, F] all
+// cudaError_t (0 = ok). h [E, R, d], w_up / w_gate [Ew, d, F], w_down
+// [Ew, F, d], out [E, R, d] and the scratch hidden `hid` [E, R, F] all
 // bf16, contiguous and 16-byte aligned (the wrapper sees to it); d and F
-// multiples of 64; act 0 = silu, 1 = gelu. Nothing is allocated here. A
-// tensor map that fails to encode returns cudaErrorInvalidValue, a driver
-// without cuTensorMapEncodeTiled cudaErrorNotSupported.
+// multiples of 64; widx as expert_ffn_launch's (the weights' group is the
+// third TMA coordinate of B); act 0 = silu, 1 = gelu. Nothing is
+// allocated here. A tensor map that fails to encode returns
+// cudaErrorInvalidValue, a driver without cuTensorMapEncodeTiled
+// cudaErrorNotSupported.
 extern "C" int expert_ffn_wgmma_launch(const void* h, const void* wu,
                                        const void* wg, const void* wd,
-                                       void* out, void* hid, int E, int R,
-                                       int d, int F, int act, void* stream) {
+                                       void* out, void* hid, const void* widx,
+                                       int E, int Ew, int R, int d, int F,
+                                       int act, void* stream) {
   using namespace tc;
   cudaGetLastError();  // start from a clean slate; report only our launches
   if (d % BK != 0 || F % BK != 0)
@@ -454,19 +483,22 @@ extern "C" int expert_ffn_wgmma_launch(const void* h, const void* wu,
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap mh, mwg, mwu, mhid, mwd;
   if (!tma_map_bf16_3d(fn, &mh, h, E, R, d, BM) ||
-      !tma_map_bf16_3d(fn, &mwg, wg, E, d, F, BK) ||
-      !tma_map_bf16_3d(fn, &mwu, wu, E, d, F, BK) ||
+      !tma_map_bf16_3d(fn, &mwg, wg, Ew, d, F, BK) ||
+      !tma_map_bf16_3d(fn, &mwu, wu, Ew, d, F, BK) ||
       !tma_map_bf16_3d(fn, &mhid, hid, E, R, F, BM) ||
-      !tma_map_bf16_3d(fn, &mwd, wd, E, F, d, BK))
+      !tma_map_bf16_3d(fn, &mwd, wd, Ew, F, d, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* wi = static_cast<const int*>(widx);
   int dev = 0, n_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_gemm<true, 4>(mh, mwg, mwu, hid, E, R, d, F, act, n_sm, s);
+  e = launch_gemm<true, 4>(mh, mwg, mwu, hid, wi, E, R, d, F, act, n_sm, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(
-      launch_gemm<false, 6>(mhid, mwd, mwd, out, E, R, F, d, 0, n_sm, s));
+  e = launch_gemm<false, 6>(mhid, mwd, mwd, out, wi, E, R, F, d, 0, n_sm, s);
+  if (e != cudaSuccess || wi == nullptr) return static_cast<int>(e);
+  launch_zero_idle<__nv_bfloat16>(wi, out, E, (size_t)R * d, s);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -55,6 +55,12 @@
 //    wgrad's A are MN-major (the transpose bit on A); w_gate, w_up, DU, DG,
 //    dy as B are MN-major (as in the forward); w_down^T (dhh) and w_up^T,
 //    w_gate^T (dh) are K-major B, the weights' own rows.
+//    Both routes take the forward's group map widx (common.cuh): dhh,
+//    gt/up and dh read row group e's weights at widx[e] (idle groups are
+//    left out of the walk, their dh zeroed), and a weight gradient runs K
+//    over the rows of every group that reads that weight, ascending, into
+//    one accumulator: the replica lane's rows fold into the owner's sum
+//    with no atomics and no [E, ...] copy of the gradients.
 // 2. The FMA route (expert_ffn_bwd_launch): everything else (f32 h, which
 //    keeps the f32 contract, or other widths), h in f32 or bf16, weights in
 //    f32 or bf16, every product an f32 FMA (no TF32), f32 scratch. One block
@@ -98,14 +104,16 @@ __global__ void __launch_bounds__(NT)
 hidden_kernel(const TH* __restrict__ h, const TH* __restrict__ dy,
               const TW* __restrict__ wu, const TW* __restrict__ wg,
               const TW* __restrict__ wd, float* __restrict__ P,
-              float* __restrict__ DU, float* __restrict__ DG, int R, int d,
-              int F, int act) {
+              float* __restrict__ DU, float* __restrict__ DG,
+              const int* __restrict__ widx, int R, int d, int F, int act) {
   __shared__ float sH[BK][BM + 1];
   __shared__ float sY[BK][BM + 1];
   __shared__ float sU[BK][BN];
   __shared__ float sG[BK][BN];
   __shared__ float sD[BK][BN];
   const int e = blockIdx.z;
+  const int we = widx ? widx[e] : e;   // the weights group e reads
+  if (we < 0) return;                  // idle: no weight takes its rows
   const int r0 = blockIdx.y * BM;
   const int f0 = blockIdx.x * BN;
   const int tid = threadIdx.x;
@@ -113,9 +121,9 @@ hidden_kernel(const TH* __restrict__ h, const TH* __restrict__ dy,
   const int ty = tid / 16;
   const TH* he = h + (size_t)e * R * d;
   const TH* ye = dy + (size_t)e * R * d;
-  const TW* ue = wu + (size_t)e * d * F;
-  const TW* ge = wg + (size_t)e * d * F;
-  const TW* de = wd + (size_t)e * F * d;
+  const TW* ue = wu + (size_t)we * d * F;
+  const TW* ge = wg + (size_t)we * d * F;
+  const TW* de = wd + (size_t)we * F * d;
   float au[TM][TN] = {};
   float ag[TM][TN] = {};
   float ad[TM][TN] = {};
@@ -189,18 +197,18 @@ hidden_kernel(const TH* __restrict__ h, const TH* __restrict__ dy,
 }
 
 // ---- 2. weight gradients: C[m, n] = sum_r A[r, m] * B[r, n] ---------------
-// One 64x64 tile of C; rows of A and B are contiguous along m and n.
+// Adds one group's rows to a 64x64 tile of C held in acc; rows of A and B
+// are contiguous along m and n.
 template <typename TA, typename TB>
-__device__ __forceinline__ void atb_tile(const TA* __restrict__ A,
-                                         const TB* __restrict__ B,
-                                         float* __restrict__ C, int R, int M,
-                                         int N, int m0, int n0,
-                                         float (*sA)[BN + 1],
-                                         float (*sB)[BN + 1]) {
+__device__ __forceinline__ void atb_acc(const TA* __restrict__ A,
+                                        const TB* __restrict__ B, int R,
+                                        int M, int N, int m0, int n0,
+                                        float (*sA)[BN + 1],
+                                        float (*sB)[BN + 1],
+                                        float (&acc)[TM][TN]) {
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  float acc[TM][TN] = {};
   for (int r0 = 0; r0 < R; r0 += BK) {
     for (int i = tid; i < BK * BN; i += NT) {
       const int k = i / BN, c = i % BN;
@@ -226,6 +234,13 @@ __device__ __forceinline__ void atb_tile(const TA* __restrict__ A,
     }
     __syncthreads();
   }
+}
+
+__device__ __forceinline__ void store_tile(const float (&acc)[TM][TN],
+                                           float* __restrict__ C, int M,
+                                           int N, int m0, int n0) {
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty + 16 * i;
@@ -238,20 +253,22 @@ __device__ __forceinline__ void atb_tile(const TA* __restrict__ A,
   }
 }
 
-// blockIdx.z = which * E + e, which 0: dWu = h^T DU, 1: dWg = h^T DG,
-// 2: dWd = P^T dy. blockIdx.x enumerates the 64x64 tiles of the output.
+// blockIdx.z = which * Ew + e, which 0: dWu = h^T DU, 1: dWg = h^T DG,
+// 2: dWd = P^T dy, for weight group e: the sum over the row groups that
+// read it (widx[g] == e, ascending g; null map: group e alone), all in one
+// accumulator. blockIdx.x enumerates the 64x64 tiles of the output.
 template <typename TH>
 __global__ void __launch_bounds__(NT)
 wgrad_kernel(const TH* __restrict__ h, const TH* __restrict__ dy,
              const float* __restrict__ P, const float* __restrict__ DU,
              const float* __restrict__ DG, float* __restrict__ dwu,
-             float* __restrict__ dwg, float* __restrict__ dwd, int E, int R,
-             int d, int F) {
+             float* __restrict__ dwg, float* __restrict__ dwd,
+             const int* __restrict__ widx, int G, int Ew, int R, int d,
+             int F) {
   __shared__ float sA[BK][BN + 1];
   __shared__ float sB[BK][BN + 1];
-  const int which = blockIdx.z / E;
-  const int e = blockIdx.z % E;
-  const size_t rd = (size_t)e * R * d, rf = (size_t)e * R * F;
+  const int which = blockIdx.z / Ew;
+  const int e = blockIdx.z % Ew;
   const size_t w = (size_t)e * d * F;
   const int M = which < 2 ? d : F;
   const int N = which < 2 ? F : d;
@@ -259,12 +276,19 @@ wgrad_kernel(const TH* __restrict__ h, const TH* __restrict__ dy,
   const int m0 = (blockIdx.x / nt) * BN;
   const int n0 = (blockIdx.x % nt) * BN;
   if (m0 >= M) return;
-  if (which == 0)
-    atb_tile(h + rd, DU + rf, dwu + w, R, M, N, m0, n0, sA, sB);
-  else if (which == 1)
-    atb_tile(h + rd, DG + rf, dwg + w, R, M, N, m0, n0, sA, sB);
-  else
-    atb_tile(P + rf, dy + rd, dwd + w, R, M, N, m0, n0, sA, sB);
+  float acc[TM][TN] = {};
+  for (int g = widx ? 0 : e; g < (widx ? G : e + 1); ++g) {
+    if (widx && widx[g] != e) continue;   // uniform over the block
+    const size_t rd = (size_t)g * R * d, rf = (size_t)g * R * F;
+    if (which == 0)
+      atb_acc(h + rd, DU + rf, R, M, N, m0, n0, sA, sB, acc);
+    else if (which == 1)
+      atb_acc(h + rd, DG + rf, R, M, N, m0, n0, sA, sB, acc);
+    else
+      atb_acc(P + rf, dy + rd, R, M, N, m0, n0, sA, sB, acc);
+  }
+  store_tile(acc, which == 0 ? dwu + w : which == 1 ? dwg + w : dwd + w, M,
+             N, m0, n0);
 }
 
 // ---- 3. dh = DU @ Wu^T + DG @ Wg^T ----------------------------------------
@@ -272,12 +296,15 @@ template <typename TH, typename TW>
 __global__ void __launch_bounds__(NT)
 dh_kernel(const float* __restrict__ DU, const float* __restrict__ DG,
           const TW* __restrict__ wu, const TW* __restrict__ wg,
-          TH* __restrict__ dh, int R, int d, int F) {
+          TH* __restrict__ dh, const int* __restrict__ widx, int R, int d,
+          int F) {
   __shared__ float sU[BK][BM + 1];
   __shared__ float sG[BK][BM + 1];
   __shared__ float sWu[BK][BN];
   __shared__ float sWg[BK][BN];
   const int e = blockIdx.z;
+  const int we = widx ? widx[e] : e;
+  if (we < 0) return;   // idle: zero_idle_groups writes its dh
   const int r0 = blockIdx.y * BM;
   const int c0 = blockIdx.x * BN;
   const int tid = threadIdx.x;
@@ -285,8 +312,8 @@ dh_kernel(const float* __restrict__ DU, const float* __restrict__ DG,
   const int ty = tid / 16;
   const float* ue = DU + (size_t)e * R * F;
   const float* ge = DG + (size_t)e * R * F;
-  const TW* wue = wu + (size_t)e * d * F;
-  const TW* wge = wg + (size_t)e * d * F;
+  const TW* wue = wu + (size_t)we * d * F;
+  const TW* wge = wg + (size_t)we * d * F;
   float acc[TM][TN] = {};
 
   for (int k0 = 0; k0 < F; k0 += BK) {
@@ -347,8 +374,8 @@ dh_kernel(const float* __restrict__ DU, const float* __restrict__ DG,
 template <typename TH, typename TW>
 void launch(const void* h, const void* dy, const void* wu, const void* wg,
             const void* wd, void* dh, float* dwu, float* dwg, float* dwd,
-            float* P, float* DU, float* DG, int E, int R, int d, int F,
-            int act, cudaStream_t s) {
+            float* P, float* DU, float* DG, const int* widx, int E, int Ew,
+            int R, int d, int F, int act, cudaStream_t s) {
   const TH* th = static_cast<const TH*>(h);
   const TH* tdy = static_cast<const TH*>(dy);
   const TW* tu = static_cast<const TW*>(wu);
@@ -356,13 +383,14 @@ void launch(const void* h, const void* dy, const void* wu, const void* wg,
   const dim3 g1((F + BN - 1) / BN, (R + BM - 1) / BM, E);
   hidden_kernel<TH, TW><<<g1, NT, 0, s>>>(th, tdy, tu, tg,
                                           static_cast<const TW*>(wd), P, DU,
-                                          DG, R, d, F, act);
+                                          DG, widx, R, d, F, act);
   const int tiles = ((d + BN - 1) / BN) * ((F + BN - 1) / BN);
-  wgrad_kernel<TH><<<dim3(tiles, 1, 3 * E), NT, 0, s>>>(
-      th, tdy, P, DU, DG, dwu, dwg, dwd, E, R, d, F);
+  wgrad_kernel<TH><<<dim3(tiles, 1, 3 * Ew), NT, 0, s>>>(
+      th, tdy, P, DU, DG, dwu, dwg, dwd, widx, E, Ew, R, d, F);
   const dim3 g3((d + BN - 1) / BN, (R + BM - 1) / BM, E);
   dh_kernel<TH, TW><<<g3, NT, 0, s>>>(DU, DG, tu, tg, static_cast<TH*>(dh),
-                                      R, d, F);
+                                      widx, R, d, F);
+  if (widx) launch_zero_idle<TH>(widx, dh, E, (size_t)R * d, s);
 }
 
 
@@ -398,7 +426,8 @@ __device__ __forceinline__ uint64_t mnmaj(uint32_t t, int kk,
 }
 
 struct Tile {
-  int r0, n0, e;   // first output row, first output column, expert
+  int r0, n0, e;   // first output row, first output column, output group
+  int we;          // the weights' group (Gated, Rows): widx[e], or e
 };
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) {
@@ -409,8 +438,25 @@ __host__ __device__ __forceinline__ int cdiv(int a, int b) {
 __host__ __device__ __forceinline__ Tile tile_at(int tile, int rows, int cols,
                                                  int bn) {
   const int n_nt = cdiv(cols, bn), n_rt = cdiv(rows, BM);
-  return Tile{(tile / n_nt % n_rt) * BM, (tile % n_nt) * bn,
-              tile / (n_nt * n_rt)};
+  const int e = tile / (n_nt * n_rt);
+  return Tile{(tile / n_nt % n_rt) * BM, (tile % n_nt) * bn, e, e};
+}
+
+// tile_at over the live row groups of a map (common.cuh): the tile's
+// third index counts live groups, and its weights are widx[e]. A null map
+// is tile_at itself.
+__device__ __forceinline__ Tile mapped_tile(const int* widx, int G, int tile,
+                                            int rows, int cols, int bn) {
+  Tile t = tile_at(tile, rows, cols, bn);
+  if (widx) {
+    t.e = map_nth_live(widx, G, t.e);
+    t.we = widx[t.e];
+  }
+  return t;
+}
+
+__device__ __forceinline__ int live_groups(const int* widx, int G) {
+  return widx ? map_live(widx, G) : G;
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(float a, float b) {
@@ -461,7 +507,8 @@ struct GatedParams {
   CUtensorMap h, wg[2], wu[2];   // [hi, lo]
   const float* dhh;
   __nv_bfloat16* out;   // P hi, P lo, DU hi, DU lo, DG hi, DG lo
-  int E, R, d, F;
+  const int* widx;      // group map, or null
+  int E, R, d, F;       // E: row groups
 };
 
 template <bool SPLIT, int ACT>
@@ -476,12 +523,17 @@ struct Gated {
     float gt[64], up[64];
   };
 
-  static __host__ __device__ int tiles(const Params& p) {
-    return cdiv(p.F, BN) * cdiv(p.R, BM) * p.E;
+  static __host__ __device__ int tiles(const Params& p, int groups) {
+    return cdiv(p.F, BN) * cdiv(p.R, BM) * groups;
   }
-  static __device__ int depth(const Params& p) { return p.d / BK; }
+  static __device__ int groups(const Params& p) {
+    return live_groups(p.widx, p.E);
+  }
+  static __device__ int depth(const Params& p, const Tile&) {
+    return p.d / BK;
+  }
   static __device__ Tile tile(const Params& p, int t) {
-    return tile_at(t, p.R, p.F, BN);
+    return mapped_tile(p.widx, p.E, t, p.R, p.F, BN);
   }
   static __device__ int stage_bytes(const Params&) {
     return SPLIT ? STAGE : STAGE - 4 * BOX;
@@ -495,9 +547,9 @@ struct Gated {
 #pragma unroll
       for (int b = 0; b < 2; ++b) {
         tma_load_3d(st + WG + (2 * j + b) * BOX, &p.wg[j], bar,
-                    t.n0 + 64 * b, k0, t.e);
+                    t.n0 + 64 * b, k0, t.we);
         tma_load_3d(st + WU + (2 * j + b) * BOX, &p.wu[j], bar,
-                    t.n0 + 64 * b, k0, t.e);
+                    t.n0 + 64 * b, k0, t.we);
       }
     }
   }
@@ -575,8 +627,26 @@ struct Gated {
 struct WgradParams {
   CUtensorMap x[3];
   float* out;
-  int E, R, M, N;
+  const int* widx;   // group map, or null
+  int E, R, M, N;    // E: weight groups (the output's)
+  int G;             // row groups of the operands
 };
+
+// The j-th row group that reads weight group e (ascending), G when there is
+// none: past the operands' groups, so TMA brings zeros.
+__device__ __forceinline__ int reader(const WgradParams& p, int e, int j) {
+  if (!p.widx) return j == 0 ? e : p.G;
+  for (int g = 0; g < p.G; ++g)
+    if (p.widx[g] == e && j-- == 0) return g;
+  return p.G;
+}
+
+__device__ __forceinline__ int readers(const WgradParams& p, int e) {
+  if (!p.widx) return 1;
+  int n = 0;
+  for (int g = 0; g < p.G; ++g) n += p.widx[g] == e;
+  return n;
+}
 
 template <bool SPLIT_A>
 struct Wgrad {
@@ -589,17 +659,26 @@ struct Wgrad {
     float c[64];
   };
 
-  static __host__ __device__ int tiles(const Params& p) {
-    return cdiv(p.N, BN) * cdiv(p.M, BM) * p.E;
+  static __host__ __device__ int tiles(const Params& p, int groups) {
+    return cdiv(p.N, BN) * cdiv(p.M, BM) * groups;
   }
-  static __device__ int depth(const Params& p) { return cdiv(p.R, BK); }
+  static __device__ int groups(const Params& p) { return p.E; }
+  // K runs over the rows of every row group that reads the tile's weights,
+  // one group after the other into one accumulator (at least one group's
+  // depth, so a weight no group reads gets zeros)
+  static __device__ int depth(const Params& p, const Tile& t) {
+    const int n = readers(p, t.e);
+    return (n > 0 ? n : 1) * cdiv(p.R, BK);
+  }
   static __device__ Tile tile(const Params& p, int t) {
     return tile_at(t, p.M, p.N, BN);
   }
   static __device__ int stage_bytes(const Params&) { return STAGE; }
   static __device__ void load(const Params& p, const Tile& t, int kt,
                               uint32_t st, uint32_t bar) {
-    const int k0 = kt * BK;
+    const int nr = cdiv(p.R, BK);
+    const int k0 = (kt % nr) * BK;
+    const int g = reader(p, t.e, kt / nr);
 #pragma unroll
     for (int x = 0; x < 3; ++x) {
       const bool over_m = SPLIT_A ? x < 2 : x == 0;
@@ -607,7 +686,7 @@ struct Wgrad {
 #pragma unroll
       for (int j = 0; j < 2; ++j)
         tma_load_3d(st + (2 * x + j) * BOX, &p.x[x], bar, c0 + 64 * j, k0,
-                    t.e);
+                    g);
     }
   }
   static __device__ void mma(Acc& a, uint32_t st, int wg, int acc_in) {
@@ -657,7 +736,8 @@ template <int NA>
 struct RowsParams {
   CUtensorMap a[NA], b[NA][2];   // b: [hi, lo]
   void* out;
-  int E, R, N, K;
+  const int* widx;   // group map, or null
+  int E, R, N, K;    // E: row groups
 };
 
 template <int NA, bool OUT_F32, bool SPLIT>
@@ -671,12 +751,17 @@ struct Rows {
     float c[64];
   };
 
-  static __host__ __device__ int tiles(const Params& p) {
-    return cdiv(p.N, BN) * cdiv(p.R, BM) * p.E;
+  static __host__ __device__ int tiles(const Params& p, int groups) {
+    return cdiv(p.N, BN) * cdiv(p.R, BM) * groups;
   }
-  static __device__ int depth(const Params& p) { return NA * (p.K / BK); }
+  static __device__ int groups(const Params& p) {
+    return live_groups(p.widx, p.E);
+  }
+  static __device__ int depth(const Params& p, const Tile&) {
+    return NA * (p.K / BK);
+  }
   static __device__ Tile tile(const Params& p, int t) {
-    return tile_at(t, p.R, p.N, BN);
+    return mapped_tile(p.widx, p.E, t, p.R, p.N, BN);
   }
   static __device__ int stage_bytes(const Params&) {
     return SPLIT ? STAGE : STAGE - 2 * BOX;
@@ -689,7 +774,7 @@ struct Rows {
 #pragma unroll
     for (int j = 0; j < TERMS; ++j)
       tma_load_3d(st + B + 2 * j * BOX,
-                  second ? &p.b[NA - 1][j] : &p.b[0][j], bar, k0, t.n0, t.e);
+                  second ? &p.b[NA - 1][j] : &p.b[0][j], bar, k0, t.n0, t.we);
   }
   static __device__ void mma(Acc& acc, uint32_t st, int wg, int acc_in) {
 #pragma unroll
@@ -751,8 +836,9 @@ bwd_wgmma_kernel(const __grid_constant__ typename P::Params p) {
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_full = base + P::STAGES * P::STAGE;
   const uint32_t bar_empty = bar_full + 8 * P::STAGES;
-  const int n_tiles = P::tiles(p);
-  const int nk = P::depth(p);
+  // a map leaves idle row groups out of the walk (zero_idle_groups writes
+  // their outputs that are read)
+  const int n_tiles = P::tiles(p, P::groups(p));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -772,6 +858,7 @@ bwd_wgmma_kernel(const __grid_constant__ typename P::Params p) {
       int t = 0;   // stages filled so far
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
         const Tile tl = P::tile(p, tile);
+        const int nk = P::depth(p, tl);
         for (int kt = 0; kt < nk; ++kt, ++t) {
           const int s = t % P::STAGES;
           mbar_wait(bar_empty + 8 * s, ((t / P::STAGES) & 1) ^ 1);
@@ -792,6 +879,7 @@ bwd_wgmma_kernel(const __grid_constant__ typename P::Params p) {
   int t = 0;   // stages consumed so far
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const Tile tl = P::tile(p, tile);
+    const int nk = P::depth(p, tl);
     typename P::Acc acc;
     for (int kt = 0; kt < nk; ++kt, ++t) {
       const int s = t % P::STAGES;
@@ -823,7 +911,7 @@ cudaError_t launch_policy(const typename P::Params& p, int n_sm,
       bwd_wgmma_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (e != cudaSuccess) return e;
-  const int tiles = P::tiles(p);
+  const int tiles = P::tiles(p, p.E);   // at most: every group live
   if (tiles == 0) return cudaSuccess;
   bwd_wgmma_kernel<P><<<tiles < n_sm ? tiles : n_sm, NT, bytes, stream>>>(p);
   return cudaGetLastError();
@@ -853,16 +941,19 @@ using Dh = Rows<2, false, S>;
 
 // Launches the three kernels on `stream`; returns cudaGetLastError()
 // (0 = ok). h_bf16 / w_bf16 select bf16 (1) or f32 (0) storage of h and dy
-// (and dh) / of the weights; act 0 = silu, 1 = gelu. dwu, dwg, dwd are f32
-// outputs shaped like the weights; P, DU, DG are f32 scratch of E * R * F
+// (and dh) / of the weights; act 0 = silu, 1 = gelu. h, dy, dh are [E, R, d]
+// (E row groups); the weights and dwu, dwg, dwd (f32 outputs) are [Ew, ...].
+// widx: null (the identity, Ew = E) or int32 [E] on the device, the weight
+// group each row group reads, -1 idle (its dh is zero); a weight's gradient
+// sums the row groups that read it. P, DU, DG are f32 scratch of E * R * F
 // elements each. Nothing is allocated here.
 extern "C" int expert_ffn_bwd_launch(const void* h, const void* dy,
                                      const void* wu, const void* wg,
                                      const void* wd, void* dh, void* dwu,
                                      void* dwg, void* dwd, void* P, void* DU,
-                                     void* DG, int E, int R, int d, int F,
-                                     int h_bf16, int w_bf16, int act,
-                                     void* stream) {
+                                     void* DG, const void* widx, int E, int Ew,
+                                     int R, int d, int F, int h_bf16,
+                                     int w_bf16, int act, void* stream) {
   cudaGetLastError();  // start from a clean slate; report only our launches
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* fu = static_cast<float*>(dwu);
@@ -871,36 +962,41 @@ extern "C" int expert_ffn_bwd_launch(const void* h, const void* dy,
   float* p = static_cast<float*>(P);
   float* du = static_cast<float*>(DU);
   float* dg = static_cast<float*>(DG);
+  const int* wi = static_cast<const int*>(widx);
   if (h_bf16 && w_bf16)
     launch<__nv_bfloat16, __nv_bfloat16>(h, dy, wu, wg, wd, dh, fu, fg, fd,
-                                         p, du, dg, E, R, d, F, act, s);
+                                         p, du, dg, wi, E, Ew, R, d, F, act,
+                                         s);
   else if (h_bf16)
     launch<__nv_bfloat16, float>(h, dy, wu, wg, wd, dh, fu, fg, fd, p, du,
-                                 dg, E, R, d, F, act, s);
+                                 dg, wi, E, Ew, R, d, F, act, s);
   else if (w_bf16)
     launch<float, __nv_bfloat16>(h, dy, wu, wg, wd, dh, fu, fg, fd, p, du,
-                                 dg, E, R, d, F, act, s);
+                                 dg, wi, E, Ew, R, d, F, act, s);
   else
-    launch<float, float>(h, dy, wu, wg, wd, dh, fu, fg, fd, p, du, dg, E, R,
-                         d, F, act, s);
+    launch<float, float>(h, dy, wu, wg, wd, dh, fu, fg, fd, p, du, dg, wi, E,
+                         Ew, R, d, F, act, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The tensor-core route: launches its six kernels on `stream`; returns a
 // cudaError_t (0 = ok). h, dy [E, R, d] and dh bf16; the weights' hi terms
-// wu, wg [E, d, F], wd [E, F, d] bf16, and with split = 1 their lo terms
+// wu, wg [Ew, d, F], wd [Ew, F, d] bf16, and with split = 1 their lo terms
 // wu_lo, wg_lo, wd_lo (unread with split = 0); dwu, dwg, dwd f32, shaped
 // like the weights; `scratch` of 8 * E * R * F bf16 elements (P, DU, DG,
-// each hi then lo, then dhh in f32). All contiguous and 16-byte aligned
-// (the wrapper sees to it); d and F multiples of 64; act 0 = silu, 1 = gelu. Nothing is
-// allocated here. A tensor map that fails to encode returns
-// cudaErrorInvalidValue; cudaErrorNotSupported when
-// cuTensorMapEncodeTiled cannot be found.
+// each hi then lo, then dhh in f32); widx as expert_ffn_bwd_launch's (dhh,
+// gt/up and dh read the weights, hi and lo, of widx[e] by the third TMA
+// coordinate; a weight gradient runs over the rows of its readers in turn).
+// All contiguous and 16-byte aligned (the wrapper sees to it); d and F
+// multiples of 64; act 0 = silu, 1 = gelu. Nothing is allocated here. A
+// tensor map that fails to encode returns cudaErrorInvalidValue;
+// cudaErrorNotSupported when cuTensorMapEncodeTiled cannot be found.
 extern "C" int expert_ffn_bwd_wgmma_launch(
     const void* h, const void* dy, const void* wu, const void* wg,
     const void* wd, const void* wu_lo, const void* wg_lo, const void* wd_lo,
-    void* dh, void* dwu, void* dwg, void* dwd, void* scratch, int E, int R,
-    int d, int F, int split, int act, void* stream) {
+    void* dh, void* dwu, void* dwg, void* dwd, void* scratch,
+    const void* widx, int E, int Ew, int R, int d, int F, int split, int act,
+    void* stream) {
   using tc::BK;
   using tc::BM;
   using hopper::EncodeTiled;
@@ -910,6 +1006,7 @@ extern "C" int expert_ffn_bwd_wgmma_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled fn = hopper::encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int* wi = static_cast<const int*>(widx);
   __nv_bfloat16* sc = static_cast<__nv_bfloat16*>(scratch);
   const size_t plane = (size_t)E * R * F;
   // scratch planes: 0 P hi, 1 P lo, 2 DU hi, 3 DU lo, 4 DG hi, 5 DG lo,
@@ -924,17 +1021,19 @@ extern "C" int expert_ffn_bwd_wgmma_launch(
   tc::RowsParams<1> pdd{};
   ok &= tma_map_bf16_3d(fn, &pdd.a[0], dy, E, R, d, BM);
   for (int j = 0; j < 2; ++j)
-    ok &= tma_map_bf16_3d(fn, &pdd.b[0][j], w_down[j], E, F, d, 128);
+    ok &= tma_map_bf16_3d(fn, &pdd.b[0][j], w_down[j], Ew, F, d, 128);
   pdd.out = dhh;
+  pdd.widx = wi;
   pdd.E = E, pdd.R = R, pdd.N = F, pdd.K = d;
   tc::GatedParams pga{};
   ok &= tma_map_bf16_3d(fn, &pga.h, h, E, R, d, BM);
   for (int j = 0; j < 2; ++j) {
-    ok &= tma_map_bf16_3d(fn, &pga.wg[j], w_gate[j], E, d, F, BK);
-    ok &= tma_map_bf16_3d(fn, &pga.wu[j], w_up[j], E, d, F, BK);
+    ok &= tma_map_bf16_3d(fn, &pga.wg[j], w_gate[j], Ew, d, F, BK);
+    ok &= tma_map_bf16_3d(fn, &pga.wu[j], w_up[j], Ew, d, F, BK);
   }
   pga.dhh = dhh;
   pga.out = sc;
+  pga.widx = wi;
   pga.E = E, pga.R = R, pga.d = d, pga.F = F;
 
   // dWu, dWg: A = h, B = DU or DG (hi, lo); dWd: A = P (hi, lo), B = dy
@@ -951,7 +1050,9 @@ extern "C" int expert_ffn_bwd_wgmma_launch(
   pu.out = static_cast<float*>(dwu);
   pg.out = static_cast<float*>(dwg);
   pd.out = static_cast<float*>(dwd);
-  pu.E = pg.E = pd.E = E;
+  pu.widx = pg.widx = pd.widx = wi;
+  pu.E = pg.E = pd.E = Ew;
+  pu.G = pg.G = pd.G = E;
   pu.R = pg.R = pd.R = R;
   pu.M = pg.M = d, pu.N = pg.N = F;
   pd.M = F, pd.N = d;
@@ -961,10 +1062,11 @@ extern "C" int expert_ffn_bwd_wgmma_launch(
   ok &= tma_map_bf16_3d(fn, &pdh.a[0], sc + 2 * plane, E, R, F, BM);
   ok &= tma_map_bf16_3d(fn, &pdh.a[1], sc + 4 * plane, E, R, F, BM);
   for (int j = 0; j < 2; ++j) {
-    ok &= tma_map_bf16_3d(fn, &pdh.b[0][j], w_up[j], E, d, F, 128);
-    ok &= tma_map_bf16_3d(fn, &pdh.b[1][j], w_gate[j], E, d, F, 128);
+    ok &= tma_map_bf16_3d(fn, &pdh.b[0][j], w_up[j], Ew, d, F, 128);
+    ok &= tma_map_bf16_3d(fn, &pdh.b[1][j], w_gate[j], Ew, d, F, 128);
   }
   pdh.out = dh;
+  pdh.widx = wi;
   pdh.E = E, pdh.R = R, pdh.N = d, pdh.K = F;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
 
@@ -981,5 +1083,7 @@ extern "C" int expert_ffn_bwd_wgmma_launch(
   if (e == cudaSuccess) e = tc::launch_policy<tc::Wgrad<false>>(pg, n_sm, s);
   if (e == cudaSuccess) e = tc::launch_policy<tc::Wgrad<true>>(pd, n_sm, s);
   if (e == cudaSuccess) e = tc::launch_split<tc::Dh>(pdh, split, n_sm, s);
-  return static_cast<int>(e);
+  if (e != cudaSuccess || wi == nullptr) return static_cast<int>(e);
+  launch_zero_idle<__nv_bfloat16>(wi, dh, E, (size_t)R * d, s);
+  return static_cast<int>(cudaGetLastError());
 }

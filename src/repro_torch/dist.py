@@ -87,7 +87,7 @@ def single_device() -> DistContext:
 
 
 def make_dist(mesh, shape_mode: str, global_batch: int, *,
-              moe_arch: bool) -> DistContext:
+              moe_arch: bool, topology=None) -> DistContext:
     """The context of a virtual mesh
     (:func:`repro_torch.launch.mesh.make_host_mesh`) for one input
     shape, by the reference's rules:
@@ -98,7 +98,10 @@ def make_dist(mesh, shape_mode: str, global_batch: int, *,
       whose batch divides, the batch);
     - ``decode``: the batch over the (size-1) data axis, the KV sequence
       over the model axis (see the module docstring: the serve engine's
-      decode reads no context)."""
+      decode reads no context).
+
+    ``topology``: the links to price (default the mesh's, at the planning
+    defaults)."""
     from repro_torch.launch.mesh import topology_for_mesh
     if shape_mode not in SHAPE_MODES:
         raise ValueError(f"shape mode {shape_mode!r}: one of {SHAPE_MODES}")
@@ -109,4 +112,4 @@ def make_dist(mesh, shape_mode: str, global_batch: int, *,
         seq = moe_arch or not divides
     else:
         seq = True
-    return DistContext(mesh.model, topology_for_mesh(mesh), seq)
+    return DistContext(mesh.model, topology or topology_for_mesh(mesh), seq)

@@ -5,7 +5,13 @@
 differentiates its einsum path).
 
 ``out[e] = (act(h[e] @ w_gate[e]) * (h[e] @ w_up[e])) @ w_down[e]`` for
-h [E, R, d] in f32 or bf16 and weights in f32 or bf16. :func:`route`
+h [E, R, d] in f32 or bf16 and weights in f32 or bf16. An optional group
+map ``w_idx`` (int32 [E] on h's device) lets row group e read weight group
+``w_idx[e]`` of a stack [Ew, ...], -1 marking an idle group (zero output,
+no products): the expert-parallel path's replica lanes run an intra-node
+peer's expert through it, so the lanes read the one f32 master stack and
+its cached bf16 copy, and a weight's gradient sums every group that reads
+it inside the kernel. :func:`route`
 picks the forward's kernels and :func:`bwd_route` the backward's, by one
 rule of type and width (as K5's dispatch does):
 
@@ -32,7 +38,7 @@ is the backward's plain version.
 from __future__ import annotations
 
 import weakref
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -135,7 +141,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def _check(h, w_up, w_gate, w_down, act_name):
+def _check(h, w_up, w_gate, w_down, act_name, w_idx=None):
     if act_name not in ACT_CODES:
         raise ValueError(f"act must be one of {sorted(ACT_CODES)}, "
                          f"got {act_name!r}")
@@ -154,23 +160,50 @@ def _check(h, w_up, w_gate, w_down, act_name):
         raise TypeError("w_up, w_gate and w_down must share one dtype")
     E, R, d = h.shape
     F = w_up.shape[-1]
-    want = {"w_up": (E, d, F), "w_gate": (E, d, F), "w_down": (E, F, d)}
+    Ew = w_up.shape[0] if w_idx is not None else E
+    want = {"w_up": (Ew, d, F), "w_gate": (Ew, d, F), "w_down": (Ew, F, d)}
     for name, shape in want.items():
         if tuple(ts[name].shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got "
                              f"{tuple(ts[name].shape)}")
-    if E > 65535 or (R + 63) // 64 > 65535:
+    if w_idx is not None and (
+            w_idx.dtype != torch.int32 or tuple(w_idx.shape) != (E,)
+            or w_idx.device != h.device or not w_idx.is_contiguous()):
+        raise ValueError(f"w_idx must be a contiguous int32 [{E}] tensor on "
+                         f"{h.device}, got {w_idx.dtype} "
+                         f"{tuple(w_idx.shape)} on {w_idx.device}")
+    if max(E, Ew) > 65535 or (R + 63) // 64 > 65535:
         raise ValueError(f"E={E}, R={R} exceed the launch grid "
                          f"(E <= 65535, R <= 65535 * 64)")
 
 
-def expert_ffn(h, w_up, w_gate, w_down, act_name: str = "silu"):
+class LaneCount:
+    """A launch counter (``launches``) for the launches of a wrapper that
+    take a group map."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+lanes = LaneCount()       # forward launches with a map
+lanes_bwd = LaneCount()   # backward launches with a map
+
+
+def _ptr(w_idx) -> Optional[int]:
+    return None if w_idx is None else w_idx.data_ptr()
+
+
+def expert_ffn(h, w_up, w_gate, w_down, act_name: str = "silu", w_idx=None):
     """Launch the forward on the current stream through :func:`route`'s
-    kernels; raises on a refused launch. Adds one to
-    ``expert_ffn.launches`` per launch (two kernels)."""
-    _check(h, w_up, w_gate, w_down, act_name)
+    kernels; raises on a refused launch. ``w_idx``: the group map (None:
+    group e reads weights e), its entries in [-1, Ew). Adds one to
+    ``expert_ffn.launches`` per launch (two kernels, and with a map a
+    third that zeroes the idle groups' rows), and with a map one to
+    ``lanes.launches``."""
+    _check(h, w_up, w_gate, w_down, act_name, w_idx)
     E, R, d = h.shape
     F = w_up.shape[-1]
+    Ew = w_up.shape[0]
     tc = route(h.dtype, w_up.dtype, d, F) == "wgmma"
     if tc:
         h = _aligned(h)
@@ -182,37 +215,44 @@ def expert_ffn(h, w_up, w_gate, w_down, act_name: str = "silu"):
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = (h.data_ptr(), w_up.data_ptr(), w_gate.data_ptr(),
-                w_down.data_ptr(), out.data_ptr(), hid.data_ptr())
+                w_down.data_ptr(), out.data_ptr(), hid.data_ptr(),
+                _ptr(w_idx))
         if tc:
-            fn = _build.entry("expert_ffn", "expert_ffn_wgmma_launch", 6, 5)
-            rc = fn(*ptrs, E, R, d, F, ACT_CODES[act_name], stream)
+            fn = _build.entry("expert_ffn", "expert_ffn_wgmma_launch", 7, 6)
+            rc = fn(*ptrs, E, Ew, R, d, F, ACT_CODES[act_name], stream)
         else:
-            fn = _build.entry("expert_ffn", "expert_ffn_launch", 6, 7)
-            rc = fn(*ptrs, E, R, d, F, int(h.dtype == torch.bfloat16),
+            fn = _build.entry("expert_ffn", "expert_ffn_launch", 7, 8)
+            rc = fn(*ptrs, E, Ew, R, d, F, int(h.dtype == torch.bfloat16),
                     int(w_up.dtype == torch.bfloat16), ACT_CODES[act_name],
                     stream)
     if rc != 0:
         raise RuntimeError(f"expert_ffn launch failed: cudaError {rc}")
     expert_ffn.launches += 1
+    lanes.launches += w_idx is not None
     return out
 
 
 expert_ffn.launches = 0
 
 
-def expert_ffn_bwd(h, w_up, w_gate, w_down, dy, act_name: str = "silu"):
+def expert_ffn_bwd(h, w_up, w_gate, w_down, dy, act_name: str = "silu",
+                   w_idx=None):
     """Launch the backward on the current stream through
     :func:`bwd_route`'s kernels: returns (dh in h's dtype, dw_up, dw_gate,
-    dw_down in f32). Raises on a refused launch. Adds one to
+    dw_down in f32, shaped like the weights; with ``w_idx`` a weight's
+    gradient sums the groups that read it, and an idle group's dh is
+    zero). Raises on a refused launch. Adds one to
     ``expert_ffn_bwd.launches`` per launch (three kernels on the FMA route,
-    six on the tensor cores)."""
-    _check(h, w_up, w_gate, w_down, act_name)
+    six on the tensor cores, and with a map one more for the idle dh), and
+    with a map one to ``lanes_bwd.launches``."""
+    _check(h, w_up, w_gate, w_down, act_name, w_idx)
     if dy.shape != h.shape or dy.dtype != h.dtype or dy.device != h.device:
         raise ValueError(f"dy must match h ({tuple(h.shape)}, {h.dtype}, "
                          f"{h.device}), got {tuple(dy.shape)}, {dy.dtype}, "
                          f"{dy.device}")
     E, R, d = h.shape
     F = w_up.shape[-1]
+    Ew = w_up.shape[0]
     tc = bwd_route(h.dtype, w_up.dtype, d, F) == "wgmma"
     dh = torch.empty_like(h)
     f32 = dict(dtype=torch.float32, device=h.device)
@@ -233,24 +273,27 @@ def expert_ffn_bwd(h, w_up, w_gate, w_down, dy, act_name: str = "silu"):
             scratch = torch.empty((8, E, R, F), dtype=torch.bfloat16,
                                   device=h.device)
             fn = _build.entry("expert_ffn_bwd", "expert_ffn_bwd_wgmma_launch",
-                              13, 6)
+                              14, 7)
             rc = fn(h.data_ptr(), dy.data_ptr(),
                     *(t.data_ptr() for t in (*his, *los)), dh.data_ptr(),
                     dwu.data_ptr(), dwg.data_ptr(), dwd.data_ptr(),
-                    scratch.data_ptr(), E, R, d, F, int(split), act, stream)
+                    scratch.data_ptr(), _ptr(w_idx), E, Ew, R, d, F,
+                    int(split), act, stream)
         else:
             dy = dy.contiguous()
             scratch = [torch.empty((E, R, F), **f32) for _ in range(3)]
-            fn = _build.entry("expert_ffn_bwd", "expert_ffn_bwd_launch", 12, 7)
+            fn = _build.entry("expert_ffn_bwd", "expert_ffn_bwd_launch", 13, 8)
             rc = fn(h.data_ptr(), dy.data_ptr(),
                     *(w.data_ptr() for w in ws), dh.data_ptr(),
                     dwu.data_ptr(), dwg.data_ptr(), dwd.data_ptr(),
-                    *(t.data_ptr() for t in scratch), E, R, d, F,
+                    *(t.data_ptr() for t in scratch), _ptr(w_idx), E, Ew,
+                    R, d, F,
                     int(h.dtype == torch.bfloat16),
                     int(w_up.dtype == torch.bfloat16), act, stream)
     if rc != 0:
         raise RuntimeError(f"expert_ffn_bwd launch failed: cudaError {rc}")
     expert_ffn_bwd.launches += 1
+    lanes_bwd.launches += w_idx is not None
     return dh, dwu, dwg, dwd
 
 
@@ -258,18 +301,20 @@ expert_ffn_bwd.launches = 0
 
 
 class ExpertFFN(torch.autograd.Function):
-    """K1 forward and backward as one differentiable op (CUDA only)."""
+    """K1 forward and backward as one differentiable op (CUDA only), with
+    an optional group map (not differentiated)."""
 
     @staticmethod
-    def forward(ctx, h, w_up, w_gate, w_down, act_name):
+    def forward(ctx, h, w_up, w_gate, w_down, act_name, w_idx=None):
         ctx.act_name = act_name
-        ctx.save_for_backward(h, w_up, w_gate, w_down)
-        return expert_ffn(h, w_up, w_gate, w_down, act_name)
+        ctx.save_for_backward(h, w_up, w_gate, w_down, w_idx)
+        return expert_ffn(h, w_up, w_gate, w_down, act_name, w_idx)
 
     @staticmethod
     def backward(ctx, dy):
-        h, w_up, w_gate, w_down = ctx.saved_tensors
+        h, w_up, w_gate, w_down, w_idx = ctx.saved_tensors
         dh, dwu, dwg, dwd = expert_ffn_bwd(h, w_up, w_gate, w_down,
-                                           dy.to(h.dtype), ctx.act_name)
+                                           dy.to(h.dtype), ctx.act_name,
+                                           w_idx)
         return (dh, dwu.to(w_up.dtype), dwg.to(w_gate.dtype),
-                dwd.to(w_down.dtype), None)
+                dwd.to(w_down.dtype), None, None)

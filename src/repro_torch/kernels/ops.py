@@ -25,10 +25,12 @@ def _device(t, name: str) -> str:
     return t.device.type
 
 
-def expert_ffn(h, w_up, w_gate, w_down, act_name: str = "silu"):
+def expert_ffn(h, w_up, w_gate, w_down, act_name: str = "silu", w_idx=None):
+    """``w_idx``: K1's group map (int32 [E], -1 idle), None the identity."""
     if _device(h, "expert_ffn") == "cpu":
-        return ref.expert_ffn_ref(h, w_up, w_gate, w_down, act_name)
-    return _expert_ffn.ExpertFFN.apply(h, w_up, w_gate, w_down, act_name)
+        return ref.expert_ffn_ref(h, w_up, w_gate, w_down, act_name, w_idx)
+    return _expert_ffn.ExpertFFN.apply(h, w_up, w_gate, w_down, act_name,
+                                       w_idx)
 
 
 def masked_similarity(x, mask):

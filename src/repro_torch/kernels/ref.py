@@ -18,9 +18,25 @@ def _gelu_tanh(x):
 ACTS = {"silu": F.silu, "gelu": _gelu_tanh}
 
 
-def expert_ffn_ref(h, w_up, w_gate, w_down, act_name: str = "silu"):
-    """h: [E, R, d]; w_up/w_gate: [E, d, f]; w_down: [E, f, d].
+def mapped_weights(w, w_idx):
+    """The stack group e of a K1 launch reads under the group map
+    ``w_idx`` (int [E], -1 idle): ``w[w_idx[e]]``, zero for an idle group.
+    For the expert-parallel replica lanes this is the reference's
+    concatenation ``[w; w[src] * live]`` laid out rank by rank
+    (``repro/plan/exchange.py:867-871``); autograd adds each group's
+    gradient into the weights it read."""
+    live = (w_idx >= 0).to(w.dtype)[:, None, None]
+    return w.index_select(0, w_idx.clamp(min=0).long()) * live
+
+
+def expert_ffn_ref(h, w_up, w_gate, w_down, act_name: str = "silu",
+                   w_idx=None):
+    """h: [E, R, d]; w_up/w_gate: [E, d, f]; w_down: [E, f, d] (with the
+    group map ``w_idx``, [Ew, ...] read through :func:`mapped_weights`).
     f32 math throughout, result cast to ``h.dtype``."""
+    if w_idx is not None:
+        w_up, w_gate, w_down = (mapped_weights(w, w_idx)
+                                for w in (w_up, w_gate, w_down))
     act = ACTS[act_name]
     hf = h.float()
     up = torch.einsum("erd,edf->erf", hf, w_up.float())

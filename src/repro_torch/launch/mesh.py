@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
-from repro_torch.comm.topology import Topology
+from repro_torch.comm.topology import DEFAULT_INTER_BW, Topology
 
 
 class VirtualMesh(NamedTuple):
@@ -40,5 +40,8 @@ def make_host_mesh(model: int = 4, nodes: int = 0) -> VirtualMesh:
     return VirtualMesh(model, nodes)
 
 
-def topology_for_mesh(mesh: VirtualMesh) -> Topology:
-    return Topology.from_layout(mesh.model, mesh.nodes)
+def topology_for_mesh(mesh: VirtualMesh, *, inter_bw=None) -> Topology:
+    """The mesh's topology; ``inter_bw`` (bytes/s) overrides the cross-node
+    link's planning rate, as the reference's ``--inter-bw``."""
+    return Topology.from_layout(mesh.model, mesh.nodes,
+                                inter_bw=inter_bw or DEFAULT_INTER_BW)

@@ -10,7 +10,9 @@ its fixed-batch path).
         --batch 4 --prompt-len 2048 --gen 32 --prefill batch
     PYTHONPATH=src python -m repro_torch.launch.serve --arch moe-gpt2 \\
         --model-axis 4 --batch 8 --prompt-len 128 --gen 32 --prefill batch \\
-        [--exec-mode {sync,pipeline,decode_overlap}] [--pipeline-chunks N]
+        [--exec-mode {sync,pipeline,decode_overlap}] [--pipeline-chunks N] \\
+        [--plan-cache DIR [--precompute-plans]] \\
+        [--plan-objective {traffic,overlap,replicate}]
 
 Weights are random, drawn from ``--seed``; the prompts too. With
 ``--prefill batch`` one whole-prompt prefill runs first as a warm-up and
@@ -35,7 +37,16 @@ decode has no all-to-all to chunk. The launcher prints the resolved
 schedule. The decode steps are the one-device ones: the reference's
 all-reduce decode gives their values bit for bit on virtual ranks
 (:mod:`repro_torch.dist`). Attention and the KV cache are the
-one-device ones. The reference uses
+one-device ones.
+
+``--plan-cache DIR`` keeps serialised exchange plans
+(:mod:`repro_torch.plan.cache`) in DIR; with ``--precompute-plans`` the
+launcher first stores the batched prefill's template and the decode
+step's, and the prefill and every decode step then bind each request's
+routing onto them: no ``build_exchange_plan`` call after the warm-up,
+with logits bit for bit the uncached run's. ``--plan-objective`` only
+threads through (serving never re-homes a prompt, so every objective
+builds the same vanilla plan); it keys the cache. The reference uses
 its mesh only when it has more than one device, so on one device it
 serves as M = 1; virtual ranks have no such cap, so the port's default
 is 1. An arch without MoE sublayers serves the same with any M.
@@ -76,6 +87,18 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--pipeline-chunks", type=int, default=None,
                     help="capacity chunks of --exec-mode pipeline (default "
                          "4; 0 takes the exchange estimate's count)")
+    ap.add_argument("--plan-cache", default="",
+                    help="directory of the serialised exchange-plan cache: "
+                         "the prefill and the decode steps bind their "
+                         "routing onto cached static templates")
+    ap.add_argument("--precompute-plans", action="store_true",
+                    help="store this run's prefill and decode templates in "
+                         "--plan-cache before serving")
+    ap.add_argument("--plan-objective", default=None,
+                    choices=["traffic", "overlap", "replicate"],
+                    help="migration planner objective (serving never "
+                         "re-homes a prompt, so it only keys the cache; "
+                         "default traffic)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
@@ -104,11 +127,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if args.reduced:
         cfg = reduced(cfg)
     model = build_model(cfg, device=device, seed=args.seed)
+    objective = args.plan_objective or LuffyConfig.plan_objective
     luffy = LuffyConfig(enable_condensation=False, enable_migration=False,
                         exec_mode=args.exec_mode or "sync",
                         pipeline_chunks=resolve_pipeline_chunks(
-                            args.pipeline_chunks,
-                            LuffyConfig.plan_objective))
+                            args.pipeline_chunks, objective),
+                        plan_objective=objective)
     B, S = args.batch, args.prompt_len
     s_max = S + args.gen
     pdist = single_device()
@@ -126,8 +150,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             prefill_capacity(cfg, B, S, pdist))
         chunks = plan.n_chunks if piped else 1
     print(f"exec_mode={luffy.exec_mode} pipeline_chunks="
-          f"{luffy.pipeline_chunks} chunks={chunks} in the prefill",
-          flush=True)
+          f"{luffy.pipeline_chunks} chunks={chunks} in the prefill "
+          f"plan_objective={luffy.plan_objective} "
+          f"plan_cache={args.plan_cache or 'off'}", flush=True)
+    plan_cache = None
+    if args.plan_cache:
+        from repro_torch.plan.cache import PlanCache
+        plan_cache = PlanCache(args.plan_cache)
     r = np.random.default_rng(args.seed)
     prompts = torch.as_tensor(r.integers(1, cfg.vocab_size, (B, S)),
                               dtype=torch.int32, device=device)
@@ -136,13 +165,24 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     result: Dict = {"arch": cfg.name, "device": str(device), "batch": B,
                     "prompt_len": S, "gen": args.gen,
                     "model_axis": args.model_axis, "chunks": chunks}
+    if plan_cache is not None and args.precompute_plans and cfg.uses_moe:
+        from repro_torch.plan.cache import (precompute_decode_plans,
+                                            precompute_prefill_plans)
+        if args.prefill == "batch":
+            key = precompute_prefill_plans(cfg, luffy, pdist, B, S,
+                                           plan_cache)
+            print(f"precomputed prefill plan: {key}")
+        key = precompute_decode_plans(cfg, luffy, B, plan_cache)
+        print(f"precomputed decode plan: {key}")
 
     if args.prefill == "batch":
         for _ in range(N_BATCHED_PREFILLS - 1):             # warm-up
-            model.prefill(prompts, s_max, luffy=luffy, dist=pdist)
+            model.prefill(prompts, s_max, luffy=luffy, dist=pdist,
+                          plan_cache=plan_cache)
         _sync(device)
         t0 = time.perf_counter()
-        logits_pf, _ = model.prefill(prompts, s_max, luffy=luffy, dist=pdist)
+        logits_pf, _ = model.prefill(prompts, s_max, luffy=luffy, dist=pdist,
+                                     plan_cache=plan_cache)
         _sync(device)
         dt = time.perf_counter() - t0
         result.update(prefill_s=dt, prefill_tok_s=B * S / dt,
@@ -155,7 +195,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     step_logits = []
     for t in range(S):
         logits, cache = model.decode_step(cache, prompts[:, t:t + 1],
-                                          luffy=luffy)
+                                          luffy=luffy, plan_cache=plan_cache)
         step_logits.append(logits)
     _sync(device)
     result["prompt_feed_s"] = time.perf_counter() - t0
@@ -166,7 +206,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     for _ in range(args.gen):
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         out.append(nxt[:, 0])
-        logits, cache = model.decode_step(cache, nxt, luffy=luffy)
+        logits, cache = model.decode_step(cache, nxt, luffy=luffy,
+                                          plan_cache=plan_cache)
         gen_logits.append(logits)
     _sync(device)
     dt = time.perf_counter() - t0
@@ -182,6 +223,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
           f"({n_tok / max(dt, 1e-9):.1f} tok/s batch={B}, "
           f"{result['decode_ms_per_step']:.3f} ms/step)")
     print("sample token ids:", tokens[0, :10].tolist() if n_tok else [])
+    if plan_cache is not None:
+        result["plan_cache"] = plan_cache.stats()
+        print(f"plan cache: {plan_cache.stats()}")
     return result
 
 

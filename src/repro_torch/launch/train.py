@@ -9,6 +9,7 @@
          [--hier-dedup {off,on}] [--wire-dtype {f32,bf16,f8e4m3}] \\
          [--wire-error-feedback]] \\
         [--exec-mode {sync,pipeline}] [--pipeline-chunks N] \\
+        [--plan-objective {traffic,overlap,replicate}] [--inter-bw B] \\
         [--plan-reuse {off,signature,always}] \\
         [--condense-reuse {off,signature,always}] [--condense-max-age N] \\
         [--similarity-backend {exact,lsh}] [--lsh-bits N] \\
@@ -46,7 +47,14 @@ token's quantization residual on a lossy wire into the next step's
 shipped payload (one f32 residual per layer and token, allocated only
 when ``--wire-dtype`` is lossy). Each step record carries the per-forward
 counts ``plans_built``, ``plans_reused``, ``plan_reuse_mismatch``,
-``condense_built`` and ``condense_reused``. The reference's default
+``condense_built`` and ``condense_reused``. ``--plan-objective``
+chooses the migration planner's objective: "traffic" (link-cost-weighted
+rows), "overlap" (the pipelined exchange's modelled exposed time; its
+default ``--pipeline-chunks`` is the estimate's count) or "replicate"
+(traffic's plan, plus each node's hottest expert on an intra-node peer's
+spare dispatch lane when the model says it pays: the dense wire, ``hier``
+with more than one rank a node). ``--inter-bw`` overrides the cross-node
+link's planning rate (bytes/s). The reference's default
 model axis of 4 is capped by its device count (one device gives one
 rank); virtual ranks have no such cap, so the port's default is 1. On
 the card (``--device cuda``, the default, which must exist) the expert
@@ -107,6 +115,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="capacity chunks of --exec-mode pipeline, "
                          "clipped to capacity/8 (default 4; 0 takes the "
                          "exchange estimate's count)")
+    ap.add_argument("--plan-objective", default=None,
+                    choices=["traffic", "overlap", "replicate"],
+                    help="migration planner objective: link-cost-weighted "
+                         "rows, the pipelined exchange's modelled exposed "
+                         "time, or traffic plus intra-node hot-expert "
+                         "replicas (default traffic)")
+    ap.add_argument("--inter-bw", type=float, default=0.0,
+                    help="cross-node link rate (bytes/s) the planner and "
+                         "the estimate price (default the planning "
+                         "default)")
     ap.add_argument("--plan-reuse", default="off",
                     choices=["off", "signature", "always"],
                     help="cross-layer migration-plan reuse: replan every "
@@ -160,7 +178,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.dist import make_dist, single_device
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh, topology_for_mesh
     from repro_torch.models import transformer as tf
     from repro_torch.models.model import build_model, resolve_device
     from repro_torch.plan.exchange import schedule_of
@@ -185,7 +203,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     dist = single_device()
     if args.model_axis > 1:
         mesh = make_host_mesh(model=args.model_axis, nodes=nodes)
-        dist = make_dist(mesh, "train", gb, moe_arch=cfg.uses_moe)
+        dist = make_dist(mesh, "train", gb, moe_arch=cfg.uses_moe,
+                         topology=topology_for_mesh(
+                             mesh, inter_bw=args.inter_bw or None))
         topo = dist.topology
         print(f"mesh {dict(zip(mesh.axis_names, mesh.shape))} (virtual "
               f"ranks) topology {topo.num_nodes}x{topo.devices_per_node} "
@@ -196,6 +216,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                   f"ranks: sequence-sharded, condensation and migration off",
                   flush=True)
     hier_dedup = args.hier_dedup or "off"
+    objective = args.plan_objective or LuffyConfig.plan_objective
     layout_ok = cfg.uses_moe and not dist.seq_sharded
     luffy = LuffyConfig(
         enable_condensation=not args.no_condensation and layout_ok,
@@ -203,8 +224,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         condense_group=min(128, args.seq_len), combine_slack=2.0,
         comm_mode=comm_mode, hier_dedup=hier_dedup,
         exec_mode=args.exec_mode or "sync",
-        pipeline_chunks=resolve_pipeline_chunks(
-            args.pipeline_chunks, LuffyConfig.plan_objective),
+        pipeline_chunks=resolve_pipeline_chunks(args.pipeline_chunks,
+                                                objective),
+        plan_objective=objective,
         wire_dtype=args.wire_dtype or "f32", plan_reuse=args.plan_reuse,
         similarity_backend=args.similarity_backend or "exact",
         lsh_bits=8 if args.lsh_bits is None else args.lsh_bits,
@@ -242,8 +264,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         return steps_by_bucket[bucket]
 
     print(f"exec_mode={luffy.exec_mode} pipeline_chunks="
-          f"{luffy.pipeline_chunks} chunks={get_step(0)[1]} at bucket 0",
-          flush=True)
+          f"{luffy.pipeline_chunks} chunks={get_step(0)[1]} at bucket 0 "
+          f"plan_objective={luffy.plan_objective}", flush=True)
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)

@@ -78,13 +78,16 @@ class Model(nn.Module):
                                 wire_ef=wire_ef)
 
     @torch.inference_mode()
-    def prefill(self, tokens, s_max: int, *, luffy: LuffyConfig, dist=None):
+    def prefill(self, tokens, s_max: int, *, luffy: LuffyConfig, dist=None,
+                plan_cache=None):
         return engine.prefill(self.params, self.cfg, luffy, tokens, s_max,
-                              dist)
+                              dist, plan_cache=plan_cache)
 
     @torch.inference_mode()
-    def decode_step(self, cache, tokens, *, luffy: LuffyConfig):
-        return engine.decode_step(self.params, self.cfg, luffy, cache, tokens)
+    def decode_step(self, cache, tokens, *, luffy: LuffyConfig,
+                    plan_cache=None):
+        return engine.decode_step(self.params, self.cfg, luffy, cache, tokens,
+                                  plan_cache=plan_cache)
 
 
 def build_model(cfg: ModelConfig, *, device="cuda", seed: int = 0,

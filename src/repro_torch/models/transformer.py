@@ -142,7 +142,7 @@ def _zero_aux(device) -> MoEAux:
 
 def moe_apply_vanilla(p_moe, x, sideband, cfg: ModelConfig,
                       luffy: LuffyConfig, dist: DistContext, capacity: int,
-                      wire_ef=None):
+                      wire_ef=None, plan_template=None):
     """The MoE sublayer's vanilla exchange over ``dist``'s ranks in
     ``dist``'s layout, at one rank's ``capacity``: the sequence-sharded
     train forward and the expert-parallel prefill. x: [B, S, d];
@@ -156,12 +156,13 @@ def moe_apply_vanilla(p_moe, x, sideband, cfg: ModelConfig,
     row-major over (sequence, local position); a per-position sideband
     entry is split the same way and a per-sequence one replicated, as
     the reference's specs place them. Batch-sharded, it is
-    :func:`_moe_apply_dist`'s layout."""
+    :func:`_moe_apply_dist`'s layout. ``plan_template``: a cached serving
+    template to bind the routing onto (no plan is built)."""
     comm = dist.comm(luffy.comm_mode)
     if not dist.seq_sharded:
         y, _, _, aux, _, _, ef = _moe_apply_dist(
             p_moe, x, sideband, None, None, cfg, luffy, comm, "vanilla",
-            capacity, None, wire_ef=wire_ef)
+            capacity, None, wire_ef=wire_ef, plan_template=plan_template)
         return y, aux, ef
     B, S, d = x.shape
     comm = CommContext.local() if comm is None else comm
@@ -177,7 +178,8 @@ def moe_apply_vanilla(p_moe, x, sideband, cfg: ModelConfig,
                 else v.expand(M, B)) for key, v in sideband.items()}
     y, _, _, aux, _, _, ef = moe.moe_core_planned(
         p_moe, split(x), sb, cfg, luffy, mode="vanilla", capacity=capacity,
-        comm=comm, wire_ef=None if wire_ef is None else split(wire_ef))
+        comm=comm, wire_ef=None if wire_ef is None else split(wire_ef),
+        plan_template=plan_template)
     return (y.transpose(0, 1).reshape(B, S, d),
             MoEAux(*(comm.pmean(a) for a in aux)),
             None if ef is None else ef.transpose(0, 1).reshape(B, S, d))
@@ -186,7 +188,7 @@ def moe_apply_vanilla(p_moe, x, sideband, cfg: ModelConfig,
 def _moe_apply_dist(p_moe, x, sideband, s_prev, threshold, cfg, luffy,
                     comm: Optional[CommContext], mode: str, capacity: int,
                     cond_carry, plan_carry: Optional[PlanSignature] = None,
-                    wire_ef=None):
+                    wire_ef=None, plan_template=None):
     """The MoE sublayer over the batch, split rank-major over the ``M``
     ranks of ``comm`` (None: one device, M = 1; the reference's train
     branch of ``_moe_apply_dist``). Each rank's tokens run the rank-local
@@ -195,8 +197,9 @@ def _moe_apply_dist(p_moe, x, sideband, s_prev, threshold, cfg, luffy,
     over the ranks (the reference's pmean). ``plan_carry``: the plan
     reuse carry (None: not threaded); ``wire_ef``: the error-feedback
     residual [B, S, d] f32, keyed by (slot, position): it stays at its
-    slot when sequences migrate (None: not threaded). Returns (y,
-    sideband, s_next, aux, cond_carry, plan_carry, wire_ef)."""
+    slot when sequences migrate (None: not threaded); ``plan_template``: a
+    cached vanilla template (serving). Returns (y, sideband, s_next, aux,
+    cond_carry, plan_carry, wire_ef)."""
     B, S, d = x.shape
     comm = CommContext.local() if comm is None else comm
     M = comm.size()
@@ -213,7 +216,8 @@ def _moe_apply_dist(p_moe, x, sideband, s_prev, threshold, cfg, luffy,
         capacity=capacity, threshold=threshold, s_prev=s_prev,
         condense_carry=carry, comm=comm, reuse_from=plan_carry,
         wire_ef=(None if wire_ef is None
-                 else wire_ef.reshape(M, n_seq, S, d)))
+                 else wire_ef.reshape(M, n_seq, S, d)),
+        plan_template=plan_template)
     sb = {key: v.reshape(B, *v.shape[2:]) for key, v in sb.items()}
     aux = MoEAux(*(comm.pmean(a) for a in aux))
     if s_next is not None:

@@ -34,10 +34,26 @@ layer stack; under "signature" a sublayer whose counts and lengths equal
 the carried ones skips the greedy and emits the keep-home plan (what the
 greedy would return), under "always" a valid carry is trusted. The
 planner's inputs are on the host already, so the signature is numpy and
-reuse adds no device sync. Replica lanes (the "replicate" objective)
-raise, naming the queue item that brings them. Wire error feedback
-carries each token's quantization residual from one step's payload into
-the next's (:func:`execute_plan`).
+reuse adds no device sync. Reuse revalidates only under the "traffic"
+objective; under "overlap" and "replicate" the emitted signature never
+validates (the reference's rule). Wire error feedback carries each
+token's quantization residual from one step's payload into the next's
+(:func:`execute_plan`).
+
+Replica lanes (the "replicate" objective, migrate mode across ranks on
+the dense wire of a hierarchical topology with more than one rank a
+node): the builder places each node's hottest expert on an intra-node
+peer's spare dispatch lane when the model says it pays
+(:func:`~repro_torch.plan.objectives.plan_expert_replicas`, on the
+device), and the first overflow copies of a replicated expert (``C <=
+pos < 2C``) take the host rank's lane at slot ``pos - C`` instead of
+being dropped. Each rank then runs ``E_local + 1`` rows of experts; K1
+takes the lanes' weights through its group map, so no stack is
+concatenated or cast per step.
+
+Serving templates: :func:`instantiate_plan` / :func:`instantiate_decode_plan`
+bind a request's routing onto a cached static template
+(:mod:`repro_torch.plan.cache`) without planning.
 """
 from __future__ import annotations
 
@@ -66,6 +82,9 @@ from repro_torch.sched.cost import resolve_chunk_overhead_ms
 from repro_torch.sched.pipeline import run_pipeline, share, side_stream
 
 MODES = ("vanilla", "migrate", "decode")
+# build_exchange_plan calls (the serving cache's zero-planning guarantee
+# is held against this count)
+BUILD_CALLS = 0
 # the chunk count when pipeline_chunks <= 0 and no topology prices the
 # exchange (the reference's)
 DEFAULT_PIPELINE_CHUNKS = 4
@@ -160,6 +179,15 @@ class ExchangePlan(NamedTuple):
     pipelined: bool = False       # the chunked pipeline, not sync
     chunks: Optional[ChunkPlan] = None     # capacity partition
     estimate: Optional[PlanEstimate] = None  # None unless priced (M > 1)
+    objective: str = "traffic"    # the planner objective that made it
+    # replica lanes ("replicate"): the global expert each rank's lane
+    # serves (-1 idle), [M] int32 on the device, and the copies redirected
+    # to a lane, [M, T, k]; None without lanes
+    replica_src: Optional[torch.Tensor] = None
+    replica_valid: Optional[torch.Tensor] = None
+    # the reference's kernel flag, carried through the plan format (the
+    # port's kernels follow the tensors' device)
+    use_kernel: bool = False
 
 
 def _rms(x, scale, eps=1e-6):
@@ -168,12 +196,13 @@ def _rms(x, scale, eps=1e-6):
     return xf * torch.rsqrt(v + eps) * scale.float()
 
 
-def expert_ffn(ew, h, act_name: str):
-    """h: [E_local, R, d] normed inputs -> [E_local, R, d], in h's dtype.
-    The reference's kernel path (``use_kernel=True``): the f32-math
-    kernel K1 gets the rows and the f32 weights as they are."""
+def expert_ffn(ew, h, act_name: str, w_idx=None):
+    """h: [G, R, d] normed inputs -> [G, R, d], in h's dtype; group g
+    reads expert ``w_idx[g]`` of the stack (None: expert g; -1: none, a
+    zero output). The reference's kernel path (``use_kernel=True``): the
+    f32-math kernel K1 gets the rows and the f32 weights as they are."""
     return kops.expert_ffn(h, ew["w_up"], ew["w_gate"], ew["w_down"],
-                           act_name)
+                           act_name, w_idx)
 
 
 def _check_whole_stack(params, cfg: ModelConfig):
@@ -187,16 +216,8 @@ def _check_whole_stack(params, cfg: ModelConfig):
 
 
 def check_ported(luffy: LuffyConfig):
-    """Raise on the reference's options this port does not run yet,
-    naming the queue item that brings each."""
-    later = [
-        (luffy.plan_objective != "traffic",
-         f"plan_objective={luffy.plan_objective!r}", "item 7"),
-    ]
-    for bad, what, item in later:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP Queue 1 {item})")
+    """Raise on an option value the port does not know."""
+    objectives.get_objective(luffy.plan_objective)
     if luffy.exec_mode not in ("sync", "decode_overlap", "pipeline"):
         raise ValueError(f"unknown exec_mode {luffy.exec_mode!r}")
     if luffy.plan_reuse not in ("off", "signature", "always"):
@@ -304,6 +325,8 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
     signature's valid flag is 0 under "off", so such a carry never
     revalidates. The signature needs the host copies the planner already
     makes, so reuse adds no device sync."""
+    global BUILD_CALLS
+    BUILD_CALLS += 1
     from repro_torch.models.blocks import _dtype
     if mode not in MODES:
         raise ValueError(f"exchange mode {mode!r}: one of {MODES}")
@@ -325,10 +348,7 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
     cdt = _dtype(cfg.compute_dtype)
     expert_idx, gate_w = gate.expert_idx, gate.gate_weights   # [M, T, k]
 
-    pos_in_seq = torch.arange(S, device=dev)
-    token_valid = (pos_in_seq[None, None, :]
-                   < sideband["seq_len"][..., None]).reshape(M, T)
-    keep = token_valid[..., None].expand(M, T, k)
+    keep = _token_keep(sideband["seq_len"], S, k)
 
     do_condense = luffy.enable_condensation and mode != "decode"
     if do_condense:
@@ -357,17 +377,38 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
     wire = ("dedup" if (luffy.hier_dedup == "on" and comm.mode == "hier"
                         and M > 1) else "dense")
     topo = comm.topology
+    itemsize = torch.finfo(cdt).bits // 8
     pipelined, chunks, est = schedule_of(cfg, luffy, comm, T, C)
+
+    # replica lanes: each node's hottest expert on an intra-node peer's
+    # spare lane when the model says it pays; its first overflow copies
+    # (C <= pos < 2C) then take the host's lane instead of dropping
+    replica_src = replica_valid = None
+    if (luffy.plan_objective == "replicate" and mode == "migrate"
+            and luffy.enable_migration and M > 1 and wire == "dense"
+            and topo is not None and topo.hierarchical
+            and topo.devices_per_node > 1):
+        # demand per expert before the capacity drop, summed over every
+        # rank (integer counts: exact in any order)
+        load_e = torch.zeros((E,), dtype=torch.float32, device=dev) \
+            .index_add_(0, expert_idx.reshape(-1),
+                        keep.reshape(-1).to(torch.float32))
+        replica_src = objectives.plan_expert_replicas(
+            load_e, e_local=E_local, topo=topo,
+            ffn_ms=0.0 if est is None else est.ffn_ms, d_model=d,
+            d_ff=m.d_ff, bytes_per_el=itemsize)
+        host_of = _host_of(replica_src, E)
+        replica_valid = keep & (pos >= C) & (pos < 2 * C) \
+            & (host_of[expert_idx] >= 0)
+        d_drop = 1.0 - (valid.float().sum(dim=(1, 2))
+                        + replica_valid.float().sum(dim=(1, 2))) \
+            / torch.clamp(kept, min=1.0)
+
     zM = torch.zeros((M,), dtype=torch.float32, device=dev)
-    if topo is not None and topo.hierarchical and M > 1:
-        row_bytes = float((d + 2) * torch.finfo(cdt).bits // 8)
-        ib_flat, ib_dedup = dispatch_node_ledger(
-            expert_idx, valid, comm.index(dev), e_local=E_local, topo=topo,
-            row_bytes=row_bytes)
-        if comm.mode != "hier":
-            ib_dedup = ib_flat          # the flat path ships every copy
-    else:
-        ib_flat = ib_dedup = zM
+    # redirected copies count too: their host shares the owner's node
+    ib_flat, ib_dedup = _node_ledger(
+        comm, expert_idx, valid if replica_valid is None
+        else valid | replica_valid, E_local, (d + 2) * itemsize)
 
     migrate = mode == "migrate" and luffy.enable_migration and M > 1
     reuse_mode = luffy.plan_reuse
@@ -399,7 +440,9 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
         else:
             mplan = objectives.plan_migration_with_objective(
                 counts_h, lens_h, n_seq, objective=luffy.plan_objective,
-                topo=topo, q=luffy.q, d_model=d, speed=luffy.gpu_speed)
+                ctx=objective_context(topo, est, chunks, luffy,
+                                      d * itemsize),
+                q=luffy.q, d_model=d, speed=luffy.gpu_speed)
         built, reused = float(not match), float(match)
         perm = mplan.perm
         if reuse_on or sig_in is not None:
@@ -413,7 +456,9 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
         t_after = torch.full((M,), float(mplan.traffic_after),
                              dtype=torch.float32, device=dev)
     else:
-        perm = dest_global = None
+        perm = None
+        dest_global = (torch.arange(M * n_seq, device=dev)
+                       .reshape(M, n_seq))
         t_before = t_after = zM
     if sig_out is None and (reuse_on or reuse_from is not None):
         sig_out = invalid_signature(M * n_seq, M)
@@ -427,7 +472,133 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
         traffic_after=t_after, inter_bytes_flat=ib_flat,
         inter_bytes_dedup=ib_dedup, signature=sig_out, plans_built=built,
         plans_reused=reused, reuse_mismatch=mismatch, pipelined=pipelined,
-        chunks=chunks, estimate=est)
+        chunks=chunks, estimate=est, objective=luffy.plan_objective,
+        replica_src=replica_src, replica_valid=replica_valid)
+
+
+def objective_context(topo, est: Optional[PlanEstimate], chunks: ChunkPlan,
+                      luffy: LuffyConfig, row_bytes: float
+                      ) -> objectives.ObjectiveContext:
+    """What the planner objective prices against: the exchange estimate's
+    FFN stage and dispatch phases, the chunk count and the combine row's
+    bytes (the reference's, host floats)."""
+    o_ms = resolve_chunk_overhead_ms(luffy.chunk_overhead_ms)
+    if est is None:
+        return objectives.ObjectiveContext(topo=topo, chunk_overhead_ms=o_ms)
+    return objectives.ObjectiveContext(
+        topo=topo, ffn_ms=est.ffn_ms,
+        dispatch_intra_ms=est.intra_dispatch_bytes / topo.intra_bw * 1e3,
+        dispatch_inter_ms=est.inter_dispatch_bytes / topo.inter_bw * 1e3,
+        chunks=chunks.n_chunks, row_bytes=float(row_bytes),
+        chunk_overhead_ms=o_ms)
+
+
+def _token_keep(seq_len, S: int, k: int):
+    """[M, T, k]: the copies of each rank's tokens inside their sequence's
+    length (seq_len [M, n_seq], T = n_seq * S)."""
+    M, n_seq = seq_len.shape
+    valid = (torch.arange(S, device=seq_len.device)[None, None, :]
+             < seq_len[..., None]).reshape(M, n_seq * S)
+    return valid[..., None].expand(M, n_seq * S, k)
+
+
+def _node_ledger(comm: CommContext, expert_idx, valid, e_local: int,
+                 row_bytes: int):
+    """The inter-node dispatch ledger (flat and per-node deduplicated
+    bytes, [M] each) on a hierarchical topology across ranks, else
+    zeros; the flat wire ships every copy."""
+    M = comm.size()
+    topo = comm.topology
+    if topo is None or not topo.hierarchical or M <= 1:
+        z = torch.zeros((M,), dtype=torch.float32, device=valid.device)
+        return z, z
+    ib_flat, ib_dedup = dispatch_node_ledger(
+        expert_idx, valid, comm.index(valid.device), e_local=e_local,
+        topo=topo, row_bytes=float(row_bytes))
+    return ib_flat, ib_flat if comm.mode != "hier" else ib_dedup
+
+
+def _host_of(replica_src, E: int):
+    """[E] int32: the rank whose lane serves each expert, -1 for none."""
+    M = replica_src.shape[0]
+    ranks = torch.arange(M, dtype=torch.int32, device=replica_src.device)
+    live = replica_src >= 0
+    return torch.full((E,), -1, dtype=torch.int32,
+                      device=replica_src.device).scatter_reduce(
+        0, torch.where(live, replica_src, 0).long(),
+        torch.where(live, ranks, -1), reduce="amax")
+
+
+def instantiate_plan(template: ExchangePlan, gate: GateOutput, xn,
+                     cfg: ModelConfig, *, capacity: int,
+                     sideband: Dict[str, torch.Tensor],
+                     comm: Optional[CommContext] = None) -> ExchangePlan:
+    """Bind fresh routing onto a cached static template (the serving
+    path's zero-planning exchange): every static decision (schedule,
+    estimate, wire) is the template's, and the routing fields are what
+    :func:`build_exchange_plan` computes in vanilla or decode mode, in the
+    same arithmetic, so the executed forward is the built plan's bit for
+    bit. No planning runs and ``BUILD_CALLS`` does not move. Templates
+    are vanilla or decode, never condensed or migrating. gate, xn,
+    sideband: as :func:`build_exchange_plan`'s, over ``comm``'s ranks
+    (None: one device)."""
+    from repro_torch.models.blocks import _dtype
+    comm = CommContext.local() if comm is None else comm
+    if template.mode not in ("vanilla", "decode") or template.migrate \
+            or template.condense:
+        raise ValueError(f"a template is vanilla or decode, got mode "
+                         f"{template.mode!r} migrate={template.migrate} "
+                         f"condense={template.condense}")
+    if template.capacity != capacity or template.chunks.capacity != capacity:
+        raise ValueError(f"template of capacity {template.capacity} for an "
+                         f"exchange of capacity {capacity}")
+    m = cfg.moe
+    M, T, d = xn.shape
+    n_seq = sideband["seq_len"].shape[1]
+    S = T // n_seq
+    E, k, C = m.num_experts, m.top_k, capacity
+    E_local = E // M
+    dev = xn.device
+    cdt = _dtype(cfg.compute_dtype)
+    expert_idx, gate_w = gate.expert_idx, gate.gate_weights
+    keep = _token_keep(sideband["seq_len"], S, k)
+    pos = dispatch_positions(expert_idx, keep, E)
+    valid = keep & (pos < C)
+    kept = keep.float().sum(dim=(1, 2))
+    d_drop = 1.0 - valid.float().sum(dim=(1, 2)) / torch.clamp(kept, min=1.0)
+    zM = torch.zeros((M,), dtype=torch.float32, device=dev)
+    ib_flat, ib_dedup = _node_ledger(
+        comm, expert_idx, valid, E_local,
+        (d + 2) * (torch.finfo(cdt).bits // 8))
+    return ExchangePlan(
+        condense=False, capacity=C, group_size=template.group_size,
+        expert_idx=expert_idx, gate_weights=gate_w, positions=pos,
+        valid=valid, aux_loss=gate.aux_loss, dispatch_drop=d_drop,
+        condense_plan=identity_condense_plan(
+            M * T, template.condense_plan.backend, device=dev, ranks=M),
+        comm=comm, mode=template.mode, migrate=False, wire=template.wire,
+        wire_dtype=template.wire_dtype, combine_slack=template.combine_slack,
+        perm=None,
+        dest_global=torch.arange(M * n_seq, device=dev).reshape(M, n_seq),
+        traffic_before=zM, traffic_after=zM, inter_bytes_flat=ib_flat,
+        inter_bytes_dedup=ib_dedup, signature=None, plans_built=0.0,
+        plans_reused=1.0, reuse_mismatch=0.0, pipelined=template.pipelined,
+        chunks=template.chunks, estimate=template.estimate,
+        objective=template.objective)
+
+
+def instantiate_decode_plan(template: ExchangePlan, gate: GateOutput, xn,
+                            cfg: ModelConfig, *, capacity: int,
+                            sideband: Dict[str, torch.Tensor],
+                            comm: Optional[CommContext] = None
+                            ) -> ExchangePlan:
+    """:func:`instantiate_plan` on a decode template (one template serves
+    every decode step of a batch shape); a prefill template bound to a
+    decode step is an error."""
+    if template.mode != "decode":
+        raise ValueError(f"not a decode template: mode {template.mode!r}")
+    return instantiate_plan(template, gate, xn, cfg, capacity=capacity,
+                            sideband=sideband, comm=comm)
 
 
 def _exchange_sideband(sb: Dict[str, torch.Tensor], dest_global
@@ -508,13 +679,24 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
             ef_next = torch.zeros((M, n_seq, S, d), dtype=torch.float32,
                                   device=dev)
 
+    # replica lanes: lane E_local of rank r runs expert replica_src[r] (or
+    # nothing), read from the one stack through K1's group map
+    has_lane = plan.replica_src is not None
+    n_lanes = E_local + int(has_lane)
+    w_idx = None
+    if has_lane:
+        own = (ranks[:, None] * E_local
+               + torch.arange(E_local, device=dev)[None, :])
+        w_idx = torch.cat([own.to(torch.int32), plan.replica_src[:, None]],
+                          dim=1).reshape(-1).contiguous()
+
     def ffn(x_rows):
-        """x_rows [M, E_local, M, c, d] -> expert outputs, one launch (c:
+        """x_rows [M, n_lanes, M, c, d] -> expert outputs, one launch (c:
         the capacity, or a chunk of it)."""
-        c = x_rows.shape[3]
+        g, c = x_rows.shape[1], x_rows.shape[3]
         h = _rms(x_rows, scale).to(cdt)
-        return expert_ffn(params["experts"], h.reshape(E, M * c, d),
-                          cfg.act).reshape(M, E_local, M, c, d)
+        return expert_ffn(params["experts"], h.reshape(M * g, M * c, d),
+                          cfg.act, w_idx).reshape(M, g, M, c, d)
 
     def ship(fn, buf):
         # one device ships nothing: its rows keep the compute dtype
@@ -574,7 +756,19 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
     if migrate:          # the primary copy carries the token's residual
         side = torch.cat([side, (torch.arange(k, device=dev) == 0).to(cdt)
                           .expand(M, T, k)[..., None]], dim=-1)
-    slot = (ranks[:, None, None] * E + expert_idx) * C + pos  # [M, T, k]
+    # a copy's row: rank r's lane j is row r * n_lanes + j; a redirected
+    # copy takes its host's replica lane (row host * n_lanes + E_local) at
+    # slot pos - C
+    row = (expert_idx // E_local) * n_lanes + expert_idx % E_local
+    p_slot, v_slot = pos, valid
+    if has_lane:
+        rv = plan.replica_valid
+        row = torch.where(rv, _host_of(plan.replica_src, E)[expert_idx]
+                          .long() * n_lanes + E_local, row)
+        p_slot = torch.where(rv, pos - C, pos)
+        v_slot = valid | rv
+    R_rows = M * n_lanes
+    slot = (ranks[:, None, None] * R_rows + row) * C + p_slot  # [M, T, k]
     w = side.shape[-1]
     rows = [x_pay.to(cdt)[:, :, None, :].expand(M, T, k, d).reshape(-1, d),
             side.reshape(-1, w)]
@@ -584,12 +778,13 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
         rows.append(torch.stack([dest_of_tok + 1,
                                  (tok % S)[None, :, None].expand(M, T, k)],
                                 -1).reshape(-1, 2))
-    bufs = [b.reshape(M, E, C, b.shape[-1]) for b in _scatter_rows(
-        M * E * C, slot.reshape(-1), valid.reshape(-1), *rows)]
+    bufs = [b.reshape(M, R_rows, C, b.shape[-1]) for b in _scatter_rows(
+        M * R_rows * C, slot.reshape(-1), v_slot.reshape(-1), *rows)]
 
     def arrive(t):
-        """[M, E, c, .] after the all-to-all -> [M, E_local, M, c, .]."""
-        return t.reshape(M, M, E_local, *t.shape[2:]).transpose(1, 2)
+        """[M, M * n_lanes, c, .] after the all-to-all -> [M, n_lanes, M,
+        c, .]."""
+        return t.reshape(M, M, n_lanes, *t.shape[2:]).transpose(1, 2)
 
     def dispatch(bs):
         """(rows, side[, meta]) through the all-to-all; the rows at the
@@ -610,7 +805,7 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
 
     def combine_back(out):
         return ship(comm.combine, out.transpose(1, 2).reshape(
-            M, E, out.shape[3], d))
+            M, R_rows, out.shape[3], d))
 
     if not plan.pipelined:
         res = compute(dispatch(bufs))
@@ -648,7 +843,7 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
         # copies read slot 0 times 0, adding exact zeros: the gradient
         # repeats bit for bit.
         e_safe = torch.where(valid, slot, torch.zeros_like(slot))
-        vals = back.reshape(M * E * C, d).index_select(
+        vals = back.reshape(M * R_rows * C, d).index_select(
             0, e_safe.reshape(-1)).reshape(M, T, k, d)
         vals = vals * valid[..., None].to(cdt)
         y_tok = xf + vals.sum(dim=2).to(xf.dtype)
@@ -658,7 +853,7 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
     else:
         out, prim, rmeta = res
         # regroup rows by destination rank, residual rows first
-        R = E_local * M * C
+        R = n_lanes * M * C
         o_f = out.reshape(M, R, d)
         dslot = rmeta[..., 0].reshape(M, R) - 1
         rpos = rmeta[..., 1].reshape(M, R)
@@ -671,7 +866,7 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
         o_f = torch.gather(o_f, 1, order[..., None].expand(M, R, d))
         dslot, rpos, ddev, rvalid = (torch.gather(a, 1, order) for a in
                                      (dslot, rpos, ddev, rvalid))
-        C_comb = max(8, int(math.ceil(plan.combine_slack * E_local * C
+        C_comb = max(8, int(math.ceil(plan.combine_slack * n_lanes * C
                                       / 8)) * 8)
         oh = F.one_hot(ddev, M + 1)[..., :M]
         rank = torch.gather(torch.cumsum(oh, dim=1) - oh, 2,

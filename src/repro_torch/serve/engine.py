@@ -121,24 +121,35 @@ def prefill_capacity(cfg: ModelConfig, batch: int, seq_len: int,
                             cfg.moe.num_experts)
 
 
-def _ffn_sublayer(p, cfg, luffy, x, layer, mode, capacity, sideband):
+def _ffn_sublayer(p, cfg, luffy, x, layer, mode, capacity, sideband,
+                  plan_template=None):
     if cfg.ffn_kind(layer) == "moe":
         # one rank: the layer's rank-major form, its aux unread
         return moe.moe_core_planned(
             p["moe"], x[None], {k: v[None] for k, v in sideband.items()},
-            cfg, luffy, mode=mode, capacity=capacity)[0][0]
+            cfg, luffy, mode=mode, capacity=capacity,
+            plan_template=plan_template)[0][0]
     xn = bk.norm_apply(p["ffn_norm"], x, cfg.norm)
     return x + bk.ffn_apply(p["ffn"], cfg, xn)
 
 
-def decode_step(params, cfg: ModelConfig, luffy: LuffyConfig, cache, tokens):
+def decode_step(params, cfg: ModelConfig, luffy: LuffyConfig, cache, tokens,
+                plan_cache=None):
     """One decode step for the whole batch. tokens: [B,1] integer.
-    Returns (logits [B,V] f32, cache)."""
+    Returns (logits [B,V] f32, cache). ``plan_cache``: a
+    :class:`repro_torch.plan.cache.PlanCache`; when it holds the decode
+    template of this batch shape (``--precompute-plans``), every MoE
+    sublayer binds its routing onto it: no plan is built, and the logits
+    are the uncached step's bit for bit."""
     pos, offset = cache["pos"], cache["offset"]
     x = embed_tokens(params, cfg, tokens)
     B = x.shape[0]
     sb = {"seq_len": torch.ones((B,), dtype=torch.int32, device=x.device)}
     cap = decode_capacity(cfg, B) if cfg.uses_moe else 0
+    tmpl = None
+    if plan_cache is not None and cfg.uses_moe:
+        from repro_torch.plan.cache import decode_plan_key
+        tmpl = plan_cache.get(decode_plan_key(cfg, luffy, B, cap))
     for i, p in enumerate(params["layers"]):
         g = cache["layers"][i]
         xn = bk.norm_apply(p["attn_norm"], x, cfg.norm)
@@ -152,14 +163,14 @@ def decode_step(params, cfg: ModelConfig, luffy: LuffyConfig, cache, tokens):
             x = x + 0.5 * (att + sso)
         else:
             x = x + att
-        x = _ffn_sublayer(p, cfg, luffy, x, i, "decode", cap, sb)
+        x = _ffn_sublayer(p, cfg, luffy, x, i, "decode", cap, sb, tmpl)
     logits = logits_fn(params, cfg, x)[:, 0]
     cache["pos"] = pos + 1
     return logits.float(), cache
 
 
 def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
-            s_max: int, dist: Optional[DistContext] = None):
+            s_max: int, dist: Optional[DistContext] = None, plan_cache=None):
     """Full forward over the prompt [B,S]; dist: the expert-parallel
     ranks (None or one rank: one device), whose MoE sublayers run the
     vanilla exchange in ``dist``'s layout (sequence-sharded for the
@@ -168,7 +179,11 @@ def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
     off: serving prompts are neither condensed nor re-homed. As in the
     reference, a Mamba branch's final state is not returned: the
     launcher builds the decode cache by feeding the prompt step by
-    step."""
+    step. ``plan_cache``: a :class:`repro_torch.plan.cache.PlanCache`;
+    when it holds this (batch, prompt) shape's template
+    (``--precompute-plans``), every MoE sublayer binds its routing onto
+    it: no plan is built, and the logits are the uncached prefill's bit
+    for bit."""
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
@@ -178,6 +193,10 @@ def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
                              enable_migration=False)
     cap = prefill_capacity(cfg, B, S, dist) if cfg.uses_moe else 0
     ranks = dist is not None and dist.enabled
+    tmpl = None
+    if plan_cache is not None and cfg.uses_moe:
+        from repro_torch.plan.cache import prefill_plan_key
+        tmpl = plan_cache.get(prefill_plan_key(cfg, nl, dist, B, S, cap))
     kvs = []
     for i, p in enumerate(params["layers"]):
         if cfg.ssm is not None:       # hymba: K5 and K6
@@ -190,9 +209,10 @@ def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
                                     causal=True)
             x = x + att
         if ranks and cfg.ffn_kind(i) == "moe":
-            x = moe_apply_vanilla(p["moe"], x, sb, cfg, nl, dist, cap)[0]
+            x = moe_apply_vanilla(p["moe"], x, sb, cfg, nl, dist, cap,
+                                  plan_template=tmpl)[0]
         else:
-            x = _ffn_sublayer(p, cfg, nl, x, i, "vanilla", cap, sb)
+            x = _ffn_sublayer(p, cfg, nl, x, i, "vanilla", cap, sb, tmpl)
         kvs.append(kv)
     logits = logits_fn(params, cfg, x[:, -1:])[:, 0]
     return logits.float(), kvs

@@ -975,3 +975,50 @@ def test_pipeline_side_stream_equals_sync(hier_dedup):
                            torch.as_tensor(mp[key])), key
     for n, g in gs.items():
         assert ((gp[n] - g).norm() / max(g.norm(), 1e-12)).item() <= 1e-5, n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 24, 256, 512), (8, 160, 192, 320),
+                                   (8, 256, 96, 200)])
+@pytest.mark.parametrize("h_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lanes", [(-1, -1, -1, -1), (-1, 0, -1, 5)])
+def test_expert_ffn_group_map_matches_plain(shape, h_dtype, lanes):
+    """K1 with a group map (4 ranks of 2 experts, each with a replica
+    lane: all idle, or one live lane a node) against its plain version,
+    the mapped stack: forward and backward (f32 1e-4, bf16 5e-2, both
+    routes; (96, 200) takes the FMA kernels at bf16 too), idle groups
+    exactly zero, no bf16 copy beyond the stack's own."""
+    _cuda_or_skip()
+    E, R, d, F = shape
+    M, e_local = 4, E // 4
+    w_idx = torch.tensor([g for m in range(M) for g in
+                          [m * e_local + j for j in range(e_local)]
+                          + [lanes[m]]], dtype=torch.int32, device="cuda")
+    G = w_idx.numel()
+    r = np.random.default_rng(5)
+    th = torch.as_tensor(r.standard_normal((G, R, d)).astype(np.float32)) \
+        .to(getattr(torch, h_dtype)).cuda()
+    tw = [torch.as_tensor((r.standard_normal(s) * 0.05).astype(np.float32))
+          .cuda() for s in ((E, d, F), (E, d, F), (E, F, d))]
+    dy = torch.randn(th.shape, device="cuda").to(th.dtype)
+    tol = TOL[h_dtype]
+    kexp.expert_ffn(th[:E].contiguous(), *tw, "gelu")       # the copies
+    kexp.expert_ffn_bwd(th[:E].contiguous(), *tw, dy[:E].contiguous(),
+                        "gelu")
+    casts = (kexp.weight_bf16.casts, kexp.weight_bf16.lo_casts)
+    lanes_before = kexp.lanes.launches
+    got = ops.expert_ffn(th, *tw, "gelu", w_idx)
+    grads = kexp.expert_ffn_bwd(th, *tw, dy, "gelu", w_idx)
+    torch.cuda.synchronize()
+    assert kexp.lanes.launches == lanes_before + 1
+    assert (kexp.weight_bf16.casts, kexp.weight_bf16.lo_casts) == casts
+    torch.testing.assert_close(
+        got.float(), ref.expert_ffn_ref(th, *tw, "gelu", w_idx).float(),
+        atol=tol, rtol=tol)
+    idle = w_idx < 0
+    assert torch.all(got[idle] == 0) and torch.all(grads[0][idle] == 0)
+    leaves = [t.detach().clone().requires_grad_() for t in (th, *tw)]
+    out = ref.expert_ffn_ref(*leaves, "gelu", w_idx)
+    want = torch.autograd.grad(out, leaves, dy)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)

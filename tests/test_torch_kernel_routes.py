@@ -223,3 +223,58 @@ def test_uncondense_group_local_matches_reference_bitwise(n_groups, G, d,
     ty2 = torch.as_tensor(y).requires_grad_()
     tplan.uncondense(ty2, torch.as_tensor(idx)).backward(torch.as_tensor(dy))
     assert torch.equal(ty2.grad, ty.grad)
+
+
+# ---------------------------------------------------------------------------
+# K1's group map (replica lanes): the plain version against the
+# reference's concatenated stack
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("h_dtype", [F32, BF16])
+def test_k1_group_map_plain_version_is_the_concatenated_stack(h_dtype):
+    """``ref.expert_ffn_ref(..., w_idx)`` over 4 ranks of 2 experts, each
+    with a lane (idle, or an intra-node peer's expert), equals the plain
+    version on the reference's concatenation ``[w_rank; w[src] * live]``
+    rank by rank, forward and autograd (the same f32 products, so bit for
+    bit); an idle lane's rows are zero and add nothing to any gradient."""
+    from repro_torch.kernels import ref
+    r = np.random.default_rng(24)
+    E, M, R, d, F = 8, 4, 24, 32, 48
+    e_local = E // M
+    src = [-1, 0, 5, -1]                    # each rank's lane
+    w_idx = torch.tensor([g for m in range(M) for g in
+                          [m * e_local + j for j in range(e_local)]
+                          + [src[m]]], dtype=torch.int32)
+    G = w_idx.numel()
+    h = torch.as_tensor(r.standard_normal((G, R, d)), dtype=F32).to(h_dtype)
+    ws = [torch.as_tensor(r.standard_normal(s) * 0.1, dtype=F32)
+          for s in ((E, d, F), (E, d, F), (E, F, d))]
+    dy = torch.as_tensor(r.standard_normal((G, R, d)), dtype=F32).to(h_dtype)
+
+    def run(stacked):
+        leaves = [w.clone().requires_grad_() for w in ws]
+        hh = h.clone().requires_grad_()
+        if stacked:
+            def stack(w):
+                parts = []
+                for m in range(M):
+                    live = float(src[m] >= 0)
+                    parts += [w[m * e_local:(m + 1) * e_local],
+                              w[max(src[m], 0)][None] * live]
+                return torch.cat(parts)
+            out = ref.expert_ffn_ref(hh, *(stack(w) for w in leaves),
+                                     "gelu")
+        else:
+            out = ref.expert_ffn_ref(hh, *leaves, "gelu", w_idx)
+        out.backward(dy)
+        return out, hh.grad, [w.grad for w in leaves]
+
+    got, gh, gw = run(False)
+    want, wh, ww = run(True)
+    assert torch.equal(got, want) and torch.equal(gh, wh)
+    for a, b in zip(gw, ww):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    idle = (w_idx < 0).nonzero().reshape(-1)
+    assert torch.all(got[idle] == 0) and torch.all(gh[idle] == 0)
+    # and the plain version repeats bit for bit
+    assert torch.equal(run(False)[2][0], gw[0])

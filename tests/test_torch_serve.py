@@ -234,9 +234,10 @@ def test_moe_core_matches_reference(mode, cdt):
 
 
 def test_moe_core_later_slices_raise():
-    """What the port does not run raises, each naming the queue item that
-    brings it: the planner objectives other than "traffic". The
-    pipelined executor runs since slice 13 (``tests/test_torch_sched.py``
+    """What the port does not run raises: an unknown planner objective.
+    The "overlap" and "replicate" objectives run since slice 14: on one
+    device migration is the identity and no replica lane exists, so each
+    is the plain sublayer. The pipelined executor runs since slice 13 (``tests/test_torch_sched.py``
     holds it). Wire error feedback runs since slice 12: on one rank
     nothing crosses a wire, so the residual it returns is zero. Plan
     reuse, condense-plan reuse
@@ -257,12 +258,15 @@ def test_moe_core_later_slices_raise():
     with pytest.raises(ValueError, match="whole expert stack"):
         tmoe.moe_core(shard, x, sb, tcfg, LuffyConfig(), mode="migrate",
                       capacity=8, threshold=thr)
-    for luffy, item in (
-            (LuffyConfig(plan_objective="overlap"), "Queue 1 item 7"),
-            (LuffyConfig(plan_objective="replicate"), "Queue 1 item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            tmoe.moe_core(p, x, sb, tcfg, luffy, mode="vanilla", capacity=8,
-                          threshold=thr)
+    with pytest.raises(ValueError, match="unknown plan_objective"):
+        tmoe.moe_core(p, x, sb, tcfg, LuffyConfig(plan_objective="nope"),
+                      mode="vanilla", capacity=8, threshold=thr)
+    y_traffic = tmoe.moe_core(p, x, sb, tcfg, LuffyConfig(), mode="migrate",
+                              capacity=8, threshold=thr)[0]
+    for obj in ("overlap", "replicate"):
+        y = tmoe.moe_core(p, x, sb, tcfg, LuffyConfig(plan_objective=obj),
+                          mode="migrate", capacity=8, threshold=thr)[0]
+        assert torch.equal(y, y_traffic)
     ef_in = torch.randn((1, 1, G, tcfg.d_model), generator=g) * 1e-3
     _, _, _, _, _, _, ef = tmoe.moe_core_planned(
         p, x[None], {k: v[None] for k, v in sb.items()}, tcfg,

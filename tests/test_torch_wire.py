@@ -120,13 +120,14 @@ def test_home_plan_and_cost_model():
     # the "traffic" objective is the traced planner over the link cost
     _, lens = _plan_inputs(3, 4, 2, False)
     got = objectives.plan_migration_with_objective(
-        counts, lens, 2, topo=Topology(2, 2), d_model=256)
+        counts, lens, 2, ctx=objectives.ObjectiveContext(topo=Topology(2, 2)),
+        d_model=256)
     want = tmig.plan_migration_jax(counts, lens, 2, d_model=256,
                                    link_cost=lc)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="unknown plan_objective"):
-        objectives.get_objective("overlap")
+        objectives.get_objective("nope")
 
 
 # ---------------------------------------------------------------------------
