@@ -2,8 +2,12 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only 41 42 43 44
 
-Phases, each of which must pass or the script exits non-zero:
+Phases, each of which must pass or the script exits non-zero (``--only
+PHASE...`` runs phases 1 and 2, then the phases named, each after the
+phases whose results it reads, and prints ``DONE`` instead of the
+kernels line):
 
 1. device: the card's name, count, and name / power limit and maximum
    SM clock (for the special-function unit's rate) from nvidia-smi;
@@ -100,11 +104,11 @@ Phases, each of which must pass or the script exits non-zero:
     update), with K5's TFLOP/s on live pairs and its share of the bound,
     and K6's resident blocks per SM from the occupancy calculator;
 16. hymba serve: full-width hymba-1.5b (32 layers, random weights from a
-    seed) served through ``repro_torch.launch.serve --arch hymba-1.5b
-    --prefill batch`` (B=4, prompt 2048, 32 greedy tokens): K5 and K6
-    launched exactly 32 times per batched prefill, every K6 launch through
-    its fused entry, and never in the step feed or decode; the step-fed
-    and the batched last-token logits agree;
+    seed), the serving engine's batched prefill at B=4, prompt 2048, twice:
+    K5 and K6 launched exactly 32 times per prefill, every K6 launch
+    through its fused entry; then a 6-layer full-width cut fed a prompt of
+    1100 tokens step by step (past the 1024 window) and 32 greedy tokens,
+    launching neither; its step-fed and batched last-token logits agree;
 17. hymba paths and parity: a 4-layer full-width cut at f32 compute, the
     batched prefill (K5 + K6) against the step feed (attn_decode +
     mamba_step) past the window; reduced hymba at f32 with GQA kept,
@@ -222,12 +226,56 @@ Phases, each of which must pass or the script exits non-zero:
     stream and how much of K1's time the side stream was busy; fails
     unless the pipelined step's collectives ran on a second stream.
 
+36. K1's group map: K1 and its backward with the replica lanes' map at
+    [20, 2048, 768] x 3072 over the 16-expert stack against their plain
+    versions (idle groups exactly zero), timed beside a launch without a
+    map and the concatenated stack;
+37. replicate EP train: phase 31's dense-wire run under
+    ``--plan-objective replicate`` with every router biased toward expert
+    0, 2 steps: live lanes, exact launches, one bf16 copy and second term
+    per expert weight a step, a bit-equal repeat, pipelined step 0 bit
+    for bit sync's; against "traffic" without condensation a lower drop
+    and the same launches; a profiled step of each;
+38. replicate parity: one f32 step of a 2-layer cut, card against CPU;
+39. overlap EP train: ``--plan-objective overlap --exec-mode pipeline`` at
+    the estimate's chunk count, exact launches, a bit-equal repeat;
+40. cached serve: ``--plan-cache --precompute-plans`` on one device and
+    over 4 ranks, no plan built, bit for bit the uncached run, timed in 6
+    alternating rounds;
+41. continuous serve: full-width moe-gpt2 through ``repro_torch.launch.
+    serve --continuous`` (8 slots, prompt 64, 32 tokens, 24 requests in
+    bursts of 3 every 4 steps) with ``--metrics-json`` and ``--trace-out``:
+    every request finishes, at least 16 admissions into a recycled slot,
+    K1 exactly 12 launches a model call and no other kernel, 36 bf16
+    weight casts, a ``serve/*`` record and a ``decode`` span a model call
+    in a valid Chrome trace, requests 0-7 bit for bit the fixed batch of
+    the same 8 prompts; untraced, uncached and with a warm plan cache (no
+    plan built, tokens bit for bit): tokens/s, the SLO means (queue,
+    TTFT, TPOT), ms a model call, the untraced run's device syncs a
+    model call beside one decode step's; one profiled window of the loop
+    (device-busy share);
+42. recycled slot: a slot recycled by ``admit_slot`` decodes bit for bit
+    as a fresh cache's, full-width moe-gpt2 with global attention and with
+    a window of 48 that the warm-up wraps, and a 4-layer full-width hymba
+    cut (its Mamba rows zeroed);
+43. traced EP train: phase 11's run with ``--trace-out --metrics-json
+    --log-file``: losses, rates, buckets and perms bit for bit phase 11's
+    untraced run; every exchange phase span once per MoE sublayer forward
+    (none from the recompute); ``exchange`` covering ``dispatch``,
+    ``expert_ffn`` and ``combine``; ``residual/step/*`` records from step
+    4 on; the untraced step's device syncs (phase 14) logged;
+44. checkpoint: one train step of a 2-layer full-width cut with
+    ``--ckpt``, restored onto the card bit for bit.
+
 Phase 23 runs right after phase 10, and phases 30-32, 34 and 35 after
 phase 14, where the profiler still records every launch; phase 33 runs
-after phase 19. Then one JSON line with every kernel's record (the paper
+after phase 19, phases 36-44 after phase 35. Then one JSON line with every kernel's record (the paper
 width's as ``<kernel>@d1024``, K1 at the pipeline's chunk as
-``expert_ffn@chunk``), and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
-without a CUDA device or outside a checkout of the repository.
+``expert_ffn@chunk``, with the lane map as ``expert_ffn@lanes`` and
+``expert_ffn_bwd@lanes``; K1's launches on every serve and train path of
+the run, the continuous one included), and last ``{"ok": true,
+"device": {...}}``. Exits non-zero, printing no result, without a CUDA
+device or outside a checkout of the repository.
 """
 from __future__ import annotations
 
@@ -298,9 +346,12 @@ K4_M, K4_N, K4_T, K4_KEEP = 4, 2, 2048, 0.35
 
 # hymba-1.5b's batched prefill: K5 at [4,2048,25,64] on 5 KV heads with a
 # 1024 window, K6 at [4,2048,3200] x 16
-HYMBA_ARGS = ["--arch", "hymba-1.5b", "--batch", "4", "--prompt-len", "2048",
-              "--gen", "32", "--prefill", "batch", "--device", "cuda",
-              "--seed", "0"]
+# hymba-1.5b's batched prefill at full depth: K5 at [4,2048,25,64] on 5
+# KV heads with a 1024 window, K6 at [4,2048,3200] x 16; the step feed
+# (a 2048-step feed at 32 layers took 184-297 s) at a full-width cut of
+# 6 layers, on a prompt past the window, then 32 greedy tokens
+HYMBA_PREFILL = dict(B=4, S=2048)
+HYMBA_FEED = dict(S=1100, gen=32, layers=6)
 K5_SHAPE = (4, 2048, 25, 5, 64)           # B, S, H, KV, hd
 K5_WINDOW = 1024
 K6_SHAPE = (4, 2048, 3200, 16)            # B, S, di, N
@@ -326,11 +377,11 @@ K5_CASES = (
     ("ragged_f32", (2, 100, 25, 5, 64), "float32", True, 30, 1.0),
     ("noncausal_f32", (2, 100, 4, 2, 64), "float32", False, None, 1.0))
 K6_TOL = 2e-5
-# the launcher's bf16 run: the batched prefill (K5's softmax weights
+# phase 16's bf16 cut: the batched prefill (K5's softmax weights
 # rounded to bf16 before normalising, the conv as a sum of bf16
 # products) and the step feed (normalised bf16 softmax weights in
-# attn_decode, the conv as an einsum) round bf16 at other
-# points through 32 layers; 8 bf16 ulps of logits in [4, 8). The
+# attn_decode, the conv as an einsum) round bf16 at other points
+# (through all 32 layers: 8 bf16 ulps of logits in [4, 8)). The
 # algorithm is held at f32 by HYMBA_PATHS_TOL.
 HYMBA_FEED_TOL = 0.25
 # f32 compute: the same sums in another order (CPU, reduced: 2e-6)
@@ -1913,6 +1964,7 @@ def phase_ep_train():
                 / 2 ** 30, launches=launches, launches_expected=want,
                 plans=len(perms))
     log("EP train: " + json.dumps(info))
+    info["_perms"] = perms          # for phase 43, not logged
     losses = info["per_step"]["loss"]
     if not all(math.isfinite(x) for x in losses):
         raise SystemExit(f"EP train losses not finite: {losses}")
@@ -2962,49 +3014,95 @@ def _bf16_ulps(got, want, tol=0.0):
 
 
 def phase_hymba_slice():
-    """Full-width hymba-1.5b served through the launcher with every kernel
-    counter set to 0 just before and read just after."""
+    """Phase 16: full-width hymba-1.5b (random weights from a seed). At
+    full depth, the serving engine's batched prefill of [4, 2048] twice
+    (a warm-up and a timed one) with every kernel counter set to 0 just
+    before and read just after: K5 and K6 exactly 32 launches each a
+    prefill, every K6 launch through its fused entry. Then a full-width
+    cut of ``HYMBA_FEED["layers"]`` layers: its batched prefill against
+    the step feed of the same prompt, longer than the 1024 window (the
+    ring wraps), and 32 greedy tokens, neither of which launches K5 or
+    K6; the last prompt token's logits of the two agree."""
+    import numpy as np
     import torch
+    from repro_torch.config import LuffyConfig
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
     cfg = get_config("hymba-1.5b")
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    P, F = HYMBA_PREFILL, HYMBA_FEED
     counters = _kernel_counters()
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (P["B"], P["S"])), dtype=torch.int32,
+        device="cuda")
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
-    res = serve.main(HYMBA_ARGS)
+    model.prefill(toks, P["S"], luffy=luffy)                 # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = model.prefill(toks, P["S"], luffy=luffy)[0]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     want = {k: 0 for k in counters}
-    # every K6 launch of the path goes through the fused entry
     want["flash_attention"] = want["mamba_scan"] = \
-        want["mamba_scan_fused"] = cfg.num_layers * serve.N_BATCHED_PREFILLS
-    B, S, G = res["batch"], res["prompt_len"], res["gen"]
-    logits = ([res["prefill_logits"]] + res["step_logits"]
-              + res["gen_logits"])
-    finite = all(bool(torch.isfinite(t).all()) for t in logits)
-    shapes_ok = all(tuple(t.shape) == (B, cfg.vocab_size) for t in logits)
-    feed_vs_batch = (res["step_logits"][-1].float()
-                     - res["prefill_logits"]).abs().max().item()
-    info = dict(arch=res["arch"], batch=B, prompt_len=S, gen=G,
-                prefill_s=res["prefill_s"],
-                prefill_tok_s=res["prefill_tok_s"],
-                prompt_feed_s=res["prompt_feed_s"],
-                prompt_feed_ms_per_step=res["prompt_feed_s"] / S * 1e3,
-                decode_ms_per_step=res["decode_ms_per_step"],
-                peak_mem_gib=res["peak_mem_bytes"] / 2 ** 30,
+        want["mamba_scan_fused"] = 2 * cfg.num_layers
+    finite = bool(torch.isfinite(logits).all())
+    peak = torch.cuda.max_memory_allocated()
+    del model
+    torch.cuda.empty_cache()
+
+    ccfg = dataclasses.replace(cfg, num_layers=F["layers"])
+    model = build_model(ccfg, device="cuda", seed=0)
+    prompt = toks[:, :F["S"]]
+    lg_batch = model.prefill(prompt, F["S"] + F["gen"], luffy=luffy)[0]
+    for fn in counters.values():
+        fn.launches = 0
+    cache = model.new_cache(P["B"], F["S"] + F["gen"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(F["S"]):
+        lg, cache = model.decode_step(cache, prompt[:, t:t + 1],
+                                      luffy=luffy)
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    feed_vs_batch = (lg.float() - lg_batch).abs().max().item()
+    out = []
+    t0 = time.perf_counter()
+    for _ in range(F["gen"]):
+        nxt = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+        out.append(nxt[:, 0])
+        lg, cache = model.decode_step(cache, nxt, luffy=luffy)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    feed_launches = {k: fn.launches for k, fn in counters.items()}
+    finite = finite and bool(torch.isfinite(lg).all())
+    info = dict(arch=cfg.name, batch=P["B"], prompt_len=P["S"],
+                prefill_s=prefill_s, prefill_tok_s=P["B"] * P["S"]
+                / prefill_s, peak_mem_gib=peak / 2 ** 30,
                 launches=launches, launches_expected=want,
+                feed_layers=F["layers"], feed_prompt_len=F["S"],
+                prompt_feed_s=feed_s,
+                prompt_feed_ms_per_step=feed_s / F["S"] * 1e3,
+                decode_ms_per_step=decode_s / F["gen"] * 1e3,
+                feed_and_decode_launches=feed_launches,
                 feed_vs_batch_max_abs=feed_vs_batch,
-                logits_max_abs=res["prefill_logits"].abs().max().item(),
-                sample_tokens=res["tokens"][0, :10].tolist())
+                logits_max_abs=lg_batch.abs().max().item(),
+                sample_tokens=torch.stack(out, 1)[0, :10].tolist())
     log("hymba slice: " + json.dumps(info))
-    if not finite or not shapes_ok:
-        raise SystemExit(f"hymba logits: finite={finite} shapes={shapes_ok}")
+    if not finite:
+        raise SystemExit("hymba logits are not finite")
     if launches != want:
         raise SystemExit(f"hymba kernel launches {launches} differ from what "
-                         f"the path calls, {want}")
+                         f"the prefill calls, {want}")
+    if any(feed_launches.values()):
+        raise SystemExit(f"the step feed or decode launched {feed_launches}")
     if not feed_vs_batch <= HYMBA_FEED_TOL:
         raise SystemExit(f"hymba step-fed and batched logits differ by "
                          f"{feed_vs_batch} (tol {HYMBA_FEED_TOL})")
-    del res, logits
+    del model, cache
     torch.cuda.empty_cache()
     return info
 
@@ -4890,6 +4988,416 @@ def run_objective_phases(lanes=None):
                 cache=cache)
 
 
+# ---------------------------------------------------------------------------
+# slice 15: continuous batching, slot recycling, the traced EP train and
+# checkpoints (phases 41-44)
+# ---------------------------------------------------------------------------
+
+CONT_ARGS = ["--arch", "moe-gpt2", "--continuous", "--batch", "8",
+             "--prompt-len", "64", "--gen", "32", "--requests", "24",
+             "--burst", "3", "--arrival-every", "4", "--device", "cuda",
+             "--seed", "0"]
+# the fixed batch of the same 8 slots, prompt and budget: its prompts are
+# the stream's first 8 (one numpy draw from the same seed)
+CONT_FIXED_ARGS = ["--arch", "moe-gpt2", "--batch", "8", "--prompt-len",
+                   "64", "--gen", "32", "--device", "cuda", "--seed", "0"]
+CONT_MIN_CHURN = 16
+# the profiled window of the continuous loop: model calls skipped, then
+# one warm-up call and this many recorded
+CONT_PROFILE_SKIP, CONT_PROFILE_STEPS = 40, 32
+# phase 42: slot 0 recycled after WARM tokens, then SEQ tokens; the
+# window of 48 wraps the ring during the warm-up
+RECYCLE = dict(B=2, s_max=80, warm=60, seq=16, window=48, hymba_layers=4)
+TRACE_PHASES = ("plan_build", "condense", "exchange", "dispatch",
+                "expert_ffn", "combine")
+CKPT_ARGS = ["--arch", "moe-gpt2", "--num-layers", "2", "--steps", "1",
+             "--global-batch", "2", "--seq-len", "256", "--device", "cuda",
+             "--seed", "0"]
+
+
+def _out_dir(name: str) -> Path:
+    """A fresh directory for a phase's files under ``build/``."""
+    import shutil
+    d = ROOT / "build" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def _continuous_profile(args):
+    """The continuous serve run of ``args`` with torch.profiler recording
+    ``CONT_PROFILE_STEPS`` model calls after ``CONT_PROFILE_SKIP`` (the
+    loop steps the profiler after each call's observe): device ms a call
+    and the device-busy share of the window's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.launch import serve
+    from repro_torch.serve import scheduler as tsched
+    orig = tsched.ContinuousScheduler.observe
+    marks = []
+    skip, n = CONT_PROFILE_SKIP, CONT_PROFILE_STEPS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=skip, warmup=1, active=n,
+                                   repeat=1)) as prof:
+        def observe(self, logits, *, now):
+            orig(self, logits, now=now)
+            marks.append(time.perf_counter())
+            prof.step()
+
+        tsched.ContinuousScheduler.observe = observe
+        try:
+            serve.main(args)
+        finally:
+            tsched.ContinuousScheduler.observe = orig
+    # the schedule's step annotations appear as device rows too
+    rows = [r for r in _device_rows(prof)
+            if not r[1].startswith("ProfilerStep")]
+    busy = sum(r[0] for r in rows)
+    wall_us = (marks[skip + n] - marks[skip]) * 1e6
+    torch.cuda.empty_cache()
+    return dict(calls=n, wall_ms_per_call=wall_us / n / 1e3,
+                device_ms_per_call=busy / n / 1e3,
+                device_busy_share=busy / wall_us if rows else None,
+                top=[{"op": k[:60], "ms_per_call": d / n / 1e3}
+                     for d, k, _ in rows[:6]])
+
+
+def _decode_step_syncs():
+    """The device syncs of one full-width moe-gpt2 decode step of 8
+    slots (``model.decode_step``), after two warm-up steps."""
+    import torch
+    from repro_torch.config import LuffyConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    model = build_model(get_config("moe-gpt2"), device="cuda", seed=0)
+    cache = model.new_cache(8, 96)
+    toks = torch.ones((8, 1), dtype=torch.int32, device="cuda")
+    for _ in range(2):
+        model.decode_step(cache, toks, luffy=luffy)
+    n = _count_syncs(lambda: model.decode_step(cache, toks, luffy=luffy))
+    del model, cache
+    torch.cuda.empty_cache()
+    return n or 0
+
+
+def phase_continuous_serve(slice_info=None):
+    """Phase 41: full-width moe-gpt2 served continuously through
+    ``repro_torch.launch.serve --continuous`` (``CONT_ARGS``: 8 slots,
+    prompt 64, 32 tokens, 24 requests in bursts of 3 every 4 steps) with
+    ``--metrics-json`` and ``--trace-out``, every kernel counter 0 just
+    before and read just after: all 24 requests finish, slots recycle
+    (``CONT_MIN_CHURN``), K1 launches exactly 12 x the model calls and
+    nothing else launches, 36 bf16 weight casts, one ``serve/*`` record
+    and one ``decode`` span a model call in a valid Chrome trace; the
+    tokens of requests 0-7 bit for bit the fixed batch's
+    (``CONT_FIXED_ARGS``). Then untraced, uncached and with ``--plan-cache
+    --precompute-plans`` (0 plans built, tokens bit for bit): tokens/s,
+    the SLO means and ms a model call of each, and the uncached run's
+    device syncs (``_count_syncs``); then one profiled window of the loop
+    (device-busy share). ``slice_info``: phase 4's, to print
+    beside."""
+    import numpy as np
+    import torch
+    import repro_torch.plan.exchange as tex
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import expert_ffn as kexp
+    from repro_torch.launch import serve
+    from repro_torch.obs import metrics as obs_metrics
+    n_layers = get_config("moe-gpt2").num_layers
+    out = _out_dir("phase41")
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    kexp.weight_bf16.casts = 0
+    res = serve.main(CONT_ARGS + ["--metrics-json", str(out / "m.jsonl"),
+                                  "--trace-out", str(out / "trace.json")])
+    launches = {k: fn.launches for k, fn in counters.items()}
+    casts = kexp.weight_bf16.casts
+    calls = res["model_calls"]
+    want = {k: 0 for k in counters}
+    want["expert_ffn"] = n_layers * calls
+    records = obs_metrics.read_jsonl(out / "m.jsonl")
+    serve_recs = sum("serve/active_slots" in r["metrics"] for r in records)
+    doc = json.loads((out / "trace.json").read_text())
+    events = doc["traceEvents"]
+    valid = all({"name", "ph", "ts", "pid", "tid"} <= set(e)
+                and (e["ph"] != "X" or e["dur"] >= 0.0) for e in events)
+    decode_spans = sum(e["ph"] == "X" and e["name"] == "decode"
+                       for e in events)
+    finite = all(bool(np.isfinite(lg).all()) for lg in res["step_logits"])
+    tokens, churn = res["requests"], res["slot_churn"]
+    del res
+    fixed = serve.main(CONT_FIXED_ARGS)
+    fixed_tokens = fixed["tokens"].tolist()
+    fixed_info = dict(decode_ms_per_step=fixed["decode_ms_per_step"])
+    del fixed
+    torch.cuda.empty_cache()
+    same_as_fixed = [tokens.get(i) == fixed_tokens[i] for i in range(8)]
+
+    cache_dir = out / "plans"
+    held = []
+    syncs = _count_syncs(lambda: held.append(serve.main(CONT_ARGS)))
+    plain = held.pop()
+    n0 = tex.BUILD_CALLS
+    cached = serve.main(CONT_ARGS + ["--plan-cache", str(cache_dir),
+                                     "--precompute-plans"])
+    built = tex.BUILD_CALLS - n0
+    runs = {name: dict(tok_s=r["tok_s"], slo=r["slo"],
+                       ms_per_model_call=r["decode_ms_per_step"],
+                       model_calls=r["model_calls"], steps=r["steps"])
+            for name, r in (("uncached", plain), ("cached", cached))}
+    cached_same = cached["requests"] == tokens == plain["requests"]
+    del plain, cached
+    torch.cuda.empty_cache()
+    # the syncs of one decode step alone, to split the loop's count into
+    # the step's own and the loop's (the logits' copy to the host)
+    step_syncs = _decode_step_syncs()
+    prof = _continuous_profile(CONT_ARGS)
+    # the profiler slows the host: the device time a call over the
+    # untraced run's wall time a call too
+    prof["device_share_of_untraced_call"] = (
+        prof["device_ms_per_call"] / runs["uncached"]["ms_per_model_call"])
+    info = dict(requests=24, finished=len(tokens), model_calls=calls,
+                slot_churn=churn, launches=launches, launches_expected=want,
+                weight_casts=casts, weight_casts_expected=3 * n_layers,
+                serve_records=serve_recs, decode_spans=decode_spans,
+                trace_valid=valid, tokens_0_7_equal_fixed=same_as_fixed,
+                plans_built_cached=built, cached_tokens_equal=cached_same,
+                untraced_syncs=syncs,
+                untraced_syncs_per_model_call=(syncs or 0) / calls,
+                decode_step_syncs=step_syncs,
+                runs=runs, fixed_batch=fixed_info, profile=prof,
+                phase4=None if slice_info is None else {
+                    k: slice_info[k] for k in ("decode_ms_per_step",
+                                               "prefill_tok_s")})
+    log("continuous serve: " + json.dumps(info))
+    bad = []
+    if len(tokens) != 24 or not all(len(t) == 32 for t in tokens.values()):
+        bad.append("not every request finished with 32 tokens")
+    if not finite:
+        bad.append("logits not finite")
+    if launches != want:
+        bad.append(f"launches {launches} != {want}")
+    if casts != 3 * n_layers:
+        bad.append(f"{casts} bf16 weight casts")
+    if serve_recs != calls or decode_spans != calls or not valid:
+        bad.append(f"{serve_recs} serve records / {decode_spans} decode "
+                   f"spans for {calls} model calls, trace valid {valid}")
+    if not all(same_as_fixed):
+        bad.append(f"requests 0-7 differ from the fixed batch: "
+                   f"{same_as_fixed}")
+    if built != 0 or not cached_same:
+        bad.append(f"cached run: {built} plans built, tokens equal "
+                   f"{cached_same}")
+    if churn < CONT_MIN_CHURN:
+        bad.append(f"slot churn {churn} < {CONT_MIN_CHURN}")
+    if bad:
+        raise SystemExit("continuous serve: " + "; ".join(bad))
+    return info
+
+
+def _recycled_vs_fresh(cfg, seed: int = 0):
+    """Slot 0 of ``cfg``'s decode cache, recycled after a warm-up of
+    ``RECYCLE["warm"]`` tokens (``admit_slot``), against a fresh cache,
+    both fed the same sequence while slot 1 keeps decoding: slot 0's
+    logits a step, both runs, and the admitted cache's Mamba rows."""
+    import numpy as np
+    import torch
+    from repro_torch.config import LuffyConfig
+    from repro_torch.models.model import build_model
+    R = RECYCLE
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    model = build_model(cfg, device="cuda", seed=seed)
+    r = np.random.default_rng(seed + 1)
+    warm = torch.as_tensor(r.integers(1, cfg.vocab_size, (R["B"], R["warm"])),
+                           dtype=torch.int32, device="cuda")
+    seq = torch.as_tensor(r.integers(1, cfg.vocab_size, (R["seq"], 2)),
+                          dtype=torch.int32, device="cuda")
+
+    def feed(cache):
+        out = []
+        for t in range(R["seq"]):
+            lg, cache = model.decode_step(cache, seq[t][:, None], luffy=luffy)
+            out.append(lg[0].clone())
+        return torch.stack(out)
+
+    cache = model.new_cache(R["B"], R["s_max"])
+    for t in range(R["warm"]):
+        _, cache = model.decode_step(cache, warm[:, t:t + 1], luffy=luffy)
+    model.admit_slot(cache, 0, cache["pos"])
+    zeroed = all(not g[k][0].any() for g in cache["layers"]
+                 for k in ("ssm_h", "ssm_conv") if k in g)
+    got = feed(cache)
+    want = feed(model.new_cache(R["B"], R["s_max"]))
+    del model, cache
+    torch.cuda.empty_cache()
+    return got, want, zeroed
+
+
+def phase_recycled_slot():
+    """Phase 42: a recycled decode slot on the card bit for bit a fresh
+    one (``RECYCLE``): full-width moe-gpt2 with global attention and with
+    every window set to 48, so the ring wraps during the warm-up (K1
+    decodes both); a full-width hymba-1.5b cut of 4 layers, its Mamba
+    state rows zeroed by the admission."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import expert_ffn as kexp
+    gpt = get_config("moe-gpt2")
+    cases = {
+        "moe-gpt2": gpt,
+        "moe-gpt2_window48": dataclasses.replace(
+            gpt, attn=dataclasses.replace(
+                gpt.attn, window_pattern=(RECYCLE["window"],))),
+        "hymba-1.5b_4_layers": dataclasses.replace(
+            get_config("hymba-1.5b"), num_layers=RECYCLE["hymba_layers"]),
+    }
+    info, bad = {}, []
+    for name, cfg in cases.items():
+        before = kexp.expert_ffn.launches
+        got, want, zeroed = _recycled_vs_fresh(cfg)
+        same = bool(torch.equal(got, want))
+        info[name] = dict(bitwise=same, mamba_rows_zeroed=zeroed,
+                          max_abs=(got - want).abs().max().item(),
+                          finite=bool(torch.isfinite(got).all()),
+                          k1_launches=kexp.expert_ffn.launches - before)
+        if not (same and zeroed and info[name]["finite"]):
+            bad.append(name)
+    log("recycled slot: " + json.dumps(info))
+    if bad:
+        raise SystemExit(f"a recycled slot is not bit for bit a fresh one: "
+                         f"{bad} {info}")
+    return info
+
+
+def phase_traced_ep(ep_info=None, ep_prof=None):
+    """Phase 43: phase 11's EP train run (``EP_ARGS``, 6 steps) with
+    ``--trace-out --metrics-json --log-file``: losses, condensation rates,
+    buckets and every migration perm bit for bit the untraced run's
+    (``ep_info``, phase 11's, or one made here); each exchange phase
+    (``TRACE_PHASES``) recorded once per MoE sublayer forward (12 x 6,
+    none from the remat recompute) and nothing else but the ``data`` and
+    ``step`` spans; ``exchange`` at least ``dispatch`` + ``expert_ffn`` +
+    ``combine`` by inclusive time; ``residual/step/*`` from step 4 on.
+    Logs the untraced step's device syncs (phase 14's count, ``ep_prof``,
+    made here when not given) and the traced step's time beside the
+    untraced one's."""
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.obs import metrics as obs_metrics
+    if ep_info is None:
+        ep_info = phase_ep_train()
+    if ep_prof is None:
+        ep_prof = phase_ep_profile()
+    out = _out_dir("phase43")
+    res, launches, plans, _ = _ep_run(
+        EP_ARGS + ["--trace-out", str(out / "trace.json"), "--metrics-json",
+                   str(out / "m.jsonl"), "--log-file", str(out / "log.json")])
+    cfg, steps = res["cfg"], res["steps"]
+    n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
+    summary = res["tracer"].summary()
+    counts = {k: v["count"] for k, v in summary.items()}
+    want_counts = {k: n_moe * len(steps) for k in TRACE_PHASES}
+    want_counts.update(data=len(steps), step=len(steps))
+    per_step = ep_info["per_step"]
+    perms = [p for p, _ in plans]
+    same = {k: [st[k] for st in steps] == per_step[k]
+            for k in ("loss", "condense_rate", "bucket")}
+    same["perms"] = len(perms) == len(ep_info["_perms"]) and all(
+        (a is None and b is None) or np.array_equal(a, b)
+        for a, b in zip(perms, ep_info["_perms"]))
+    records = obs_metrics.read_jsonl(out / "m.jsonl")
+    log_list = json.loads((out / "log.json").read_text())
+    residual = [r["step"] for r in records
+                if "residual/step/ratio" in r["metrics"]]
+    inclusive = {k: summary[k]["total_us"] / 1e3 for k in summary}
+    parts = sum(inclusive.get(k, 0.0)
+                for k in ("dispatch", "expert_ffn", "combine"))
+    info = dict(span_counts=counts, span_counts_expected=want_counts,
+                inclusive_ms=inclusive, bitwise_untraced=same,
+                residual_steps=residual, records=len(records),
+                log_file_records=len(log_list),
+                traced_median_step_ms_after_0=statistics.median(
+                    st["step_ms"] for st in steps[1:]),
+                untraced_median_step_ms_after_0=ep_info[
+                    "median_step_ms_after_0"],
+                untraced_step_syncs=ep_prof.get("step_syncs"),
+                launches=launches)
+    log("traced EP train: " + json.dumps(info))
+    del res, steps
+    torch.cuda.empty_cache()
+    bad = []
+    if not all(same.values()):
+        bad.append(f"traced run differs from the untraced one: {same}")
+    if counts != want_counts:
+        bad.append(f"span counts {counts} != {want_counts}")
+    if not inclusive.get("exchange", 0.0) >= parts:
+        bad.append(f"exchange {inclusive.get('exchange')} ms < its phases "
+                   f"{parts} ms")
+    if residual != list(range(4, len(per_step["loss"]))):
+        bad.append(f"residual records at steps {residual}")
+    if len(records) != len(log_list) or len(records) != len(
+            per_step["loss"]):
+        bad.append(f"{len(records)} metrics records, {len(log_list)} in the "
+                   f"log file")
+    if bad:
+        raise SystemExit("traced EP train: " + "; ".join(bad))
+    return info
+
+
+def phase_checkpoint():
+    """Phase 44: one train step of a 2-layer full-width moe-gpt2 cut on
+    the card with ``--ckpt`` (``CKPT_ARGS``); the checkpoint, in the
+    reference's stacked layout, restored onto the card (``restore(...,
+    device="cuda")`` and ``convert.from_reference``) bit for bit the
+    parameters the launcher saved."""
+    import numpy as np
+    import torch
+    from repro_torch import checkpoint, convert
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+    out = _out_dir("phase44")
+    saved = []
+    orig = checkpoint.save
+
+    def record(path, tree, **kw):
+        saved.append([np.array(leaf) for _, leaf in
+                      checkpoint._flatten(tree)])
+        return orig(path, tree, **kw)
+
+    checkpoint.save = record
+    try:
+        res = train.main(CKPT_ARGS + ["--ckpt", str(out)])
+    finally:
+        checkpoint.save = orig
+    cfg = res["cfg"]
+    like = convert.to_reference(build_model(cfg, device="cuda").params, cfg)
+    on_card, step = checkpoint.restore(str(out), like, device="cuda")
+    leaves = [t for _, t in checkpoint._flatten(on_card)]
+    exact = len(leaves) == len(saved[-1]) and all(
+        t.is_cuda and torch.equal(t.cpu(), torch.from_numpy(a))
+        for t, a in zip(leaves, saved[-1]))
+    params = convert.from_reference(checkpoint.restore(str(out), like)[0],
+                                    cfg, device="cuda")
+    again = convert.to_reference(params, cfg)
+    exact_port = all(np.array_equal(a, b) for a, b in zip(
+        [leaf for _, leaf in checkpoint._flatten(again)], saved[-1]))
+    spec = json.loads((out / "spec.json").read_text())
+    info = dict(step=step, leaves=len(leaves),
+                bytes=sum(a.nbytes for a in saved[-1]),
+                shards=len(list(out.glob("shard_*.npz"))),
+                restored_bitwise=exact, from_reference_bitwise=exact_port,
+                spec_fields=sorted(spec), loss=res["steps"][0]["loss"])
+    log("checkpoint: " + json.dumps(info))
+    del res, on_card, params
+    torch.cuda.empty_cache()
+    if step != 1 or not exact or not exact_port:
+        raise SystemExit(f"checkpoint restore: {info}")
+    return info
+
+
 def _record(name, source, replaces, launches, t, extra=None):
     rec = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
@@ -4984,13 +5492,88 @@ def _time_phases():
         g[n] = timed(g[n])
 
 
-def main() -> int:
+def _only_runners():
+    """Phase number -> a runner taking ``need`` (which runs a phase once
+    and returns its result), for ``--only``. A phase that reads another's
+    result runs that one first; the rest run alone."""
+    def serve_ep(need):
+        return phase_ep_serve(need(4)[1])
+
+    def reuse(need):
+        return (phase_reuse_kernels(), phase_reuse_ep(need(11), need(14)),
+                phase_reuse_guarantee(), phase_reuse_parity())
+
+    plain = {
+        3: lambda: (phase_kernels(), phase_kernels_train()),
+        4: phase_slice, 5: phase_parity, 6: phase_profile, 7: phase_train,
+        8: phase_train_parity, 9: phase_train_profile,
+        10: phase_kernels_k4, 11: phase_ep_train, 12: phase_ep_bf16,
+        13: phase_ep_parity, 14: phase_ep_profile, 15: phase_kernels_k56,
+        16: phase_hymba_slice, 17: phase_hymba_paths,
+        18: phase_hymba_profile, 20: phase_ep_serve_parity,
+        21: phase_seq_train, 23: phase_paper_kernels,
+        24: phase_paper_train, 25: phase_paper_serve, 26: phase_paper_ep,
+        27: phase_paper_parity, 28: phase_paper_ep_parity,
+        29: phase_paper_profile, 30: phase_sched_kernels,
+        31: phase_sched_ep_dense, 32: phase_sched_ep_dedup,
+        33: phase_sched_serve, 34: phase_sched_parity,
+        35: phase_sched_profile, 36: phase_k1_lanes,
+        37: phase_replicate_ep, 38: phase_replicate_parity,
+        39: phase_overlap_ep, 40: phase_plan_cache_serve,
+        41: phase_continuous_serve, 42: phase_recycled_slot,
+        44: phase_checkpoint}
+    runners = {n: (lambda need, fn=fn: fn()) for n, fn in plain.items()}
+    runners.update({19: serve_ep, 22: reuse,
+                    43: lambda need: phase_traced_ep(need(11), need(14))})
+    return runners
+
+
+def run_only(phases) -> int:
+    """Phases 1 and 2 (the card, the build), then ``phases`` in the order
+    given, each with the phases whose results it reads; ends with
+    ``DONE``."""
+    runners = _only_runners()
+    unknown = sorted(set(phases) - set(runners) - {1, 2})
+    if unknown:
+        raise SystemExit(f"--only: no phase {unknown}; phases "
+                         f"{sorted(runners)}")
+    t_start = time.perf_counter()
+    _, _, smi = phase_device()
+    phase_build()
+    done = {}
+
+    def need(n):
+        if n not in done:
+            t = time.perf_counter()
+            done[n] = runners[n](need)
+            log(f"phase {n}: {time.perf_counter() - t:.1f}s")
+        return done[n]
+
+    for n in phases:
+        if n not in (1, 2):
+            need(n)
+    log(f"total {time.perf_counter() - t_start:.1f}s on {smi}")
+    print("DONE", flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "GPU (see the module docstring).")
+    ap.add_argument("--only", nargs="+", type=int, metavar="PHASE",
+                    help="run phases 1 and 2, then only these (and the "
+                         "phases whose results they read); prints DONE, "
+                         "not the kernels line")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout)
     _time_phases()
+    if args.only:
+        return run_only(args.only)
     t_start = time.perf_counter()
     name, count, smi = phase_device()
     _, tc_ptxas = phase_build()
@@ -5023,6 +5606,11 @@ def main() -> int:
     # slice 14's phases run here too, where the profiler still records
     # every launch
     objective = run_objective_phases()
+    log("continuous batching, slot recycling, tracing, checkpoints:")
+    continuous = phase_continuous_serve(slice_info)
+    phase_recycled_slot()
+    phase_traced_ep(ep_info, ep_prof)
+    phase_checkpoint()
     log("kernels K5, K6:")
     timed_k56 = phase_kernels_k56()
     hymba_info = phase_hymba_slice()
@@ -5064,6 +5652,8 @@ def main() -> int:
                                       "seq_sharded_train":
                                           seq_train["launches"]["expert_ffn"]},
                  "launches_ep_serve": ep_serve["launches"]["expert_ffn"],
+                 "launches_continuous_serve": continuous["launches"][
+                     "expert_ffn"],
                  "timed_at": "train shape [16,2048,768]x3072, bf16 h, f32 "
                              "weights read through the warm bf16 cache "
                              "(the tensor-core route), gelu; bound at bf16 "

@@ -1,7 +1,9 @@
 """The MoE sublayer (counterpart of ``repro/core/moe_layer.py``):
 parameters, capacity, and ``moe_core_planned`` = gate + build + execute
 for every expert-parallel rank at once (rank-major tensors,
-:mod:`repro_torch.comm.hierarchical`; one device is one rank)."""
+:mod:`repro_torch.comm.hierarchical`; one device is one rank). The
+build and the execution are the ``plan_build`` and ``exchange`` phases
+of :mod:`repro_torch.obs.trace`."""
 from __future__ import annotations
 
 import math
@@ -13,6 +15,7 @@ from repro_torch.comm.hierarchical import CommContext
 from repro_torch.condense.plan import CondenseCarry
 from repro_torch.config import LuffyConfig, MoEConfig, ModelConfig
 from repro_torch.core.gating import gate_apply, gate_init
+from repro_torch.obs import trace as obs_trace
 from repro_torch.plan import exchange as pex
 from repro_torch.plan.exchange import MoEAux, _rms
 
@@ -80,17 +83,22 @@ def moe_core_planned(params, x, sideband: Dict[str, torch.Tensor],
     xn = _rms(x.reshape(M, n_seq * S, d), params["norm"]["scale"]) \
         .to(_dtype(cfg.compute_dtype))
     gate = gate_apply(params["router"], xn, cfg.moe.top_k)
-    if plan_template is not None:
-        plan = pex.instantiate_plan(plan_template, gate, xn, cfg,
-                                    capacity=capacity, sideband=sideband,
-                                    comm=comm)
-    else:
-        plan = pex.build_exchange_plan(
-            gate, xn, cfg, luffy, mode=mode, capacity=capacity,
-            sideband=sideband, threshold=threshold, s_prev=s_prev,
-            condense_carry=condense_carry, comm=comm, reuse_from=reuse_from)
-    y, aux, cond_carry, sb, s_next, ef = pex.execute_plan(
-        params, x, plan, cfg, sideband, wire_ef=wire_ef)
+    with obs_trace.phase("plan_build") as sp:
+        if plan_template is not None:
+            plan = pex.instantiate_plan(plan_template, gate, xn, cfg,
+                                        capacity=capacity,
+                                        sideband=sideband, comm=comm)
+        else:
+            plan = pex.build_exchange_plan(
+                gate, xn, cfg, luffy, mode=mode, capacity=capacity,
+                sideband=sideband, threshold=threshold, s_prev=s_prev,
+                condense_carry=condense_carry, comm=comm,
+                reuse_from=reuse_from)
+        plan = sp.fence(plan)
+    with obs_trace.phase("exchange") as sp:
+        y, aux, cond_carry, sb, s_next, ef = pex.execute_plan(
+            params, x, plan, cfg, sideband, wire_ef=wire_ef)
+        y = sp.fence(y)
     return y, sb, s_next, aux, plan, cond_carry, ef
 
 

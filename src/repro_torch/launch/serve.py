@@ -1,5 +1,5 @@
-"""Fixed-batch serving launcher (counterpart of ``repro/launch/serve.py``,
-its fixed-batch path).
+"""Serving launcher, fixed batches or continuous batching (counterpart
+of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch moe-gpt2 \\
         --batch 8 --prompt-len 128 --gen 32 --prefill batch
@@ -13,6 +13,10 @@ its fixed-batch path).
         [--exec-mode {sync,pipeline,decode_overlap}] [--pipeline-chunks N] \\
         [--plan-cache DIR [--precompute-plans]] \\
         [--plan-objective {traffic,overlap,replicate}]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch moe-gpt2 \\
+        --continuous --batch 8 --prompt-len 64 --gen 32 --requests 24 \\
+        [--burst 3] [--arrival-every 4] [--max-steps 512] \\
+        [--metrics-json PATH] [--trace] [--trace-out PATH]
 
 Weights are random, drawn from ``--seed``; the prompts too. With
 ``--prefill batch`` one whole-prompt prefill runs first as a warm-up and
@@ -50,6 +54,23 @@ builds the same vanilla plan); it keys the cache. The reference uses
 its mesh only when it has more than one device, so on one device it
 serves as M = 1; virtual ranks have no such cap, so the port's default
 is 1. An arch without MoE sublayers serves the same with any M.
+
+``--continuous`` switches the unit of work from a step to a request
+(:mod:`repro_torch.serve.scheduler`): ``--requests`` prompts (drawn from
+``--seed``) arrive in bursts of ``--burst`` every ``--arrival-every``
+decode steps, are admitted FIFO into free cache slots between steps
+(:func:`repro_torch.serve.engine.admit_slot`: a recycled slot restarts
+at relative position 0 and decodes bit for bit as a fresh one), fed
+their prompt token by token, decoded greedily for ``--gen`` tokens and
+evicted, so their slots recycle mid-stream; ``--max-steps`` bounds the
+loop. The decode is the one-device one at any ``--model-axis``. With
+``--plan-cache --precompute-plans`` the decode template is stored first
+and the loop builds no plan. Per-request SLOs (queue, time to first
+token, time per output token) and the scheduler's occupancy are
+``serve/*`` records of the metrics registry (``--metrics-json``, one a
+step). ``--trace`` (or ``--trace-out``, default ``trace.json``) records
+fenced spans, ``prefill_batch``, ``prefill_step`` and one ``decode`` a
+model call, with the MoE phases inside them, and writes a Chrome trace.
 """
 from __future__ import annotations
 
@@ -59,6 +80,9 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 N_BATCHED_PREFILLS = 2     # warm-up + timed, as the reference launcher
 
@@ -99,6 +123,29 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="migration planner objective (serving never "
                          "re-homes a prompt, so it only keys the cache; "
                          "default traffic)")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching: --requests prompts arrive in "
+                         "bursts, are admitted into free cache slots "
+                         "between decode steps and evicted on finish")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="requests of --continuous")
+    ap.add_argument("--burst", type=int, default=3,
+                    help="requests arriving together (--continuous)")
+    ap.add_argument("--arrival-every", type=int, default=4,
+                    help="decode steps between bursts (--continuous)")
+    ap.add_argument("--max-steps", type=int, default=512,
+                    help="step budget of --continuous")
+    ap.add_argument("--metrics-json", default="",
+                    help="append metrics records (JSONL): the batched "
+                         "prefill's, then one a decode step (serve/* SLO "
+                         "and occupancy keys under --continuous)")
+    ap.add_argument("--trace", action="store_true",
+                    help="fenced spans around the batched prefill, the "
+                         "prompt feed and every decode step; writes a "
+                         "Chrome trace (see --trace-out)")
+    ap.add_argument("--trace-out", default="",
+                    help="trace JSON path (implies --trace; default "
+                         "trace.json)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
@@ -108,6 +155,95 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _serve_continuous(args, cfg, luffy, model, plan_cache, registry,
+                      device) -> Dict:
+    """The continuous-batching request loop: one decode step per
+    iteration, admissions and evictions between steps. Returns each
+    request's tokens and SLOs, the host logits of every model call with
+    the slots active in it, and the run's totals."""
+    from repro_torch.serve.scheduler import ContinuousScheduler
+    B, S = args.batch, args.prompt_len
+    # per-slot relative frames: an occupant never holds more than
+    # prompt + gen positions, however long the run
+    s_max = S + args.gen
+    r = np.random.default_rng(args.seed)
+    prompts = r.integers(1, cfg.vocab_size,
+                         (args.requests, S)).astype(np.int32)
+    # bursts of --burst requests land together every --arrival-every
+    # decode steps
+    arrival_step = [(i // max(1, args.burst)) * max(1, args.arrival_every)
+                    for i in range(args.requests)]
+    if plan_cache is not None and args.precompute_plans and cfg.uses_moe:
+        from repro_torch.plan.cache import precompute_decode_plans
+        key = precompute_decode_plans(cfg, luffy, B, plan_cache)
+        print(f"precomputed decode plan: {key}")
+    cache = model.new_cache(B, s_max)
+    sched = ContinuousScheduler(B)
+    step = submitted = 0
+    step_logits, step_active = [], []
+    _sync(device)
+    t0 = time.perf_counter()
+    while step < args.max_steps:
+        now = time.perf_counter()
+        while submitted < args.requests \
+                and arrival_step[submitted] <= step:
+            sched.submit(prompts[submitted], args.gen, now=now)
+            submitted += 1
+        if sched.all_done():
+            if submitted >= args.requests:
+                break
+            step += 1          # idle until the next burst lands
+            continue
+        for slot, _ in sched.admit(now=now):
+            model.admit_slot(cache, slot, cache["pos"])
+        # an asynchronous copy: the logits' copy below is the step's one
+        # device sync
+        toks = torch.from_numpy(sched.next_feed()).to(device,
+                                                      non_blocking=True)
+        step_active.append(np.array([q is not None for q in sched.slots]))
+        with obs_trace.phase("decode", cat="step", step=step,
+                             active=sched.active_slots) as sp:
+            logits, cache = model.decode_step(cache, toks, luffy=luffy,
+                                              plan_cache=plan_cache)
+            logits = sp.fence(logits)
+        host = logits.cpu().numpy()        # the step's one device copy
+        step_logits.append(host)
+        sched.observe(host, now=time.perf_counter())
+        if registry is not None:
+            obs_metrics.write_jsonl(args.metrics_json,
+                                    registry.observe(step,
+                                                     sched.step_metrics()))
+        step += 1
+    dt = time.perf_counter() - t0
+    done = sorted(sched.done, key=lambda q: q.rid)
+    tok = sched.generated_tokens
+    print(f"continuous: {len(done)}/{args.requests} requests, {tok} tokens "
+          f"in {dt:.2f}s ({tok / max(dt, 1e-9):.1f} tok/s), {step} steps, "
+          f"slot_churn={sched.slot_churn}")
+
+    def mean(name):
+        vals = [getattr(q, name) for q in done]
+        vals = [v for v in vals if v is not None]
+        return float(np.mean(vals)) if vals else float("nan")
+
+    slo = {name: mean(name) for name in ("queue_ms", "ttft_ms", "tpot_ms")}
+    if done:
+        print(f"SLO: queue {slo['queue_ms']:.1f}ms ttft {slo['ttft_ms']:.1f}"
+              f"ms tpot {slo['tpot_ms']:.1f}ms")
+    if sched.queue or sched.active_slots:
+        print(f"WARNING: --max-steps hit with {len(sched.queue)} queued "
+              f"and {sched.active_slots} active requests")
+    calls = len(step_logits)
+    return {"requests": {q.rid: list(q.generated) for q in done},
+            "slot_churn": sched.slot_churn, "steps": step,
+            "model_calls": calls, "step_logits": step_logits,
+            "step_active": step_active, "slo": slo,
+            "tok_s": tok / max(dt, 1e-9),
+            "decode_ms_per_step": dt / max(calls, 1) * 1e3,
+            "finished": len(done), "prompts": prompts,
+            "arrival_step": arrival_step}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
@@ -134,7 +270,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                             args.pipeline_chunks, objective),
                         plan_objective=objective)
     B, S = args.batch, args.prompt_len
-    s_max = S + args.gen
     pdist = single_device()
     if args.model_axis > 1:
         mesh = make_host_mesh(model=args.model_axis)
@@ -157,6 +292,44 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if args.plan_cache:
         from repro_torch.plan.cache import PlanCache
         plan_cache = PlanCache(args.plan_cache)
+    trace_out = args.trace_out or ("trace.json" if args.trace else "")
+    tracer = None
+    if trace_out:
+        tracer = obs_trace.activate(obs_trace.Tracer(fence=True))
+    registry = None
+    if args.metrics_json:
+        registry = obs_metrics.MetricsRegistry(luffy=luffy, run_info={
+            "launcher": "serve", "arch": args.arch,
+            "continuous": bool(args.continuous), "batch": B,
+            "prompt_len": S, "gen": args.gen})
+    try:
+        if args.continuous:
+            result = _serve_continuous(args, cfg, luffy, model, plan_cache,
+                                       registry, device)
+            result.update(arch=cfg.name, device=str(device), batch=B,
+                          prompt_len=S, gen=args.gen,
+                          model_axis=args.model_axis)
+        else:
+            result = _serve_fixed(args, cfg, luffy, model, pdist, plan_cache,
+                                  registry, device, chunks)
+    finally:
+        if tracer is not None:
+            obs_trace.deactivate()
+    if plan_cache is not None:
+        result["plan_cache"] = plan_cache.stats()
+        print(f"plan cache: {plan_cache.stats()}")
+    if tracer is not None:
+        tracer.write(trace_out)
+        print(f"trace: {len(tracer.events)} events -> {trace_out}")
+    return result
+
+
+def _serve_fixed(args, cfg, luffy, model, pdist, plan_cache, registry,
+                 device, chunks) -> Dict:
+    """One fixed batch: the batched prefill (``--prefill batch``), the
+    step-wise prompt feed and the greedy decode."""
+    B, S = args.batch, args.prompt_len
+    s_max = S + args.gen
     r = np.random.default_rng(args.seed)
     prompts = torch.as_tensor(r.integers(1, cfg.vocab_size, (B, S)),
                               dtype=torch.int32, device=device)
@@ -181,34 +354,49 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                           plan_cache=plan_cache)
         _sync(device)
         t0 = time.perf_counter()
-        logits_pf, _ = model.prefill(prompts, s_max, luffy=luffy, dist=pdist,
-                                     plan_cache=plan_cache)
-        _sync(device)
+        with obs_trace.phase("prefill_batch", cat="step"):
+            logits_pf, _ = model.prefill(prompts, s_max, luffy=luffy,
+                                         dist=pdist, plan_cache=plan_cache)
+            _sync(device)
         dt = time.perf_counter() - t0
         result.update(prefill_s=dt, prefill_tok_s=B * S / dt,
                       prefill_logits=logits_pf)
         print(f"batched prefill({B}x{S} tokens): {dt:.4f}s "
               f"({B * S / dt:.0f} tok/s)")
+        if registry is not None:
+            obs_metrics.write_jsonl(args.metrics_json, registry.observe(
+                0, {"time_s": dt}, phase="prefill_batch",
+                prefill_tokens=B * S))
 
     cache = model.new_cache(B, s_max)
     t0 = time.perf_counter()
     step_logits = []
-    for t in range(S):
-        logits, cache = model.decode_step(cache, prompts[:, t:t + 1],
-                                          luffy=luffy, plan_cache=plan_cache)
-        step_logits.append(logits)
+    with obs_trace.phase("prefill_step", cat="step", tokens=S) as sp:
+        for t in range(S):
+            logits, cache = model.decode_step(cache, prompts[:, t:t + 1],
+                                              luffy=luffy,
+                                              plan_cache=plan_cache)
+            step_logits.append(logits)
+        logits = sp.fence(logits)
     _sync(device)
     result["prompt_feed_s"] = time.perf_counter() - t0
     print(f"prefill({S} tokens): {result['prompt_feed_s']:.3f}s")
 
     out, gen_logits = [], []
     t0 = time.perf_counter()
-    for _ in range(args.gen):
+    for i in range(args.gen):
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         out.append(nxt[:, 0])
-        logits, cache = model.decode_step(cache, nxt, luffy=luffy,
-                                          plan_cache=plan_cache)
+        ts = time.perf_counter()
+        with obs_trace.phase("decode", cat="step", step=i) as sp:
+            logits, cache = model.decode_step(cache, nxt, luffy=luffy,
+                                              plan_cache=plan_cache)
+            logits = sp.fence(logits)
         gen_logits.append(logits)
+        if registry is not None:
+            obs_metrics.write_jsonl(args.metrics_json, registry.observe(
+                i + 1, {"time_s": time.perf_counter() - ts,
+                        "generated_tokens": B}))
     _sync(device)
     dt = time.perf_counter() - t0
     tokens = (torch.stack(out, 1) if out
@@ -223,9 +411,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
           f"({n_tok / max(dt, 1e-9):.1f} tok/s batch={B}, "
           f"{result['decode_ms_per_step']:.3f} ms/step)")
     print("sample token ids:", tokens[0, :10].tolist() if n_tok else [])
-    if plan_cache is not None:
-        result["plan_cache"] = plan_cache.stats()
-        print(f"plan cache: {plan_cache.stats()}")
     return result
 
 

@@ -13,7 +13,10 @@
         [--plan-reuse {off,signature,always}] \\
         [--condense-reuse {off,signature,always}] [--condense-max-age N] \\
         [--similarity-backend {exact,lsh}] [--lsh-bits N] \\
-        [--no-condensation] [--no-migration] [--device cpu]
+        [--no-condensation] [--no-migration] \\
+        [--metrics-json PATH] [--trace] [--trace-out PATH] \\
+        [--log-file PATH] [--ckpt DIR [--ckpt-every N]] \\
+        [--drift-tolerance T] [--drift-k K] [--device cpu]
 
 Weights are random, drawn from ``--seed``; batches come from the
 synthetic stream (``repro_torch.data.SyntheticLM``). Each step runs the
@@ -60,14 +63,36 @@ rank); virtual ranks have no such cap, so the port's default is 1. On
 the card (``--device cuda``, the default, which must exist) the expert
 FFN, the similarity, the un-condense gather and the dedup pack run in
 the hand-written kernels; on the CPU (``--device cpu``) in their plain
-versions. A flag of the reference that is not ported is not defined
-here.
+versions.
+
+Observability (:mod:`repro_torch.obs`), as the reference's launcher:
+every step is one record of the metrics registry (canonical names,
+counters accumulated, keys that do not apply to the configuration
+null), appended to ``--metrics-json`` as JSONL and written as one JSON
+list to ``--log-file`` at the end. ``--trace`` (or ``--trace-out``,
+default ``trace.json``) records fenced host spans, ``data`` and ``step``
+around each step and the exchange's phases inside it (``plan_build``,
+``condense``, ``exchange``, ``dispatch_pack``, ``dispatch``,
+``expert_ffn``, ``combine``, ``pipeline_exchange``; once per MoE
+sublayer forward, none from the remat recompute), and writes a Chrome
+trace. A fence is a device synchronize, so a traced step runs its phases
+one after the other; an untraced step makes no extra sync. From step 4
+on (after a 3-step warm-up that skips step 0) each record carries the
+``residual/step/*`` gauges of the step time against the warm-up's mean
+and the drift flag (``--drift-tolerance``, ``--drift-k``). ``--ckpt
+DIR`` saves the parameters (:mod:`repro_torch.checkpoint`, in the
+reference's stacked-layer layout, so either package restores them)
+every ``--ckpt-every`` steps and at the end. A flag of the reference
+that is not ported (``--calibrate``, ``--autotune*``,
+``--recalibrate-on-drift``) is not defined here.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
+from pathlib import Path
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -160,6 +185,29 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
+    ap.add_argument("--ckpt", default="",
+                    help="checkpoint directory (the reference's format)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="also checkpoint every N steps (0: at the end "
+                         "only)")
+    ap.add_argument("--log-file", default="",
+                    help="write every step's metrics record as one JSON "
+                         "list here at the end")
+    ap.add_argument("--metrics-json", default="",
+                    help="append one metrics record (JSONL) per step")
+    ap.add_argument("--trace", action="store_true",
+                    help="fenced spans around each step and the exchange's "
+                         "phases; writes a Chrome trace (see --trace-out)")
+    ap.add_argument("--trace-out", default="",
+                    help="trace JSON path (implies --trace; default "
+                         "trace.json)")
+    ap.add_argument("--drift-tolerance", type=float, default=1.5,
+                    help="drift detector tolerance: an EWMA of measured / "
+                         "expected step time outside [1/t, t] is out of "
+                         "tolerance")
+    ap.add_argument("--drift-k", type=int, default=5,
+                    help="consecutive out-of-tolerance steps before the "
+                         "drift detector fires")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return ap.parse_args(argv)
 
@@ -172,7 +220,7 @@ def _sync(device: torch.device):
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Train; returns what was measured, per step and in total."""
     args = parse_args(argv)
-    from repro_torch import optim, train_lib
+    from repro_torch import checkpoint, convert, optim, train_lib
     from repro_torch.config import (LuffyConfig, OptimConfig, ShapeConfig,
                                     reduced, resolve_pipeline_chunks)
     from repro_torch.configs import get_config
@@ -181,6 +229,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from repro_torch.launch.mesh import make_host_mesh, topology_for_mesh
     from repro_torch.models import transformer as tf
     from repro_torch.models.model import build_model, resolve_device
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import monitor as obs_monitor
+    from repro_torch.obs import trace as obs_trace
     from repro_torch.plan.exchange import schedule_of
 
     device = resolve_device(args.device)
@@ -267,55 +318,111 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
           f"{luffy.pipeline_chunks} chunks={get_step(0)[1]} at bucket 0 "
           f"plan_objective={luffy.plan_objective}", flush=True)
 
+    trace_out = args.trace_out or ("trace.json" if args.trace else "")
+    tracer = None
+    if trace_out:
+        tracer = obs_trace.activate(obs_trace.Tracer(fence=True))
+    registry = obs_metrics.MetricsRegistry(
+        luffy=luffy, run_info={"arch": args.arch, "steps": args.steps,
+                               "comm_mode": luffy.comm_mode,
+                               "exec_mode": luffy.exec_mode,
+                               "calibrated": False, "autotuned": False})
+    # the residual stream: the expected step time is the mean of a short
+    # measured warm-up (steps 1-3); the EWMA detector then flags
+    # sustained departures from it
+    monitor = obs_monitor.ResidualMonitor(tolerance=args.drift_tolerance,
+                                          k=args.drift_k)
+    warmup_ms, expected_step_ms = [], None
+
+    def save_ckpt(step: int):
+        checkpoint.save(args.ckpt, convert.to_reference(params, cfg),
+                        step=step)
+
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     bucket, observed_rate = 0, 0.0
-    steps = []
+    steps, log = [], []
     t_start = time.perf_counter()
-    for i in range(args.steps):
-        batch = {k: torch.as_tensor(v, device=device)
-                 for k, v in data.batch(i).items()}
-        cap, chunks, step_fn = get_step(bucket)
-        _sync(device)
-        t0 = time.perf_counter()
-        params, opt_state, lstate, m = step_fn(params, opt_state, lstate,
-                                               batch)
-        _sync(device)
-        dt = time.perf_counter() - t0
-        m = train_lib.finalize_metrics(m)
-        rec = dict(step=i, bucket=bucket, capacity=cap, chunks=chunks,
-                   step_ms=dt * 1e3, **m)
-        if device.type == "cuda":
-            rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
-        if use_ef:
-            rec["wire_ef_absmax"] = float(lstate.wire_ef.abs().max())
-        steps.append(rec)
-        observed_rate = 0.8 * observed_rate + 0.2 * m["condense_rate"]
-        if cfg.uses_moe and luffy.enable_condensation and i >= 3:
-            bucket = train_lib.pick_bucket_host(luffy, observed_rate)
-        inter = ""
-        if m["inter_bytes_flat"] > 0:
-            inter = (f" inter={m['inter_bytes_dedup']:.0f}B"
-                     f"/{m['inter_bytes_flat']:.0f}B")
-            if hier_dedup == "on" and comm_mode == "hier":
-                inter += f" shipped={m['inter_bytes_shipped']:.0f}B"
-        if luffy.plan_reuse != "off" or luffy.condense_reuse != "off":
-            inter += (f" plans={m['plans_built']:.0f}/"
-                      f"{m['plans_reused']:.0f}"
-                      f" cplans={m['condense_built']:.0f}/"
-                      f"{m['condense_reused']:.0f}")
-        print(f"step {i:5d} loss={m['loss']:.4f} "
-              f"cond={m['condense_rate']:.4f} bucket={rec['bucket']} "
-              f"C={cap} local={m['local_frac']:.2f} "
-              f"drop=({m['dispatch_drop']:.3f},{m['combine_drop']:.3f})"
-              f"{inter} {rec['step_ms']:.1f}ms", flush=True)
+    try:
+        for i in range(args.steps):
+            with obs_trace.phase("data", cat="step"):
+                batch = {k: torch.as_tensor(v, device=device)
+                         for k, v in data.batch(i).items()}
+            cap, chunks, step_fn = get_step(bucket)
+            _sync(device)
+            t0 = time.perf_counter()
+            with obs_trace.phase("step", cat="step", step=i) as sp:
+                out = step_fn(params, opt_state, lstate, batch)
+                params, opt_state, lstate, m = sp.fence(out)
+            _sync(device)
+            dt = time.perf_counter() - t0
+            m = train_lib.finalize_metrics(m, luffy)
+            rec = dict(step=i, bucket=bucket, capacity=cap, chunks=chunks,
+                       step_ms=dt * 1e3, **m)
+            if device.type == "cuda":
+                rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(
+                    device)
+            if use_ef:
+                rec["wire_ef_absmax"] = float(lstate.wire_ef.abs().max())
+            steps.append(rec)
+            observed_rate = 0.8 * observed_rate + 0.2 * m["condense_rate"]
+            if cfg.uses_moe and luffy.enable_condensation and i >= 3:
+                bucket = train_lib.pick_bucket_host(luffy, observed_rate)
+            extra = {}
+            if expected_step_ms is None:
+                if i >= 1:                  # step 0 pays the warm-up
+                    warmup_ms.append(dt * 1e3)
+                if len(warmup_ms) >= 3:
+                    expected_step_ms = sum(warmup_ms) / len(warmup_ms)
+            else:
+                extra = monitor.observe(i, {"step": expected_step_ms},
+                                        {"step": dt * 1e3})
+            mrec = registry.observe(i, m, time_s=round(dt, 3),
+                                    bucket=bucket, **extra)
+            log.append(mrec)
+            if args.metrics_json:
+                obs_metrics.write_jsonl(args.metrics_json, mrec)
+            inter = ""
+            if (m["inter_bytes_flat"] or 0.0) > 0:
+                inter = (f" inter={m['inter_bytes_dedup']:.0f}B"
+                         f"/{m['inter_bytes_flat']:.0f}B")
+                if m["inter_bytes_shipped"] is not None:
+                    inter += f" shipped={m['inter_bytes_shipped']:.0f}B"
+            if luffy.plan_reuse != "off" or luffy.condense_reuse != "off":
+                inter += (f" plans={m['plans_built']:.0f}/"
+                          f"{m['plans_reused']:.0f}"
+                          f" cplans={m['condense_built']:.0f}/"
+                          f"{m['condense_reused']:.0f}")
+            print(f"step {i:5d} loss={m['loss']:.4f} "
+                  f"cond={m['condense_rate']:.4f} bucket={rec['bucket']} "
+                  f"C={cap} local={m['local_frac']:.2f} "
+                  f"drop=({m['dispatch_drop']:.3f},"
+                  f"{m['combine_drop']:.3f}){inter} "
+                  f"{rec['step_ms']:.1f}ms", flush=True)
+            if args.ckpt and args.ckpt_every \
+                    and (i + 1) % args.ckpt_every == 0:
+                save_ckpt(i + 1)
+    finally:
+        if tracer is not None:
+            obs_trace.deactivate()
     total = time.perf_counter() - t_start
     print(f"done: {args.steps} steps in {total:.1f}s; final loss "
           f"{steps[-1]['loss']:.4f}" if steps else "done: 0 steps")
+    if args.ckpt:
+        save_ckpt(args.steps)
+    if args.log_file:
+        Path(args.log_file).write_text(json.dumps(log, indent=1))
+    if tracer is not None:
+        tracer.write(trace_out)
+        st = tracer.summary().get("step", {})
+        print(f"trace: {len(tracer.events)} events -> {trace_out} (step "
+              f"total {st.get('total_us', 0.0) / 1e3:.1f}ms over "
+              f"{st.get('count', 0)} spans)")
     return {"arch": cfg.name, "cfg": cfg, "device": str(device),
             "global_batch": gb, "seq_len": args.seq_len, "steps": steps,
             "total_s": total, "luffy": luffy, "dist": dist,
-            "optimizer": ocfg.name, "lstate": lstate,
+            "optimizer": ocfg.name, "lstate": lstate, "log": log,
+            "tracer": tracer,
             "n_params": sum(p.numel()
                             for _, p in optim.leaves_with_path(params))}
 

@@ -69,6 +69,11 @@ class Model(nn.Module):
     def new_cache(self, batch: int, s_max: int):
         return engine.cache_struct(self.cfg, batch, s_max, device=self.device)
 
+    def admit_slot(self, cache, slot: int, position: int):
+        """Recycle ``slot`` of ``cache`` for a request starting at
+        ``position``; see :func:`repro_torch.serve.engine.admit_slot`."""
+        return engine.admit_slot(cache, slot, position)
+
     def forward_train(self, batch, threshold, capacity: int, *,
                       luffy: LuffyConfig, dist=None, wire_ef=None):
         """(total loss, metrics) of one batch; see

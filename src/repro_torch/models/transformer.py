@@ -26,6 +26,7 @@ from repro_torch.core import moe_layer as moe
 from repro_torch.dist import DistContext
 from repro_torch.models import blocks as bk
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.obs import trace as obs_trace
 from repro_torch.plan.exchange import MoEAux, PlanSignature, \
     invalid_signature
 
@@ -343,8 +344,11 @@ def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
                     sideband, s_prev, threshold, cond_carry, plan_carry,
                     None if wire_ef is None else wire_ef[i])
             if cfg.remat:
-                out = ckpt.checkpoint(_layer_full, *args,
-                                      use_reentrant=False)
+                # traced, the recompute records no phase (the reference's
+                # spans fire once per forward of a sublayer)
+                fn = (_layer_full if obs_trace.active() is None
+                      else obs_trace.first_call_traced(_layer_full))
+                out = ckpt.checkpoint(fn, *args, use_reentrant=False)
             else:
                 out = _layer_full(*args)
             x, sideband, s_prev, aux, cond_carry, plan_carry, ef = out

@@ -54,6 +54,11 @@ concatenated or cast per step.
 Serving templates: :func:`instantiate_plan` / :func:`instantiate_decode_plan`
 bind a request's routing onto a cached static template
 (:mod:`repro_torch.plan.cache`) without planning.
+
+Tracing (:mod:`repro_torch.obs.trace`): the builder's ``condense`` and
+the executor's ``dispatch_pack``, ``dispatch``, ``expert_ffn``,
+``combine`` (sync) or ``pipeline_exchange`` (the pipelined dense wire)
+phases, with the reference's names, nesting and fenced values.
 """
 from __future__ import annotations
 
@@ -79,6 +84,7 @@ from repro_torch.plan import objectives
 from repro_torch.plan.estimate import PlanEstimate, estimate_exchange
 from repro_torch.sched import ChunkPlan, plan_chunks, plan_unique_chunks
 from repro_torch.sched.cost import resolve_chunk_overhead_ms
+from repro_torch.obs import trace as obs_trace
 from repro_torch.sched.pipeline import run_pipeline, share, side_stream
 
 MODES = ("vanilla", "migrate", "decode")
@@ -354,15 +360,17 @@ def build_exchange_plan(gate: GateOutput, xn, cfg: ModelConfig,
     if do_condense:
         if threshold is None:
             raise ValueError("condensation needs a threshold")
-        cp = build_condense_plan(
-            xn.reshape(M * T, d), expert_idx[..., 0].reshape(M * T),
-            threshold, group_size=G,
-            s_prev=None if s_prev is None else s_prev.reshape(-1, G, G),
-            s1=luffy.s1, s2=luffy.s2, backend=luffy.similarity_backend,
-            lsh_bits=luffy.lsh_bits, lsh_seed=luffy.lsh_seed,
-            reuse_mode=luffy.condense_reuse,
-            max_age=luffy.condense_reuse_max_age, carry=condense_carry,
-            ranks=M)
+        with obs_trace.phase("condense") as sp:
+            cp = build_condense_plan(
+                xn.reshape(M * T, d), expert_idx[..., 0].reshape(M * T),
+                threshold, group_size=G,
+                s_prev=None if s_prev is None else s_prev.reshape(-1, G, G),
+                s1=luffy.s1, s2=luffy.s2, backend=luffy.similarity_backend,
+                lsh_bits=luffy.lsh_bits, lsh_seed=luffy.lsh_seed,
+                reuse_mode=luffy.condense_reuse,
+                max_age=luffy.condense_reuse_max_age, carry=condense_carry,
+                ranks=M)
+            cp = sp.fence(cp)
         keep = keep & cp.is_rep.reshape(M, T)[..., None]
     else:
         cp = identity_condense_plan(M * T, luffy.similarity_backend,
@@ -716,31 +724,36 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
             dslot = dest_global[:, tok // S]                      # [M, T]
             dest_gpos = (dslot // n_seq) * T + (dslot % n_seq) * S + tok % S
             prim_tk = (torch.arange(k, device=dev) == 0).expand(M, T, k)
-        x_rows, gw_rows, rvalid, wst = cwire.dedup_dispatch(
-            x_pay.to(cdt), expert_idx, gate_w, valid, pos, comm=comm,
-            e_local=E_local, capacity=C, wire_dtype=plan.wire_dtype,
-            dest_gpos=dest_gpos, prim=prim_tk, chunks=dchunks)
-        y_rows = ffn(x_rows)
+        with obs_trace.phase("dispatch") as sp:
+            x_rows, gw_rows, rvalid, wst = cwire.dedup_dispatch(
+                x_pay.to(cdt), expert_idx, gate_w, valid, pos, comm=comm,
+                e_local=E_local, capacity=C, wire_dtype=plan.wire_dtype,
+                dest_gpos=dest_gpos, prim=prim_tk, chunks=dchunks)
+            x_rows = sp.fence(x_rows)
+        with obs_trace.phase("expert_ffn") as sp:
+            y_rows = sp.fence(ffn(x_rows))
         n_rv = torch.clamp(rvalid.float().sum(dim=(1, 2, 3)), min=1.0)
-        if not migrate:
-            delta = cwire.dedup_combine(y_rows * gw_rows[..., None], wst,
-                                        comm=comm,
-                                        wire_dtype=plan.wire_dtype,
-                                        chunks=dchunks)
-            y_tok = xf + delta.to(xf.dtype)
-            local_frac = torch.full((M,), 1.0 / M, device=dev)
-            new_sb = dict(sideband)
-        else:
-            out_rows = (y_rows * gw_rows[..., None]
-                        + x_rows * wst["prim"][..., None])
-            y_tok = cwire.dedup_combine_migrate(
-                out_rows, wst, comm=comm, wire_dtype=plan.wire_dtype,
-                chunks=mchunks).to(xf.dtype)
-            dd = torch.where(wst["dgpos"] >= 0, wst["dgpos"] // T,
-                             torch.full_like(wst["dgpos"], -1))
-            local_frac = (dd == ranks[:, None, None, None]).float() \
-                .sum(dim=(1, 2, 3)) / n_rv
-            new_sb = _exchange_sideband(sideband, dest_global)
+        with obs_trace.phase("combine") as sp:
+            if not migrate:
+                delta = cwire.dedup_combine(y_rows * gw_rows[..., None],
+                                            wst, comm=comm,
+                                            wire_dtype=plan.wire_dtype,
+                                            chunks=dchunks)
+                y_tok = xf + delta.to(xf.dtype)
+                local_frac = torch.full((M,), 1.0 / M, device=dev)
+                new_sb = dict(sideband)
+            else:
+                out_rows = (y_rows * gw_rows[..., None]
+                            + x_rows * wst["prim"][..., None])
+                y_tok = cwire.dedup_combine_migrate(
+                    out_rows, wst, comm=comm, wire_dtype=plan.wire_dtype,
+                    chunks=mchunks).to(xf.dtype)
+                dd = torch.where(wst["dgpos"] >= 0, wst["dgpos"] // T,
+                                 torch.full_like(wst["dgpos"], -1))
+                local_frac = (dd == ranks[:, None, None, None]).float() \
+                    .sum(dim=(1, 2, 3)) / n_rv
+                new_sb = _exchange_sideband(sideband, dest_global)
+            y_tok = sp.fence(y_tok)
         row_bytes = wdt.wire_row_bytes(d, plan.wire_dtype,
                                        torch.finfo(cdt).bits // 8)
         shipped = wst["shipped_rows"] * row_bytes
@@ -778,8 +791,11 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
         rows.append(torch.stack([dest_of_tok + 1,
                                  (tok % S)[None, :, None].expand(M, T, k)],
                                 -1).reshape(-1, 2))
-    bufs = [b.reshape(M, R_rows, C, b.shape[-1]) for b in _scatter_rows(
-        M * R_rows * C, slot.reshape(-1), v_slot.reshape(-1), *rows)]
+    with obs_trace.phase("dispatch_pack") as sp:
+        bufs = sp.fence([b.reshape(M, R_rows, C, b.shape[-1])
+                         for b in _scatter_rows(M * R_rows * C,
+                                                slot.reshape(-1),
+                                                v_slot.reshape(-1), *rows)])
 
     def arrive(t):
         """[M, M * n_lanes, c, .] after the all-to-all -> [M, n_lanes, M,
@@ -808,8 +824,14 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
             M, R_rows, out.shape[3], d))
 
     if not plan.pipelined:
-        res = compute(dispatch(bufs))
-        back = None if migrate else combine_back(res)
+        with obs_trace.phase("dispatch") as sp:
+            moved = sp.fence(dispatch(bufs))
+        with obs_trace.phase("expert_ffn") as sp:
+            res = sp.fence(compute(moved))
+        back = None
+        if not migrate:
+            with obs_trace.phase("combine") as sp:
+                back = sp.fence(combine_back(res))
     else:
         # capacity chunks through the pipeline: chunk k+1's dispatch on
         # the side stream while chunk k's FFN runs; each chunk's rows
@@ -824,16 +846,19 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
             o, n = ch.offsets[j], ch.sizes[j]
             return dispatch([b[:, :, o:o + n] for b in bufs])
 
-        outs, backs = run_pipeline(
-            ch.n_chunks, dispatch=chunk,
-            compute=lambda j, moved: compute(moved),
-            combine=None if migrate else (lambda j, out: combine_back(out)),
-            stream=stream)
-        if migrate:
-            res = tuple(torch.cat(parts, dim=3) for parts in zip(*outs))
-            back = None
-        else:
-            back = torch.cat(backs, dim=2)                   # [M, E, C, d]
+        with obs_trace.phase("pipeline_exchange") as sp:
+            outs, backs = run_pipeline(
+                ch.n_chunks, dispatch=chunk,
+                compute=lambda j, moved: compute(moved),
+                combine=None if migrate else (
+                    lambda j, out: combine_back(out)),
+                stream=stream)
+            if migrate:
+                res = sp.fence(tuple(torch.cat(parts, dim=3)
+                                     for parts in zip(*outs)))
+                back = None
+            else:
+                back = sp.fence(torch.cat(backs, dim=2))     # [M, E, C, d]
 
     if not migrate:
         # index_select, not back[slot]: its backward is an index_add_,

@@ -16,6 +16,18 @@ holds each slot's relative position, -1 when empty. A hybrid layer
 each slot's frame origin (rpos = pos - offset) and ``pos`` the step
 count. :func:`decode_step` updates the cache tensors in place, which
 saves a copy of every layer's cache per token, and returns the cache.
+
+Slot recycling (continuous batching, :mod:`repro_torch.serve.scheduler`):
+:func:`admit_slot` restarts a slot at relative position 0 by setting
+``offset[slot] = pos`` and zeroing its Mamba state, and clears no
+attention entry. Every ``cpos`` entry at ring index ``i`` is either -1
+or a value ``v >= i`` with ``v = i (mod W)`` (writes store ``rpos`` at
+index ``rpos % W``). For a fresh occupant at ``rpos_new`` every stale
+index ``i > rpos_new`` therefore holds ``v >= i > rpos_new`` or -1,
+masked by ``kp <= rpos`` exactly where a fresh cache's -1 entries are;
+the -1e30 logits give exactly-0 softmax weights, and ``0 * stale_v = 0``,
+so the recycled slot's logits are a fresh cache's bit for bit. The
+Mamba state carries across tokens unmasked, so it is zeroed.
 """
 from __future__ import annotations
 
@@ -60,6 +72,25 @@ def cache_struct(cfg: ModelConfig, batch: int, s_max: int, *, device):
     return {"layers": layers,
             "offset": torch.zeros((batch,), dtype=torch.int32, device=device),
             "pos": 0}
+
+
+def admit_slot(cache, slot: int, position: int):
+    """Recycle cache slot ``slot`` for a new request whose first token is
+    fed at absolute decode position ``position`` (normally
+    ``cache["pos"]``): ``offset[slot] = position``, and the slot's Mamba
+    state rows (``ssm_h``, ``ssm_conv``) of every hybrid layer zeroed,
+    in place. ``k``, ``v`` and ``cpos`` are left as they are: the
+    recycling invariant (module docstring) masks every stale entry.
+    Returns the cache. The writes are fills, so nothing is copied from
+    the host (no device sync), and run in inference mode: the decode
+    step's states are inference tensors."""
+    with torch.inference_mode():
+        cache["offset"][slot].fill_(int(position))
+        for g in cache["layers"]:
+            for key in ("ssm_h", "ssm_conv"):
+                if key in g:
+                    g[key][slot].zero_()
+    return cache
 
 
 def attn_decode(p, cfg: ModelConfig, x, pos: int, offset, ck, cv, cpos, *,

@@ -23,6 +23,7 @@ from repro_torch.config import LuffyConfig, ModelConfig, OptimConfig, \
 from repro_torch.core import moe_layer
 from repro_torch.dist import DistContext
 from repro_torch.models import transformer as tf
+from repro_torch.obs import metrics as obs_metrics
 
 
 class LuffyState(NamedTuple):
@@ -112,9 +113,19 @@ def make_train_step(cfg: ModelConfig, luffy: LuffyConfig,
     return step
 
 
-def finalize_metrics(metrics) -> Dict[str, float]:
-    """Host-side view of one step's metrics: device scalars as floats."""
-    return {k: float(v) for k, v in metrics.items()}
+def finalize_metrics(metrics, luffy: LuffyConfig
+                     ) -> Dict[str, Optional[float]]:
+    """Host-side view of one step's metrics: device scalars as floats,
+    config-inapplicable keys masked to ``None`` (an
+    ``inter_bytes_shipped`` of 0.0 from a dense-wire run means "nothing
+    measured", not "zero bytes"; see :mod:`repro_torch.obs.metrics`)."""
+    out = {}
+    for k, v in metrics.items():
+        try:
+            out[k] = float(v)
+        except (TypeError, ValueError):
+            out[k] = v
+    return obs_metrics.mask_inapplicable(out, luffy)
 
 
 def pick_bucket_host(luffy: LuffyConfig, observed_rate: float) -> int:

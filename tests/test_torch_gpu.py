@@ -1022,3 +1022,91 @@ def test_expert_ffn_group_map_matches_plain(shape, h_dtype, lanes):
     want = torch.autograd.grad(out, leaves, dy)
     for g, w in zip(grads, want):
         torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["moe-gpt2", "hymba-1.5b"])
+def test_recycled_slot_bitwise_fresh_on_card(arch):
+    """A decode slot recycled by ``admit_slot`` after its ring wrapped
+    gives the fresh cache's logits bit for bit on the card (K1 decodes
+    the moe-gpt2 case)."""
+    _cuda_or_skip()
+    import dataclasses
+    from repro_torch.config import LuffyConfig, reduced
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = reduced(get_config(arch))
+    cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+        cfg.attn, window_pattern=(6,)))
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    model = build_model(cfg, device="cuda", seed=3)
+    r = np.random.default_rng(3)
+    warm = torch.as_tensor(r.integers(1, cfg.vocab_size, (2, 9)),
+                           dtype=torch.int32, device="cuda")
+    seq = torch.as_tensor(r.integers(1, cfg.vocab_size, (7, 2, 1)),
+                          dtype=torch.int32, device="cuda")
+
+    def feed(cache):
+        out = []
+        for t in range(seq.shape[0]):
+            lg, cache = model.decode_step(cache, seq[t], luffy=luffy)
+            out.append(lg[0].clone())
+        return torch.stack(out)
+
+    cache = model.new_cache(2, 16)
+    for t in range(warm.shape[1]):
+        _, cache = model.decode_step(cache, warm[:, t:t + 1], luffy=luffy)
+    before = kexp.expert_ffn.launches
+    got = feed(model.admit_slot(cache, 0, cache["pos"]))
+    assert torch.equal(got, feed(model.new_cache(2, 16)))
+    assert (kexp.expert_ffn.launches > before) == cfg.uses_moe
+
+
+@pytest.mark.gpu
+def test_fenced_span_covers_k1():
+    """A fenced phase span lasts at least the device time of the K1
+    launch inside it (CUDA events around the same launch)."""
+    _cuda_or_skip()
+    from repro_torch.obs import trace as obs_trace
+    h, ws = _inputs(16, 2048, 768, 3072, seed=1)
+    th = torch.as_tensor(h).to(torch.bfloat16).cuda()
+    tw = [torch.as_tensor(w).cuda() for w in ws]
+    ops.expert_ffn(th, *tw, "gelu")                 # build and warm up
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    tracer = obs_trace.activate(obs_trace.Tracer(fence=True))
+    try:
+        before = kexp.expert_ffn.launches
+        with obs_trace.phase("expert_ffn") as sp:
+            t0.record()
+            y = ops.expert_ffn(th, *tw, "gelu")
+            t1.record()
+            y = sp.fence(y)
+    finally:
+        obs_trace.deactivate()
+    assert kexp.expert_ffn.launches == before + 1
+    (e,) = tracer.spans("expert_ffn")
+    assert e["dur"] / 1e3 >= t0.elapsed_time(t1)
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_onto_card(tmp_path):
+    _cuda_or_skip()
+    from repro_torch import checkpoint, convert, optim
+    from repro_torch.config import reduced
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = reduced(get_config("moe-gpt2"))
+    params = build_model(cfg, device="cuda", seed=4).params
+    tree = convert.to_reference(params, cfg)
+    checkpoint.save(str(tmp_path), tree, step=5)
+    got, step = checkpoint.restore(str(tmp_path), tree, device="cuda")
+    back = convert.from_reference(checkpoint.restore(str(tmp_path),
+                                                     tree)[0], cfg,
+                                  device="cuda")
+    assert step == 5
+    for (_, a), (_, b) in zip(optim.leaves_with_path(back),
+                              optim.leaves_with_path(params)):
+        assert a.is_cuda and torch.equal(a, b.detach())
+    assert all(t.is_cuda for _, t in checkpoint._flatten(got))

@@ -319,4 +319,4 @@ def test_launcher_never_falls_back_to_cpu():
         tserve.main(["--reduced", "--batch", "1", "--prompt-len", "2",
                      "--gen", "1"])
     with pytest.raises(SystemExit):
-        tserve.parse_args(["--continuous"])
+        tserve.parse_args(["--autotune", "tuned"])
