@@ -265,15 +265,37 @@ kernels line):
     ``expert_ffn`` and ``combine``; ``residual/step/*`` records from step
     4 on; the untraced step's device syncs (phase 14) logged;
 44. checkpoint: one train step of a 2-layer full-width cut with
-    ``--ckpt``, restored onto the card bit for bit.
+    ``--ckpt``, restored onto the card bit for bit;
+45. calibration: ``repro_torch.obs.calibrate.run_calibration`` on the
+    card over 4 virtual ranks (2 nodes of 2; its collectives are copies
+    in device memory): every fitted constant finite and within the
+    rails, K1 and K2 each launched 4 times by the FFN and similarity
+    probes (their counters), a second call loading the artifact and
+    launching neither, ``force=True`` measuring again; the fit, K1's and
+    K2's probe times logged beside the card's name and power limit;
+46. calibrated, autotuned EP train: full-width moe-gpt2 over 4 virtual
+    ranks (``--model-axis 4 --nodes 2 --calibrate --autotune`` on phase
+    45's directory), 3 steps: the fit loaded, finite losses, the knobs
+    equal to ``autotune_config`` recomputed from phase 45's fit, the
+    run_info flags set; the modeled step beside the measured median, and
+    the default knobs' modeled and measured beside them;
+47. traced probe: phase 46's run, 1 step, under ``--trace-out``: one
+    ``probe_exchange`` span on device 0 and a residual record of the
+    probe's expert FFN against the calibrated speed;
+48. tuned serve and dry run: full-width moe-gpt2 served over 4 ranks
+    with ``--autotune`` and an explicit ``--exec-mode pipeline``, tokens
+    and prefill logits bit for bit the run given those knobs explicitly;
+    ``repro_torch.launch.dryrun`` priced on phase 45's artifact, its
+    ``calibration`` key set and the reference's ledger key sets.
 
 Phase 23 runs right after phase 10, and phases 30-32, 34 and 35 after
 phase 14, where the profiler still records every launch; phase 33 runs
-after phase 19, phases 36-44 after phase 35. Then one JSON line with every kernel's record (the paper
-width's as ``<kernel>@d1024``, K1 at the pipeline's chunk as
-``expert_ffn@chunk``, with the lane map as ``expert_ffn@lanes`` and
-``expert_ffn_bwd@lanes``; K1's launches on every serve and train path of
-the run, the continuous one included), and last ``{"ok": true,
+after phase 19, phases 36-48 after phase 35. Then one JSON line with
+every kernel's record (the paper width's as ``<kernel>@d1024``, K1 at
+the pipeline's chunk as ``expert_ffn@chunk``, with the lane map as
+``expert_ffn@lanes`` and ``expert_ffn_bwd@lanes``; K1's launches on
+every serve and train path of the run, the continuous one included, and
+K1's and K2's in the calibration probes), and last ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, without a CUDA
 device or outside a checkout of the repository.
 """
@@ -548,6 +570,7 @@ def phase_device():
     log(f"device: {name} x{count}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     log(smi[0])
+    CARD["smi"] = smi[0]
     clk = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -5280,9 +5303,13 @@ def phase_traced_ep(ep_info=None, ep_prof=None):
     none from the remat recompute) and nothing else but the ``data`` and
     ``step`` spans; ``exchange`` at least ``dispatch`` + ``expert_ffn`` +
     ``combine`` by inclusive time; ``residual/step/*`` from step 4 on.
-    Logs the untraced step's device syncs (phase 14's count, ``ep_prof``,
-    made here when not given) and the traced step's time beside the
-    untraced one's."""
+    The run ends with ``--trace``'s probe (since slice 16): inside its
+    ``probe`` span one ``probe_exchange`` span on device 0 around one
+    exchange of its own (its plan after the run's, its residual record
+    after the steps'), which the counts above leave out. Logs the
+    untraced step's device syncs (phase 14's count, ``ep_prof``, made
+    here when not given) and the traced step's time beside the untraced
+    one's."""
     import statistics
     import numpy as np
     import torch
@@ -5297,15 +5324,27 @@ def phase_traced_ep(ep_info=None, ep_prof=None):
                    str(out / "m.jsonl"), "--log-file", str(out / "log.json")])
     cfg, steps = res["cfg"], res["steps"]
     n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
-    summary = res["tracer"].summary()
-    counts = {k: v["count"] for k, v in summary.items()}
+    tracer = res["tracer"]
+    summary = tracer.summary()
+    (probe,) = tracer.spans("probe")
+
+    def in_probe(e):
+        return probe["ts"] <= e["ts"] \
+            and e["ts"] + e["dur"] <= probe["ts"] + probe["dur"]
+
+    counts, probe_counts = {}, {}
+    for e in tracer.spans():
+        if e is not probe:
+            side = probe_counts if in_probe(e) else counts
+            side[e["name"]] = side.get(e["name"], 0) + 1
     want_counts = {k: n_moe * len(steps) for k in TRACE_PHASES}
     want_counts.update(data=len(steps), step=len(steps))
     per_step = ep_info["per_step"]
     perms = [p for p, _ in plans]
     same = {k: [st[k] for st in steps] == per_step[k]
             for k in ("loss", "condense_rate", "bucket")}
-    same["perms"] = len(perms) == len(ep_info["_perms"]) and all(
+    # the probe's own plan comes after the run's
+    same["perms"] = len(perms) == len(ep_info["_perms"]) + 1 and all(
         (a is None and b is None) or np.array_equal(a, b)
         for a, b in zip(perms, ep_info["_perms"]))
     records = obs_metrics.read_jsonl(out / "m.jsonl")
@@ -5315,7 +5354,10 @@ def phase_traced_ep(ep_info=None, ep_prof=None):
     inclusive = {k: summary[k]["total_us"] / 1e3 for k in summary}
     parts = sum(inclusive.get(k, 0.0)
                 for k in ("dispatch", "expert_ffn", "combine"))
+    probe_devices = [e["args"].get("device")
+                     for e in tracer.spans("probe_exchange")]
     info = dict(span_counts=counts, span_counts_expected=want_counts,
+                probe_span_counts=probe_counts, probe_devices=probe_devices,
                 inclusive_ms=inclusive, bitwise_untraced=same,
                 residual_steps=residual, records=len(records),
                 log_file_records=len(log_list),
@@ -5333,15 +5375,19 @@ def phase_traced_ep(ep_info=None, ep_prof=None):
         bad.append(f"traced run differs from the untraced one: {same}")
     if counts != want_counts:
         bad.append(f"span counts {counts} != {want_counts}")
+    if probe_devices != [0] or probe_counts.get("expert_ffn") != 1:
+        bad.append(f"probe spans {probe_counts} on devices {probe_devices}")
     if not inclusive.get("exchange", 0.0) >= parts:
         bad.append(f"exchange {inclusive.get('exchange')} ms < its phases "
                    f"{parts} ms")
     if residual != list(range(4, len(per_step["loss"]))):
         bad.append(f"residual records at steps {residual}")
-    if len(records) != len(log_list) or len(records) != len(
-            per_step["loss"]):
-        bad.append(f"{len(records)} metrics records, {len(log_list)} in the "
-                   f"log file")
+    if len(log_list) != len(per_step["loss"]) \
+            or len(records) != len(log_list) + 1 \
+            or records[-1]["step"] != len(log_list) \
+            or "residual/expert_ffn/ratio" not in records[-1]["metrics"]:
+        bad.append(f"{len(records)} metrics records (the probe's last), "
+                   f"{len(log_list)} in the log file")
     if bad:
         raise SystemExit("traced EP train: " + "; ".join(bad))
     return info
@@ -5396,6 +5442,307 @@ def phase_checkpoint():
     if step != 1 or not exact or not exact_port:
         raise SystemExit(f"checkpoint restore: {info}")
     return info
+
+
+# ---------------------------------------------------------------------------
+# slice 16: measured calibration (K1 and K2 as its probes), the autotuner,
+# the traced probe and the modeled dry run (phases 45-48)
+# ---------------------------------------------------------------------------
+
+# the calibration's mesh: 4 virtual ranks, 2 nodes of 2
+CALIB_MESH = dict(model=4, nodes=2)
+# the calibrated, autotuned EP train run: full-width moe-gpt2, the knobs
+# (wire, schedule, objective, similarity, wire dtype) left to the artifact
+TUNED_ARGS = ["--arch", "moe-gpt2", "--steps", "3", "--global-batch", "8",
+              "--seq-len", "1024", "--device", "cuda", "--seed", "0",
+              "--model-axis", "4", "--nodes", "2"]
+# serve with --autotune over 4 ranks, one knob given explicitly
+TUNED_SERVE_ARGS = ["--arch", "moe-gpt2", "--batch", "8", "--prompt-len",
+                    "64", "--gen", "8", "--prefill", "batch", "--model-axis",
+                    "4", "--device", "cuda", "--seed", "0"]
+TUNED_SERVE_EXPLICIT = ["--exec-mode", "pipeline"]
+SERVE_KNOBS = ("exec_mode", "pipeline_chunks", "plan_objective",
+               "hier_dedup", "similarity_backend", "lsh_bits", "wire_dtype")
+# the reference's ledger schema (tests/test_ledger_schema.py), version 6
+LEDGER_KEYS = {
+    "": {"schema_version", "calibration", "topology", "dedup_factor",
+         "buckets", "wire", "plan_reuse", "condensation", "decode",
+         "autotune"},
+    "topology": {"nodes", "devices_per_node", "bw_ratio"},
+    "wire": {"dtype", "precision", "row_bytes", "row_bytes_f32",
+             "scale_block", "shipped_vanilla_bytes", "shipped_migrate_bytes",
+             "shipped_pipelined_bytes"},
+    "plan_reuse": {"mode", "moe_sublayers", "n_slots",
+                   "plans_built_per_step", "plans_reused_per_step",
+                   "revalidation_mismatches", "planning_ms_per_plan",
+                   "revalidate_ms_per_check", "planning_ms_saved_per_step"},
+    "condensation": {"backend", "group_size", "lsh_bits",
+                     "measured_pairs_per_step", "similarity_ms_per_build",
+                     "dedup_wire", "condense_plan"},
+    "decode": {"tokens", "combine_ms", "shared_ffn_ms", "sync_ms",
+               "overlap_ms", "modeled_speedup"},
+    "autotune": {"applied", "key", "knobs", "modeled_step_ms",
+                 "default_step_ms", "modeled_savings_ms", "candidates"},
+}
+LEDGER_BUCKET_KEYS = {"flat", "hier", "overlap"}
+
+
+def _probe_launches():
+    from repro_torch.kernels import expert_ffn as kexp
+    from repro_torch.kernels import similarity as ksim
+    return {"expert_ffn": kexp.expert_ffn.launches,
+            "masked_similarity_fused": ksim.masked_similarity_fused.launches}
+
+
+def _calibrate_counted(mesh, topo, out, force=False):
+    """``run_calibration`` with K1's and K2's counters set to 0 just
+    before and read just after; returns (fit, launches, seconds)."""
+    from repro_torch.kernels import expert_ffn as kexp
+    from repro_torch.kernels import similarity as ksim
+    from repro_torch.obs import calibrate as obs_cal
+    kexp.expert_ffn.launches = 0
+    ksim.masked_similarity_fused.launches = 0
+    t = time.perf_counter()
+    calib = obs_cal.run_calibration(mesh, topo, device="cuda", out_dir=out,
+                                    force=force)
+    return calib, _probe_launches(), time.perf_counter() - t
+
+
+def phase_calibrate():
+    """Phase 45: ``run_calibration`` on the card over 4 virtual ranks (2
+    nodes of 2): every field finite and within the rails; K1 and K2 each
+    launched by the probes (their counters, one warm-up and three timed
+    launches each); a second call loads the artifact and launches
+    neither; ``force=True`` measures again. Logs the fit beside the
+    card's name and power limit. Returns the fit, its directory and the
+    probes' launches."""
+    from repro_torch.launch.mesh import make_host_mesh, topology_for_mesh
+    from repro_torch.obs import calibrate as obs_cal
+    out = _out_dir("phase45")
+    mesh = make_host_mesh(**CALIB_MESH)
+    topo = topology_for_mesh(mesh)
+    calib, launches, secs = _calibrate_counted(mesh, topo, out)
+    again, launches_load, secs_load = _calibrate_counted(mesh, topo, out)
+    forced, launches_force, _ = _calibrate_counted(mesh, topo, out,
+                                                   force=True)
+    rails = {
+        "intra_bw": (obs_cal._MIN_BW, obs_cal._MAX_BW),
+        "inter_bw": (obs_cal._MIN_BW, obs_cal._MAX_BW),
+        "intra_lat": (obs_cal._MIN_LAT, obs_cal._MAX_LAT),
+        "inter_lat": (obs_cal._MIN_LAT, obs_cal._MAX_LAT),
+        "chunk_overhead_ms": (1e-4, 1e3), "plan_step_us": (0.01, math.inf),
+        "sim_speed": (obs_cal._MIN_SPEED, obs_cal._MAX_SPEED),
+        "ffn_speed": (obs_cal._MIN_SPEED, obs_cal._MAX_SPEED)}
+    bad = [k for k, (lo, hi) in rails.items()
+           if not (math.isfinite(getattr(calib, k))
+                   and lo <= getattr(calib, k) <= hi)]
+    want_probe = {"expert_ffn": 4, "masked_similarity_fused": 4}
+    # the probes' least times on the card: K1 at bf16 h and weights, its
+    # three products; K2's measured pairs' dot products (a whole Gram)
+    _, R, d, F = calib.samples["ffn_shape"]
+    _, G, dg = calib.samples["similarity_shape"]
+    k1_bound = _bound(2 * (2 * R * d + 3 * d * F), 3 * 2 * R * d * F,
+                      BF16_TC_FLOPS)
+    k2_bound = _bound(2 * G * dg + 4 * G * G, 2 * G * G * dg, BF16_TC_FLOPS)
+    info = dict(
+        card=CARD.get("smi"), key=calib.key, seconds=secs,
+        load_seconds=secs_load,
+        fit={k: getattr(calib, k) for k in rails},
+        forced_fit={k: getattr(forced, k) for k in rails},
+        k1_probe_ms=calib.samples["ffn_s"] * 1e3,
+        k1_probe_shape=calib.samples["ffn_shape"],
+        k2_probe_ms=calib.samples["similarity_s"] * 1e3,
+        k2_probe_shape=calib.samples["similarity_shape"],
+        k1_probe_bound=k1_bound, k2_probe_bound=k2_bound,
+        probe_dtype=calib.samples["probe_dtype"],
+        a2a_intra=calib.samples["a2a_intra"],
+        a2a_inter=calib.samples["a2a_inter"],
+        psum=calib.samples["psum"], planning=calib.samples["planning"],
+        launches=launches, launches_load=launches_load,
+        launches_force=launches_force)
+    log("calibration (virtual ranks: the collectives are copies in device "
+        "memory): " + json.dumps(info))
+    if bad or launches != want_probe or launches_force != want_probe \
+            or any(launches_load.values()) or again != calib \
+            or not calib.key.endswith("__gpu") \
+            or obs_cal.load_calibration(out, calib.key) != forced:
+        raise SystemExit(f"calibration: rails {bad}, launches {launches} / "
+                         f"{launches_load} / {launches_force}, key "
+                         f"{calib.key}")
+    return {"calib": forced, "dir": out, "launches": launches,
+            "info": info}
+
+
+def _tuned_expected(calib):
+    """``autotune_config`` recomputed from the phase-45 artifact for the
+    ``TUNED_ARGS`` run (the train launcher's workload arguments)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh, topology_for_mesh
+    from repro_torch.obs import autotune as obs_at
+    cfg = get_config("moe-gpt2")
+    n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
+    topo = calib.topology(topology_for_mesh(make_host_mesh(**CALIB_MESH)))
+    return obs_at.autotune_config(
+        topo=topo, tokens=8 * 1024, top_k=cfg.moe.top_k, d_model=cfg.d_model,
+        d_ff=cfg.moe.d_ff, num_layers=n_moe, n_moe=n_moe, n_slots=8,
+        num_experts=cfg.moe.num_experts, mesh_devices=4, group_size=128,
+        calib=calib, backend="gpu")
+
+
+def phase_tuned_train(cal=None):
+    """Phase 46: full-width moe-gpt2 trained over 4 virtual ranks (2
+    nodes of 2) with ``--calibrate`` and ``--autotune`` on phase 45's
+    directory, 3 steps: the fit loaded (equal to phase 45's), finite
+    losses, K1 launched, the knobs the artifact's, equal to
+    ``autotune_config`` recomputed from phase 45's fit, the run_info
+    flags set; logs the modeled step (the tuner's per-step exchange,
+    planning and similarity time) beside the measured median step, and
+    the modeled default beside the measured median of the same
+    calibrated run at the default knobs."""
+    import statistics
+    from repro_torch.obs import autotune as obs_at
+    if cal is None:
+        cal = phase_calibrate()
+    d = str(cal["dir"])
+    res, launches, _, _ = _ep_run(TUNED_ARGS + ["--calibrate", d,
+                                                "--autotune", d])
+    want = _tuned_expected(cal["calib"])
+    tuned, luffy, steps = res["tuned"], res["luffy"], res["steps"]
+    applied = {k: getattr(luffy, k) for k in obs_at.TUNABLE_KNOBS}
+    losses = [s["loss"] for s in steps]
+    median = statistics.median(s["step_ms"] for s in steps[1:])
+    # the same calibrated run at the default knobs, for the measured side
+    # of the tuner's modeled saving
+    base, _, _, _ = _ep_run(TUNED_ARGS + ["--calibrate", d])
+    base_median = statistics.median(s["step_ms"] for s in base["steps"][1:])
+    info = dict(knobs=applied, tuned_key=tuned.key,
+                modeled_step_ms=tuned.modeled_step_ms,
+                default_step_ms=tuned.default_step_ms,
+                candidates=tuned.candidates,
+                measured_median_step_ms=median,
+                default_knobs_measured_median_step_ms=base_median,
+                default_knobs_step_ms=[s["step_ms"] for s in base["steps"]],
+                step_ms=[s["step_ms"] for s in steps], losses=losses,
+                chunks=[s["chunks"] for s in steps],
+                gpu_speed=luffy.gpu_speed,
+                chunk_overhead_ms=luffy.chunk_overhead_ms,
+                run=res["log"][0]["run"], launches=launches)
+    log("calibrated autotuned EP train: " + json.dumps(info))
+    ok = (all(math.isfinite(x) for x in losses)
+          and res["calibration"] == cal["calib"]
+          and tuned.to_json() == want.to_json()
+          and applied == obs_at.resolve_knobs(
+              {k: None for k in obs_at.TUNABLE_KNOBS}, want)
+          and luffy.gpu_speed == cal["calib"].ffn_speed
+          and res["log"][0]["run"]["calibrated"]
+          and res["log"][0]["run"]["autotuned"]
+          and launches["expert_ffn"] > 0)
+    ok = ok and all(math.isfinite(st["loss"]) for st in base["steps"])
+    del res, base
+    import torch
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit(f"calibrated autotuned EP train: {info}; want "
+                         f"{want.knobs}")
+    return info
+
+
+def phase_traced_probe(cal=None):
+    """Phase 47: phase 46's run, 1 step, with ``--trace-out`` and
+    ``--metrics-json``: the run ends with exactly one ``probe_exchange``
+    span, on device 0, and a residual record of the probe's expert FFN
+    (K1 on the card) against the calibrated FFN speed, dispersion 1.0 on
+    one card."""
+    if cal is None:
+        cal = phase_calibrate()
+    d = str(cal["dir"])
+    out = _out_dir("phase47")
+    res, launches, _, _ = _ep_run(
+        TUNED_ARGS[:3] + ["1"] + TUNED_ARGS[4:]
+        + ["--calibrate", d, "--autotune", d, "--trace-out",
+           str(out / "trace.json"), "--metrics-json", str(out / "m.jsonl")])
+    spans = res["tracer"].spans("probe_exchange")
+    last = json.loads((out / "m.jsonl").read_text().splitlines()[-1])
+    met = last["metrics"]
+    trace = json.loads((out / "trace.json").read_text())
+    info = dict(spans=[s["args"] for s in spans],
+                probe_ms=[s["dur"] / 1e3 for s in spans],
+                residual={k: v for k, v in met.items()
+                          if k.startswith("residual/")},
+                record_step=last["step"],
+                trace_events=len(trace["traceEvents"]))
+    log("traced probe: " + json.dumps(info))
+    del res
+    ok = (len(spans) == 1 and spans[0]["args"].get("device") == 0
+          and last["step"] == 1
+          and met.get("residual/expert_ffn/ratio", 0) > 0
+          and met.get("residual/device_dispersion") == 1.0
+          and any(e["name"] == "probe_exchange"
+                  for e in trace["traceEvents"]))
+    if not ok:
+        raise SystemExit(f"traced probe: {info}")
+    return info
+
+
+def phase_tuned_serve_dryrun(cal=None):
+    """Phase 48: full-width moe-gpt2 served over 4 virtual ranks with
+    ``--autotune`` and an explicit ``--exec-mode pipeline``: the flag
+    kept, the rest the artifact's, tokens and prefill logits bit for bit
+    the run given all those knobs explicitly. Then ``launch.dryrun`` on
+    the 16 x 16 layout in 4 nodes priced on phase 45's artifact: its
+    ``calibration`` key set and the reference's ledger key sets."""
+    import torch
+    from repro_torch.launch import dryrun, serve
+    from repro_torch.obs.calibrate import save_calibration
+    if cal is None:
+        cal = phase_calibrate()
+    out = _out_dir("phase48")
+    res = serve.main(TUNED_SERVE_ARGS + TUNED_SERVE_EXPLICIT
+                     + ["--autotune", str(out)])
+    knobs = res["knobs"]
+    flags = []
+    for k in SERVE_KNOBS:
+        flags += ["--" + k.replace("_", "-"), str(knobs[k])]
+    explicit = serve.main(TUNED_SERVE_ARGS + flags)
+    same = (explicit["knobs"] == knobs
+            and torch.equal(res["tokens"], explicit["tokens"])
+            and torch.equal(res["prefill_logits"],
+                            explicit["prefill_logits"]))
+    tuned = res["tuned"]
+    path = save_calibration(out / "calib", cal["calib"])
+    rec = dryrun.main(["--arch", "moe-gpt2", "--shape", "train_4k",
+                       "--nodes", "4", "--calibration", str(path),
+                       "--out", str(out / "dryrun.json")])
+    led = rec["comm_ledger"]
+    keys_ok = (set(led) == LEDGER_KEYS[""]
+               and all(set(led[s]) == k for s, k in LEDGER_KEYS.items() if s)
+               and all(set(b) == LEDGER_BUCKET_KEYS
+                       for b in led["buckets"].values()))
+    info = dict(knobs=knobs, tuned_knobs=tuned.knobs,
+                tuned_modeled_ms=tuned.modeled_step_ms,
+                tokens_bitwise=same, dryrun_status=rec["status"],
+                ledger_calibration=led["calibration"],
+                ledger_autotune=led["autotune"],
+                ledger_overlap_0=led["buckets"]["0.0"]["overlap"],
+                ledger_keys_ok=keys_ok)
+    log("tuned serve and dry run: " + json.dumps(info))
+    del res, explicit
+    torch.cuda.empty_cache()
+    if not (same and knobs["exec_mode"] == "pipeline"
+            and all(knobs[k] == tuned.knobs[k] for k in SERVE_KNOBS
+                    if k not in ("exec_mode", "hier_dedup"))
+            and rec["status"] == "modeled"
+            and led["calibration"] == cal["calib"].key and keys_ok):
+        raise SystemExit(f"tuned serve and dry run: {info}")
+    return info
+
+
+def run_tuning_phases():
+    """Phases 45-48 in order, phases 46-48 on phase 45's artifact."""
+    cal = phase_calibrate()
+    return {"calibrate": cal, "train": phase_tuned_train(cal),
+            "probe": phase_traced_probe(cal),
+            "serve": phase_tuned_serve_dryrun(cal)}
 
 
 def _record(name, source, replaces, launches, t, extra=None):
@@ -5524,7 +5871,11 @@ def _only_runners():
         44: phase_checkpoint}
     runners = {n: (lambda need, fn=fn: fn()) for n, fn in plain.items()}
     runners.update({19: serve_ep, 22: reuse,
-                    43: lambda need: phase_traced_ep(need(11), need(14))})
+                    43: lambda need: phase_traced_ep(need(11), need(14)),
+                    45: lambda need: phase_calibrate(),
+                    46: lambda need: phase_tuned_train(need(45)),
+                    47: lambda need: phase_traced_probe(need(45)),
+                    48: lambda need: phase_tuned_serve_dryrun(need(45))})
     return runners
 
 
@@ -5611,6 +5962,8 @@ def main(argv=None) -> int:
     phase_recycled_slot()
     phase_traced_ep(ep_info, ep_prof)
     phase_checkpoint()
+    log("calibration, autotuning, the traced probe, the dry run:")
+    tuning = run_tuning_phases()
     log("kernels K5, K6:")
     timed_k56 = phase_kernels_k56()
     hymba_info = phase_hymba_slice()
@@ -5654,6 +6007,10 @@ def main(argv=None) -> int:
                  "launches_ep_serve": ep_serve["launches"]["expert_ffn"],
                  "launches_continuous_serve": continuous["launches"][
                      "expert_ffn"],
+                 "launches_calibration_probe": tuning["calibrate"][
+                     "launches"]["expert_ffn"],
+                 "calibration_probe_ms": tuning["calibrate"]["info"][
+                     "k1_probe_ms"],
                  "timed_at": "train shape [16,2048,768]x3072, bf16 h, f32 "
                              "weights read through the warm bf16 cache "
                              "(the tensor-core route), gelu; bound at bf16 "
@@ -5706,6 +6063,10 @@ def main(argv=None) -> int:
                 timed_train["masked_similarity_fused"],
                 {"fuses": "the skip rules of src/repro/condense/"
                           "backends.py:131-158 (fast_similarity)",
+                 "launches_calibration_probe": tuning["calibrate"][
+                     "launches"]["masked_similarity_fused"],
+                 "calibration_probe_ms": tuning["calibrate"]["info"][
+                     "k2_probe_ms"],
                  "timed_at": "64 groups of [128,768] bf16 rows, strided "
                              "int64 expert ids, a carried s_prev; bound at "
                              "the bf16 tensor-core rate",

@@ -15,7 +15,8 @@ device memory, not a network transfer.
   transpose; ``hier`` as the reference's two phases on the ``(N, L)``
   split (within each node over the local rank, then across nodes), which
   compose to the same permutation, so flat and hier agree bit for bit.
-- ``node_all_to_all``: ``x [M, N*c, ...]``, across nodes only.
+- ``node_all_to_all``: ``x [M, N*c, ...]``, across nodes only;
+  ``local_all_to_all``: ``x [M, L*c, ...]``, within each node only.
 - ``local_all_gather``: ``x [M, a, ...]`` -> ``[M, L*a, ...]``, the
   node's ranks' slices in local-rank order (``local_all_gather_t``, its
   transpose, for the wire's hand-written backward).
@@ -125,6 +126,16 @@ class CommContext(NamedTuple):
         self._check(x, N)
         c = x.shape[1] // N
         b = x.reshape(N, L, N, c, *x.shape[2:]).transpose(0, 2)
+        return b.reshape(x.shape)
+
+    def local_all_to_all(self, x):
+        """Within each node only, dim 1 = one chunk per local rank: the
+        first phase of the hier :meth:`all_to_all`."""
+        self._require_hier()
+        N, L = self.nodes, self.local_size
+        self._check(x, L)
+        c = x.shape[1] // L
+        b = x.reshape(N, L, L, c, *x.shape[2:]).transpose(1, 2)
         return b.reshape(x.shape)
 
     def local_all_gather(self, x):

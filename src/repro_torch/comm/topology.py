@@ -70,18 +70,3 @@ class Topology:
         """One node: every link the same cost."""
         return cls(num_nodes=1, devices_per_node=num_devices, intra_bw=bw,
                    inter_bw=bw)
-
-    @classmethod
-    def from_layout(cls, model: int, nodes: int = 0,
-                    inter_bw: float = DEFAULT_INTER_BW) -> "Topology":
-        """The topology of ``model`` ranks split into ``nodes`` nodes (the
-        reference's ``Topology.from_mesh`` of ``make_host_mesh(model,
-        nodes)``): hierarchical when ``nodes > 1``, else flat (where
-        ``inter_bw`` has no link to price)."""
-        if nodes > 1:
-            if model % nodes:
-                raise ValueError(f"--nodes {nodes} must divide the model "
-                                 f"axis {model}")
-            return cls(num_nodes=nodes, devices_per_node=model // nodes,
-                       inter_bw=inter_bw)
-        return cls.flat(model)

@@ -99,6 +99,15 @@ class ShapeConfig:
     mode: str                      # "train" | "prefill" | "decode"
 
 
+# the reference's assigned input shapes (the dry run's ``--shape``)
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
+
+
 @dataclass(frozen=True)
 class LuffyConfig:
     """The paper's two techniques (§IV, §V) and how the expert-parallel

@@ -12,7 +12,11 @@ of ``repro/launch/serve.py``).
         --model-axis 4 --batch 8 --prompt-len 128 --gen 32 --prefill batch \\
         [--exec-mode {sync,pipeline,decode_overlap}] [--pipeline-chunks N] \\
         [--plan-cache DIR [--precompute-plans]] \\
-        [--plan-objective {traffic,overlap,replicate}]
+        [--plan-objective {traffic,overlap,replicate}] \\
+        [--wire-dtype {f32,bf16,f8e4m3}] [--hier-dedup {off,on}] \\
+        [--similarity-backend {exact,lsh}] [--lsh-bits N] \\
+        [--condense-reuse {off,signature,always}] \\
+        [--autotune DIR [--autotune-force]]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch moe-gpt2 \\
         --continuous --batch 8 --prompt-len 64 --gen 32 --requests 24 \\
         [--burst 3] [--arrival-every 4] [--max-steps 512] \\
@@ -50,7 +54,15 @@ step's, and the prefill and every decode step then bind each request's
 routing onto them: no ``build_exchange_plan`` call after the warm-up,
 with logits bit for bit the uncached run's. ``--plan-objective`` only
 threads through (serving never re-homes a prompt, so every objective
-builds the same vanilla plan); it keys the cache. The reference uses
+builds the same vanilla plan); it keys the cache. ``--wire-dtype``
+sets the precision the expert-parallel prefill's rows ship at and keys
+the cache too; ``--hier-dedup``, ``--similarity-backend``,
+``--lsh-bits`` and ``--condense-reuse`` only thread the config through
+(the mesh is flat and serving never condenses). ``--autotune DIR`` fills
+the execution knobs no flag set from the tuned artifact for this
+topology (:mod:`repro_torch.obs.autotune`, searched with the decode
+term and kept when absent); an explicit flag beats the artifact. The
+reference uses
 its mesh only when it has more than one device, so on one device it
 serves as M = 1; virtual ranks have no such cap, so the port's default
 is 1. An arch without MoE sublayers serves the same with any M.
@@ -123,6 +135,35 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="migration planner objective (serving never "
                          "re-homes a prompt, so it only keys the cache; "
                          "default traffic)")
+    ap.add_argument("--hier-dedup", default=None, choices=["off", "on"],
+                    help="the deduplicated hier wire; serving's mesh is "
+                         "flat, so the prefill keeps the dense wire "
+                         "(default off)")
+    ap.add_argument("--wire-dtype", default=None,
+                    choices=["f32", "bf16", "f8e4m3"],
+                    help="precision the expert-parallel prefill's rows "
+                         "ship at; part of the plan cache key (default "
+                         "f32)")
+    ap.add_argument("--similarity-backend", default=None,
+                    choices=["exact", "lsh"],
+                    help="condensation similarity backend; serving never "
+                         "condenses, so it only threads the config "
+                         "through and beats a tuned artifact's choice "
+                         "(default exact)")
+    ap.add_argument("--lsh-bits", type=int, default=None,
+                    help="signed random projections per LSH bucket code "
+                         "(default 8; see --similarity-backend)")
+    ap.add_argument("--condense-reuse", default="off",
+                    choices=["off", "signature", "always"],
+                    help="cross-layer condense-plan reuse; serving never "
+                         "condenses, so it only threads the config through")
+    ap.add_argument("--autotune", default="",
+                    help="TunedConfig artifact directory: fill the "
+                         "execution knobs no flag set from the tuned "
+                         "artifact for this mesh's topology (searched and "
+                         "kept when absent; an explicit flag always wins)")
+    ap.add_argument("--autotune-force", action="store_true",
+                    help="search again even when a valid artifact exists")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching: --requests prompts arrive in "
                          "bursts, are admitted into free cache slots "
@@ -249,12 +290,14 @@ def _serve_continuous(args, cfg, luffy, model, plan_cache, registry,
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Serve; returns what was measured (tokens, logits, times)."""
     args = parse_args(argv)
-    from repro_torch.config import (LuffyConfig, reduced,
-                                    resolve_pipeline_chunks)
+    from repro_torch.comm.topology import Topology
+    from repro_torch.config import LuffyConfig, reduced
     from repro_torch.configs import get_config
     from repro_torch.dist import make_dist, single_device
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.model import build_model, resolve_device
+    from repro_torch.obs import autotune as obs_at
+    from repro_torch.obs.calibrate import backend_of
     from repro_torch.plan.exchange import schedule_of
     from repro_torch.serve.engine import prefill_capacity
 
@@ -263,13 +306,38 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if args.reduced:
         cfg = reduced(cfg)
     model = build_model(cfg, device=device, seed=args.seed)
-    objective = args.plan_objective or LuffyConfig.plan_objective
-    luffy = LuffyConfig(enable_condensation=False, enable_migration=False,
-                        exec_mode=args.exec_mode or "sync",
-                        pipeline_chunks=resolve_pipeline_chunks(
-                            args.pipeline_chunks, objective),
-                        plan_objective=objective)
     B, S = args.batch, args.prompt_len
+    # the knobs: an explicit flag, then the tuned artifact, then the
+    # default. Serving never migrates or condenses, so the wire stays flat
+    # and the artifact gives the execution knobs and the similarity pair
+    serve_knobs = ("exec_mode", "pipeline_chunks", "plan_objective",
+                   "hier_dedup", "similarity_backend", "lsh_bits",
+                   "wire_dtype")
+    tuned = None
+    if args.autotune and cfg.uses_moe:
+        tuned = obs_at.run_autotune(
+            topo=Topology.flat(args.model_axis), out_dir=args.autotune,
+            force=args.autotune_force, backend=backend_of(device),
+            tokens=B * S, top_k=cfg.moe.top_k, d_model=cfg.d_model,
+            d_ff=cfg.moe.d_ff, num_layers=cfg.num_layers, n_slots=B,
+            num_experts=cfg.moe.num_experts, group_size=min(128, S),
+            # the decode term: one live token a sequence; the port's
+            # configs have no shared experts (ROADMAP item 8.2)
+            decode_tokens=B, d_ff_shared=0)
+        print(f"autotune {tuned.key}: {tuned.knobs} modeled "
+              f"{tuned.modeled_step_ms:.3f}ms vs default "
+              f"{tuned.default_step_ms:.3f}ms", flush=True)
+    knobs = obs_at.resolve_knobs({k: getattr(args, k) for k in serve_knobs},
+                                 tuned, tunable=set(serve_knobs))
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False,
+                        exec_mode=knobs["exec_mode"],
+                        pipeline_chunks=knobs["pipeline_chunks"],
+                        plan_objective=knobs["plan_objective"],
+                        similarity_backend=knobs["similarity_backend"],
+                        lsh_bits=knobs["lsh_bits"],
+                        condense_reuse=args.condense_reuse,
+                        hier_dedup=knobs["hier_dedup"],
+                        wire_dtype=knobs["wire_dtype"])
     pdist = single_device()
     if args.model_axis > 1:
         mesh = make_host_mesh(model=args.model_axis)
@@ -287,6 +355,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     print(f"exec_mode={luffy.exec_mode} pipeline_chunks="
           f"{luffy.pipeline_chunks} chunks={chunks} in the prefill "
           f"plan_objective={luffy.plan_objective} "
+          f"similarity_backend={luffy.similarity_backend} "
+          f"wire_dtype={luffy.wire_dtype} "
           f"plan_cache={args.plan_cache or 'off'}", flush=True)
     plan_cache = None
     if args.plan_cache:
@@ -315,6 +385,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     finally:
         if tracer is not None:
             obs_trace.deactivate()
+    result.update(knobs=knobs, tuned=tuned)
     if plan_cache is not None:
         result["plan_cache"] = plan_cache.stats()
         print(f"plan cache: {plan_cache.stats()}")

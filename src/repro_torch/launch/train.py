@@ -16,7 +16,10 @@
         [--no-condensation] [--no-migration] \\
         [--metrics-json PATH] [--trace] [--trace-out PATH] \\
         [--log-file PATH] [--ckpt DIR [--ckpt-every N]] \\
-        [--drift-tolerance T] [--drift-k K] [--device cpu]
+        [--drift-tolerance T] [--drift-k K] [--mesh {host,none}] \\
+        [--calibrate DIR [--recalibrate-on-drift]] \\
+        [--autotune DIR [--autotune-force] [--autotune-refine N]] \\
+        [--device cpu]
 
 Weights are random, drawn from ``--seed``; batches come from the
 synthetic stream (``repro_torch.data.SyntheticLM``). Each step runs the
@@ -82,9 +85,27 @@ on (after a 3-step warm-up that skips step 0) each record carries the
 and the drift flag (``--drift-tolerance``, ``--drift-k``). ``--ckpt
 DIR`` saves the parameters (:mod:`repro_torch.checkpoint`, in the
 reference's stacked-layer layout, so either package restores them)
-every ``--ckpt-every`` steps and at the end. A flag of the reference
-that is not ported (``--calibrate``, ``--autotune*``,
-``--recalibrate-on-drift``) is not defined here.
+every ``--ckpt-every`` steps and at the end.
+
+Calibration and tuning (:mod:`repro_torch.obs.calibrate`,
+:mod:`repro_torch.obs.autotune`), as the reference's launcher.
+``--calibrate DIR`` loads the fit for this topology and backend from
+DIR, or measures one (the virtual ranks' collectives, which are copies
+in device memory, the chunk overhead, the planner's step, and K2's and
+K1's speeds on the card) and keeps it there, before the ranks are set
+up: the links, the chunk overhead and the FFN speed are then priced with
+it. ``--autotune DIR`` loads or searches the tuned knobs (wire, schedule,
+objective, similarity, wire dtype) and fills every knob no flag set: an
+explicit flag beats the artifact, which beats the default.
+``--autotune-refine N`` re-ranks the artifact's top candidates by the
+measured / modeled step time after the warm-up and, when the knobs
+change, rebuilds the steps; ``--recalibrate-on-drift`` measures the fit
+again (once a run) when the drift detector fires. Under ``--trace`` the
+run ends with one probe exchange a device under a ``probe_exchange``
+span and a residual record of its expert FFN against the modeled time.
+``--mesh none`` trains on one device whatever ``--model-axis`` says;
+``--mesh production`` (the reference's 16 x 16 pod) raises: it needs a
+data axis, which is not ported.
 """
 from __future__ import annotations
 
@@ -116,6 +137,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--global-batch", type=int, default=0,
                     help="sequences per step (default 8 reduced, else 256)")
     ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--mesh", choices=["host", "production", "none"],
+                    default="host",
+                    help="host: --model-axis virtual ranks; none: one "
+                         "device whatever --model-axis says; production "
+                         "(the 16 x 16 pod) needs a data axis, which is "
+                         "not ported")
     ap.add_argument("--model-axis", type=int, default=1,
                     help="expert-parallel ranks (virtual, in this process)")
     ap.add_argument("--comm-mode", choices=["flat", "hier"], default=None,
@@ -201,6 +228,27 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--trace-out", default="",
                     help="trace JSON path (implies --trace; default "
                          "trace.json)")
+    ap.add_argument("--calibrate", default="",
+                    help="calibration artifact directory: load the fit for "
+                         "this topology and backend or measure and keep "
+                         "one, then price links, chunk overhead and the "
+                         "FFN speed with it")
+    ap.add_argument("--autotune", default="",
+                    help="TunedConfig artifact directory: load the tuned "
+                         "knobs for this topology and backend or search "
+                         "and keep them, then fill every knob no flag set "
+                         "(an explicit flag always wins)")
+    ap.add_argument("--autotune-force", action="store_true",
+                    help="search again even when a valid artifact exists "
+                         "(overwrites it)")
+    ap.add_argument("--autotune-refine", type=int, default=0,
+                    help="after the measured warm-up, re-rank the tuned "
+                         "top candidates under the measured / modeled "
+                         "step-time ratio (0: off)")
+    ap.add_argument("--recalibrate-on-drift", action="store_true",
+                    help="when the step-time drift detector fires, measure "
+                         "the calibration again (force; needs --calibrate; "
+                         "at most once a run)")
     ap.add_argument("--drift-tolerance", type=float, default=1.5,
                     help="drift detector tolerance: an EWMA of measured / "
                          "expected step time outside [1/t, t] is out of "
@@ -217,18 +265,55 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+def _trace_probe(cfg, luffy, args, device, tracer, registry) -> Dict:
+    """The end-of-run probe of ``--trace``: one exchange on each device
+    under a ``probe_exchange`` span, then the residual of its expert FFN
+    (the phase one rank's probe prices meaningfully, so the residual
+    checks the calibrated FFN speed) and the devices' dispersion, as one
+    more metrics record. The measured side is the probe's own
+    ``expert_ffn`` span; the train steps' spans come before it."""
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import monitor as obs_monitor
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.calibrate import probe_exchange_per_device
+    S = min(args.seq_len, 64)
+    n0 = len(tracer.events)
+    with obs_trace.phase("probe", cat="probe"):
+        per_dev = probe_exchange_per_device(cfg, luffy, device=device,
+                                            seq_len=S)
+    ffn = [e["dur"] for e in tracer.events[n0:]
+           if e["ph"] == "X" and e["name"] == "expert_ffn"]
+    meas = {"expert_ffn": sum(ffn) / len(ffn) / 1e3} if ffn else {}
+    rows = S * cfg.moe.top_k
+    pred = {"expert_ffn": rows * 4.0 * cfg.d_model * cfg.moe.d_ff
+            / luffy.gpu_speed * 1e3}
+    res = obs_monitor.ResidualMonitor().observe(args.steps, pred, meas,
+                                                per_device_ms=per_dev)
+    rec = registry.observe(args.steps, {}, **res)
+    if args.metrics_json:
+        obs_metrics.write_jsonl(args.metrics_json, rec)
+    print(f"probe: {len(per_dev)} devices, dispersion "
+          f"{res.get('residual_device_dispersion', 1.0):.2f}x, expert_ffn "
+          f"{meas.get('expert_ffn', float('nan')):.3f}ms measured vs "
+          f"{pred['expert_ffn']:.3f}ms modeled", flush=True)
+    return {"per_device_ms": per_dev, "residual": res, "record": rec}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Train; returns what was measured, per step and in total."""
     args = parse_args(argv)
     from repro_torch import checkpoint, convert, optim, train_lib
     from repro_torch.config import (LuffyConfig, OptimConfig, ShapeConfig,
-                                    reduced, resolve_pipeline_chunks)
+                                    reduced)
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.dist import make_dist, single_device
+    from repro_torch.comm.topology import Topology
     from repro_torch.launch.mesh import make_host_mesh, topology_for_mesh
     from repro_torch.models import transformer as tf
     from repro_torch.models.model import build_model, resolve_device
+    from repro_torch.obs import autotune as obs_at
+    from repro_torch.obs import calibrate as obs_cal
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.obs import monitor as obs_monitor
     from repro_torch.obs import trace as obs_trace
@@ -247,43 +332,87 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                       seq_len_hint=args.seq_len)
     gb = args.global_batch or (8 if args.reduced else 256)
     shape = ShapeConfig("train", args.seq_len, gb, "train")
-    comm_mode = args.comm_mode or "flat"
+    if args.mesh == "production":
+        raise NotImplementedError(
+            "--mesh production: the 16 x 16 pod has a data axis of 16, and "
+            "a virtual data axis is not ported (ROADMAP Queue 1 item 3d); "
+            "--mesh host trains over --model-axis virtual ranks")
     nodes = args.nodes
-    if comm_mode == "hier" and nodes <= 1:
+    if args.comm_mode == "hier" and nodes <= 1:
         nodes = 2                     # hier needs a (node, local) split
-    dist = single_device()
-    if args.model_axis > 1:
+    mesh = topo = None
+    if args.mesh == "host" and args.model_axis > 1:
         mesh = make_host_mesh(model=args.model_axis, nodes=nodes)
+        topo = topology_for_mesh(mesh, inter_bw=args.inter_bw or None)
+    base_topo = topo
+
+    # the measured fit, loaded or measured before the dist context, so the
+    # migration link costs, the overlap model and the estimate price it
+    calib = None
+    if args.calibrate:
+        calib = obs_cal.run_calibration(mesh, topo, device=device,
+                                        out_dir=args.calibrate)
+        if topo is not None:
+            topo = calib.topology(topo)
+        print(f"calibration {calib.key}: intra_bw={calib.intra_bw:.3g}B/s "
+              f"inter_bw={calib.inter_bw:.3g}B/s chunk_overhead="
+              f"{calib.chunk_overhead_ms:.3g}ms ffn_speed="
+              f"{calib.ffn_speed:.3g}FLOP/s sim_speed="
+              f"{calib.sim_speed:.3g}FLOP/s", flush=True)
+
+    # the knobs: an explicit flag, then the tuned artifact, then the
+    # default
+    cli = {k: getattr(args, k) for k in obs_at.TUNABLE_KNOBS}
+    explicit = {k for k, v in cli.items() if v is not None}
+    n_moe = (sum(1 for i in range(cfg.num_layers)
+                 if cfg.ffn_kind(i) == "moe") if cfg.uses_moe else 0)
+    at_topo = topo if topo is not None else Topology.flat(1)
+    tuned = None
+    if args.autotune and cfg.uses_moe:
+        tuned = obs_at.run_autotune(
+            topo=at_topo, out_dir=args.autotune, force=args.autotune_force,
+            backend=obs_cal.backend_of(device), tokens=gb * args.seq_len,
+            top_k=cfg.moe.top_k, d_model=cfg.d_model, d_ff=cfg.moe.d_ff,
+            num_layers=max(1, n_moe), n_moe=max(1, n_moe), n_slots=gb,
+            num_experts=cfg.moe.num_experts,
+            mesh_devices=mesh.devices.size if mesh is not None else 1,
+            group_size=min(128, args.seq_len), plan_reuse=args.plan_reuse,
+            condense_reuse=args.condense_reuse, calib=calib)
+        print(f"autotune {tuned.key}: {tuned.knobs} modeled "
+              f"{tuned.modeled_step_ms:.3f}ms vs default "
+              f"{tuned.default_step_ms:.3f}ms ({tuned.candidates} "
+              f"candidates, calibrated={tuned.calibrated})", flush=True)
+    knobs = obs_at.resolve_knobs(cli, tuned)
+
+    dist = single_device()
+    if mesh is not None:
         dist = make_dist(mesh, "train", gb, moe_arch=cfg.uses_moe,
-                         topology=topology_for_mesh(
-                             mesh, inter_bw=args.inter_bw or None))
-        topo = dist.topology
+                         topology=topo)
         print(f"mesh {dict(zip(mesh.axis_names, mesh.shape))} (virtual "
               f"ranks) topology {topo.num_nodes}x{topo.devices_per_node} "
-              f"bw_ratio={topo.bw_ratio:.1f} comm_mode={comm_mode}",
+              f"bw_ratio={topo.bw_ratio:.1f} comm_mode={knobs['comm_mode']}",
               flush=True)
         if dist.seq_sharded:
             print(f"global batch {gb} does not split over {args.model_axis} "
                   f"ranks: sequence-sharded, condensation and migration off",
                   flush=True)
-    hier_dedup = args.hier_dedup or "off"
-    objective = args.plan_objective or LuffyConfig.plan_objective
     layout_ok = cfg.uses_moe and not dist.seq_sharded
     luffy = LuffyConfig(
         enable_condensation=not args.no_condensation and layout_ok,
         enable_migration=not args.no_migration and layout_ok,
         condense_group=min(128, args.seq_len), combine_slack=2.0,
-        comm_mode=comm_mode, hier_dedup=hier_dedup,
-        exec_mode=args.exec_mode or "sync",
-        pipeline_chunks=resolve_pipeline_chunks(args.pipeline_chunks,
-                                                objective),
-        plan_objective=objective,
-        wire_dtype=args.wire_dtype or "f32", plan_reuse=args.plan_reuse,
-        similarity_backend=args.similarity_backend or "exact",
-        lsh_bits=8 if args.lsh_bits is None else args.lsh_bits,
+        comm_mode=knobs["comm_mode"], hier_dedup=knobs["hier_dedup"],
+        exec_mode=knobs["exec_mode"],
+        pipeline_chunks=knobs["pipeline_chunks"],
+        plan_objective=knobs["plan_objective"],
+        wire_dtype=knobs["wire_dtype"], plan_reuse=args.plan_reuse,
+        similarity_backend=knobs["similarity_backend"],
+        lsh_bits=knobs["lsh_bits"],
         condense_reuse=args.condense_reuse,
         condense_reuse_max_age=args.condense_max_age,
         wire_error_feedback=args.wire_error_feedback)
+    if calib is not None:
+        luffy = calib.apply(luffy)
     ocfg = OptimConfig(name=args.optimizer, lr=args.lr,
                        total_steps=args.steps,
                        warmup_steps=max(2, args.steps // 20))
@@ -306,7 +435,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             chunks = 1
             if cfg.uses_moe:
                 piped, plan, _ = schedule_of(
-                    cfg, luffy, dist.comm(comm_mode),
+                    cfg, luffy, dist.comm(luffy.comm_mode),
                     train_lib.tokens_per_device(shape, dist), cap)
                 chunks = plan.n_chunks if piped else 1
             steps_by_bucket[bucket] = (
@@ -326,13 +455,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         luffy=luffy, run_info={"arch": args.arch, "steps": args.steps,
                                "comm_mode": luffy.comm_mode,
                                "exec_mode": luffy.exec_mode,
-                               "calibrated": False, "autotuned": False})
+                               "calibrated": calib is not None,
+                               "autotuned": tuned is not None})
     # the residual stream: the expected step time is the mean of a short
     # measured warm-up (steps 1-3); the EWMA detector then flags
     # sustained departures from it
     monitor = obs_monitor.ResidualMonitor(tolerance=args.drift_tolerance,
                                           k=args.drift_k)
     warmup_ms, expected_step_ms = [], None
+    recalibrated, probe = False, None
 
     def save_ckpt(step: int):
         checkpoint.save(args.ckpt, convert.to_reference(params, cfg),
@@ -374,9 +505,47 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                     warmup_ms.append(dt * 1e3)
                 if len(warmup_ms) >= 3:
                     expected_step_ms = sum(warmup_ms) / len(warmup_ms)
+                    if tuned is not None and args.autotune_refine > 0 \
+                            and not tuned.refined:
+                        # re-rank the top candidates under the measured /
+                        # modeled step-time ratio
+                        ratio = expected_step_ms / max(
+                            tuned.modeled_step_ms, 1e-9)
+                        refined = obs_at.rerank(
+                            tuned, {"step": ratio}, topo=at_topo,
+                            chunk_overhead_ms=luffy.chunk_overhead_ms)
+                        changed = {k: v for k, v in refined.knobs.items()
+                                   if k not in explicit
+                                   and v != tuned.knobs.get(k)}
+                        tuned = refined
+                        if changed:
+                            luffy = dataclasses.replace(luffy, **changed)
+                            registry.luffy = luffy
+                            steps_by_bucket.clear()
+                            expected_step_ms = None
+                            warmup_ms.clear()
+                            print(f"autotune refine @ step {i}: {changed} "
+                                  f"(ratio {ratio:.2f})", flush=True)
             else:
                 extra = monitor.observe(i, {"step": expected_step_ms},
                                         {"step": dt * 1e3})
+                if args.recalibrate_on_drift and args.calibrate \
+                        and monitor.drifted and not recalibrated:
+                    recalibrated = True
+                    print(f"drift @ step {i} (phases "
+                          f"{monitor.drifted_phases()}): recalibrating",
+                          flush=True)
+                    # keyed by the topology the run started from, so the
+                    # next run loads the new fit
+                    calib = obs_cal.run_calibration(
+                        mesh, base_topo, device=device,
+                        out_dir=args.calibrate, force=True)
+                    luffy = calib.apply(luffy)
+                    registry.luffy = luffy
+                    steps_by_bucket.clear()
+                    monitor.reset()
+                    expected_step_ms = None
+                    warmup_ms.clear()
             mrec = registry.observe(i, m, time_s=round(dt, 3),
                                     bucket=bucket, **extra)
             log.append(mrec)
@@ -402,6 +571,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             if args.ckpt and args.ckpt_every \
                     and (i + 1) % args.ckpt_every == 0:
                 save_ckpt(i + 1)
+        if tracer is not None and cfg.uses_moe:
+            probe = _trace_probe(cfg, luffy, args, device, tracer, registry)
     finally:
         if tracer is not None:
             obs_trace.deactivate()
@@ -422,7 +593,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             "global_batch": gb, "seq_len": args.seq_len, "steps": steps,
             "total_s": total, "luffy": luffy, "dist": dist,
             "optimizer": ocfg.name, "lstate": lstate, "log": log,
-            "tracer": tracer,
+            "tracer": tracer, "calibration": calib, "tuned": tuned,
+            "knobs": knobs, "recalibrated": recalibrated, "probe": probe,
             "n_params": sum(p.numel()
                             for _, p in optim.leaves_with_path(params))}
 

@@ -111,8 +111,8 @@ def served():
 def test_configs_agree():
     """The port's copied configs equal the reference's field by field:
     reduced moe-gpt2; hymba-1.5b, moe-transformerxl and moe-bert-large,
-    full and reduced (``causal`` included); and the defaults of
-    LuffyConfig, OptimConfig and a ShapeConfig."""
+    full and reduced (``causal`` included); the defaults of
+    LuffyConfig, OptimConfig and a ShapeConfig; and SHAPES."""
     from repro import config as jconfig
     from repro_torch import config as tconfig
     for name in ("LuffyConfig", "OptimConfig"):
@@ -123,6 +123,13 @@ def test_configs_agree():
     shape = ("train", 256, 2, "train")
     assert dataclasses.astuple(tconfig.ShapeConfig(*shape)) == \
         dataclasses.astuple(jconfig.ShapeConfig(*shape))
+    # the assigned input shapes (the dry run's --shape), field by field
+    assert list(tconfig.SHAPES) == list(jconfig.SHAPES)
+    for name, want in jconfig.SHAPES.items():
+        got = tconfig.SHAPES[name]
+        for f in dataclasses.fields(want):
+            assert getattr(got, f.name) == getattr(want, f.name), (name,
+                                                                   f.name)
     for cdt in ("float32", "bfloat16"):
         jcfg, tcfg = _cfgs(cdt)
         for f in dataclasses.fields(tcfg):
@@ -318,5 +325,37 @@ def test_launcher_never_falls_back_to_cpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(["--reduced", "--batch", "1", "--prompt-len", "2",
                      "--gen", "1"])
-    with pytest.raises(SystemExit):
-        tserve.parse_args(["--autotune", "tuned"])
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _options(main, monkeypatch):
+    """The option strings of the parser ``main`` builds: its
+    ``parse_args`` is stopped before it parses (the reference's launchers
+    import JAX only after that)."""
+    import argparse
+
+    def stop(parser, *a, **kw):
+        raise _Parsed(parser)
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", stop)
+    with pytest.raises(_Parsed) as got:
+        main()
+    return {o for a in got.value.args[0]._actions for o in a.option_strings}
+
+
+@pytest.mark.parametrize("launcher", ["train", "serve"])
+def test_launcher_flags_match_reference(launcher, monkeypatch):
+    """Each port launcher defines every flag of the reference's, plus the
+    documented port-only ``--device`` and ``--seed`` (and train's
+    ``--num-layers``), and nothing else."""
+    import importlib
+    ref = importlib.import_module(f"repro.launch.{launcher}")
+    port = importlib.import_module(f"repro_torch.launch.{launcher}")
+    port_only = {"--device", "--seed"} | (
+        {"--num-layers"} if launcher == "train" else set())
+    want = _options(ref.main, monkeypatch)
+    got = _options(port.parse_args, monkeypatch)
+    assert got == want | port_only, (sorted(got - want - port_only),
+                                     sorted(want - got))
