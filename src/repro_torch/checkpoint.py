@@ -11,7 +11,9 @@ tensors carry no PartitionSpec. The train launcher saves
 ``convert.to_reference(params, cfg)``, the reference's stacked-layer
 tree, so either package restores either package's checkpoint;
 ``restore`` then ``convert.from_reference`` gives the port's
-parameters.
+parameters. A bfloat16 leaf is stored as the reference's npz holds it:
+raw ``|V2`` bits, with ``"bfloat16"`` in the spec; it restores from
+those bits (:mod:`repro_torch.convert`).
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.convert import is_bf16, numpy_to_tensor
 
 
 def _flatten(tree, prefix: Tuple = ()) -> List[Tuple[str, Any]]:
@@ -48,6 +52,21 @@ def _unflatten(tree, leaves):
     return next(leaves)
 
 
+def _as_dtype(a: np.ndarray, want: np.dtype) -> np.ndarray:
+    """Stored leaf ``a`` as the like leaf's dtype ``want``; a bfloat16
+    leaf as its bits."""
+    if is_bf16(a) != is_bf16(np.empty(0, want)):
+        raise TypeError(f"a stored {a.dtype} leaf cannot restore into "
+                        f"{want} (bfloat16 restores only as bfloat16)")
+    return np.ascontiguousarray(a).view(want) if is_bf16(a) \
+        else np.asarray(a, dtype=want)
+
+
+def _leaf_tensor(a: np.ndarray, device) -> torch.Tensor:
+    return numpy_to_tensor(a, device) if is_bf16(a) \
+        else torch.from_numpy(a).to(device)
+
+
 def save(path: str, tree, *, step: int = 0, shard_mb: int = 512) -> None:
     """Write ``tree`` (nested dicts / lists of numpy arrays) under the
     directory ``path``."""
@@ -68,7 +87,8 @@ def save(path: str, tree, *, step: int = 0, shard_mb: int = 512) -> None:
         key = f"t{i}"
         spec["leaves"].append({
             "name": name, "key": key, "shard": shard_id,
-            "dtype": str(arr.dtype), "shape": list(arr.shape),
+            "dtype": "bfloat16" if is_bf16(arr) else str(arr.dtype),
+            "shape": list(arr.shape),
             "pspec": None})
         shard[key] = arr
         shard_bytes += arr.nbytes
@@ -94,8 +114,8 @@ def restore(path: str, like, *, device: Optional[Any] = None):
         sid = e["shard"]
         if sid not in shards:
             shards[sid] = np.load(os.path.join(path, f"shard_{sid}.npz"))
-        a = np.asarray(shards[sid][e["key"]], dtype=np.asarray(leaf).dtype)
-        out.append(a if device is None else torch.from_numpy(a).to(device))
+        a = _as_dtype(shards[sid][e["key"]], np.asarray(leaf).dtype)
+        out.append(a if device is None else _leaf_tensor(a, device))
     for z in shards.values():
         z.close()
     return _unflatten(like, iter(out)), spec["step"]

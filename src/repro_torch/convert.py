@@ -6,6 +6,12 @@ The reference keeps its decoder layers stacked by pattern position:
 ``i % period``. The port keeps one dict per layer. Both sides are given
 as numpy arrays (``jax.tree.map(np.asarray, params)`` on the reference
 side), so nothing here needs JAX.
+
+A bfloat16 leaf crosses as its 16-bit pattern, bit for bit, without
+``ml_dtypes``: an array whose dtype is named ``bfloat16`` (the
+reference's own leaves) or is raw 2-byte ``|V2`` (how ``np.savez`` stores
+one, and how :func:`tensor_to_numpy` gives one back) becomes a torch
+bfloat16 tensor of the same bits, and back.
 """
 from __future__ import annotations
 
@@ -26,22 +32,44 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def _tensor(a, device) -> torch.Tensor:
+# numpy's raw 2-byte dtype: a bfloat16 leaf's bits outside ml_dtypes
+BF16_RAW = np.dtype("V2")
+
+
+def is_bf16(a: np.ndarray) -> bool:
+    """Whether numpy array ``a`` holds bfloat16 bits (ml_dtypes' type, or
+    raw ``|V2``)."""
+    return a.dtype.name == "bfloat16" or a.dtype == BF16_RAW
+
+
+def numpy_to_tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
+    if is_bf16(a):
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
     if a.dtype.kind != "f" or a.dtype.itemsize not in (2, 4, 8):
         raise TypeError(f"cannot carry a {a.dtype} array (numpy float16/32/"
-                        f"64 only; cast bfloat16 leaves to float32 first)")
+                        f"64, and bfloat16 as ml_dtypes' type or raw |V2)")
     return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; a bfloat16 one as raw
+    ``|V2`` of the same bits (numpy has no bfloat16 without ml_dtypes)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_RAW)
+    return t.numpy()
 
 
 def tree_to_torch(tree: Any, device="cpu"):
     """A nested dict/list of numpy float arrays -> the same of tensors."""
-    return _map(lambda a: _tensor(a, device), tree)
+    return _map(lambda a: numpy_to_tensor(a, device), tree)
 
 
 def tree_to_numpy(tree: Any):
     """A nested dict/list of tensors -> the same of numpy arrays."""
-    return _map(lambda t: t.detach().cpu().numpy(), tree)
+    return _map(tensor_to_numpy, tree)
 
 
 def from_reference(np_params: Any, cfg: ModelConfig, *,
@@ -54,8 +82,9 @@ def from_reference(np_params: Any, cfg: ModelConfig, *,
     layers = []
     for i in range(cfg.num_layers):
         g, j = divmod(i, period)
-        layers.append(_map(lambda a, g=g: _tensor(np.asarray(a)[g], device),
-                           np_params["layers"][j]))
+        layers.append(_map(
+            lambda a, g=g: numpy_to_tensor(np.asarray(a)[g], device),
+            np_params["layers"][j]))
     out["layers"] = layers
     return out
 
@@ -68,7 +97,7 @@ def to_reference(params: Any, cfg: ModelConfig) -> dict:
     n_groups = cfg.num_layers // period
 
     def stack(*leaves):
-        return np.stack([t.detach().cpu().numpy() for t in leaves])
+        return np.stack([tensor_to_numpy(t) for t in leaves])
 
     def zip_map(trees):
         first = trees[0]

@@ -3,7 +3,7 @@
 // mask by position: causal (j <= i) and/or a sliding window (i - j < W).
 //
 // Replaces the Pallas kernel repro/kernels/flash_attn.py::_flash_kernel
-// (K5), the attention core of hymba's batched prefill. Its arithmetic is
+// (K5), the attention core of every decoder's batched prefill on the card. Its arithmetic is
 // the Pallas kernel's: f32 scores and running (m, l, acc); masked scores
 // set to NEG = -1e30; m clamped at -0.5e30 so a row with nothing live yet
 // gives exp(...) = 0, not NaN; masked p set to 0; out = acc / max(l, 1e-30).
@@ -12,26 +12,38 @@
 // the Pallas kernel's early-out of fully masked tiles as a loop bound.
 // GQA: head h reads KV head h / (H / KV) in place, never expanded.
 //
+// Head dims: any multiple of 4 up to 256 (the Pallas kernel takes any hd;
+// the attention decoders the port serves use 64, 128, 160 and 256).
+//
 // What bounds it on an H100: operations. At hymba's prefill (B=4, S=2048,
 // 25 heads of 64, window 1024) about 1.57 M live (q, k) pairs per (b, h),
 // 4 x hd FLOPs each: ~40 GFLOP per layer against ~50 MB of bf16 q, k, v
 // and out, so the least time is the bf16 tensor-core rate's (~0.04 ms).
 //
 // Dispatch, by dtype and head dim (flash_attention_launch):
-//   * bf16 with hd in {64, 128}: flash_wgmma_kernel, on the tensor cores.
-//     One block of 288 threads per (b, h, 128-query tile): two consumer
-//     warpgroups of 64 query rows each and one producer warp.
-//       - The producer warp's one thread brings the q tile and then the
-//         band's 128-key k and v tiles into shared memory by TMA, through
-//         4-D tensor maps over [B, S, heads, hd] with a box of
-//         (64, 1, 128, 1) and the 128-byte swizzle (a 64-wide bf16 row is
-//         one 128-byte atom; hd = 128 is two boxes side by side). Rows past
-//         S come back as zeros, never from the next sequence. k and v go
-//         into a ring of STAGES stages; "full" mbarriers count the bytes
-//         in, "empty" mbarriers count the consumer warps out, so tile j+1
-//         loads while tile j computes.
-//       - Each consumer warpgroup computes S = Q K^T with wgmma m64n128k16
-//         (q and k both K-major from shared memory: k's natural [BK, hd]
+//   * bf16 with hd in {64, 128, 160, 256}: flash_wgmma_kernel, on the
+//     tensor cores. One block per (b, h, 128-query tile): two consumer
+//     warpgroups of 64 query rows each and a producer (one warp; at hd 256
+//     a whole warpgroup, which gives its registers to the consumers by
+//     setmaxnreg).
+//       - The producer's one thread brings the q tile and then the band's
+//         k and v tiles (BKT keys: 128 at hd <= 128, 64 above) into shared
+//         memory by TMA, through 4-D tensor maps over [B, S, heads, hd]
+//         with boxes of (64, 1, rows, 1) and the 128-byte swizzle (a
+//         64-wide bf16 row is one 128-byte atom; hd = 128 is two boxes side
+//         by side, 256 four). At hd 160 the third box runs past the
+//         tensor's 160 columns: TMA fills columns 160..191 with zeros,
+//         which add nothing to Q K^T, and the store writes only the 160
+//         real columns of O. Rows past S come back as zeros, never from
+//         the next sequence. k and v go into a ring of STAGES stages;
+//         "full" mbarriers count the bytes in, "empty" mbarriers count the
+//         consumer warps out, so tile j+1 loads while tile j computes.
+//         Shared memory: q 128 x 64 x NA bf16 (NA = ceil(hd / 64) atoms)
+//         and 2 x STAGES tiles of BKT x 64 x NA: 192 KB at hd 256 (2
+//         stages of 64 keys), 192 KB at hd 160 (3 stages of 64), of the
+//         227 KB a block may have.
+//       - Each consumer warpgroup computes S = Q K^T with wgmma m64nBKTk16
+//         (q and k both K-major from shared memory: k's natural [BKT, hd]
 //         rows), then the online softmax on the accumulator in registers
 //         (row max and row sum over the quad of lanes that share a row;
 //         exp2 on scores pre-scaled by log2(e), so m, NEG and the clamp
@@ -39,7 +51,9 @@
 //         columns of hd: P is the f32 tile rescaled and rounded to bf16
 //         in registers as the A operand (the m64nN accumulator fragment is
 //         the A fragment of the next product), v the MN-major B operand.
-//         l sums the f32 p before the rounding.
+//         l sums the f32 p before the rounding. A thread holds 32 x NA
+//         f32 of O: 128 at hd 256, hence 64-key tiles (32 scores) and the
+//         consumers' 232 registers there.
 //       - The per-element mask runs only on tiles that cross the diagonal,
 //         the window's edge or S; interior tiles skip it.
 //       - No atomics and no split over keys: a launch repeats bit for bit.
@@ -50,8 +64,9 @@
 //     One block of 256 threads per (b, h, 64-query tile); tiles of q, k, v
 //     (f32 in shared memory, rows padded by one word) and of p; four
 //     threads per query row, each holding 16 scores of a key tile and
-//     hd / 4 columns of acc in registers; row max and sum over the four
-//     with xor shuffles; ragged S is masked.
+//     hd / 4 columns of acc in registers (16, 32 or 64: at hd 256, 64
+//     registers of acc and 209 KB of shared memory, one block an SM);
+//     row max and sum over the four with xor shuffles; ragged S is masked.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -78,7 +93,7 @@ __host__ __device__ constexpr int smem_floats(int hd) {
   return 3 * BQ * (hd + 1) + BQ * (BK + 1);
 }
 
-// CPT = columns of acc per thread (hd / 4 rounded up to 16 or 32).
+// CPT = columns of acc per thread (hd / 4 rounded up to 16, 32 or 64).
 template <typename T, int CPT>
 __global__ void __launch_bounds__(NT)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -212,7 +227,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }
 
 // ---------------------------------------------------------------------------
-// the tensor-core kernel (bf16, hd 64 or 128): wgmma fed by TMA
+// the tensor-core kernel (bf16, hd 64, 128, 160 or 256): wgmma fed by TMA
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -220,8 +235,6 @@ namespace tc {
 using namespace hopper;
 
 constexpr int BQ = 128;       // queries per block: two warpgroups of 64
-constexpr int BK = 128;       // keys per tile
-constexpr int NT = 288;       // 2 consumer warpgroups + 1 producer warp
 constexpr int ATOM = 64;      // bf16 columns in one 128-byte swizzle row
 constexpr int ROW_B = 128;    // bytes of one swizzled row
 constexpr int CONSUMER_WARPS = 8;
@@ -261,11 +274,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-template <int HD, int STAGES>
+// Shared-memory layout of one block: the q tile, STAGES k tiles, STAGES v
+// tiles (each NA swizzle atoms of 64 columns side by side), then the
+// mbarriers.
+template <int HD, int BKT, int STAGES>
 struct Smem {
-  static constexpr int NA = HD / ATOM;           // swizzle atoms across hd
-  static constexpr int Q_BYTES = BQ * HD * 2;
-  static constexpr int TILE_BYTES = BK * HD * 2;  // one k or v tile
+  static constexpr int NA = (HD + ATOM - 1) / ATOM;  // swizzle atoms
+  static constexpr int Q_BYTES = BQ * NA * ATOM * 2;
+  static constexpr int TILE_BYTES = BKT * NA * ATOM * 2;  // one k or v tile
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * TILE_BYTES;
@@ -273,15 +289,33 @@ struct Smem {
   static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
 };
 
-template <int HD, int STAGES>
-__global__ void __launch_bounds__(NT, 1)
+// Registers per thread after setmaxnreg when the producer is a whole
+// warpgroup (384 threads): 128 x 40 + 256 x 232 = 64,512 of the SM's 65,536.
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+
+template <int BKT>
+__device__ __forceinline__ void qk_step(float (&s)[BKT / 2], uint64_t da,
+                                        uint64_t db, int accumulate) {
+  if constexpr (BKT == 128)
+    wgmma_m64n128k16_ss<0>(s, da, db, accumulate);
+  else
+    wgmma_m64n64k16_ss<0>(s, da, db, accumulate);
+}
+
+// HD: the head dim (64, 128, 160 or 256); BKT: keys per k / v tile;
+// WG_PRODUCER: the producer is a warpgroup that hands its registers to the
+// consumers (384 threads), else one warp (288 threads).
+template <int HD, int BKT, int STAGES, bool WG_PRODUCER>
+__global__ void __launch_bounds__(WG_PRODUCER ? 384 : 288, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    __nv_bfloat16* __restrict__ out, int B, int S, int H,
                    int KV, float scale_log2, int causal, int window) {
-  using L = Smem<HD, STAGES>;
+  using L = Smem<HD, BKT, STAGES>;
   constexpr int NA = L::NA;
+  constexpr int NS = BKT / 2;       // scores of a row pair per thread
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle atoms are 1024 bytes: align the base to them, so
   // the descriptors' base offset is 0
@@ -298,8 +332,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int h = bh % H, b = bh / H;
   const int kvh = h / (H / KV);
   const int q0 = qt * BQ;
-  const int lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
-  const int hi = causal ? (min(q0 + BQ, S) - 1) / BK : (S - 1) / BK;
+  const int lo = window > 0 ? max(0, q0 - window + 1) / BKT : 0;
+  const int hi = causal ? (min(q0 + BQ, S) - 1) / BKT : (S - 1) / BKT;
   const int n_tiles = hi - lo + 1;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -313,9 +347,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  if (warp == CONSUMER_WARPS) {
+  if (warp >= CONSUMER_WARPS) {
+    if constexpr (WG_PRODUCER)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          PRODUCER_REGS));
     // producer: one thread issues every copy of the block
-    if (lane == 0) {
+    if (warp == CONSUMER_WARPS && lane == 0) {
       mbar_expect_tx(bar_q, L::Q_BYTES);
 #pragma unroll
       for (int a = 0; a < NA; ++a)
@@ -324,20 +361,23 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int s = t % STAGES;
         mbar_wait(bar_empty + 8 * s, ((t / STAGES) & 1) ^ 1);
         mbar_expect_tx(bar_full + 8 * s, 2 * L::TILE_BYTES);
-        const int k0 = (lo + t) * BK;
+        const int k0 = (lo + t) * BKT;
         const uint32_t dk = base + L::K_OFF + s * L::TILE_BYTES;
         const uint32_t dv = base + L::V_OFF + s * L::TILE_BYTES;
 #pragma unroll
         for (int a = 0; a < NA; ++a) {
-          tma_load_4d(dk + a * BK * ROW_B, &tk, bar_full + 8 * s, a * ATOM,
+          tma_load_4d(dk + a * BKT * ROW_B, &tk, bar_full + 8 * s, a * ATOM,
                       kvh, k0, b);
-          tma_load_4d(dv + a * BK * ROW_B, &tv, bar_full + 8 * s, a * ATOM,
+          tma_load_4d(dv + a * BKT * ROW_B, &tv, bar_full + 8 * s, a * ATOM,
                       kvh, k0, b);
         }
       }
     }
     return;
   }
+  if constexpr (WG_PRODUCER)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        CONSUMER_REGS));
 
   // consumers: warpgroup wg owns query rows qw0 .. qw0 + 63; this thread
   // rows r0 and r0 + 8, and in each 8-column group of a product the
@@ -353,39 +393,39 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int a = 0; a < NA; ++a)
 #pragma unroll
     for (int j = 0; j < 32; ++j) o[a][j] = 0.0f;
-  float s[64];
+  float s[NS];
 #pragma unroll
-  for (int j = 0; j < 64; ++j) s[j] = 0.0f;
+  for (int j = 0; j < NS; ++j) s[j] = 0.0f;
   float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;
 
   mbar_wait(bar_q, 0);
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % STAGES;
-    const int k0 = (lo + t) * BK;
+    const int k0 = (lo + t) * BKT;
     const uint32_t sk = base + L::K_OFF + st * L::TILE_BYTES;
     const uint32_t sv = base + L::V_OFF + st * L::TILE_BYTES;
     mbar_wait(bar_full + 8 * st, (t / STAGES) & 1);
 
-    // S = Q K^T: hd / 16 k-steps of 32 bytes inside each 128-byte atom
+    // S = Q K^T: ceil(hd / 16) k-steps of 32 bytes inside the 128-byte
+    // atoms (at hd 160 the last atom's upper half, zeros, is skipped)
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < (HD + 15) / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
-      wgmma_m64n128k16_ss<0>(
-          s, desc_sw128(sq_wg + (kk / 4) * BQ * ROW_B + off),
-          desc_sw128(sk + (kk / 4) * BK * ROW_B + off), kk > 0);
+      qk_step<BKT>(s, desc_sw128(sq_wg + (kk / 4) * BQ * ROW_B + off),
+                   desc_sw128(sk + (kk / 4) * BKT * ROW_B + off), kk > 0);
     }
     wgmma_commit();
     wgmma_wait0();
     fence_regs(s);
 
 #pragma unroll
-    for (int j = 0; j < 64; ++j) s[j] *= scale_log2;
-    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > qw0) ||
+    for (int j = 0; j < NS; ++j) s[j] *= scale_log2;
+    const bool edge = k0 + BKT > S || (causal && k0 + BKT - 1 > qw0) ||
                       (window > 0 && qw0 + 63 - k0 >= window);
     if (edge) {
 #pragma unroll
-      for (int j = 0; j < 64; ++j) {
+      for (int j = 0; j < NS; ++j) {
         const int kpos = k0 + 8 * (j / 4) + c8 + (j & 1);
         const int qpos = r0 + 8 * ((j / 2) & 1);
         bool ok = kpos < S;
@@ -398,7 +438,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // online softmax; registers 4i, 4i+1 are row r0, 4i+2, 4i+3 row r0+8
     float mx0 = NEG, mx1 = NEG;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < NS / 4; ++i) {
       mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
       mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
     }
@@ -413,7 +453,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     m1 = mn1;
     float sum0 = 0.0f, sum1 = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < NS / 4; ++i) {
       // a masked score is NEG <= mn - 0.5e30, so its p is exactly 0
       s[4 * i] = ex2(s[4 * i] - mn0);
       s[4 * i + 1] = ex2(s[4 * i + 1] - mn0);
@@ -434,18 +474,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         o[a][4 * i + 2] *= alpha1;
         o[a][4 * i + 3] *= alpha1;
       }
-    uint32_t p[32];
+    uint32_t p[NS / 2];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+    for (int j = 0; j < NS / 2; ++j) p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
 
-    // O += P V: 8 k-steps of 16 keys (2048 bytes of v) per 64 hd columns
+    // O += P V: BKT / 16 k-steps of 16 keys (2048 bytes of v) per 64 hd
+    // columns
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
+    for (int kk = 0; kk < BKT / 16; ++kk)
 #pragma unroll
       for (int a = 0; a < NA; ++a)
         wgmma_m64n64k16_rs(o[a], p + 4 * kk,
-                           desc_sw128(sv + a * BK * ROW_B + kk * 16 * ROW_B));
+                           desc_sw128(sv + a * BKT * ROW_B + kk * 16 * ROW_B));
     wgmma_commit();
     wgmma_wait0();
 #pragma unroll
@@ -467,6 +508,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int col = a * ATOM + 8 * i;
+      // at hd 160 the last atom's columns 160..191 are TMA's zero fill:
+      // never stored (col is even, so col < HD covers col + 1 too)
+      if (col >= HD) continue;
       if (r0 < S)
         *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
             __floats2bfloat162_rn(o[a][4 * i] / d0, o[a][4 * i + 1] / d0);
@@ -477,15 +521,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
 }
 
-// [B, S, heads, hd] bf16, contiguous, boxes of (64, 1, 128, 1)
+// [B, S, heads, hd] bf16, contiguous, boxes of (64, 1, rows, 1); columns
+// past hd come back as zeros
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B, int S,
-            int heads, int hd) {
+            int heads, int hd, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
                                  (cuuint64_t)heads * hd * 2,
                                  (cuuint64_t)S * heads * hd * 2};
-  const cuuint32_t box[4] = {ATOM, 1, BK, 1};
+  const cuuint32_t box[4] = {ATOM, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -493,24 +538,25 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B, int S,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD, int STAGES>
+template <int HD, int BKT, int STAGES, bool WG_PRODUCER>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int H, int KV, float scale, int causal, int window,
            cudaStream_t stream) {
-  static_assert(BQ == BK, "one box shape serves q, k and v");
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap mq, mk, mv;
-  if (!encode(fn, &mq, q, B, S, H, HD) || !encode(fn, &mk, k, B, S, KV, HD) ||
-      !encode(fn, &mv, v, B, S, KV, HD))
+  if (!encode(fn, &mq, q, B, S, H, HD, BQ) ||
+      !encode(fn, &mk, k, B, S, KV, HD, BKT) ||
+      !encode(fn, &mv, v, B, S, KV, HD, BKT))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int bytes = Smem<HD, STAGES>::BYTES;
+  constexpr int bytes = Smem<HD, BKT, STAGES>::BYTES;
+  static_assert(bytes <= 232448, "over the 227 KB a block may have");
+  auto kernel = flash_wgmma_kernel<HD, BKT, STAGES, WG_PRODUCER>;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_wgmma_kernel<HD, STAGES>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_qt = (S + BQ - 1) / BQ;
-  flash_wgmma_kernel<HD, STAGES><<<B * H * n_qt, NT, bytes, stream>>>(
+  kernel<<<B * H * n_qt, WG_PRODUCER ? 384 : 288, bytes, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), B, S, H, KV,
       scale * LOG2E, causal, window);
   return static_cast<int>(cudaGetLastError());
@@ -522,10 +568,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // Launches the kernel on `stream`; returns a cudaError_t (0 = ok).
 // q, out [B, S, H, hd]; k, v [B, S, KV, hd], contiguous, all f32 (bf16 =
-// 0) or all bf16 (bf16 = 1); H % KV == 0; hd % 4 == 0 and hd <= 128; for
-// bf16 at hd 64 or 128 (the tensor-core kernel) every pointer 16-byte
-// aligned (the wrapper sees to both); window <= 0 means none. Nothing is
-// allocated here. A tensor map that fails to encode returns
+// 0) or all bf16 (bf16 = 1); H % KV == 0; hd % 4 == 0 and hd <= 256; for
+// bf16 at hd 64, 128, 160 or 256 (the tensor-core kernel) every pointer
+// 16-byte aligned (the wrapper sees to both); window <= 0 means none.
+// Nothing is allocated here. A tensor map that fails to encode returns
 // cudaErrorInvalidValue, a driver without cuTensorMapEncodeTiled
 // cudaErrorNotSupported.
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -535,24 +581,36 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       void* stream) {
   cudaGetLastError();  // start from a clean slate; report only our launch
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd % 4 != 0 || hd > 128 || H % KV != 0)
+  if (hd % 4 != 0 || hd > 256 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (bf16) {
     if (hd == 64)
-      return tc::launch<64, 3>(q, k, v, out, B, S, H, KV, scale, causal,
-                               window, s);
+      return tc::launch<64, 128, 3, false>(q, k, v, out, B, S, H, KV, scale,
+                                           causal, window, s);
     if (hd == 128)
-      return tc::launch<128, 2>(q, k, v, out, B, S, H, KV, scale, causal,
-                                window, s);
+      return tc::launch<128, 128, 2, false>(q, k, v, out, B, S, H, KV, scale,
+                                            causal, window, s);
+    if (hd == 160)
+      return tc::launch<160, 64, 3, false>(q, k, v, out, B, S, H, KV, scale,
+                                           causal, window, s);
+    if (hd == 256)
+      return tc::launch<256, 64, 2, true>(q, k, v, out, B, S, H, KV, scale,
+                                          causal, window, s);
     if (hd < 64)
       return launch<__nv_bfloat16, 16>(q, k, v, out, B, S, H, KV, hd, scale,
                                        causal, window, s);
-    return launch<__nv_bfloat16, 32>(q, k, v, out, B, S, H, KV, hd, scale,
+    if (hd <= 128)
+      return launch<__nv_bfloat16, 32>(q, k, v, out, B, S, H, KV, hd, scale,
+                                       causal, window, s);
+    return launch<__nv_bfloat16, 64>(q, k, v, out, B, S, H, KV, hd, scale,
                                      causal, window, s);
   }
   if (hd <= 64)
     return launch<float, 16>(q, k, v, out, B, S, H, KV, hd, scale, causal,
                              window, s);
-  return launch<float, 32>(q, k, v, out, B, S, H, KV, hd, scale, causal,
+  if (hd <= 128)
+    return launch<float, 32>(q, k, v, out, B, S, H, KV, hd, scale, causal,
+                             window, s);
+  return launch<float, 64>(q, k, v, out, B, S, H, KV, hd, scale, causal,
                            window, s);
 }

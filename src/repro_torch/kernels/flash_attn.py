@@ -1,18 +1,20 @@
 """Streaming-softmax attention on the card: the wrapper of
 ``csrc/flash_attn.cu`` (the port of Pallas kernel K5,
 ``repro/kernels/flash_attn.py::flash_attention``), the attention core of
-hymba's batched prefill. Causal and sliding-window masks by position
-(0..S-1 in every row), fully masked key tiles never visited, grouped KV
-heads read in place. Forward only (no backward yet: ROADMAP Queue 2).
+every decoder's batched prefill on the card (hymba's, and since slice 17
+every other arch's whose mask it takes). Causal and sliding-window masks
+by position (0..S-1 in every row), fully masked key tiles never visited,
+grouped KV heads read in place. Forward only (no backward yet: ROADMAP Queue 2).
 The plain version is :func:`repro_torch.kernels.ref.flash_attention_ref`.
 
 What bounds it is operations at the bf16 tensor-core rate, so the source
-dispatches by dtype and head dim: bf16 at hd 64 or 128 runs on the
-tensor cores (``wgmma`` for Q K^T and P V, K/V tiles brought in by TMA
-through a ring of mbarrier-guarded stages; P is rounded to bf16 before
-P V, as :func:`repro_torch.models.blocks.attend` rounds it), everything
-else (f32 at any hd, bf16 at other hd) on plain f32 FMAs. Both take the
-Pallas kernel's arithmetic and repeat bit for bit (no atomics).
+dispatches by dtype and head dim (:func:`route`): bf16 at hd 64, 128,
+160 or 256 runs on the tensor cores (``wgmma`` for Q K^T and P V, K/V
+tiles brought in by TMA through a ring of mbarrier-guarded stages; P is
+rounded to bf16 before P V, as :func:`repro_torch.models.blocks.attend`
+rounds it), everything else (f32 at any hd, bf16 at other hd) on plain
+f32 FMAs. Both take the Pallas kernel's arithmetic and repeat bit for
+bit (no atomics). Any hd that is a multiple of 4 up to 256 is taken.
 """
 from __future__ import annotations
 
@@ -23,14 +25,24 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+# bf16 head dims the tensor-core kernel takes (the configs' 64, 128, 160
+# and 256)
+TC_HEAD_DIMS = (64, 128, 160, 256)
+
+
+def route(dtype, hd: int) -> str:
+    """The kernel a launch takes: "wgmma" (bf16 at a head dim of
+    ``TC_HEAD_DIMS``) or "fma" (everything else)."""
+    return "wgmma" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS \
+        else "fma"
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     scale: Optional[float] = None):
     """q: [B,S,H,hd]; k, v: [B,S,KV,hd] with H % KV == 0, one CUDA device,
-    all float32 or all bfloat16; hd % 4 == 0 and hd <= 128. Launches the
+    all float32 or all bfloat16; hd % 4 == 0 and hd <= 256. Launches the
     kernel on the current stream; returns [B,S,H,hd] in q's dtype. Adds
     one to ``flash_attention.launches`` per launch."""
     if not (q.device.type == "cuda" and k.device == q.device

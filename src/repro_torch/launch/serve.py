@@ -8,6 +8,10 @@ of ``repro/launch/serve.py``).
         --prefill batch
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --batch 4 --prompt-len 2048 --gen 32 --prefill batch
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch {olmoe-1b-7b,yi-34b,stablelm-12b,starcoder2-15b,gemma3-12b} \\
+        [--num-layers N] --batch 2 --prompt-len 4096 --gen 32 \\
+        --prefill batch
     PYTHONPATH=src python -m repro_torch.launch.serve --arch moe-gpt2 \\
         --model-axis 4 --batch 8 --prompt-len 128 --gen 32 --prefill batch \\
         [--exec-mode {sync,pipeline,decode_overlap}] [--pipeline-chunks N] \\
@@ -28,10 +32,14 @@ then once more timed. Then the prompt is fed token by token into the
 cache (KV and, for hymba, the Mamba state), and ``--gen`` tokens are
 decoded greedily. Every arch is served as a causal decoder, as the
 reference serves it, moe-bert-large (non-causal in training) included.
-The kernels of the path (the MoE archs: the expert FFN;
-hymba's batched prefill: flash attention and the Mamba scan) run
-hand-written on the card (``--device cuda``, the default, which must
-exist) and in their plain versions on the CPU (``--device cpu``).
+The kernels of the path (the MoE archs: the expert FFN; every batched
+prefill: flash attention at any prompt length, for every arch whose
+mask it takes; hymba's: the Mamba scan too) run hand-written on the
+card (``--device cuda``, the default, which must exist) and in their
+plain versions on the CPU (``--device cpu``), where a prompt over 2048
+tokens attends through the reference's streaming path. ``--num-layers
+N`` (the port's own flag) serves the full-width arch cut to its first N
+layers: yi-34b's 60 layers of bf16 weights alone take 68.8e9 bytes.
 
 ``--model-axis M > 1`` serves over M virtual expert-parallel ranks held
 by this one process (a flat mesh, as the reference's): the batched
@@ -87,6 +95,7 @@ model call, with the MoE phases inside them, and writes a Chrome trace.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Dict, Optional, Sequence
 
@@ -104,6 +113,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--arch", default="moe-gpt2")
     ap.add_argument("--reduced", action="store_true",
                     help="the smoke-test variant of --arch")
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="cut the full-width arch to its first N layers "
+                         "(the port's own flag)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -303,6 +315,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if args.num_layers:
+        if args.reduced:
+            raise ValueError("--num-layers cuts the full-width arch, not "
+                             "the --reduced variant")
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     if args.reduced:
         cfg = reduced(cfg)
     model = build_model(cfg, device=device, seed=args.seed)

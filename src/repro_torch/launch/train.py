@@ -1,7 +1,7 @@
 """Training launcher (counterpart of ``repro/launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
-        --arch {moe-gpt2,moe-transformerxl,moe-bert-large} \\
+        --arch {moe-gpt2,moe-transformerxl,moe-bert-large,olmoe-1b-7b} \\
         [--reduced | --num-layers N] --steps N --global-batch B \\
         --seq-len S \\
         [--optimizer {adamw,adafactor,sgd}] \\
@@ -29,6 +29,10 @@ second moment let moe-bert-large train at full width on one 80 GB card,
 or SGD with momentum); the
 host then updates the EWMA of the condensation rate and, from step 3 on,
 picks the rate bucket that sets the next step's dispatch capacity.
+``--arch`` takes the MoE decoders (moe-gpt2, moe-transformerxl,
+moe-bert-large, olmoe-1b-7b); the dense bf16-parameter decoders
+(yi-34b, stablelm-12b, starcoder2-15b, gemma3-12b) serve but do not
+train yet, and raise (ROADMAP Queue 1 item 8.7), as hymba does.
 
 ``--model-axis M > 1`` trains expert-parallel over M virtual ranks held
 by this one process (``repro_torch.comm.hierarchical``): the batch
@@ -330,6 +334,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         cfg = reduced(cfg, num_layers=args.layers, d_model=args.d_model,
                       max_experts=args.experts or 4,
                       seq_len_hint=args.seq_len)
+    train_lib.check_trainable(cfg)
     gb = args.global_batch or (8 if args.reduced else 256)
     shape = ShapeConfig("train", args.seq_len, gb, "train")
     if args.mesh == "production":

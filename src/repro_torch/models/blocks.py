@@ -16,7 +16,11 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ACTS
 
 NEG_INF = -1e30
-ATTN_DIRECT_MAX = 2048            # longest sequence the direct path takes
+# the streaming path's chunks of queries and keys, and the longest
+# sequence the direct path takes (the reference's constants)
+ATTN_CHUNK_Q = 512
+ATTN_CHUNK_K = 1024
+ATTN_DIRECT_MAX = 2048
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -32,14 +36,16 @@ def _dtype(name: str) -> torch.dtype:
 
 def dense_init(generator, d_in: int, d_out: int, dtype, *, device,
                scale: float = 1.0):
+    # one f32 matrix at a time (scaled in place), then cast: a bf16
+    # model never holds more than one f32 temporary
     std = scale / math.sqrt(d_in)
-    return (torch.randn((d_in, d_out), generator=generator, device=device)
-            * std).to(dtype)
+    return torch.randn((d_in, d_out), generator=generator,
+                       device=device).mul_(std).to(dtype)
 
 
 def embed_init(generator, vocab: int, d: int, dtype, *, device):
-    return (torch.randn((vocab, d), generator=generator, device=device)
-            * 0.02).to(dtype)
+    return torch.randn((vocab, d), generator=generator,
+                       device=device).mul_(0.02).to(dtype)
 
 
 def norm_init(d: int, kind: str, dtype, *, device):
@@ -149,21 +155,110 @@ def attend(q, k, v, mask, scale: float, logit_cap=None):
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
+def attend_chunked(q, k, v, q_pos, k_pos, scale: float, *, causal: bool,
+                   window: Optional[int], chunked_window: bool,
+                   logit_cap=None, kv_valid=None, chunk_q: int = ATTN_CHUNK_Q,
+                   chunk_k: int = ATTN_CHUNK_K):
+    """Streaming-softmax attention (the reference's ``attend_chunked``):
+    query chunks of ``chunk_q`` against key chunks of ``chunk_k`` with a
+    running (m, l, acc) in f32, never the whole [B,H,Sq,Sk] logits.
+    q: [B,Sq,H,hd]; k, v: [B,Sk,Hkv,hd]; q_pos / k_pos: [Sq] / [Sk]
+    integer positions shared across the batch; kv_valid: [B,Sk] bool or
+    None. Sq and Sk must be multiples of their chunks (or shorter). A
+    causal sliding window with Sq == Sk visits only the band of key
+    chunks a query chunk can see (the reference's default; its
+    ``REPRO_ATTN_BAND`` switch is not ported). Returns [B,Sq,H,hd]."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    n_rep = H // k.shape[2]
+    cq, ck = min(chunk_q, Sq), min(chunk_k, Sk)
+    nq, nk = Sq // cq, Sk // ck
+    if Sq % cq or Sk % ck:
+        raise ValueError(f"the streaming path takes Sq, Sk multiples of "
+                         f"their chunks, got Sq={Sq} (chunk {cq}), Sk={Sk} "
+                         f"(chunk {ck})")
+    n_need = nk
+    # only a causal window looks strictly backward: a non-causal one
+    # also attends forward, so the band does not apply
+    if window is not None and Sq == Sk and causal:
+        if chunked_window:
+            n_need = min(nk, (window + ck - 1) // ck + (cq + ck - 1) // ck)
+        else:
+            n_need = min(nk, (window + cq + ck - 1) // ck + 1)
+    # the chunk bounds on the host, one copy of the query positions
+    q_first = q_pos.reshape(nq, cq)[:, 0].tolist()
+    outs = []
+    for i in range(nq):
+        qb = q[:, i * cq:(i + 1) * cq].float()
+        qp = q_pos[i * cq:(i + 1) * cq][:, None]
+        m = torch.full((B, H, cq), -1e30, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, H, cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, cq, hd), dtype=torch.float32,
+                          device=q.device)
+        lo = 0
+        if n_need < nk:
+            q0 = q_first[i]
+            if chunked_window:
+                lo = ((q0 // window) * (window // ck) if window >= ck
+                      else q0 // ck)
+            else:
+                lo = max(q0 - window + 1, 0) // ck
+            lo = min(max(lo, 0), nk - n_need)
+        for j in range(lo, lo + n_need):
+            ks = slice(j * ck, (j + 1) * ck)
+            kk = _repeat_kv(k[:, ks], n_rep)
+            vv = _repeat_kv(v[:, ks], n_rep)
+            lg = torch.einsum("bqhd,bkhd->bhqk", qb, kk.float()) * scale
+            if logit_cap is not None:
+                lg = logit_cap * torch.tanh(lg / logit_cap)
+            kp = k_pos[ks][None, :]
+            msk = torch.ones((cq, ck), dtype=torch.bool, device=q.device)
+            if causal:
+                msk &= kp <= qp
+            if window is not None:
+                if chunked_window:
+                    msk &= (qp // window) == (kp // window)
+                else:
+                    msk &= (qp - kp) < window
+            msk4 = msk[None, None]
+            if kv_valid is not None:
+                msk4 = msk4 & kv_valid[:, ks][:, None, None, :]
+            lg = torch.where(msk4, lg, NEG_INF)
+            m2 = torch.maximum(m, torch.amax(lg, dim=-1))
+            m2 = torch.clamp(m2, min=-0.5e30)
+            a = torch.exp(m - m2)
+            p = torch.exp(lg - m2[..., None])
+            p = torch.where(msk4, p, 0.0)
+            l = l * a + torch.sum(p, dim=-1)
+            acc = acc * a[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(vv.dtype), vv).float()
+            m = m2
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.transpose(1, 2).to(q.dtype))     # [B,cq,H,hd]
+    return torch.cat(outs, dim=1)
+
+
+def flash_takes(cfg: ModelConfig) -> bool:
+    """Whether K5 computes ``cfg``'s self-attention mask: causal or a
+    sliding window, no chunked window and no logit cap (a key-padding
+    mask is the caller's to rule out)."""
+    a = cfg.attn
+    return not a.chunked_local and a.logit_cap is None
+
+
 def attn_apply(p, cfg: ModelConfig, x, positions, *, layer: int,
                causal: bool = True, flash: bool = False, kv_valid=None):
-    """Full-sequence self-attention (train / prefill), direct path.
-    x: [B,S,d]; positions: [B,S]; kv_valid: [B,S] bool, the keys that
-    may be attended (a non-causal arch must not attend to padding), ANDed
-    into the mask. With ``flash`` the core runs through
-    ``ops.flash_attention`` (K5), which masks by index, so positions
-    must be 0..S-1 in every row, and takes no key mask; else through
-    ``attend``. Returns (out [B,S,d], (k, v)), k after RoPE."""
+    """Full-sequence self-attention (train / prefill). x: [B,S,d];
+    positions: [B,S]; kv_valid: [B,S] bool, the keys that may be attended
+    (a non-causal arch must not attend to padding), ANDed into the mask.
+    With ``flash`` the core runs through ``ops.flash_attention`` (K5) at
+    any S, which masks by index, so positions must be 0..S-1 in every
+    row, and takes no key mask; else through ``attend`` up to
+    ``ATTN_DIRECT_MAX`` positions and ``attend_chunked`` (positions
+    shared across the batch) above, as the reference routes. Returns
+    (out [B,S,d], (k, v)), k after RoPE."""
     a = cfg.attn
-    if x.shape[1] > ATTN_DIRECT_MAX:
-        raise NotImplementedError(
-            f"sequences over {ATTN_DIRECT_MAX} take the streaming "
-            f"attention path (attend_chunked), which is not ported yet "
-            f"(ROADMAP Queue 1 item 8)")
     cdt = _dtype(cfg.compute_dtype)
     xq = x.to(cdt)
     q = _split_heads(xq @ p["wq"].to(cdt), a.num_heads, a.head_dim)
@@ -175,13 +270,17 @@ def attn_apply(p, cfg: ModelConfig, x, positions, *, layer: int,
     scale = a.softmax_scale or 1.0 / math.sqrt(a.head_dim)
     window = a.window_for_layer(layer)
     if flash:
-        if a.chunked_local or a.logit_cap is not None or \
-                kv_valid is not None:
+        if not flash_takes(cfg) or kv_valid is not None:
             raise NotImplementedError(
                 "K5 masks causal and sliding windows only (no chunked "
                 "window, no logit cap, no key-padding mask)")
         out = ops.flash_attention(q, k, v, causal=causal, window=window,
                                   scale=scale)
+    elif x.shape[1] > ATTN_DIRECT_MAX:
+        pos = positions[0] if positions.dim() == 2 else positions
+        out = attend_chunked(q, k, v, pos, pos, scale, causal=causal,
+                             window=window, chunked_window=a.chunked_local,
+                             logit_cap=a.logit_cap, kv_valid=kv_valid)
     else:
         mask = make_attn_mask(positions, positions, causal=causal,
                               window=window, chunked=a.chunked_local)

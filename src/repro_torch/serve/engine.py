@@ -207,7 +207,10 @@ def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
     vanilla exchange in ``dist``'s layout (sequence-sharded for the
     prefill shape) at one rank's capacity. Returns (last-token logits
     [B,V] f32, per-layer (k, v)). Condensation and migration are forced
-    off: serving prompts are neither condensed nor re-homed. As in the
+    off: serving prompts are neither condensed nor re-homed. On the card
+    every decoder whose mask K5 takes (causal or a sliding window)
+    attends through K5, at any prompt length; on the CPU through the
+    reference's ``attend`` / ``attend_chunked``. As in the
     reference, a Mamba branch's final state is not returned: the
     launcher builds the decode cache by feeding the prompt step by
     step. ``plan_cache``: a :class:`repro_torch.plan.cache.PlanCache`;
@@ -228,6 +231,10 @@ def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
     if plan_cache is not None and cfg.uses_moe:
         from repro_torch.plan.cache import prefill_plan_key
         tmpl = plan_cache.get(prefill_plan_key(cfg, nl, dist, B, S, cap))
+    # on the card the attention core runs on K5 wherever K5 takes the
+    # mask; on the CPU it stays the reference's attend (attend_chunked
+    # over ATTN_DIRECT_MAX positions), which the CPU parity rests on
+    flash = x.device.type == "cuda" and bk.flash_takes(cfg)
     kvs = []
     for i, p in enumerate(params["layers"]):
         if cfg.ssm is not None:       # hymba: K5 and K6
@@ -237,7 +244,7 @@ def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
             # causal whatever cfg.causal says: the reference serves
             # every decoder so
             att, kv = bk.attn_apply(p["attn"], cfg, xn, positions, layer=i,
-                                    causal=True)
+                                    causal=True, flash=flash)
             x = x + att
         if ranks and cfg.ffn_kind(i) == "moe":
             x = moe_apply_vanilla(p["moe"], x, sb, cfg, nl, dist, cap,

@@ -52,6 +52,18 @@ def tokens_per_device(shape: ShapeConfig,
     return max(1, shape.global_batch * shape.seq_len // max(1, div))
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for an arch the port's train path does not take yet: the
+    dense bf16-parameter decoders (yi-34b, stablelm-12b, starcoder2-15b,
+    gemma3-12b), whose step has no MoE sublayer to size a capacity for
+    and whose optimizer state would update bf16 leaves."""
+    if not cfg.uses_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: training a dense decoder (no MoE sublayer) is not "
+            f"ported yet (ROADMAP Queue 1 item 8.7); it serves through "
+            f"repro_torch.launch.serve")
+
+
 def capacity_for_bucket(cfg: ModelConfig, shape: ShapeConfig,
                         luffy: LuffyConfig, bucket: int,
                         dist: Optional[DistContext] = None) -> int:

@@ -817,6 +817,47 @@ def test_flash_attention_kernel_repeats_bitwise():
     assert torch.equal(a, b)
 
 
+# K5 at the head dims of stablelm-12b (160) and gemma3-12b (256), bf16 (the
+# tensor-core kernel: at 160 the third TMA box runs past hd and loads
+# zeros; at 256 a producer warpgroup gives its registers to the
+# consumers) and f32 (the FMA kernel's 64-column instantiation), with GQA
+# groups of 1, 2, 4, 7 and 12 (olmoe, gemma3, stablelm, yi, starcoder2),
+# windows, ragged S and S over 2048. Tolerances as above.
+FLASH_WIDE_CASES = [((2, 300, 4, 2, 160), "bfloat16", True, None),
+                    ((2, 100, 4, 4, 160), "bfloat16", True, 30),
+                    ((1, 200, 6, 2, 160), "bfloat16", False, None),
+                    ((2, 300, 4, 2, 256), "bfloat16", True, None),
+                    ((2, 100, 8, 2, 256), "bfloat16", True, 30),
+                    ((1, 200, 6, 2, 256), "bfloat16", False, None),
+                    ((1, 2500, 16, 8, 256), "bfloat16", True, 1024),
+                    ((1, 2304, 14, 2, 128), "bfloat16", True, None),
+                    ((1, 4200, 12, 1, 128), "bfloat16", True, 4096),
+                    ((2, 300, 4, 2, 160), "float32", True, None),
+                    ((2, 300, 4, 2, 256), "float32", True, 100),
+                    ((1, 64, 2, 1, 256), "float32", False, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,causal,window", FLASH_WIDE_CASES)
+def test_flash_attention_kernel_wide_heads(shape, dtype, causal, window):
+    _cuda_or_skip()
+    from repro_torch.kernels import flash_attn as kfa
+    q, k, v = _flash_qkv(shape, dtype, seed=shape[1] + shape[4])
+    got = kfa.flash_attention(q, k, v, causal=causal, window=window)
+    again = kfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    # each query row within a share of its own norm: at S in the
+    # thousands a row's outputs are ~0.02-0.05, under the elementwise
+    # gate, and a key tile left out of its band moves the row by ~0.25
+    g, w = got.float(), want.float()
+    row = ((g - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
+    assert row <= (1e-4 if dtype == "float32" else 1e-2), row
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,di,N", [(4, 2048, 3200, 16), (2, 100, 200, 16),
                                       (1, 33, 70, 8), (3, 1, 48, 16)])

@@ -161,8 +161,10 @@ def test_launcher_cpu_end_to_end():
 
 
 def test_what_still_raises():
-    """RWKV-6, training a hybrid (K5 and K6 have no backward yet) and
-    prompts over 2048 tokens (the streaming attention path) raise."""
+    """RWKV-6 and training a hybrid (K5 and K6 have no backward yet)
+    raise; a prompt over 2048 tokens, which raised until the streaming
+    attention was ported, now prefills (hymba's attention core is K5,
+    which streams at any length; on the CPU its plain version)."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         get_config("rwkv6-3b")
     _, tcfg = _cfgs("float32")
@@ -172,6 +174,7 @@ def test_what_still_raises():
              "seq_len": torch.full((1,), 8, dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match="backwards for K5 and K6"):
         model.forward_train(batch, torch.tensor(0.5), 8, luffy=LUFFY)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        model.prefill(torch.ones((1, 2049), dtype=torch.int32), 2050,
-                      luffy=LUFFY)
+    logits, kvs = model.prefill(torch.ones((1, 2049), dtype=torch.int32),
+                                2050, luffy=LUFFY)
+    assert logits.shape == (1, tcfg.vocab_size)
+    assert torch.isfinite(logits).all() and kvs[0][0].shape[1] == 2049

@@ -75,6 +75,31 @@ def test_k2_route_by_type_and_width(x, d, want):
         ksim.route(torch.float16, d)
 
 
+# K5's route: bf16 at the configs' head dims on the tensor cores (hd 64,
+# 128, 160, 256), everything else on FMAs
+FLASH_ROUTES = [(BF16, 64, "wgmma"), (BF16, 128, "wgmma"),
+                (BF16, 160, "wgmma"), (BF16, 256, "wgmma"),
+                (BF16, 32, "fma"), (BF16, 192, "fma"), (F32, 128, "fma"),
+                (F32, 256, "fma")]
+
+
+@pytest.mark.parametrize("dtype,hd,want", FLASH_ROUTES)
+def test_k5_route_by_type_and_head_dim(dtype, hd, want):
+    from repro_torch.kernels import flash_attn as kfa
+    assert kfa.route(dtype, hd) == want
+    assert kfa.MAX_HEAD_DIM == 256
+
+
+def test_k5_wrapper_refuses_a_cpu_tensor():
+    """The wrapper launches or raises: a CPU tensor is refused before any
+    build or launch (``ops.flash_attention`` takes the plain version
+    there)."""
+    from repro_torch.kernels import flash_attn as kfa
+    q = torch.zeros((1, 4, 2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        kfa.flash_attention(q, q, q)
+
+
 def test_weight_cast_cache_hits_misses_and_holds_no_tensor():
     w = torch.randn((2, 64, 128))
     before = kexp.weight_bf16.casts

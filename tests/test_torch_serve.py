@@ -110,9 +110,12 @@ def served():
 
 def test_configs_agree():
     """The port's copied configs equal the reference's field by field:
-    reduced moe-gpt2; hymba-1.5b, moe-transformerxl and moe-bert-large,
-    full and reduced (``causal`` included); the defaults of
-    LuffyConfig, OptimConfig and a ShapeConfig; and SHAPES."""
+    reduced moe-gpt2; hymba-1.5b, moe-transformerxl, moe-bert-large and
+    the attention decoders olmoe-1b-7b, yi-34b, stablelm-12b,
+    starcoder2-15b and gemma3-12b, full and reduced (``causal``,
+    ``param_dtype``, gemma3's six-layer period, the clamped GQA heads and
+    windows included); the defaults of LuffyConfig, OptimConfig and a
+    ShapeConfig; and SHAPES."""
     from repro import config as jconfig
     from repro_torch import config as tconfig
     for name in ("LuffyConfig", "OptimConfig"):
@@ -144,7 +147,9 @@ def test_configs_agree():
     assert get_config("moe-gpt2").name == jget_config("moe-gpt2").name
     # the other archs at full width and reduced, every field and
     # sub-field
-    for arch in ("hymba-1.5b", "moe-transformerxl", "moe-bert-large"):
+    for arch in ("hymba-1.5b", "moe-transformerxl", "moe-bert-large",
+                 "olmoe-1b-7b", "yi-34b", "stablelm-12b", "starcoder2-15b",
+                 "gemma3-12b"):
         for make in (lambda g: g(arch),
                      lambda g: (reduced if g is get_config else jreduced)(
                          g(arch))):
@@ -348,13 +353,12 @@ def _options(main, monkeypatch):
 @pytest.mark.parametrize("launcher", ["train", "serve"])
 def test_launcher_flags_match_reference(launcher, monkeypatch):
     """Each port launcher defines every flag of the reference's, plus the
-    documented port-only ``--device`` and ``--seed`` (and train's
-    ``--num-layers``), and nothing else."""
+    documented port-only ``--device``, ``--seed`` and ``--num-layers``,
+    and nothing else."""
     import importlib
     ref = importlib.import_module(f"repro.launch.{launcher}")
     port = importlib.import_module(f"repro_torch.launch.{launcher}")
-    port_only = {"--device", "--seed"} | (
-        {"--num-layers"} if launcher == "train" else set())
+    port_only = {"--device", "--seed", "--num-layers"}
     want = _options(ref.main, monkeypatch)
     got = _options(port.parse_args, monkeypatch)
     assert got == want | port_only, (sorted(got - want - port_only),
