@@ -331,7 +331,37 @@ kernels line):
     ``repro_torch.launch.train`` (B=4, S=1024, condensation, AdamW, 3
     steps): finite losses, K1 and its backward, K2 (fused), K3 and its
     backward launched exactly as the path calls them, step ms, peak
-    memory, a second run bit for bit.
+    memory, a second run bit for bit;
+56. slice 18 kernels: K1 on one llama4-maverick MoE layer's bf16 expert
+    stack (128 experts, d 5120, F 8192: 5.37e9 elements a tensor) at the
+    prefill's 192 rows an expert and a decode's 8, bf16 h and weights,
+    against its plain version one expert at a time (5e-2), bit for bit
+    repeated, no weight cast; K5 folded for a chunked-local layer (chunk
+    8192; 40 heads on 8 KV heads, hd 128) at S 16384 (one launch) and
+    9192 (two: a tail of 1000), and at internvl2's [4,2048,16 on 8,128],
+    against the plain version of the layer's function (3e-2, and 1e-2 of
+    a row); each timed beside a bf16 bmm or SDPA with the same mask and
+    its bound;
+57. slice 18 serve: llama4 at full width cut to 2 chunked-local layers
+    (B=1 x 16384) and internvl2-2b at full width and depth (B=4 x 256
+    prefix slots + 1792 tokens, through ``prefill(prefix=)``), as phase
+    50 serves (two prefills, 32 greedy tokens from the prefill's cache):
+    exact launches (K5 once a layer a prefill; llama4's K1 once a MoE
+    sublayer a prefill and a step), finite logits, tokens/s, ms/step,
+    peak memory (llama4's under 80e9 B); then internvl2 through the
+    launcher's text path at B=4 x 2048, cut to 2 layers;
+58. slice 18 parity: reduced llama4 over one period (chunk 64) at
+    prompts of 256 and 200 (a tail), f32 compute, prefill logits within
+    1e-4 (its bf16 run recorded: two correct attention cores already
+    differ there by more than the bf16 gate), and internvl2 at full
+    width cut to 2 layers with a 256-slot prefix before 256 tokens, bf16,
+    within 3.2e-2: the card against the CPU, 8 greedy tokens equal, K5
+    as counted;
+59. llama4 EP serve: llama4 at full width cut to 1 layer through the
+    launcher (B=4 x 256) at M = 1, over 4 virtual ranks (32 experts a
+    rank) and over 4 under ``--exec-mode decode_overlap``: exact
+    launches, the decode bit for bit M = 1's, decode_overlap bit for bit
+    sync.
 
 Two phases run only when named by ``--only``:
 
@@ -352,7 +382,8 @@ K5 wherever K5 takes the mask (causal or a window): phases 4, 19, 25 and
 33 count its launches (once a layer a prefill), phase 5 holds the card's
 K5 prefill against the CPU's ``attend`` at 3e-2.
 
-Phase 23 runs right after phase 10, then phases 49-53, and phases 30-32,
+Phase 23 runs right after phase 10, then phases 49-53 and 56-59, and
+phases 30-32,
 34 and 35 after phase 14, where the profiler still records every launch;
 phase 33 runs after phase 19, phases 36-48 after phase 35. Then one JSON
 line with every kernel's record (the paper width's as
@@ -360,7 +391,10 @@ line with every kernel's record (the paper width's as
 with the lane map as
 ``expert_ffn@lanes`` and ``expert_ffn_bwd@lanes``, K5 at each item-8.1
 arch's prefill as ``flash_attention@<arch>``, K1 at olmoe's as
-``expert_ffn@olmoe-1b-7b``; K1's launches on
+``expert_ffn@olmoe-1b-7b``, K1 at llama4's prefill and decode as
+``expert_ffn@llama4-prefill`` / ``-decode``, K5 folded for llama4's
+chunked layers as ``flash_attention@llama4-chunked-<S>`` and at
+internvl2's prefill as ``flash_attention@internvl2-2b``; K1's launches on
 every serve and train path of the run, the continuous one included, and
 K1's and K2's in the calibration probes), and last ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, without a CUDA
@@ -2883,9 +2917,10 @@ def _band_pairs(S: int, causal: bool, window):
     return int((hi - lo).sum())
 
 
-def _sdpa_band(q, k, v, causal, window):
-    """F.scaled_dot_product_attention with the same boolean band mask, kv
-    expanded: the yardstick, never called by the port."""
+def _sdpa_band(q, k, v, causal, window, chunked: bool = False):
+    """F.scaled_dot_product_attention with the same boolean mask (a band,
+    or with ``chunked`` blocks of ``window`` positions), kv expanded: the
+    yardstick, never called by the port."""
     import torch
     import torch.nn.functional as F
     S, H = q.shape[1], q.shape[2]
@@ -2893,7 +2928,9 @@ def _sdpa_band(q, k, v, causal, window):
     mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
     if causal:
         mask &= pos[None, :] <= pos[:, None]
-    if window:
+    if window and chunked:
+        mask &= pos[:, None] // window == pos[None, :] // window
+    elif window:
         mask &= (pos[:, None] - pos[None, :]) < window
     rep = H // k.shape[2]
     qt = q.transpose(1, 2)
@@ -5949,14 +5986,9 @@ def _k5_check(q, k, v, causal, window):
 
 
 def _sdpa_or_none(q, k, v, causal, window):
-    """The SDPA yardstick's time, or None with the reason where SDPA takes
+    """The SDPA yardstick's call, or None with the reason where SDPA takes
     no such call (it is a yardstick, not a gate)."""
-    try:
-        fn = _sdpa_band(q, k, v, causal, window)
-        fn()
-        return fn, None
-    except RuntimeError as e:
-        return None, str(e).splitlines()[0][:120]
+    return _yardstick(lambda: _sdpa_band(q, k, v, causal, window))
 
 
 def phase_arch_kernels():
@@ -6278,30 +6310,40 @@ def phase_arch_serve():
     return out
 
 
-def _parity_one(cfg, B: int, S: int, gen_n: int, seed: int):
+def _parity_one(cfg, B: int, S: int, gen_n: int, seed: int,
+                prefix_len: int = 0):
     """One full-width cut on the card, then the same parameters on the
-    CPU: prefill logits, and ``gen_n`` greedy tokens from the cache the
-    prefill fills, each side decoding its own tokens. Returns the
-    comparison."""
+    CPU: prefill logits (after ``prefix_len`` random prefix slots when
+    given), and ``gen_n`` greedy tokens from the cache the prefill fills,
+    each side decoding its own tokens. Returns the comparison."""
     import numpy as np
     import torch
     from repro_torch.config import LuffyConfig
     from repro_torch.kernels import flash_attn as kfa
     from repro_torch.models.model import build_model
     luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
-    toks = torch.as_tensor(np.random.default_rng(seed).integers(
-        1, cfg.vocab_size, (B, S)), dtype=torch.int32)
+    r = np.random.default_rng(seed)
+    toks = torch.as_tensor(r.integers(1, cfg.vocab_size, (B, S)),
+                           dtype=torch.int32)
+    prefix = None
+    if prefix_len:
+        prefix = torch.as_tensor(r.standard_normal(
+            (B, prefix_len, cfg.prefix_dim or cfg.d_model)),
+            dtype=torch.float32)
     model = build_model(cfg, device="cuda", seed=seed)
-    s_max = S + gen_n
+    n = prefix_len + S
+    s_max = n + gen_n
     res = {}
     for dev in ("cuda", "cpu"):
         if dev == "cpu":
             model.to("cpu")         # the same parameters, moved
         t0 = time.perf_counter()
         k5 = kfa.flash_attention.launches
-        lg, kvs = model.prefill(toks.to(dev), s_max, luffy=luffy)
+        lg, kvs = model.prefill(toks.to(dev), s_max, luffy=luffy,
+                                prefix=None if prefix is None
+                                else prefix.to(dev))
         k5 = kfa.flash_attention.launches - k5
-        cache = _cache_from_prefill(model, kvs, B, S, s_max)
+        cache = _cache_from_prefill(model, kvs, B, n, s_max)
         tokens, lgs = _greedy(model, cache, lg, gen_n, luffy)
         res[dev] = dict(prefill=lg.float().cpu(), tokens=tokens.cpu(),
                         gen=[t.float().cpu() for t in lgs], k5=k5,
@@ -6459,6 +6501,547 @@ def run_arch_phases():
     return {"kernels": phase_arch_kernels(), "serve": phase_arch_serve(),
             "parity": phase_arch_parity(), "ep": phase_olmoe_ep_serve(),
             "train": phase_olmoe_train()}
+
+
+# slice 18: llama4-maverick (item 8.2: the shared expert, chunked-local
+# attention) and internvl2-2b (item 8.4's prefix arch) at full width.
+# llama4's 48 layers of bf16 weights take 1.6e12 B, so phase 57 serves a
+# chunked-local pair (2 layers, 69.3e9 B with the embedding and the
+# untied head) at a prompt of 16384, where the chunk of 8192 bites;
+# internvl2 at full depth, B=4 x (256 prefix slots + 1792 tokens).
+LLAMA4 = "llama4-maverick-400b-a17b"
+LLAMA4_SERVE = dict(layers=2, B=1, S=16384)
+INTERNVL2 = "internvl2-2b"
+INTERNVL2_SERVE = dict(B=4, P=256, S=1792)
+# ... and internvl2's text path through the launcher (no prefix) at
+# B=4 x 2048, cut to 2 layers: the launcher feeds the prompt a token a
+# step, 2048 steps at 1.5-4.5 ms a layer each (item 8.1's decoders)
+INTERNVL2_LAUNCHER_ARGS = ["--arch", INTERNVL2, "--num-layers", "2",
+                           "--batch", "4", "--prompt-len", "2048", "--gen",
+                           "4", "--prefill", "batch", "--device", "cuda",
+                           "--seed", "0"]
+# phase 56: K1 at llama4's prefill (B=1 x 16384 tokens, top-1 of 128 at
+# capacity factor 1.5: 192 rows an expert) and decode (8) shapes, bf16 h
+# and bf16 weights; K5 folded for a chunked layer (B, S, H, KV, hd,
+# chunk) at 16384 and at one chunk plus a tail of 1000; K5 at
+# internvl2's prefill (B, S, H, KV, hd)
+K1_LLAMA4_SHAPES = {"prefill": 192, "decode": 8}
+K5_CHUNKED_SHAPES = {
+    "llama4-chunked-16384": (1, 16384, 40, 8, 128, 8192),
+    "llama4-chunked-9192": (1, 9192, 40, 8, 128, 8192),
+}
+K5_INTERNVL2_SHAPE = (4, 2048, 16, 8, 128)
+# phase 58: card against CPU: reduced llama4 over one period (chunk 64 at
+# a sequence hint of 128) at prompts of 256 (four whole chunks) and 200
+# (three and a tail), and internvl2 at full width cut to 2 layers with a
+# 256-slot prefix before a prompt of 256. Reduced llama4 is held at f32
+# compute (K5 and K1 on their f32 kernels) to the f32 serve tolerance:
+# at bf16 two correct attention cores on the CPU alone (``attend`` and
+# K5's plain version, folded) move its logits by up to 0.055, over the
+# bf16 gate, so its bf16 run is recorded beside, not gated
+LLAMA4_PARITY = dict(B=2, S=(256, 200), gen=8)
+LLAMA4_PARITY_TOL = 1e-4
+INTERNVL2_PARITY = dict(layers=2, B=1, P=256, S=256, gen=8)
+# phase 59: llama4 at full width, 1 layer, served over 4 virtual ranks
+# (32 experts a rank) through the launcher, whose prompt feed takes one
+# ~17 ms step a token (every expert's weights read): a prompt of 256
+# keeps its three runs within ~25 s of the script's limit
+LLAMA4_EP_SERVE_ARGS = ["--arch", LLAMA4, "--num-layers", "1", "--batch",
+                        "4", "--prompt-len", "256", "--gen", "4",
+                        "--prefill", "batch", "--device", "cuda", "--seed",
+                        "0"]
+
+
+def _k5_launches(cfg, S: int) -> int:
+    """K5 launches of one batched prefill of S positions: one a layer,
+    two for a chunked-local layer whose chunks leave a ragged tail."""
+    a = cfg.attn
+    n = 0
+    for i in range(cfg.num_layers):
+        w = a.window_for_layer(i)
+        n += 2 if a.chunked_local and w is not None and S > w and S % w \
+            else 1
+    return n
+
+
+def _k1_plain_by_expert(h, wu, wg, wd, act):
+    """K1's plain version one expert at a time (the whole stack cast to
+    f32 at once would take 64e9 B)."""
+    import torch
+    from repro_torch.kernels import ref
+    return torch.cat([ref.expert_ffn_ref(h[e:e + 1], wu[e:e + 1],
+                                         wg[e:e + 1], wd[e:e + 1], act)
+                      for e in range(h.shape[0])])
+
+
+def _chunked_plain(q, k, v, W: int):
+    """The chunked-local function's plain version: each block of W
+    positions causal on its own (``q // W == k // W``), one KV head group
+    at a time."""
+    import torch
+    return torch.cat([_ref_by_kv_group(q[:, c:c + W], k[:, c:c + W],
+                                       v[:, c:c + W], True, None)
+                      for c in range(0, q.shape[1], W)], 1)
+
+
+def _yardstick(make):
+    """A yardstick's call, or None with the reason where PyTorch takes no
+    such call."""
+    try:
+        fn = make()
+        fn()
+        return fn, None
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:120]
+
+
+def _timed(run, lib, plain, iters: int):
+    """Kernel and yardstick in turns (CUDA events, the least of two),
+    the kernel's profiler device time, the plain version once."""
+    ms, lib_ms = [], []
+    for _ in range(2):
+        ms.append(time_ms(run, iters, 2))
+        if lib is not None:
+            lib_ms.append(time_ms(lib, iters, 2))
+    return dict(ms=min(ms), ms_runs=ms, device_ms=device_ms(run, iters),
+                plain_ms=time_ms(plain, 1, 0),
+                library_ms=min(lib_ms) if lib_ms else None,
+                library_ms_runs=lib_ms)
+
+
+def phase_llama4_kernels():
+    """Phase 56: the kernels at slice 18's shapes. K1 on one llama4 MoE
+    layer's bf16 expert stack as ``moe_init`` draws it (3 x 5.37e9
+    elements) at the prefill's 192 rows an expert and a decode step's 8,
+    bf16 h, silu: against its plain version one expert at a time (5e-2),
+    a second launch bit for bit, no weight cast; timed beside a bf16 bmm
+    on the same tensors and the bound (the bytes: every expert's weights
+    are read, also at decode, where at most 4 hold a row). K5 folded for a
+    chunked-local layer (``models/blocks.py::flash_chunked``) at S 16384
+    (one launch) and 9192 (two: a tail of 1000), and unfolded at
+    internvl2's prefill shape: against the plain version of the layer's
+    function (3e-2 elementwise and 1e-2 of each query row's norm), a
+    second call bit for bit; timed beside SDPA with the same mask and the
+    bound (4 x hd FLOPs a live pair at the bf16 tensor-core rate). The
+    kernels are unchanged, so phase 2's spill check covers them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe_layer import moe_init
+    from repro_torch.kernels import expert_ffn as kexp
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.models import blocks as bk
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(56)
+    cfg = dataclasses.replace(get_config(LLAMA4),
+                              num_layers=LLAMA4_SERVE["layers"])
+    E, D, Fw = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff
+    ew = moe_init(gen, cfg, device="cuda")["experts"]
+    ws = (ew["w_up"], ew["w_gate"], ew["w_down"])
+    del ew
+    k1 = {}
+    for shape, R in K1_LLAMA4_SHAPES.items():
+        h = torch.randn((E, R, D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        casts = kexp.weight_bf16.casts
+        got = kexp.expert_ffn(h, *ws, "silu")
+        again = kexp.expert_ffn(h, *ws, "silu")
+        torch.cuda.synchronize()
+        want = _k1_plain_by_expert(h, *ws, "silu")
+        tol = K1_TOL["bfloat16"]
+        rec = dict(shape=(E, R, D, Fw), dtypes="bf16 h, bf16 weights",
+                   route=kexp.route(h.dtype, ws[0].dtype, D, Fw),
+                   max_abs_err=(got.float() - want.float()).abs().max()
+                   .item(), tol=tol,
+                   ok=bool(torch.allclose(got.float(), want.float(),
+                                          atol=tol, rtol=tol)),
+                   repeat_bitwise=bool(torch.equal(got, again)),
+                   weight_casts=kexp.weight_bf16.casts - casts,
+                   weight_elements=ws[0].numel())
+        del got, again, want
+        lib, lib_err = _yardstick(lambda: (
+            lambda: _k1_library_bf16(h, *ws, "silu")))
+        rec.update(_timed(lambda: kexp.expert_ffn(h, *ws, "silu"), lib,
+                          lambda: _k1_plain_by_expert(h, *ws, "silu"),
+                          10), library_error=lib_err)
+        flops = 2.0 * E * R * D * Fw * 3
+        rec.update(_bound(2 * h.numel() * 2 + sum(w.numel() * 2
+                                                  for w in ws), flops,
+                          BF16_TC_FLOPS))
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        k1[shape] = rec
+        log(f"  K1 llama4 {shape:7s} [{E},{R},{D}]x{Fw} bf16 h and weights "
+            f"({rec['route']}): max|err|={rec['max_abs_err']:.3e} tol "
+            f"{tol:g} {'ok' if rec['ok'] else 'FAIL'}, repeat bitwise "
+            f"{rec['repeat_bitwise']}, casts {rec['weight_casts']}; kernel "
+            f"{rec['ms']:.4f} ms (runs {rec['ms_runs']}; device "
+            f"{rec['device_ms']:.4f}), plain {rec['plain_ms']:.2f} ms, bmm "
+            f"bf16 " + (f"{rec['library_ms']:.4f} ms" if lib else
+                        f"none ({lib_err})")
+            + f"; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+            f"({100 * rec['bound_share']:.1f}% of it)")
+        del h, lib
+        torch.cuda.empty_cache()
+    del ws
+    _free_card()
+
+    def qkv(B, S, H, KV, hd):
+        return [torch.randn(s, generator=gen, device="cuda")
+                .to(torch.bfloat16)
+                for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+    k5 = {}
+    cases = [(name, sh, sh[5]) for name, sh in K5_CHUNKED_SHAPES.items()]
+    cases.append((INTERNVL2, K5_INTERNVL2_SHAPE + (None,), None))
+    for name, (B, S, H, KV, hd, _), W in cases:
+        q, k, v = qkv(B, S, H, KV, hd)
+        scale = hd ** -0.5
+        if W is None:
+            def run():
+                return kfa.flash_attention(q, k, v, causal=True)
+            lens = [S]
+            lib, lib_err = _sdpa_or_none(q, k, v, True, None)
+        else:
+            def run():
+                return bk.flash_chunked(q, k, v, W, causal=True,
+                                        scale=scale)
+            lens = [min(W, S - c) for c in range(0, S, W)]
+            lib, lib_err = _yardstick(
+                lambda: _sdpa_band(q, k, v, True, W, chunked=True))
+        before = kfa.flash_attention.launches
+        got = run()
+        launches = kfa.flash_attention.launches - before
+        again = run()
+        torch.cuda.synchronize()
+        want = (_ref_by_kv_group(q, k, v, True, None) if W is None
+                else _chunked_plain(q, k, v, W))
+        rec = dict(shape=(B, S, H, KV, hd), chunk=W, causal=True,
+                   route=kfa.route(q.dtype, hd), launches_per_call=launches,
+                   **_k5_gate(got, want),
+                   repeat_bitwise=bool(torch.equal(got, again)))
+        del got, again, want
+        rec.update(_timed(run, lib, (lambda: _ref_by_kv_group(
+            q, k, v, True, None)) if W is None else (
+            lambda: _chunked_plain(q, k, v, W)), 10),
+            library_error=lib_err,
+            library="F.scaled_dot_product_attention, same mask",
+            plain="ref.flash_attention_ref, one KV head group (and chunk) "
+                  "at a time")
+        pairs = B * H * sum(n * (n + 1) // 2 for n in lens)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        rec.update(live_pairs=pairs, **_bound(nbytes, pairs * 4.0 * hd,
+                                              BF16_TC_FLOPS))
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        k5[name] = rec
+        log(f"  K5 {name:22s} [{B},{S},{H},{hd}] bf16, {KV} KV heads, chunk "
+            f"{W} ({rec['route']}, {launches} launches): max|err|="
+            f"{rec['max_abs_err']:.3e}, row {rec['max_row_rel_err']:.2e} "
+            f"{'ok' if rec['ok'] else 'FAIL'}, repeat bitwise "
+            f"{rec['repeat_bitwise']}; kernel {rec['ms']:.4f} ms (runs "
+            f"{rec['ms_runs']}; device {rec['device_ms']:.4f}), plain "
+            f"{rec['plain_ms']:.2f} ms, SDPA "
+            + (f"{rec['library_ms']:.4f} ms" if lib else
+               f"none ({lib_err})")
+            + f"; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+            f"({100 * rec['bound_share']:.1f}% of it)")
+        del q, k, v, lib
+        torch.cuda.empty_cache()
+    want_launches = {n: 1 for n in k5}
+    want_launches["llama4-chunked-9192"] = 2
+    bad = [dict(case=n, **{x: c[x] for x in ("ok", "repeat_bitwise")})
+           for n, c in list(k1.items()) + list(k5.items())
+           if not (c["ok"] and c["repeat_bitwise"])]
+    bad += [dict(case=n, weight_casts=c["weight_casts"])
+            for n, c in k1.items() if c["weight_casts"]]
+    bad += [dict(case=n, launches=c["launches_per_call"])
+            for n, c in k5.items()
+            if c["launches_per_call"] != want_launches[n]]
+    if bad:
+        raise SystemExit(f"slice 18's kernels disagree with their plain "
+                         f"versions or launch otherwise: {bad}")
+    return {"k1": k1, "k5": k5}
+
+
+def _serve_full(cfg, B: int, S: int, P: int = 0):
+    """``cfg`` on the card, random weights from seed 0: two batched
+    prefills of B x S tokens (after P random prefix slots) with every
+    counter set to 0 just before and read just after, then ARCH_GEN
+    greedy tokens from the cache the prefill's K / V fill. Returns what
+    was measured; the model is freed."""
+    import numpy as np
+    import torch
+    from repro_torch.config import LuffyConfig
+    from repro_torch.models.model import build_model
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    counters = _kernel_counters()
+    held = _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated() - held
+    r = np.random.default_rng(0)
+    toks = torch.as_tensor(r.integers(1, cfg.vocab_size, (B, S)),
+                           dtype=torch.int32, device="cuda")
+    prefix = None
+    if P:
+        prefix = torch.as_tensor(r.standard_normal(
+            (B, P, cfg.prefix_dim or cfg.d_model)), dtype=torch.float32,
+            device="cuda")
+    n = P + S
+    s_max = n + ARCH_GEN
+    for fn in counters.values():
+        fn.launches = 0
+    model.prefill(toks, s_max, luffy=luffy, prefix=prefix)       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, kvs = model.prefill(toks, s_max, luffy=luffy, prefix=prefix)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    n_moe = _n_moe(cfg)
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = 2 * _k5_launches(cfg, n)
+    want["expert_ffn"] = 2 * n_moe
+    cache = _cache_from_prefill(model, kvs, B, n, s_max)
+    kv_len = kvs[0][0].shape[1]
+    del kvs
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens, lgs = _greedy(model, cache, logits, ARCH_GEN, luffy)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    dec_launches = {k: fn.launches for k, fn in counters.items()}
+    dec_want = dict.fromkeys(dec_launches, 0)
+    dec_want["expert_ffn"] = n_moe * ARCH_GEN
+    finite = bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(t).all()) for t in lgs)
+    info = dict(arch=cfg.name, layers=cfg.num_layers, batch=B,
+                prefix_slots=P, prompt_len=S, kv_len=kv_len, gen=ARCH_GEN,
+                init_s=init_s, weight_bytes=weights, prefill_s=prefill_s,
+                prefill_tok_s=B * n / prefill_s,
+                decode_ms_per_step=decode_s / ARCH_GEN * 1e3,
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                launches=launches, launches_expected=want,
+                decode_launches=dec_launches,
+                decode_launches_expected=dec_want, finite=finite,
+                logits_max_abs=logits.abs().max().item(),
+                sample_tokens=tokens[0, :8].tolist())
+    del model, cache, logits, lgs, toks, prefix
+    _free_card()
+    return info
+
+
+def phase_llama4_serve():
+    """Phase 57: llama4-maverick at full width cut to a chunked-local
+    pair (B=1 x 16384: K5 once a layer a prefill, on the two chunks
+    folded into the batch; K1 and the shared expert once a MoE sublayer a
+    prefill and a step) and internvl2-2b at full width and depth (B=4 x
+    256 prefix slots + 1792 tokens through ``prefill(prefix=)``: K5 once
+    a layer), each as phase 50 serves: finite logits, exact launches,
+    prefill tokens/s, decode ms/step, peak memory (llama4's under
+    80e9 B). Then internvl2 through the launcher's text path (B=4 x
+    2048, no prefix, cut to 2 layers: the launcher feeds the prompt a
+    token a step) with exact launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    out = {}
+    sh, iv = LLAMA4_SERVE, INTERNVL2_SERVE
+    for name, cfg, B, S, P in (
+            (LLAMA4, dataclasses.replace(get_config(LLAMA4),
+                                         num_layers=sh["layers"]),
+             sh["B"], sh["S"], 0),
+            (INTERNVL2, get_config(INTERNVL2), iv["B"], iv["S"], iv["P"])):
+        info = _serve_full(cfg, B, S, P)
+        info["full_depth"] = get_config(name).num_layers
+        out[name] = info
+        log("slice 18 serve: " + json.dumps(info))
+        if not info["finite"]:
+            raise SystemExit(f"{name}: logits not finite")
+        if info["launches"] != info["launches_expected"] or \
+                info["decode_launches"] != info["decode_launches_expected"]:
+            raise SystemExit(f"{name}: launches {info['launches']} / decode "
+                             f"{info['decode_launches']} differ from what "
+                             f"the path calls")
+    if out[LLAMA4]["peak_mem_bytes"] >= 80e9:
+        raise SystemExit(f"llama4 peaked at {out[LLAMA4]['peak_mem_bytes']} "
+                         f"B, over 80e9")
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    res = serve.main(INTERNVL2_LAUNCHER_ARGS)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    L = int(INTERNVL2_LAUNCHER_ARGS[INTERNVL2_LAUNCHER_ARGS.index(
+        "--num-layers") + 1])
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = L * serve.N_BATCHED_PREFILLS
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 [res["prefill_logits"]] + res["gen_logits"])
+    out["launcher"] = dict(launches=launches, launches_expected=want,
+                           finite=finite,
+                           prefill_tok_s=res["prefill_tok_s"],
+                           decode_ms_per_step=res["decode_ms_per_step"])
+    log(f"slice 18 launcher {INTERNVL2}: " + json.dumps(out["launcher"]))
+    del res
+    _free_card()
+    if launches != want or not finite:
+        raise SystemExit(f"{INTERNVL2} launcher: launches {launches} (want "
+                         f"{want}), finite {finite}")
+    return out
+
+
+def phase_llama4_parity():
+    """Phase 58: card against CPU. Reduced llama4 over one full period
+    (three chunked-local layers of chunk 64 and the global one) at
+    prompts of 256 (the chunks folded, one K5 launch a layer) and 200
+    (a ragged tail: two in each chunked layer), f32 compute: prefill
+    logits within ``LLAMA4_PARITY_TOL``; the same at bf16 recorded.
+    internvl2 at full width cut to 2 layers with a 256-slot prefix
+    before 256 tokens, bf16: logits within ``ARCH_PARITY_TOL``. Each
+    gated case: 8 greedy tokens equal, K5 as counted on the card and
+    never on the CPU. Every case runs before any failure is raised."""
+    from repro_torch.config import reduced
+    from repro_torch.configs import get_config
+    out, bad = {}, []
+    lp, ip = LLAMA4_PARITY, INTERNVL2_PARITY
+    red = reduced(get_config(LLAMA4), seq_len_hint=128)
+    cases = [(f"{LLAMA4}-smoke@{S}-{cdt}",
+              dataclasses.replace(red, compute_dtype=cdt), lp["B"], S,
+              lp["gen"], 0, LLAMA4_PARITY_TOL if cdt == "float32" else None)
+             for S in lp["S"] for cdt in ("float32", "bfloat16")]
+    cases.append((f"{INTERNVL2}@{ip['layers']}", dataclasses.replace(
+        get_config(INTERNVL2), num_layers=ip["layers"]), ip["B"], ip["S"],
+        ip["gen"], ip["P"], ARCH_PARITY_TOL))
+    for name, cfg, B, S, gen_n, P, tol in cases:
+        r = _parity_one(cfg, B, S, gen_n, seed=58, prefix_len=P)
+        r.update(layers=cfg.num_layers, prompt_len=S, prefix_slots=P,
+                 compute_dtype=cfg.compute_dtype, tol=tol,
+                 k5_launches_expected=_k5_launches(cfg, P + S))
+        out[name] = r
+        log(f"slice 18 parity {name}: " + json.dumps(r))
+        if tol is not None and not (
+                r["prefill_max_abs"] <= tol and r["tokens_equal"]
+                and r["k5_launches_card"] == r["k5_launches_expected"]
+                and r["k5_launches_cpu"] == 0):
+            bad.append(name)
+    if bad:
+        raise SystemExit(f"card against CPU fails in {bad}: "
+                         + json.dumps({n: out[n] for n in bad}))
+    return out
+
+
+def phase_llama4_ep_serve():
+    """Phase 59: llama4 at full width cut to 1 layer through the launcher
+    at M = 1, over 4 virtual ranks (32 experts a rank, the prefill
+    sequence-sharded) and over 4 ranks under ``--exec-mode
+    decode_overlap``: exact launches (K5 once a prefill, K1 once a
+    prefill and a step), the decode's logits and tokens bit for bit
+    M = 1's, and the decode_overlap run's tokens and logits (the
+    prefill's too) bit for bit sync's."""
+    import torch
+    from repro_torch.launch import serve
+    counters = _kernel_counters()
+    L = int(LLAMA4_EP_SERVE_ARGS[LLAMA4_EP_SERVE_ARGS.index("--num-layers")
+                                 + 1])
+    runs = {}
+    for label, extra in (("m1", ["--model-axis", "1"]),
+                         ("m4", ["--model-axis", "4"]),
+                         ("m4_overlap", ["--model-axis", "4", "--exec-mode",
+                                         "decode_overlap"])):
+        for fn in counters.values():
+            fn.launches = 0
+        res = serve.main(LLAMA4_EP_SERVE_ARGS + extra)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        S, G = res["prompt_len"], res["gen"]
+        want = dict.fromkeys(launches, 0)
+        want["flash_attention"] = L * serve.N_BATCHED_PREFILLS
+        want["expert_ffn"] = L * (serve.N_BATCHED_PREFILLS + S + G)
+        runs[label] = dict(
+            launches=launches, want=want,
+            prefill=res["prefill_logits"].cpu(),
+            step=torch.stack(res["step_logits"]).cpu(),
+            gen=torch.stack(res["gen_logits"]).cpu(), tokens=res["tokens"],
+            prefill_tok_s=res["prefill_tok_s"],
+            decode_ms_per_step=res["decode_ms_per_step"],
+            finite=bool(torch.isfinite(res["prefill_logits"]).all()))
+        del res
+        _free_card()
+
+    def same(a, b, keys):
+        return all(torch.equal(runs[a][k], runs[b][k]) for k in keys)
+
+    info = {m: {k: r[k] for k in ("launches", "prefill_tok_s",
+                                  "decode_ms_per_step", "finite")}
+            for m, r in runs.items()}
+    info["decode_bitwise_m1"] = same("m4", "m1", ("tokens", "step", "gen"))
+    info["overlap_bitwise_sync"] = same("m4_overlap", "m4", (
+        "tokens", "prefill", "step", "gen"))
+    log("llama4 EP serve: " + json.dumps(info))
+    for m, r in runs.items():
+        if r["launches"] != r["want"] or not r["finite"]:
+            raise SystemExit(f"llama4 serve {m}: launches {r['launches']} "
+                             f"(want {r['want']}), finite {r['finite']}")
+    if not (info["decode_bitwise_m1"] and info["overlap_bitwise_sync"]):
+        raise SystemExit(f"llama4 EP decode: M = 4 bit for bit M = 1 "
+                         f"{info['decode_bitwise_m1']}, decode_overlap bit "
+                         f"for bit sync {info['overlap_bitwise_sync']}")
+    return info
+
+
+def run_llama4_phases():
+    """Phases 56-59 in order."""
+    return {"kernels": phase_llama4_kernels(), "serve": phase_llama4_serve(),
+            "parity": phase_llama4_parity(), "ep": phase_llama4_ep_serve()}
+
+
+def _llama4_records(l4):
+    """K1 at llama4's prefill and decode shapes with bf16 weights and K5
+    folded for its chunked layers (phase 56), with the launches of
+    llama4's serve run (phase 57: two batched prefills, 32 steps), and
+    K5 at internvl2's prefill with the launches of its serve run."""
+    k1, k5, sv = l4["kernels"]["k1"], l4["kernels"]["k5"], l4["serve"]
+    lsv = sv[LLAMA4]
+    recs = []
+    for shape, t in k1.items():
+        launches = (lsv["launches"] if shape == "prefill"
+                    else lsv["decode_launches"])["expert_ffn"]
+        recs.append(_record(
+            f"expert_ffn@llama4-{shape}",
+            "src/repro_torch/csrc/expert_ffn.cu",
+            "src/repro/kernels/expert_ffn.py:52", launches, t,
+            {"kernel": "expert_ffn",
+             "timed_at": f"{list(t['shape'])} (E, R, d, F), bf16 h, bf16 "
+                         f"weights (one MoE layer's stack, "
+                         f"{t['weight_elements']} elements a tensor), silu",
+             "launches_path": f"{LLAMA4} serve at 2 layers, "
+                              + ("2 batched prefills of 1 x 16384" if
+                                 shape == "prefill" else
+                                 f"{ARCH_GEN} decode steps"),
+             "launches_ep_serve": l4["ep"]["m4"]["launches"]["expert_ffn"],
+             "dispatch": t["route"], "device_ms": t["device_ms"],
+             "library": "torch.bmm bf16 on the same tensors",
+             "library_error": t["library_error"],
+             "bound_share": t["bound_share"],
+             "repeat_bitwise": t["repeat_bitwise"]}))
+    for name, t in k5.items():
+        arch = INTERNVL2 if name == INTERNVL2 else LLAMA4
+        recs.append(_record(
+            f"flash_attention@{name}", "src/repro_torch/csrc/flash_attn.cu",
+            "src/repro/kernels/flash_attn.py:87",
+            sv[arch]["launches"]["flash_attention"], t,
+            {"kernel": "flash_attention",
+             "timed_at": f"{list(t['shape'])} (B, S, H, KV, hd) bf16, "
+                         f"causal, chunk {t['chunk']} ("
+                         f"{t['launches_per_call']} launch(es) a call)",
+             "launches_path": f"{arch} serve, 2 batched prefills",
+             "route": t["route"], "device_ms": t["device_ms"],
+             "library": t["library"], "library_error": t["library_error"],
+             "bound_share": t["bound_share"],
+             "repeat_bitwise": t["repeat_bitwise"], "plain": t["plain"]}))
+    return recs
 
 
 # phase 54: the tensor-core kernel's band, and the same band starting
@@ -6798,7 +7381,11 @@ def _only_runners():
                     52: lambda need: phase_olmoe_ep_serve(),
                     53: lambda need: phase_olmoe_train(),
                     54: lambda need: phase_k5_gate_mutant(),
-                    55: lambda need: phase_prefill_attn_compare()})
+                    55: lambda need: phase_prefill_attn_compare(),
+                    56: lambda need: phase_llama4_kernels(),
+                    57: lambda need: phase_llama4_serve(),
+                    58: lambda need: phase_llama4_parity(),
+                    59: lambda need: phase_llama4_ep_serve()})
     return runners
 
 
@@ -6864,6 +7451,8 @@ def main(argv=None) -> int:
     # still records every launch
     log("the attention decoders of item 8.1 (phases 49-53):")
     arch = run_arch_phases()
+    log("llama4-maverick and internvl2-2b (phases 56-59):")
+    l4 = run_llama4_phases()
     slice_info, slice_out = phase_slice()
     phase_parity()
     serve_prof = phase_profile()
@@ -7185,6 +7774,7 @@ def main(argv=None) -> int:
     ]
     records += _paper_records(paper)
     records += _arch_records(arch)
+    records += _llama4_records(l4)
     log("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in sorted(PHASE_S.items(),
                                             key=lambda kv: -kv[1])}))

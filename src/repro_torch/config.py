@@ -44,7 +44,9 @@ class MoEConfig:
     top_k: int
     d_ff: int                      # hidden dim of EACH expert
     capacity_factor: float = 1.25
+    num_shared_experts: int = 0    # always-on dense expert(s), llama4's
     router_aux_coef: float = 0.01  # load-balance loss coefficient
+    router_jitter: float = 0.0     # unread, as in the reference
 
 
 @dataclass(frozen=True)
@@ -82,6 +84,16 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     remat: bool = True             # recompute each layer in the backward
+    # the reference's family tag and source; both only describe the arch
+    family: str = ""
+    citation: str = ""
+    # encoder depth of an encoder-decoder (seamless; not ported, 0 here)
+    num_encoder_layers: int = 0
+    # a modality frontend's stub: prefix_slots embeddings of width
+    # prefix_dim (0: d_model), projected and put before the tokens
+    # (internvl2's 256 patch embeddings of 1024)
+    prefix_slots: int = 0
+    prefix_dim: int = 0
 
     def ffn_kind(self, layer: int) -> str:
         return self.layer_ffn_pattern[layer % len(self.layer_ffn_pattern)]
@@ -156,7 +168,9 @@ class LuffyConfig:
     # and runs each chunk's collectives on a side stream against the
     # previous chunk's expert FFN (repro_torch.sched): the forward is
     # sync's bit for bit, weight gradients add up per chunk. One rank
-    # runs sync. "decode_overlap" runs as sync (no shared experts).
+    # runs sync. "decode_overlap" runs as sync: the reference overlaps
+    # its decode combine all-reduce with the shared-expert FFN, and the
+    # port's decode is the one-device one, with no collective to hide.
     exec_mode: str = "sync"
     # capacity chunks of exec_mode="pipeline"; <= 0 takes the chunk
     # count of the exchange estimate's 1..16 search
@@ -197,6 +211,7 @@ class OptimConfig:
     grad_clip: float = 1.0
     warmup_steps: int = 100
     total_steps: int = 10_000
+    zero1: bool = True             # unread, as in the reference
 
 
 def reduced(model: ModelConfig, *, num_layers: int = 2, d_model: int = 256,
@@ -219,16 +234,22 @@ def reduced(model: ModelConfig, *, num_layers: int = 2, d_model: int = 256,
         experts = min(max_experts, moe.num_experts)
         moe = dataclasses.replace(
             moe, num_experts=experts, top_k=min(moe.top_k, experts),
-            d_ff=min(moe.d_ff, 2 * d_model))
+            d_ff=min(moe.d_ff, 2 * d_model),
+            num_shared_experts=min(moe.num_shared_experts, 1))
     period = math.lcm(len(attn.window_pattern) if attn else 1,
                       len(model.layer_ffn_pattern))
+    num_layers = max(num_layers, period)
     return dataclasses.replace(
         model,
         name=model.name + "-smoke",
-        num_layers=max(num_layers, period),
+        num_layers=num_layers,
+        num_encoder_layers=min(model.num_encoder_layers, num_layers)
+        if model.num_encoder_layers else 0,
         d_model=d_model,
         d_ff=min(model.d_ff, 2 * d_model),
         vocab_size=min(model.vocab_size, 1024),
         attn=attn, moe=moe, ssm=model.ssm,
+        prefix_slots=min(model.prefix_slots, 8),
+        prefix_dim=min(model.prefix_dim, d_model) if model.prefix_dim else 0,
         remat=False,
     )

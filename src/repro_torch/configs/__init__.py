@@ -1,10 +1,12 @@
 """Architecture registry (counterpart of ``repro/configs/__init__.py``).
 
 The port runs ``moe-gpt2``, ``moe-transformerxl``, ``moe-bert-large``
-(the paper's Table II models), ``hymba-1.5b`` and the attention decoders
-``olmoe-1b-7b``, ``yi-34b``, ``stablelm-12b``, ``starcoder2-15b`` and
-``gemma3-12b``; the reference's other architectures come with their own
-slices and raise here until then."""
+(the paper's Table II models), ``hymba-1.5b``, the attention decoders
+``olmoe-1b-7b``, ``yi-34b``, ``stablelm-12b``, ``starcoder2-15b``,
+``gemma3-12b`` and ``llama4-maverick-400b-a17b`` (shared expert,
+chunked-local attention), and ``internvl2-2b`` (a projected prefix
+before the tokens); the reference's other architectures come with their
+own slices and raise here until then."""
 from __future__ import annotations
 
 import importlib
@@ -13,17 +15,18 @@ from repro_torch.config import ModelConfig
 
 ARCHS = ["moe_gpt2", "moe_transformerxl", "moe_bert_large", "hymba_1p5b",
          "olmoe_1b_7b", "yi_34b", "stablelm_12b", "starcoder2_15b",
-         "gemma3_12b"]
+         "gemma3_12b", "llama4_maverick_400b_a17b", "internvl2_2b"]
 
 ALIASES = {"moe-gpt2": "moe_gpt2", "moe-transformerxl": "moe_transformerxl",
            "moe-bert-large": "moe_bert_large", "hymba-1.5b": "hymba_1p5b",
            "olmoe-1b-7b": "olmoe_1b_7b", "yi-34b": "yi_34b",
            "stablelm-12b": "stablelm_12b",
-           "starcoder2-15b": "starcoder2_15b", "gemma3-12b": "gemma3_12b"}
+           "starcoder2-15b": "starcoder2_15b", "gemma3-12b": "gemma3_12b",
+           "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+           "internvl2-2b": "internvl2_2b"}
 
 # the reference's architectures still to port, all ROADMAP Queue 1 item 8
-NOT_PORTED = ("rwkv6-3b", "seamless-m4t-large-v2",
-              "llama4-maverick-400b-a17b", "internvl2-2b")
+NOT_PORTED = ("rwkv6-3b", "seamless-m4t-large-v2")
 
 
 def get_config(name: str, **overrides) -> ModelConfig:

@@ -7,7 +7,7 @@ from repro_torch.config import AttnConfig, ModelConfig
 
 def config(**kw) -> ModelConfig:
     base = dict(
-        name="gemma3-12b", kind="decoder",
+        name="gemma3-12b", kind="decoder", family="dense",
         num_layers=48, d_model=3840, d_ff=15360, vocab_size=262144,
         attn=AttnConfig(num_heads=16, num_kv_heads=8, head_dim=256,
                         rope_theta=1_000_000.0,
@@ -15,6 +15,7 @@ def config(**kw) -> ModelConfig:
         layer_ffn_pattern=("dense",),
         act="gelu", tie_embeddings=True,
         param_dtype="bfloat16",
+        citation="hf:google/gemma-3-1b-pt",
     )
     base.update(kw)
     return ModelConfig(**base)

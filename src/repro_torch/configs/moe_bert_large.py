@@ -9,7 +9,7 @@ from repro_torch.config import AttnConfig, ModelConfig, MoEConfig
 
 def config(num_experts: int = 16, **kw) -> ModelConfig:
     base = dict(
-        name=f"moe-bert-large-{num_experts}e", kind="decoder",
+        name=f"moe-bert-large-{num_experts}e", kind="decoder", family="moe",
         num_layers=24, d_model=1024, d_ff=4096, vocab_size=30522,
         attn=AttnConfig(num_heads=16, num_kv_heads=16, head_dim=64,
                         use_rope=False),
@@ -17,6 +17,7 @@ def config(num_experts: int = 16, **kw) -> ModelConfig:
                       capacity_factor=2.0),
         layer_ffn_pattern=("moe",),
         norm="ln", act="gelu", gated_mlp=False, causal=False,
+        citation="paper Table II / arXiv:1810.04805",
     )
     base.update(kw)
     return ModelConfig(**base)

@@ -21,7 +21,13 @@ from repro_torch.plan.exchange import MoEAux, _rms
 
 
 def moe_init(generator, cfg: ModelConfig, *, device):
-    """Expert stack [E, ...], router and the MoE RMS-norm scale."""
+    """Expert stack [E, ...], router, the MoE RMS-norm scale and, with
+    ``num_shared_experts`` > 0, the shared expert (``w_up``, ``w_gate``
+    [d, f * n_shared], ``w_down`` [f * n_shared, d]) at the reference's
+    scales. An f32 stack is one draw of the whole stack; a bf16 one is
+    drawn one expert at a time into the preallocated stack, so the f32
+    temporary is one expert's matrix (llama4's whole f32 stack would be
+    21.5e9 bytes)."""
     from repro_torch.models.blocks import _dtype
     m = cfg.moe
     d, f, E = cfg.d_model, m.d_ff, m.num_experts
@@ -29,10 +35,16 @@ def moe_init(generator, cfg: ModelConfig, *, device):
     scale_down = 1.0 / math.sqrt(2 * cfg.num_layers)
 
     def normal(shape, std):
-        return (torch.randn(shape, generator=generator, device=device)
-                * std).to(pdt)
+        if pdt == torch.float32 or len(shape) == 2:
+            return (torch.randn(shape, generator=generator, device=device)
+                    * std).to(pdt)
+        out = torch.empty(shape, dtype=pdt, device=device)
+        for e in range(shape[0]):
+            out[e].copy_(torch.randn(shape[1:], generator=generator,
+                                     device=device).mul_(std))
+        return out
 
-    return {
+    p = {
         "router": gate_init(generator, d, E, device=device),
         "experts": {
             "w_up": normal((E, d, f), 1.0 / math.sqrt(d)),
@@ -41,6 +53,14 @@ def moe_init(generator, cfg: ModelConfig, *, device):
         },
         "norm": {"scale": torch.ones((d,), dtype=pdt, device=device)},
     }
+    if m.num_shared_experts > 0:
+        fs = f * m.num_shared_experts
+        p["shared"] = {
+            "w_up": normal((d, fs), 1.0 / math.sqrt(d)),
+            "w_gate": normal((d, fs), 1.0 / math.sqrt(d)),
+            "w_down": normal((fs, d), scale_down / math.sqrt(fs)),
+        }
+    return p
 
 
 def capacity_for(moe: MoEConfig, tokens_local: int, num_experts: int,

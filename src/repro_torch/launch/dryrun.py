@@ -229,12 +229,14 @@ def comm_traffic_ledger(cfg, shape, mesh, *, nodes: int = 0,
     }
 
     # ---- decode: one [B, d_model] combine all-reduce per MoE sublayer
-    # plus the shared-expert FFN, in order or overlapped. The port's
-    # configs have no shared experts (ROADMAP item 8.2), so that term is
-    # 0 and the overlap saves nothing
+    # plus the shared-expert FFN, in order or overlapped, priced as the
+    # reference prices them (an arch without shared experts saves
+    # nothing). The port's own decode is the one-device one, with no
+    # all-reduce to overlap, so it runs "decode_overlap" as sync
     dec_tokens = shape.global_batch          # one live token per sequence
     dec_combine = decode_combine_ms(dec_tokens, cfg.d_model, topo)
-    dec_shared = 0.0
+    dec_shared = (dec_tokens * 4.0 * cfg.d_model * cfg.moe.d_ff
+                  * cfg.moe.num_shared_experts / peak_flops * 1e3)
     dec_sync = decode_step_ms(combine_ms=dec_combine,
                               shared_ffn_ms=dec_shared,
                               overlap=False) * n_moe

@@ -12,6 +12,11 @@ of ``repro/launch/serve.py``).
         --arch {olmoe-1b-7b,yi-34b,stablelm-12b,starcoder2-15b,gemma3-12b} \\
         [--num-layers N] --batch 2 --prompt-len 4096 --gen 32 \\
         --prefill batch
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llama4-maverick-400b-a17b --num-layers 2 --batch 1 \\
+        --prompt-len 256 --gen 32 --prefill batch
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \\
+        --batch 4 --prompt-len 2048 --gen 32 --prefill batch
     PYTHONPATH=src python -m repro_torch.launch.serve --arch moe-gpt2 \\
         --model-axis 4 --batch 8 --prompt-len 128 --gen 32 --prefill batch \\
         [--exec-mode {sync,pipeline,decode_overlap}] [--pipeline-chunks N] \\
@@ -39,7 +44,13 @@ card (``--device cuda``, the default, which must exist) and in their
 plain versions on the CPU (``--device cpu``), where a prompt over 2048
 tokens attends through the reference's streaming path. ``--num-layers
 N`` (the port's own flag) serves the full-width arch cut to its first N
-layers: yi-34b's 60 layers of bf16 weights alone take 68.8e9 bytes.
+layers: yi-34b's 60 layers of bf16 weights alone take 68.8e9 bytes, and
+llama4-maverick's 48 take 1.6e12 (two layers, a chunked-local pair,
+69.3e9 with the embedding and the head). llama4's shared expert runs
+beside its routed ones in every MoE sublayer, and its chunked-local
+layers attend on K5 with the chunks folded into the batch. internvl2-2b
+is served on its text path, as the reference's launcher serves it: no
+prefix is fed (``engine.prefill(prefix=)`` takes one).
 
 ``--model-axis M > 1`` serves over M virtual expert-parallel ranks held
 by this one process (a flat mesh, as the reference's): the batched
@@ -48,8 +59,9 @@ holds positions [r*S/M, (r+1)*S/M) of every prompt, at one rank's
 capacity), and ``--exec-mode pipeline`` runs their exchange as the
 chunked pipeline (``--pipeline-chunks``, default 4, 0 the exchange
 estimate's count; bit for bit the sync prefill); ``decode_overlap`` runs
-as sync (the port has no shared experts for it to overlap), and the
-decode has no all-to-all to chunk. The launcher prints the resolved
+as sync: the reference overlaps its decode's combine all-reduce with the
+shared-expert FFN, and the port's decode is the one-device one, with no
+collective to hide; nor has it an all-to-all to chunk. The launcher prints the resolved
 schedule. The decode steps are the one-device ones: the reference's
 all-reduce decode gives their values bit for bit on virtual ranks
 (:mod:`repro_torch.dist`). Attention and the KV cache are the
@@ -110,7 +122,8 @@ N_BATCHED_PREFILLS = 2     # warm-up + timed, as the reference launcher
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="moe-gpt2")
+    ap.add_argument("--arch", default="moe-gpt2",
+                    help="an arch of repro_torch.configs (ALIASES)")
     ap.add_argument("--reduced", action="store_true",
                     help="the smoke-test variant of --arch")
     ap.add_argument("--num-layers", type=int, default=0,
@@ -130,8 +143,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     default=None,
                     help="MoE schedule of the expert-parallel prefill: in "
                          "order, the chunked pipeline (bit for bit sync), "
-                         "or decode_overlap, which runs as sync here "
-                         "(default sync)")
+                         "or decode_overlap, which runs as sync here: "
+                         "the one-device decode has no all-reduce to "
+                         "overlap with the shared expert (default sync)")
     ap.add_argument("--pipeline-chunks", type=int, default=None,
                     help="capacity chunks of --exec-mode pipeline (default "
                          "4; 0 takes the exchange estimate's count)")
@@ -338,9 +352,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             tokens=B * S, top_k=cfg.moe.top_k, d_model=cfg.d_model,
             d_ff=cfg.moe.d_ff, num_layers=cfg.num_layers, n_slots=B,
             num_experts=cfg.moe.num_experts, group_size=min(128, S),
-            # the decode term: one live token a sequence; the port's
-            # configs have no shared experts (ROADMAP item 8.2)
-            decode_tokens=B, d_ff_shared=0)
+            # the decode term: one live token a sequence, and the
+            # shared-expert FFN the reference's decode overlaps
+            decode_tokens=B,
+            d_ff_shared=cfg.moe.d_ff * cfg.moe.num_shared_experts)
         print(f"autotune {tuned.key}: {tuned.knobs} modeled "
               f"{tuned.modeled_step_ms:.3f}ms vs default "
               f"{tuned.default_step_ms:.3f}ms", flush=True)

@@ -29,10 +29,11 @@ second moment let moe-bert-large train at full width on one 80 GB card,
 or SGD with momentum); the
 host then updates the EWMA of the condensation rate and, from step 3 on,
 picks the rate bucket that sets the next step's dispatch capacity.
-``--arch`` takes the MoE decoders (moe-gpt2, moe-transformerxl,
-moe-bert-large, olmoe-1b-7b); the dense bf16-parameter decoders
-(yi-34b, stablelm-12b, starcoder2-15b, gemma3-12b) serve but do not
-train yet, and raise (ROADMAP Queue 1 item 8.7), as hymba does.
+``--arch`` takes the MoE decoders with f32 parameters (moe-gpt2,
+moe-transformerxl, moe-bert-large, olmoe-1b-7b); the dense decoders
+(yi-34b, stablelm-12b, starcoder2-15b, gemma3-12b, internvl2-2b) and
+llama4-maverick-400b-a17b (bf16 parameters) serve but do not train yet,
+and raise (ROADMAP Queue 1 item 8.7), as hymba does.
 
 ``--model-axis M > 1`` trains expert-parallel over M virtual ranks held
 by this one process (``repro_torch.comm.hierarchical``): the batch
@@ -125,7 +126,9 @@ import torch
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--arch", default="moe-gpt2")
+    ap.add_argument("--arch", default="moe-gpt2",
+                    help="an MoE arch of repro_torch.configs with f32 "
+                         "parameters (the others raise)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--reduced", action="store_true",
                     help="the smoke-test variant of --arch")

@@ -240,11 +240,40 @@ def attend_chunked(q, k, v, q_pos, k_pos, scale: float, *, causal: bool,
 
 
 def flash_takes(cfg: ModelConfig) -> bool:
-    """Whether K5 computes ``cfg``'s self-attention mask: causal or a
-    sliding window, no chunked window and no logit cap (a key-padding
-    mask is the caller's to rule out)."""
-    a = cfg.attn
-    return not a.chunked_local and a.logit_cap is None
+    """Whether K5 computes ``cfg``'s self-attention masks: every layer
+    kind is one it takes (a global layer causal, a sliding window, a
+    chunked-local window by :func:`flash_chunked`), so only a logit cap
+    rules an arch out (a key-padding mask is the caller's to rule
+    out)."""
+    return cfg.attn.logit_cap is None
+
+
+def flash_chunked(q, k, v, chunk: int, *, causal: bool, scale: float):
+    """A chunked-local layer (``q // W == k // W``, W = ``chunk``) through
+    the unchanged K5, positions 0..S-1 in every row: blocks of W positions
+    attend only within themselves, so the ``n = S // W`` whole blocks fold
+    into the batch, [B * n, W, ...], for one launch at K5's own mask
+    (``causal``, no window), and the ragged tail of ``S mod W`` positions
+    (a block of its own, starting at a multiple of W) takes a second; at
+    S <= W the layer is one launch. q: [B,S,H,hd]; k, v: [B,S,KV,hd].
+    The fold is a view when S is a multiple of W; otherwise (B > 1) the
+    leading positions are copied once. Returns [B,S,H,hd]."""
+    B, S = q.shape[:2]
+    if S <= chunk:
+        return ops.flash_attention(q, k, v, causal=causal, scale=scale)
+    n = S // chunk
+    L = n * chunk
+
+    def fold(t):
+        return t[:, :L].reshape((B * n, chunk) + t.shape[2:])
+
+    out = ops.flash_attention(fold(q), fold(k), fold(v), causal=causal,
+                              scale=scale).reshape((B, L) + q.shape[2:])
+    if L == S:
+        return out
+    tail = ops.flash_attention(q[:, L:], k[:, L:], v[:, L:], causal=causal,
+                               scale=scale)
+    return torch.cat([out, tail], dim=1)
 
 
 def attn_apply(p, cfg: ModelConfig, x, positions, *, layer: int,
@@ -253,8 +282,9 @@ def attn_apply(p, cfg: ModelConfig, x, positions, *, layer: int,
     positions: [B,S]; kv_valid: [B,S] bool, the keys that may be attended
     (a non-causal arch must not attend to padding), ANDed into the mask.
     With ``flash`` the core runs through ``ops.flash_attention`` (K5) at
-    any S, which masks by index, so positions must be 0..S-1 in every
-    row, and takes no key mask; else through ``attend`` up to
+    any S, a chunked-local layer folded (:func:`flash_chunked`); K5
+    masks by index, so positions must be 0..S-1 in every row, and takes
+    no key mask; else through ``attend`` up to
     ``ATTN_DIRECT_MAX`` positions and ``attend_chunked`` (positions
     shared across the batch) above, as the reference routes. Returns
     (out [B,S,d], (k, v)), k after RoPE."""
@@ -272,10 +302,13 @@ def attn_apply(p, cfg: ModelConfig, x, positions, *, layer: int,
     if flash:
         if not flash_takes(cfg) or kv_valid is not None:
             raise NotImplementedError(
-                "K5 masks causal and sliding windows only (no chunked "
-                "window, no logit cap, no key-padding mask)")
-        out = ops.flash_attention(q, k, v, causal=causal, window=window,
-                                  scale=scale)
+                "K5 masks causal, sliding and chunked windows only (no "
+                "logit cap, no key-padding mask)")
+        if window is not None and a.chunked_local:
+            out = flash_chunked(q, k, v, window, causal=causal, scale=scale)
+        else:
+            out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      scale=scale)
     elif x.shape[1] > ATTN_DIRECT_MAX:
         pos = positions[0] if positions.dim() == 2 else positions
         out = attend_chunked(q, k, v, pos, pos, scale, causal=causal,

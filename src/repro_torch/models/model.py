@@ -84,9 +84,9 @@ class Model(nn.Module):
 
     @torch.inference_mode()
     def prefill(self, tokens, s_max: int, *, luffy: LuffyConfig, dist=None,
-                plan_cache=None):
+                plan_cache=None, prefix=None):
         return engine.prefill(self.params, self.cfg, luffy, tokens, s_max,
-                              dist, plan_cache=plan_cache)
+                              dist, plan_cache=plan_cache, prefix=prefix)
 
     @torch.inference_mode()
     def decode_step(self, cache, tokens, *, luffy: LuffyConfig,

@@ -91,18 +91,29 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator, device):
     if not cfg.tie_embeddings:
         params["unembed"] = {"w": bk.dense_init(
             generator, cfg.d_model, cfg.vocab_size, pdt, device=device)}
+    if cfg.prefix_slots > 0:
+        params["prefix_proj"] = {"w": bk.dense_init(
+            generator, cfg.prefix_dim or cfg.d_model, cfg.d_model, pdt,
+            device=device)}
     params["layers"] = [_init_layer(generator, cfg, i, device=device)
                         for i in range(cfg.num_layers)]
     return params
 
 
-def embed_tokens(params, cfg: ModelConfig, tokens):
+def embed_tokens(params, cfg: ModelConfig, tokens, prefix=None):
     """Token embedding scaled by sqrt(d_model); the scale is rounded to
-    the compute dtype before the multiply, as in the reference."""
+    the compute dtype before the multiply, as in the reference. A
+    ``prefix`` [B, P, prefix_dim] (a modality frontend's embeddings) is
+    projected by ``prefix_proj`` in the compute dtype and put before the
+    tokens: [B, P + S, d]."""
     cdt = bk._dtype(cfg.compute_dtype)
     x = params["embed"]["table"][tokens.long()].to(cdt)
     scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32))
-    return x * scale.to(cdt).to(x.device)
+    x = x * scale.to(cdt).to(x.device)
+    if prefix is not None:
+        px = prefix.to(x.device, cdt) @ params["prefix_proj"]["w"].to(cdt)
+        x = torch.cat([px, x], dim=1)
+    return x
 
 
 def logits_fn(params, cfg: ModelConfig, x):

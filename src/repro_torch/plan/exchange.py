@@ -648,18 +648,19 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
     the f32 wire or one rank.
 
     Returns ``(y, aux, cond_carry, sideband, s_next, wire_ef)``: in
-    vanilla and decode mode ``y = x
-    + moe_delta`` and the sideband is unchanged; in migrate mode (M > 1)
-    ``y`` is the post-block hidden at the sequences' new slots, and the
-    sideband, the rep map and the similarity history have moved with
-    them. aux fields are per rank, [M]; ``cond_carry`` is the
+    vanilla and decode mode ``y = x + moe_delta`` and the sideband is
+    unchanged; in migrate mode (M > 1) ``y`` is the post-block hidden at
+    the sequences' new slots, and the sideband, the rep map and the
+    similarity history have moved with them. A shared expert adds its
+    FFN of ``rms(x)``, in migrate mode of ``rms(y)`` (the reference's
+    rule). aux fields are per rank, [M]; ``cond_carry`` is the
     condense-reuse carry for the next sublayer (None without
     condensation). Rounding follows the reference: rows are packed in
     the compute dtype, RMS-normed from those rounded rows, scaled by the
     compute-dtype gate weight and summed over k in the compute dtype.
     Un-condense replaces each condensed token's whole output row
     (residual included) by its representative's."""
-    from repro_torch.models.blocks import _dtype
+    from repro_torch.models.blocks import _dtype, ffn_apply
     _check_whole_stack(params, cfg)
     m = cfg.moe
     cdt = _dtype(cfg.compute_dtype)
@@ -705,6 +706,17 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
         h = _rms(x_rows, scale).to(cdt)
         return expert_ffn(params["experts"], h.reshape(M * g, M * c, d),
                           cfg.act, w_idx).reshape(M, g, M, c, d)
+
+    def shared(y_out):
+        """The always-on shared expert (llama4's), where the reference
+        applies it: on ``rms(x)`` in vanilla and decode mode, and in
+        migrate mode on ``rms(y_out)``, the post-combine hidden at the
+        sequences' new homes."""
+        if "shared" not in params:
+            return y_out
+        sh = ffn_apply(params["shared"], cfg,
+                       _rms(y_out if migrate else x, scale).to(cdt))
+        return y_out + sh.to(y_out.dtype)
 
     def ship(fn, buf):
         # one device ships nothing: its rows keep the compute dtype
@@ -758,7 +770,7 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
                                        torch.finfo(cdt).bits // 8)
         shipped = wst["shipped_rows"] * row_bytes
         return _finish(plan, y_tok, new_sb, None, local_frac, shipped,
-                       n_seq, S) + (ef_next,)
+                       n_seq, S, shared) + (ef_next,)
 
     # ---- dense wire: each copy's row, and beside it its gate weight (and
     # under migration its primary flag and its row metadata: destination
@@ -922,14 +934,15 @@ def execute_plan(params, x, plan: ExchangePlan, cfg: ModelConfig,
         y_tok = y_grid[:M * T].reshape(M, T, d).to(xf.dtype)
         new_sb = _exchange_sideband(sideband, dest_global)
     return _finish(plan, y_tok, new_sb, c_drop, local_frac, None, n_seq,
-                   S) + (ef_next,)
+                   S, shared) + (ef_next,)
 
 
 def _finish(plan: ExchangePlan, y_tok, new_sb, c_drop, local_frac,
-            shipped, n_seq: int, S: int):
+            shipped, n_seq: int, S: int, shared):
     """The executor's tail: un-condense through kernel K3 (with the rep
     map moved to the sequences' new homes under migration), migrate the
-    similarity history and the condense carry, and the per-rank ledger
+    similarity history and the condense carry, add the shared expert
+    (``shared``, on the un-condensed output) and the per-rank ledger
     (``c_drop`` / ``shipped`` None: zero)."""
     M, T, d = y_tok.shape
     G = plan.group_size
@@ -981,5 +994,5 @@ def _finish(plan: ExchangePlan, y_tok, new_sb, c_drop, local_frac,
         zM + plan.plans_built, zM + plan.plans_reused,
         zM + plan.reuse_mismatch, cp.measured_pairs,
         per_rank(cp.built), per_rank(cp.reused), per_rank(shipped))
-    return (y_tok.reshape(M, n_seq, S, d), aux, cond_carry, new_sb,
+    return (shared(y_tok.reshape(M, n_seq, S, d)), aux, cond_carry, new_sb,
             s_next)

@@ -201,14 +201,19 @@ def decode_step(params, cfg: ModelConfig, luffy: LuffyConfig, cache, tokens,
 
 
 def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
-            s_max: int, dist: Optional[DistContext] = None, plan_cache=None):
-    """Full forward over the prompt [B,S]; dist: the expert-parallel
+            s_max: int, dist: Optional[DistContext] = None, plan_cache=None,
+            *, prefix=None):
+    """Full forward over the prompt [B,S], after ``prefix`` [B,P,
+    prefix_dim] when given (a prefix arch's frontend embeddings,
+    projected before the tokens: positions run 0..P+S-1 and the returned
+    K/V hold P+S entries); dist: the expert-parallel
     ranks (None or one rank: one device), whose MoE sublayers run the
     vanilla exchange in ``dist``'s layout (sequence-sharded for the
     prefill shape) at one rank's capacity. Returns (last-token logits
     [B,V] f32, per-layer (k, v)). Condensation and migration are forced
     off: serving prompts are neither condensed nor re-homed. On the card
-    every decoder whose mask K5 takes (causal or a sliding window)
+    every decoder whose masks K5 takes (``bk.flash_takes``: causal, a
+    sliding window, or a chunked-local window folded into the batch)
     attends through K5, at any prompt length; on the CPU through the
     reference's ``attend`` / ``attend_chunked``. As in the
     reference, a Mamba branch's final state is not returned: the
@@ -218,7 +223,7 @@ def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
     (``--precompute-plans``), every MoE sublayer binds its routing onto
     it: no plan is built, and the logits are the uncached prefill's bit
     for bit."""
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, prefix)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     sb = {"seq_len": torch.full((B,), S, dtype=torch.int32,

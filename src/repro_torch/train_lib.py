@@ -54,12 +54,19 @@ def tokens_per_device(shape: ShapeConfig,
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise for an arch the port's train path does not take yet: the
-    dense bf16-parameter decoders (yi-34b, stablelm-12b, starcoder2-15b,
-    gemma3-12b), whose step has no MoE sublayer to size a capacity for
-    and whose optimizer state would update bf16 leaves."""
+    dense decoders (yi-34b, stablelm-12b, starcoder2-15b, gemma3-12b,
+    internvl2-2b), whose step has no MoE sublayer to size a capacity for
+    (and internvl2's no prefix batch), and an MoE arch with bf16
+    parameters (llama4-maverick), whose optimizer arithmetic on bf16
+    leaves is not yet held to the reference's."""
     if not cfg.uses_moe:
         raise NotImplementedError(
             f"{cfg.name}: training a dense decoder (no MoE sublayer) is not "
+            f"ported yet (ROADMAP Queue 1 item 8.7); it serves through "
+            f"repro_torch.launch.serve")
+    if cfg.param_dtype != "float32":
+        raise NotImplementedError(
+            f"{cfg.name}: training {cfg.param_dtype} parameters is not "
             f"ported yet (ROADMAP Queue 1 item 8.7); it serves through "
             f"repro_torch.launch.serve")
 

@@ -1151,3 +1151,55 @@ def test_checkpoint_round_trip_onto_card(tmp_path):
                               optim.leaves_with_path(params)):
         assert a.is_cuda and torch.equal(a, b.detach())
     assert all(t.is_cuda for _, t in checkpoint._flatten(got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [8, 192])
+def test_expert_ffn_bf16_weights_at_llama4_width(R):
+    """K1 with bf16 h and bf16 weights at llama4-maverick's d 5120 x F
+    8192 on 3 experts (the decode's 8 rows and the prefill's 192),
+    against its plain version on the same bf16 tensors, 5e-2; no weight
+    cast is made."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(56)
+    E, d, F = 3, 5120, 8192
+    h = torch.randn((E, R, d), generator=g, device="cuda").bfloat16()
+    ws = [(torch.randn(s, generator=g, device="cuda") / s[1] ** 0.5)
+          .bfloat16() for s in ((E, d, F), (E, d, F), (E, F, d))]
+    assert kexp.route(h.dtype, ws[0].dtype, d, F) == "wgmma"
+    casts = kexp.weight_bf16.casts
+    got = ops.expert_ffn(h, *ws, "silu")
+    torch.cuda.synchronize()
+    assert kexp.weight_bf16.casts == casts
+    want = ref.expert_ffn_ref(h, *ws, "silu")
+    torch.testing.assert_close(got.float(), want.float(), atol=5e-2,
+                               rtol=5e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1024, 1280, 200])
+def test_flash_chunked_matches_plain(S):
+    """A chunked-local layer of chunk 512 through the unchanged K5, the
+    chunks folded into the batch (1024: two whole chunks, one launch;
+    1280: a tail of 256, two launches; 200: inside one chunk), bf16 at
+    hd 128, 10 heads on 2 KV heads (llama4's 5 to 1), against the plain
+    version of the chunked-local function: ``attend`` with the causal
+    mask ``q // W == k // W``, 3e-2."""
+    _cuda_or_skip()
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.models import blocks as bk
+    g = torch.Generator(device="cuda").manual_seed(S)
+    W, B, H, KV, hd = 512, 2, 10, 2, 128
+    q = torch.randn((B, S, H, hd), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((B, S, KV, hd), generator=g, device="cuda")
+            .bfloat16() for _ in range(2))
+    before = kfa.flash_attention.launches
+    got = bk.flash_chunked(q, k, v, W, causal=True, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention.launches - before == (2 if S > W and S % W
+                                                     else 1)
+    pos = torch.arange(S, device="cuda")
+    mask = bk.make_attn_mask(pos, pos, causal=True, window=W, chunked=True)
+    want = bk.attend(q, k, v, mask, hd ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                               rtol=0)

@@ -112,12 +112,25 @@ def test_configs_agree():
     """The port's copied configs equal the reference's field by field:
     reduced moe-gpt2; hymba-1.5b, moe-transformerxl, moe-bert-large and
     the attention decoders olmoe-1b-7b, yi-34b, stablelm-12b,
-    starcoder2-15b and gemma3-12b, full and reduced (``causal``,
-    ``param_dtype``, gemma3's six-layer period, the clamped GQA heads and
-    windows included); the defaults of LuffyConfig, OptimConfig and a
-    ShapeConfig; and SHAPES."""
+    starcoder2-15b, gemma3-12b, llama4-maverick-400b-a17b and
+    internvl2-2b, full and reduced (``causal``, ``param_dtype``, gemma3's
+    six-layer period, the clamped GQA heads and windows, llama4's shared
+    expert and internvl2's prefix included); the defaults of
+    LuffyConfig, OptimConfig and a ShapeConfig; and SHAPES. Each
+    dataclass has the reference's fields and no other, but for
+    ``LuffyConfig.use_kernels``: the reference's switch between its
+    Pallas kernels and jnp, which the port makes by the tensor's device
+    (a CUDA tensor launches the kernel, a CPU one runs its plain
+    version)."""
     from repro import config as jconfig
     from repro_torch import config as tconfig
+    for name in ("AttnConfig", "MoEConfig", "SSMConfig", "ModelConfig",
+                 "ShapeConfig", "LuffyConfig", "OptimConfig"):
+        got = {f.name for f in dataclasses.fields(getattr(tconfig, name))}
+        want = {f.name for f in dataclasses.fields(getattr(jconfig, name))}
+        if name == "LuffyConfig":
+            want.discard("use_kernels")
+        assert got == want, (name, sorted(want - got), sorted(got - want))
     for name in ("LuffyConfig", "OptimConfig"):
         got, want = getattr(tconfig, name)(), getattr(jconfig, name)()
         for f in dataclasses.fields(got):
@@ -149,7 +162,7 @@ def test_configs_agree():
     # sub-field
     for arch in ("hymba-1.5b", "moe-transformerxl", "moe-bert-large",
                  "olmoe-1b-7b", "yi-34b", "stablelm-12b", "starcoder2-15b",
-                 "gemma3-12b"):
+                 "gemma3-12b", "llama4-maverick-400b-a17b", "internvl2-2b"):
         for make in (lambda g: g(arch),
                      lambda g: (reduced if g is get_config else jreduced)(
                          g(arch))):
