@@ -361,7 +361,27 @@ kernels line):
     launcher (B=4 x 256) at M = 1, over 4 virtual ranks (32 experts a
     rank) and over 4 under ``--exec-mode decode_overlap``: exact
     launches, the decode bit for bit M = 1's, decode_overlap bit for bit
-    sync.
+    sync;
+60. slice 19 kernels: K5 at seamless-m4t-large-v2's shapes (16 heads
+    of 64) without a mask and at Sq != Sk: the encoder's [4,2048]
+    non-causal, the decoder's causal, the cross layers' [4, 2048 q,
+    2048 k] and the ragged [4, 2048 q, 1000 k] and [2, 100 q, 3000 k],
+    bf16 (tensor cores) and f32 (FMA kernel), against the plain version
+    (3e-2 / 2e-5 elementwise, 1e-2 / 1e-4 of each query row), a second
+    launch bit for bit, timed beside SDPA with the same mask and the
+    bound;
+61. slice 19 serve: seamless-m4t-large-v2 at full width and depth (24
+    encoder + 24 decoder layers) through ``prefill(enc_input=)``, B=4 x
+    2048 tokens over 2048 encoder frames: K5 exactly 72 times a prefill
+    (24 encoder and 24 cross layers non-causal, 24 self-attention
+    causal), prefill tokens/s, 32 greedy tokens from the cache the
+    prefill's self and cross K/V fill (ms a step, no K5), peak memory;
+    then the launcher at full depth (B=4, prompt 64 fed a token a step,
+    8 tokens) with exact launches;
+62. slice 19 parity: reduced seamless (2 + 2 layers) at a prompt of 256
+    over 300 encoder frames (cross at Sq != Sk on K5), card against CPU
+    at f32: prefill and decode logits within 1e-4, 8 greedy tokens
+    equal; bf16 recorded.
 
 Two phases run only when named by ``--only``:
 
@@ -382,7 +402,7 @@ K5 wherever K5 takes the mask (causal or a window): phases 4, 19, 25 and
 33 count its launches (once a layer a prefill), phase 5 holds the card's
 K5 prefill against the CPU's ``attend`` at 3e-2.
 
-Phase 23 runs right after phase 10, then phases 49-53 and 56-59, and
+Phase 23 runs right after phase 10, then phases 49-53, 56-59 and 60-62, and
 phases 30-32,
 34 and 35 after phase 14, where the profiler still records every launch;
 phase 33 runs after phase 19, phases 36-48 after phase 35. Then one JSON
@@ -394,7 +414,9 @@ arch's prefill as ``flash_attention@<arch>``, K1 at olmoe's as
 ``expert_ffn@olmoe-1b-7b``, K1 at llama4's prefill and decode as
 ``expert_ffn@llama4-prefill`` / ``-decode``, K5 folded for llama4's
 chunked layers as ``flash_attention@llama4-chunked-<S>`` and at
-internvl2's prefill as ``flash_attention@internvl2-2b``; K1's launches on
+internvl2's prefill as ``flash_attention@internvl2-2b``, K5 at
+seamless's shapes as ``flash_attention@seamless-m4t-large-v2-<case>-
+<dtype>``; K1's launches on
 every serve and train path of the run, the continuous one included, and
 K1's and K2's in the calibration probes), and last ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, without a CUDA
@@ -7037,9 +7059,393 @@ def _llama4_records(l4):
                          f"causal, chunk {t['chunk']} ("
                          f"{t['launches_per_call']} launch(es) a call)",
              "launches_path": f"{arch} serve, 2 batched prefills",
-             "route": t["route"], "device_ms": t["device_ms"],
+             "dispatch": t["route"], "device_ms": t["device_ms"],
              "library": t["library"], "library_error": t["library_error"],
              "bound_share": t["bound_share"],
+             "repeat_bitwise": t["repeat_bitwise"], "plain": t["plain"]}))
+    return recs
+
+
+SEAMLESS = "seamless-m4t-large-v2"
+# phase 60: K5 at seamless's attention shapes (16 heads of 64, no GQA):
+# (B, Sq, Sk, causal); the encoder's layers and the cross layers at
+# enc_len = prompt = 2048 are the same function, the decoder's causal,
+# and two ragged cross shapes (keys past the last full tile)
+K5_SEAMLESS_SHAPES = {
+    "encoder": (4, 2048, 2048, False),
+    "decoder": (4, 2048, 2048, True),
+    "cross": (4, 2048, 2048, False),
+    "cross-1000": (4, 2048, 1000, False),
+    "cross-100x3000": (2, 100, 3000, False),
+}
+K5_SEAMLESS_HEADS = (16, 16, 64)          # H, KV, hd
+# phase 61: full width and depth (24 + 24 layers), enc_len = prompt
+SEAMLESS_SERVE = dict(B=4, S=2048, S_enc=2048)
+# ... and the launcher's path at a short prompt: the launcher feeds the
+# prompt a token a step, as for every arch
+SEAMLESS_LAUNCHER_ARGS = ["--arch", SEAMLESS, "--batch", "4",
+                          "--prompt-len", "64", "--gen", "8", "--prefill",
+                          "batch", "--device", "cuda", "--seed", "0"]
+# phase 62: reduced seamless (2 + 2 layers, d 256) card against CPU at a
+# prompt of 256 against 300 encoder frames (the cross layers at Sq != Sk
+# on K5), f32 compute at the f32 serve tolerance; bf16 recorded
+SEAMLESS_PARITY = dict(B=2, S=256, S_enc=300, gen=8)
+SEAMLESS_PARITY_TOL = 1e-4
+
+
+def _sdpa_plain(q, k, v, causal):
+    """F.scaled_dot_product_attention at Sq x Sk, kv expanded, no mask or
+    the causal one: the yardstick, never called by the port."""
+    import torch.nn.functional as F
+    rep = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(rep, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(rep, dim=2).transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+
+
+def phase_seamless_kernels():
+    """Phase 60: K5 at seamless-m4t-large-v2's attention shapes (16 heads
+    of 64): the encoder's [4,2048] non-causal, the decoder's causal, the
+    cross layers' [4, 2048 q, 2048 k] and two ragged cross shapes
+    ([4, 2048 q, 1000 k], [2, 100 q, 3000 k]), each at bf16 (the
+    tensor-core kernel) and f32 (the FMA kernel): against its plain
+    version one KV head at a time (3e-2 / 2e-5 elementwise and 1e-2 /
+    1e-4 of each query row's norm), a second launch bit for bit; timed
+    (CUDA events in turns with SDPA, profiler device time) beside the
+    plain version and the bound (4 x hd FLOPs a live (q, k) pair at the
+    bf16 tensor-core rate, or the f32 rate for f32; or the bytes)."""
+    import torch
+    from repro_torch.kernels import flash_attn as kfa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(60)
+    H, KV, hd = K5_SEAMLESS_HEADS
+    out = {}
+    for name, (B, Sq, Sk, causal) in K5_SEAMLESS_SHAPES.items():
+        for dt in ("bfloat16", "float32"):
+            t = getattr(torch, dt)
+            q, k, v = [torch.randn(s, generator=gen, device="cuda").to(t)
+                       for s in ((B, Sq, H, hd), (B, Sk, KV, hd),
+                                 (B, Sk, KV, hd))]
+
+            def run():
+                return kfa.flash_attention(q, k, v, causal=causal)
+
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            want = _ref_by_kv_group(q, k, v, causal, None)
+            rec = dict(shape=(B, Sq, Sk, H, KV, hd), dtype=dt, causal=causal,
+                       route=kfa.route(q.dtype, hd), **_k5_gate(got, want),
+                       repeat_bitwise=bool(torch.equal(got, again)))
+            del got, again, want
+            lib, lib_err = _yardstick(lambda: _sdpa_plain(q, k, v, causal))
+            rec.update(_timed(run, lib, lambda: _ref_by_kv_group(
+                q, k, v, causal, None), 10), library_error=lib_err,
+                library="F.scaled_dot_product_attention, same mask",
+                plain="ref.flash_attention_ref, one KV head at a time")
+            pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
+            size = q.element_size()
+            nbytes = size * (2 * q.numel() + k.numel() + v.numel())
+            rec.update(live_pairs=pairs, **_bound(
+                nbytes, pairs * 4.0 * hd,
+                BF16_TC_FLOPS if dt == "bfloat16" else F32_FLOPS))
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            out[f"{name}-{dt}"] = rec
+            log(f"  K5 seamless {name:15s} {dt:8s} [{B},{Sq}q,{Sk}k,{H},"
+                f"{hd}] {'causal' if causal else 'non-causal'} "
+                f"({rec['route']}): max|err|={rec['max_abs_err']:.3e}, row "
+                f"{rec['max_row_rel_err']:.2e} "
+                f"{'ok' if rec['ok'] else 'FAIL'}, repeat bitwise "
+                f"{rec['repeat_bitwise']}; kernel {rec['ms']:.4f} ms (runs "
+                f"{rec['ms_runs']}; device {rec['device_ms']:.4f}), plain "
+                f"{rec['plain_ms']:.2f} ms, SDPA "
+                + (f"{rec['library_ms']:.4f} ms" if lib else
+                   f"none ({lib_err})")
+                + f"; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+                f"({100 * rec['bound_share']:.1f}% of it)")
+            del q, k, v, lib
+            torch.cuda.empty_cache()
+    bad = [dict(case=n, **{x: c[x] for x in ("ok", "repeat_bitwise",
+                                              "max_abs_err",
+                                              "max_row_rel_err")})
+           for n, c in out.items() if not (c["ok"] and c["repeat_bitwise"])]
+    if bad:
+        raise SystemExit(f"K5 at seamless's shapes disagrees with its plain "
+                         f"version: {bad}")
+    return out
+
+
+def _k5_tally():
+    """Route ``ops.flash_attention``'s calls of the K5 wrapper through a
+    function that also tallies each by its mask and shape (the wrapper
+    and its own counter are left as they are); returns (tally, undo)."""
+    import types
+    from repro_torch.kernels import ops
+    module = ops._flash_attn
+    tally = {"causal": 0, "noncausal": 0, "noncausal_sq_ne_sk": 0}
+
+    def counted(q, k, v, *, causal=True, window=None, scale=None):
+        key = "causal" if causal else (
+            "noncausal" if q.shape[1] == k.shape[1] else "noncausal_sq_ne_sk")
+        tally[key] += 1
+        return module.flash_attention(q, k, v, causal=causal, window=window,
+                                      scale=scale)
+
+    ops._flash_attn = types.SimpleNamespace(flash_attention=counted)
+
+    def undo():
+        ops._flash_attn = module
+    return tally, undo
+
+
+def _encdec_cache(model, kvs, B: int, S: int, s_max: int):
+    """The decode cache of an encoder-decoder's prefill: each layer's self
+    K/V at positions 0..S-1 (full buffers) and its cross K/V."""
+    import torch
+    from repro_torch.serve.engine import write_cross_kv
+    enc_len = kvs[0][1][0].shape[1]
+    cache = model.new_cache(B, s_max, enc_len=enc_len)
+    for g, ((k, v), _) in zip(cache["layers"], kvs):
+        g["k"][:, :S] = k
+        g["v"][:, :S] = v
+        g["cpos"][:, :S] = torch.arange(S, dtype=torch.int32,
+                                        device=k.device)
+    cache["pos"] = S
+    return write_cross_kv(cache, [ckv for _, ckv in kvs])
+
+
+def phase_seamless_serve():
+    """Phase 61: seamless-m4t-large-v2 at full width and depth (24
+    encoder + 24 decoder layers, f32 parameters, bf16 compute), random
+    weights from seed 0, through the engine: two batched prefills of B=4 x
+    2048 tokens over 2048 encoder frames from the seed
+    (``prefill(enc_input=)``) with every counter set to 0 just before and
+    read just after (K5 72 times a prefill: 24 encoder layers and 24
+    cross layers non-causal, 24 self-attention layers causal; nothing
+    else), then 32 greedy tokens from the cache the prefill's self and
+    cross K/V fill (no K5): finite logits, prefill tokens/s, decode
+    ms/step, peak memory. Then the launcher (``--device cuda``, B=4,
+    prompt 64 fed a token a step, 8 tokens) at full depth, with exact
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.config import LuffyConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    cfg = get_config(SEAMLESS)
+    sh = SEAMLESS_SERVE
+    B, S, S_enc = sh["B"], sh["S"], sh["S_enc"]
+    counters = _kernel_counters()
+    held = _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated() - held
+    r = np.random.default_rng(0)
+    toks = torch.as_tensor(r.integers(1, cfg.vocab_size, (B, S)),
+                           dtype=torch.int32, device="cuda")
+    enc = torch.as_tensor(r.standard_normal((B, S_enc, cfg.prefix_dim)),
+                          dtype=torch.float32, device="cuda")
+    s_max = S + ARCH_GEN
+    tally, undo = _k5_tally()
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        model.prefill(toks, s_max, luffy=luffy, enc_input=enc)   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, kvs = model.prefill(toks, s_max, luffy=luffy, enc_input=enc)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        undo()
+    L, Le = cfg.num_layers, cfg.num_encoder_layers
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = 2 * (Le + 2 * L)
+    want_tally = {"causal": 2 * L, "noncausal": 2 * (Le + L),
+                  "noncausal_sq_ne_sk": 0}
+    cache = _encdec_cache(model, kvs, B, S, s_max)
+    shapes = dict(k=list(kvs[0][0][0].shape), ck=list(kvs[0][1][0].shape))
+    del kvs
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens, lgs = _greedy(model, cache, logits, ARCH_GEN, luffy)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    dec_launches = {k: fn.launches for k, fn in counters.items()}
+    finite = bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(t).all()) for t in lgs)
+    info = dict(arch=cfg.name, layers=L, encoder_layers=Le, batch=B,
+                prompt_len=S, enc_len=S_enc, gen=ARCH_GEN, init_s=init_s,
+                weight_bytes=weights, prefill_s=prefill_s,
+                prefill_tok_s=B * S / prefill_s,
+                decode_ms_per_step=decode_s / ARCH_GEN * 1e3,
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                launches=launches, launches_expected=want,
+                k5_by_mask=tally, k5_by_mask_expected=want_tally,
+                k5_per_prefill=launches["flash_attention"] // 2,
+                decode_launches=dec_launches, finite=finite,
+                cache_shapes=shapes,
+                logits_max_abs=logits.abs().max().item(),
+                sample_tokens=tokens[0, :8].tolist())
+    del model, cache, logits, lgs, toks, enc
+    _free_card()
+    log("seamless serve: " + json.dumps(info))
+    if not finite:
+        raise SystemExit("seamless: logits not finite")
+    if launches != want or tally != want_tally or any(dec_launches.values()):
+        raise SystemExit(f"seamless: launches {launches} ({tally}), decode "
+                         f"{dec_launches}, differ from what the path calls "
+                         f"({want}, {want_tally}, none)")
+    for fn in counters.values():
+        fn.launches = 0
+    res = serve.main(SEAMLESS_LAUNCHER_ARGS)
+    lau = {k: fn.launches for k, fn in counters.items()}
+    lwant = dict.fromkeys(lau, 0)
+    lwant["flash_attention"] = serve.N_BATCHED_PREFILLS * (Le + 2 * L)
+    lfinite = all(bool(torch.isfinite(t).all()) for t in
+                  [res["prefill_logits"]] + res["step_logits"]
+                  + res["gen_logits"])
+    info["launcher"] = dict(launches=lau, launches_expected=lwant,
+                            finite=lfinite,
+                            prefill_tok_s=res["prefill_tok_s"],
+                            prompt_feed_s=res["prompt_feed_s"],
+                            decode_ms_per_step=res["decode_ms_per_step"],
+                            peak_mem_bytes=res.get("peak_mem_bytes"),
+                            sample_tokens=res["tokens"][0].tolist())
+    log("seamless launcher: " + json.dumps(info["launcher"]))
+    del res
+    _free_card()
+    if lau != lwant or not lfinite:
+        raise SystemExit(f"seamless launcher: launches {lau} (want "
+                         f"{lwant}), finite {lfinite}")
+    return info
+
+
+def _parity_encdec(cfg, B: int, S: int, S_enc: int, gen_n: int, seed: int):
+    """Reduced seamless on the card, then the same parameters on the
+    CPU: prefill logits over ``S_enc`` encoder frames, and ``gen_n``
+    greedy tokens from the cache the prefill fills, each side decoding
+    its own tokens. Returns the comparison."""
+    import numpy as np
+    import torch
+    from repro_torch.config import LuffyConfig
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.models.model import build_model
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    r = np.random.default_rng(seed)
+    toks = torch.as_tensor(r.integers(1, cfg.vocab_size, (B, S)),
+                           dtype=torch.int32)
+    enc = torch.as_tensor(r.standard_normal((B, S_enc, cfg.prefix_dim)),
+                          dtype=torch.float32)
+    model = build_model(cfg, device="cuda", seed=seed)
+    s_max = S + gen_n
+    res = {}
+    for dev in ("cuda", "cpu"):
+        if dev == "cpu":
+            model.to("cpu")         # the same parameters, moved
+        k5 = kfa.flash_attention.launches
+        lg, kvs = model.prefill(toks.to(dev), s_max, luffy=luffy,
+                                enc_input=enc.to(dev))
+        k5 = kfa.flash_attention.launches - k5
+        cache = _encdec_cache(model, kvs, B, S, s_max)
+        tokens, lgs = _greedy(model, cache, lg, gen_n, luffy)
+        res[dev] = dict(prefill=lg.float().cpu(), tokens=tokens.cpu(),
+                        gen=[t.float().cpu() for t in lgs], k5=k5)
+        del kvs, cache
+    del model
+    _free_card()
+    a, b = res["cuda"], res["cpu"]
+    same = torch.equal(a["tokens"], b["tokens"])
+    return dict(prefill_max_abs=(a["prefill"] - b["prefill"]).abs().max()
+                .item(),
+                gen_max_abs=max((x - y).abs().max().item() for x, y in
+                                zip(a["gen"], b["gen"])) if same else None,
+                logits_max_abs=b["prefill"].abs().max().item(),
+                tokens_equal=same, k5_launches_card=a["k5"],
+                k5_launches_cpu=b["k5"])
+
+
+def phase_seamless_parity():
+    """Phase 62: reduced seamless (2 encoder + 2 decoder layers, d 256)
+    at a prompt of 256 over 300 encoder frames (the cross layers at
+    Sq != Sk on K5), the card against the CPU: at f32 compute prefill
+    and decode logits within ``SEAMLESS_PARITY_TOL`` and the 8 greedy
+    tokens equal, K5 6 times a prefill on the card and never on the CPU;
+    the same at bf16 recorded, not gated."""
+    from repro_torch.config import reduced
+    from repro_torch.configs import get_config
+    p = SEAMLESS_PARITY
+    red = reduced(get_config(SEAMLESS))
+    out = {}
+    for cdt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(red, compute_dtype=cdt)
+        rr = _parity_encdec(cfg, p["B"], p["S"], p["S_enc"], p["gen"],
+                            seed=62)
+        rr.update(compute_dtype=cdt, prompt_len=p["S"], enc_len=p["S_enc"],
+                  k5_launches_expected=cfg.num_encoder_layers
+                  + 2 * cfg.num_layers,
+                  tol=SEAMLESS_PARITY_TOL if cdt == "float32" else None)
+        out[cdt] = rr
+        log(f"seamless parity {cdt}: " + json.dumps(rr))
+    f = out["float32"]
+    if not (f["prefill_max_abs"] <= SEAMLESS_PARITY_TOL and f["tokens_equal"]
+            and f["gen_max_abs"] <= SEAMLESS_PARITY_TOL
+            and f["k5_launches_card"] == f["k5_launches_expected"]
+            and f["k5_launches_cpu"] == 0):
+        raise SystemExit("reduced seamless, card against CPU at f32: "
+                         + json.dumps(f))
+    return out
+
+
+def run_seamless_phases():
+    """Phases 60-62 in order."""
+    return {"kernels": phase_seamless_kernels(),
+            "serve": phase_seamless_serve(),
+            "parity": phase_seamless_parity()}
+
+
+def _seamless_records(sm):
+    """K5 at seamless's shapes (phase 60): each bf16 record with the K5
+    launches of phase 61's serve run (2 batched prefills), by mask; each
+    f32 one with those of phase 62's f32 card run (one prefill)."""
+    sv, par = sm["serve"], sm["parity"]["float32"]
+    by_mask = {"encoder": "noncausal", "decoder": "causal",
+               "cross": "noncausal"}
+    recs = []
+    for name, t in sm["kernels"].items():
+        case, dt = name.rsplit("-", 1)
+        if dt == "bfloat16":
+            launches = sv["launches"]["flash_attention"]
+            path = (f"{SEAMLESS} serve at 24 + 24 layers, 2 batched prefills "
+                    f"of 4 x 2048 over 2048 frames: {sv['k5_by_mask']}")
+        else:
+            launches = par["k5_launches_card"]
+            path = (f"reduced {SEAMLESS} card run at f32 (2 + 2 layers, "
+                    f"prompt {SEAMLESS_PARITY['S']} over "
+                    f"{SEAMLESS_PARITY['S_enc']} frames, one prefill)")
+        recs.append(_record(
+            f"flash_attention@{SEAMLESS}-{name}",
+            "src/repro_torch/csrc/flash_attn.cu",
+            "src/repro/kernels/flash_attn.py:87", launches, t,
+            {"kernel": "flash_attention",
+             "timed_at": f"{list(t['shape'])} (B, Sq, Sk, H, KV, hd) {dt}, "
+                         + ("causal" if t["causal"] else "non-causal"),
+             "launches_path": path,
+             "launches_kind": by_mask.get(case, "noncausal (a ragged cross "
+                                                "shape: checks)"),
+             "dispatch": t["route"], "device_ms": t["device_ms"],
+             "library": t["library"], "library_error": t["library_error"],
+             "bound_share": t["bound_share"],
+             "max_row_rel_err": t["max_row_rel_err"],
              "repeat_bitwise": t["repeat_bitwise"], "plain": t["plain"]}))
     return recs
 
@@ -7283,7 +7689,7 @@ def _arch_records(arch):
              "launches_path": f"{a} serve at {sv[a]['layers']} layers, 2 "
                               f"batched prefills (every layer's, gemma3's "
                               f"local and global together)",
-             "route": t["route"], "device_ms": t["device_ms"],
+             "dispatch": t["route"], "device_ms": t["device_ms"],
              "library": "F.scaled_dot_product_attention, same band mask",
              "library_error": t["library_error"],
              "bound_share": t["bound_share"],
@@ -7385,7 +7791,10 @@ def _only_runners():
                     56: lambda need: phase_llama4_kernels(),
                     57: lambda need: phase_llama4_serve(),
                     58: lambda need: phase_llama4_parity(),
-                    59: lambda need: phase_llama4_ep_serve()})
+                    59: lambda need: phase_llama4_ep_serve(),
+                    60: lambda need: phase_seamless_kernels(),
+                    61: lambda need: phase_seamless_serve(),
+                    62: lambda need: phase_seamless_parity()})
     return runners
 
 
@@ -7453,6 +7862,8 @@ def main(argv=None) -> int:
     arch = run_arch_phases()
     log("llama4-maverick and internvl2-2b (phases 56-59):")
     l4 = run_llama4_phases()
+    log("the encoder-decoder seamless-m4t-large-v2 (phases 60-62):")
+    sm = run_seamless_phases()
     slice_info, slice_out = phase_slice()
     phase_parity()
     serve_prof = phase_profile()
@@ -7775,6 +8186,7 @@ def main(argv=None) -> int:
     records += _paper_records(paper)
     records += _arch_records(arch)
     records += _llama4_records(l4)
+    records += _seamless_records(sm)
     log("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in sorted(PHASE_S.items(),
                                             key=lambda kv: -kv[1])}))

@@ -64,7 +64,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    kind: str                      # "decoder" (the only kind the port runs)
+    kind: str                      # "decoder" | "encdec"
     num_layers: int
     d_model: int
     d_ff: int
@@ -87,7 +87,7 @@ class ModelConfig:
     # the reference's family tag and source; both only describe the arch
     family: str = ""
     citation: str = ""
-    # encoder depth of an encoder-decoder (seamless; not ported, 0 here)
+    # encoder depth of an encoder-decoder (seamless's 24)
     num_encoder_layers: int = 0
     # a modality frontend's stub: prefix_slots embeddings of width
     # prefix_dim (0: d_model), projected and put before the tokens

@@ -4,9 +4,10 @@ The port runs ``moe-gpt2``, ``moe-transformerxl``, ``moe-bert-large``
 (the paper's Table II models), ``hymba-1.5b``, the attention decoders
 ``olmoe-1b-7b``, ``yi-34b``, ``stablelm-12b``, ``starcoder2-15b``,
 ``gemma3-12b`` and ``llama4-maverick-400b-a17b`` (shared expert,
-chunked-local attention), and ``internvl2-2b`` (a projected prefix
-before the tokens); the reference's other architectures come with their
-own slices and raise here until then."""
+chunked-local attention), ``internvl2-2b`` (a projected prefix before
+the tokens) and the encoder-decoder ``seamless-m4t-large-v2``; the
+reference's other architecture comes with its own slice and raises here
+until then."""
 from __future__ import annotations
 
 import importlib
@@ -15,7 +16,8 @@ from repro_torch.config import ModelConfig
 
 ARCHS = ["moe_gpt2", "moe_transformerxl", "moe_bert_large", "hymba_1p5b",
          "olmoe_1b_7b", "yi_34b", "stablelm_12b", "starcoder2_15b",
-         "gemma3_12b", "llama4_maverick_400b_a17b", "internvl2_2b"]
+         "gemma3_12b", "llama4_maverick_400b_a17b", "internvl2_2b",
+         "seamless_m4t_large_v2"]
 
 ALIASES = {"moe-gpt2": "moe_gpt2", "moe-transformerxl": "moe_transformerxl",
            "moe-bert-large": "moe_bert_large", "hymba-1.5b": "hymba_1p5b",
@@ -23,10 +25,11 @@ ALIASES = {"moe-gpt2": "moe_gpt2", "moe-transformerxl": "moe_transformerxl",
            "stablelm-12b": "stablelm_12b",
            "starcoder2-15b": "starcoder2_15b", "gemma3-12b": "gemma3_12b",
            "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
-           "internvl2-2b": "internvl2_2b"}
+           "internvl2-2b": "internvl2_2b",
+           "seamless-m4t-large-v2": "seamless_m4t_large_v2"}
 
-# the reference's architectures still to port, all ROADMAP Queue 1 item 8
-NOT_PORTED = ("rwkv6-3b", "seamless-m4t-large-v2")
+# the reference's architecture still to port, ROADMAP Queue 1 item 8.5
+NOT_PORTED = ("rwkv6-3b",)
 
 
 def get_config(name: str, **overrides) -> ModelConfig:
@@ -34,7 +37,7 @@ def get_config(name: str, **overrides) -> ModelConfig:
     if mod_name not in ARCHS:
         raise NotImplementedError(
             f"arch {name!r} is not ported yet (the port runs "
-            f"{', '.join(ALIASES)}; {', '.join(NOT_PORTED)} are still "
-            f"to port, ROADMAP Queue 1 item 8)")
+            f"{', '.join(ALIASES)}; {', '.join(NOT_PORTED)} is still "
+            f"to port, ROADMAP Queue 1 item 8.5)")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.config(**overrides)

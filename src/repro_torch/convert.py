@@ -3,7 +3,8 @@
 The reference keeps its decoder layers stacked by pattern position:
 ``params["layers"][j]`` is a pytree whose leaves have a leading
 ``n_groups`` axis, and layer ``i`` is group ``i // period`` at position
-``i % period``. The port keeps one dict per layer. Both sides are given
+``i % period``; an encoder-decoder's ``params["encoder"]["layers"]``
+likewise. The port keeps one dict per layer in each. Both sides are given
 as numpy arrays (``jax.tree.map(np.asarray, params)`` on the reference
 side), so nothing here needs JAX.
 
@@ -72,20 +73,39 @@ def tree_to_numpy(tree: Any):
     return _map(tensor_to_numpy, tree)
 
 
+def _unstack(stacked, n_layers: int, period: int, device):
+    """Layers stacked by pattern position -> one dict per layer."""
+    return [_map(lambda a, g=i // period: numpy_to_tensor(np.asarray(a)[g],
+                                                         device),
+                 stacked[i % period]) for i in range(n_layers)]
+
+
+def _stack(layers, period: int):
+    """One dict per layer -> stacked by pattern position, numpy."""
+    def zip_map(trees):
+        first = trees[0]
+        if isinstance(first, dict):
+            return {k: zip_map([t[k] for t in trees]) for k in first}
+        return np.stack([tensor_to_numpy(t) for t in trees])
+
+    return [zip_map(layers[j::period]) for j in range(period)]
+
+
 def from_reference(np_params: Any, cfg: ModelConfig, *,
                    device="cpu") -> dict:
     """The reference's parameter pytree, as numpy arrays, -> the port's
     nested dict of tensors on ``device``."""
     period = pattern_period(cfg)
-    out = {k: tree_to_torch(v, device)
-           for k, v in np_params.items() if k != "layers"}
-    layers = []
-    for i in range(cfg.num_layers):
-        g, j = divmod(i, period)
-        layers.append(_map(
-            lambda a, g=g: numpy_to_tensor(np.asarray(a)[g], device),
-            np_params["layers"][j]))
-    out["layers"] = layers
+    out = {k: tree_to_torch(v, device) for k, v in np_params.items()
+           if k not in ("layers", "encoder")}
+    out["layers"] = _unstack(np_params["layers"], cfg.num_layers, period,
+                             device)
+    if "encoder" in np_params:
+        enc = np_params["encoder"]
+        out["encoder"] = {
+            "layers": _unstack(enc["layers"], cfg.num_encoder_layers, period,
+                               device),
+            "final_norm": tree_to_torch(enc["final_norm"], device)}
     return out
 
 
@@ -93,19 +113,11 @@ def to_reference(params: Any, cfg: ModelConfig) -> dict:
     """The port's parameters -> the reference's pytree layout, as numpy
     arrays (the inverse of :func:`from_reference`)."""
     period = pattern_period(cfg)
-    out = {k: tree_to_numpy(v) for k, v in params.items() if k != "layers"}
-    n_groups = cfg.num_layers // period
-
-    def stack(*leaves):
-        return np.stack([tensor_to_numpy(t) for t in leaves])
-
-    def zip_map(trees):
-        first = trees[0]
-        if isinstance(first, dict):
-            return {k: zip_map([t[k] for t in trees]) for k in first}
-        return stack(*trees)
-
-    out["layers"] = [zip_map([params["layers"][g * period + j]
-                              for g in range(n_groups)])
-                     for j in range(period)]
+    out = {k: tree_to_numpy(v) for k, v in params.items()
+           if k not in ("layers", "encoder")}
+    out["layers"] = _stack(params["layers"], period)
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {"layers": _stack(enc["layers"], period),
+                          "final_norm": tree_to_numpy(enc["final_norm"])}
     return out

@@ -1,6 +1,10 @@
 // Streaming-softmax attention for Hopper (sm_90a), plain C interface:
 // out[b, i, h] = softmax_j(q_i . k_j * scale | mask(i, j)) @ v, with the
 // mask by position: causal (j <= i) and/or a sliding window (i - j < W).
+// Queries and keys may differ in number (Sq, Sk) only without either
+// mask: cross-attention, where every key is live (the wrapper refuses a
+// causal or windowed launch at Sq != Sk). Sq is the queries' length, Sk
+// the keys' and values'; at Sq == Sk the two read the same.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attn.py::_flash_kernel
 // (K5), the attention core of every decoder's batched prefill on the card. Its arithmetic is
@@ -97,8 +101,8 @@ __host__ __device__ constexpr int smem_floats(int hd) {
 template <typename T, int CPT>
 __global__ void __launch_bounds__(NT)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int S, int H,
-             int KV, int hd, float scale, int causal, int window) {
+             const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
+             int H, int KV, int hd, float scale, int causal, int window) {
   extern __shared__ float smem[];
   const int ld = hd + 1;
   float* Qs = smem;                 // [BQ][ld]
@@ -106,7 +110,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Vs = Ks + BK * ld;         // [BK][ld]
   float* Ps = Vs + BK * ld;         // [BQ][BK + 1]
 
-  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_qt = (Sq + BQ - 1) / BQ;
   const int qt = blockIdx.x % n_qt;
   const int bh = blockIdx.x / n_qt;
   const int h = bh % H, b = bh / H;
@@ -119,19 +123,19 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const size_t q_row = (size_t)H * hd;    // stride of one position in q
   const size_t kv_row = (size_t)KV * hd;  // ... in k and v
-  const T* qb = q + (size_t)b * S * q_row + (size_t)h * hd;
-  const T* kb = k + (size_t)b * S * kv_row + (size_t)kvh * hd;
-  const T* vb = v + (size_t)b * S * kv_row + (size_t)kvh * hd;
+  const T* qb = q + (size_t)b * Sq * q_row + (size_t)h * hd;
+  const T* kb = k + (size_t)b * Sk * kv_row + (size_t)kvh * hd;
+  const T* vb = v + (size_t)b * Sk * kv_row + (size_t)kvh * hd;
 
   for (int i = tid; i < BQ * hd; i += NT) {
     const int rr = i / hd, dd = i % hd;
     Qs[rr * ld + dd] =
-        q0 + rr < S ? to_f32(qb[(size_t)(q0 + rr) * q_row + dd]) : 0.0f;
+        q0 + rr < Sq ? to_f32(qb[(size_t)(q0 + rr) * q_row + dd]) : 0.0f;
   }
 
-  // the band of key tiles this query tile can see
+  // the band of key tiles this query tile can see (causal: Sq == Sk)
   const int lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
-  const int hi = causal ? (min(q0 + BQ, S) - 1) / BK : (S - 1) / BK;
+  const int hi = causal ? (min(q0 + BQ, Sq) - 1) / BK : (Sk - 1) / BK;
 
   float m = NEG, l = 0.0f;
   float acc[CPT];
@@ -144,7 +148,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's Ks / Vs / Ps are consumed
     for (int i = tid; i < BK * hd; i += NT) {
       const int rr = i / hd, dd = i % hd;
-      const bool ok = k0 + rr < S;
+      const bool ok = k0 + rr < Sk;
       const size_t off = (size_t)(k0 + rr) * kv_row + dd;
       Ks[rr * ld + dd] = ok ? to_f32(kb[off]) : 0.0f;
       Vs[rr * ld + dd] = ok ? to_f32(vb[off]) : 0.0f;
@@ -165,7 +169,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < KPT; ++j) {
       const int kpos = k0 + g + 4 * j;
-      bool ok = kpos < S;
+      bool ok = kpos < Sk;
       if (causal) ok = ok && kpos <= qpos;
       if (window > 0) ok = ok && qpos - kpos < window;
       live[j] = ok;
@@ -200,9 +204,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  if (qpos < S) {
+  if (qpos < Sq) {
     const float inv_l = 1.0f / fmaxf(l, 1e-30f);
-    T* o = out + ((size_t)b * S + qpos) * q_row + (size_t)h * hd;
+    T* o = out + ((size_t)b * Sq + qpos) * q_row + (size_t)h * hd;
 #pragma unroll
     for (int j = 0; j < CPT; ++j)
       if (j < ncol) o[g + 4 * j] = from_f32<T>(acc[j] * inv_l);
@@ -211,18 +215,18 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int CPT>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int KV, int hd, float scale, int causal, int window,
-           cudaStream_t stream) {
+           int Sq, int Sk, int H, int KV, int hd, float scale, int causal,
+           int window, cudaStream_t stream) {
   const int bytes = smem_floats(hd) * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       flash_kernel<T, CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_qt = (Sq + BQ - 1) / BQ;
   flash_kernel<T, CPT><<<B * H * n_qt, NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, H, KV, hd, scale,
-      causal, window);
+      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, KV, hd,
+      scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -311,8 +315,8 @@ __global__ void __launch_bounds__(WG_PRODUCER ? 384 : 288, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ out, int B, int S, int H,
-                   int KV, float scale_log2, int causal, int window) {
+                   __nv_bfloat16* __restrict__ out, int B, int Sq, int Sk,
+                   int H, int KV, float scale_log2, int causal, int window) {
   using L = Smem<HD, BKT, STAGES>;
   constexpr int NA = L::NA;
   constexpr int NS = BKT / 2;       // scores of a row pair per thread
@@ -326,14 +330,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t bar_full = bar_q + 8;
   const uint32_t bar_empty = bar_full + 8 * STAGES;
 
-  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_qt = (Sq + BQ - 1) / BQ;
   const int bh = blockIdx.x % (B * H);
   const int qt = n_qt - 1 - blockIdx.x / (B * H);   // heaviest tiles first
   const int h = bh % H, b = bh / H;
   const int kvh = h / (H / KV);
   const int q0 = qt * BQ;
   const int lo = window > 0 ? max(0, q0 - window + 1) / BKT : 0;
-  const int hi = causal ? (min(q0 + BQ, S) - 1) / BKT : (S - 1) / BKT;
+  const int hi = causal ? (min(q0 + BQ, Sq) - 1) / BKT : (Sk - 1) / BKT;
   const int n_tiles = hi - lo + 1;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -421,14 +425,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 #pragma unroll
     for (int j = 0; j < NS; ++j) s[j] *= scale_log2;
-    const bool edge = k0 + BKT > S || (causal && k0 + BKT - 1 > qw0) ||
+    const bool edge = k0 + BKT > Sk || (causal && k0 + BKT - 1 > qw0) ||
                       (window > 0 && qw0 + 63 - k0 >= window);
     if (edge) {
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
         const int kpos = k0 + 8 * (j / 4) + c8 + (j & 1);
         const int qpos = r0 + 8 * ((j / 2) & 1);
-        bool ok = kpos < S;
+        bool ok = kpos < Sk;
         if (causal) ok = ok && kpos <= qpos;
         if (window > 0) ok = ok && qpos - kpos < window;
         if (!ok) s[j] = NEG;
@@ -501,7 +505,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   const size_t row = (size_t)H * HD;
-  __nv_bfloat16* o0 = out + ((size_t)b * S + r0) * row + (size_t)h * HD + c8;
+  __nv_bfloat16* o0 = out + ((size_t)b * Sq + r0) * row + (size_t)h * HD + c8;
   __nv_bfloat16* o1 = o0 + 8 * row;
 #pragma unroll
   for (int a = 0; a < NA; ++a)
@@ -511,10 +515,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       // at hd 160 the last atom's columns 160..191 are TMA's zero fill:
       // never stored (col is even, so col < HD covers col + 1 too)
       if (col >= HD) continue;
-      if (r0 < S)
+      if (r0 < Sq)
         *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
             __floats2bfloat162_rn(o[a][4 * i] / d0, o[a][4 * i + 1] / d0);
-      if (r0 + 8 < S)
+      if (r0 + 8 < Sq)
         *reinterpret_cast<__nv_bfloat162*>(o1 + col) =
             __floats2bfloat162_rn(o[a][4 * i + 2] / d1,
                                   o[a][4 * i + 3] / d1);
@@ -522,7 +526,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // [B, S, heads, hd] bf16, contiguous, boxes of (64, 1, rows, 1); columns
-// past hd come back as zeros
+// past hd, and rows past S (a ragged last tile), come back as zeros: S is
+// a dimension of the map of its own, so a box never reads into the next
+// batch row. q's map spans Sq positions, k's and v's Sk.
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B, int S,
             int heads, int hd, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
@@ -540,14 +546,14 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B, int S,
 
 template <int HD, int BKT, int STAGES, bool WG_PRODUCER>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int KV, float scale, int causal, int window,
-           cudaStream_t stream) {
+           int Sq, int Sk, int H, int KV, float scale, int causal,
+           int window, cudaStream_t stream) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap mq, mk, mv;
-  if (!encode(fn, &mq, q, B, S, H, HD, BQ) ||
-      !encode(fn, &mk, k, B, S, KV, HD, BKT) ||
-      !encode(fn, &mv, v, B, S, KV, HD, BKT))
+  if (!encode(fn, &mq, q, B, Sq, H, HD, BQ) ||
+      !encode(fn, &mk, k, B, Sk, KV, HD, BKT) ||
+      !encode(fn, &mv, v, B, Sk, KV, HD, BKT))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int bytes = Smem<HD, BKT, STAGES>::BYTES;
   static_assert(bytes <= 232448, "over the 227 KB a block may have");
@@ -555,9 +561,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_qt = (Sq + BQ - 1) / BQ;
   kernel<<<B * H * n_qt, WG_PRODUCER ? 384 : 288, bytes, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), B, S, H, KV,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), B, Sq, Sk, H, KV,
       scale * LOG2E, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -567,7 +573,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // Launches the kernel on `stream`; returns a cudaError_t (0 = ok).
-// q, out [B, S, H, hd]; k, v [B, S, KV, hd], contiguous, all f32 (bf16 =
+// q, out [B, Sq, H, hd]; k, v [B, Sk, KV, hd], Sq == Sk unless neither
+// causal nor windowed (cudaErrorInvalidValue otherwise), both >= 1,
+// contiguous, all f32 (bf16 =
 // 0) or all bf16 (bf16 = 1); H % KV == 0; hd % 4 == 0 and hd <= 256; for
 // bf16 at hd 64, 128, 160 or 256 (the tensor-core kernel) every pointer
 // 16-byte aligned (the wrapper sees to both); window <= 0 means none.
@@ -575,42 +583,43 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // cudaErrorInvalidValue, a driver without cuTensorMapEncodeTiled
 // cudaErrorNotSupported.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int S,
-                                      int H, int KV, int hd, int causal,
-                                      int window, int bf16, float scale,
-                                      void* stream) {
+                                      const void* v, void* out, int B,
+                                      int Sq, int Sk, int H, int KV, int hd,
+                                      int causal, int window, int bf16,
+                                      float scale, void* stream) {
   cudaGetLastError();  // start from a clean slate; report only our launch
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd % 4 != 0 || hd > 256 || H % KV != 0)
+  if (hd % 4 != 0 || hd > 256 || H % KV != 0 || Sq < 1 || Sk < 1 ||
+      (Sq != Sk && (causal || window > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bf16) {
     if (hd == 64)
-      return tc::launch<64, 128, 3, false>(q, k, v, out, B, S, H, KV, scale,
-                                           causal, window, s);
+      return tc::launch<64, 128, 3, false>(q, k, v, out, B, Sq, Sk, H, KV,
+                                           scale, causal, window, s);
     if (hd == 128)
-      return tc::launch<128, 128, 2, false>(q, k, v, out, B, S, H, KV, scale,
-                                            causal, window, s);
+      return tc::launch<128, 128, 2, false>(q, k, v, out, B, Sq, Sk, H, KV,
+                                            scale, causal, window, s);
     if (hd == 160)
-      return tc::launch<160, 64, 3, false>(q, k, v, out, B, S, H, KV, scale,
-                                           causal, window, s);
+      return tc::launch<160, 64, 3, false>(q, k, v, out, B, Sq, Sk, H, KV,
+                                           scale, causal, window, s);
     if (hd == 256)
-      return tc::launch<256, 64, 2, true>(q, k, v, out, B, S, H, KV, scale,
-                                          causal, window, s);
+      return tc::launch<256, 64, 2, true>(q, k, v, out, B, Sq, Sk, H, KV,
+                                          scale, causal, window, s);
     if (hd < 64)
-      return launch<__nv_bfloat16, 16>(q, k, v, out, B, S, H, KV, hd, scale,
-                                       causal, window, s);
+      return launch<__nv_bfloat16, 16>(q, k, v, out, B, Sq, Sk, H, KV, hd,
+                                       scale, causal, window, s);
     if (hd <= 128)
-      return launch<__nv_bfloat16, 32>(q, k, v, out, B, S, H, KV, hd, scale,
-                                       causal, window, s);
-    return launch<__nv_bfloat16, 64>(q, k, v, out, B, S, H, KV, hd, scale,
-                                     causal, window, s);
+      return launch<__nv_bfloat16, 32>(q, k, v, out, B, Sq, Sk, H, KV, hd,
+                                       scale, causal, window, s);
+    return launch<__nv_bfloat16, 64>(q, k, v, out, B, Sq, Sk, H, KV, hd,
+                                     scale, causal, window, s);
   }
   if (hd <= 64)
-    return launch<float, 16>(q, k, v, out, B, S, H, KV, hd, scale, causal,
-                             window, s);
+    return launch<float, 16>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale,
+                             causal, window, s);
   if (hd <= 128)
-    return launch<float, 32>(q, k, v, out, B, S, H, KV, hd, scale, causal,
-                             window, s);
-  return launch<float, 64>(q, k, v, out, B, S, H, KV, hd, scale, causal,
+    return launch<float, 32>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale,
+                             causal, window, s);
+  return launch<float, 64>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal,
                            window, s);
 }

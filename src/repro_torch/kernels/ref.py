@@ -179,17 +179,23 @@ def pack_quant_bwd_ref(x, tok, g):
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
                         scale=None):
-    """q: [B,S,H,hd]; k, v: [B,S,KV,hd] (KV heads expanded here). Plain
+    """q: [B,Sq,H,hd]; k, v: [B,Sk,KV,hd] (KV heads expanded here). Plain
     masked softmax attention by position, f32 math, result in q's dtype
-    (``repro/kernels/ref.py::flash_attention_ref``)."""
-    S, H, hd = q.shape[1], q.shape[2], q.shape[3]
+    (``repro/kernels/ref.py::flash_attention_ref``, which takes Sq == Sk).
+    Sk may differ from Sq without a causal mask or a window (cross-
+    attention: every key live), the kernel's rule."""
+    Sq, H, hd = q.shape[1], q.shape[2], q.shape[3]
+    Sk = k.shape[1]
+    if Sq != Sk and (causal or window is not None):
+        raise ValueError(f"a causal or windowed call takes Sq == Sk, got "
+                         f"Sq={Sq}, Sk={Sk}")
     scale = scale or 1.0 / math.sqrt(hd)
     n_rep = H // k.shape[2]
     k = torch.repeat_interleave(k, n_rep, dim=2) if n_rep > 1 else k
     v = torch.repeat_interleave(v, n_rep, dim=2) if n_rep > 1 else v
-    pos = torch.arange(S, device=q.device)
-    qp, kp = pos[:, None], pos[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= kp <= qp
     if window is not None:

@@ -17,6 +17,9 @@ of ``repro/launch/serve.py``).
         --prompt-len 256 --gen 32 --prefill batch
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \\
         --batch 4 --prompt-len 2048 --gen 32 --prefill batch
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch seamless-m4t-large-v2 [--num-layers N] --batch 4 \\
+        --prompt-len 64 --gen 8 --prefill batch
     PYTHONPATH=src python -m repro_torch.launch.serve --arch moe-gpt2 \\
         --model-axis 4 --batch 8 --prompt-len 128 --gen 32 --prefill batch \\
         [--exec-mode {sync,pipeline,decode_overlap}] [--pipeline-chunks N] \\
@@ -51,6 +54,24 @@ beside its routed ones in every MoE sublayer, and its chunked-local
 layers attend on K5 with the chunks folded into the batch. internvl2-2b
 is served on its text path, as the reference's launcher serves it: no
 prefix is fed (``engine.prefill(prefix=)`` takes one).
+
+The encoder-decoder ``seamless-m4t-large-v2`` is served as the port's
+own wiring, since the reference's launcher cannot serve it: its batched
+prefill passes no ``enc_input`` (``repro/launch/serve.py:364-366``, so
+``engine.py:427`` fails on ``None``), and its step feed builds the cache
+with the default ``enc_len=0`` (``:387``), an empty encoder memory. Here
+``enc_input`` [B, prompt_len, prefix_dim] (the reference's
+``input_specs`` shape; the frontend is a stub) is drawn from ``--seed``
+after the prompts; ``prefill(enc_input=)`` runs the encoder once and
+every decoder layer's cross sublayer (timed under ``--prefill batch``;
+run once untimed under ``--prefill step``, for its cross K/V); the cache
+is made with ``enc_len = prompt_len`` and each layer's cross K/V written
+into its ``ck`` / ``cv`` (``engine.write_cross_kv``); then the prompt is
+fed token by token and ``--gen`` tokens decoded greedily, as for every
+arch. On the card the encoder's layers and the cross layers attend on K5,
+non-causal. ``--num-layers N`` cuts both stacks to N, as
+``config.reduced`` does. ``--continuous`` and ``--model-axis > 1``
+raise for an encoder-decoder (ROADMAP Queue 1 item 8.8).
 
 ``--model-axis M > 1`` serves over M virtual expert-parallel ranks held
 by this one process (a flat mesh, as the reference's): the batched
@@ -333,9 +354,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         if args.reduced:
             raise ValueError("--num-layers cuts the full-width arch, not "
                              "the --reduced variant")
-        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
+        cfg = dataclasses.replace(
+            cfg, num_layers=args.num_layers,
+            num_encoder_layers=min(cfg.num_encoder_layers, args.num_layers))
     if args.reduced:
         cfg = reduced(cfg)
+    if cfg.kind == "encdec" and (args.continuous or args.model_axis > 1):
+        raise NotImplementedError(
+            f"{cfg.name}: continuous and expert-parallel serving of an "
+            f"encoder-decoder (--continuous, --model-axis > 1) are not "
+            f"ported yet (ROADMAP Queue 1 item 8.8)")
     model = build_model(cfg, device=device, seed=args.seed)
     B, S = args.batch, args.prompt_len
     # the knobs: an explicit flag, then the tuned artifact, then the
@@ -430,12 +458,22 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
 def _serve_fixed(args, cfg, luffy, model, pdist, plan_cache, registry,
                  device, chunks) -> Dict:
     """One fixed batch: the batched prefill (``--prefill batch``), the
-    step-wise prompt feed and the greedy decode."""
+    step-wise prompt feed and the greedy decode (an encoder-decoder's
+    against the cross K/V its prefill gives)."""
+    from repro_torch.serve.engine import write_cross_kv
     B, S = args.batch, args.prompt_len
     s_max = S + args.gen
     r = np.random.default_rng(args.seed)
     prompts = torch.as_tensor(r.integers(1, cfg.vocab_size, (B, S)),
                               dtype=torch.int32, device=device)
+    # an encoder-decoder's frames (the frontend stub), drawn after the
+    # prompts: [B, S, prefix_dim], the reference's input_specs shape
+    enc_input = None
+    if cfg.kind == "encdec":
+        enc_input = torch.as_tensor(r.standard_normal(
+            (B, S, cfg.prefix_dim or cfg.d_model)), dtype=torch.float32,
+            device=device)
+    ckvs = None
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     result: Dict = {"arch": cfg.name, "device": str(device), "batch": B,
@@ -454,14 +492,18 @@ def _serve_fixed(args, cfg, luffy, model, pdist, plan_cache, registry,
     if args.prefill == "batch":
         for _ in range(N_BATCHED_PREFILLS - 1):             # warm-up
             model.prefill(prompts, s_max, luffy=luffy, dist=pdist,
-                          plan_cache=plan_cache)
+                          plan_cache=plan_cache, enc_input=enc_input)
         _sync(device)
         t0 = time.perf_counter()
         with obs_trace.phase("prefill_batch", cat="step"):
-            logits_pf, _ = model.prefill(prompts, s_max, luffy=luffy,
-                                         dist=pdist, plan_cache=plan_cache)
+            logits_pf, kvs = model.prefill(prompts, s_max, luffy=luffy,
+                                           dist=pdist, plan_cache=plan_cache,
+                                           enc_input=enc_input)
             _sync(device)
         dt = time.perf_counter() - t0
+        if enc_input is not None:
+            ckvs = [ckv for _, ckv in kvs]
+        del kvs
         result.update(prefill_s=dt, prefill_tok_s=B * S / dt,
                       prefill_logits=logits_pf)
         print(f"batched prefill({B}x{S} tokens): {dt:.4f}s "
@@ -471,7 +513,18 @@ def _serve_fixed(args, cfg, luffy, model, pdist, plan_cache, registry,
                 0, {"time_s": dt}, phase="prefill_batch",
                 prefill_tokens=B * S))
 
-    cache = model.new_cache(B, s_max)
+    enc_len = 0
+    if enc_input is not None:
+        if ckvs is None:     # --prefill step: one untimed prefill
+            kvs = model.prefill(prompts, s_max, luffy=luffy, dist=pdist,
+                                enc_input=enc_input)[1]
+            ckvs = [ckv for _, ckv in kvs]
+            del kvs
+        enc_len = S
+    cache = model.new_cache(B, s_max, enc_len=enc_len)
+    if ckvs is not None:
+        write_cross_kv(cache, ckvs)
+        del ckvs
     t0 = time.perf_counter()
     step_logits = []
     with obs_trace.phase("prefill_step", cat="step", tokens=S) as sp:

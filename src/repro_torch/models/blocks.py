@@ -100,6 +100,8 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 def attn_init(generator, cfg: ModelConfig, *, device):
+    """A self-attention's projections, or a cross-attention's: the
+    reference's ``cross=True`` draws the same four matrices."""
     a = cfg.attn
     dt = _dtype(cfg.param_dtype)
     d = cfg.d_model
@@ -277,28 +279,38 @@ def flash_chunked(q, k, v, chunk: int, *, causal: bool, scale: float):
 
 
 def attn_apply(p, cfg: ModelConfig, x, positions, *, layer: int,
-               causal: bool = True, flash: bool = False, kv_valid=None):
-    """Full-sequence self-attention (train / prefill). x: [B,S,d];
-    positions: [B,S]; kv_valid: [B,S] bool, the keys that may be attended
-    (a non-causal arch must not attend to padding), ANDed into the mask.
-    With ``flash`` the core runs through ``ops.flash_attention`` (K5) at
-    any S, a chunked-local layer folded (:func:`flash_chunked`); K5
-    masks by index, so positions must be 0..S-1 in every row, and takes
-    no key mask; else through ``attend`` up to
-    ``ATTN_DIRECT_MAX`` positions and ``attend_chunked`` (positions
-    shared across the batch) above, as the reference routes. Returns
-    (out [B,S,d], (k, v)), k after RoPE."""
+               kv=None, causal: bool = True, flash: bool = False,
+               kv_valid=None):
+    """Full-sequence attention (train / prefill / encoder / cross).
+    x: [B,S,d]; positions: [B,S]; kv_valid: [B,Sk] bool, the keys that
+    may be attended (a non-causal arch must not attend to padding), ANDed
+    into the mask. ``kv = (src [B,Sk,d], src_positions [B,Sk])`` makes it
+    cross-attention, as the reference's: keys and values projected from
+    ``src`` (an encoder's output) in the compute dtype, no RoPE on them,
+    no window and no causal mask, whatever ``causal`` says. With
+    ``flash`` the core runs through ``ops.flash_attention`` (K5) at any
+    S, a chunked-local layer folded (:func:`flash_chunked`), a cross one
+    non-causal at Sq != Sk; K5 masks by index, so positions must be
+    0..S-1 in every row, and takes no key mask; else through ``attend``
+    up to ``ATTN_DIRECT_MAX`` positions (of queries and keys) and
+    ``attend_chunked`` (positions shared across the batch) above, as the
+    reference routes. Returns (out [B,S,d], (k, v)), k after RoPE: a
+    cross layer's (k, v) is its decode cache's static ``ck`` / ``cv``."""
     a = cfg.attn
     cdt = _dtype(cfg.compute_dtype)
     xq = x.to(cdt)
     q = _split_heads(xq @ p["wq"].to(cdt), a.num_heads, a.head_dim)
-    k = _split_heads(xq @ p["wk"].to(cdt), a.num_kv_heads, a.head_dim)
-    v = _split_heads(xq @ p["wv"].to(cdt), a.num_kv_heads, a.head_dim)
+    src, kv_positions = (xq, positions) if kv is None else \
+        (kv[0].to(cdt), kv[1])
+    k = _split_heads(src @ p["wk"].to(cdt), a.num_kv_heads, a.head_dim)
+    v = _split_heads(src @ p["wv"].to(cdt), a.num_kv_heads, a.head_dim)
     if a.use_rope:
         q = apply_rope(q, positions, a.rope_theta)
-        k = apply_rope(k, positions, a.rope_theta)
+        if kv is None:
+            k = apply_rope(k, positions, a.rope_theta)
     scale = a.softmax_scale or 1.0 / math.sqrt(a.head_dim)
-    window = a.window_for_layer(layer)
+    window = a.window_for_layer(layer) if kv is None else None
+    causal = causal and kv is None
     if flash:
         if not flash_takes(cfg) or kv_valid is not None:
             raise NotImplementedError(
@@ -309,13 +321,15 @@ def attn_apply(p, cfg: ModelConfig, x, positions, *, layer: int,
         else:
             out = ops.flash_attention(q, k, v, causal=causal, window=window,
                                       scale=scale)
-    elif x.shape[1] > ATTN_DIRECT_MAX:
-        pos = positions[0] if positions.dim() == 2 else positions
-        out = attend_chunked(q, k, v, pos, pos, scale, causal=causal,
-                             window=window, chunked_window=a.chunked_local,
+    elif max(q.shape[1], k.shape[1]) > ATTN_DIRECT_MAX:
+        def first(t):
+            return t[0] if t.dim() == 2 else t
+        out = attend_chunked(q, k, v, first(positions), first(kv_positions),
+                             scale, causal=causal, window=window,
+                             chunked_window=a.chunked_local,
                              logit_cap=a.logit_cap, kv_valid=kv_valid)
     else:
-        mask = make_attn_mask(positions, positions, causal=causal,
+        mask = make_attn_mask(positions, kv_positions, causal=causal,
                               window=window, chunked=a.chunked_local)
         if kv_valid is not None:
             mask = mask & kv_valid[:, None, :]

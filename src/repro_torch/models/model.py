@@ -50,8 +50,8 @@ def _to_tree(mod: nn.Module):
 
 
 class Model(nn.Module):
-    """A decoder LM: ``forward_train`` for training, ``prefill`` and
-    ``decode_step`` for serving."""
+    """A decoder LM or an encoder-decoder: ``forward_train`` for
+    training, ``prefill`` and ``decode_step`` for serving."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
@@ -66,8 +66,11 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.tree["embed"]["table"].device
 
-    def new_cache(self, batch: int, s_max: int):
-        return engine.cache_struct(self.cfg, batch, s_max, device=self.device)
+    def new_cache(self, batch: int, s_max: int, enc_len: int = 0):
+        """An empty decode cache (an encoder-decoder's with its cross K/V
+        over ``enc_len`` encoder positions)."""
+        return engine.cache_struct(self.cfg, batch, s_max, device=self.device,
+                                   enc_len=enc_len)
 
     def admit_slot(self, cache, slot: int, position: int):
         """Recycle ``slot`` of ``cache`` for a request starting at
@@ -84,9 +87,10 @@ class Model(nn.Module):
 
     @torch.inference_mode()
     def prefill(self, tokens, s_max: int, *, luffy: LuffyConfig, dist=None,
-                plan_cache=None, prefix=None):
+                plan_cache=None, prefix=None, enc_input=None):
         return engine.prefill(self.params, self.cfg, luffy, tokens, s_max,
-                              dist, plan_cache=plan_cache, prefix=prefix)
+                              dist, plan_cache=plan_cache, prefix=prefix,
+                              enc_input=enc_input)
 
     @torch.inference_mode()
     def decode_step(self, cache, tokens, *, luffy: LuffyConfig,

@@ -1,12 +1,14 @@
 """The decoder stack (counterpart of ``repro/models/transformer.py``):
 parameter init, embedding, the LM head (tied or not), the chunked
-cross-entropy, hymba's hybrid token mixer and the train forward, on one
-device or over ``M`` virtual expert-parallel ranks
-(:func:`_moe_apply_dist`, batch-sharded; :func:`moe_apply_vanilla`,
-either layout).
+cross-entropy, hymba's hybrid token mixer, an encoder-decoder's encoder
+(:func:`encode`, :func:`run_encoder`) and its cross-attention sublayer
+(:func:`cross_sublayer`), and the train forward, on one device or over
+``M`` virtual expert-parallel ranks (:func:`_moe_apply_dist`,
+batch-sharded; :func:`moe_apply_vanilla`, either layout).
 
 Where the reference stacks layers by pattern position for ``lax.scan``,
-the port keeps ``params["layers"]`` as a plain list, one dict per layer,
+the port keeps ``params["layers"]`` (and an encoder-decoder's
+``params["encoder"]["layers"]``) as a plain list, one dict per layer,
 walked by a Python loop; ``cfg.remat`` checkpoints each layer as the
 reference's ``jax.checkpoint`` does.
 """
@@ -37,10 +39,12 @@ def pattern_period(cfg: ModelConfig) -> int:
 
 
 def _check_arch(cfg: ModelConfig):
-    if cfg.kind != "decoder" or cfg.attn is None:
+    if cfg.kind not in ("decoder", "encdec") or cfg.attn is None or (
+            cfg.kind == "encdec" and cfg.ssm is not None):
         raise NotImplementedError(
-            f"{cfg.name}: only attention decoders are ported; other "
-            f"kinds come with their own slices (ROADMAP Queue 1 item 8)")
+            f"{cfg.name}: only attention decoders and attention "
+            f"encoder-decoders are ported; other kinds come with their "
+            f"own slices (ROADMAP Queue 1 item 8)")
     if cfg.ssm is not None and not (cfg.parallel_ssm
                                     and cfg.ssm.kind == "mamba"):
         raise NotImplementedError(
@@ -60,7 +64,10 @@ def hybrid_mixer(p, cfg: ModelConfig, x, positions, layer: int):
     return x + 0.5 * (att + sso), kv
 
 
-def _init_layer(generator, cfg: ModelConfig, layer: int, *, device):
+def _init_layer(generator, cfg: ModelConfig, layer: int, *, device,
+                cross: bool = False):
+    """One layer's parameters; ``cross``: a decoder layer of an
+    encoder-decoder, with ``cross_norm`` and ``cross_attn``."""
     pdt = bk._dtype(cfg.param_dtype)
     p: Dict[str, Any] = {
         "attn_norm": bk.norm_init(cfg.d_model, cfg.norm, pdt, device=device),
@@ -68,6 +75,10 @@ def _init_layer(generator, cfg: ModelConfig, layer: int, *, device):
     }
     if cfg.ssm is not None:           # parallel branch: no norm of its own
         p["ssm"] = ssm_mod.mamba_init(generator, cfg, device=device)
+    if cross:
+        p["cross_norm"] = bk.norm_init(cfg.d_model, cfg.norm, pdt,
+                                       device=device)
+        p["cross_attn"] = bk.attn_init(generator, cfg, device=device)
     if cfg.ffn_kind(layer) == "moe":
         p["moe"] = moe.moe_init(generator, cfg, device=device)
     else:
@@ -80,7 +91,8 @@ def _init_layer(generator, cfg: ModelConfig, layer: int, *, device):
 def init_params(cfg: ModelConfig, *, generator: torch.Generator, device):
     """Random parameters from ``generator`` (which must live on
     ``device``), laid out like the reference's pytree with the layer
-    stack unrolled into a list."""
+    stacks unrolled into lists (an encoder-decoder's encoder under
+    ``params["encoder"]``: its ``layers`` and ``final_norm``)."""
     _check_arch(cfg)
     pdt = bk._dtype(cfg.param_dtype)
     params: Dict[str, Any] = {
@@ -95,9 +107,63 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator, device):
         params["prefix_proj"] = {"w": bk.dense_init(
             generator, cfg.prefix_dim or cfg.d_model, cfg.d_model, pdt,
             device=device)}
-    params["layers"] = [_init_layer(generator, cfg, i, device=device)
+    encdec = cfg.kind == "encdec"
+    params["layers"] = [_init_layer(generator, cfg, i, device=device,
+                                    cross=encdec)
                         for i in range(cfg.num_layers)]
+    if encdec:
+        params["encoder"] = {
+            "layers": [_init_layer(generator, cfg, i, device=device)
+                       for i in range(cfg.num_encoder_layers)],
+            "final_norm": bk.norm_init(cfg.d_model, cfg.norm, pdt,
+                                       device=device)}
     return params
+
+
+def run_encoder(enc_params, cfg: ModelConfig, enc_x, *, flash: bool = False):
+    """The encoder stack (the reference's ``_run_encoder``) over ``enc_x``
+    [B, S_enc, d]: each layer non-causal self-attention over every
+    position (no key mask; on K5 with ``flash``) and the dense FFN, then
+    the encoder's own ``final_norm``. Returns [B, S_enc, d]."""
+    B, S = enc_x.shape[0], enc_x.shape[1]
+    positions = torch.arange(S, device=enc_x.device)[None].expand(B, S)
+    x = enc_x
+    for i, p in enumerate(enc_params["layers"]):
+        xn = bk.norm_apply(p["attn_norm"], x, cfg.norm)
+        att, _ = bk.attn_apply(p["attn"], cfg, xn, positions, layer=i,
+                               causal=False, flash=flash)
+        x = x + att
+        xn = bk.norm_apply(p["ffn_norm"], x, cfg.norm)
+        x = x + bk.ffn_apply(p["ffn"], cfg, xn)
+    return bk.norm_apply(enc_params["final_norm"], x, cfg.norm)
+
+
+def encode(params, cfg: ModelConfig, enc_input, *, flash: bool = False):
+    """An encoder-decoder's encoder memory: ``enc_input`` [B, S_enc,
+    prefix_dim] (the frontend stub's frame embeddings) projected by
+    ``prefix_proj`` in the compute dtype (no embedding scale, no
+    positions: the reference's rounding points), then
+    :func:`run_encoder`. Returns (enc_out [B, S_enc, d], enc_pos [B,
+    S_enc])."""
+    cdt = bk._dtype(cfg.compute_dtype)
+    w = params["prefix_proj"]["w"]
+    enc_x = enc_input.to(w.device, cdt) @ w.to(cdt)
+    enc_out = run_encoder(params["encoder"], cfg, enc_x, flash=flash)
+    B, S = enc_out.shape[0], enc_out.shape[1]
+    return enc_out, torch.arange(S, device=enc_out.device)[None].expand(B, S)
+
+
+def cross_sublayer(p, cfg: ModelConfig, x, positions, enc, layer: int, *,
+                   flash: bool = False):
+    """A decoder layer's cross-attention sublayer over the whole
+    sequence: ``x + cross_attn(cross_norm(x), kv=enc)`` with ``enc =
+    (enc_out, enc_pos)`` (every encoder position live; on K5, non-causal
+    at Sq != Sk, with ``flash``). Returns (x, (ck, cv)), the layer's
+    static cross K/V."""
+    xn = bk.norm_apply(p["cross_norm"], x, cfg.norm)
+    ca, ckv = bk.attn_apply(p["cross_attn"], cfg, xn, positions,
+                            layer=layer, kv=enc, causal=False, flash=flash)
+    return x + ca, ckv
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens, prefix=None):
@@ -243,11 +309,12 @@ def _moe_apply_dist(p_moe, x, sideband, s_prev, threshold, cfg, luffy,
 
 def _layer_full(p, cfg: ModelConfig, luffy: LuffyConfig, layer: int,
                 moe_mode: str, capacity: int, dist, x, sideband, s_prev,
-                threshold, cond_carry, plan_carry, wire_ef):
+                threshold, cond_carry, plan_carry, wire_ef, enc=None):
     """One decoder layer of the train forward: attention over the whole
     batch (causal, or for a non-causal arch masked to each sequence's
     ``seq_len`` keys, read from the sideband, which has moved with its
-    sequence), then the MoE sublayer (condensing, carrying the
+    sequence), an encoder-decoder's cross sublayer over ``enc`` =
+    (enc_out, enc_pos), then the MoE sublayer (condensing, carrying the
     similarity history, the condense carry, the plan carry and the wire
     residual, and migrating sequences across ranks; or sequence-sharded)
     or the dense FFN. Returns (x, sideband, s_prev, aux, cond_carry,
@@ -265,6 +332,8 @@ def _layer_full(p, cfg: ModelConfig, luffy: LuffyConfig, layer: int,
     att, _ = bk.attn_apply(p["attn"], cfg, xn, positions, layer=layer,
                            causal=cfg.causal, kv_valid=kv_valid)
     x = x + att
+    if enc is not None:
+        x, _ = cross_sublayer(p, cfg, x, positions, enc, layer)
     if cfg.ffn_kind(layer) != "moe":
         xn = bk.norm_apply(p["ffn_norm"], x, cfg.norm)
         return (x + bk.ffn_apply(p["ffn"], cfg, xn), sideband, s_prev,
@@ -295,7 +364,8 @@ def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
                   capacity: int, dist: Optional[DistContext] = None,
                   wire_ef: Optional[torch.Tensor] = None):
     """The train forward (the reference's ``forward_train``). batch:
-    tokens [B, S], labels [B, S] (< 0 ignored), seq_len [B]; threshold:
+    tokens [B, S], labels [B, S] (< 0 ignored), seq_len [B], and for an
+    encoder-decoder enc_input [B, S_enc, prefix_dim]; threshold:
     f32 scalar tensor (Eq. 2); capacity: the MoE dispatch capacity per
     (rank, expert); dist: the expert-parallel ranks (None: one device).
     The dense layers run on the whole batch in its current rank-major
@@ -315,6 +385,8 @@ def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
             f"which are not ported yet (ROADMAP Queue 2)")
     seq_sharded = dist is not None and dist.seq_sharded
     x = embed_tokens(params, cfg, batch["tokens"])
+    enc = (encode(params, cfg, batch["enc_input"]) if cfg.kind == "encdec"
+           else None)
     B, S = x.shape[0], x.shape[1]
     sideband = {"labels": batch["labels"],
                 "seq_len": batch["seq_len"].to(torch.int32)}
@@ -353,7 +425,7 @@ def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
         for i, p in enumerate(params["layers"]):
             args = (p, cfg, eff_luffy, i, moe_mode, capacity, dist, x,
                     sideband, s_prev, threshold, cond_carry, plan_carry,
-                    None if wire_ef is None else wire_ef[i])
+                    None if wire_ef is None else wire_ef[i], enc)
             if cfg.remat:
                 # traced, the recompute records no phase (the reference's
                 # spans fire once per forward of a sublayer)

@@ -12,7 +12,10 @@ Cache layout, one entry per layer: ``{"k", "v": [B, W, kv, hd],
 ring buffer (slot = rpos % W), a global layer a full buffer. ``cpos``
 holds each slot's relative position, -1 when empty. A hybrid layer
 (hymba) also carries its Mamba state, ``"ssm_h": [B, di, N]`` and
-``"ssm_conv": [B, K-1, di]``, both f32. ``offset`` [B] is
+``"ssm_conv": [B, K-1, di]``, both f32; a decoder layer of an
+encoder-decoder (seamless) its static cross K/V, ``"ck", "cv": [B,
+S_enc, kv, hd]`` in the compute dtype, which the prefill's per-layer
+``ckv`` fills (:func:`write_cross_kv`) and no step writes. ``offset`` [B] is
 each slot's frame origin (rpos = pos - offset) and ``pos`` the step
 count. :func:`decode_step` updates the cache tensors in place, which
 saves a copy of every layer's cache per token, and returns the cache.
@@ -27,7 +30,10 @@ index ``i > rpos_new`` therefore holds ``v >= i > rpos_new`` or -1,
 masked by ``kp <= rpos`` exactly where a fresh cache's -1 entries are;
 the -1e30 logits give exactly-0 softmax weights, and ``0 * stale_v = 0``,
 so the recycled slot's logits are a fresh cache's bit for bit. The
-Mamba state carries across tokens unmasked, so it is zeroed.
+Mamba state carries across tokens unmasked, so it is zeroed. ``ck`` and
+``cv`` are left as they are, as the reference's ``admit_slot`` leaves
+them: a recycled slot attends the old request's encoder memory until
+its own is written.
 """
 from __future__ import annotations
 
@@ -42,8 +48,9 @@ from repro_torch.core import moe_layer as moe
 from repro_torch.dist import DistContext
 from repro_torch.models import blocks as bk
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.transformer import (embed_tokens, hybrid_mixer,
-                                            logits_fn, moe_apply_vanilla)
+from repro_torch.models.transformer import (cross_sublayer, embed_tokens,
+                                            encode, hybrid_mixer, logits_fn,
+                                            moe_apply_vanilla)
 
 NEG_INF = -1e30
 
@@ -53,8 +60,12 @@ def _win(cfg: ModelConfig, layer: int, s_max: int) -> int:
     return s_max if w is None else min(w, s_max)
 
 
-def cache_struct(cfg: ModelConfig, batch: int, s_max: int, *, device):
-    """An empty cache for ``batch`` slots of up to ``s_max`` positions."""
+def cache_struct(cfg: ModelConfig, batch: int, s_max: int, *, device,
+                 enc_len: int = 0):
+    """An empty cache for ``batch`` slots of up to ``s_max`` positions;
+    an encoder-decoder's also holds each layer's cross K/V over
+    ``enc_len`` encoder positions, zeros (``enc_len`` 0: the reference's
+    empty memory)."""
     a = cfg.attn
     cdt = bk._dtype(cfg.compute_dtype)
     layers = []
@@ -68,6 +79,10 @@ def cache_struct(cfg: ModelConfig, batch: int, s_max: int, *, device):
         if cfg.ssm is not None:
             st = ssm_mod.mamba_init_state(cfg, batch, device=device)
             g["ssm_h"], g["ssm_conv"] = st["h"], st["conv"]
+        if cfg.kind == "encdec":
+            cshape = (batch, enc_len, a.num_kv_heads, a.head_dim)
+            g["ck"] = torch.zeros(cshape, dtype=cdt, device=device)
+            g["cv"] = torch.zeros(cshape, dtype=cdt, device=device)
         layers.append(g)
     return {"layers": layers,
             "offset": torch.zeros((batch,), dtype=torch.int32, device=device),
@@ -80,7 +95,8 @@ def admit_slot(cache, slot: int, position: int):
     ``cache["pos"]``): ``offset[slot] = position``, and the slot's Mamba
     state rows (``ssm_h``, ``ssm_conv``) of every hybrid layer zeroed,
     in place. ``k``, ``v`` and ``cpos`` are left as they are: the
-    recycling invariant (module docstring) masks every stale entry.
+    recycling invariant (module docstring) masks every stale entry; so
+    are an encoder-decoder's ``ck`` and ``cv``, as in the reference.
     Returns the cache. The writes are fills, so nothing is copied from
     the host (no device sync), and run in inference mode: the decode
     step's states are inference tensors."""
@@ -135,6 +151,36 @@ def attn_decode(p, cfg: ModelConfig, x, pos: int, offset, ck, cv, cpos, *,
     w = torch.softmax(logits, dim=-1).to(vv.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", w, vv).reshape(B, 1, a.q_dim)
     return (o @ p["wo"].to(cdt)).to(x.dtype), ck, cv, cpos
+
+
+def cross_attn_decode(p, cfg: ModelConfig, x, ck, cv):
+    """One token's cross-attention against the static encoder K/V (the
+    reference's ``cross_attn_decode``, outside any kernel there too): x
+    [B,1,d]; ck / cv [B,S_enc,kv,hd]; every encoder position live, no
+    RoPE. Returns [B,1,d]."""
+    a = cfg.attn
+    cdt = bk._dtype(cfg.compute_dtype)
+    B = x.shape[0]
+    q = (x.to(cdt) @ p["wq"].to(cdt)).reshape(B, 1, a.num_heads, a.head_dim)
+    n_rep = a.num_heads // a.num_kv_heads
+    kk = bk._repeat_kv(ck, n_rep)
+    vv = bk._repeat_kv(cv, n_rep)
+    scale = a.softmax_scale or 1.0 / math.sqrt(a.head_dim)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) * scale
+    w = torch.softmax(logits, dim=-1).to(vv.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", w, vv).reshape(B, 1, a.q_dim)
+    return (o @ p["wo"].to(cdt)).to(x.dtype)
+
+
+def write_cross_kv(cache, ckvs):
+    """Copy each decoder layer's prefill cross K/V, ``ckvs[i] = (ck,
+    cv)`` [B, S_enc, kv, hd], into the cache's ``ck`` / ``cv`` (made with
+    ``enc_len = S_enc``), in place. Returns the cache."""
+    with torch.inference_mode():
+        for g, (ck, cv) in zip(cache["layers"], ckvs):
+            g["ck"].copy_(ck)
+            g["cv"].copy_(cv)
+    return cache
 
 
 def decode_capacity(cfg: ModelConfig, batch: int) -> int:
@@ -194,6 +240,10 @@ def decode_step(params, cfg: ModelConfig, luffy: LuffyConfig, cache, tokens,
             x = x + 0.5 * (att + sso)
         else:
             x = x + att
+        if cfg.kind == "encdec":
+            xn = bk.norm_apply(p["cross_norm"], x, cfg.norm)
+            x = x + cross_attn_decode(p["cross_attn"], cfg, xn, g["ck"],
+                                      g["cv"])
         x = _ffn_sublayer(p, cfg, luffy, x, i, "decode", cap, sb, tmpl)
     logits = logits_fn(params, cfg, x)[:, 0]
     cache["pos"] = pos + 1
@@ -202,7 +252,7 @@ def decode_step(params, cfg: ModelConfig, luffy: LuffyConfig, cache, tokens,
 
 def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
             s_max: int, dist: Optional[DistContext] = None, plan_cache=None,
-            *, prefix=None):
+            *, prefix=None, enc_input=None):
     """Full forward over the prompt [B,S], after ``prefix`` [B,P,
     prefix_dim] when given (a prefix arch's frontend embeddings,
     projected before the tokens: positions run 0..P+S-1 and the returned
@@ -210,12 +260,19 @@ def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
     ranks (None or one rank: one device), whose MoE sublayers run the
     vanilla exchange in ``dist``'s layout (sequence-sharded for the
     prefill shape) at one rank's capacity. Returns (last-token logits
-    [B,V] f32, per-layer (k, v)). Condensation and migration are forced
+    [B,V] f32, per-layer (k, v)). An encoder-decoder takes ``enc_input``
+    [B, S_enc, prefix_dim] (the frontend stub's frames): the encoder runs
+    once (:func:`repro_torch.models.transformer.encode`), each decoder
+    layer attends it after its self-attention, and the per-layer entry
+    is the reference's pair ``((k, v), (ck, cv))``, the cross K/V over
+    S_enc positions (:func:`write_cross_kv` puts them in a cache made
+    with ``enc_len = S_enc``). Condensation and migration are forced
     off: serving prompts are neither condensed nor re-homed. On the card
     every decoder whose masks K5 takes (``bk.flash_takes``: causal, a
     sliding window, or a chunked-local window folded into the batch)
-    attends through K5, at any prompt length; on the CPU through the
-    reference's ``attend`` / ``attend_chunked``. As in the
+    attends through K5, at any prompt length (an encoder's layers and the
+    cross layers non-causal, a cross layer at Sq != Sk); on the CPU
+    through the reference's ``attend`` / ``attend_chunked``. As in the
     reference, a Mamba branch's final state is not returned: the
     launcher builds the decode cache by feeding the prompt step by
     step. ``plan_cache``: a :class:`repro_torch.plan.cache.PlanCache`;
@@ -240,6 +297,12 @@ def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
     # mask; on the CPU it stays the reference's attend (attend_chunked
     # over ATTN_DIRECT_MAX positions), which the CPU parity rests on
     flash = x.device.type == "cuda" and bk.flash_takes(cfg)
+    enc = None
+    if cfg.kind == "encdec":
+        if enc_input is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: its "
+                             f"prefill takes enc_input")
+        enc = encode(params, cfg, enc_input, flash=flash)
     kvs = []
     for i, p in enumerate(params["layers"]):
         if cfg.ssm is not None:       # hymba: K5 and K6
@@ -251,6 +314,10 @@ def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
             att, kv = bk.attn_apply(p["attn"], cfg, xn, positions, layer=i,
                                     causal=True, flash=flash)
             x = x + att
+        if enc is not None:
+            x, ckv = cross_sublayer(p, cfg, x, positions, enc, i,
+                                    flash=flash)
+            kv = (kv, ckv)
         if ranks and cfg.ffn_kind(i) == "moe":
             x = moe_apply_vanilla(p["moe"], x, sb, cfg, nl, dist, cap,
                                   plan_template=tmpl)[0]

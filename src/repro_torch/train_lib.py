@@ -55,13 +55,16 @@ def tokens_per_device(shape: ShapeConfig,
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise for an arch the port's train path does not take yet: the
     dense decoders (yi-34b, stablelm-12b, starcoder2-15b, gemma3-12b,
-    internvl2-2b), whose step has no MoE sublayer to size a capacity for
-    (and internvl2's no prefix batch), and an MoE arch with bf16
-    parameters (llama4-maverick), whose optimizer arithmetic on bf16
-    leaves is not yet held to the reference's."""
+    internvl2-2b) and the dense encoder-decoder seamless-m4t-large-v2,
+    whose step has no MoE sublayer to size a capacity for (and
+    internvl2's no prefix batch, seamless's no encoder-input batch), and
+    an MoE arch with bf16 parameters (llama4-maverick), whose optimizer
+    arithmetic on bf16 leaves is not yet held to the reference's."""
     if not cfg.uses_moe:
+        what = ("a dense encoder-decoder" if cfg.kind == "encdec"
+                else "a dense decoder")
         raise NotImplementedError(
-            f"{cfg.name}: training a dense decoder (no MoE sublayer) is not "
+            f"{cfg.name}: training {what} (no MoE sublayer) is not "
             f"ported yet (ROADMAP Queue 1 item 8.7); it serves through "
             f"repro_torch.launch.serve")
     if cfg.param_dtype != "float32":

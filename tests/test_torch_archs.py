@@ -202,10 +202,10 @@ def _served(name):
 
 def test_configs_registered():
     """The five are ported (``get_config`` returns each), and only the
-    reference's two archs of item 8.4's second half and 8.5 are still to
-    port (llama4-maverick and internvl2: ``tests/test_torch_shared.py``,
-    ``tests/test_torch_prefix.py``)."""
-    assert set(NOT_PORTED) == {"rwkv6-3b", "seamless-m4t-large-v2"}
+    reference's arch of item 8.5 is still to port (llama4-maverick,
+    internvl2 and seamless: ``tests/test_torch_shared.py``,
+    ``tests/test_torch_prefix.py``, ``tests/test_torch_encdec.py``)."""
+    assert set(NOT_PORTED) == {"rwkv6-3b"}
     for arch in ARCHS:
         assert get_config(arch).name == jget_config(arch).name
     assert reduced(get_config("gemma3-12b")).num_layers == 6

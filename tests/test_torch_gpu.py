@@ -858,6 +858,86 @@ def test_flash_attention_kernel_wide_heads(shape, dtype, causal, window):
     assert row <= (1e-4 if dtype == "float32" else 1e-2), row
 
 
+# K5 without a mask, as an encoder-decoder's encoder (Sq == Sk) and its
+# cross-attention (Sq decoder positions against Sk encoder ones) run it:
+# (B, Sq, Sk, H, KV, hd). Ragged key tails (Sk not a multiple of the
+# 64- or 128-key tile, Sk under one tile), Sk above and below Sq, GQA
+# groups of 1, 4 and 8, both routes (bf16 at hd 64 / 128 / 160 / 256 on
+# the tensor cores, bf16 at hd 32 and f32 on the FMA kernel).
+FLASH_CROSS_CASES = [((2, 512, 512, 16, 16, 64), "bfloat16"),
+                     ((2, 256, 1000, 16, 16, 64), "bfloat16"),
+                     ((2, 100, 3000, 16, 16, 64), "bfloat16"),
+                     ((2, 300, 77, 8, 2, 64), "bfloat16"),
+                     ((1, 129, 65, 8, 1, 128), "bfloat16"),
+                     ((2, 100, 333, 4, 2, 160), "bfloat16"),
+                     ((1, 77, 300, 6, 2, 256), "bfloat16"),
+                     ((1, 50, 200, 4, 4, 32), "bfloat16"),
+                     ((2, 256, 1000, 16, 16, 64), "float32"),
+                     ((2, 100, 3000, 8, 1, 64), "float32"),
+                     ((2, 64, 37, 8, 2, 128), "float32")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", FLASH_CROSS_CASES)
+def test_flash_attention_kernel_cross_shapes(shape, dtype):
+    """K5 non-causal at Sq != Sk against its plain version: elementwise
+    (2e-5 f32, 3e-2 bf16) and each query row within 1e-4 / 1e-2 of its
+    norm; one launch through ``ops``; a second launch bit for bit."""
+    _cuda_or_skip()
+    from repro_torch.kernels import flash_attn as kfa
+    B, Sq, Sk, H, KV, hd = shape
+    r = np.random.default_rng(Sq + Sk + hd)
+    dt = getattr(torch, dtype)
+    q, k, v = [torch.as_tensor(r.standard_normal(s).astype(np.float32))
+               .to(dt).cuda() for s in ((B, Sq, H, hd), (B, Sk, KV, hd),
+                                        (B, Sk, KV, hd))]
+    before = kfa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=False)
+    again = kfa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention.launches == before + 2
+    assert got.shape == q.shape and got.dtype == dt
+    assert torch.equal(got, again)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    g, w = got.float(), want.float()
+    row = ((g - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
+    assert row <= (1e-4 if dtype == "float32" else 1e-2), row
+
+
+@pytest.mark.gpu
+def test_flash_attention_cross_keys_stay_in_their_batch_row():
+    """A ragged last key tile reads zeros past Sk, never the next batch
+    row's keys: batch row 0 alone gives the same output bit for bit as
+    inside a batch of 2 whose row 1 holds huge keys and values."""
+    _cuda_or_skip()
+    from repro_torch.kernels import flash_attn as kfa
+    r = np.random.default_rng(3)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = [torch.as_tensor(r.standard_normal(s).astype(np.float32))
+                   .to(dtype).cuda() for s in ((2, 100, 8, 64),
+                                               (2, 77, 8, 64),
+                                               (2, 77, 8, 64))]
+        k[1], v[1] = 1e3, 1e3
+        both = kfa.flash_attention(q, k, v, causal=False)
+        alone = kfa.flash_attention(q[:1].clone(), k[:1].clone(),
+                                    v[:1].clone(), causal=False)
+        torch.cuda.synchronize()
+        assert torch.equal(both[:1], alone)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_masks_at_sq_ne_sk():
+    _cuda_or_skip()
+    from repro_torch.kernels import flash_attn as kfa
+    q = torch.zeros((1, 10, 2, 64), device="cuda")
+    k = torch.zeros((1, 20, 2, 64), device="cuda")
+    for kw in ({"causal": True}, {"causal": False, "window": 4}):
+        with pytest.raises(ValueError, match="Sq == Sk"):
+            kfa.flash_attention(q, k, k, **kw)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,di,N", [(4, 2048, 3200, 16), (2, 100, 200, 16),
                                       (1, 33, 70, 8), (3, 1, 48, 16)])
