@@ -253,7 +253,7 @@ kernels line):
     plan built, tokens bit for bit): tokens/s, the SLO means (queue,
     TTFT, TPOT), ms a model call, the untraced run's device syncs a
     model call beside one decode step's; one profiled window of the loop
-    (device-busy share);
+    on a short run of its own (the first 8 requests; device-busy share);
 42. recycled slot: a slot recycled by ``admit_slot`` decodes bit for bit
     as a fresh cache's, full-width moe-gpt2 with global attention and with
     a window of 48 that the warm-up wraps, and a 4-layer full-width hymba
@@ -383,6 +383,35 @@ kernels line):
     at f32: prefill and decode logits within 1e-4, 8 greedy tokens
     equal; bf16 recorded.
 
+63. RWKV-6 kernel: K7 (``csrc/wkv6.cu``, the WKV6 recurrence of
+    RWKV-6's time-mix) against its plain version at rwkv6-3b's prefill
+    [4,2048,40,64] from the zero state and a random one, a decode step's
+    [4,1,40,64] and [1,1,40,64] from a random state and a ragged
+    [2,1000,4,64]: y within 2e-5 of each row's norm over the head and the
+    final state within 2e-5 of each head's state norm, a second launch
+    bit for bit; 64 chained launches at S = 1 ([1,64,40,64], each from
+    the state the last returned, as the decode step carries it) bit for
+    bit one launch over S; the grad-mode refusal; no spill (phase 2);
+    each case timed (CUDA events, profiler device time) beside the
+    plain version and the bound;
+64. RWKV-6 serve: rwkv6-3b at full width and depth (32 layers, random
+    weights from a seed): two batched prefills of B=4 x 2048 with K7
+    exactly 32 launches a prefill and nothing else (no K5), tokens/s,
+    peak memory; the decode cache built by the step feed of a 64-token
+    prompt and 32 greedy tokens, K7 exactly 32 launches a step, ms a
+    step; the step-fed last logits within 0.125 (four bf16 ulps of a
+    logit in [4, 8)) of the batched prefill of the same 64 tokens, its
+    greedy tokens equal up to ties within that gate, and within 1e-4 at
+    f32 on a 4-layer cut, tokens equal; a profiled prefill and decode
+    step; a slot recycled by ``admit_slot`` (its WKV6 state and token
+    shifts zeroed) bit for bit a fresh cache's; then the launcher (B=4,
+    prompt 64, 8 tokens) and a short ``--continuous`` run (4 requests
+    through 2 slots), each with exact launches;
+65. RWKV-6 parity: reduced rwkv6 (2 layers, d 256) at a prompt of 64,
+    the prompt's step feed and 8 greedy tokens, card against CPU: at f32
+    logits within 1e-4 and tokens equal, K7 once a layer a prefill and a
+    step on the card; at bf16 logits within 3.2e-2.
+
 Two phases run only when named by ``--only``:
 
 54. K5's gate against a wrong K5: ``csrc/flash_attn.cu`` built again
@@ -402,7 +431,8 @@ K5 wherever K5 takes the mask (causal or a window): phases 4, 19, 25 and
 33 count its launches (once a layer a prefill), phase 5 holds the card's
 K5 prefill against the CPU's ``attend`` at 3e-2.
 
-Phase 23 runs right after phase 10, then phases 49-53, 56-59 and 60-62, and
+Phase 23 runs right after phase 10, then phases 49-53, 56-59, 60-62 and
+63-65, and
 phases 30-32,
 34 and 35 after phase 14, where the profiler still records every launch;
 phase 33 runs after phase 19, phases 36-48 after phase 35. Then one JSON
@@ -416,7 +446,7 @@ arch's prefill as ``flash_attention@<arch>``, K1 at olmoe's as
 chunked layers as ``flash_attention@llama4-chunked-<S>`` and at
 internvl2's prefill as ``flash_attention@internvl2-2b``, K5 at
 seamless's shapes as ``flash_attention@seamless-m4t-large-v2-<case>-
-<dtype>``; K1's launches on
+<dtype>``, K7 as ``wkv6_scan``; K1's launches on
 every serve and train path of the run, the continuous one included, and
 K1's and K2's in the calibration probes), and last ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, without a CUDA
@@ -760,7 +790,8 @@ def phase_build():
                               ("K4", "pack", "pack_quant_kernel"),
                               ("K4_bwd", "pack", "pack_quant_bwd_kernel"),
                               ("K5", "flash_attn", "flash_wgmma_kernel"),
-                              ("K6", "mamba_scan", "mamba_scan_kernel"))}
+                              ("K6", "mamba_scan", "mamba_scan_kernel"),
+                              ("K7", "wkv6", "wkv6_kernel"))}
     for k, reps in tc.items():
         for r in reps:
             log(f"  {k} kernel {r['entry']} for {r['target']}: "
@@ -5202,6 +5233,10 @@ CONT_MIN_CHURN = 16
 # the profiled window of the continuous loop: model calls skipped, then
 # one warm-up call and this many recorded
 CONT_PROFILE_SKIP, CONT_PROFILE_STEPS = 40, 32
+# its own run: the stream's first 8 requests (the later flag wins), which
+# keep every slot busy through the window (each feeds its prompt and
+# decodes for 96 model calls)
+CONT_PROFILE_ARGS = CONT_ARGS + ["--requests", "8"]
 # phase 42: slot 0 recycled after WARM tokens, then SEQ tokens; the
 # window of 48 wraps the ring during the warm-up
 RECYCLE = dict(B=2, s_max=80, warm=60, seq=16, window=48, hymba_layers=4)
@@ -5292,8 +5327,8 @@ def phase_continuous_serve(slice_info=None):
     --precompute-plans`` (0 plans built, tokens bit for bit): tokens/s,
     the SLO means and ms a model call of each, and the uncached run's
     device syncs (``_count_syncs``); then one profiled window of the loop
-    (device-busy share). ``slice_info``: phase 4's, to print
-    beside."""
+    on a short run of its own (``CONT_PROFILE_ARGS``; device-busy share).
+    ``slice_info``: phase 4's, to print beside."""
     import numpy as np
     import torch
     import repro_torch.plan.exchange as tex
@@ -5350,7 +5385,7 @@ def phase_continuous_serve(slice_info=None):
     # the syncs of one decode step alone, to split the loop's count into
     # the step's own and the loop's (the logits' copy to the host)
     step_syncs = _decode_step_syncs()
-    prof = _continuous_profile(CONT_ARGS)
+    prof = _continuous_profile(CONT_PROFILE_ARGS)
     # the profiler slows the host: the device time a call over the
     # untraced run's wall time a call too
     prof["device_share_of_untraced_call"] = (
@@ -5394,22 +5429,22 @@ def phase_continuous_serve(slice_info=None):
     return info
 
 
-def _recycled_vs_fresh(cfg, seed: int = 0):
-    """Slot 0 of ``cfg``'s decode cache, recycled after a warm-up of
-    ``RECYCLE["warm"]`` tokens (``admit_slot``), against a fresh cache,
-    both fed the same sequence while slot 1 keeps decoding: slot 0's
-    logits a step, both runs, and the admitted cache's Mamba rows."""
+def _recycled_vs_fresh(model, R=RECYCLE, seed: int = 0):
+    """Slot 0 of ``model``'s decode cache, recycled after a warm-up of
+    ``R["warm"]`` tokens (``admit_slot``), against a fresh cache, both
+    fed the same sequence while slot 1 keeps decoding: slot 0's logits a
+    step, both runs, and whether the admission zeroed the slot's
+    recurrent state rows (Mamba or RWKV)."""
     import numpy as np
     import torch
     from repro_torch.config import LuffyConfig
-    from repro_torch.models.model import build_model
-    R = RECYCLE
+    from repro_torch.serve.engine import RECURRENT_KEYS
     luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
-    model = build_model(cfg, device="cuda", seed=seed)
+    V = model.cfg.vocab_size
     r = np.random.default_rng(seed + 1)
-    warm = torch.as_tensor(r.integers(1, cfg.vocab_size, (R["B"], R["warm"])),
+    warm = torch.as_tensor(r.integers(1, V, (R["B"], R["warm"])),
                            dtype=torch.int32, device="cuda")
-    seq = torch.as_tensor(r.integers(1, cfg.vocab_size, (R["seq"], 2)),
+    seq = torch.as_tensor(r.integers(1, V, (R["seq"], 2)),
                           dtype=torch.int32, device="cuda")
 
     def feed(cache):
@@ -5424,10 +5459,10 @@ def _recycled_vs_fresh(cfg, seed: int = 0):
         _, cache = model.decode_step(cache, warm[:, t:t + 1], luffy=luffy)
     model.admit_slot(cache, 0, cache["pos"])
     zeroed = all(not g[k][0].any() for g in cache["layers"]
-                 for k in ("ssm_h", "ssm_conv") if k in g)
+                 for k in RECURRENT_KEYS if k in g)
     got = feed(cache)
     want = feed(model.new_cache(R["B"], R["s_max"]))
-    del model, cache
+    del cache
     torch.cuda.empty_cache()
     return got, want, zeroed
 
@@ -5441,6 +5476,7 @@ def phase_recycled_slot():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import expert_ffn as kexp
+    from repro_torch.models.model import build_model
     gpt = get_config("moe-gpt2")
     cases = {
         "moe-gpt2": gpt,
@@ -5453,7 +5489,10 @@ def phase_recycled_slot():
     info, bad = {}, []
     for name, cfg in cases.items():
         before = kexp.expert_ffn.launches
-        got, want, zeroed = _recycled_vs_fresh(cfg)
+        model = build_model(cfg, device="cuda", seed=0)
+        got, want, zeroed = _recycled_vs_fresh(model)
+        del model
+        torch.cuda.empty_cache()
         same = bool(torch.equal(got, want))
         info[name] = dict(bitwise=same, mamba_rows_zeroed=zeroed,
                           max_abs=(got - want).abs().max().item(),
@@ -7450,6 +7489,524 @@ def _seamless_records(sm):
     return recs
 
 
+RWKV = "rwkv6-3b"
+# phase 64: full width and depth; the batched prefill, then the decode
+# cache built by the step feed of a short prompt (a 2048-step feed at 32
+# layers would take minutes), greedy tokens, a recycled slot
+RWKV_SERVE = dict(B=4, S=2048)
+RWKV_FEED = dict(B=4, S=64, gen=32)
+# phase 63: K7 at rwkv6-3b's shapes (40 heads of 64): (B, S, H, from a
+# random state); the prefill's from the zero state, the same from a
+# random one, the decode step's (phase 64's batch, and one sequence), and
+# a ragged S on few heads
+K7_CASES = {"prefill": (RWKV_SERVE["B"], RWKV_SERVE["S"], 40, False),
+            "prefill-state": (RWKV_SERVE["B"], RWKV_SERVE["S"], 40, True),
+            "decode": (RWKV_FEED["B"], 1, 40, True),
+            "decode-1": (1, 1, 40, True),
+            "ragged": (2, 1000, 4, True)}
+K7_CHAIN = (1, 64, 40)      # S launches at S = 1 against one over S
+K7_DEVICE_TIMED = ("prefill", "decode")    # also by profiler device time
+# y within K7_TOL of each row's norm over the head, the final state of
+# each head's state norm: f32 sums in another order (four partial sums of
+# y) and fused multiply-adds against the plain version's separate
+# roundings, over a state that remembers up to some three thousand steps
+K7_TOL = 2e-5
+# the step-fed logits against the batched prefill's: at bf16 through 32
+# layers the two paths round their products at other shapes (cuBLAS at
+# M = 4 against M = 256) and differed by 6.25e-2 on an H100 (two bf16
+# ulps of a logit in [4, 8)), so bf16 is held at four ulps and the
+# algorithm at f32 on a 4-layer full-width cut, where the paths differ
+# only by f32 sums in another order
+RWKV_FEED_TOL = {"bfloat16": 0.125, "float32": 1e-4}
+RWKV_FEED_F32_LAYERS = 4
+RWKV_RECYCLE = dict(B=2, s_max=12, warm=6, seq=6)
+RWKV_LAUNCHER_ARGS = ["--arch", RWKV, "--batch", "4", "--prompt-len", "64",
+                      "--gen", "8", "--prefill", "batch", "--device", "cuda",
+                      "--seed", "0"]
+RWKV_CONT_ARGS = ["--arch", RWKV, "--continuous", "--batch", "2",
+                  "--prompt-len", "6", "--gen", "4", "--requests", "4",
+                  "--burst", "2", "--arrival-every", "2", "--device", "cuda",
+                  "--seed", "0"]
+# phase 65: reduced rwkv6 (2 layers, d 256), card against CPU; bf16 at
+# phase 51's flat gate (one bf16 ulp of a logit in [4, 8), 3.125e-2, is
+# over the serve gate of 3e-2)
+RWKV_PARITY = dict(B=2, S=64, gen=8)
+RWKV_PARITY_TOL = {"float32": 1e-4, "bfloat16": ARCH_PARITY_TOL}
+
+
+def _k7_inputs(B, S, H, seed, state):
+    """K7's operands as the time-mix gives them, on the card: r, k, v ~
+    N(0, 1), decays w = exp(-exp(z)) with z uniform in [-8, 1] (memories
+    of one step to some three thousand), a bonus of 0.1 N(0, 1), a random
+    state (or None: zeros)."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    r, k, v = rn(B, S, H, 64), rn(B, S, H, 64), rn(B, S, H, 64)
+    z = torch.rand((B, S, H, 64), generator=gen, device="cuda") * 9.0 - 8.0
+    return (r, k, v, torch.exp(-torch.exp(z)), rn(H, 64) * 0.1,
+            rn(B, H, 64, 64) if state else None)
+
+
+def _rel_norm_err(got, want, dims):
+    """The largest ||got - want|| / ||want|| over ``dims``."""
+    import torch
+    d = torch.linalg.vector_norm(got - want, dim=dims)
+    n = torch.linalg.vector_norm(want, dim=dims).clamp_min(1e-30)
+    return (d / n).max().item()
+
+
+def phase_rwkv_kernels():
+    """Phase 63: K7 (``csrc/wkv6.cu``) against its plain version
+    (``ref.wkv6_scan_ref``, the reference's step order) on the card at
+    ``K7_CASES``: y within ``K7_TOL`` of each row's norm and the final
+    state of each head's, a second launch bit for bit; then ``K7_CHAIN``'s
+    S launches at S = 1, each from the state the last returned as the
+    decode step carries it, bit for bit one launch over S (y and state);
+    the grad-mode refusal (an operand that requires grad raises). Each
+    case timed (CUDA events; the prefill's and the decode step's also by
+    profiler device time) beside the plain version and the bound: the
+    operations the function needs at 67 TFLOP/s (5 f32 a state element
+    and step: w S + k v, then y += r S; and the rank-one bonus
+    v_j sum_i r_i u_i k_i, 3 a head element and step), or the bytes (r,
+    k, v, w and u read and y written once, the state read where given and
+    written), the larger. No PyTorch call computes WKV6: no library
+    time."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as kwkv
+    out = {}
+    for i, (name, (B, S, H, state)) in enumerate(K7_CASES.items()):
+        args = _k7_inputs(B, S, H, 630 + i, state)
+
+        def run(args=args):
+            return kwkv.wkv6_scan(*args)
+
+        (y, st), (y2, st2) = run(), run()
+        torch.cuda.synchronize()
+        wy, wst = ref.wkv6_scan_ref(*args)
+        rec = dict(shape=(B, S, H, 64), from_state=state,
+                   y_row_rel_err=_rel_norm_err(y, wy, (-1,)),
+                   state_rel_err=_rel_norm_err(st, wst, (-2, -1)),
+                   max_abs_err=max((y - wy).abs().max().item(),
+                                   (st - wst).abs().max().item()),
+                   repeat_bitwise=bool(torch.equal(y, y2)
+                                       and torch.equal(st, st2)))
+        rec["ok"] = (rec["y_row_rel_err"] <= K7_TOL
+                     and rec["state_rel_err"] <= K7_TOL)
+        del y, st, y2, st2, wy, wst
+        nbytes = 4 * (5 * B * S * H * 64 + H * 64
+                      + (2 if state else 1) * B * H * 64 * 64)
+        rec.update(_bound(nbytes, (5.0 * 64 + 3.0) * B * S * H * 64))
+        iters = 20 if S > 1 else 200
+        if name in K7_DEVICE_TIMED:
+            rec.update(_timed(run, None, lambda a=args: ref.wkv6_scan_ref(*a),
+                              iters))
+        else:
+            ms = [time_ms(run, iters, 2) for _ in range(2)]
+            rec.update(ms=min(ms), ms_runs=ms, device_ms=None,
+                       plain_ms=time_ms(lambda a=args: ref.wkv6_scan_ref(*a),
+                                        1, 0), library_ms=None)
+        rec.update(plain="ref.wkv6_scan_ref, one step a loop iteration",
+                   library=None, bound_share=rec["bound_ms"] / rec["ms"])
+        out[name] = rec
+        log(f"  K7 {name:13s} [{B},{S},{H},64] "
+            f"{'random' if state else 'zero'} state: y row "
+            f"{rec['y_row_rel_err']:.2e}, state {rec['state_rel_err']:.2e},"
+            f" max|err| {rec['max_abs_err']:.2e} "
+            f"{'ok' if rec['ok'] else 'FAIL'}, repeat bitwise "
+            f"{rec['repeat_bitwise']}; kernel {rec['ms']:.4f} ms (runs "
+            f"{rec['ms_runs']}; device {rec['device_ms']}), plain "
+            f"{rec['plain_ms']:.2f} ms; bound {rec['bound_ms']:.4f} ms by "
+            f"{rec['bound_by']} ({100 * rec['bound_share']:.1f}% of it)")
+        del args
+        torch.cuda.empty_cache()
+    r, k, v, w, u, s0 = _k7_inputs(*K7_CHAIN, 639, True)
+    y, st = kwkv.wkv6_scan(r, k, v, w, u, s0)
+    state, ys = s0, []
+    for t in range(r.shape[1]):
+        yt, state = kwkv.wkv6_scan(r[:, t:t + 1], k[:, t:t + 1],
+                                   v[:, t:t + 1], w[:, t:t + 1], u, state)
+        ys.append(yt)
+    torch.cuda.synchronize()
+    chained = bool(torch.equal(torch.cat(ys, 1), y)
+                   and torch.equal(state, st))
+    try:
+        kwkv.wkv6_scan(r.clone().requires_grad_(), k, v, w, u, s0)
+        refused = False
+    except RuntimeError:
+        refused = True
+    out["chain"] = dict(shape=K7_CHAIN, chained_bitwise=chained,
+                        grad_refused=refused)
+    log(f"  K7 {r.shape[1]} chained launches at S = 1 bit for bit one "
+        f"launch over S: {chained}; grad mode refused: {refused}")
+    bad = [dict(case=n, **{x: c[x] for x in ("ok", "repeat_bitwise",
+                                              "y_row_rel_err",
+                                              "state_rel_err")})
+           for n, c in out.items() if n != "chain"
+           and not (c["ok"] and c["repeat_bitwise"])]
+    if bad or not chained or not refused:
+        raise SystemExit(f"K7 disagrees with its plain version or its "
+                         f"contract: {bad}, chained bitwise {chained}, "
+                         f"grad refused {refused}")
+    return out
+
+
+def _ties_ok(a, b, tol):
+    """Greedy tokens of logits ``a`` and ``b`` [B, V] agree up to ties: a
+    row's argmaxes may differ only where, in each run, the two tokens'
+    logits are within ``tol`` of each other. Returns (equal, ok)."""
+    ta, tb = a.argmax(-1), b.argmax(-1)
+    rows = (ta != tb).nonzero().flatten().tolist()
+    ok = all(abs(x[i, ta[i]] - x[i, tb[i]]).item() <= tol
+             for x in (a, b) for i in rows)
+    return not rows, ok
+
+
+def _rwkv_profile(model, toks, luffy):
+    """One batched prefill of ``toks`` and one decode step (B=4, from a
+    fresh cache) under torch.profiler: device ms against wall ms (the
+    busy share), the top device ops and K7's share of each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    cache = model.new_cache(toks.shape[0], 2)
+    for name, fn in (("prefill", lambda: model.prefill(toks, toks.shape[1],
+                                                       luffy=luffy)),
+                     ("decode_step", lambda: model.decode_step(
+                         cache, toks[:, :1], luffy=luffy))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rows = _device_rows(prof)
+        busy = sum(r[0] for r in rows)
+        k7 = sum(d for d, key, _ in rows if "wkv6_kernel" in key)
+        out[name] = dict(wall_ms=wall_us / 1e3, device_ms=busy / 1e3,
+                         device_busy_share=busy / wall_us if rows else None,
+                         k7_ms=k7 / 1e3,
+                         k7_share=k7 / busy if busy else None,
+                         top=[{"op": k[:60], "ms": d / 1e3, "count": c}
+                              for d, k, c in rows[:8]])
+    return out
+
+
+def _rwkv_feed_f32(cfg, luffy):
+    """The step feed against the batched prefill at f32 compute on a
+    full-width cut of ``RWKV_FEED_F32_LAYERS`` layers, ``RWKV_FEED``'s
+    prompt: the last logits' largest difference and the greedy tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import build_model
+    cut = dataclasses.replace(cfg, num_layers=RWKV_FEED_F32_LAYERS,
+                              compute_dtype="float32")
+    B, S = RWKV_FEED["B"], RWKV_FEED["S"]
+    model = build_model(cut, device="cuda", seed=0)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cut.vocab_size, (B, S)), dtype=torch.int32, device="cuda")
+    lg_batch, _ = model.prefill(toks, S, luffy=luffy)
+    cache = model.new_cache(B, S)
+    for t in range(S):
+        lg, cache = model.decode_step(cache, toks[:, t:t + 1], luffy=luffy)
+    a, b = lg.float().cpu(), lg_batch.float().cpu()
+    del model, cache
+    _free_card()
+    return dict(layers=RWKV_FEED_F32_LAYERS, prompt_len=S,
+                max_abs=(a - b).abs().max().item(),
+                logits_max_abs=b.abs().max().item(),
+                tokens_equal=bool(torch.equal(a.argmax(-1),
+                                              b.argmax(-1))))
+
+
+def phase_rwkv_serve():
+    """Phase 64: rwkv6-3b at full width and depth (32 layers, d 2560, 40
+    heads of 64, f32 parameters, bf16 compute), random weights from seed
+    0: two batched prefills of B=4 x 2048 through the engine with every
+    counter set to 0 just before and read just after (K7 exactly 32
+    launches a prefill, nothing else: no K5), prefill tokens/s and peak
+    memory; the decode cache built by the step feed of a 64-token prompt
+    (B=4) and 32 greedy tokens (K7 exactly 32 launches a step), ms a
+    step; the step-fed last logits against the batched prefill of the
+    same 64 tokens within ``RWKV_FEED_TOL["bfloat16"]`` and their greedy
+    tokens equal up to ties within it, and on a 4-layer full-width cut
+    at f32 within ``RWKV_FEED_TOL["float32"]`` with the same tokens; a
+    slot recycled by ``admit_slot`` (its WKV6 state and both token
+    shifts zeroed) decoding bit for bit as a fresh cache's; a profiled
+    prefill and decode step (busy share, top ops, K7's share). Then the
+    launcher (``RWKV_LAUNCHER_ARGS``) and a short ``--continuous`` run
+    (``RWKV_CONT_ARGS``), each with exact launches."""
+    import numpy as np
+    import torch
+    from repro_torch.config import LuffyConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wkv6 as kwkv
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    cfg = get_config(RWKV)
+    L = cfg.num_layers
+    counters = dict(_kernel_counters(), wkv6_scan=kwkv.wkv6_scan)
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    def only_k7(n):
+        return dict(dict.fromkeys(counters, 0), wkv6_scan=n)
+
+    held = _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = t_phase = time.perf_counter()
+    parts = {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated() - held
+    B, S = RWKV_SERVE["B"], RWKV_SERVE["S"]
+    r = np.random.default_rng(0)
+    toks = torch.as_tensor(r.integers(1, cfg.vocab_size, (B, S)),
+                           dtype=torch.int32, device="cuda")
+    zero()
+    model.prefill(toks, S, luffy=luffy)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, kvs = model.prefill(toks, S, luffy=luffy)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = read()
+    prefill_peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(logits).all()) and kvs == [None] * L
+    part("init_and_prefills")
+
+    fb, fs, gen = RWKV_FEED["B"], RWKV_FEED["S"], RWKV_FEED["gen"]
+    short = toks[:fb, :fs]
+    lg_batch, _ = model.prefill(short, fs + gen, luffy=luffy)
+    cache = model.new_cache(fb, fs + gen)
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(fs):
+        lg_feed, cache = model.decode_step(cache, short[:, t:t + 1],
+                                           luffy=luffy)
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    feed_launches = read()
+    zero()
+    t0 = time.perf_counter()
+    tokens, lgs = _greedy(model, cache, lg_feed, gen, luffy)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    dec_launches = read()
+    finite &= all(bool(torch.isfinite(t).all()) for t in lgs)
+    a, b = lg_feed.float().cpu(), lg_batch.float().cpu()
+    tok_equal, tok_ok = _ties_ok(a, b, RWKV_FEED_TOL["bfloat16"])
+    del cache, lgs
+    part("feed_and_decode")
+    got, want, zeroed = _recycled_vs_fresh(model, RWKV_RECYCLE, seed=63)
+    recycled = bool(torch.equal(got, want))
+    part("recycled")
+    prof = _rwkv_profile(model, toks, luffy)
+    part("profile")
+    info = dict(arch=cfg.name, layers=L, batch=B, prompt_len=S,
+                init_s=init_s, weight_bytes=weights, prefill_s=prefill_s,
+                prefill_tok_s=B * S / prefill_s,
+                prefill_peak_mem_bytes=prefill_peak, launches=launches,
+                launches_expected=only_k7(2 * L),
+                feed=dict(batch=fb, prompt_len=fs, gen=gen, feed_s=feed_s,
+                          feed_ms_per_step=feed_s / fs * 1e3,
+                          decode_ms_per_step=decode_s / gen * 1e3,
+                          feed_launches=feed_launches,
+                          decode_launches=dec_launches,
+                          feed_vs_batched_max_abs=(a - b).abs().max().item(),
+                          logits_max_abs=b.abs().max().item(),
+                          tokens_equal=tok_equal, tokens_equal_up_to_ties=
+                          tok_ok, sample_tokens=tokens[0, :8].tolist()),
+                recycled=dict(bitwise=recycled, rows_zeroed=zeroed,
+                              max_abs=(got - want).abs().max().item()),
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                finite=finite, profile=prof)
+    del model, logits, kvs, lg_batch, lg_feed, toks, short, got, want
+    _free_card()
+    info["feed_f32_cut"] = _rwkv_feed_f32(cfg, luffy)
+    part("feed_f32_cut")
+    log("rwkv6 serve: " + json.dumps(info))
+    f, f32 = info["feed"], info["feed_f32_cut"]
+    if not (finite and launches == only_k7(2 * L)
+            and feed_launches == only_k7(L * fs)
+            and dec_launches == only_k7(L * gen)
+            and f["feed_vs_batched_max_abs"] <= RWKV_FEED_TOL["bfloat16"]
+            and tok_ok and f32["max_abs"] <= RWKV_FEED_TOL["float32"]
+            and f32["tokens_equal"] and recycled and zeroed):
+        raise SystemExit("rwkv6 serve failed its gates: " + json.dumps(info))
+
+    zero()
+    res = serve.main(RWKV_LAUNCHER_ARGS)
+    lau = read()
+    lwant = only_k7(L * (serve.N_BATCHED_PREFILLS + 64 + 8))
+    lfinite = all(bool(torch.isfinite(t).all()) for t in
+                  [res["prefill_logits"]] + res["step_logits"]
+                  + res["gen_logits"])
+    info["launcher"] = dict(launches=lau, launches_expected=lwant,
+                            finite=lfinite,
+                            prefill_tok_s=res["prefill_tok_s"],
+                            prompt_feed_s=res["prompt_feed_s"],
+                            decode_ms_per_step=res["decode_ms_per_step"],
+                            peak_mem_bytes=res.get("peak_mem_bytes"),
+                            sample_tokens=res["tokens"][0].tolist())
+    del res
+    _free_card()
+    part("launcher")
+    zero()
+    cont = serve.main(RWKV_CONT_ARGS)
+    clau = read()
+    calls = cont["model_calls"]
+    info["continuous"] = dict(
+        launches=clau, launches_expected=only_k7(L * calls),
+        finished=cont["finished"], slot_churn=cont["slot_churn"],
+        model_calls=calls, tok_s=cont["tok_s"],
+        decode_ms_per_step=cont["decode_ms_per_step"], slo=cont["slo"])
+    del cont
+    _free_card()
+    part("continuous")
+    info["parts_s"] = parts
+    log("rwkv6 launcher and continuous: " + json.dumps(
+        {k: info[k] for k in ("launcher", "continuous", "parts_s")}))
+    c = info["continuous"]
+    if not (lau == lwant and lfinite and clau == c["launches_expected"]
+            and c["finished"] == 4 and c["slot_churn"] > 0):
+        raise SystemExit("rwkv6 launcher or continuous run failed: "
+                         + json.dumps({k: info[k] for k in
+                                       ("launcher", "continuous")}))
+    return info
+
+
+def phase_rwkv_parity():
+    """Phase 65: reduced rwkv6 (2 layers, d 256, 4 heads of 64) on the
+    card (K7) against the same parameters on the CPU (K7's plain
+    version): the batched prefill's logits at a prompt of
+    ``RWKV_PARITY["S"]``, the prompt fed a token a step (the last
+    logits) and ``gen`` greedy tokens from that cache, each side decoding
+    its own tokens. f32 compute: logits within 1e-4, tokens equal, K7
+    once a layer a prefill and a step on the card and never on the CPU;
+    bf16 compute: logits within ``ARCH_PARITY_TOL``, tokens recorded."""
+    import numpy as np
+    import torch
+    from repro_torch.config import LuffyConfig, reduced
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wkv6 as kwkv
+    from repro_torch.models.model import build_model
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    p = RWKV_PARITY
+    B, S, gen = p["B"], p["S"], p["gen"]
+    red = reduced(get_config(RWKV))
+    out = {}
+    for cdt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(red, compute_dtype=cdt)
+        toks = torch.as_tensor(np.random.default_rng(65).integers(
+            1, cfg.vocab_size, (B, S)), dtype=torch.int32)
+        model = build_model(cfg, device="cuda", seed=65)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            if dev == "cpu":
+                model.to("cpu")     # the same parameters, moved
+            k7 = kwkv.wkv6_scan.launches
+            tk = toks.to(dev)
+            pf, _ = model.prefill(tk, S + gen, luffy=luffy)
+            cache = model.new_cache(B, S + gen)
+            for t in range(S):
+                lg, cache = model.decode_step(cache, tk[:, t:t + 1],
+                                              luffy=luffy)
+            tokens, lgs = _greedy(model, cache, lg, gen, luffy)
+            res[dev] = dict(prefill=pf.float().cpu(), feed=lg.float().cpu(),
+                            tokens=tokens.cpu(),
+                            gen=[x.float().cpu() for x in lgs],
+                            k7=kwkv.wkv6_scan.launches - k7)
+        del model
+        _free_card()
+        a, b = res["cuda"], res["cpu"]
+        same = bool(torch.equal(a["tokens"], b["tokens"]))
+        rr = dict(compute_dtype=cdt, prompt_len=S, gen=gen,
+                  prefill_max_abs=(a["prefill"] - b["prefill"]).abs().max()
+                  .item(),
+                  feed_max_abs=(a["feed"] - b["feed"]).abs().max().item(),
+                  gen_max_abs=max((x - y).abs().max().item() for x, y in
+                                  zip(a["gen"], b["gen"])) if same else None,
+                  logits_max_abs=b["prefill"].abs().max().item(),
+                  tokens_equal=same, k7_launches_card=a["k7"],
+                  k7_launches_cpu=b["k7"],
+                  k7_launches_expected=cfg.num_layers * (1 + S + gen),
+                  tol=RWKV_PARITY_TOL[cdt])
+        out[cdt] = rr
+        log(f"rwkv6 parity {cdt}: " + json.dumps(rr))
+    bad = []
+    for cdt, rr in out.items():
+        tol = rr["tol"]
+        ok = (rr["prefill_max_abs"] <= tol and rr["feed_max_abs"] <= tol
+              and rr["k7_launches_card"] == rr["k7_launches_expected"]
+              and rr["k7_launches_cpu"] == 0)
+        if cdt == "float32":
+            ok &= rr["tokens_equal"] and rr["gen_max_abs"] <= tol
+        if not ok:
+            bad.append(rr)
+    if bad:
+        raise SystemExit("reduced rwkv6, card against CPU: "
+                         + json.dumps(bad))
+    return out
+
+
+def run_rwkv_phases():
+    """Phases 63-65 in order."""
+    return {"kernels": phase_rwkv_kernels(), "serve": phase_rwkv_serve(),
+            "parity": phase_rwkv_parity()}
+
+
+def _rwkv_records(rw):
+    """K7's record: timed at the prefill's shape from the zero state (the
+    prefill's call), with the launches of phase 64's two batched
+    prefills; the other shapes, the decode path's launches and the
+    chained check beside it."""
+    k, sv = rw["kernels"], rw["serve"]
+    t = k["prefill"]
+    return [_record(
+        "wkv6_scan", "src/repro_torch/csrc/wkv6.cu",
+        "src/repro/models/ssm.py:177 (_rwkv6_core's lax.scan; no Pallas "
+        "kernel)", sv["launches"]["wkv6_scan"],
+        dict(t, max_abs_err=max(c["max_abs_err"] for n, c in k.items()
+                                if n != "chain")),
+        {"timed_at": "[4,2048,40,64] f32 from the zero state (rwkv6-3b's "
+                     "prefill)",
+         "launches_path": f"{RWKV} serve at 32 layers, 2 batched prefills "
+                          f"of 4 x 2048",
+         "launches_feed_and_decode": {
+             "feed": sv["feed"]["feed_launches"]["wkv6_scan"],
+             "decode": sv["feed"]["decode_launches"]["wkv6_scan"],
+             "launcher": sv["launcher"]["launches"]["wkv6_scan"],
+             "continuous": sv["continuous"]["launches"]["wkv6_scan"]},
+         "device_ms": t["device_ms"], "bound_share": t["bound_share"],
+         "plain": t["plain"], "library": "none (no PyTorch call computes "
+                                         "WKV6)",
+         "chained_bitwise": k["chain"]["chained_bitwise"],
+         "cases": {n: {x: c[x] for x in ("shape", "ms", "device_ms",
+                                         "plain_ms", "bound_ms",
+                                         "y_row_rel_err", "state_rel_err")}
+                   for n, c in k.items() if n != "chain"}})]
+
+
 # phase 54: the tensor-core kernel's band, and the same band starting
 # one key tile late where the window has moved past the sequence's start
 K5_BAND_LINE = ("  const int lo = window > 0 ? max(0, q0 - window + 1) / BKT : "
@@ -7794,7 +8351,10 @@ def _only_runners():
                     59: lambda need: phase_llama4_ep_serve(),
                     60: lambda need: phase_seamless_kernels(),
                     61: lambda need: phase_seamless_serve(),
-                    62: lambda need: phase_seamless_parity()})
+                    62: lambda need: phase_seamless_parity(),
+                    63: lambda need: phase_rwkv_kernels(),
+                    64: lambda need: phase_rwkv_serve(),
+                    65: lambda need: phase_rwkv_parity()})
     return runners
 
 
@@ -7864,6 +8424,8 @@ def main(argv=None) -> int:
     l4 = run_llama4_phases()
     log("the encoder-decoder seamless-m4t-large-v2 (phases 60-62):")
     sm = run_seamless_phases()
+    log("the attention-free rwkv6-3b (phases 63-65):")
+    rw = run_rwkv_phases()
     slice_info, slice_out = phase_slice()
     phase_parity()
     serve_prof = phase_profile()
@@ -8187,6 +8749,7 @@ def main(argv=None) -> int:
     records += _arch_records(arch)
     records += _llama4_records(l4)
     records += _seamless_records(sm)
+    records += _rwkv_records(rw)
     log("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in sorted(PHASE_S.items(),
                                             key=lambda kv: -kv[1])}))

@@ -37,6 +37,11 @@ class AttnConfig:
     def window_for_layer(self, layer: int) -> Optional[int]:
         return self.window_pattern[layer % len(self.window_pattern)]
 
+    @property
+    def subquadratic(self) -> bool:
+        """True iff no layer does full quadratic attention."""
+        return all(w is not None for w in self.window_pattern)
+
 
 @dataclass(frozen=True)
 class MoEConfig:
@@ -51,8 +56,8 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class SSMConfig:
-    """Mamba-style selective SSM (hymba's parallel branch). The port
-    runs ``kind="mamba"``; "rwkv6" raises until its slice."""
+    """Mamba-style selective SSM (hymba's parallel branch) or RWKV-6's
+    time-mix (rwkv6-3b's token mixer, ``head_dim`` its head size)."""
     kind: str = "mamba"            # "mamba" | "rwkv6"
     state_dim: int = 16            # N: per-channel state size
     expand: int = 2                # d_inner = expand * d_model
@@ -101,6 +106,23 @@ class ModelConfig:
     @property
     def uses_moe(self) -> bool:
         return self.moe is not None and "moe" in self.layer_ffn_pattern
+
+    @property
+    def supports_long_decode(self) -> bool:
+        """May run the ``long_500k`` shape (the reference's rule): a pure
+        SSM stack, a hybrid whose attention is all windowed, or an
+        attention arch whose layers are mostly sliding-window / chunked.
+        Full-attention archs and encoder-decoders skip it."""
+        if self.kind == "encdec":
+            return False
+        if self.ssm is not None and self.attn is None:
+            return True            # pure SSM
+        if self.parallel_ssm:
+            return self.attn.subquadratic
+        wp = self.attn.window_pattern
+        windowed = sum(1 for w in wp if w is not None)
+        return windowed * 2 >= len(wp) and windowed > 0 \
+            or self.attn.subquadratic
 
 
 @dataclass(frozen=True)

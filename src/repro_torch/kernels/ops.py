@@ -17,6 +17,7 @@ from repro_torch.kernels import mamba_scan as _mamba_scan
 from repro_torch.kernels import pack as _pack
 from repro_torch.kernels import ref
 from repro_torch.kernels import similarity as _similarity
+from repro_torch.kernels import wkv6 as _wkv6
 
 
 def _device(t, name: str) -> str:
@@ -89,3 +90,9 @@ def mamba_scan_fused(dt_lin, dt_bias, x, z, d_skip, bmat, cmat, a):
                                         cmat, a)
     return _mamba_scan.mamba_scan_fused(dt_lin, dt_bias, x, z, d_skip, bmat,
                                         cmat, a)
+
+
+def wkv6_scan(r, k, v, w, u, state=None):
+    if _device(r, "wkv6_scan") == "cpu":
+        return ref.wkv6_scan_ref(r, k, v, w, u, state)
+    return _wkv6.wkv6_scan(r, k, v, w, u, state)

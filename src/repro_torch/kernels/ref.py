@@ -242,3 +242,23 @@ def mamba_scan_fused_ref(dt_lin, dt_bias, x, z, d_skip, bmat, cmat, a):
     y = y + d_skip * xf
     y = y * F.silu(z.float())
     return y.to(x.dtype), h
+
+
+def wkv6_scan_ref(r, k, v, w, u, state=None):
+    """The WKV6 recurrence step by step, in the reference's op order
+    (``repro/models/ssm.py::_rwkv6_core``), f32: r, k, v, w [B,S,H,hd]
+    (w the decay in (0, 1)), u [H,hd] the bonus, state [B,H,hd,hd] laid
+    out [k][v] (None: zeros). Per step ``kv = k v^T``, ``y = r^T (S +
+    u kv)``, ``S = w S + kv``. Returns (y [B,S,H,hd] f32, the final state
+    [B,H,hd,hd] f32)."""
+    B, S_, H, hd = r.shape
+    st = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+          if state is None else state.float())
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[..., None]
+    ys = []
+    for t in range(S_):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]        # [B,H,hd,hd]
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], st + uf * kv))
+        st = wf[:, t, :, :, None] * st + kv
+    return torch.stack(ys, 1), st

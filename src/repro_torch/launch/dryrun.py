@@ -17,10 +17,13 @@ analytically, with the knobs resolved as the launchers resolve them.
 The mesh is the reference's production layout (16 x 16, or 2 x 16 x 16
 with ``--multi-pod``; ``--nodes N`` splits the model axis into N nodes),
 with no device behind it: nothing is lowered, compiled or run, and the
-record's ``status`` is ``"modeled"``. The ledger prices the expert FFN
-at the card's bf16 tensor-core peak (``launch.mesh.PEAK_FLOPS_BF16``),
-or at a measured calibration's FFN speed (``--calibration``, an artifact
-of :mod:`repro_torch.obs.calibrate` or of the reference's). Knob
+record's ``status`` is ``"modeled"``; at ``long_500k`` an arch that
+cannot decode it (``ModelConfig.supports_long_decode``: full attention)
+gets the reference's ``"skipped"`` record with its reason instead. The
+ledger prices the expert FFN at the card's bf16 tensor-core peak
+(``launch.mesh.PEAK_FLOPS_BF16``), or at a measured calibration's FFN
+speed (``--calibration``, an artifact of
+:mod:`repro_torch.obs.calibrate` or of the reference's). Knob
 precedence: an explicit flag, then the tuned artifact (``--autotune``),
 then the default (:func:`repro_torch.obs.autotune.resolve_knobs`); the
 wire's ``comm_mode`` follows the layout. The reference's compile half
@@ -415,23 +418,28 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
            "exec_mode": knobs["exec_mode"],
            "plan_objective": knobs["plan_objective"],
            "plan_reuse": args.plan_reuse, "knobs": knobs,
-           "autotuned": tuned is not None, "status": "modeled",
-           "comm_ledger": (comm_traffic_ledger(
-               cfg, shape, mesh, nodes=args.nodes,
-               exec_chunks=(knobs["pipeline_chunks"]
-                            if knobs["exec_mode"] == "pipeline" else 0),
-               plan_reuse=args.plan_reuse,
-               similarity_backend=knobs["similarity_backend"],
-               lsh_bits=knobs["lsh_bits"],
-               condense_reuse=args.condense_reuse,
-               hier_dedup=knobs["hier_dedup"],
-               wire_dtype=knobs["wire_dtype"],
-               calibration=calibration,
-               autotune_applied=tuned is not None)
-               if shape.mode == "train" else None)}
+           "autotuned": tuned is not None, "status": "modeled"}
     out = Path(args.out) if args.out else \
         ARTIFACTS / f"{args.arch}__{args.shape}__{tag}.json"
     out.parent.mkdir(parents=True, exist_ok=True)
+    if args.shape == "long_500k" and not cfg.supports_long_decode:
+        # the reference's rule (src/repro/launch/dryrun.py): only an arch
+        # with recurrent state or mostly windowed attention decodes 500k
+        rec.update(status="skipped", reason="full-attention arch; "
+                   "long_500k skipped (DESIGN.md)")
+        out.write_text(json.dumps(rec, indent=1))
+        print(f"SKIP {args.arch} {args.shape}")
+        return rec
+    rec["comm_ledger"] = (comm_traffic_ledger(
+        cfg, shape, mesh, nodes=args.nodes,
+        exec_chunks=(knobs["pipeline_chunks"]
+                     if knobs["exec_mode"] == "pipeline" else 0),
+        plan_reuse=args.plan_reuse,
+        similarity_backend=knobs["similarity_backend"],
+        lsh_bits=knobs["lsh_bits"], condense_reuse=args.condense_reuse,
+        hier_dedup=knobs["hier_dedup"], wire_dtype=knobs["wire_dtype"],
+        calibration=calibration, autotune_applied=tuned is not None)
+        if shape.mode == "train" else None)
     out.write_text(json.dumps(rec, indent=1))
     if args.metrics_json and rec["comm_ledger"]:
         from repro_torch.obs import metrics as obs_metrics

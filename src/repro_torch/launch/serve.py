@@ -20,6 +20,8 @@ of ``repro/launch/serve.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch seamless-m4t-large-v2 [--num-layers N] --batch 4 \\
         --prompt-len 64 --gen 8 --prefill batch
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+        --batch 4 --prompt-len 64 --gen 8 --prefill batch [--continuous]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch moe-gpt2 \\
         --model-axis 4 --batch 8 --prompt-len 128 --gen 32 --prefill batch \\
         [--exec-mode {sync,pipeline,decode_overlap}] [--pipeline-chunks N] \\
@@ -72,6 +74,13 @@ arch. On the card the encoder's layers and the cross layers attend on K5,
 non-causal. ``--num-layers N`` cuts both stacks to N, as
 ``config.reduced`` does. ``--continuous`` and ``--model-axis > 1``
 raise for an encoder-decoder (ROADMAP Queue 1 item 8.8).
+
+The attention-free ``rwkv6-3b`` keeps no K/V: its decode cache is each
+layer's WKV6 state and two token-shift states, which the step-wise
+prompt feed fills (the prefill returns no state, as the reference's
+does); the recurrence runs on kernel K7 in the batched prefill (one
+launch a layer) and in every decode step (one a layer, the state updated
+in place), and ``admit_slot`` zeroes a recycled slot's states.
 
 ``--model-axis M > 1`` serves over M virtual expert-parallel ranks held
 by this one process (a flat mesh, as the reference's): the batched

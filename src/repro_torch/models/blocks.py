@@ -246,8 +246,8 @@ def flash_takes(cfg: ModelConfig) -> bool:
     kind is one it takes (a global layer causal, a sliding window, a
     chunked-local window by :func:`flash_chunked`), so only a logit cap
     rules an arch out (a key-padding mask is the caller's to rule
-    out)."""
-    return cfg.attn.logit_cap is None
+    out). An arch without attention (RWKV-6) has nothing for K5."""
+    return cfg.attn is not None and cfg.attn.logit_cap is None
 
 
 def flash_chunked(q, k, v, chunk: int, *, causal: bool, scale: float):

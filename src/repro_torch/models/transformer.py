@@ -1,6 +1,7 @@
 """The decoder stack (counterpart of ``repro/models/transformer.py``):
 parameter init, embedding, the LM head (tied or not), the chunked
-cross-entropy, hymba's hybrid token mixer, an encoder-decoder's encoder
+cross-entropy, hymba's hybrid token mixer, an RWKV-6 layer
+(:func:`rwkv_block`), an encoder-decoder's encoder
 (:func:`encode`, :func:`run_encoder`) and its cross-attention sublayer
 (:func:`cross_sublayer`), and the train forward, on one device or over
 ``M`` virtual expert-parallel ranks (:func:`_moe_apply_dist`,
@@ -39,18 +40,23 @@ def pattern_period(cfg: ModelConfig) -> int:
 
 
 def _check_arch(cfg: ModelConfig):
-    if cfg.kind not in ("decoder", "encdec") or cfg.attn is None or (
+    if cfg.kind not in ("decoder", "encdec") or (
             cfg.kind == "encdec" and cfg.ssm is not None):
         raise NotImplementedError(
-            f"{cfg.name}: only attention decoders and attention "
-            f"encoder-decoders are ported; other kinds come with their "
-            f"own slices (ROADMAP Queue 1 item 8)")
-    if cfg.ssm is not None and not (cfg.parallel_ssm
-                                    and cfg.ssm.kind == "mamba"):
+            f"{cfg.name}: only decoders and attention encoder-decoders are "
+            f"ported (an encoder-decoder with an SSM has no config)")
+    if cfg.attn is None:
+        if cfg.ssm is None or cfg.ssm.kind != "rwkv6" or cfg.uses_moe:
+            raise NotImplementedError(
+                f"{cfg.name}: of the attention-free stacks only RWKV-6 "
+                f"with its channel-mix is ported (a pure Mamba stack has "
+                f"no config)")
+    elif cfg.ssm is not None and not (cfg.parallel_ssm
+                                      and cfg.ssm.kind == "mamba"):
         raise NotImplementedError(
-            f"{cfg.name}: of the SSM mixers only hymba's parallel Mamba "
-            f"branch is ported (RWKV-6 and stacked SSMs: ROADMAP Queue 1 "
-            f"item 8)")
+            f"{cfg.name}: of the hybrids only hymba's parallel Mamba "
+            f"branch is ported (a stacked SSM beside attention has no "
+            f"config)")
 
 
 def hybrid_mixer(p, cfg: ModelConfig, x, positions, layer: int):
@@ -64,16 +70,35 @@ def hybrid_mixer(p, cfg: ModelConfig, x, positions, layer: int):
     return x + 0.5 * (att + sso), kv
 
 
+def rwkv_block(p, cfg: ModelConfig, x):
+    """An RWKV-6 layer over a whole sequence from the zero state: the
+    time-mix on its own norm (its recurrence on K7), then the
+    channel-mix on the FFN's norm, each token-shifted with zeros before
+    position 0. x: [B,S,d] -> [B,S,d]."""
+    xn = bk.norm_apply(p["ssm_norm"], x, cfg.norm)
+    x = x + ssm_mod.rwkv6_apply(p["ssm"], cfg, xn)
+    xn = bk.norm_apply(p["ffn_norm"], x, cfg.norm)
+    return x + ssm_mod.rwkv_cmix_apply(p["ffn"], cfg, xn)
+
+
 def _init_layer(generator, cfg: ModelConfig, layer: int, *, device,
                 cross: bool = False):
-    """One layer's parameters; ``cross``: a decoder layer of an
-    encoder-decoder, with ``cross_norm`` and ``cross_attn``."""
+    """One layer's parameters, with the reference's keys; ``cross``: a
+    decoder layer of an encoder-decoder, with ``cross_norm`` and
+    ``cross_attn``. An RWKV-6 layer has ``ssm`` and ``ssm_norm`` in place
+    of the attention, and its ``ffn`` is the channel-mix."""
     pdt = bk._dtype(cfg.param_dtype)
-    p: Dict[str, Any] = {
-        "attn_norm": bk.norm_init(cfg.d_model, cfg.norm, pdt, device=device),
-        "attn": bk.attn_init(generator, cfg, device=device),
-    }
-    if cfg.ssm is not None:           # parallel branch: no norm of its own
+    p: Dict[str, Any] = {}
+    if cfg.attn is not None:
+        p["attn_norm"] = bk.norm_init(cfg.d_model, cfg.norm, pdt,
+                                      device=device)
+        p["attn"] = bk.attn_init(generator, cfg, device=device)
+    rwkv = cfg.ssm is not None and cfg.ssm.kind == "rwkv6"
+    if rwkv:
+        p["ssm"] = ssm_mod.rwkv6_init(generator, cfg, device=device)
+        p["ssm_norm"] = bk.norm_init(cfg.d_model, cfg.norm, pdt,
+                                     device=device)
+    elif cfg.ssm is not None:         # parallel branch: no norm of its own
         p["ssm"] = ssm_mod.mamba_init(generator, cfg, device=device)
     if cross:
         p["cross_norm"] = bk.norm_init(cfg.d_model, cfg.norm, pdt,
@@ -83,8 +108,9 @@ def _init_layer(generator, cfg: ModelConfig, layer: int, *, device,
         p["moe"] = moe.moe_init(generator, cfg, device=device)
     else:
         p["ffn_norm"] = bk.norm_init(cfg.d_model, cfg.norm, pdt, device=device)
-        p["ffn"] = bk.ffn_init(generator, cfg.d_model, cfg.d_ff, cfg,
-                               device=device)
+        p["ffn"] = (ssm_mod.rwkv_cmix_init(generator, cfg, device=device)
+                    if rwkv else bk.ffn_init(generator, cfg.d_model,
+                                             cfg.d_ff, cfg, device=device))
     return p
 
 
@@ -310,15 +336,19 @@ def _moe_apply_dist(p_moe, x, sideband, s_prev, threshold, cfg, luffy,
 def _layer_full(p, cfg: ModelConfig, luffy: LuffyConfig, layer: int,
                 moe_mode: str, capacity: int, dist, x, sideband, s_prev,
                 threshold, cond_carry, plan_carry, wire_ef, enc=None):
-    """One decoder layer of the train forward: attention over the whole
-    batch (causal, or for a non-causal arch masked to each sequence's
-    ``seq_len`` keys, read from the sideband, which has moved with its
-    sequence), an encoder-decoder's cross sublayer over ``enc`` =
-    (enc_out, enc_pos), then the MoE sublayer (condensing, carrying the
-    similarity history, the condense carry, the plan carry and the wire
-    residual, and migrating sequences across ranks; or sequence-sharded)
-    or the dense FFN. Returns (x, sideband, s_prev, aux, cond_carry,
-    plan_carry, wire_ef)."""
+    """One decoder layer of the train forward (an RWKV-6 layer:
+    :func:`rwkv_block`): attention over the whole batch (causal, or for a
+    non-causal arch masked to each sequence's ``seq_len`` keys, read from
+    the sideband, which has moved with its sequence), an
+    encoder-decoder's cross sublayer over ``enc`` = (enc_out, enc_pos),
+    then the MoE sublayer (condensing, carrying the similarity history,
+    the condense carry, the plan carry and the wire residual, and
+    migrating sequences across ranks; or sequence-sharded) or the dense
+    FFN. Returns (x, sideband, s_prev, aux, cond_carry, plan_carry,
+    wire_ef)."""
+    if cfg.attn is None:              # RWKV-6: no attention, no MoE
+        return (rwkv_block(p, cfg, x), sideband, s_prev,
+                _zero_aux(x.device), cond_carry, plan_carry, wire_ef)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     kv_valid = None
@@ -379,7 +409,7 @@ def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
     adds ``router_aux_coef`` times the mean router aux loss; the metrics
     are detached scalars."""
     _check_arch(cfg)
-    if cfg.ssm is not None:
+    if cfg.ssm is not None and cfg.attn is not None:
         raise NotImplementedError(
             f"{cfg.name}: training a hybrid needs backwards for K5 and K6, "
             f"which are not ported yet (ROADMAP Queue 2)")

@@ -12,7 +12,11 @@ Cache layout, one entry per layer: ``{"k", "v": [B, W, kv, hd],
 ring buffer (slot = rpos % W), a global layer a full buffer. ``cpos``
 holds each slot's relative position, -1 when empty. A hybrid layer
 (hymba) also carries its Mamba state, ``"ssm_h": [B, di, N]`` and
-``"ssm_conv": [B, K-1, di]``, both f32; a decoder layer of an
+``"ssm_conv": [B, K-1, di]``, both f32; an RWKV-6 layer (rwkv6-3b) has
+no K/V and carries its WKV6 state ``"ssm_S": [B, H, hd, hd]`` and its two
+token-shift states, the time-mix's ``"ssm_xprev": [B, 1, d]`` and the
+channel-mix's ``"cmix_xprev": [B, 1, d]`` (the previous token's normed
+inputs), all f32; a decoder layer of an
 encoder-decoder (seamless) its static cross K/V, ``"ck", "cv": [B,
 S_enc, kv, hd]`` in the compute dtype, which the prefill's per-layer
 ``ckv`` fills (:func:`write_cross_kv`) and no step writes. ``offset`` [B] is
@@ -22,7 +26,7 @@ saves a copy of every layer's cache per token, and returns the cache.
 
 Slot recycling (continuous batching, :mod:`repro_torch.serve.scheduler`):
 :func:`admit_slot` restarts a slot at relative position 0 by setting
-``offset[slot] = pos`` and zeroing its Mamba state, and clears no
+``offset[slot] = pos`` and zeroing its Mamba or RWKV state, and clears no
 attention entry. Every ``cpos`` entry at ring index ``i`` is either -1
 or a value ``v >= i`` with ``v = i (mod W)`` (writes store ``rpos`` at
 index ``rpos % W``). For a fresh occupant at ``rpos_new`` every stale
@@ -30,7 +34,9 @@ index ``i > rpos_new`` therefore holds ``v >= i > rpos_new`` or -1,
 masked by ``kp <= rpos`` exactly where a fresh cache's -1 entries are;
 the -1e30 logits give exactly-0 softmax weights, and ``0 * stale_v = 0``,
 so the recycled slot's logits are a fresh cache's bit for bit. The
-Mamba state carries across tokens unmasked, so it is zeroed. ``ck`` and
+Mamba and RWKV states carry across tokens unmasked, so they are zeroed
+(RWKV-6's decode is row-independent: K7 runs a block per (slot, head),
+so a zeroed slot decodes as a fresh one bit for bit). ``ck`` and
 ``cv`` are left as they are, as the reference's ``admit_slot`` leaves
 them: a recycled slot attends the old request's encoder memory until
 its own is written.
@@ -50,9 +56,11 @@ from repro_torch.models import blocks as bk
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.transformer import (cross_sublayer, embed_tokens,
                                             encode, hybrid_mixer, logits_fn,
-                                            moe_apply_vanilla)
+                                            moe_apply_vanilla, rwkv_block)
 
 NEG_INF = -1e30
+# the cache's recurrent state, which admit_slot zeroes
+RECURRENT_KEYS = ("ssm_h", "ssm_conv", "ssm_S", "ssm_xprev", "cmix_xprev")
 
 
 def _win(cfg: ModelConfig, layer: int, s_max: int) -> int:
@@ -70,13 +78,21 @@ def cache_struct(cfg: ModelConfig, batch: int, s_max: int, *, device,
     cdt = bk._dtype(cfg.compute_dtype)
     layers = []
     for i in range(cfg.num_layers):
-        W = _win(cfg, i, s_max)
-        shape = (batch, W, a.num_kv_heads, a.head_dim)
-        g = {"k": torch.zeros(shape, dtype=cdt, device=device),
-             "v": torch.zeros(shape, dtype=cdt, device=device),
-             "cpos": torch.full((batch, W), -1, dtype=torch.int32,
-                                device=device)}
-        if cfg.ssm is not None:
+        g = {}
+        if a is not None:
+            W = _win(cfg, i, s_max)
+            shape = (batch, W, a.num_kv_heads, a.head_dim)
+            g["k"] = torch.zeros(shape, dtype=cdt, device=device)
+            g["v"] = torch.zeros(shape, dtype=cdt, device=device)
+            g["cpos"] = torch.full((batch, W), -1, dtype=torch.int32,
+                                   device=device)
+        if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
+            st = ssm_mod.rwkv6_init_state(cfg, batch, device=device)
+            g["ssm_S"], g["ssm_xprev"] = st["S"], st["x_prev"]
+            # the channel-mix's own token shift (its input is normed by
+            # another norm than the time-mix's)
+            g["cmix_xprev"] = torch.zeros_like(st["x_prev"])
+        elif cfg.ssm is not None:
             st = ssm_mod.mamba_init_state(cfg, batch, device=device)
             g["ssm_h"], g["ssm_conv"] = st["h"], st["conv"]
         if cfg.kind == "encdec":
@@ -92,9 +108,11 @@ def cache_struct(cfg: ModelConfig, batch: int, s_max: int, *, device,
 def admit_slot(cache, slot: int, position: int):
     """Recycle cache slot ``slot`` for a new request whose first token is
     fed at absolute decode position ``position`` (normally
-    ``cache["pos"]``): ``offset[slot] = position``, and the slot's Mamba
-    state rows (``ssm_h``, ``ssm_conv``) of every hybrid layer zeroed,
-    in place. ``k``, ``v`` and ``cpos`` are left as they are: the
+    ``cache["pos"]``): ``offset[slot] = position``, and the slot's
+    recurrent state rows zeroed in place: the Mamba state (``ssm_h``,
+    ``ssm_conv``) of every hybrid layer, the RWKV-6 state and token
+    shifts (``ssm_S``, ``ssm_xprev``, ``cmix_xprev``) of every RWKV
+    layer. ``k``, ``v`` and ``cpos`` are left as they are: the
     recycling invariant (module docstring) masks every stale entry; so
     are an encoder-decoder's ``ck`` and ``cv``, as in the reference.
     Returns the cache. The writes are fills, so nothing is copied from
@@ -103,7 +121,7 @@ def admit_slot(cache, slot: int, position: int):
     with torch.inference_mode():
         cache["offset"][slot].fill_(int(position))
         for g in cache["layers"]:
-            for key in ("ssm_h", "ssm_conv"):
+            for key in RECURRENT_KEYS:
                 if key in g:
                     g[key][slot].zero_()
     return cache
@@ -198,6 +216,23 @@ def prefill_capacity(cfg: ModelConfig, batch: int, seq_len: int,
                             cfg.moe.num_experts)
 
 
+def rwkv_decode_layer(p, cfg: ModelConfig, x, g):
+    """One RWKV-6 layer of a decode step: the time-mix from the cached
+    state (K7 at S = 1 on the card) and the channel-mix shifted by
+    ``cmix_xprev``; the cache entries of layer ``g`` take the new states.
+    x: [B,1,d] -> [B,1,d]."""
+    xn = bk.norm_apply(p["ssm_norm"], x, cfg.norm)
+    y, st = ssm_mod.rwkv6_step(p["ssm"], cfg, xn, {"S": g["ssm_S"],
+                                                   "x_prev": g["ssm_xprev"]})
+    g["ssm_S"], g["ssm_xprev"] = st["S"], st["x_prev"]
+    x = x + y
+    xn = bk.norm_apply(p["ffn_norm"], x, cfg.norm)
+    x = x + ssm_mod.rwkv_cmix_apply(p["ffn"], cfg, xn,
+                                    x_prev=g["cmix_xprev"])
+    g["cmix_xprev"] = xn.float()
+    return x
+
+
 def _ffn_sublayer(p, cfg, luffy, x, layer, mode, capacity, sideband,
                   plan_template=None):
     if cfg.ffn_kind(layer) == "moe":
@@ -229,6 +264,9 @@ def decode_step(params, cfg: ModelConfig, luffy: LuffyConfig, cache, tokens,
         tmpl = plan_cache.get(decode_plan_key(cfg, luffy, B, cap))
     for i, p in enumerate(params["layers"]):
         g = cache["layers"][i]
+        if cfg.attn is None:
+            x = rwkv_decode_layer(p, cfg, x, g)
+            continue
         xn = bk.norm_apply(p["attn_norm"], x, cfg.norm)
         att, g["k"], g["v"], g["cpos"] = attn_decode(
             p["attn"], cfg, xn, pos, offset, g["k"], g["v"], g["cpos"],
@@ -272,14 +310,16 @@ def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
     sliding window, or a chunked-local window folded into the batch)
     attends through K5, at any prompt length (an encoder's layers and the
     cross layers non-causal, a cross layer at Sq != Sk); on the CPU
-    through the reference's ``attend`` / ``attend_chunked``. As in the
-    reference, a Mamba branch's final state is not returned: the
-    launcher builds the decode cache by feeding the prompt step by
-    step. ``plan_cache``: a :class:`repro_torch.plan.cache.PlanCache`;
-    when it holds this (batch, prompt) shape's template
-    (``--precompute-plans``), every MoE sublayer binds its routing onto
-    it: no plan is built, and the logits are the uncached prefill's bit
-    for bit."""
+    through the reference's ``attend`` / ``attend_chunked``. An RWKV-6
+    layer runs its recurrence over the whole prompt from the zero state
+    (one K7 launch on the card) and its entry is None (no K/V). As in
+    the reference, a Mamba branch's or an RWKV layer's final state is
+    not returned: the launcher builds the decode cache by feeding the
+    prompt step by step. ``plan_cache``: a
+    :class:`repro_torch.plan.cache.PlanCache`; when it holds this (batch,
+    prompt) shape's template (``--precompute-plans``), every MoE sublayer
+    binds its routing onto it: no plan is built, and the logits are the
+    uncached prefill's bit for bit."""
     x = embed_tokens(params, cfg, tokens, prefix)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
@@ -305,6 +345,10 @@ def prefill(params, cfg: ModelConfig, luffy: LuffyConfig, tokens,
         enc = encode(params, cfg, enc_input, flash=flash)
     kvs = []
     for i, p in enumerate(params["layers"]):
+        if cfg.attn is None:          # RWKV-6: K7, no K/V
+            x = rwkv_block(p, cfg, x)
+            kvs.append(None)
+            continue
         if cfg.ssm is not None:       # hymba: K5 and K6
             x, kv = hybrid_mixer(p, cfg, x, positions, i)
         else:

@@ -57,9 +57,16 @@ def check_trainable(cfg: ModelConfig) -> None:
     dense decoders (yi-34b, stablelm-12b, starcoder2-15b, gemma3-12b,
     internvl2-2b) and the dense encoder-decoder seamless-m4t-large-v2,
     whose step has no MoE sublayer to size a capacity for (and
-    internvl2's no prefix batch, seamless's no encoder-input batch), and
+    internvl2's no prefix batch, seamless's no encoder-input batch),
+    rwkv6-3b, which also needs a backward of its WKV6 kernel (K7), and
     an MoE arch with bf16 parameters (llama4-maverick), whose optimizer
     arithmetic on bf16 leaves is not yet held to the reference's."""
+    if cfg.attn is None and cfg.ssm is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training an RWKV-6 stack needs a dense train "
+            f"step and a backward of K7, the WKV6 kernel, neither ported "
+            f"yet (ROADMAP Queue 1 item 8.7); it serves through "
+            f"repro_torch.launch.serve")
     if not cfg.uses_moe:
         what = ("a dense encoder-decoder" if cfg.kind == "encdec"
                 else "a dense decoder")

@@ -201,11 +201,15 @@ def _served(name):
 
 
 def test_configs_registered():
-    """The five are ported (``get_config`` returns each), and only the
-    reference's arch of item 8.5 is still to port (llama4-maverick,
-    internvl2 and seamless: ``tests/test_torch_shared.py``,
-    ``tests/test_torch_prefix.py``, ``tests/test_torch_encdec.py``)."""
-    assert set(NOT_PORTED) == {"rwkv6-3b"}
+    """The five are ported (``get_config`` returns each), and so is every
+    other arch of the reference, rwkv6-3b included (llama4-maverick,
+    internvl2, seamless and rwkv6: ``tests/test_torch_shared.py``,
+    ``tests/test_torch_prefix.py``, ``tests/test_torch_encdec.py``,
+    ``tests/test_torch_rwkv.py``); a name the reference lacks raises."""
+    assert NOT_PORTED == ()
+    assert get_config("rwkv6-3b").name == jget_config("rwkv6-3b").name
+    with pytest.raises(NotImplementedError, match="not an architecture"):
+        get_config("rwkv7-3b")
     for arch in ARCHS:
         assert get_config(arch).name == jget_config(arch).name
     assert reduced(get_config("gemma3-12b")).num_layers == 6

@@ -8,8 +8,9 @@ cpos exactly, the zeroed Mamba rows exactly, k / v / Mamba state within
 the f32 tolerance), and the recycled slot's logits are **bit for bit**
 those of the same sequence decoded from a fresh cache (the recycling
 invariant, ``serve/engine.py``). Cases: reduced moe-gpt2, the same with
-a window of 6 so the ring wraps, and reduced hymba (its Mamba state
-zeroed) in place of the reference's rwkv6, which the port lacks.
+a window of 6 so the ring wraps, reduced hymba (its Mamba state zeroed)
+and reduced rwkv6-3b, the reference's own case (its WKV6 state and both
+token shifts zeroed, no attention entries).
 
 The loop: ``launch.serve.main([... "--continuous", "--device", "cpu"])``
 on reduced moe-gpt2 at f32 compute, against the reference's scheduler
@@ -74,7 +75,8 @@ def _layer_view(jcache, i, period):
 
 @pytest.mark.parametrize("arch,window", [("moe-gpt2", None),
                                          ("moe-gpt2", 6),
-                                         ("hymba-1.5b", None)])
+                                         ("hymba-1.5b", None),
+                                         ("rwkv6-3b", None)])
 def test_admit_slot_matches_reference_and_is_bitwise_fresh(arch, window):
     from repro.models.transformer import pattern_period
     jcfg = _f32(jreduced(jget_config(arch)), window)
@@ -104,18 +106,21 @@ def test_admit_slot_matches_reference_and_is_bitwise_fresh(arch, window):
     np.testing.assert_array_equal(cache["offset"].numpy(),
                                   np.asarray(jcache["offset"]))
     period = pattern_period(jcfg)
-    hybrid = tcfg.ssm is not None
+    attn = tcfg.attn is not None
+    state = (() if tcfg.ssm is None else ("ssm_h", "ssm_conv") if attn
+             else ("ssm_S", "ssm_xprev", "cmix_xprev"))
     for i, layer in enumerate(cache["layers"]):
         want = _layer_view(jcache, i, period)
         assert set(layer) == set(want), (set(layer), set(want))
-        np.testing.assert_array_equal(layer["cpos"].numpy(), want["cpos"])
-        for k in ("k", "v") + (("ssm_h", "ssm_conv") if hybrid else ()):
+        if attn:
+            np.testing.assert_array_equal(layer["cpos"].numpy(),
+                                          want["cpos"])
+        for k in (("k", "v") if attn else ()) + state:
             np.testing.assert_allclose(layer[k].numpy(), want[k], atol=TOL,
                                        rtol=TOL, err_msg=f"layer {i} {k}")
-        if hybrid:
-            for k in ("ssm_h", "ssm_conv"):
-                assert not layer[k][0].any() and not want[k][0].any()
-                assert layer[k][1].abs().sum() > 0
+        for k in state:
+            assert not layer[k][0].any() and not want[k][0].any()
+            assert layer[k][1].abs().sum() > 0
 
     def slot0(cache):
         out = []

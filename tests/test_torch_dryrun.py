@@ -166,3 +166,27 @@ def test_dryrun_cli(tmp_path):
         bad.write_text("{}")
         tdry.main(common[:6] + ["--calibration", str(bad), "--out",
                                 str(out)])
+
+
+def test_long_500k_skip_follows_the_reference_rule(tmp_path):
+    """At ``long_500k`` every registered arch gets the reference's status
+    (``src/repro/launch/dryrun.py``: "skipped", with its reason, where
+    ``supports_long_decode`` is false), decided here without the
+    reference's compile; rwkv6-3b, with recurrent state only, is priced."""
+    from repro_torch.configs import ALIASES
+    seen = set()
+    for arch in ALIASES:
+        out = tmp_path / f"{arch}.json"
+        rec = tdry.main(["--arch", arch, "--shape", "long_500k", "--out",
+                         str(out)])
+        want = ("modeled" if jget_config(arch).supports_long_decode
+                else "skipped")
+        assert rec["status"] == want, arch
+        assert json.loads(out.read_text()) == rec
+        if want == "skipped":
+            assert rec["reason"] == ("full-attention arch; long_500k "
+                                     "skipped (DESIGN.md)")
+        seen.add(want)
+    assert seen == {"modeled", "skipped"}
+    assert tdry.main(["--arch", "rwkv6-3b", "--shape", "long_500k", "--out",
+                      str(tmp_path / "r.json")])["status"] == "modeled"

@@ -166,8 +166,14 @@ def _served(cdt):
 
 
 def test_config_registered_and_reduced():
+    from repro_torch.config import SSMConfig
     from repro_torch.configs import NOT_PORTED
-    assert NOT_PORTED == ("rwkv6-3b",)
+    # every arch of the reference is registered, rwkv6-3b last; an
+    # encoder-decoder with an SSM (no config has one) still raises
+    assert NOT_PORTED == () and get_config("rwkv6-3b").attn is None
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        build_model(dataclasses.replace(_cfgs()[1], ssm=SSMConfig()),
+                    device="cpu")
     full = get_config(ARCH)
     assert (full.kind, full.num_layers, full.num_encoder_layers) == \
         ("encdec", 24, 24)

@@ -1146,19 +1146,20 @@ def test_expert_ffn_group_map_matches_plain(shape, h_dtype, lanes):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["moe-gpt2", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["moe-gpt2", "hymba-1.5b", "rwkv6-3b"])
 def test_recycled_slot_bitwise_fresh_on_card(arch):
     """A decode slot recycled by ``admit_slot`` after its ring wrapped
     gives the fresh cache's logits bit for bit on the card (K1 decodes
-    the moe-gpt2 case)."""
+    the moe-gpt2 case, K7 the rwkv6 one, which has no ring)."""
     _cuda_or_skip()
     import dataclasses
     from repro_torch.config import LuffyConfig, reduced
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     cfg = reduced(get_config(arch))
-    cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
-        cfg.attn, window_pattern=(6,)))
+    if cfg.attn is not None:
+        cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+            cfg.attn, window_pattern=(6,)))
     luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
     model = build_model(cfg, device="cuda", seed=3)
     r = np.random.default_rng(3)
@@ -1283,3 +1284,94 @@ def test_flash_chunked_matches_plain(S):
     want = bk.attend(q, k, v, mask, hd ** -0.5)
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
                                rtol=0)
+
+
+def _wkv6_inputs(B, S, H, seed, state=True):
+    """K7's operands as the time-mix gives them: r, k, v ~ N(0, 1), decays
+    w = exp(-exp(z)) with z uniform in [-8, 1] (memories of one step to
+    some three thousand), a bonus of 0.1 N(0, 1), a random state."""
+    r = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32).cuda()
+
+    rk = [t(r.standard_normal((B, S, H, 64))) for _ in range(3)]
+    w = t(np.exp(-np.exp(r.uniform(-8.0, 1.0, (B, S, H, 64)))))
+    u = t(r.standard_normal((H, 64)) * 0.1)
+    s0 = t(r.standard_normal((B, H, 64, 64))) if state else None
+    return (*rk, w, u, s0)
+
+
+def _norm_err(got, want, dims):
+    """The largest ||got - want|| / ||want|| over ``dims`` (a row of y
+    over the head, or a head's whole state)."""
+    d = torch.linalg.vector_norm(got - want, dim=dims)
+    n = torch.linalg.vector_norm(want, dim=dims).clamp_min(1e-30)
+    return (d / n).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,state", [(4, 2048, 40, False),
+                                         (4, 2048, 40, True),
+                                         (4, 1, 40, True),
+                                         (1, 1, 40, True),
+                                         (2, 1000, 4, True),
+                                         (3, 5, 2, False)])
+def test_wkv6_kernel_matches_plain(B, S, H, state):
+    """K7 against its plain version: y within 2e-5 of each row's norm and
+    the final state within 2e-5 of each head's state norm (f32 sums in
+    another order, fused multiply-adds); rwkv6-3b's prefill [4,2048,40]
+    from the zero state and a random one, its decode step [4,1,40] from a
+    random state, a ragged S, and a second launch bit for bit the
+    first."""
+    _cuda_or_skip()
+    from repro_torch.kernels import wkv6 as kwkv
+    args = _wkv6_inputs(B, S, H, seed=S + H, state=state)
+    before = kwkv.wkv6_scan.launches
+    y, st = ops.wkv6_scan(*args)
+    y2, st2 = ops.wkv6_scan(*args)
+    torch.cuda.synchronize()
+    assert kwkv.wkv6_scan.launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    wy, wst = ref.wkv6_scan_ref(*args)
+    assert _norm_err(y, wy, (-1,)) <= 2e-5
+    assert _norm_err(st, wst, (-2, -1)) <= 2e-5
+
+
+@pytest.mark.gpu
+def test_wkv6_chained_steps_bitwise_one_launch():
+    """S launches at S = 1, each from the state the last returned (as the
+    decode step carries it), equal one launch over S bit for bit: y and
+    the state."""
+    _cuda_or_skip()
+    r, k, v, w, u, s0 = _wkv6_inputs(1, 64, 40, seed=7)
+    y, st = ops.wkv6_scan(r, k, v, w, u, s0)
+    state = s0
+    ys = []
+    for t in range(r.shape[1]):
+        yt, state = ops.wkv6_scan(r[:, t:t + 1], k[:, t:t + 1],
+                                  v[:, t:t + 1], w[:, t:t + 1], u, state)
+        ys.append(yt)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(ys, 1), y) and torch.equal(state, st)
+
+
+@pytest.mark.gpu
+def test_wkv6_kernel_refuses_grad_and_widths():
+    """K7 has no backward: grad mode with an operand that requires grad
+    raises, under no_grad it launches; a head size other than 64 and an
+    empty sequence raise, as does an operand on the CPU."""
+    _cuda_or_skip()
+    from repro_torch.kernels import wkv6 as kwkv
+    r, k, v, w, u, s0 = _wkv6_inputs(1, 3, 2, seed=1)
+    g = r.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="forward only"):
+        kwkv.wkv6_scan(g, k, v, w, u, s0)
+    with torch.no_grad():
+        kwkv.wkv6_scan(g, k, v, w, u, s0)
+    with pytest.raises(ValueError, match="head size"):
+        kwkv.wkv6_scan(*(t[..., :32] for t in (r, k, v, w, u)))
+    with pytest.raises(ValueError, match="at least one step"):
+        kwkv.wkv6_scan(r[:, :0], k[:, :0], v[:, :0], w[:, :0], u)
+    with pytest.raises(ValueError, match="CUDA"):
+        kwkv.wkv6_scan(r, k, v, w, u.cpu())

@@ -161,13 +161,17 @@ def test_launcher_cpu_end_to_end():
 
 
 def test_what_still_raises():
-    """RWKV-6 and training a hybrid (K5 and K6 have no backward yet)
-    raise; a prompt over 2048 tokens, which raised until the streaming
-    attention was ported, now prefills (hymba's attention core is K5,
-    which streams at any length; on the CPU its plain version)."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("rwkv6-3b")
+    """A stacked (not parallel) Mamba beside attention, which no config
+    has, and training a hybrid (K5 and K6 have no backward yet) raise;
+    RWKV-6, which raised until its slice, is registered. A prompt over
+    2048 tokens, which raised until the streaming attention was ported,
+    now prefills (hymba's attention core is K5, which streams at any
+    length; on the CPU its plain version)."""
+    assert get_config("rwkv6-3b").ssm.kind == "rwkv6"
     _, tcfg = _cfgs("float32")
+    with pytest.raises(NotImplementedError, match="hybrids"):
+        build_model(dataclasses.replace(tcfg, parallel_ssm=False),
+                    device="cpu")
     model = build_model(tcfg, device="cpu", seed=0)
     batch = {"tokens": torch.ones((1, 8), dtype=torch.int32),
              "labels": torch.ones((1, 8), dtype=torch.int32),

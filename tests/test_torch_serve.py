@@ -113,10 +113,11 @@ def test_configs_agree():
     reduced moe-gpt2; hymba-1.5b, moe-transformerxl, moe-bert-large and
     the attention decoders olmoe-1b-7b, yi-34b, stablelm-12b,
     starcoder2-15b, gemma3-12b, llama4-maverick-400b-a17b,
-    internvl2-2b and seamless-m4t-large-v2, full and reduced (``causal``,
-    ``param_dtype``, gemma3's six-layer period, the clamped GQA heads and
-    windows, llama4's shared expert, internvl2's prefix and seamless's
-    encoder depth included); the defaults of
+    internvl2-2b, seamless-m4t-large-v2 and rwkv6-3b, full and reduced
+    (``causal``, ``param_dtype``, gemma3's six-layer period, the clamped
+    GQA heads and windows, llama4's shared expert, internvl2's prefix,
+    seamless's encoder depth and rwkv6's missing attention included);
+    the defaults of
     LuffyConfig, OptimConfig and a ShapeConfig; and SHAPES. Each
     dataclass has the reference's fields and no other, but for
     ``LuffyConfig.use_kernels``: the reference's switch between its
@@ -164,7 +165,7 @@ def test_configs_agree():
     for arch in ("hymba-1.5b", "moe-transformerxl", "moe-bert-large",
                  "olmoe-1b-7b", "yi-34b", "stablelm-12b", "starcoder2-15b",
                  "gemma3-12b", "llama4-maverick-400b-a17b", "internvl2-2b",
-                 "seamless-m4t-large-v2"):
+                 "seamless-m4t-large-v2", "rwkv6-3b"):
         for make in (lambda g: g(arch),
                      lambda g: (reduced if g is get_config else jreduced)(
                          g(arch))):
