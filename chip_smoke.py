@@ -386,14 +386,17 @@ kernels line):
 63. RWKV-6 kernel: K7 (``csrc/wkv6.cu``, the WKV6 recurrence of
     RWKV-6's time-mix) against its plain version at rwkv6-3b's prefill
     [4,2048,40,64] from the zero state and a random one, a decode step's
-    [4,1,40,64] and [1,1,40,64] from a random state and a ragged
-    [2,1000,4,64]: y within 2e-5 of each row's norm over the head and the
-    final state within 2e-5 of each head's state norm, a second launch
-    bit for bit; 64 chained launches at S = 1 ([1,64,40,64], each from
-    the state the last returned, as the decode step carries it) bit for
-    bit one launch over S; the grad-mode refusal; no spill (phase 2);
-    each case timed (CUDA events, profiler device time) beside the
-    plain version and the bound;
+    [4,1,40,64] and [1,1,40,64] from a random state, a ragged
+    [2,1000,4,64], S = 15, 16, 17 and 35 at the edges of K7's 16-step
+    chunk and 167 heads that leave the last wave of blocks partial: y
+    within 2e-5 of each row's norm over the head and the final state
+    within 2e-5 of each head's state norm, a second launch bit for bit;
+    at the prefill from the zero state also y within 2e-5 of an f64
+    recurrence; 67 chained launches at S = 1 ([1,67,40,64], each from the
+    state the last returned, as the decode step carries it) bit for bit
+    one launch over S; the grad-mode refusal; no spill (phase 2); each
+    case timed (CUDA events, profiler device time) beside the plain
+    version and the bound;
 64. RWKV-6 serve: rwkv6-3b at full width and depth (32 layers, random
     weights from a seed): two batched prefills of B=4 x 2048 with K7
     exactly 32 launches a prefill and nothing else (no K5), tokens/s,
@@ -7497,19 +7500,30 @@ RWKV_SERVE = dict(B=4, S=2048)
 RWKV_FEED = dict(B=4, S=64, gen=32)
 # phase 63: K7 at rwkv6-3b's shapes (40 heads of 64): (B, S, H, from a
 # random state); the prefill's from the zero state, the same from a
-# random one, the decode step's (phase 64's batch, and one sequence), and
-# a ragged S on few heads
+# random one, the decode step's (phase 64's batch, and one sequence), a
+# ragged S on few heads; then S at the edges of K7's staged chunk of
+# K7_T steps (T - 1, T, T + 1, 2T + 3), and 167 heads, whose 668 blocks
+# (four a head) leave the card's last wave of 660 (five an SM) partial
+K7_T = 16
 K7_CASES = {"prefill": (RWKV_SERVE["B"], RWKV_SERVE["S"], 40, False),
             "prefill-state": (RWKV_SERVE["B"], RWKV_SERVE["S"], 40, True),
             "decode": (RWKV_FEED["B"], 1, 40, True),
             "decode-1": (1, 1, 40, True),
-            "ragged": (2, 1000, 4, True)}
-K7_CHAIN = (1, 64, 40)      # S launches at S = 1 against one over S
+            "ragged": (2, 1000, 4, True),
+            **{f"chunk-{s}": (2, s, 40, True)
+               for s in (K7_T - 1, K7_T, K7_T + 1, 2 * K7_T + 3)},
+            "partial-wave": (1, 2 * K7_T + 3, 167, True)}
+# S launches at S = 1 against one over S: longer than a ring of chunks,
+# ending in a partial one
+K7_CHAIN = (1, 4 * K7_T + 3, 40)
 K7_DEVICE_TIMED = ("prefill", "decode")    # also by profiler device time
 # y within K7_TOL of each row's norm over the head, the final state of
-# each head's state norm: f32 sums in another order (four partial sums of
-# y) and fused multiply-adds against the plain version's separate
-# roundings, over a state that remembers up to some three thousand steps
+# each head's state norm: f32 sums in another order (partial sums of y
+# across lanes) and fused multiply-adds against the plain version's
+# separate roundings, over a state that remembers up to some three
+# thousand steps; at the prefill from the zero state also y within K7_TOL
+# of an f64 recurrence (the plain version's own error at a first step
+# whose bonus cancels can come near K7_TOL)
 K7_TOL = 2e-5
 # the step-fed logits against the batched prefill's: at bf16 through 32
 # layers the two paths round their products at other shapes (cuBLAS at
@@ -7560,27 +7574,49 @@ def _rel_norm_err(got, want, dims):
     return (d / n).max().item()
 
 
+def _k7_scan64(r, k, v, w, u, state=None):
+    """The WKV6 recurrence in f64, step by step (the plain version's
+    order): the yardstick of K7's and the plain version's own errors."""
+    import torch
+    r, k, v, w, u = (t.double() for t in (r, k, v, w, u))
+    B, S, H, hd = r.shape
+    st = (torch.zeros((B, H, hd, hd), dtype=torch.float64, device=r.device)
+          if state is None else state.double())
+    ys = []
+    for t in range(S):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                               st + u[..., None] * kv))
+        st = w[:, t, :, :, None] * st + kv
+    return torch.stack(ys, 1)
+
+
 def phase_rwkv_kernels():
     """Phase 63: K7 (``csrc/wkv6.cu``) against its plain version
     (``ref.wkv6_scan_ref``, the reference's step order) on the card at
     ``K7_CASES``: y within ``K7_TOL`` of each row's norm and the final
-    state of each head's, a second launch bit for bit; then ``K7_CHAIN``'s
-    S launches at S = 1, each from the state the last returned as the
-    decode step carries it, bit for bit one launch over S (y and state);
-    the grad-mode refusal (an operand that requires grad raises). Each
-    case timed (CUDA events; the prefill's and the decode step's also by
-    profiler device time) beside the plain version and the bound: the
-    operations the function needs at 67 TFLOP/s (5 f32 a state element
-    and step: w S + k v, then y += r S; and the rank-one bonus
-    v_j sum_i r_i u_i k_i, 3 a head element and step), or the bytes (r,
-    k, v, w and u read and y written once, the state read where given and
-    written), the larger. No PyTorch call computes WKV6: no library
-    time."""
+    state of each head's, a second launch bit for bit; at the prefill
+    from the zero state also y within ``K7_TOL`` of an f64 recurrence,
+    with the plain version's own error against it recorded; then
+    ``K7_CHAIN``'s S launches at S = 1, each from the state the last
+    returned as the decode step carries it, bit for bit one launch over S
+    (y and state); the grad-mode refusal (an operand that requires grad
+    raises). Each case timed (CUDA events; the prefill's and the decode
+    step's also by profiler device time) beside the plain version and the
+    bound: the operations the function needs at 67 TFLOP/s (5 f32 a state
+    element and step: y += r S, then w S + k v; and the rank-one bonus
+    v_j a_t with a_t = sum_i r_i u_i k_i, 3 a row and 2 a column, so 5 a
+    head element and step), or the bytes (r, k, v, w and u read and y
+    written once, the state read where given and written), the larger.
+    Records the kernel's design (``kwkv.occupancy``). No PyTorch call
+    computes WKV6: no library time."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import wkv6 as kwkv
-    out = {}
+    out = {"design": kwkv.occupancy()}
+    log(f"  K7 design: {json.dumps(out['design'])}")
     for i, (name, (B, S, H, state)) in enumerate(K7_CASES.items()):
+        t_case = time.perf_counter()
         args = _k7_inputs(B, S, H, 630 + i, state)
 
         def run(args=args):
@@ -7598,10 +7634,20 @@ def phase_rwkv_kernels():
                                        and torch.equal(st, st2)))
         rec["ok"] = (rec["y_row_rel_err"] <= K7_TOL
                      and rec["state_rel_err"] <= K7_TOL)
+        if name == "prefill":
+            t64 = time.perf_counter()
+            y64 = _k7_scan64(*args)
+            rec["f64_s"] = time.perf_counter() - t64
+            rec.update(y_row_rel_err_f64=_rel_norm_err(y.double(), y64,
+                                                       (-1,)),
+                       plain_y_row_rel_err_f64=_rel_norm_err(
+                           wy.double(), y64, (-1,)))
+            rec["ok"] = rec["ok"] and rec["y_row_rel_err_f64"] <= K7_TOL
+            del y64
         del y, st, y2, st2, wy, wst
         nbytes = 4 * (5 * B * S * H * 64 + H * 64
                       + (2 if state else 1) * B * H * 64 * 64)
-        rec.update(_bound(nbytes, (5.0 * 64 + 3.0) * B * S * H * 64))
+        rec.update(_bound(nbytes, (5.0 * 64 + 5.0) * B * S * H * 64))
         iters = 20 if S > 1 else 200
         if name in K7_DEVICE_TIMED:
             rec.update(_timed(run, None, lambda a=args: ref.wkv6_scan_ref(*a),
@@ -7612,7 +7658,8 @@ def phase_rwkv_kernels():
                        plain_ms=time_ms(lambda a=args: ref.wkv6_scan_ref(*a),
                                         1, 0), library_ms=None)
         rec.update(plain="ref.wkv6_scan_ref, one step a loop iteration",
-                   library=None, bound_share=rec["bound_ms"] / rec["ms"])
+                   library=None, bound_share=rec["bound_ms"] / rec["ms"],
+                   case_s=time.perf_counter() - t_case)
         out[name] = rec
         log(f"  K7 {name:13s} [{B},{S},{H},64] "
             f"{'random' if state else 'zero'} state: y row "
@@ -7622,7 +7669,11 @@ def phase_rwkv_kernels():
             f"{rec['repeat_bitwise']}; kernel {rec['ms']:.4f} ms (runs "
             f"{rec['ms_runs']}; device {rec['device_ms']}), plain "
             f"{rec['plain_ms']:.2f} ms; bound {rec['bound_ms']:.4f} ms by "
-            f"{rec['bound_by']} ({100 * rec['bound_share']:.1f}% of it)")
+            f"{rec['bound_by']} ({100 * rec['bound_share']:.1f}% of it)"
+            + (f"; y row against f64 {rec['y_row_rel_err_f64']:.2e} (the "
+               f"plain version's {rec['plain_y_row_rel_err_f64']:.2e}; "
+               f"{rec['f64_s']:.1f} s)" if "y_row_rel_err_f64" in rec else "")
+            + f"; {rec['case_s']:.1f} s")
         del args
         torch.cuda.empty_cache()
     r, k, v, w, u, s0 = _k7_inputs(*K7_CHAIN, 639, True)
@@ -7647,7 +7698,7 @@ def phase_rwkv_kernels():
     bad = [dict(case=n, **{x: c[x] for x in ("ok", "repeat_bitwise",
                                               "y_row_rel_err",
                                               "state_rel_err")})
-           for n, c in out.items() if n != "chain"
+           for n, c in out.items() if n not in ("chain", "design")
            and not (c["ok"] and c["repeat_bitwise"])]
     if bad or not chained or not refused:
         raise SystemExit(f"K7 disagrees with its plain version or its "
@@ -7987,7 +8038,7 @@ def _rwkv_records(rw):
         "src/repro/models/ssm.py:177 (_rwkv6_core's lax.scan; no Pallas "
         "kernel)", sv["launches"]["wkv6_scan"],
         dict(t, max_abs_err=max(c["max_abs_err"] for n, c in k.items()
-                                if n != "chain")),
+                                if n not in ("chain", "design"))),
         {"timed_at": "[4,2048,40,64] f32 from the zero state (rwkv6-3b's "
                      "prefill)",
          "launches_path": f"{RWKV} serve at 32 layers, 2 batched prefills "
@@ -8001,10 +8052,13 @@ def _rwkv_records(rw):
          "plain": t["plain"], "library": "none (no PyTorch call computes "
                                          "WKV6)",
          "chained_bitwise": k["chain"]["chained_bitwise"],
+         "design": k["design"],
+         "y_row_rel_err_f64": t["y_row_rel_err_f64"],
+         "plain_y_row_rel_err_f64": t["plain_y_row_rel_err_f64"],
          "cases": {n: {x: c[x] for x in ("shape", "ms", "device_ms",
                                          "plain_ms", "bound_ms",
                                          "y_row_rel_err", "state_rel_err")}
-                   for n, c in k.items() if n != "chain"}})]
+                   for n, c in k.items() if n not in ("chain", "design")}})]
 
 
 # phase 54: the tensor-core kernel's band, and the same band starting

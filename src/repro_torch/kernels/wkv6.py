@@ -6,6 +6,16 @@ reference runs this recurrence as a ``lax.scan``
 launches a token a layer. Plain version:
 :func:`repro_torch.kernels.ref.wkv6_scan_ref`.
 
+The kernel splits a (batch, head) over G blocks of 64 / G state columns;
+a group of 16 lanes shares four columns, each lane holding four of their
+rows in registers, and a producer warp stages chunks of T steps of r, k,
+w and v in shared memory by cp.async, tracked by mbarriers
+(:func:`occupancy` reports G, T and the layout). The rank-one bonus is
+summed once a step in f64, a_t = sum_i r_i u_i k_i, and added as
+v_j a_t, so y rounds otherwise than the plain version's r^T (S + u k v^T);
+the state update rounds as the recurrence writes it, and a step computes
+the same bits at any position of any launch.
+
 Forward only: with grad mode on and an operand that requires grad the
 wrapper raises, since the kernel has no backward yet (ROADMAP Queue 1
 item 8.7) and autograd would otherwise see no gradient at all.
@@ -17,6 +27,13 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIM = 64
+
+
+def _aligned(t):
+    """``t`` contiguous and 16-byte aligned (a copy where it is not)."""
+    if t.data_ptr() % 16:
+        return t.clone(memory_format=torch.contiguous_format)
+    return t.contiguous()
 
 
 def wkv6_scan(r, k, v, w, u, state=None):
@@ -51,9 +68,13 @@ def wkv6_scan(r, k, v, w, u, state=None):
     if any(t.device.type != "cuda" or t.device != r.device for t in ts):
         raise ValueError(f"K7's operands must lie on one CUDA device, got "
                          f"{[str(t.device) for t in ts]}")
-    r, k, v, w, u = (t.contiguous() for t in (r, k, v, w, u))
-    if state is not None and not state.is_contiguous():
-        state = state.contiguous()
+    # the kernel moves r, k, v, w and the state 16 bytes at a time: a view
+    # that starts off that grid (never one the time-mix or the decode cache
+    # makes) is copied first
+    r, k, v, w = (_aligned(t) for t in (r, k, v, w))
+    u = u.contiguous()
+    if state is not None:
+        state = _aligned(state)
     y = torch.empty_like(r)
     out_state = torch.empty(sshape, dtype=torch.float32, device=r.device)
     fn = _build.entry("wkv6", "wkv6_launch", 8, 4)
@@ -68,3 +89,18 @@ def wkv6_scan(r, k, v, w, u, state=None):
 
 
 wkv6_scan.launches = 0
+
+
+def occupancy() -> dict:
+    """The built kernel's design and what the card keeps resident of it:
+    G (blocks a head), T (steps a chunk), columns a lane, lanes a column,
+    threads and shared bytes a block, resident blocks an SM (the CUDA
+    occupancy calculator, not a measurement), registers and local (spill)
+    bytes a thread."""
+    out = torch.zeros(9, dtype=torch.int32)
+    rc = _build.entry("wkv6", "wkv6_occupancy", 1, 0)(out.data_ptr(), None)
+    if rc != 0:
+        raise RuntimeError(f"wkv6_occupancy failed: cudaError {rc}")
+    return dict(zip(("G", "T", "columns_per_lane", "lanes_per_column",
+                     "threads_per_block", "smem_per_block", "blocks_per_sm",
+                     "registers", "local_bytes"), out.tolist()))

@@ -1316,14 +1316,20 @@ def _norm_err(got, want, dims):
                                          (4, 1, 40, True),
                                          (1, 1, 40, True),
                                          (2, 1000, 4, True),
-                                         (3, 5, 2, False)])
+                                         (3, 5, 2, False),
+                                         (2, 15, 40, True),
+                                         (2, 16, 40, True),
+                                         (2, 17, 40, True),
+                                         (2, 35, 40, True),
+                                         (1, 35, 167, True)])
 def test_wkv6_kernel_matches_plain(B, S, H, state):
     """K7 against its plain version: y within 2e-5 of each row's norm and
     the final state within 2e-5 of each head's state norm (f32 sums in
     another order, fused multiply-adds); rwkv6-3b's prefill [4,2048,40]
     from the zero state and a random one, its decode step [4,1,40] from a
-    random state, a ragged S, and a second launch bit for bit the
-    first."""
+    random state, a ragged S, S at the edges of K7's 16-step chunk
+    (15, 16, 17, 35), 167 heads (668 blocks: the last wave of 660 on an
+    H100 partial), and a second launch bit for bit the first."""
     _cuda_or_skip()
     from repro_torch.kernels import wkv6 as kwkv
     args = _wkv6_inputs(B, S, H, seed=S + H, state=state)
@@ -1342,9 +1348,10 @@ def test_wkv6_kernel_matches_plain(B, S, H, state):
 def test_wkv6_chained_steps_bitwise_one_launch():
     """S launches at S = 1, each from the state the last returned (as the
     decode step carries it), equal one launch over S bit for bit: y and
-    the state."""
+    the state; S = 67 crosses four of K7's 16-step chunks and ends in a
+    partial one."""
     _cuda_or_skip()
-    r, k, v, w, u, s0 = _wkv6_inputs(1, 64, 40, seed=7)
+    r, k, v, w, u, s0 = _wkv6_inputs(1, 67, 40, seed=7)
     y, st = ops.wkv6_scan(r, k, v, w, u, s0)
     state = s0
     ys = []
