@@ -394,7 +394,8 @@ kernels line):
     at the prefill from the zero state also y within 2e-5 of an f64
     recurrence; 67 chained launches at S = 1 ([1,67,40,64], each from the
     state the last returned, as the decode step carries it) bit for bit
-    one launch over S; the grad-mode refusal; no spill (phase 2); each
+    one launch over S; grad mode through K7's autograd function; no
+    spill (phase 2); each
     case timed (CUDA events, profiler device time) beside the plain
     version and the bound;
 64. RWKV-6 serve: rwkv6-3b at full width and depth (32 layers, random
@@ -414,6 +415,29 @@ kernels line):
     the prompt's step feed and 8 greedy tokens, card against CPU: at f32
     logits within 1e-4 and tokens equal, K7 once a layer a prefill and a
     step on the card; at bf16 logits within 3.2e-2.
+66. K7's backward (``csrc/wkv6_bwd.cu``) against its plain version
+    (``ref.wkv6_scan_bwd_ref``) at rwkv6-3b's train shape
+    [4,2048,40,64] from the zero state, [1,2048,40,64] from a random
+    state with a cotangent on the final state (dS0), and a ragged
+    [2,1000,4,64]: dr, dk, dv, dw, du and dS0 each within 1e-4 of its
+    norm, a second call bit for bit, each 64-step checkpoint K7's state
+    over the same prefix bit for bit; at [1,2048,40,64] also against an
+    f64 autograd through the plain forward (the f32 plain version's own
+    error beside it); timed beside the plain version and the bound; no
+    spill (phase 2);
+67. dense training: rwkv6-3b, internvl2-2b (a prefix of 256 slots and
+    1792 tokens) and seamless-m4t-large-v2 (2048 encoder frames) at full
+    width and depth through ``repro_torch.launch.train`` (AdamW, 3 steps,
+    B=4 x 2048, seed 0): finite losses, step ms, tokens/s, peak memory;
+    rwkv6's K7 forward exactly 2 x 32 launches a step (with the remat
+    recompute) and its backward 32 calls a step (four kernels a call),
+    K1-K6 never launched, K7 never in the other two; rwkv6 again from
+    the same seed under torch.profiler, its losses bit for bit and K7's
+    share of the step's device time;
+68. dense train parity: reduced rwkv6 (2 layers, d 256), one f32 train
+    step on the card against the CPU: loss within 1e-5, every gradient
+    leaf within 1e-4 of its norm, K7 and its backward once a layer on
+    the card and never on the CPU.
 
 Two phases run only when named by ``--only``:
 
@@ -434,8 +458,8 @@ K5 wherever K5 takes the mask (causal or a window): phases 4, 19, 25 and
 33 count its launches (once a layer a prefill), phase 5 holds the card's
 K5 prefill against the CPU's ``attend`` at 3e-2.
 
-Phase 23 runs right after phase 10, then phases 49-53, 56-59, 60-62 and
-63-65, and
+Phase 23 runs right after phase 10, then phases 49-53, 56-59, 60-62,
+63-65 and 66-68, and
 phases 30-32,
 34 and 35 after phase 14, where the profiler still records every launch;
 phase 33 runs after phase 19, phases 36-48 after phase 35. Then one JSON
@@ -449,7 +473,8 @@ arch's prefill as ``flash_attention@<arch>``, K1 at olmoe's as
 chunked layers as ``flash_attention@llama4-chunked-<S>`` and at
 internvl2's prefill as ``flash_attention@internvl2-2b``, K5 at
 seamless's shapes as ``flash_attention@seamless-m4t-large-v2-<case>-
-<dtype>``, K7 as ``wkv6_scan``; K1's launches on
+<dtype>``, K7 as ``wkv6_scan``, its backward as ``wkv6_scan_bwd``; K1's
+launches on
 every serve and train path of the run, the continuous one included, and
 K1's and K2's in the calibration probes), and last ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, without a CUDA
@@ -794,7 +819,8 @@ def phase_build():
                               ("K4_bwd", "pack", "pack_quant_bwd_kernel"),
                               ("K5", "flash_attn", "flash_wgmma_kernel"),
                               ("K6", "mamba_scan", "mamba_scan_kernel"),
-                              ("K7", "wkv6", "wkv6_kernel"))}
+                              ("K7", "wkv6", "wkv6_kernel"),
+                              ("K7_bwd", "wkv6_bwd", "bwd_kernel"))}
     for k, reps in tc.items():
         for r in reps:
             log(f"  {k} kernel {r['entry']} for {r['target']}: "
@@ -7600,8 +7626,9 @@ def phase_rwkv_kernels():
     with the plain version's own error against it recorded; then
     ``K7_CHAIN``'s S launches at S = 1, each from the state the last
     returned as the decode step carries it, bit for bit one launch over S
-    (y and state); the grad-mode refusal (an operand that requires grad
-    raises). Each case timed (CUDA events; the prefill's and the decode
+    (y and state); grad mode with an operand that requires grad going
+    through K7's autograd function (its backward is phase 66's). Each
+    case timed (CUDA events; the prefill's and the decode
     step's also by profiler device time) beside the plain version and the
     bound: the operations the function needs at 67 TFLOP/s (5 f32 a state
     element and step: y += r S, then w S + k v; and the rank-one bonus
@@ -7686,24 +7713,23 @@ def phase_rwkv_kernels():
     torch.cuda.synchronize()
     chained = bool(torch.equal(torch.cat(ys, 1), y)
                    and torch.equal(state, st))
-    try:
-        kwkv.wkv6_scan(r.clone().requires_grad_(), k, v, w, u, s0)
-        refused = False
-    except RuntimeError:
-        refused = True
+    yg, _ = kwkv.wkv6_scan(r.clone().requires_grad_(), k, v, w, u, s0)
+    grad_fn = type(yg.grad_fn).__name__
+    through = grad_fn == "WKV6ScanBackward"
+    del yg
     out["chain"] = dict(shape=K7_CHAIN, chained_bitwise=chained,
-                        grad_refused=refused)
+                        grad_function=grad_fn)
     log(f"  K7 {r.shape[1]} chained launches at S = 1 bit for bit one "
-        f"launch over S: {chained}; grad mode refused: {refused}")
+        f"launch over S: {chained}; grad mode through {grad_fn}")
     bad = [dict(case=n, **{x: c[x] for x in ("ok", "repeat_bitwise",
                                               "y_row_rel_err",
                                               "state_rel_err")})
            for n, c in out.items() if n not in ("chain", "design")
            and not (c["ok"] and c["repeat_bitwise"])]
-    if bad or not chained or not refused:
+    if bad or not chained or not through:
         raise SystemExit(f"K7 disagrees with its plain version or its "
                          f"contract: {bad}, chained bitwise {chained}, "
-                         f"grad refused {refused}")
+                         f"grad mode through {grad_fn}")
     return out
 
 
@@ -8061,6 +8087,341 @@ def _rwkv_records(rw):
                    for n, c in k.items() if n not in ("chain", "design")}})]
 
 
+# phase 66: K7's backward at rwkv6-3b's train shapes (B, S, H, from a
+# random state with a cotangent on the final state): the train step's
+# [4,2048,40] from the zero state (y's cotangent alone, as the time-mix
+# gives it), [1,2048,40] from a random state (dS0), and a ragged
+# [2,1000,4] whose last 64-step chunk is partial
+K7B_CASES = {"train": (4, 2048, 40, False), "state": (1, 2048, 40, True),
+             "ragged": (2, 1000, 4, True)}
+# each gradient within K7B_TOL of its norm: of the plain backward, and at
+# K7B_F64 of an f64 autograd through the plain forward
+K7B_TOL = 1e-4
+K7B_F64 = "state"
+K7B_GRADS = ("dr", "dk", "dv", "dw", "du", "dS0")
+K7B_CHUNK = 64          # steps between the backward's checkpoints
+# phase 67: the dense f32 archs trained at full width and depth, B=4 x
+# 2048 as in their serve cells (internvl2: 256 prefix slots + 1792
+# tokens; seamless over 2048 frames)
+DENSE_ARCHS = (RWKV, "internvl2-2b", SEAMLESS)
+DENSE_TRAIN_ARGS = ["--steps", "3", "--global-batch", "4", "--seq-len",
+                    "2048", "--optimizer", "adamw", "--seed", "0",
+                    "--mesh", "none", "--device", "cuda"]
+# phase 68: reduced rwkv6 (2 layers, d 256), one f32 train step, card
+# against CPU
+DENSE_PARITY = dict(B=2, S=64)
+DENSE_PARITY_TOL = {"loss": 1e-5, "grad": 1e-4}
+
+
+def _norm_rel(got, want):
+    """||got - want|| / ||want|| over the whole tensor."""
+    return ((got.double() - want.double()).norm()
+            / want.double().norm().clamp_min(1e-300)).item()
+
+
+def phase_k7_bwd():
+    """Phase 66: K7's backward (``csrc/wkv6_bwd.cu``: the checkpoint
+    pass, the reverse walk, dv's and du's sums) against its plain version
+    (``ref.wkv6_scan_bwd_ref``) at ``K7B_CASES``, with a random cotangent
+    on y and, from a random state, on the final state: each of dr, dk,
+    dv, dw, du and dS0 within ``K7B_TOL`` of its norm; a second call bit
+    for bit; each checkpoint K7's state over the same prefix bit for bit
+    (K7 launched over 64 steps at a time, chained through the state); at
+    ``K7B_F64`` also each gradient against an f64 autograd through the
+    plain forward, the f32 plain version's own error beside it. Each case
+    timed (CUDA events; the train shape also by profiler device time)
+    beside the plain version and the bound: the bytes (r, k, v, w, dy and
+    u read, the states where given; dr, dk, dv, dw, du and dS0 written)
+    or 14 f32 operations a state element and step (the state recomputed,
+    k v then w S + k v; dS's update, r dy then w dS + r dy; the four sums
+    of dr, dk, dw and dv, one multiply-add each) and 15 a head element
+    and step (a_t, vdy_t and the bonus's terms), at 67 TFLOP/s, the
+    larger. No PyTorch call computes it: no library time."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as kwkv
+    out = {"design": kwkv.bwd_occupancy()}
+    log(f"  K7 backward design: {json.dumps(out['design'])}")
+    for i, (name, (B, S, H, state)) in enumerate(K7B_CASES.items()):
+        t_case = time.perf_counter()
+        r, k, v, w, u, s0 = _k7_inputs(B, S, H, 660 + i, state)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(670 + i)
+        dy = torch.randn((B, S, H, 64), generator=gen, device="cuda")
+        ds = (torch.randn((B, H, 64, 64), generator=gen, device="cuda")
+              if state else None)
+        args = (r, k, v, w, u, s0, dy, ds)
+
+        def run(args=args):
+            return kwkv.wkv6_scan_bwd(*args)
+
+        got = kwkv.wkv6_scan_bwd(*args, checkpoints=True)
+        again = kwkv.wkv6_scan_bwd(*args, checkpoints=True)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        ckpt, st = got[6], s0
+        ck_ok = bool(torch.equal(ckpt[:, :, 0], torch.zeros_like(
+            ckpt[:, :, 0]) if s0 is None else s0))
+        with torch.no_grad():
+            for c in range(1, ckpt.shape[2]):
+                sl = slice(K7B_CHUNK * (c - 1), K7B_CHUNK * c)
+                _, st = kwkv.wkv6_scan(r[:, sl], k[:, sl], v[:, sl],
+                                       w[:, sl], u, st)
+                ck_ok = ck_ok and bool(torch.equal(st, ckpt[:, :, c]))
+        want = ref.wkv6_scan_bwd_ref(*args)
+        rec = dict(shape=(B, S, H, 64), from_state=state,
+                   checkpoints=ckpt.shape[2], checkpoints_bitwise=ck_ok,
+                   repeat_bitwise=bitwise,
+                   rel_err={n: _norm_rel(a, b)
+                            for n, a, b in zip(K7B_GRADS, got, want)},
+                   max_abs_err=max((a - b).abs().max().item()
+                                   for a, b in zip(got, want)))
+        rec["ok"] = (max(rec["rel_err"].values()) <= K7B_TOL and bitwise
+                     and ck_ok)
+        if name == K7B_F64:
+            t64 = time.perf_counter()
+            ins = [t.double().requires_grad_() for t in (r, k, v, w, u, s0)]
+            y64, st64 = ref.wkv6_scan_ref(*ins)
+            ((y64 * dy.double()).sum() + (st64 * ds.double()).sum()
+             ).backward()
+            rec["rel_err_f64"] = {n: _norm_rel(a, t.grad) for n, a, t in
+                                  zip(K7B_GRADS, got, ins)}
+            rec["plain_rel_err_f64"] = {n: _norm_rel(a, t.grad) for n, a, t
+                                        in zip(K7B_GRADS, want, ins)}
+            rec["f64_s"] = time.perf_counter() - t64
+            rec["ok"] = rec["ok"] and max(rec["rel_err_f64"].values()) \
+                <= K7B_TOL
+            del ins, y64, st64
+        del got, want, ckpt, st
+        torch.cuda.empty_cache()
+        n = B * S * H * 64
+        nbytes = 4 * (9 * n + 2 * H * 64 + B * H * 64 * 64
+                      * (1 + (2 if state else 0)))
+        rec.update(_bound(nbytes, (14.0 * 64 + 15.0) * n))
+        if name == "train":
+            rec.update(_timed(run, None, lambda a=args:
+                              ref.wkv6_scan_bwd_ref(*a), 10))
+        else:
+            ms = [time_ms(run, 10, 2) for _ in range(2)]
+            rec.update(ms=min(ms), ms_runs=ms, device_ms=None,
+                       plain_ms=time_ms(lambda a=args:
+                                        ref.wkv6_scan_bwd_ref(*a), 1, 0),
+                       library_ms=None)
+        rec.update(plain="ref.wkv6_scan_bwd_ref, one step a loop iteration",
+                   library=None, bound_share=rec["bound_ms"] / rec["ms"],
+                   case_s=time.perf_counter() - t_case)
+        out[name] = rec
+        log(f"  K7 backward {name:6s} [{B},{S},{H},64] "
+            f"{'random' if state else 'zero'} state: rel err "
+            + ", ".join(f"{g} {e:.2e}" for g, e in rec["rel_err"].items())
+            + f" {'ok' if rec['ok'] else 'FAIL'}; repeat bitwise "
+            f"{bitwise}, {rec['checkpoints']} checkpoints bitwise {ck_ok}; "
+            f"kernel {rec['ms']:.3f} ms (device {rec['device_ms']}), plain "
+            f"{rec['plain_ms']:.1f} ms; bound {rec['bound_ms']:.4f} ms by "
+            f"{rec['bound_by']} ({100 * rec['bound_share']:.1f}% of it)"
+            + (f"; against f64: " + ", ".join(
+                f"{g} {e:.2e} (plain {rec['plain_rel_err_f64'][g]:.2e})"
+                for g, e in rec["rel_err_f64"].items())
+               + f" ({rec['f64_s']:.1f} s)" if "rel_err_f64" in rec else "")
+            + f"; {rec['case_s']:.1f} s")
+        del args, r, k, v, w, u, s0, dy, ds
+        torch.cuda.empty_cache()
+    bad = {n: c["rel_err"] for n, c in out.items()
+           if n != "design" and not c["ok"]}
+    if bad:
+        raise SystemExit(f"K7's backward disagrees with its plain version "
+                         f"or its contract: {bad}")
+    return out
+
+
+def _k7_device_share(prof):
+    """K7's forward and backward device ms in a profile, and every
+    kernel's: (k7_fwd_us, k7_bwd_us, total_us)."""
+    rows = _device_rows(prof)
+    fwd = sum(d for d, k, _ in rows if "wkv6_kernel" in k)
+    bwd = sum(d for d, k, _ in rows if any(
+        f"::{x}(" in k for x in ("ckpt_kernel", "bwd_kernel", "dv_kernel",
+                                 "du_kernel")))
+    return fwd, bwd, sum(d for d, _, _ in rows)
+
+
+def _dense_run(arch, profiled=False):
+    """``repro_torch.launch.train`` on ``arch`` with ``DENSE_TRAIN_ARGS``,
+    every kernel counter (K7's forward and backward too) set to 0 just
+    before and read just after; with ``profiled`` under torch.profiler.
+    Returns (result, launches, K7's device share or None)."""
+    import torch
+    from repro_torch.kernels import wkv6 as kwkv
+    from torch.profiler import ProfilerActivity, profile
+    kwkv.wkv6_scan.launches = kwkv.wkv6_scan_bwd.launches = 0
+    share = None
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res, launches, _, _ = _ep_run(["--arch", arch,
+                                           *DENSE_TRAIN_ARGS])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        fwd, bwd, total = _k7_device_share(prof)
+        n = len(res["steps"])
+        share = dict(k7_fwd_ms_per_step=fwd / n / 1e3,
+                     k7_bwd_ms_per_step=bwd / n / 1e3,
+                     device_ms_per_step=total / n / 1e3,
+                     wall_ms_per_step=wall_us / n / 1e3,
+                     k7_share_of_device=(fwd + bwd) / total if total
+                     else None,
+                     device_busy_share=total / wall_us)
+        del prof
+    else:
+        res, launches, _, _ = _ep_run(["--arch", arch, *DENSE_TRAIN_ARGS])
+    launches.update(wkv6_scan=kwkv.wkv6_scan.launches,
+                    wkv6_scan_bwd=kwkv.wkv6_scan_bwd.launches)
+    return res, launches, share
+
+
+def phase_dense_train():
+    """Phase 67: rwkv6-3b, internvl2-2b and seamless-m4t-large-v2 at full
+    width and depth (random f32 weights from seed 0, bf16 compute, remat
+    on) trained through ``repro_torch.launch.train`` with
+    ``DENSE_TRAIN_ARGS`` (AdamW, 3 steps, B=4 x 2048: internvl2's batch a
+    prefix of 256 slots and 1792 tokens, seamless's over 2048 encoder
+    frames): finite losses, step ms, tokens/s and peak memory; rwkv6's K7
+    forward launched exactly 2 x 32 a step (each layer's forward and its
+    remat recompute), its backward 32 a step (one call a layer, four
+    kernels a call), K1-K6 never, and K7 never in the other two; rwkv6
+    again from the same seed under torch.profiler, its losses bit for bit
+    and K7's share of the step's device time."""
+    import statistics
+    out = {}
+    for arch in DENSE_ARCHS:
+        res, launches, _ = _dense_run(arch)
+        cfg, steps = res["cfg"], res["steps"]
+        n = len(steps)
+        want = dict.fromkeys(launches, 0)
+        if cfg.ssm is not None:
+            want.update(wkv6_scan=cfg.num_layers * (2 if cfg.remat else 1)
+                        * n, wkv6_scan_bwd=cfg.num_layers * n)
+        info = dict(arch=arch, layers=cfg.num_layers,
+                    global_batch=res["global_batch"],
+                    seq_len=res["seq_len"], n_params=res["n_params"],
+                    losses=[st["loss"] for st in steps],
+                    step_ms=[st["step_ms"] for st in steps],
+                    tokens_per_s=[st["tokens_per_s"] for st in steps],
+                    median_step_ms_after_0=statistics.median(
+                        st["step_ms"] for st in steps[1:]),
+                    peak_mem_bytes=max(st["peak_mem_bytes"] for st in steps),
+                    launches={k: v for k, v in launches.items() if v},
+                    launches_ok=launches == want)
+        del res, steps
+        _free_card()
+        log(f"dense train {arch}: " + json.dumps(info))
+        if not all(math.isfinite(x) for x in info["losses"]):
+            raise SystemExit(f"{arch} losses not finite: {info['losses']}")
+        if not info["launches_ok"]:
+            raise SystemExit(f"{arch} train launches {launches} differ from "
+                             f"what the path calls, {want}")
+        out[arch] = info
+    res, launches, share = _dense_run(RWKV, profiled=True)
+    again = [st["loss"] for st in res["steps"]]
+    del res
+    _free_card()
+    rw = out[RWKV]
+    rw.update(repeat_bitwise=again == rw["losses"], profile=share)
+    log(f"dense train {RWKV} repeat, same seed, profiled: bit-equal "
+        f"{rw['repeat_bitwise']}; " + json.dumps(share))
+    if not rw["repeat_bitwise"]:
+        raise SystemExit(f"the {RWKV} train run does not repeat: "
+                         f"{rw['losses']} then {again}")
+    return out
+
+
+def phase_dense_parity():
+    """Phase 68: reduced rwkv6-3b (2 layers, d 256, 4 heads of 64) at f32
+    compute, one train step's loss and gradients on the card (K7 and its
+    backward, each launched once a layer: the reduced config has no
+    remat) against the same parameters on the CPU (the plain versions,
+    differentiated by autograd): loss within 1e-5, every gradient leaf
+    within 1e-4 of its norm."""
+    import torch
+    from repro_torch.config import LuffyConfig, ShapeConfig, reduced
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import wkv6 as kwkv
+    from repro_torch.models.model import build_model
+    luffy = LuffyConfig(enable_condensation=False, enable_migration=False)
+    B, S = DENSE_PARITY["B"], DENSE_PARITY["S"]
+    cfg = dataclasses.replace(reduced(get_config(RWKV)),
+                              compute_dtype="float32")
+    batch = SyntheticLM(cfg, ShapeConfig("train", S, B, "train")).batch(0)
+    model = build_model(cfg, device="cuda", seed=68)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        if dev == "cpu":
+            model.to("cpu")     # the same parameters, moved
+        k7 = (kwkv.wkv6_scan.launches, kwkv.wkv6_scan_bwd.launches)
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        loss, _, _, grads = _train_step_once(
+            model, tb, 8, luffy, torch.tensor(0.5, device=dev))
+        res[dev] = dict(loss=loss, grads=[g.cpu() for g in grads],
+                        k7=(kwkv.wkv6_scan.launches - k7[0],
+                            kwkv.wkv6_scan_bwd.launches - k7[1]))
+    del model
+    _free_card()
+    a, b = res["cuda"], res["cpu"]
+    errs = [_norm_rel(x, y) for x, y in zip(a["grads"], b["grads"])]
+    info = dict(B=B, S=S, loss_card=a["loss"], loss_cpu=b["loss"],
+                loss_abs_err=abs(a["loss"] - b["loss"]),
+                grad_leaves=len(errs), grad_max_rel_err=max(errs),
+                k7_launches_card=a["k7"], k7_launches_cpu=b["k7"],
+                k7_launches_expected=(cfg.num_layers, cfg.num_layers))
+    log("reduced rwkv6 train step, card against CPU: " + json.dumps(info))
+    if not (info["loss_abs_err"] <= DENSE_PARITY_TOL["loss"]
+            and info["grad_max_rel_err"] <= DENSE_PARITY_TOL["grad"]
+            and tuple(a["k7"]) == info["k7_launches_expected"]
+            and tuple(b["k7"]) == (0, 0)):
+        raise SystemExit("reduced rwkv6 train step, card against CPU: "
+                         + json.dumps(info))
+    return info
+
+
+def run_dense_train_phases():
+    """Phases 66-68 in order."""
+    return {"kernels": phase_k7_bwd(), "train": phase_dense_train(),
+            "parity": phase_dense_parity()}
+
+
+def _dense_train_records(dt):
+    """K7's backward's record: timed at the train step's shape from the
+    zero state, with its launches in phase 67's first rwkv6 run."""
+    k, tr = dt["kernels"], dt["train"][RWKV]
+    t = k["train"]
+    return [_record(
+        "wkv6_scan_bwd", "src/repro_torch/csrc/wkv6_bwd.cu",
+        "src/repro/models/ssm.py:177 (no Pallas kernel; XLA differentiates "
+        "_rwkv6_core's lax.scan)", tr["launches"]["wkv6_scan_bwd"],
+        dict(t, max_abs_err=max(c["max_abs_err"] for n, c in k.items()
+                                if n != "design")),
+        {"timed_at": "[4,2048,40,64] f32 from the zero state, y's "
+                     "cotangent alone (rwkv6-3b's train step)",
+         "launches_path": f"{RWKV} train at 32 layers, 3 AdamW steps of "
+                          f"4 x 2048 (one call a layer a step, four kernels "
+                          f"a call)",
+         "launches_forward_same_run": tr["launches"]["wkv6_scan"],
+         "device_ms": t["device_ms"], "bound_share": t["bound_share"],
+         "plain": t["plain"], "library": "none (no PyTorch call computes "
+                                         "WKV6's backward)",
+         "design": k["design"],
+         "rel_err_f64": k[K7B_F64]["rel_err_f64"],
+         "plain_rel_err_f64": k[K7B_F64]["plain_rel_err_f64"],
+         "train_step_k7_share": tr["profile"],
+         "cases": {n: {x: c[x] for x in ("shape", "ms", "device_ms",
+                                         "plain_ms", "bound_ms", "rel_err",
+                                         "checkpoints_bitwise")}
+                   for n, c in k.items() if n != "design"}})]
+
+
 # phase 54: the tensor-core kernel's band, and the same band starting
 # one key tile late where the window has moved past the sequence's start
 K5_BAND_LINE = ("  const int lo = window > 0 ? max(0, q0 - window + 1) / BKT : "
@@ -8408,7 +8769,10 @@ def _only_runners():
                     62: lambda need: phase_seamless_parity(),
                     63: lambda need: phase_rwkv_kernels(),
                     64: lambda need: phase_rwkv_serve(),
-                    65: lambda need: phase_rwkv_parity()})
+                    65: lambda need: phase_rwkv_parity(),
+                    66: lambda need: phase_k7_bwd(),
+                    67: lambda need: phase_dense_train(),
+                    68: lambda need: phase_dense_parity()})
     return runners
 
 
@@ -8480,6 +8844,8 @@ def main(argv=None) -> int:
     sm = run_seamless_phases()
     log("the attention-free rwkv6-3b (phases 63-65):")
     rw = run_rwkv_phases()
+    log("training the dense f32 archs, K7's backward (phases 66-68):")
+    dense = run_dense_train_phases()
     slice_info, slice_out = phase_slice()
     phase_parity()
     serve_prof = phase_profile()
@@ -8804,6 +9170,7 @@ def main(argv=None) -> int:
     records += _llama4_records(l4)
     records += _seamless_records(sm)
     records += _rwkv_records(rw)
+    records += _dense_train_records(dense)
     log("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in sorted(PHASE_S.items(),
                                             key=lambda kv: -kv[1])}))

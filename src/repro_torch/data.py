@@ -1,7 +1,11 @@
 """Deterministic synthetic token stream (counterpart of
 ``repro/data.py::SyntheticLM``), numpy only: the same seed and step give
-bit-identical batches. Decoder language modelling only; the reference's
-prefix and encoder inputs belong to architectures not ported yet.
+bit-identical batches, the reference's draws in the reference's order.
+A prefix arch (``prefix_slots > 0``, a decoder such as internvl2-2b) gets
+``prefix`` [B, P, prefix_dim] standard normal f32 (a modality frontend's
+embeddings), its tokens cut to S - P and its first P labels ignored; an
+encoder-decoder (seamless-m4t-large-v2) gets ``enc_input`` [B, S,
+prefix_dim] standard normal f32 (the encoder's frames).
 """
 from __future__ import annotations
 
@@ -42,7 +46,10 @@ class SyntheticLM:
     def batch(self, step: int, *, global_batch: Optional[int] = None,
               seq_len: Optional[int] = None) -> Dict[str, np.ndarray]:
         """tokens [B, S] (0 past each length), labels [B, S] (-1 past
-        it), seq_len [B], sorted by length."""
+        it), seq_len [B], sorted by length; a prefix arch also ``prefix``
+        [B, P, pd] with tokens [B, S - P] and labels [:, :P] = -1, an
+        encoder-decoder ``enc_input`` [B, S, pd] (pd: ``prefix_dim`` or
+        ``d_model``)."""
         B = global_batch or self.shape.global_batch
         S = seq_len or self.shape.seq_len
         rng = np.random.default_rng((self.dc.seed, step))
@@ -61,7 +68,22 @@ class SyntheticLM:
         pos = np.arange(S)[None, :]
         labels[pos >= lens[:, None]] = -1
         tokens[pos >= lens[:, None]] = 0
-        return {"tokens": tokens, "labels": labels, "seq_len": lens}
+        batch = {"tokens": tokens, "labels": labels, "seq_len": lens}
+        width = self.cfg.prefix_dim or self.cfg.d_model
+        if self.cfg.prefix_slots > 0 and self.cfg.kind != "encdec":
+            P = self.cfg.prefix_slots
+            batch["prefix"] = rng.standard_normal((B, P, width)).astype(
+                np.float32)
+            # the prefix takes the first P positions: the tokens shrink
+            # and the first P labels are ignored
+            batch["tokens"] = tokens[:, :S - P]
+            lbl = labels.copy()
+            lbl[:, :P] = -1
+            batch["labels"] = lbl
+        if self.cfg.kind == "encdec":
+            batch["enc_input"] = rng.standard_normal((B, S, width)).astype(
+                np.float32)
+        return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         step = 0

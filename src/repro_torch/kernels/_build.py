@@ -23,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 KERNELS = ("expert_ffn", "expert_ffn_bwd", "similarity", "condense",
-           "pack", "flash_attn", "mamba_scan", "wkv6")
+           "pack", "flash_attn", "mamba_scan", "wkv6", "wkv6_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -250,15 +250,64 @@ def wkv6_scan_ref(r, k, v, w, u, state=None):
     (w the decay in (0, 1)), u [H,hd] the bonus, state [B,H,hd,hd] laid
     out [k][v] (None: zeros). Per step ``kv = k v^T``, ``y = r^T (S +
     u kv)``, ``S = w S + kv``. Returns (y [B,S,H,hd] f32, the final state
-    [B,H,hd,hd] f32)."""
+    [B,H,hd,hd] f32); f64 throughout where r is f64 (a yardstick)."""
     B, S_, H, hd = r.shape
-    st = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
-          if state is None else state.float())
-    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
-    uf = u.float()[..., None]
+    dt = torch.float64 if r.dtype == torch.float64 else torch.float32
+    st = (torch.zeros((B, H, hd, hd), dtype=dt, device=r.device)
+          if state is None else state.to(dt))
+    rf, kf, vf, wf = (t.to(dt) for t in (r, k, v, w))
+    uf = u.to(dt)[..., None]
     ys = []
     for t in range(S_):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]        # [B,H,hd,hd]
         ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], st + uf * kv))
         st = wf[:, t, :, :, None] * st + kv
     return torch.stack(ys, 1), st
+
+
+def wkv6_scan_bwd_ref(r, k, v, w, u, state, dy, d_state=None):
+    """The backward of :func:`wkv6_scan_ref` as the explicit reverse-time
+    recurrence K7's backward computes, f32, step by step: the states S_t
+    recomputed forward (``S_t = w_t S_{t-1} + k_t v_t^T``, laid out
+    [k][v], from ``state`` or zeros), then from dS_T = ``d_state`` (None:
+    zeros), with a_t = sum_i r_i u_i k_i and vdy_t = v_t . dy_t,
+    t = S .. 1:
+
+        dv_t = dS_t^T k_t + a_t dy_t
+        dk_t = dS_t v_t + r_t u vdy_t
+        dr_t = S_{t-1} dy_t + u k_t vdy_t
+        dw_t = rowsum(dS_t * S_{t-1})
+        du  += r_t k_t vdy_t (summed over the batch)
+        dS_{t-1} = w_t dS_t + r_t dy_t^T
+
+    r, k, v, w, dy [B,S,H,hd]; u [H,hd]; state, d_state [B,H,hd,hd].
+    Returns (dr, dk, dv, dw [B,S,H,hd], du [H,hd], dS_0 [B,H,hd,hd]), f32.
+    Holds every state: [B,S,H,hd,hd] f32 in all."""
+    B, S_, H, hd = r.shape
+    rf, kf, vf, wf, dyf = (t.float() for t in (r, k, v, w, dy))
+    uf = u.float()
+    st = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+          if state is None else state.float())
+    states = []
+    for t in range(S_):
+        states.append(st)
+        st = wf[:, t, :, :, None] * st + kf[:, t, :, :, None] * vf[:, t, :,
+                                                                  None, :]
+    ds = (torch.zeros_like(st) if d_state is None
+          else d_state.float().clone())
+    a = (rf * uf * kf).sum(-1)                                   # [B,S,H]
+    vdy = (vf * dyf).sum(-1)
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros_like(uf)
+    for t in reversed(range(S_)):
+        sp, rt, kt, vt, wt, dyt = (states[t], rf[:, t], kf[:, t], vf[:, t],
+                                   wf[:, t], dyf[:, t])
+        vd = vdy[:, t, :, None]
+        dv[:, t] = (torch.einsum("bhij,bhi->bhj", ds, kt)
+                    + a[:, t, :, None] * dyt)
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", ds, vt) + rt * uf * vd
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", sp, dyt) + uf * kt * vd
+        dw[:, t] = (ds * sp).sum(-1)
+        du += (rt * kt * vd).sum(0)
+        ds = wt[..., None] * ds + rt[..., None] * dyt[:, :, None, :]
+    return dr, dk, dv, dw, du, ds

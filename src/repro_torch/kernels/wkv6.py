@@ -16,9 +16,16 @@ v_j a_t, so y rounds otherwise than the plain version's r^T (S + u k v^T);
 the state update rounds as the recurrence writes it, and a step computes
 the same bits at any position of any launch.
 
-Forward only: with grad mode on and an operand that requires grad the
-wrapper raises, since the kernel has no backward yet (ROADMAP Queue 1
-item 8.7) and autograd would otherwise see no gradient at all.
+With grad mode on and an operand that requires grad, :func:`wkv6_scan`
+goes through :class:`WKV6Scan`: its forward is the same launch, its
+backward :func:`wkv6_scan_bwd`, the hand-written backward
+(``csrc/wkv6_bwd.cu``: a checkpoint pass of the state every 64 steps,
+then the chunks walked in reverse from their checkpoints; plain version
+:func:`repro_torch.kernels.ref.wkv6_scan_bwd_ref`). It saves only its
+inputs, so a remat recompute (the forward run again in the backward)
+rebuilds nothing it relies on. Under ``torch.no_grad`` or
+``inference_mode`` (serving) the wrapper launches K7 alone and saves
+nothing.
 """
 from __future__ import annotations
 
@@ -36,18 +43,8 @@ def _aligned(t):
     return t.contiguous()
 
 
-def wkv6_scan(r, k, v, w, u, state=None):
-    """r, k, v, w: [B,S,H,64]; u: [H,64]; state: [B,H,64,64] laid out
-    [k][v] (None: zeros); all float32 on one CUDA device, S >= 1.
-    Launches K7 on the current stream; returns (y [B,S,H,64] f32, the
-    final state [B,H,64,64] f32, a new tensor). Adds one to
-    ``wkv6_scan.launches`` per launch."""
+def _check(r, k, v, w, u, state):
     ts = [t for t in (r, k, v, w, u, state) if t is not None]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise RuntimeError(
-            "wkv6_scan (K7) is forward only: its backward is not ported "
-            "yet (ROADMAP Queue 1 item 8.7); run under torch.no_grad or "
-            "torch.inference_mode")
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError(f"K7 takes float32 only, got "
                         f"{[t.dtype for t in ts]}")
@@ -68,6 +65,11 @@ def wkv6_scan(r, k, v, w, u, state=None):
     if any(t.device.type != "cuda" or t.device != r.device for t in ts):
         raise ValueError(f"K7's operands must lie on one CUDA device, got "
                          f"{[str(t.device) for t in ts]}")
+
+
+def _launch(r, k, v, w, u, state):
+    """One K7 launch on checked operands: (y, the final state)."""
+    B, S, H, hd = r.shape
     # the kernel moves r, k, v, w and the state 16 bytes at a time: a view
     # that starts off that grid (never one the time-mix or the decode cache
     # makes) is copied first
@@ -76,7 +78,8 @@ def wkv6_scan(r, k, v, w, u, state=None):
     if state is not None:
         state = _aligned(state)
     y = torch.empty_like(r)
-    out_state = torch.empty(sshape, dtype=torch.float32, device=r.device)
+    out_state = torch.empty((B, H, hd, hd), dtype=torch.float32,
+                            device=r.device)
     fn = _build.entry("wkv6", "wkv6_launch", 8, 4)
     rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), None if state is None else state.data_ptr(),
@@ -88,7 +91,104 @@ def wkv6_scan(r, k, v, w, u, state=None):
     return y, out_state
 
 
+class WKV6Scan(torch.autograd.Function):
+    """K7 under autograd: the forward launch, and :func:`wkv6_scan_bwd`
+    as the backward. Saves the inputs only; an unused final state's
+    cotangent reaches the kernel as null (zeros)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return _launch(r, k, v, w, u, state)
+
+    @staticmethod
+    def backward(ctx, dy, d_state):
+        r, k, v, w, u, state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        dr, dk, dv, dw, du, ds0 = wkv6_scan_bwd(r, k, v, w, u, state, dy,
+                                                d_state)
+        return dr, dk, dv, dw, du, None if state is None else ds0
+
+
+def wkv6_scan(r, k, v, w, u, state=None):
+    """r, k, v, w: [B,S,H,64]; u: [H,64]; state: [B,H,64,64] laid out
+    [k][v] (None: zeros); all float32 on one CUDA device, S >= 1.
+    Launches K7 on the current stream; returns (y [B,S,H,64] f32, the
+    final state [B,H,64,64] f32, a new tensor). Adds one to
+    ``wkv6_scan.launches`` per launch. With grad mode on and an operand
+    that requires grad, the result carries :class:`WKV6Scan`'s backward."""
+    _check(r, k, v, w, u, state)
+    ts = [t for t in (r, k, v, w, u, state) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return WKV6Scan.apply(r, k, v, w, u, state)
+    return _launch(r, k, v, w, u, state)
+
+
 wkv6_scan.launches = 0
+
+# steps between the backward's checkpoints and its blocks a (batch, head),
+# as csrc/wkv6_bwd.cu fixes them (they size the workspaces)
+BWD_CHUNK = 64
+BWD_ROW_BLOCKS = 4
+
+
+def wkv6_scan_bwd(r, k, v, w, u, state, dy, d_state=None, *,
+                  checkpoints: bool = False):
+    """The gradients of :func:`wkv6_scan` (``csrc/wkv6_bwd.cu``; plain
+    version ``ref.wkv6_scan_bwd_ref``): r, k, v, w, dy [B,S,H,64]; u
+    [H,64]; state (None: zeros) and d_state, the final state's cotangent
+    (None: zeros), [B,H,64,64]; all float32 on one CUDA device. Returns
+    (dr, dk, dv, dw [B,S,H,64], du [H,64], dS_0 [B,H,64,64]), and with
+    ``checkpoints`` also the states the backward starts its chunks from,
+    [B,H,ceil(S/64),64,64]: chunk c's is the state after its first 64 c
+    steps, K7's bit for bit. One call launches four kernels on the
+    current stream (the checkpoint pass, the reverse walk, dv's and du's
+    sums) and adds one to ``wkv6_scan_bwd.launches``."""
+    _check(r, k, v, w, u, state)
+    _check(r, dy, dy, dy, u, d_state)
+    B, S, H, hd = r.shape
+    r, k, v, w, dy = (_aligned(t.detach()) for t in (r, k, v, w, dy))
+    u = u.detach().contiguous()
+    state = None if state is None else _aligned(state.detach())
+    d_state = None if d_state is None else _aligned(d_state.detach())
+    dev = r.device
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    nch = -(-S // BWD_CHUNK)
+    ckpt, at, vdy = f32(B, H, nch, hd, hd), f32(B, S, H), f32(B, S, H)
+    dv_part, du_part = f32(BWD_ROW_BLOCKS, B, S, H, hd), f32(B, H, hd)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du, ds0 = f32(H, hd), f32(B, H, hd, hd)
+    fn = _build.entry("wkv6_bwd", "wkv6_bwd_launch", 19, 4)
+    rc = fn(*(None if t is None else t.data_ptr()
+              for t in (r, k, v, w, u, state, dy, d_state, ckpt, at, vdy,
+                        dv_part, du_part, dr, dk, dv, dw, du, ds0)),
+            B, S, H, hd, _build.raw_stream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"wkv6_bwd launch failed: cudaError {rc}")
+    wkv6_scan_bwd.launches += 1
+    out = (dr, dk, dv, dw, du, ds0)
+    return out + (ckpt,) if checkpoints else out
+
+
+wkv6_scan_bwd.launches = 0
+
+
+def bwd_occupancy() -> dict:
+    """The backward's reverse-walk kernel as built: threads and shared
+    bytes a block, registers and local (spill) bytes a thread, resident
+    blocks an SM (the occupancy calculator, not a measurement)."""
+    out = torch.zeros(5, dtype=torch.int32)
+    rc = _build.entry("wkv6_bwd", "wkv6_bwd_occupancy", 1, 0)(
+        out.data_ptr(), None)
+    if rc != 0:
+        raise RuntimeError(f"wkv6_bwd_occupancy failed: cudaError {rc}")
+    return dict(zip(("threads_per_block", "smem_per_block", "registers",
+                     "local_bytes", "blocks_per_sm"), out.tolist()))
 
 
 def occupancy() -> dict:

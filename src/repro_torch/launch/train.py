@@ -1,7 +1,8 @@
 """Training launcher (counterpart of ``repro/launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
-        --arch {moe-gpt2,moe-transformerxl,moe-bert-large,olmoe-1b-7b} \\
+        --arch {moe-gpt2,moe-transformerxl,moe-bert-large,olmoe-1b-7b,
+                internvl2-2b,seamless-m4t-large-v2,rwkv6-3b} \\
         [--reduced | --num-layers N] --steps N --global-batch B \\
         --seq-len S \\
         [--optimizer {adamw,adafactor,sgd}] \\
@@ -29,11 +30,18 @@ second moment let moe-bert-large train at full width on one 80 GB card,
 or SGD with momentum); the
 host then updates the EWMA of the condensation rate and, from step 3 on,
 picks the rate bucket that sets the next step's dispatch capacity.
-``--arch`` takes the MoE decoders with f32 parameters (moe-gpt2,
-moe-transformerxl, moe-bert-large, olmoe-1b-7b); the dense decoders
-(yi-34b, stablelm-12b, starcoder2-15b, gemma3-12b, internvl2-2b) and
-llama4-maverick-400b-a17b (bf16 parameters) serve but do not train yet,
-and raise (ROADMAP Queue 1 item 8.7), as hymba does.
+``--arch`` takes the archs with f32 parameters: the MoE decoders
+(moe-gpt2, moe-transformerxl, moe-bert-large, olmoe-1b-7b) and the dense
+ones, internvl2-2b (each batch with a prefix of 256 random patch
+embeddings before its tokens), seamless-m4t-large-v2 (each batch with
+random encoder frames) and rwkv6-3b (its WKV6 recurrence and the
+recurrence's backward in hand-written kernels on the card). A dense step
+has no MoE sublayer: no condensation, migration or bucket, and its step
+records carry the loss, the optimizer's gauges, the step time, tokens/s
+and the peak memory, no MoE field. The archs with bf16 parameters
+(yi-34b, stablelm-12b, starcoder2-15b, gemma3-12b,
+llama4-maverick-400b-a17b) serve but do not train yet and raise (ROADMAP
+Queue 1 item 8.7b), as hymba does (item 8.6).
 
 ``--model-axis M > 1`` trains expert-parallel over M virtual ranks held
 by this one process (``repro_torch.comm.hierarchical``): the batch
@@ -127,8 +135,8 @@ import torch
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", default="moe-gpt2",
-                    help="an MoE arch of repro_torch.configs with f32 "
-                         "parameters (the others raise)")
+                    help="an arch of repro_torch.configs with f32 "
+                         "parameters, not the hybrid (the others raise)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--reduced", action="store_true",
                     help="the smoke-test variant of --arch")
@@ -304,6 +312,27 @@ def _trace_probe(cfg, luffy, args, device, tracer, registry) -> Dict:
           f"{meas.get('expert_ffn', float('nan')):.3f}ms measured vs "
           f"{pred['expert_ffn']:.3f}ms modeled", flush=True)
     return {"per_device_ms": per_dev, "residual": res, "record": rec}
+
+
+def _step_line(i: int, m: Dict, rec: Dict, luffy) -> str:
+    """An MoE step's line: loss, condensation, bucket, capacity, locality,
+    drops, the inter-node bytes where measured, the reuse counts where
+    on, the step time."""
+    inter = ""
+    if (m["inter_bytes_flat"] or 0.0) > 0:
+        inter = (f" inter={m['inter_bytes_dedup']:.0f}B"
+                 f"/{m['inter_bytes_flat']:.0f}B")
+        if m["inter_bytes_shipped"] is not None:
+            inter += f" shipped={m['inter_bytes_shipped']:.0f}B"
+    if luffy.plan_reuse != "off" or luffy.condense_reuse != "off":
+        inter += (f" plans={m['plans_built']:.0f}/{m['plans_reused']:.0f}"
+                  f" cplans={m['condense_built']:.0f}/"
+                  f"{m['condense_reused']:.0f}")
+    return (f"step {i:5d} loss={m['loss']:.4f} "
+            f"cond={m['condense_rate']:.4f} bucket={rec['bucket']} "
+            f"C={rec['capacity']} local={m['local_frac']:.2f} "
+            f"drop=({m['dispatch_drop']:.3f},{m['combine_drop']:.3f})"
+            f"{inter} {rec['step_ms']:.1f}ms")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
@@ -496,17 +525,22 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             _sync(device)
             dt = time.perf_counter() - t0
             m = train_lib.finalize_metrics(m, luffy)
-            rec = dict(step=i, bucket=bucket, capacity=cap, chunks=chunks,
-                       step_ms=dt * 1e3, **m)
+            rec = dict(step=i, step_ms=dt * 1e3,
+                       tokens_per_s=gb * args.seq_len / dt, **m)
+            if cfg.uses_moe:
+                rec.update(bucket=bucket, capacity=cap, chunks=chunks)
             if device.type == "cuda":
                 rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(
                     device)
             if use_ef:
                 rec["wire_ef_absmax"] = float(lstate.wire_ef.abs().max())
             steps.append(rec)
-            observed_rate = 0.8 * observed_rate + 0.2 * m["condense_rate"]
-            if cfg.uses_moe and luffy.enable_condensation and i >= 3:
-                bucket = train_lib.pick_bucket_host(luffy, observed_rate)
+            if cfg.uses_moe:
+                observed_rate = (0.8 * observed_rate
+                                 + 0.2 * m["condense_rate"])
+                if luffy.enable_condensation and i >= 3:
+                    bucket = train_lib.pick_bucket_host(luffy,
+                                                        observed_rate)
             extra = {}
             if expected_step_ms is None:
                 if i >= 1:                  # step 0 pays the warm-up
@@ -554,28 +588,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                     monitor.reset()
                     expected_step_ms = None
                     warmup_ms.clear()
-            mrec = registry.observe(i, m, time_s=round(dt, 3),
-                                    bucket=bucket, **extra)
+            if cfg.uses_moe:
+                extra["bucket"] = bucket
+            mrec = registry.observe(i, m, time_s=round(dt, 3), **extra)
             log.append(mrec)
             if args.metrics_json:
                 obs_metrics.write_jsonl(args.metrics_json, mrec)
-            inter = ""
-            if (m["inter_bytes_flat"] or 0.0) > 0:
-                inter = (f" inter={m['inter_bytes_dedup']:.0f}B"
-                         f"/{m['inter_bytes_flat']:.0f}B")
-                if m["inter_bytes_shipped"] is not None:
-                    inter += f" shipped={m['inter_bytes_shipped']:.0f}B"
-            if luffy.plan_reuse != "off" or luffy.condense_reuse != "off":
-                inter += (f" plans={m['plans_built']:.0f}/"
-                          f"{m['plans_reused']:.0f}"
-                          f" cplans={m['condense_built']:.0f}/"
-                          f"{m['condense_reused']:.0f}")
-            print(f"step {i:5d} loss={m['loss']:.4f} "
-                  f"cond={m['condense_rate']:.4f} bucket={rec['bucket']} "
-                  f"C={cap} local={m['local_frac']:.2f} "
-                  f"drop=({m['dispatch_drop']:.3f},"
-                  f"{m['combine_drop']:.3f}){inter} "
-                  f"{rec['step_ms']:.1f}ms", flush=True)
+            print(_step_line(i, m, rec, luffy) if cfg.uses_moe else
+                  f"step {i:5d} loss={m['loss']:.4f} {rec['step_ms']:.1f}ms "
+                  f"{rec['tokens_per_s']:.0f}tok/s", flush=True)
             if args.ckpt and args.ckpt_every \
                     and (i + 1) % args.ckpt_every == 0:
                 save_ckpt(i + 1)

@@ -146,35 +146,50 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator, device):
     return params
 
 
-def run_encoder(enc_params, cfg: ModelConfig, enc_x, *, flash: bool = False):
+def _encoder_layer(p, cfg: ModelConfig, x, positions, i: int, flash: bool):
+    xn = bk.norm_apply(p["attn_norm"], x, cfg.norm)
+    att, _ = bk.attn_apply(p["attn"], cfg, xn, positions, layer=i,
+                           causal=False, flash=flash)
+    x = x + att
+    xn = bk.norm_apply(p["ffn_norm"], x, cfg.norm)
+    return x + bk.ffn_apply(p["ffn"], cfg, xn)
+
+
+def run_encoder(enc_params, cfg: ModelConfig, enc_x, *, flash: bool = False,
+                remat: bool = False):
     """The encoder stack (the reference's ``_run_encoder``) over ``enc_x``
     [B, S_enc, d]: each layer non-causal self-attention over every
     position (no key mask; on K5 with ``flash``) and the dense FFN, then
-    the encoder's own ``final_norm``. Returns [B, S_enc, d]."""
+    the encoder's own ``final_norm``. With ``remat`` (the train forward
+    under ``cfg.remat``) each layer keeps only its input and runs again
+    in the backward, as the decoder's layers do: the same values, without
+    each layer's [B, H, S_enc, S_enc] scores held to the backward.
+    Returns [B, S_enc, d]."""
     B, S = enc_x.shape[0], enc_x.shape[1]
     positions = torch.arange(S, device=enc_x.device)[None].expand(B, S)
     x = enc_x
     for i, p in enumerate(enc_params["layers"]):
-        xn = bk.norm_apply(p["attn_norm"], x, cfg.norm)
-        att, _ = bk.attn_apply(p["attn"], cfg, xn, positions, layer=i,
-                               causal=False, flash=flash)
-        x = x + att
-        xn = bk.norm_apply(p["ffn_norm"], x, cfg.norm)
-        x = x + bk.ffn_apply(p["ffn"], cfg, xn)
+        if remat:
+            x = ckpt.checkpoint(_encoder_layer, p, cfg, x, positions, i,
+                                flash, use_reentrant=False)
+        else:
+            x = _encoder_layer(p, cfg, x, positions, i, flash)
     return bk.norm_apply(enc_params["final_norm"], x, cfg.norm)
 
 
-def encode(params, cfg: ModelConfig, enc_input, *, flash: bool = False):
+def encode(params, cfg: ModelConfig, enc_input, *, flash: bool = False,
+           remat: bool = False):
     """An encoder-decoder's encoder memory: ``enc_input`` [B, S_enc,
     prefix_dim] (the frontend stub's frame embeddings) projected by
     ``prefix_proj`` in the compute dtype (no embedding scale, no
     positions: the reference's rounding points), then
-    :func:`run_encoder`. Returns (enc_out [B, S_enc, d], enc_pos [B,
-    S_enc])."""
+    :func:`run_encoder` (``remat`` as there). Returns (enc_out [B, S_enc,
+    d], enc_pos [B, S_enc])."""
     cdt = bk._dtype(cfg.compute_dtype)
     w = params["prefix_proj"]["w"]
     enc_x = enc_input.to(w.device, cdt) @ w.to(cdt)
-    enc_out = run_encoder(params["encoder"], cfg, enc_x, flash=flash)
+    enc_out = run_encoder(params["encoder"], cfg, enc_x, flash=flash,
+                          remat=remat)
     B, S = enc_out.shape[0], enc_out.shape[1]
     return enc_out, torch.arange(S, device=enc_out.device)[None].expand(B, S)
 
@@ -394,14 +409,17 @@ def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
                   capacity: int, dist: Optional[DistContext] = None,
                   wire_ef: Optional[torch.Tensor] = None):
     """The train forward (the reference's ``forward_train``). batch:
-    tokens [B, S], labels [B, S] (< 0 ignored), seq_len [B], and for an
-    encoder-decoder enc_input [B, S_enc, prefix_dim]; threshold:
+    tokens [B, S - P], labels [B, S] (< 0 ignored), seq_len [B], for a
+    prefix arch prefix [B, P, prefix_dim] (put before the tokens by
+    :func:`embed_tokens`; P = 0 without one), and for an encoder-decoder
+    enc_input [B, S_enc, prefix_dim]; threshold:
     f32 scalar tensor (Eq. 2); capacity: the MoE dispatch capacity per
     (rank, expert); dist: the expert-parallel ranks (None: one device).
     The dense layers run on the whole batch in its current rank-major
     order, which is each rank's computation row for row; the loss is
-    the global mean. wire_ef (:func:`wire_ef_shape`, f32): the previous
-    step's per-layer wire quantization residuals; when given, each MoE
+    the global mean (a dense arch's metrics are the loss alone).
+    wire_ef (:func:`wire_ef_shape`, f32): the previous step's per-layer
+    wire quantization residuals; when given, each MoE
     layer adds its slot to the shipped payload, and the refreshed
     residuals come back under ``metrics["_wire_ef"]`` (a new tensor; the
     given one is not written, since the remat recompute replays each
@@ -414,9 +432,9 @@ def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
             f"{cfg.name}: training a hybrid needs backwards for K5 and K6, "
             f"which are not ported yet (ROADMAP Queue 2)")
     seq_sharded = dist is not None and dist.seq_sharded
-    x = embed_tokens(params, cfg, batch["tokens"])
-    enc = (encode(params, cfg, batch["enc_input"]) if cfg.kind == "encdec"
-           else None)
+    x = embed_tokens(params, cfg, batch["tokens"], batch.get("prefix"))
+    enc = (encode(params, cfg, batch["enc_input"], remat=cfg.remat)
+           if cfg.kind == "encdec" else None)
     B, S = x.shape[0], x.shape[1]
     sideband = {"labels": batch["labels"],
                 "seq_len": batch["seq_len"].to(torch.int32)}
@@ -477,6 +495,10 @@ def forward_train(params, cfg: ModelConfig, luffy: LuffyConfig,
     total = loss
     if cfg.uses_moe:
         total = loss + cfg.moe.router_aux_coef * aux_mean.aux_loss
+    if not cfg.uses_moe:
+        # a dense step has no MoE sublayer: no router, drop, condensation,
+        # migration or wire ledger to report
+        return total, {"loss": loss.detach()}
     metrics = {
         "loss": loss, "aux_loss": aux_mean.aux_loss,
         "dispatch_drop": aux_mean.dispatch_drop,

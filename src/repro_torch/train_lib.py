@@ -54,30 +54,24 @@ def tokens_per_device(shape: ShapeConfig,
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise for an arch the port's train path does not take yet: the
-    dense decoders (yi-34b, stablelm-12b, starcoder2-15b, gemma3-12b,
-    internvl2-2b) and the dense encoder-decoder seamless-m4t-large-v2,
-    whose step has no MoE sublayer to size a capacity for (and
-    internvl2's no prefix batch, seamless's no encoder-input batch),
-    rwkv6-3b, which also needs a backward of its WKV6 kernel (K7), and
-    an MoE arch with bf16 parameters (llama4-maverick), whose optimizer
-    arithmetic on bf16 leaves is not yet held to the reference's."""
-    if cfg.attn is None and cfg.ssm is not None:
+    hybrid hymba-1.5b, whose attention (K5) and selective scan (K6) have
+    no backward (item 8.6), and every arch with bf16 parameters (yi-34b,
+    stablelm-12b, starcoder2-15b, gemma3-12b, llama4-maverick), whose
+    optimizer arithmetic on bf16 leaves is not yet held to the
+    reference's (item 8.7b). The MoE archs with f32 parameters, the dense
+    f32 decoder internvl2-2b with its prefix, the encoder-decoder
+    seamless-m4t-large-v2 and rwkv6-3b (K7 and its backward) train; a
+    dense step has no MoE sublayer, so no condensation, migration or
+    capacity bucket."""
+    if cfg.attn is not None and cfg.ssm is not None:
         raise NotImplementedError(
-            f"{cfg.name}: training an RWKV-6 stack needs a dense train "
-            f"step and a backward of K7, the WKV6 kernel, neither ported "
-            f"yet (ROADMAP Queue 1 item 8.7); it serves through "
-            f"repro_torch.launch.serve")
-    if not cfg.uses_moe:
-        what = ("a dense encoder-decoder" if cfg.kind == "encdec"
-                else "a dense decoder")
-        raise NotImplementedError(
-            f"{cfg.name}: training {what} (no MoE sublayer) is not "
-            f"ported yet (ROADMAP Queue 1 item 8.7); it serves through "
+            f"{cfg.name}: training a hybrid needs backwards of K5 and K6, "
+            f"not ported yet (ROADMAP Queue 1 item 8.6); it serves through "
             f"repro_torch.launch.serve")
     if cfg.param_dtype != "float32":
         raise NotImplementedError(
             f"{cfg.name}: training {cfg.param_dtype} parameters is not "
-            f"ported yet (ROADMAP Queue 1 item 8.7); it serves through "
+            f"ported yet (ROADMAP Queue 1 item 8.7b); it serves through "
             f"repro_torch.launch.serve")
 
 

@@ -342,8 +342,11 @@ def test_cache_struct_and_admit_slot():
 def test_train_forward_loss_matches_reference():
     """The train forward with the encoder and each layer's cross
     sublayer (the full-sequence layer) against the reference's
-    ``forward_train``, f32: the loss within 1e-5. Training the arch
-    raises (item 8.7): it is dense."""
+    ``forward_train``, f32: the loss within 1e-5. The arch trains
+    (``check_trainable`` lets it through), and the loss's backward
+    reaches every leaf: the encoder's, the cross sublayers' and
+    ``prefix_proj`` (``test_torch_dense_train.py`` holds the gradients
+    to ``jax.grad``)."""
     jcfg, tcfg = _cfgs()
     params = _params(jcfg)
     prompts, _ = _inputs(jcfg)
@@ -360,8 +363,17 @@ def test_train_forward_loss_matches_reference():
         tparams, tcfg, tl, {k: torch.as_tensor(v) for k, v in batch.items()},
         torch.tensor(0.5), 0)
     np.testing.assert_allclose(got.item(), float(want), atol=F32_TOL, rtol=0)
-    with pytest.raises(NotImplementedError, match="item 8.7"):
-        train_lib.check_trainable(get_config(ARCH))
+    train_lib.check_trainable(get_config(ARCH))
+    leaves = [t for t in jax.tree_util.tree_leaves(tparams)]
+    for t in leaves:
+        t.requires_grad_()
+    loss, _ = ttf.forward_train(
+        tparams, tcfg, tl, {k: torch.as_tensor(v) for k, v in batch.items()},
+        torch.tensor(0.5), 0)
+    loss.backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in leaves)
+    assert tparams["prefix_proj"]["w"].grad.abs().max() > 0
 
 
 def test_launcher_on_cpu():

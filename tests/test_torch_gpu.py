@@ -1365,20 +1365,64 @@ def test_wkv6_chained_steps_bitwise_one_launch():
 
 @pytest.mark.gpu
 def test_wkv6_kernel_refuses_grad_and_widths():
-    """K7 has no backward: grad mode with an operand that requires grad
-    raises, under no_grad it launches; a head size other than 64 and an
-    empty sequence raise, as does an operand on the CPU."""
+    """Grad mode with an operand that requires grad goes through K7's
+    autograd function (its backward launches once a call), under no_grad
+    K7 launches alone; a head size other than 64 and an empty sequence
+    raise, as does an operand on the CPU."""
     _cuda_or_skip()
     from repro_torch.kernels import wkv6 as kwkv
     r, k, v, w, u, s0 = _wkv6_inputs(1, 3, 2, seed=1)
     g = r.clone().requires_grad_()
-    with pytest.raises(RuntimeError, match="forward only"):
-        kwkv.wkv6_scan(g, k, v, w, u, s0)
+    y, _ = kwkv.wkv6_scan(g, k, v, w, u, s0)
+    assert type(y.grad_fn).__name__ == "WKV6ScanBackward"
+    before = kwkv.wkv6_scan_bwd.launches
+    y.sum().backward()
+    assert kwkv.wkv6_scan_bwd.launches == before + 1
     with torch.no_grad():
-        kwkv.wkv6_scan(g, k, v, w, u, s0)
+        y, _ = kwkv.wkv6_scan(g, k, v, w, u, s0)
+    assert y.grad_fn is None
     with pytest.raises(ValueError, match="head size"):
         kwkv.wkv6_scan(*(t[..., :32] for t in (r, k, v, w, u)))
     with pytest.raises(ValueError, match="at least one step"):
         kwkv.wkv6_scan(r[:, :0], k[:, :0], v[:, :0], w[:, :0], u)
     with pytest.raises(ValueError, match="CUDA"):
         kwkv.wkv6_scan(r, k, v, w, u.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,state", [(4, 2048, 40, False),
+                                         (1, 2048, 40, True),
+                                         (2, 1000, 4, True),
+                                         (3, 5, 2, False),
+                                         (2, 130, 4, True)])
+def test_wkv6_backward_kernel_matches_plain(B, S, H, state):
+    """K7's backward (``csrc/wkv6_bwd.cu``) against its plain version
+    with cotangents on y and the final state: each of dr, dk, dv, dw, du
+    and dS0 within 1e-4 of its norm; a second call bit for bit; each
+    checkpoint K7's state over the same prefix bit for bit (64-step
+    launches chained through the state); S = 5, 130 and 1000 leave the
+    last 64-step chunk partial."""
+    _cuda_or_skip()
+    from repro_torch.kernels import wkv6 as kwkv
+    r, k, v, w, u, s0 = _wkv6_inputs(B, S, H, seed=S + 3 * H, state=state)
+    gen = np.random.default_rng(S)
+    dy = torch.as_tensor(gen.standard_normal((B, S, H, 64)),
+                         dtype=torch.float32).cuda()
+    ds = torch.as_tensor(gen.standard_normal((B, H, 64, 64)),
+                         dtype=torch.float32).cuda()
+    got = kwkv.wkv6_scan_bwd(r, k, v, w, u, s0, dy, ds, checkpoints=True)
+    again = kwkv.wkv6_scan_bwd(r, k, v, w, u, s0, dy, ds, checkpoints=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ref.wkv6_scan_bwd_ref(r, k, v, w, u, s0, dy, ds)
+    for a, b in zip(got, want):
+        assert ((a - b).norm() / b.norm()).item() <= 1e-4
+    ckpt, state = got[6], s0
+    assert torch.equal(ckpt[:, :, 0], torch.zeros_like(ckpt[:, :, 0])
+                       if s0 is None else s0)
+    with torch.no_grad():
+        for c in range(1, ckpt.shape[2]):
+            sl = slice(64 * (c - 1), 64 * c)
+            _, state = kwkv.wkv6_scan(r[:, sl], k[:, sl], v[:, sl], w[:, sl],
+                                      u, state)
+            assert torch.equal(state, ckpt[:, :, c])

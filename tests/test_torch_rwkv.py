@@ -335,8 +335,10 @@ def test_launcher_batch_step_and_continuous():
 
 def test_kernel_wrapper_refuses():
     """K7's wrapper takes CUDA tensors only (a CPU one raises, it does not
-    fall back), a head size of 64, at least one step, and refuses grad
-    mode with an operand that requires grad: the kernel has no backward."""
+    fall back), under grad mode too, where a CUDA operand would go
+    through the kernel's backward; a head size of 64 and at least one
+    step. Its backward's wrapper refuses a CPU tensor the same way. The
+    arch trains (``check_trainable`` lets it through)."""
     r = torch.zeros((1, 2, 3, 64))
     u = torch.zeros((3, 64))
     with pytest.raises(ValueError, match="CUDA"):
@@ -349,12 +351,66 @@ def test_kernel_wrapper_refuses():
     with pytest.raises(TypeError, match="float32"):
         kwkv.wkv6_scan(r.double(), r, r, r, u)
     g = r.clone().requires_grad_()
-    with pytest.raises(RuntimeError, match="forward only"):
+    with pytest.raises(ValueError, match="CUDA"):
         kwkv.wkv6_scan(g, r, r, r, u)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         kwkv.wkv6_scan(g, r, r, r, u)
-    with pytest.raises(NotImplementedError, match="item 8.7"):
-        train_lib.check_trainable(get_config(ARCH))
+    with pytest.raises(ValueError, match="CUDA"):
+        kwkv.wkv6_scan_bwd(r, r, r, r, u, None, r)
+    train_lib.check_trainable(get_config(ARCH))
+
+
+_BWD_S = 40    # no multiple of the card's 64-step checkpoint chunk
+
+
+def _bwd_inputs(from_state, seed):
+    r = np.random.default_rng(seed)
+    Bk, H, hd = 2, 4, 64
+    r_, k, v, dy = (r.standard_normal((Bk, _BWD_S, H, hd)).astype(np.float32)
+                    for _ in range(4))
+    w = np.exp(-np.exp(r.standard_normal((Bk, _BWD_S, H, hd)) - 1.0)
+               ).astype(np.float32)
+    u = (r.standard_normal((H, hd)) * 0.1).astype(np.float32)
+    s0 = (r.standard_normal((Bk, H, hd, hd)).astype(np.float32)
+          if from_state else np.zeros((Bk, H, hd, hd), np.float32))
+    ds = r.standard_normal((Bk, H, hd, hd)).astype(np.float32)
+    return r_, k, v, w, u, s0, dy, ds
+
+
+def _rel(got, want):
+    want = np.asarray(want, np.float64)
+    return (np.linalg.norm(np.asarray(got, np.float64) - want)
+            / max(np.linalg.norm(want), 1e-30))
+
+
+@pytest.mark.parametrize("from_state", [False, True])
+def test_wkv6_plain_backward_matches_autograd_and_jax_grad(from_state):
+    """K7's plain backward (``ref.wkv6_scan_bwd_ref``, the reverse-time
+    recurrence the card's kernel computes) at S = 40 from the zero state
+    or a random one, with cotangents on y and on the final state: dr, dk,
+    dv, dw, du and dS0 each within 1e-5 relative norm error of autograd
+    through the plain forward and of ``jax.grad`` of the reference's
+    ``_rwkv6_core``."""
+    jcfg, _ = _cfgs()
+    r_, k, v, w, u, s0, dy, ds = _bwd_inputs(from_state, 40 + from_state)
+    got = ref.wkv6_scan_bwd_ref(*(_t(a) for a in (r_, k, v, w, u)),
+                                _t(s0) if from_state else None, _t(dy),
+                                _t(ds))
+
+    def f(r_, k, v, w, u, s0):
+        y, st = jssm._rwkv6_core({"u_bonus": u}, jcfg, r_, k, v, w, s0)
+        return jnp.sum(y * dy) + jnp.sum(st * ds)
+
+    want = jax.jit(jax.grad(f, argnums=tuple(range(6))))(
+        *(jnp.asarray(a) for a in (r_, k, v, w, u, s0)))
+    ins = [_t(a).requires_grad_() for a in (r_, k, v, w, u, s0)]
+    y, st = ref.wkv6_scan_ref(*ins)
+    ((y * _t(dy)).sum() + (st * _t(ds)).sum()).backward()
+    for name, g, a, j in zip(("dr", "dk", "dv", "dw", "du", "dS0"), got,
+                             ins, want):
+        assert g.shape == a.shape and g.dtype == torch.float32
+        assert _rel(g.numpy(), a.grad.numpy()) < 1e-5, name
+        assert _rel(g.numpy(), j) < 1e-5, name
 
 
 def test_supports_long_decode_matches_reference():
