@@ -418,19 +418,22 @@ kernels line):
 66. K7's backward (``csrc/wkv6_bwd.cu``) against its plain version
     (``ref.wkv6_scan_bwd_ref``) at rwkv6-3b's train shape
     [4,2048,40,64] from the zero state, [1,2048,40,64] from a random
-    state with a cotangent on the final state (dS0), and a ragged
-    [2,1000,4,64]: dr, dk, dv, dw, du and dS0 each within 1e-4 of its
-    norm, a second call bit for bit, each 64-step checkpoint K7's state
-    over the same prefix bit for bit; at [1,2048,40,64] also against an
-    f64 autograd through the plain forward (the f32 plain version's own
-    error beside it); timed beside the plain version and the bound; no
-    spill (phase 2);
+    state with a cotangent on the final state (dS0), a ragged
+    [2,1000,4,64], 87 heads (a partial last round of blocks), one
+    (batch, head) (one cluster) and S = D - 1, D, D + 1, C + 1, 2 C + 3
+    of the built design: dr, dk, dv, dw, du and dS0 each within 1e-4 of
+    its norm, a second call bit for bit, each checkpoint (every
+    ``BWD_CHUNK`` steps) K7's state over the same prefix bit for bit; at
+    [1,2048,40,64] also against an f64 autograd through the plain
+    forward (the f32 plain version's own error beside it); timed beside
+    the plain version and the bound, the train shape's device time by
+    kernel; no spill (phase 2);
 67. dense training: rwkv6-3b, internvl2-2b (a prefix of 256 slots and
     1792 tokens) and seamless-m4t-large-v2 (2048 encoder frames) at full
     width and depth through ``repro_torch.launch.train`` (AdamW, 3 steps,
     B=4 x 2048, seed 0): finite losses, step ms, tokens/s, peak memory;
     rwkv6's K7 forward exactly 2 x 32 launches a step (with the remat
-    recompute) and its backward 32 calls a step (four kernels a call),
+    recompute) and its backward 32 calls a step (three kernels a call),
     K1-K6 never launched, K7 never in the other two; rwkv6 again from
     the same seed under torch.profiler, its losses bit for bit and K7's
     share of the step's device time;
@@ -820,7 +823,9 @@ def phase_build():
                               ("K5", "flash_attn", "flash_wgmma_kernel"),
                               ("K6", "mamba_scan", "mamba_scan_kernel"),
                               ("K7", "wkv6", "wkv6_kernel"),
-                              ("K7_bwd", "wkv6_bwd", "bwd_kernel"))}
+                              ("K7_bwd", "wkv6_bwd", "bwd_kernel"),
+                              ("K7_bwd_ckpt", "wkv6_bwd", "ckpt_kernel"),
+                              ("K7_bwd_du", "wkv6_bwd", "du_kernel"))}
     for k, reps in tc.items():
         for r in reps:
             log(f"  {k} kernel {r['entry']} for {r['target']}: "
@@ -8090,16 +8095,20 @@ def _rwkv_records(rw):
 # phase 66: K7's backward at rwkv6-3b's train shapes (B, S, H, from a
 # random state with a cotangent on the final state): the train step's
 # [4,2048,40] from the zero state (y's cotangent alone, as the time-mix
-# gives it), [1,2048,40] from a random state (dS0), and a ragged
-# [2,1000,4] whose last 64-step chunk is partial
+# gives it), [1,2048,40] from a random state (dS0), a ragged [2,1000,4]
+# whose last chunk is partial, 87 heads at B = 2 (696 blocks: the grid's
+# last round partial at 5 blocks an SM, and at 4), and one (batch, head),
+# a single cluster; ``_k7b_cases`` adds the design's edges
 K7B_CASES = {"train": (4, 2048, 40, False), "state": (1, 2048, 40, True),
-             "ragged": (2, 1000, 4, True)}
+             "ragged": (2, 1000, 4, True), "heads87": (2, 37, 87, True),
+             "one_cluster": (1, 100, 1, True)}
 # each gradient within K7B_TOL of its norm: of the plain backward, and at
 # K7B_F64 of an f64 autograd through the plain forward
 K7B_TOL = 1e-4
 K7B_F64 = "state"
 K7B_GRADS = ("dr", "dk", "dv", "dw", "du", "dS0")
-K7B_CHUNK = 64          # steps between the backward's checkpoints
+# the backward's launches by name (csrc/wkv6_bwd.cu)
+K7B_KERNELS = ("ckpt_kernel", "bwd_kernel", "du_kernel")
 # phase 67: the dense f32 archs trained at full width and depth, B=4 x
 # 2048 as in their serve cells (internvl2: 256 prefix slots + 1792
 # tokens; seamless over 2048 frames)
@@ -8119,18 +8128,56 @@ def _norm_rel(got, want):
             / want.double().norm().clamp_min(1e-300)).item()
 
 
+def _k7b_cases(design):
+    """``K7B_CASES`` and the built design's edges: S = D - 1, D, D + 1,
+    C + 1 and 2 C + 3 (D steps a sub-chunk, C between checkpoints) at
+    [2, S, 4] from a random state."""
+    D, C = design["D"], design["C"]
+    edges = {f"S{S}": (2, S, 4, True)
+             for S in (D - 1, D, D + 1, C + 1, 2 * C + 3)}
+    return {**K7B_CASES, **edges}
+
+
+def _k7b_split(rows, n: int):
+    """Device ms a call of each of the backward's kernels (``K7B_KERNELS``)
+    in profiler rows of ``n`` calls, and their sum: each kernel's mean
+    duration times its launches a call (``_per_call_ms``: the profiler can
+    record fewer launches than were made)."""
+    out = {x: sum(d / c * max(1, round(c / n)) for d, k, c in rows
+                  if f"::{x}(" in k) / 1e3
+           for x in K7B_KERNELS}
+    out["sum"] = sum(out.values())
+    return out
+
+
+def _k7b_split_ms(fn, n: int):
+    """``_k7b_split`` of ``n`` calls of ``fn`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return _k7b_split(_device_rows(prof), n)
+
+
 def phase_k7_bwd():
     """Phase 66: K7's backward (``csrc/wkv6_bwd.cu``: the checkpoint
-    pass, the reverse walk, dv's and du's sums) against its plain version
-    (``ref.wkv6_scan_bwd_ref``) at ``K7B_CASES``, with a random cotangent
-    on y and, from a random state, on the final state: each of dr, dk,
-    dv, dw, du and dS0 within ``K7B_TOL`` of its norm; a second call bit
-    for bit; each checkpoint K7's state over the same prefix bit for bit
-    (K7 launched over 64 steps at a time, chained through the state); at
-    ``K7B_F64`` also each gradient against an f64 autograd through the
-    plain forward, the f32 plain version's own error beside it. Each case
-    timed (CUDA events; the train shape also by profiler device time)
-    beside the plain version and the bound: the bytes (r, k, v, w, dy and
+    pass, the reverse walk in clusters, du's sum) against its plain
+    version (``ref.wkv6_scan_bwd_ref``) at ``_k7b_cases`` (the built
+    design's checkpoint interval must be ``kwkv.BWD_CHUNK``), with a
+    random cotangent on y and, from a random state, on the final state:
+    each of dr, dk, dv, dw, du and dS0 within ``K7B_TOL`` of its norm; a
+    second call bit for bit; each checkpoint K7's state over the same
+    prefix bit for bit (K7 launched over ``BWD_CHUNK`` steps at a time,
+    chained through the state); at ``K7B_F64`` also each gradient against
+    an f64 autograd through the plain forward, the f32 plain version's
+    own error beside it. Each case timed (CUDA events; the train shape
+    also by profiler device time, each kernel's and their sum) beside the
+    plain version and the bound: the bytes (r, k, v, w, dy and
     u read, the states where given; dr, dk, dv, dw, du and dS0 written)
     or 14 f32 operations a state element and step (the state recomputed,
     k v then w S + k v; dS's update, r dy then w dS + r dy; the four sums
@@ -8142,7 +8189,12 @@ def phase_k7_bwd():
     from repro_torch.kernels import wkv6 as kwkv
     out = {"design": kwkv.bwd_occupancy()}
     log(f"  K7 backward design: {json.dumps(out['design'])}")
-    for i, (name, (B, S, H, state)) in enumerate(K7B_CASES.items()):
+    if out["design"]["C"] != kwkv.BWD_CHUNK:
+        raise SystemExit(f"csrc/wkv6_bwd.cu checkpoints every "
+                         f"{out['design']['C']} steps, kernels/wkv6.py's "
+                         f"BWD_CHUNK is {kwkv.BWD_CHUNK}")
+    for i, (name, (B, S, H, state)) in enumerate(
+            _k7b_cases(out["design"]).items()):
         t_case = time.perf_counter()
         r, k, v, w, u, s0 = _k7_inputs(B, S, H, 660 + i, state)
         gen = torch.Generator(device="cuda")
@@ -8165,7 +8217,7 @@ def phase_k7_bwd():
             ckpt[:, :, 0]) if s0 is None else s0))
         with torch.no_grad():
             for c in range(1, ckpt.shape[2]):
-                sl = slice(K7B_CHUNK * (c - 1), K7B_CHUNK * c)
+                sl = slice(kwkv.BWD_CHUNK * (c - 1), kwkv.BWD_CHUNK * c)
                 _, st = kwkv.wkv6_scan(r[:, sl], k[:, sl], v[:, sl],
                                        w[:, sl], u, st)
                 ck_ok = ck_ok and bool(torch.equal(st, ckpt[:, :, c]))
@@ -8202,6 +8254,9 @@ def phase_k7_bwd():
         if name == "train":
             rec.update(_timed(run, None, lambda a=args:
                               ref.wkv6_scan_bwd_ref(*a), 10))
+            rec["device_ms_by_kernel"] = _k7b_split_ms(run, 10)
+            log(f"  K7 backward train, device ms a call by kernel: "
+                + json.dumps(rec["device_ms_by_kernel"]))
         else:
             ms = [time_ms(run, 10, 2) for _ in range(2)]
             rec.update(ms=min(ms), ms_runs=ms, device_ms=None,
@@ -8235,15 +8290,15 @@ def phase_k7_bwd():
     return out
 
 
-def _k7_device_share(prof):
-    """K7's forward and backward device ms in a profile, and every
-    kernel's: (k7_fwd_us, k7_bwd_us, total_us)."""
+def _k7_device_share(prof, n: int):
+    """K7's forward and backward device ms a step in a profile of ``n``
+    steps (each kernel's mean duration times its launches a step), and
+    every kernel's device us: (k7_fwd_ms, the backward's ms by kernel and
+    their sum, total_us)."""
     rows = _device_rows(prof)
-    fwd = sum(d for d, k, _ in rows if "wkv6_kernel" in k)
-    bwd = sum(d for d, k, _ in rows if any(
-        f"::{x}(" in k for x in ("ckpt_kernel", "bwd_kernel", "dv_kernel",
-                                 "du_kernel")))
-    return fwd, bwd, sum(d for d, _, _ in rows)
+    fwd = sum(d / c * max(1, round(c / n)) for d, k, c in rows
+              if "wkv6_kernel" in k) / 1e3
+    return fwd, _k7b_split(rows, n), sum(d for d, _, _ in rows)
 
 
 def _dense_run(arch, profiled=False):
@@ -8264,14 +8319,15 @@ def _dense_run(arch, profiled=False):
                                            *DENSE_TRAIN_ARGS])
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        fwd, bwd, total = _k7_device_share(prof)
         n = len(res["steps"])
-        share = dict(k7_fwd_ms_per_step=fwd / n / 1e3,
-                     k7_bwd_ms_per_step=bwd / n / 1e3,
+        fwd, bwd, total = _k7_device_share(prof, n)
+        share = dict(k7_fwd_ms_per_step=fwd,
+                     k7_bwd_ms_per_step=bwd["sum"],
+                     k7_bwd_ms_per_step_by_kernel=bwd,
                      device_ms_per_step=total / n / 1e3,
                      wall_ms_per_step=wall_us / n / 1e3,
-                     k7_share_of_device=(fwd + bwd) / total if total
-                     else None,
+                     k7_share_of_device=(fwd + bwd["sum"]) * n * 1e3 / total
+                     if total else None,
                      device_busy_share=total / wall_us)
         del prof
     else:
@@ -8289,7 +8345,7 @@ def phase_dense_train():
     prefix of 256 slots and 1792 tokens, seamless's over 2048 encoder
     frames): finite losses, step ms, tokens/s and peak memory; rwkv6's K7
     forward launched exactly 2 x 32 a step (each layer's forward and its
-    remat recompute), its backward 32 a step (one call a layer, four
+    remat recompute), its backward 32 a step (one call a layer, three
     kernels a call), K1-K6 never, and K7 never in the other two; rwkv6
     again from the same seed under torch.profiler, its losses bit for bit
     and K7's share of the step's device time."""
@@ -8406,10 +8462,11 @@ def _dense_train_records(dt):
         {"timed_at": "[4,2048,40,64] f32 from the zero state, y's "
                      "cotangent alone (rwkv6-3b's train step)",
          "launches_path": f"{RWKV} train at 32 layers, 3 AdamW steps of "
-                          f"4 x 2048 (one call a layer a step, four kernels "
+                          f"4 x 2048 (one call a layer a step, three kernels "
                           f"a call)",
          "launches_forward_same_run": tr["launches"]["wkv6_scan"],
          "device_ms": t["device_ms"], "bound_share": t["bound_share"],
+         "device_ms_by_kernel": t["device_ms_by_kernel"],
          "plain": t["plain"], "library": "none (no PyTorch call computes "
                                          "WKV6's backward)",
          "design": k["design"],

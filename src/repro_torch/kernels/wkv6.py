@@ -19,8 +19,11 @@ the same bits at any position of any launch.
 With grad mode on and an operand that requires grad, :func:`wkv6_scan`
 goes through :class:`WKV6Scan`: its forward is the same launch, its
 backward :func:`wkv6_scan_bwd`, the hand-written backward
-(``csrc/wkv6_bwd.cu``: a checkpoint pass of the state every 64 steps,
-then the chunks walked in reverse from their checkpoints; plain version
+(``csrc/wkv6_bwd.cu``: a checkpoint pass of the state every
+``BWD_CHUNK`` steps, then the chunks walked in reverse from their
+checkpoints by a cluster of four blocks a (batch, head), the row sums
+taken a few steps at a time out of the step loop and dv's block partials
+summed through the cluster's shared memory; plain version
 :func:`repro_torch.kernels.ref.wkv6_scan_bwd_ref`). It saves only its
 inputs, so a remat recompute (the forward run again in the backward)
 rebuilds nothing it relies on. Under ``torch.no_grad`` or
@@ -128,10 +131,10 @@ def wkv6_scan(r, k, v, w, u, state=None):
 
 wkv6_scan.launches = 0
 
-# steps between the backward's checkpoints and its blocks a (batch, head),
-# as csrc/wkv6_bwd.cu fixes them (they size the workspaces)
-BWD_CHUNK = 64
-BWD_ROW_BLOCKS = 4
+# steps between the backward's checkpoints, as csrc/wkv6_bwd.cu fixes
+# them (C there; it sizes the checkpoint workspace, and the kernel refuses
+# a workspace of another size)
+BWD_CHUNK = 12
 
 
 def wkv6_scan_bwd(r, k, v, w, u, state, dy, d_state=None, *,
@@ -142,10 +145,11 @@ def wkv6_scan_bwd(r, k, v, w, u, state, dy, d_state=None, *,
     (None: zeros), [B,H,64,64]; all float32 on one CUDA device. Returns
     (dr, dk, dv, dw [B,S,H,64], du [H,64], dS_0 [B,H,64,64]), and with
     ``checkpoints`` also the states the backward starts its chunks from,
-    [B,H,ceil(S/64),64,64]: chunk c's is the state after its first 64 c
-    steps, K7's bit for bit. One call launches four kernels on the
-    current stream (the checkpoint pass, the reverse walk, dv's and du's
-    sums) and adds one to ``wkv6_scan_bwd.launches``."""
+    [B,H,ceil(S/BWD_CHUNK),64,64]: chunk c's is the state after its first
+    ``BWD_CHUNK`` c steps, K7's bit for bit. One call launches three
+    kernels on the current stream (the checkpoint pass, the reverse walk
+    in clusters, du's sum over the batch) and adds one to
+    ``wkv6_scan_bwd.launches``."""
     _check(r, k, v, w, u, state)
     _check(r, dy, dy, dy, u, d_state)
     B, S, H, hd = r.shape
@@ -160,14 +164,14 @@ def wkv6_scan_bwd(r, k, v, w, u, state, dy, d_state=None, *,
 
     nch = -(-S // BWD_CHUNK)
     ckpt, at, vdy = f32(B, H, nch, hd, hd), f32(B, S, H), f32(B, S, H)
-    dv_part, du_part = f32(BWD_ROW_BLOCKS, B, S, H, hd), f32(B, H, hd)
+    du_part = f32(B, H, hd)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du, ds0 = f32(H, hd), f32(B, H, hd, hd)
-    fn = _build.entry("wkv6_bwd", "wkv6_bwd_launch", 19, 4)
+    fn = _build.entry("wkv6_bwd", "wkv6_bwd_launch", 18, 5)
     rc = fn(*(None if t is None else t.data_ptr()
               for t in (r, k, v, w, u, state, dy, d_state, ckpt, at, vdy,
-                        dv_part, du_part, dr, dk, dv, dw, du, ds0)),
-            B, S, H, hd, _build.raw_stream(dev.index))
+                        du_part, dr, dk, dv, dw, du, ds0)),
+            B, S, H, hd, nch, _build.raw_stream(dev.index))
     if rc != 0:
         raise RuntimeError(f"wkv6_bwd launch failed: cudaError {rc}")
     wkv6_scan_bwd.launches += 1
@@ -178,17 +182,25 @@ def wkv6_scan_bwd(r, k, v, w, u, state, dy, d_state=None, *,
 wkv6_scan_bwd.launches = 0
 
 
+BWD_DESIGN = ("threads_per_block", "smem_per_block", "registers",
+              "local_bytes", "blocks_per_sm", "clusters", "G", "D", "C",
+              "DR", "ckpt_registers", "ckpt_local_bytes")
+
+
 def bwd_occupancy() -> dict:
-    """The backward's reverse-walk kernel as built: threads and shared
-    bytes a block, registers and local (spill) bytes a thread, resident
-    blocks an SM (the occupancy calculator, not a measurement)."""
-    out = torch.zeros(5, dtype=torch.int32)
-    rc = _build.entry("wkv6_bwd", "wkv6_bwd_occupancy", 1, 0)(
+    """The backward as built: the reverse walk's threads and shared bytes
+    a block, registers and local (spill) bytes a thread, resident blocks
+    an SM and clusters on the card at the train shape's grid (the
+    occupancy calculator, not a measurement); its design, G (blocks a
+    (batch, head), one cluster), D (steps a sub-chunk), C (steps between
+    checkpoints), DR (steps a round of sums); the checkpoint pass's
+    registers and local bytes a thread."""
+    out = torch.zeros(len(BWD_DESIGN), dtype=torch.int32)
+    rc = _build.entry("wkv6_bwd", "wkv6_bwd_design", 1, 0)(
         out.data_ptr(), None)
     if rc != 0:
-        raise RuntimeError(f"wkv6_bwd_occupancy failed: cudaError {rc}")
-    return dict(zip(("threads_per_block", "smem_per_block", "registers",
-                     "local_bytes", "blocks_per_sm"), out.tolist()))
+        raise RuntimeError(f"wkv6_bwd_design failed: cudaError {rc}")
+    return dict(zip(BWD_DESIGN, out.tolist()))
 
 
 def occupancy() -> dict:

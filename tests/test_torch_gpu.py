@@ -1394,14 +1394,24 @@ def test_wkv6_kernel_refuses_grad_and_widths():
                                          (1, 2048, 40, True),
                                          (2, 1000, 4, True),
                                          (3, 5, 2, False),
-                                         (2, 130, 4, True)])
+                                         (2, 130, 4, True),
+                                         (2, 5, 4, True),
+                                         (2, 6, 4, True),
+                                         (2, 7, 4, True),
+                                         (2, 13, 4, True),
+                                         (2, 27, 4, True),
+                                         (2, 37, 87, True),
+                                         (1, 100, 1, True)])
 def test_wkv6_backward_kernel_matches_plain(B, S, H, state):
     """K7's backward (``csrc/wkv6_bwd.cu``) against its plain version
     with cotangents on y and the final state: each of dr, dk, dv, dw, du
     and dS0 within 1e-4 of its norm; a second call bit for bit; each
-    checkpoint K7's state over the same prefix bit for bit (64-step
-    launches chained through the state); S = 5, 130 and 1000 leave the
-    last 64-step chunk partial."""
+    checkpoint K7's state over the same prefix bit for bit
+    (``BWD_CHUNK``-step launches chained through the state). S = 5, 6, 7,
+    13 and 27 sit at the edges of its 6-step sub-chunks and 12-step
+    checkpoint intervals (130 and 1000 leave the last chunk partial);
+    87 heads at B = 2 give 696 blocks, a partial last round at 4 or 5
+    blocks an SM; B = H = 1 is a single cluster."""
     _cuda_or_skip()
     from repro_torch.kernels import wkv6 as kwkv
     r, k, v, w, u, s0 = _wkv6_inputs(B, S, H, seed=S + 3 * H, state=state)
@@ -1422,7 +1432,7 @@ def test_wkv6_backward_kernel_matches_plain(B, S, H, state):
                        if s0 is None else s0)
     with torch.no_grad():
         for c in range(1, ckpt.shape[2]):
-            sl = slice(64 * (c - 1), 64 * c)
+            sl = slice(kwkv.BWD_CHUNK * (c - 1), kwkv.BWD_CHUNK * c)
             _, state = kwkv.wkv6_scan(r[:, sl], k[:, sl], v[:, sl], w[:, sl],
                                       u, state)
             assert torch.equal(state, ckpt[:, :, c])
